@@ -12,19 +12,29 @@ result line is not printed):
    sources in this checkout (``nvcc``, ``sm_90a``) and prints the build
    seconds;
 3. kernels — calls each kernel's wrapper on tensors on the card at the
-   shapes TPC-H q1 gives it and at edge shapes, and holds the result
-   against the kernel's plain PyTorch version on the same inputs, bit
-   for bit; prints the kernel's median time (CUDA events, after a
-   warm-up), the plain version's, and the bound;
-4. TPC-H q1 and q6 at SF1 (6,000,000 lineitem rows) through the port's
-   DataFrame API on ``device="cuda"`` — the main path — checked against
-   an independent pyarrow computation (keys and counts exactly, floats
-   within 1e-9 relative), and the ``cuda`` rung against the exact
-   ``jnp`` rung on the card; the kernel launch counts are set to 0 just
-   before the main path and read just after, and the hash-collision
-   fallback count must stay 0; prints the median wall time of 3 warm
-   runs per query and the phase times;
-5. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+   shapes TPC-H q1 and the joins of q3 and q4 give it and at edge
+   shapes, and holds the result against the kernel's plain PyTorch
+   version on the same inputs, bit for bit.  A kernel's time is the
+   median over launches timed by CUDA events, each launch after a
+   256 MB write that evicts the L2 cache and puts the host ahead of the
+   device (``ms``, cold), and again back to back behind a device sleep
+   (``ms_warm``); beside them the bound (bytes over the card's memory
+   rate), its share (``pct_of_bound``) and the plain version's time;
+4. TPC-H q1, q6, q3 and q4 at SF1 (6,000,000 lineitem, 1,500,000
+   orders and 150,000 customer rows) through the port's DataFrame API
+   on ``device="cuda"`` — the main path, one query at a time: the
+   kernel's launch counts are set to 0 just before each query and read
+   just after, and the hash-collision fallback count must stay 0.  Each
+   result is checked against an independent pyarrow computation (keys
+   and counts exactly, floats within 1e-9 relative) and against the
+   exact ``jnp`` rung on the card; the joins of q3 and q4 must take the
+   strategies of the JAX package's plan (read from the joins' metrics);
+   prints the median wall time of 3 warm runs per query and the phase
+   times;
+5. the kernel at every shape the main path launched it with, timed as
+   in phase 3, and the cost of the row-hash wrapper's limb copy
+   (``hash_layout.hash_limbs`` stacks its limbs before each launch);
+6. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -45,9 +55,15 @@ import time
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 SF = 1.0
+# (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
+# join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
 KERNEL_SHAPES = [(n_limbs, n) for n_limbs in (1, 2, 3, 4)
-                 for n in (1, 1024, 4095, 1 << 20, 6_000_001)]
+                 for n in (1, 1024, 4095, 1 << 20, 6_000_001)] + [
+                     (1, 1 << 18), (1, 1 << 16)]
 MAIN_PATH_SHAPE = (3, 1 << 20)  # q1: flag limb + 128-bit key hash, 2^20 rows
+QUERIES = ("q1", "q6", "q3", "q4")
+FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
+GATE_CYCLES = 20_000_000  # device sleep that lets the host queue a run
 
 
 def check(cond: bool, msg: str) -> None:
@@ -65,7 +81,9 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` on the card, by CUDA events."""
+    """Median milliseconds of ``fn()`` between CUDA events recorded
+    around the call, one synchronize per call: the host's own time in
+    ``fn`` counts.  Used for the plain versions (many small kernels)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -81,15 +99,116 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+class KernelTimer:
+    """Times one kernel launch by CUDA events with the host ahead of the
+    device, so that the wrapper's host work before the launch is not in
+    the time (the method of ``triton.testing.do_bench``)."""
+
+    def __init__(self, device):
+        import torch
+        self.torch = torch
+        self.scratch = torch.empty((FLUSH_BYTES // 4,), dtype=torch.int32,
+                                   device=device)
+        # about 50 ms of memory traffic first, so that the card has left
+        # its idle clocks before the first timed launch
+        for _ in range(500):
+            self.scratch.zero_()
+        torch.cuda.synchronize()
+
+    def _median(self, pairs) -> float:
+        self.torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+    def _events(self):
+        ev = self.torch.cuda.Event
+        return ev(enable_timing=True), ev(enable_timing=True)
+
+    def cold_ms(self, fn, iters: int = 30, warmup: int = 3) -> float:
+        """Each launch after a 256 MB write: L2 holds none of the
+        inputs, and the write keeps the device busy while the host
+        queues the launch.  No synchronize inside the loop."""
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            self.scratch.zero_()
+            a, b = self._events()
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        return self._median(pairs)
+
+    def warm_ms(self, fn, iters: int = 30, warmup: int = 3) -> float:
+        """The same input back to back (L2 warm), behind a device sleep
+        that lets the host queue every launch first."""
+        for _ in range(warmup):
+            fn()
+        self.torch.cuda.synchronize()
+        self.torch.cuda._sleep(GATE_CYCLES)
+        pairs = []
+        for _ in range(iters):
+            a, b = self._events()
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        return self._median(pairs)
+
+
+def kernel_bound_ms(n_limbs: int, n: int) -> float:
+    """Least time for hash_pairs: read L x n int64 limbs once, write n
+    int64 hashes once, at the card's memory rate."""
+    return (8 * n_limbs + 8) * n / H100_BYTES_PER_S * 1e3
+
+
+def random_limbs(n_limbs: int, n: int, gen, dev):
+    """Uniform 64-bit patterns (half with the top bit set), then the top
+    bit forced on every other row."""
+    import torch
+    limbs = torch.randint(0, 256, (n_limbs, n, 8), dtype=torch.uint8,
+                          device=dev, generator=gen).view(
+                              torch.int64).squeeze(-1)
+    limbs[:, ::2] |= -(1 << 63)
+    return limbs
+
+
+def kernel_line(CB, timer, limbs, timed: bool) -> dict:
+    """Bit-identity of the kernel against its plain version on
+    ``limbs``; with ``timed``, the cold/warm kernel times, the bound and
+    the plain version's time."""
+    import torch
+    n_limbs, n = limbs.shape
+    got = CB.hash_pairs(limbs)
+    want = CB.hash_pairs_plain(limbs)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    check(mismatches == 0, f"hash_pairs L={n_limbs} n={n}: "
+          f"{mismatches} rows differ from the plain version")
+    line = {"L": n_limbs, "n": n, "bit_identical": True,
+            "bound_ms": kernel_bound_ms(n_limbs, n)}
+    if timed:
+        line["ms"] = timer.cold_ms(lambda: CB.hash_pairs(limbs))
+        line["ms_warm"] = timer.warm_ms(lambda: CB.hash_pairs(limbs))
+        line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms"]
+        line["plain_ms"] = cuda_ms(lambda: CB.hash_pairs_plain(limbs),
+                                   iters=5)
+    return line
+
+
 # ---------------------------------------------------------------------------
 # independent reference: pyarrow compute
 # ---------------------------------------------------------------------------
 
+def _date(y, m, d):
+    import pyarrow as pa
+    return pa.scalar(datetime.date(y, m, d), pa.date32())
+
+
 def ref_q1(li):
     import pyarrow as pa
     import pyarrow.compute as pc
-    f = li.filter(pc.less_equal(
-        li["l_shipdate"], pa.scalar(datetime.date(1998, 9, 2), pa.date32())))
+    f = li.filter(pc.less_equal(li["l_shipdate"], _date(1998, 9, 2)))
     disc = pc.multiply(f["l_extendedprice"],
                        pc.subtract(pa.scalar(1.0), f["l_discount"]))
     charge = pc.multiply(disc, pc.add(pa.scalar(1.0), f["l_tax"]))
@@ -112,17 +231,64 @@ def ref_q1(li):
 def ref_q6(li):
     import pyarrow as pa
     import pyarrow.compute as pc
-    d = pa.date32()
     m = pc.and_(pc.and_(
-        pc.greater_equal(li["l_shipdate"],
-                         pa.scalar(datetime.date(1994, 1, 1), d)),
-        pc.less(li["l_shipdate"], pa.scalar(datetime.date(1995, 1, 1), d))),
+        pc.greater_equal(li["l_shipdate"], _date(1994, 1, 1)),
+        pc.less(li["l_shipdate"], _date(1995, 1, 1))),
         pc.and_(pc.and_(pc.greater_equal(li["l_discount"], 0.05),
                         pc.less_equal(li["l_discount"], 0.07)),
                 pc.less(li["l_quantity"], 24.0)))
     f = li.filter(m)
     rev = pc.sum(pc.multiply(f["l_extendedprice"], f["l_discount"]))
     return pa.table({"revenue": pa.array([rev.as_py()], pa.float64())})
+
+
+def ref_q3(t):
+    """q3 by pyarrow's hash join and group-by."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    cut = _date(1995, 3, 15)
+    c = t["customer"]
+    c = c.filter(pc.equal(c["c_mktsegment"], "BUILDING")).select(
+        ["c_custkey"])
+    o = t["orders"]
+    o = o.filter(pc.less(o["o_orderdate"], cut)).select(
+        ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"])
+    li = t["lineitem"]
+    li = li.filter(pc.greater(li["l_shipdate"], cut))
+    li = pa.table({"l_orderkey": li["l_orderkey"], "rev": pc.multiply(
+        li["l_extendedprice"], pc.subtract(pa.scalar(1.0),
+                                           li["l_discount"]))})
+    j = c.join(o, keys="c_custkey", right_keys="o_custkey",
+               join_type="inner")
+    j = j.join(li, keys="o_orderkey", right_keys="l_orderkey",
+               join_type="inner")
+    g = j.group_by(["o_orderkey", "o_orderdate", "o_shippriority"]
+                   ).aggregate([("rev", "sum")])
+    g = g.sort_by([("rev_sum", "descending"),
+                   ("o_orderdate", "ascending")]).slice(0, 10)
+    return pa.table([g["o_orderkey"], g["o_orderdate"],
+                     g["o_shippriority"], g["rev_sum"]],
+                    names=["o_orderkey", "o_orderdate", "o_shippriority",
+                           "revenue"])
+
+
+def ref_q4(t):
+    """q4 by pyarrow: the semi join as membership in the set of
+    qualifying lineitem order keys."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    o = t["orders"]
+    o = o.filter(pc.and_(
+        pc.greater_equal(o["o_orderdate"], _date(1993, 7, 1)),
+        pc.less(o["o_orderdate"], _date(1993, 10, 1))))
+    li = t["lineitem"]
+    li = li.filter(pc.less(li["l_commitdate"], li["l_receiptdate"]))
+    o = o.filter(pc.is_in(o["o_orderkey"],
+                          value_set=pc.unique(li["l_orderkey"])))
+    g = o.group_by("o_orderpriority").aggregate(
+        [("o_orderkey", "count")]).sort_by("o_orderpriority")
+    return pa.table([g["o_orderpriority"], g["o_orderkey_count"]],
+                    names=["o_orderpriority", "order_count"])
 
 
 def rows_equal(a, b, tol=1e-9):
@@ -153,6 +319,59 @@ def phase_times(df) -> dict:
     return out
 
 
+def join_strategies(df) -> list:
+    """Each join of the last run's plan, root first: its type, planned
+    broadcast side, and the run-time strategy metrics."""
+    out = []
+
+    def walk(node):
+        if type(node).__name__ == "TpuSortMergeJoinExec":
+            m = {k: v.value for k, v in node.metrics.items()}
+            out.append({"join_type": node.join_type,
+                        "broadcast": node.broadcast,
+                        "streamedJoins": m.get("streamedJoins", 0),
+                        "streamedLeftGroups": m.get(
+                            "streamedLeftGroups", 0),
+                        "streamedRightGroups": m.get(
+                            "streamedRightGroups", 0)})
+        for c in node.children:
+            walk(c)
+
+    walk(df._last_plan)
+    return out
+
+
+def check_strategies(q: str, joins: list) -> None:
+    """The JAX package's single-process plan at SF1 (exec/join.py::
+    _convert_join and TpuSortMergeJoinExec.execute)."""
+    if q == "q3":
+        check(len(joins) == 2, f"q3 has {len(joins)} joins")
+        outer, inner = joins
+        # customer (~3 MB narrowed) fits autoBroadcastJoinThreshold:
+        # broadcast left, orders streamed in groups of targetRows
+        check(inner["broadcast"] == "left"
+              and inner["streamedRightGroups"] > 0
+              and inner["streamedJoins"] == 0,
+              f"q3 customer x orders strategy {inner}")
+        # no side small by estimate; at run time the left side's live
+        # rows fit targetRows: left whole, lineitem streamed
+        check(outer["broadcast"] is None and outer["streamedJoins"] == 1
+              and outer["streamedRightGroups"] > 0
+              and outer["streamedLeftGroups"] == 0,
+              f"q3 x lineitem strategy {outer}")
+    elif q == "q4":
+        check(len(joins) == 1, f"q4 has {len(joins)} joins")
+        (semi,) = joins
+        # left small at run time, semi join: _semi_stream_right
+        check(semi["join_type"] == "left_semi"
+              and semi["broadcast"] is None and semi["streamedJoins"] == 1
+              and semi["streamedRightGroups"] > 0
+              and semi["streamedLeftGroups"] == 0,
+              f"q4 strategy {semi}")
+    else:
+        check(not joins, f"{q} has joins")
+
+
 def main() -> int:
     import numpy as np
     import pyarrow as pa
@@ -162,11 +381,13 @@ def main() -> int:
               f"{torch.__version__}); this test needs a CUDA card",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     if here not in sys.path:
         sys.path.insert(0, here)
     from spark_rapids_tpu_torch import kernels as KN
     from spark_rapids_tpu_torch.kernels import cuda_backend as CB
+    from spark_rapids_tpu_torch.kernels import hash_layout as HL
     from spark_rapids_tpu_torch.sql.session import TpuSession
     from spark_rapids_tpu_torch.utils import tpch
 
@@ -186,71 +407,85 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     # -- kernel vs plain ---------------------------------------------------
+    timer = KernelTimer(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261017)
     kernel_row = None
     for n_limbs, n in KERNEL_SHAPES:
-        # uniform 64-bit patterns (half with the top bit set), then the
-        # top bit forced on every other row
-        limbs = torch.randint(0, 256, (n_limbs, n, 8), dtype=torch.uint8,
-                              device=dev, generator=gen).view(
-                                  torch.int64).squeeze(-1)
-        limbs[:, ::2] |= -(1 << 63)
-        got = CB.hash_pairs(limbs)
-        want = CB.hash_pairs_plain(limbs)
-        torch.cuda.synchronize()
-        mismatches = int((got != want).sum())
-        check(mismatches == 0, f"hash_pairs L={n_limbs} n={n}: "
-              f"{mismatches} rows differ from the plain version")
-        bound_ms = (8 * n_limbs + 8) * n / H100_BYTES_PER_S * 1e3
-        line = {"L": n_limbs, "n": n, "bit_identical": True,
-                "bound_ms": bound_ms}
-        if n >= 1 << 20 or (n_limbs, n) == MAIN_PATH_SHAPE:
-            line["ms"] = cuda_ms(lambda: CB.hash_pairs(limbs), iters=20)
-            line["plain_ms"] = cuda_ms(lambda: CB.hash_pairs_plain(limbs),
-                                       iters=5)
+        limbs = random_limbs(n_limbs, n, gen, dev)
+        line = kernel_line(CB, timer, limbs, timed=n >= 1 << 16)
         print("[kernel] hash_pairs " + json.dumps(line), flush=True)
         if (n_limbs, n) == MAIN_PATH_SHAPE:
             kernel_row = line
+        del limbs
     check(kernel_row is not None, "main-path kernel shape not measured")
 
-    # -- TPC-H q1/q6 at SF1 on the card -------------------------------------
+    # -- TPC-H at SF1 on the card: the main path ------------------------------
     t0 = time.perf_counter()
-    li = tpch.gen_lineitem(SF)
+    tables = tpch.gen_tpch(SF)
     gen_s = time.perf_counter() - t0
-    print(f"[generate] lineitem SF{SF:g}: {li.num_rows} rows in "
-          f"{gen_s:.3f} s", flush=True)
-    refs = {"q1": ref_q1(li), "q6": ref_q6(li)}
+    li = tables["lineitem"]
+    print(f"[generate] SF{SF:g}: " + ", ".join(
+        f"{k} {v.num_rows} rows" for k, v in tables.items())
+        + f" in {gen_s:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    refs = {"q1": ref_q1(li), "q6": ref_q6(li), "q3": ref_q3(tables),
+            "q4": ref_q4(tables)}
+    print(f"[reference] pyarrow q1 q6 q3 q4 in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     check(refs["q1"].num_rows == 6, "reference q1 should have 6 groups")
+    check(refs["q3"].num_rows == 10, "reference q3 should have 10 rows")
+    check(refs["q4"].num_rows == 5, "reference q4 should have 5 groups")
+
+    def build(q, session):
+        return getattr(tpch, q)(session, li if q in ("q1", "q6")
+                                else tables)
 
     session = TpuSession(device=dev)
     check(session.device.type == "cuda", "session is not on the card")
     exact = TpuSession({"spark.rapids.tpu.kernel.backend": "jnp"},
                        device=dev)
 
-    # the main path: counts to 0 just before, read just after
-    CB.launches = 0
-    KN.COUNTERS.reset()
-    first = {}
-    for q in ("q1", "q6"):
-        first[q] = getattr(tpch, q)(session, li).toArrow()
-    torch.cuda.synchronize()
-    main_launches = CB.launches
-    fallbacks = KN.COUNTERS.fallbacks
-    cuda_dispatches = KN.COUNTERS.dispatches["cuda"]
+    # each query: counts to 0 just before, read just after
+    first, counts = {}, {}
+    for q in QUERIES:
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        df = build(q, session)
+        first[q] = df.toArrow()
+        torch.cuda.synchronize()
+        counts[q] = {
+            "hash_pairs_launches": CB.launches,
+            "shapes": {f"{l}x{n}": c for (l, n), c
+                       in sorted(CB.launch_shapes.items())},
+            "cuda_rung_dispatches": KN.COUNTERS.dispatches["cuda"],
+            "jnp_rung_dispatches": KN.COUNTERS.dispatches["jnp"],
+            "collision_fallbacks": KN.COUNTERS.fallbacks,
+            "joins": join_strategies(df)}
+        print(f"[main path] {q} " + json.dumps(counts[q]), flush=True)
+        check(counts[q]["collision_fallbacks"] == 0,
+              f"{q}: {KN.COUNTERS.fallbacks} hash-collision fallbacks")
+        check_strategies(q, counts[q]["joins"])
+    main_shapes = {}
+    for q in QUERIES:
+        for key, c in counts[q]["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + c
     n_batches = -(-li.num_rows // session.rapids_conf().batch_rows)
-    print(f"[main path] hash_pairs launches={main_launches} "
-          f"cuda-rung dispatches={cuda_dispatches} "
-          f"collision fallbacks={fallbacks} input batches={n_batches}",
-          flush=True)
-    check(main_launches >= n_batches + 1,
-          f"hash_pairs launched {main_launches} times in q1, expected at "
-          f"least one per input batch plus one per merge "
-          f"({n_batches + 1})")
-    check(fallbacks == 0, f"{fallbacks} hash-collision fallbacks")
+    check(counts["q1"]["hash_pairs_launches"] >= n_batches + 1,
+          f"hash_pairs launched {counts['q1']['hash_pairs_launches']} "
+          f"times in q1, expected at least one per input batch plus one "
+          f"per merge ({n_batches + 1})")
+    for q in ("q3", "q4"):
+        joins = counts[q]["joins"]
+        streamed = sum(j["streamedLeftGroups"] + j["streamedRightGroups"]
+                       for j in joins)
+        # two launches (build and probe) per match of each streamed group
+        check(counts[q]["hash_pairs_launches"] >= 2 * streamed,
+              f"{q}: {counts[q]['hash_pairs_launches']} hash_pairs "
+              f"launches for {streamed} streamed join groups")
 
     summary = {}
-    for q in ("q1", "q6"):
+    for q in QUERIES:
         got = first[q]
         check(got.column_names == refs[q].column_names,
               f"{q} columns {got.column_names}")
@@ -261,40 +496,68 @@ def main() -> int:
             if pa.types.is_floating(c.type):
                 check(bool(np.isfinite(c.to_numpy()).all()),
                       f"{q} has non-finite values")
-        jnp_out = getattr(tpch, q)(exact, li).toArrow()
-        check(rows_equal(jnp_out, got), f"{q}: cuda rung != jnp rung")
-        walls, phases = [], []
+        check(rows_equal(build(q, exact).toArrow(), got),
+              f"{q}: cuda rung != jnp rung")
+        walls, phases, metrics = [], [], []
         for _ in range(3):
-            df = getattr(tpch, q)(session, li)
+            df = build(q, session)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = df.toArrow()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             phases.append(phase_times(df))
+            metrics.append(df.metrics())
             check(rows_equal(out, refs[q]), f"{q} warm run differs")
         i = walls.index(statistics.median(walls))
         ph = phases[i]
+        print(f"[{q} metrics] " + json.dumps(metrics[i]), flush=True)
         summary[q] = {
-            "rows": li.num_rows, "wall_s_median": walls[i],
-            "wall_s": walls, "generate_s": gen_s,
-            "h2d_s": ph["h2d_s"], "d2h_s": ph["d2h_s"],
+            "lineitem_rows": li.num_rows, "wall_s_median": walls[i],
+            "wall_s": walls, "h2d_s": ph["h2d_s"], "d2h_s": ph["d2h_s"],
             "execute_s": walls[i] - ph["h2d_s"] - ph["d2h_s"],
             "rows_per_s": li.num_rows / walls[i],
+            "hash_pairs_launches": counts[q]["hash_pairs_launches"],
             "matches_reference": True, "cuda_equals_jnp_rung": True}
         print(f"[{q}] SF{SF:g} " + json.dumps(summary[q]), flush=True)
-    print(f"[q1 result]\n{first['q1'].to_pandas().to_string()}",
-          flush=True)
+    for q in ("q1", "q3", "q4"):
+        print(f"[{q} result]\n{first[q].to_pandas().to_string()}",
+              flush=True)
+
+    # -- the kernel at the main path's shapes, and the limb copy --------------
+    shape_rows = []
+    for key in sorted(main_shapes):
+        n_limbs, n = (int(x) for x in key.split("x"))
+        limbs = random_limbs(n_limbs, n, gen, dev)
+        line = kernel_line(CB, timer, limbs, timed=True)
+        line["main_path_launches"] = main_shapes[key]
+        # hash_limbs stacks the limbs into one [L, n] tensor per launch:
+        # L x n int64 read and written again
+        listed = list(limbs.unbind(0))
+        line["copy_bytes"] = 2 * 8 * n_limbs * n
+        line["with_copy_ms"] = timer.cold_ms(
+            lambda: HL.hash_limbs(listed, use_kernel=True))
+        shape_rows.append(line)
+        print("[kernel main-path shape] hash_pairs " + json.dumps(line),
+              flush=True)
+        del limbs, listed
 
     kernels = [{
         "name": "hash_pairs", "route": "cuda",
         "source": "spark_rapids_tpu_torch/kernels/csrc/hash_pairs.cu",
         "replaces": "spark_rapids_tpu/kernels/pallas_backend.py:42",
-        "launches": main_launches, "max_abs_err": 0.0,
-        "ms": kernel_row["ms"], "plain_ms": kernel_row["plain_ms"],
+        "launches": sum(counts[q]["hash_pairs_launches"] for q in QUERIES),
+        "launches_per_query": {q: counts[q]["hash_pairs_launches"]
+                               for q in QUERIES},
+        "max_abs_err": 0.0,
+        "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
+        "plain_ms": kernel_row["plain_ms"],
         "bound_ms": kernel_row["bound_ms"], "bound_by": "bytes",
+        "pct_of_bound": kernel_row["pct_of_bound"],
         "library_ms": None,
-        "shape": {"L": MAIN_PATH_SHAPE[0], "n": MAIN_PATH_SHAPE[1]}}]
+        "shape": {"L": MAIN_PATH_SHAPE[0], "n": MAIN_PATH_SHAPE[1]},
+        "main_path_shapes": shape_rows}]
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

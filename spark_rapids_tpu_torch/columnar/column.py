@@ -139,6 +139,25 @@ def compact(batch: DeviceBatch) -> DeviceBatch:
     return DeviceBatch(batch.schema, cols, sel, compacted=True)
 
 
+def slice_batch(batch: DeviceBatch, lo: int, cap: int) -> DeviceBatch:
+    """Row slice ``[lo, lo + cap)`` of every tensor of a batch (views).
+
+    A port-local copy of the JAX package's ``parallel/shuffle.py::
+    slice_batch``.  A slice of a compacted batch keeps its live rows as
+    a contiguous prefix, so it stays compacted.
+    """
+    def cut(x):
+        return x[lo:lo + cap]
+
+    cols = tuple(
+        DeviceColumn(c.dtype, cut(c.data),
+                     None if c.validity is None else cut(c.validity),
+                     None if c.lengths is None else cut(c.lengths))
+        for c in batch.columns)
+    return DeviceBatch(batch.schema, cols, cut(batch.sel),
+                       compacted=batch.compacted)
+
+
 # ---------------------------------------------------------------------------
 # Host (pyarrow) <-> device conversion
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 The same builder DSL and the same key names as the JAX package's
 ``conf.py`` [REF: sql-plugin/../RapidsConf.scala :: RapidsConf], cut to
-the entries the q1/q6 slice uses.  Values are validated the same way:
+the entries the slices ported so far (TPC-H q1, q3, q4, q6) use.  Values are validated the same way:
 an unknown ``spark.rapids.*`` key raises, and so does a value the
 entry's checker rejects.  Keys outside the ``spark.rapids.`` namespace
 are kept raw.
@@ -11,7 +11,22 @@ are kept raw.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Callable, Dict, Optional
+
+_SIZE_RE = re.compile(r"^(\d+)([kKmMgGtT]?)[bB]?$")
+_SIZE_MULT = {"": 1, "k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
+
+
+def parse_bytes(v) -> int:
+    """``10485760``, ``"10m"``, ``"10MB"`` -> bytes (the JAX package's
+    parser)."""
+    if isinstance(v, int):
+        return v
+    m = _SIZE_RE.match(str(v).strip())
+    if not m:
+        raise ValueError(f"cannot parse byte size {v!r}")
+    return int(m.group(1)) * _SIZE_MULT[m.group(2).lower()]
 
 
 def _parse_bool(v) -> bool:
@@ -65,6 +80,10 @@ class ConfBuilder:
 
     def integer(self) -> "ConfBuilder":
         self._converter = int
+        return self
+
+    def bytes(self) -> "ConfBuilder":
+        self._converter = parse_bytes
         return self
 
     def string(self) -> "ConfBuilder":
@@ -129,6 +148,38 @@ KERNEL_BACKEND = (
     .check(lambda v: v.lower() in KERNEL_BACKENDS,
            "one of " + ", ".join(KERNEL_BACKENDS))
     .create_with_default("auto")
+)
+
+
+BROADCAST_THRESHOLD = (
+    conf("spark.sql.autoBroadcastJoinThreshold")
+    .doc("Max estimated size of a join side to broadcast it (gathered "
+         "once, reused per stream partition — no exchange). -1 or 0 "
+         "disables broadcast joins. Spark core key, honored here.")
+    .bytes()
+    .create_with_default(10 << 20)
+)
+
+JOIN_TARGET_ROWS = (
+    conf("spark.rapids.tpu.join.targetRows")
+    .doc("Row cap for one in-core sort-merge join. When a gathered side "
+         "exceeds it and the other side fits, the big side streams "
+         "through the join in groups of at most this many rows (the "
+         "streamed side of a broadcast join too); when neither fits, the "
+         "JAX package hash-sub-partitions both sides, which the port "
+         "does not have yet. Join outputs are re-batched to "
+         "spark.rapids.tpu.batchRows chunks.")
+    .integer()
+    .create_with_default(1 << 18)
+)
+
+ADAPTIVE_PLANE_ENABLED = (
+    conf("spark.rapids.tpu.adaptive.enabled")
+    .doc("Master switch of the JAX package's adaptive execution plane "
+         "(runtime broadcast-vs-shuffled join choice, skew splitting). "
+         "Not ported: true raises NotImplementedError at planning.")
+    .boolean()
+    .create_with_default(False)
 )
 
 

@@ -365,10 +365,17 @@ class TpuHashAggregateExec(TpuExec):
 
     def _merge_bounded(self, partials: List[DeviceBatch],
                        merge_fn) -> List[DeviceBatch]:
-        """Concat + merge partial buffer batches.  The JAX package
-        re-partitions by key when the merged cardinality explodes (total
-        live rows beyond twice one batch); that path needs the exchange
-        slice and raises here."""
+        """Concat + merge partial buffer batches.
+
+        When the merged cardinality explodes (total live rows beyond
+        twice one batch — TPC-H q3's partials over many small join
+        outputs), the JAX package re-partitions the partials by key and
+        merges each bucket, because XLA would otherwise compile a merge
+        kernel at the exploded bucket.  Eager PyTorch compiles nothing,
+        and the concat holds no more rows than the partials already do,
+        so the port merges the one concat; the result is the same set of
+        groups (``repartitionMerges`` counts where the JAX package would
+        have split)."""
         partials = [compact(p) for p in partials]
         if len(partials) == 1:
             return [merge_fn(partials[0])]
@@ -377,10 +384,7 @@ class TpuHashAggregateExec(TpuExec):
         total = sum(counts)
         cap = max(b.capacity for b in partials)
         if len(partials) > 2 and total > 2 * cap:
-            raise NotImplementedError(
-                "spark_rapids_tpu_torch: the aggregate's repartitioned "
-                f"merge ({total} partial groups over {len(partials)} "
-                "batches) needs the exchange slice, not ported yet")
+            self.metric("repartitionMerges").add(1)
         return [merge_fn(concat_device_batches(schema, partials, counts))]
 
     # -- global (keyless) aggregate ------------------------------------

@@ -89,6 +89,14 @@ class ExecNode:
             return self._children[0].num_partitions()
         return 1
 
+    def estimated_size_bytes(self):
+        """Planner-side output size estimate (broadcast decisions); None
+        = unknown.  A one-child operator forwards its child's estimate
+        (an upper bound, like Spark's statistics)."""
+        if len(self._children) == 1:
+            return self._children[0].estimated_size_bytes()
+        return None
+
     def execute(self, partition: int) -> Iterator:
         raise NotImplementedError
 

@@ -42,6 +42,9 @@ class TpuScanExec(TpuExec):
         self.batch_rows = batch_rows
         self.min_bucket = min_bucket
 
+    def estimated_size_bytes(self):
+        return self.table.nbytes
+
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
         if partition != 0:
             raise IndexError(f"partition {partition} of a 1-partition scan")

@@ -1,13 +1,16 @@
-"""Kernel plane — rung selection and dispatch for the grouped aggregate.
+"""Kernel plane — rung selection and dispatch for the grouped aggregate
+(``agg``) and the join's match ranges (``join``).
 
 The counterpart of the JAX package's ``kernels/__init__.py``.  Rungs,
 ``spark.rapids.tpu.kernel.backend``:
 
-* ``cuda`` — the hash-grouped layout, whose row hash is the
-  hand-written CUDA kernel (kernels/csrc/hash_pairs.cu; on CPU tensors
-  its plain PyTorch version);
-* ``jnp``  — the exact full-key sort, the JAX package's reference rung,
-  kept under its name;
+* ``cuda`` — the hash layouts (``hash_agg.group_layout_fused``,
+  ``hash_join.match_fused``), whose row hash is the hand-written CUDA
+  kernel (kernels/csrc/hash_pairs.cu; on CPU tensors its plain PyTorch
+  version);
+* ``jnp``  — the exact full-key sort (and, for the join, the exact
+  lexicographic bisection), the JAX package's reference rung, kept
+  under its name;
 * ``auto`` — ``cuda``.
 
 The ladder is ``cuda -> jnp``.  It descends only on a detected 64-bit
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict
+
+_KERNELS = ("agg", "join")
 
 _LADDERS = {
     "cuda": ("cuda", "jnp"),
@@ -46,6 +51,8 @@ COUNTERS = KernelCounters()
 
 def resolve(kernel: str, backend: str) -> str:
     """Conf backend -> the rung this dispatch starts from."""
+    if kernel not in _KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}")
     be = backend.lower()
     if be == "auto":
         be = "cuda"

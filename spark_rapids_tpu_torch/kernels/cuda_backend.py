@@ -13,7 +13,8 @@ raises if the build or the launch fails — it never falls back.  For a
 CPU tensor it runs the plain PyTorch version beside it
 (``hash_pairs_plain``), which the CPU tests hold against the JAX
 package bit for bit and the chip smoke test holds the kernel against.
-``launches`` counts the kernel's launches.
+``launches`` counts the kernel's launches and ``launch_shapes`` the
+launches of each ``(L, n)`` shape; ``reset_counts`` sets both to 0.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict, Tuple
 
 import torch
 
@@ -33,8 +35,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# launches of the hash_pairs kernel (not of its plain version)
+# launches of the hash_pairs kernel (not of its plain version), in all
+# and by shape (L limbs, n rows)
 launches = 0
+launch_shapes: Dict[Tuple[int, int], int] = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -133,4 +137,12 @@ def hash_pairs(limbs: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"hash_pairs kernel launch failed: CUDA error "
                            f"{err} (L={n_limbs}, n={n})")
     launches += 1
+    launch_shapes[(n_limbs, n)] = launch_shapes.get((n_limbs, n), 0) + 1
     return out
+
+
+def reset_counts() -> None:
+    """Set the launch counts to 0."""
+    global launches
+    launches = 0
+    launch_shapes.clear()

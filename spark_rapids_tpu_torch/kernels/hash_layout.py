@@ -1,5 +1,5 @@
-"""Shared primitives of the kernel plane: the 64-bit row hash and the
-hash-grouped row layout.
+"""Shared primitives of the kernel plane: the 64-bit row hash, the
+hash-grouped row layout, and the single-limb lower bound of the join.
 
 The counterpart of the JAX package's ``kernels/hash_layout.py``.  Rows
 are stably sorted by ONE 64-bit hash of their key limbs, and group
@@ -18,7 +18,7 @@ kernel ``csrc/hash_pairs.cu`` computes the same bits in native
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -130,6 +130,39 @@ def _adjacent_neq(limbs: List[torch.Tensor]) -> torch.Tensor:
     for l in limbs:
         neq[1:] |= l[1:] != l[:-1]
     return neq
+
+
+def _bisection_end(n: int) -> int:
+    """Where the JAX package's fixed-step bisection (``steps =
+    ceil(log2(n)) + 1``, no convergence guard) ends for a query above
+    every entry: it steps right every time, and once it has reached
+    ``n`` a spare step takes it to ``n + 1``."""
+    lo = 0
+    for _ in range(max(1, (max(n, 2) - 1).bit_length() + 1)):
+        lo = (lo + n) // 2 + 1
+    return min(lo, n + 1)
+
+
+def lower_bound(sorted_limb: torch.Tensor, queries: torch.Tensor,
+                le: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """First index whose entry is >= the query (or > when ``le[q]``).
+
+    The JAX package runs a fixed-step branchless bisection over ONE limb;
+    on a sorted limb that is ``searchsorted``, which the port calls on
+    the ``sortable`` form of the int64 bit patterns (so that the
+    comparison is the unsigned one).  A query above every entry gets
+    the bisection's own end (``n`` or ``n + 1``), so the result is the
+    JAX package's bit for bit.  ``le`` is a per-query flag switching to
+    upper-bound counting.  Returns int64 indices.
+    """
+    from spark_rapids_tpu_torch.ops.ordering import sortable
+    n = int(sorted_limb.shape[0])
+    s = sortable(sorted_limb).contiguous()
+    q = sortable(queries).contiguous()
+    lo = torch.searchsorted(s, q)
+    if le is not None:
+        lo = torch.where(le, torch.searchsorted(s, q, right=True), lo)
+    return torch.where(lo == n, _bisection_end(n), lo)
 
 
 def hash_group_layout(key_limbs: List[torch.Tensor],

@@ -78,8 +78,9 @@ class Literal(Expression):
     def eval(self, batch):
         b = batch.capacity
         dev = batch.device
-        if isinstance(self.dtype, (T.StringType, T.BinaryType,
-                                   T.NullType)):
+        if isinstance(self.dtype, T.StringType):
+            return self._eval_string(b, dev)
+        if isinstance(self.dtype, (T.BinaryType, T.NullType)):
             raise NotImplementedError(
                 f"spark_rapids_tpu_torch: {self.dtype} literal is not "
                 "ported yet")
@@ -91,6 +92,22 @@ class Literal(Expression):
                                             device=dev))
         return DeviceColumn(self.dtype, torch.full(
             (b,), self.value, dtype=tdt, device=dev))
+
+    def _eval_string(self, b: int, dev) -> DeviceColumn:
+        """A string constant as a broadcast ``uint8[B, W]`` matrix (W =
+        its UTF-8 length, at least 1), as the JAX package builds it."""
+        if self.value is None:
+            return DeviceColumn(
+                self.dtype, torch.zeros((b, 1), dtype=torch.uint8,
+                                        device=dev),
+                torch.zeros((b,), dtype=torch.bool, device=dev),
+                torch.zeros((b,), dtype=torch.int32, device=dev))
+        bs = str(self.value).encode()
+        row = torch.tensor(list(bs.ljust(max(len(bs), 1), b"\0")),
+                           dtype=torch.uint8, device=dev)
+        return DeviceColumn(self.dtype, row.expand(b, -1), None,
+                            torch.full((b,), len(bs), dtype=torch.int32,
+                                       device=dev))
 
     def __str__(self):
         return repr(self.value)
@@ -184,8 +201,8 @@ class _BinaryComparison(Expression):
     def eval(self, batch):
         if isinstance(self.left.dtype, (T.StringType, T.BinaryType)):
             raise NotImplementedError(
-                "spark_rapids_tpu_torch: string comparison is not ported "
-                "yet")
+                "spark_rapids_tpu_torch: binary comparison is not ported "
+                "yet (string comparisons are ops/strings.py's)")
         l = self.left.eval(batch)
         r = self.right.eval(batch)
         if _is_float(self.left.dtype):

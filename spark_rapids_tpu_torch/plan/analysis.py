@@ -1,5 +1,5 @@
-"""Name resolution and implicit type coercion (the analyzer) — the q1/q6
-subset.
+"""Name resolution and implicit type coercion (the analyzer) — the subset
+of TPC-H q1, q3, q4 and q6.
 
 The counterpart of the JAX package's ``plan/analysis.py``: unresolved
 ``sql.column.UExpr`` trees become bound, typed ``ops.expressions``
@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.ops import aggregates as A
 from spark_rapids_tpu_torch.ops import expressions as E
+from spark_rapids_tpu_torch.ops import strings as S
 from spark_rapids_tpu_torch.sql.column import UExpr
 
 
@@ -144,6 +145,8 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
         l = resolve(u.children[0], schema)
         r = resolve(u.children[1], schema)
         l, r = _coerce_pair(l, r)
+        if isinstance(l.dtype, T.StringType):
+            return S.string_comparison(op, l, r)
         return _BIN_CMP[op](l, r)
     if op in ("and", "or"):
         l = resolve(u.children[0], schema)

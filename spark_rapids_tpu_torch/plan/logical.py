@@ -1,4 +1,4 @@
-"""Logical plan nodes — the q1/q6 subset.
+"""Logical plan nodes — the subset of TPC-H q1, q3, q4 and q6.
 
 The counterparts of the JAX package's ``plan/logical.py`` nodes of the
 same names.  The DataFrame API resolves names and coerces types eagerly,
@@ -9,7 +9,7 @@ planning (plan/planner.py) maps them straight onto device execs.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import pyarrow as pa
 
@@ -96,3 +96,35 @@ class Sort(LogicalPlan):
     @property
     def children(self):
         return (self.child,)
+
+
+@dataclasses.dataclass
+class Limit(LogicalPlan):
+    child: LogicalPlan
+    n: int
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+    @property
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class Join(LogicalPlan):
+    left: LogicalPlan
+    right: LogicalPlan
+    join_type: str  # inner, left, right, full, left_semi, left_anti, cross
+    left_keys: List[Expression]
+    right_keys: List[Expression]
+    condition: Optional[Expression]  # residual; refs bound to left++right
+    schema: T.StructType
+    # USING join (key columns coalesced once in the output) vs
+    # expression join (all left cols ++ all right cols, Spark semantics)
+    using: bool = True
+
+    @property
+    def children(self):
+        return (self.left, self.right)

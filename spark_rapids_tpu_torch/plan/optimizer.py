@@ -5,7 +5,8 @@ The counterpart of ``_inmemory_prune_head`` in the JAX package's
 Filters over an in-memory relation narrows the arrow table to the
 columns it references before the host-to-device transfer (the analog of
 Spark's ColumnPruning), so that q1 and q6 move 7 and 4 of lineitem's 16
-columns to the device.  The JAX package's other rules (parquet
+columns to the device.  The rule reaches through both sides of a join
+and below a limit.  The JAX package's other rules (parquet
 pushdown, dynamic partition pruning) are later slices.
 """
 
@@ -87,7 +88,11 @@ def _prune_head(plan):
 
 
 def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
-    if isinstance(plan, (L.Project, L.Filter, L.Aggregate, L.Sort)):
+    if isinstance(plan, L.Join):
+        return dataclasses.replace(plan, left=optimize(plan.left),
+                                   right=optimize(plan.right))
+    if isinstance(plan, (L.Project, L.Filter, L.Aggregate, L.Sort,
+                         L.Limit)):
         plan = dataclasses.replace(plan, child=optimize(plan.child))
     if isinstance(plan, (L.Project, L.Aggregate)):
         pruned = _prune_head(plan)

@@ -5,19 +5,26 @@ rewrite supported subtrees onto the device (with per-operator CPU
 fallback).  That overrides plane is a later slice of the port: here the
 slice's nodes plan straight onto device execs, shaped as the JAX
 package's rewrite shapes them (a single-batch coalesce below the
-global sort), and anything else raises ``NotImplementedError``.
+global sort, a topN for a limit over a sort, the join strategy of
+``exec/join.py::_convert_join``), and anything else raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.conf import RapidsConf
 from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TpuExec
+from spark_rapids_tpu_torch.exec.join import (
+    TpuBroadcastExchangeExec, TpuSortMergeJoinExec, _join_key_family)
+from spark_rapids_tpu_torch.exec.misc import TpuTopNExec
 from spark_rapids_tpu_torch.exec.sort import TpuSortExec
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan.analysis import _not_ported
 
 
 def plan_physical(node: L.LogicalPlan, conf: RapidsConf,
@@ -39,5 +46,62 @@ def plan_physical(node: L.LogicalPlan, conf: RapidsConf,
     if isinstance(node, L.Sort):
         return TpuSortExec(node.orders, B.TpuCoalesceBatchesExec(
             plan_physical(node.child, conf, device)))
-    raise NotImplementedError(
-        f"spark_rapids_tpu_torch: no device plan for {node.name} yet")
+    if isinstance(node, L.Limit):
+        # TakeOrderedAndProject: Limit(Sort) / Limit(Project(Sort)) plan a
+        # topN instead of a full global sort [REF: GpuTopN]
+        inner, proj = node.child, None
+        if isinstance(inner, L.Project):
+            proj, inner = inner, inner.child
+        if not isinstance(inner, L.Sort):
+            raise _not_ported("limit without an order-by "
+                              "(GlobalLimit/LocalLimit)")
+        topn = TpuTopNExec(inner.orders, node.n,
+                           plan_physical(inner.child, conf, device))
+        if proj is not None:
+            return B.TpuProjectExec(proj.exprs, proj.schema, topn)
+        return topn
+    if isinstance(node, L.Join):
+        return _convert_join(node, plan_physical(node.left, conf, device),
+                             plan_physical(node.right, conf, device), conf)
+    raise _not_ported(f"device plan for {node.name}")
+
+
+def _convert_join(node: L.Join, left: TpuExec, right: TpuExec,
+                  conf: RapidsConf) -> TpuExec:
+    """The JAX package's single-process ``_convert_join``: broadcast the
+    small side when its estimate fits ``autoBroadcastJoinThreshold``,
+    else a sort-merge join that picks its strategy from live row counts
+    at run time."""
+    jt = node.join_type
+    for le, re in zip(node.left_keys, node.right_keys):
+        if _join_key_family(le.dtype) != _join_key_family(re.dtype):
+            raise _not_ported(
+                f"CPU fallback of a join with mismatched key types "
+                f"({le.dtype.simple_name} vs {re.dtype.simple_name})")
+    common = dict(using=node.using,
+                  sub_partition_rows=conf.get(C.JOIN_TARGET_ROWS),
+                  out_batch_rows=conf.batch_rows,
+                  backend=conf.kernel_backend)
+    thresh = conf.get(C.BROADCAST_THRESHOLD)
+    if thresh and thresh > 0:
+        rsize = right.estimated_size_bytes()
+        lsize = left.estimated_size_bytes()
+        if (rsize is not None and rsize <= thresh
+                and jt in ("inner", "left", "left_semi", "left_anti",
+                           "cross")):
+            return TpuSortMergeJoinExec(
+                jt, node.left_keys, node.right_keys, node.condition,
+                node.schema, left, TpuBroadcastExchangeExec(right),
+                broadcast="right", **common)
+        if lsize is not None and lsize <= thresh and jt == "inner":
+            return TpuSortMergeJoinExec(
+                jt, node.left_keys, node.right_keys, node.condition,
+                node.schema, TpuBroadcastExchangeExec(left), right,
+                broadcast="left", **common)
+    if (conf.get(C.ADAPTIVE_PLANE_ENABLED) and node.left_keys
+            and jt in ("inner", "left", "left_semi", "left_anti")):
+        raise _not_ported("adaptive join (TpuAdaptiveLocalJoinExec, "
+                          "spark.rapids.tpu.adaptive.enabled)")
+    return TpuSortMergeJoinExec(
+        jt, node.left_keys, node.right_keys, node.condition, node.schema,
+        left, right, **common)

@@ -1,8 +1,9 @@
-"""DataFrame API — the q1/q6 subset.
+"""DataFrame API — the subset of TPC-H q1, q3, q4 and q6.
 
 The counterpart of the JAX package's ``sql/dataframe.py``:
-``select``, ``filter``/``where``, ``groupBy(...).agg``, ``agg``,
-``orderBy``/``sort``, and the actions ``toArrow`` and ``collect``.
+``select``, ``filter``, ``groupBy(...).agg``, ``agg``, ``orderBy``,
+``limit``, ``join`` (USING joins on column names and expression joins on
+a ``Column`` condition), and the actions ``toArrow`` and ``collect``.
 Transformations build the logical plan eagerly (pyspark-style errors at
 the call site); actions optimize, plan onto the session's device and
 pump the exec tree.
@@ -16,6 +17,7 @@ import pyarrow as pa
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
+from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops.expressions import BoundReference
 from spark_rapids_tpu_torch.plan import analysis as AN
 from spark_rapids_tpu_torch.plan import logical as L
@@ -44,6 +46,15 @@ class Row(tuple):
     def __repr__(self):
         return "Row(" + ", ".join(f"{k}={v!r}" for k, v in
                                   zip(self._fields, self)) + ")"
+
+
+_JOIN_TYPES = {
+    "inner": "inner", "left": "left", "leftouter": "left",
+    "left_outer": "left", "right": "right", "rightouter": "right",
+    "right_outer": "right", "outer": "full", "full": "full",
+    "fullouter": "full", "full_outer": "full", "semi": "left_semi",
+    "leftsemi": "left_semi", "left_semi": "left_semi", "anti": "left_anti",
+    "leftanti": "left_anti", "left_anti": "left_anti", "cross": "cross"}
 
 
 def _to_column(c: Union[str, Column]) -> Column:
@@ -129,6 +140,106 @@ class DataFrame:
             orders.append(L.SortOrder(AN.resolve(u, self.schema), asc,
                                       nulls_first))
         return self._derive(L.Sort(self._plan, orders))
+
+    def limit(self, n: int) -> "DataFrame":
+        return self._derive(L.Limit(self._plan, n))
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """Join with ``other``: ``on`` is a column name, a list of names
+        (a USING join: each key column once in the output, from the
+        left) or a ``Column`` condition (an expression join: all left
+        columns, then all right columns)."""
+        how = _JOIN_TYPES[how.lower()]
+        if on is None:
+            on = []
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, Column):
+            return self._expression_join(other, on, how)
+        if not all(isinstance(c, str) for c in on):
+            raise AN.AnalysisException(
+                "join 'on' must be a column-name list or a single Column "
+                "condition")
+        left_keys = [AN.resolve(UExpr("attr", n), self.schema) for n in on]
+        right_keys = [AN.resolve(UExpr("attr", n), other.schema)
+                      for n in on]
+        # USING semantics: join columns once (from the left), then the
+        # remaining left columns, then the remaining right columns
+        fields: List[T.StructField] = []
+        for name in on:
+            f = self.schema.fields[self.schema.field_index(name)]
+            fields.append(T.StructField(
+                name, f.dtype, f.nullable or how in ("right", "full")))
+        for f in self.schema.fields:
+            if f.name not in on:
+                fields.append(T.StructField(
+                    f.name, f.dtype, f.nullable or how in ("right", "full")))
+        if how not in ("left_semi", "left_anti"):
+            for f in other.schema.fields:
+                if f.name not in on:
+                    fields.append(T.StructField(
+                        f.name, f.dtype,
+                        f.nullable or how in ("left", "full")))
+        return self._derive(L.Join(
+            self._plan, other._plan, how, left_keys, right_keys, None,
+            T.StructType(tuple(fields))))
+
+    def _expression_join(self, other: "DataFrame", on: Column, how: str
+                         ) -> "DataFrame":
+        """Spark's ExtractEquiJoinKeys: resolve the condition against
+        left ++ right, take its ``left.col == right.col`` conjuncts as
+        equi keys and keep the rest as a residual condition."""
+        nl = len(self.schema)
+        combined = T.StructType(tuple(self.schema.fields)
+                                + tuple(other.schema.fields))
+        cond = AN.resolve(on._u, combined)
+        if not isinstance(cond.dtype, (T.BooleanType, T.NullType)):
+            raise AN.AnalysisException(
+                f"join condition must be boolean, got {cond.dtype}")
+        conjuncts: List[E.Expression] = []
+
+        def split(e):
+            if isinstance(e, E.And):
+                split(e.left)
+                split(e.right)
+            else:
+                conjuncts.append(e)
+
+        split(cond)
+        left_keys, right_keys, residual = [], [], None
+        for c in conjuncts:
+            sides = None
+            if (isinstance(c, E.EqualTo)
+                    and isinstance(c.left, E.BoundReference)
+                    and isinstance(c.right, E.BoundReference)):
+                li, ri = c.left.index, c.right.index
+                if li < nl <= ri:
+                    sides = (li, ri - nl)
+                elif ri < nl <= li:
+                    sides = (ri, li - nl)
+            if sides is None:
+                residual = c if residual is None else E.And(residual, c)
+                continue
+            li, ri = sides
+            lf, rf = self.schema.fields[li], other.schema.fields[ri]
+            left_keys.append(E.BoundReference(li, lf.dtype, lf.nullable))
+            right_keys.append(E.BoundReference(ri, rf.dtype, rf.nullable))
+        if not left_keys and how not in ("inner", "cross"):
+            raise AN.AnalysisException(
+                f"{how} join requires at least one equi-join conjunct "
+                "(left.col == right.col); got only a non-equi condition")
+        fields: List[T.StructField] = [
+            T.StructField(f.name, f.dtype,
+                          f.nullable or how in ("right", "full"))
+            for f in self.schema.fields]
+        if how not in ("left_semi", "left_anti"):
+            fields += [T.StructField(f.name, f.dtype,
+                                     f.nullable or how in ("left", "full"))
+                       for f in other.schema.fields]
+        return self._derive(L.Join(
+            self._plan, other._plan, how, left_keys, right_keys, residual,
+            T.StructType(tuple(fields)), using=False))
 
     # -- actions ----------------------------------------------------------
     def _execute_plan(self) -> DeviceToHostExec:

@@ -1,4 +1,5 @@
-"""Where the time of TPC-H q1/q6 goes: one run under ``torch.profiler``.
+"""Where the time of TPC-H q1, q6, q3 and q4 goes: one run under
+``torch.profiler``.
 
     python3 -m spark_rapids_tpu_torch.utils.profile
 
@@ -6,14 +7,17 @@ runs each query once warm and once traced at SF1 on the CUDA card and
 prints, per query, one JSON line: the traced run's wall time, the
 device's busy time (the union of the intervals of every kernel and
 memory copy the card ran) and busy share, the host-to-device phase
-time from the plan's metrics, and the kernels and copies that took the
-most device time.  The trace adds host overhead, so its wall time is
+time from the plan's metrics, the kernels and copies that took the
+most device time, and the device durations of the hand-written
+``hash_pairs`` kernel's launches as the trace recorded them; then the
+kernel alone at three shapes, cold and warm (``profile_kernel``).  The trace adds host overhead, so its wall time is
 longer than an untraced run's (``chip_smoke.py`` times those).
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import time
 from typing import Dict, List
 
@@ -39,21 +43,28 @@ def _busy_us(intervals: List[tuple]) -> float:
     return busy
 
 
-def profile_query(session, query: str, li, top: int = 8) -> Dict:
-    """Run ``query`` ('q1' or 'q6') once under the profiler."""
+def _query(tpch_mod, query: str, session, tables):
+    """The query's DataFrame: q1 and q6 read lineitem alone."""
+    arg = tables["lineitem"] if query in ("q1", "q6") else tables
+    return getattr(tpch_mod, query)(session, arg)
+
+
+def profile_query(session, query: str, tables, top: int = 8) -> Dict:
+    """Run ``query`` ('q1', 'q3', 'q4' or 'q6') once under the
+    profiler; ``tables`` is ``tpch.gen_tpch``'s dict."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if session.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    df = getattr(tpch, query)(session, li)
+    df = _query(tpch, query, session, tables)
     synchronize(session.device)
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
         df.toArrow()
         synchronize(session.device)
     wall = time.perf_counter() - t0
-    intervals, by_name = [], {}
+    intervals, by_name, kernel_us = [], {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -61,10 +72,13 @@ def profile_query(session, query: str, li, top: int = 8) -> Dict:
         d = e.time_range.end - e.time_range.start
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + d, cnt + 1)
+        if "hash_pairs" in e.name:
+            kernel_us.append(d)
     h2d = sum(m.get("transferTime", 0.0) for name, m in df.metrics()
               if name == "TpuScanExec")
-    out = {"query": query, "rows": li.num_rows, "device": str(
-        session.device), "traced_wall_s": wall, "h2d_s": h2d}
+    out = {"query": query, "rows": tables["lineitem"].num_rows,
+           "device": str(session.device), "traced_wall_s": wall,
+           "h2d_s": h2d}
     if not intervals:
         out["device_busy_s"] = None  # no device trace: not measured
         return out
@@ -76,17 +90,61 @@ def profile_query(session, query: str, li, top: int = 8) -> Dict:
         {"name": n[:90], "ms": t / 1e3, "count": c}
         for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])
         [:top]]
+    out["hash_pairs_trace"] = ({
+        "launches": len(kernel_us),
+        "median_ms": statistics.median(kernel_us) / 1e3,
+        "min_ms": min(kernel_us) / 1e3, "max_ms": max(kernel_us) / 1e3,
+        "total_ms": sum(kernel_us) / 1e3} if kernel_us else None)
+    return out
+
+
+def profile_kernel(n_limbs: int, n: int, device: torch.device,
+                   iters: int = 30) -> Dict:
+    """``hash_pairs``' own device durations at one shape, as the trace
+    records them: ``cold`` with a 256 MB write (which evicts the L2
+    cache) before each launch, ``warm`` back to back on one input.  The
+    trace holds no CUDA-event overhead, so it separates the kernel from
+    the floor of ``chip_smoke.py``'s event timing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch.kernels import cuda_backend as CB
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    limbs = torch.randint(-(1 << 62), 1 << 62, (n_limbs, n),
+                          dtype=torch.int64, device=device, generator=gen)
+    scratch = torch.empty(((256 << 20) // 4,), dtype=torch.int32,
+                          device=device)
+    CB.hash_pairs(limbs)
+    synchronize(device)
+    out = {"L": n_limbs, "n": n}
+    for mode in ("cold", "warm"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if mode == "cold":
+                    scratch.zero_()
+                CB.hash_pairs(limbs)
+            synchronize(device)
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "hash_pairs" in e.name]
+        out[f"{mode}_launches"] = len(us)
+        out[f"{mode}_median_ms"] = (statistics.median(us) / 1e3
+                                    if us else None)
     return out
 
 
 def main() -> int:
     from spark_rapids_tpu_torch.sql.session import TpuSession
     session = TpuSession()
-    li = tpch.gen_lineitem(1.0)
-    for q in ("q1", "q6"):
-        getattr(tpch, q)(session, li).toArrow()  # warm
-        print("[profile] " + json.dumps(profile_query(session, q, li)),
+    tables = tpch.gen_tpch(1.0)
+    for q in ("q1", "q6", "q3", "q4"):
+        _query(tpch, q, session, tables).toArrow()  # warm
+        print("[profile] " + json.dumps(profile_query(session, q, tables)),
               flush=True)
+    # the kernel at q1's aggregate shape, the join's shape, and a small one
+    for n_limbs, n in ((3, 1 << 20), (1, 1 << 18), (3, 1024)):
+        print("[profile kernel] " + json.dumps(
+            profile_kernel(n_limbs, n, session.device)), flush=True)
     print(torch.cuda.get_device_name(session.device), flush=True)
     return 0
 

@@ -8,6 +8,7 @@ are shared through module-scoped fixtures.
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 
@@ -93,12 +94,19 @@ def test_collect_rows(tables, jax_results):
 
 def test_profile_query_runs_and_unions_intervals(tables):
     from spark_rapids_tpu_torch.utils import profile as PR
-    out = PR.profile_query(TpuSession(device="cpu"), "q1",
-                           tables["lineitem"])
+    out = PR.profile_query(TpuSession(device="cpu"), "q1", tables)
     assert out["rows"] == tables["lineitem"].num_rows
     assert out["traced_wall_s"] > 0 and out["h2d_s"] > 0
     assert out["device_busy_s"] is None  # no card: not measured
     assert PR._busy_us([(5, 6), (0, 2), (1, 3), (3, 3)]) == 4
+
+
+def test_profile_kernel_sees_no_kernel_on_the_cpu():
+    from spark_rapids_tpu_torch.utils import profile as PR
+    out = PR.profile_kernel(3, 1024, torch.device("cpu"), iters=2)
+    # a CPU tensor takes the plain version: no kernel, nothing measured
+    assert out["cold_launches"] == out["warm_launches"] == 0
+    assert out["cold_median_ms"] is None and out["warm_median_ms"] is None
 
 
 @pytest.mark.parametrize("query", ["q1", "q6"])
