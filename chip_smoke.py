@@ -10,16 +10,17 @@ result line is not printed):
    limit;
 2. build — compiles the hand-written CUDA kernel(s) of the port from the
    sources in this checkout (``nvcc``, ``sm_90a``) and prints the build
-   seconds;
+   seconds and ``ptxas``' registers and spills of each specialisation;
 3. kernels — calls each kernel's wrapper on tensors on the card at the
-   shapes TPC-H q1 and the joins of q3 and q4 give it and at edge
-   shapes, and holds the result against the kernel's plain PyTorch
-   version on the same inputs, bit for bit.  A kernel's time is the
-   median over launches timed by CUDA events, each launch after a
-   256 MB write that evicts the L2 cache and puts the host ahead of the
-   device (``ms``, cold), and again back to back behind a device sleep
-   (``ms_warm``); beside them the bound (bytes over the card's memory
-   rate), its share (``pct_of_bound``) and the plain version's time;
+   shapes TPC-H q1 and the joins of q3 and q4 give it and at edge cases
+   (odd n, limbs that are not 16-byte aligned, more limbs than one
+   launch takes, two row sets in one launch), and holds the result
+   against the kernel's plain PyTorch version on the same inputs, bit
+   for bit.  A kernel's time is the median over launches timed by CUDA
+   events, each launch after a 256 MB write that evicts the L2 cache
+   and puts the host ahead of the device (``ms``, cold), and again back
+   to back behind a device sleep (``ms_warm``); beside them the bound
+   (bytes over the card's memory rate) and the plain version's time;
 4. TPC-H q1, q6, q3 and q4 at SF1 (6,000,000 lineitem, 1,500,000
    orders and 150,000 customer rows) through the port's DataFrame API
    on ``device="cuda"`` — the main path, one query at a time: the
@@ -32,8 +33,14 @@ result line is not printed):
    prints the median wall time of 3 warm runs per query and the phase
    times;
 5. the kernel at every shape the main path launched it with, timed as
-   in phase 3, and the cost of the row-hash wrapper's limb copy
-   (``hash_layout.hash_limbs`` stacks its limbs before each launch);
+   in phase 3 and by a ring of distinct inputs larger than the L2 cache
+   (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
+   ``torch.profiler`` after an L2-evicting write (``traced_ms``) and
+   read (``traced_clean_ms``), called from a list of limbs through
+   ``hash_layout.hash_limbs`` (``from_list_ms``), and at the join's
+   shapes both sides in one launch (``pair_ms``, bit-identical to the
+   plain version first, and traced) against two; and the wrappers'
+   host time per call;
 6. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -47,7 +54,9 @@ from __future__ import annotations
 
 import datetime
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -61,9 +70,17 @@ KERNEL_SHAPES = [(n_limbs, n) for n_limbs in (1, 2, 3, 4)
                  for n in (1, 1024, 4095, 1 << 20, 6_000_001)] + [
                      (1, 1 << 18), (1, 1 << 16)]
 MAIN_PATH_SHAPE = (3, 1 << 20)  # q1: flag limb + 128-bit key hash, 2^20 rows
+# odd n (the vector path's scalar tail; rows of a stacked tensor that are
+# not 16-byte aligned)
+ODD_NS = (1, 3, 4095, (1 << 20) + 1)
+# join sides hashed in one launch: q3's (build, probe) and q4's
+JOIN_PAIRS = (((1, 1 << 18), (1, 1 << 18)), ((1, 1 << 18), (1, 1 << 16)))
 QUERIES = ("q1", "q6", "q3", "q4")
 FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
-GATE_CYCLES = 20_000_000  # device sleep that lets the host queue a run
+RING_BYTES = 128 << 20  # inputs of one ring pass: > 2x the L2
+RING_LAUNCHES = 100
+RING_MAX = 400  # ring entries at most (the launch queue holds ~1000)
+GATE_CYCLES = 40_000_000  # device sleep that lets the host queue a run
 
 
 def check(cond: bool, msg: str) -> None:
@@ -155,6 +172,51 @@ class KernelTimer:
             pairs.append((a, b))
         return self._median(pairs)
 
+    def ring_ms(self, make_input, fn, in_bytes: int) -> float:
+        """Mean time of one launch over a run of launches between two
+        events, cycling through a ring of distinct inputs made by
+        ``make_input()`` whose bytes (``in_bytes`` each) pass 2x the L2
+        cache, so that no launch finds its input there: 100 launches, or
+        one pass of the ring where the ring is longer.  The ring has at
+        most ``RING_MAX`` entries, so below about 320 KB of input per
+        launch it does not pass the L2 cache twice.  Every launch's
+        output is kept, so that each writes memory of its own (one
+        output block reused would let its writes stay in L2); an untimed
+        run first fills the allocator's cache with those blocks.  A
+        device sleep lets the host queue every launch first."""
+        torch = self.torch
+        n_ring = min(RING_MAX, max(2, math.ceil(RING_BYTES / in_bytes)))
+        ring = [make_input() for _ in range(n_ring)]
+        n_launch = max(RING_LAUNCHES, n_ring)
+        kept = [fn(ring[i % n_ring]) for i in range(n_launch)]
+        del kept
+        torch.cuda.synchronize()
+        torch.cuda._sleep(GATE_CYCLES)
+        a, b = self._events()
+        a.record()
+        kept = [fn(ring[i % n_ring]) for i in range(n_launch)]
+        b.record()
+        b.synchronize()
+        del kept
+        return a.elapsed_time(b) / n_launch
+
+    def host_us(self, fn, calls: int = 1000, chunk: int = 250) -> float:
+        """The host's microseconds per call of ``fn``: ``calls`` calls in
+        chunks of ``chunk``, each chunk timed by ``perf_counter`` behind a
+        device sleep, so that the device never holds the host back."""
+        torch = self.torch
+        fn()
+        total = 0.0
+        for _ in range(calls // chunk):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(5 * GATE_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(chunk):
+                fn()
+            total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return total / (calls // chunk * chunk) * 1e6
+
 
 def kernel_bound_ms(n_limbs: int, n: int) -> float:
     """Least time for hash_pairs: read L x n int64 limbs once, write n
@@ -173,27 +235,94 @@ def random_limbs(n_limbs: int, n: int, gen, dev):
     return limbs
 
 
+def hash_bytes(shapes) -> int:
+    """Bytes that hash_pairs must move for row sets of ``(L, n)``."""
+    return sum((8 * n_limbs + 8) * n for n_limbs, n in shapes)
+
+
+def check_hash(CB, sets, name: str) -> None:
+    """``hash_pairs_multi`` on ``sets`` (each an [L, n] tensor or a list
+    of limbs on the card) equals the plain version bit for bit, in
+    ceil(max L / LIMB_CAP) launches."""
+    import torch
+    before = CB.launches
+    got = CB.hash_pairs_multi(sets)
+    want = [CB.hash_pairs_plain(s) for s in sets]
+    torch.cuda.synchronize()
+    n_limbs = [len(s) for s in sets]
+    check(CB.launches - before == -(-max(n_limbs) // CB.LIMB_CAP),
+          f"{name}: {CB.launches - before} launches")
+    for g, w in zip(got, want):
+        mismatches = int((g != w).sum())
+        check(mismatches == 0, f"hash_pairs {name}: {mismatches} rows "
+              f"differ from the plain version")
+
+
+def kernel_cases(CB, gen, dev):
+    """The kernel against its plain version beyond the timed shapes:
+    ``(name, sets)`` of every edge case, made one at a time."""
+    for n_limbs in (1, 2, 3, 4):
+        for n in ODD_NS:
+            stacked = random_limbs(n_limbs, n, gen, dev)
+            # rows of a stacked tensor with odd n: not 16-byte aligned
+            yield (f"odd n, stacked L={n_limbs} n={n}", [stacked])
+            # separate limbs: aligned, with a one-row tail
+            yield (f"odd n, list L={n_limbs} n={n}",
+                   [[l.clone() for l in stacked]])
+        big = random_limbs(n_limbs, (1 << 18) + 1, gen, dev)
+        yield (f"misaligned row views L={n_limbs} n=2^18",
+               [[l[1:] for l in big]])
+    for n_limbs in (CB.LIMB_CAP + 1, 2 * CB.LIMB_CAP + 1):
+        for n in (4095, 1 << 20):
+            yield (f"chained L={n_limbs} n={n}",
+                   [random_limbs(n_limbs, n, gen, dev)])
+    for (la, na), (lb, nb) in JOIN_PAIRS + (
+            ((3, 1 << 20), (2, 4095)), ((CB.LIMB_CAP + 1, 1000), (1, 1 << 18))):
+        yield (f"two sets L={la} n={na} + L={lb} n={nb}",
+               [list(random_limbs(la, na, gen, dev)),
+                random_limbs(lb, nb, gen, dev)])
+
+
 def kernel_line(CB, timer, limbs, timed: bool) -> dict:
     """Bit-identity of the kernel against its plain version on
     ``limbs``; with ``timed``, the cold/warm kernel times, the bound and
     the plain version's time."""
-    import torch
     n_limbs, n = limbs.shape
-    got = CB.hash_pairs(limbs)
-    want = CB.hash_pairs_plain(limbs)
-    torch.cuda.synchronize()
-    mismatches = int((got != want).sum())
-    check(mismatches == 0, f"hash_pairs L={n_limbs} n={n}: "
-          f"{mismatches} rows differ from the plain version")
+    check_hash(CB, [limbs], f"L={n_limbs} n={n}")
     line = {"L": n_limbs, "n": n, "bit_identical": True,
             "bound_ms": kernel_bound_ms(n_limbs, n)}
     if timed:
         line["ms"] = timer.cold_ms(lambda: CB.hash_pairs(limbs))
         line["ms_warm"] = timer.warm_ms(lambda: CB.hash_pairs(limbs))
-        line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms"]
         line["plain_ms"] = cuda_ms(lambda: CB.hash_pairs_plain(limbs),
                                    iters=5)
     return line
+
+
+def ptxas_summary(text: str) -> dict:
+    """Registers and spill bytes of each kernel in ``nvcc -Xptxas -v``'s
+    report, by specialisation: ``L1``..``L4`` and the generic
+    ``L<=8``."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            t = re.search(r"hash_pairs_kernelILi(\d+)E", m.group(1))
+            name = ("unknown" if t is None else
+                    "L<=8" if t.group(1) == "0" else f"L{t.group(1)}")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +518,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.kernels import cuda_backend as CB
     from spark_rapids_tpu_torch.kernels import hash_layout as HL
     from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import profile as PR
     from spark_rapids_tpu_torch.utils import tpch
 
     dev = torch.device("cuda", 0)
@@ -403,22 +533,29 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = CB.build(verbose=True)
     CB._library()
+    build_s = time.perf_counter() - t0
+    ptxas = ptxas_summary(CB.ptxas_log(lib_path).read_text())
+    check(set(ptxas) == {"L1", "L2", "L3", "L4", "L<=8"},
+          f"ptxas reported {sorted(ptxas)}")
     print(f"[build] hash_pairs.cu -> {os.path.relpath(lib_path, here)} in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"{build_s:.3f} s; ptxas " + json.dumps(ptxas), flush=True)
 
     # -- kernel vs plain ---------------------------------------------------
     timer = KernelTimer(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261017)
-    kernel_row = None
     for n_limbs, n in KERNEL_SHAPES:
         limbs = random_limbs(n_limbs, n, gen, dev)
         line = kernel_line(CB, timer, limbs, timed=n >= 1 << 16)
         print("[kernel] hash_pairs " + json.dumps(line), flush=True)
-        if (n_limbs, n) == MAIN_PATH_SHAPE:
-            kernel_row = line
         del limbs
-    check(kernel_row is not None, "main-path kernel shape not measured")
+    n_cases = 0
+    for name, sets in kernel_cases(CB, gen, dev):
+        check_hash(CB, sets, name)
+        n_cases += 1
+    print(f"[kernel] hash_pairs: {n_cases} edge cases (odd n, misaligned "
+          "row views, chained L, two sets) bit-identical to the plain "
+          "version", flush=True)
 
     # -- TPC-H at SF1 on the card: the main path ------------------------------
     t0 = time.perf_counter()
@@ -479,8 +616,8 @@ def main() -> int:
         joins = counts[q]["joins"]
         streamed = sum(j["streamedLeftGroups"] + j["streamedRightGroups"]
                        for j in joins)
-        # two launches (build and probe) per match of each streamed group
-        check(counts[q]["hash_pairs_launches"] >= 2 * streamed,
+        # one launch (build and probe) per match of each streamed group
+        check(counts[q]["hash_pairs_launches"] >= streamed,
               f"{q}: {counts[q]['hash_pairs_launches']} hash_pairs "
               f"launches for {streamed} streamed join groups")
 
@@ -524,23 +661,74 @@ def main() -> int:
         print(f"[{q} result]\n{first[q].to_pandas().to_string()}",
               flush=True)
 
-    # -- the kernel at the main path's shapes, and the limb copy --------------
-    shape_rows = []
-    for key in sorted(main_shapes):
+    # -- the kernel at the main path's shapes ---------------------------------
+    shape_rows, kernel_row = [], None
+    for key in sorted(main_shapes, key=lambda k: tuple(map(int,
+                                                           k.split("x")))):
         n_limbs, n = (int(x) for x in key.split("x"))
         limbs = random_limbs(n_limbs, n, gen, dev)
+        listed = [l.clone() for l in limbs]  # separate tensors, as on the path
         line = kernel_line(CB, timer, limbs, timed=True)
-        line["main_path_launches"] = main_shapes[key]
-        # hash_limbs stacks the limbs into one [L, n] tensor per launch:
-        # L x n int64 read and written again
-        listed = list(limbs.unbind(0))
-        line["copy_bytes"] = 2 * 8 * n_limbs * n
-        line["with_copy_ms"] = timer.cold_ms(
-            lambda: HL.hash_limbs(listed, use_kernel=True))
+        line["main_path_sets"] = main_shapes[key]
+        line["ms_ring"] = timer.ring_ms(
+            lambda: random_limbs(n_limbs, n, gen, dev), CB.hash_pairs,
+            8 * n_limbs * n)
+        traced = PR.profile_kernel(n_limbs, n, dev)
+        line["traced_ms"] = traced["cold_median_ms"]
+        line["traced_clean_ms"] = traced["cold_clean_median_ms"]
+        line["from_list_ms"] = timer.cold_ms(
+            lambda: HL.hash_limbs(listed, True))
+        line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["ms_ring"]
         shape_rows.append(line)
+        if (n_limbs, n) == MAIN_PATH_SHAPE:
+            kernel_row = line
         print("[kernel main-path shape] hash_pairs " + json.dumps(line),
               flush=True)
         del limbs, listed
+    check(kernel_row is not None, "q1's kernel shape was not launched")
+
+    # both join sides in one launch, against two launches
+    for shapes in JOIN_PAIRS:
+        if not all(f"{l}x{n}" in main_shapes for l, n in shapes):
+            continue
+
+        def make():
+            return [list(random_limbs(l, n, gen, dev)) for l, n in shapes]
+
+        def two(sides):
+            return [CB.hash_pairs(x) for x in sides]
+
+        sides = make()
+        name = " + ".join(f"L={l} n={n}" for l, n in shapes)
+        check_hash(CB, sides, f"join pair {name}")
+        traced = PR.trace_kernel(lambda: CB.hash_pairs_multi(sides), dev)
+        in_bytes = sum(8 * l * n for l, n in shapes)
+        line = {"sets": [{"L": l, "n": n} for l, n in shapes],
+                "bit_identical": True,
+                "bound_ms": hash_bytes(shapes) / H100_BYTES_PER_S * 1e3,
+                "pair_ms": timer.cold_ms(lambda: CB.hash_pairs_multi(sides)),
+                "pair_ms_ring": timer.ring_ms(make, CB.hash_pairs_multi,
+                                              in_bytes),
+                "pair_traced_ms": traced["cold_median_ms"],
+                "pair_traced_clean_ms": traced["cold_clean_median_ms"],
+                "two_launches_ms": timer.cold_ms(lambda: two(sides)),
+                "two_launches_ms_ring": timer.ring_ms(make, two, in_bytes)}
+        print("[kernel join pair] hash_pairs " + json.dumps(line),
+              flush=True)
+
+    # the wrappers' host time per call
+    host = {}
+    for n_limbs, n in ((1, 1 << 18), MAIN_PATH_SHAPE):
+        limbs = random_limbs(n_limbs, n, gen, dev)
+        listed = [l.clone() for l in limbs]
+        calls = {"from a list": lambda: CB.hash_pairs(listed),
+                 "stacked": lambda: CB.hash_pairs(limbs)}
+        if n_limbs == 1:
+            calls["two sets"] = lambda: CB.hash_pairs_multi([listed, listed])
+        host[f"{n_limbs}x{n}"] = {k: timer.host_us(f)
+                                  for k, f in calls.items()}
+        del limbs, listed
+    print("[host us per call] " + json.dumps(host), flush=True)
 
     kernels = [{
         "name": "hash_pairs", "route": "cuda",
@@ -551,10 +739,16 @@ def main() -> int:
                                for q in QUERIES},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
+        "ms_ring": kernel_row["ms_ring"],
+        "traced_ms": kernel_row["traced_ms"],
+        "traced_clean_ms": kernel_row["traced_clean_ms"],
+        "from_list_ms": kernel_row["from_list_ms"],
         "plain_ms": kernel_row["plain_ms"],
         "bound_ms": kernel_row["bound_ms"], "bound_by": "bytes",
         "pct_of_bound": kernel_row["pct_of_bound"],
+        "pct_of_bound_from": "ms_ring",
         "library_ms": None,
+        "ptxas": ptxas,
         "shape": {"L": MAIN_PATH_SHAPE[0], "n": MAIN_PATH_SHAPE[1]},
         "main_path_shapes": shape_rows}]
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)

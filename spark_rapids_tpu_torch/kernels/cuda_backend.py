@@ -8,13 +8,16 @@ plain C interface under ``build/kernels/`` at the root of the checkout
 (git-ignored), named by a digest of the source and flags so that an
 edited kernel is rebuilt, and loaded with ``ctypes``.
 
-The wrapper ``hash_pairs`` launches the kernel for a CUDA tensor and
-raises if the build or the launch fails — it never falls back.  For a
-CPU tensor it runs the plain PyTorch version beside it
-(``hash_pairs_plain``), which the CPU tests hold against the JAX
-package bit for bit and the chip smoke test holds the kernel against.
-``launches`` counts the kernel's launches and ``launch_shapes`` the
-launches of each ``(L, n)`` shape; ``reset_counts`` sets both to 0.
+The wrappers ``hash_pairs`` (one row set: an ``int64[L, n]`` tensor or
+a list of ``int64[n]`` limbs, read where they lie) and
+``hash_pairs_multi`` (up to two row sets in one launch: a join's build
+and probe sides) launch the kernel for CUDA tensors and raise if the
+build or the launch fails — they never fall back.  For CPU tensors they
+run the plain PyTorch version beside it (``hash_pairs_plain``), which
+the CPU tests hold against the JAX package bit for bit and the chip
+smoke test holds the kernel against.  ``launches`` counts the kernel's
+launches and ``launch_shapes`` the row sets hashed at each ``(L, n)``
+shape; ``reset_counts`` sets both to 0.
 """
 
 from __future__ import annotations
@@ -23,10 +26,11 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -35,8 +39,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# launches of the hash_pairs kernel (not of its plain version), in all
-# and by shape (L limbs, n rows)
+LIMB_CAP = 8  # limbs of one row set in one launch (kCap in the source)
+MAX_SETS = 2  # row sets in one launch (kSets)
+
+# launches of the hash_pairs kernel (not of its plain version), and the
+# row sets it hashed by shape (L limbs, n rows)
 launches = 0
 launch_shapes: Dict[Tuple[int, int], int] = {}
 
@@ -57,17 +64,19 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/hash_pairs.cu`` (once per source digest); returns
-    the shared library's path.  ``verbose`` adds ``-Xptxas -v`` and
-    prints the compiler's report of registers and spills."""
+    the shared library's path.  ``verbose`` builds even when the library
+    exists, adds ``-Xptxas -v`` (which changes no code, so the library
+    keeps its name), prints the compiler's report of registers and
+    spills and writes it beside the library (``ptxas_log``)."""
     src = _CSRC / "hash_pairs.cu"
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                           ).hexdigest()[:16]
     out = BUILD_DIR / f"hash_pairs_{digest}.so"
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
     cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -75,70 +84,181 @@ def build(verbose: bool = False) -> Path:
                            + " ".join(cmd) + "\n" + res.stdout + res.stderr)
     if verbose:
         print(res.stdout + res.stderr, end="", flush=True)
+        ptxas_log(out).write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
 
 
+def ptxas_log(lib: Path) -> Path:
+    """Where ``build(verbose=True)`` leaves the compiler's report."""
+    return lib.with_suffix(".ptxas.txt")
+
+
+# One launch's arguments, packed as ``HashLaunch`` in the source lays them
+# out: per row set ``limb[LIMB_CAP]`` pointers, ``out``, ``n`` (64-bit),
+# ``num_limbs`` and ``chained`` (32-bit); then ``num_sets`` and ``device``.
+LAUNCH_LAYOUT = struct.Struct("<" + f"{LIMB_CAP}QQqii" * MAX_SETS + "ii")
+_SET_FIELDS = LIMB_CAP + 4
+_I64 = torch.int64
+
+
 def _library():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.hash_pairs_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
-def _check_limbs(limbs: torch.Tensor) -> None:
-    if not isinstance(limbs, torch.Tensor):
-        raise TypeError("hash_pairs takes a tensor")
-    if limbs.dtype != torch.int64 or limbs.dim() != 2:
-        raise TypeError("hash_pairs takes int64[L, n] limbs (64-bit bit "
-                        f"patterns), got {limbs.dtype}{list(limbs.shape)}")
-    if limbs.shape[0] < 1:
+LimbSet = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def _check_set(limbs: LimbSet) -> Tuple[List[int], int, torch.device]:
+    """``(limb pointers, n, device)`` of one row set; raises on what the
+    kernel does not take.  A set is an ``int64[L, n]`` tensor whose rows
+    have stride 1, or a list of ``int64[n]`` limbs with stride 1."""
+    if isinstance(limbs, torch.Tensor):
+        if limbs.dtype is not _I64 or limbs.dim() != 2:
+            raise TypeError("hash_pairs takes int64[L, n] limbs (64-bit "
+                            f"bit patterns), got {limbs.dtype}"
+                            f"{list(limbs.shape)}")
+        n_limbs, n = limbs.shape
+        if n > 1 and limbs.stride(1) != 1:
+            raise ValueError("hash_pairs takes [L, n] limbs whose rows "
+                             "have stride 1")
+        base, step = limbs.data_ptr(), 8 * limbs.stride(0)
+        ptrs = [base + j * step for j in range(n_limbs)]
+        device = limbs.device
+    elif isinstance(limbs, (list, tuple)):
+        ptrs, n, device = [], None, None
+        for l in limbs:
+            if (not isinstance(l, torch.Tensor) or l.dtype is not _I64
+                    or l.dim() != 1):
+                got = (f"{l.dtype}{list(l.shape)}"
+                       if isinstance(l, torch.Tensor) else type(l).__name__)
+                raise TypeError("hash_pairs takes int64[n] limbs (64-bit "
+                                f"bit patterns), got {got}")
+            if n is None:
+                n, device = l.shape[0], l.device
+            elif l.shape[0] != n:
+                raise ValueError("hash_pairs: the limbs of one row set "
+                                 f"differ in length ({l.shape[0]} != {n})")
+            elif l.device != device:
+                raise ValueError("hash_pairs: limbs on different devices "
+                                 f"({l.device} and {device})")
+            if not l.is_contiguous():
+                raise ValueError("hash_pairs takes limbs with stride 1")
+            ptrs.append(l.data_ptr())
+    else:
+        raise TypeError("hash_pairs takes an int64[L, n] tensor or a list "
+                        f"of int64[n] tensors, got {type(limbs).__name__}")
+    if not ptrs:
         raise ValueError("hash_pairs needs at least one limb")
-    if limbs.shape[1] >= 1 << 31:
-        raise ValueError(f"hash_pairs takes fewer than 2^31 rows, got "
-                         f"{limbs.shape[1]}")
-    if not limbs.is_contiguous():
-        raise ValueError("hash_pairs takes contiguous [L, n] limbs")
+    return ptrs, n, device
 
 
-def hash_pairs_plain(limbs: torch.Tensor) -> torch.Tensor:
+def hash_pairs_plain(limbs: LimbSet) -> torch.Tensor:
     """The plain PyTorch version: ``hash_layout.hash_limbs``' mixing loop
     in masked int64 arithmetic."""
     from spark_rapids_tpu_torch.kernels import hash_layout as HL
-    return HL.hash_limbs(list(limbs.unbind(0)), use_kernel=False)
+    if isinstance(limbs, torch.Tensor):
+        limbs = limbs.unbind(0)
+    return HL.hash_limbs(list(limbs), use_kernel=False)
 
 
-def hash_pairs(limbs: torch.Tensor) -> torch.Tensor:
-    """Row hash of ``int64[L, n]`` limbs -> ``int64[n]`` (64-bit bits).
+def hash_pairs(limbs: LimbSet) -> torch.Tensor:
+    """Row hash of one row set -> ``int64[n]`` (64-bit bits).
 
-    CUDA tensor: launches ``csrc/hash_pairs.cu`` on the current stream
-    and raises if it cannot.  CPU tensor: the plain version.
+    ``limbs`` is an ``int64[L, n]`` tensor or a list of ``int64[n]``
+    limbs, each with stride 1, read where they lie.  CUDA tensors:
+    launches ``csrc/hash_pairs.cu`` on the current stream and raises if
+    it cannot.  CPU tensors: the plain version.
     """
-    global launches
-    _check_limbs(limbs)
-    if limbs.device.type == "cpu":
-        return hash_pairs_plain(limbs)
-    if limbs.device.type != "cuda":
-        raise ValueError(f"hash_pairs: unsupported device {limbs.device}")
+    return hash_pairs_multi((limbs,))[0]
+
+
+def hash_pairs_multi(limb_sets: Sequence[LimbSet]) -> List[torch.Tensor]:
+    """Row hashes of up to two row sets (each as ``hash_pairs`` takes
+    it, with its own L and n) in one launch: one ``int64[n]`` per set.
+
+    A set of more than ``LIMB_CAP`` limbs takes a chain of launches,
+    each starting from the previous one's output."""
+    if not 1 <= len(limb_sets) <= MAX_SETS:
+        raise ValueError(f"hash_pairs_multi takes 1 to {MAX_SETS} row "
+                         f"sets, got {len(limb_sets)}")
+    sets = [_check_set(s) for s in limb_sets]
+    device = sets[0][2]
+    for _, _, d in sets[1:]:
+        if d != device:
+            raise ValueError("hash_pairs_multi: row sets on different "
+                             "devices")
+    if device.type == "cpu":
+        return [hash_pairs_plain(s) for s in limb_sets]
+    if device.type != "cuda":
+        raise ValueError(f"hash_pairs: unsupported device {device}")
     lib = _library()
-    n_limbs, n = limbs.shape
-    out = torch.empty((n,), dtype=torch.int64, device=limbs.device)
-    with torch.cuda.device(limbs.device):
-        stream = torch.cuda.current_stream(limbs.device).cuda_stream
-        err = lib.hash_pairs_launch(limbs.data_ptr(), int(n_limbs), int(n),
-                                    out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"hash_pairs kernel launch failed: CUDA error "
-                           f"{err} (L={n_limbs}, n={n})")
-    launches += 1
-    launch_shapes[(n_limbs, n)] = launch_shapes.get((n_limbs, n), 0) + 1
-    return out
+    outs, todo = [], []
+    for ptrs, n, _ in sets:
+        out = torch.empty((n,), dtype=_I64, device=device)
+        outs.append(out)
+        if n:
+            todo.append((ptrs, out.data_ptr(), n))
+    if todo:
+        args = launch_args(todo, device.index)
+        if device.index == torch._C._cuda_getDevice():
+            _launch(lib, args, device.index)
+        else:
+            with torch.cuda.device(device):
+                _launch(lib, args, device.index)
+        for ptrs, _, n in todo:
+            shape = (len(ptrs), n)
+            launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
+    return outs
+
+
+def _launch(lib, args: List[bytes], device_index: int) -> None:
+    """The launches ``args`` in order on the device's current stream (the
+    device is the current one)."""
+    global launches
+    stream = torch._C._cuda_getCurrentRawStream(device_index)
+    for k, arg in enumerate(args):
+        err = lib.hash_pairs_launch(arg, stream)
+        if err != 0:
+            raise RuntimeError(f"hash_pairs kernel launch failed: CUDA "
+                               f"error {err} (launch {k + 1} of "
+                               f"{len(args)})")
+        launches += 1
+
+
+_ZEROS = (0,) * (_SET_FIELDS * MAX_SETS)
+
+
+def launch_args(todo: Sequence[Tuple[List[int], int, int]],
+                device_index: int) -> List[bytes]:
+    """The launches for row sets ``todo`` (each: limb pointers, output
+    pointer, n), packed as ``LAUNCH_LAYOUT``: the launch at limb k takes
+    limbs k up to ``k + LIMB_CAP`` of every set that has them, and each
+    launch after the first starts from the previous one's output
+    (``chained``)."""
+    args = []
+    for k in range(0, max(len(ptrs) for ptrs, _, _ in todo), LIMB_CAP):
+        fields: List[int] = []
+        for ptrs, out, n in todo:
+            part = ptrs[k:k + LIMB_CAP]
+            if part:
+                fields += part
+                fields += _ZEROS[:LIMB_CAP - len(part)]
+                fields += (out, n, len(part), k > 0)
+        num_sets = len(fields) // _SET_FIELDS
+        fields += _ZEROS[:_SET_FIELDS * (MAX_SETS - num_sets)]
+        args.append(LAUNCH_LAYOUT.pack(*fields, num_sets, device_index))
+    return args
 
 
 def reset_counts() -> None:

@@ -16,8 +16,10 @@ those limbs twice per probe row.  This layout instead:
   be repaired locally — two distinct live keys sharing a 64-bit hash —
   as ``ok = False``, so the dispatcher takes the exact rung.
 
-Both hashes are ``hash_layout.hash_limbs``: the hand-written CUDA kernel
-``csrc/hash_pairs.cu`` on a CUDA tensor.  Hashes are int64 bit patterns:
+Both sides are hashed by ONE launch of the hand-written CUDA kernel
+``csrc/hash_pairs.cu`` (``cuda_backend.hash_pairs_multi``, two row
+sets) on CUDA tensors, by ``hash_layout.hash_limbs``' plain loop
+otherwise.  Hashes are int64 bit patterns:
 the JAX package's uint64 ``>> 1`` is an arithmetic shift here, so it is
 masked to 63 bits, and the sort and the bisection compare the
 ``sortable`` form, in which the top bit (the exclusion flag) orders
@@ -35,15 +37,22 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch.kernels import cuda_backend as CB
 from spark_rapids_tpu_torch.kernels import hash_layout as HL
 from spark_rapids_tpu_torch.ops import ordering as ORD
 
 _LOW63 = (1 << 63) - 1
 
 
-def _hash63(limbs: List[torch.Tensor], use_kernel: bool) -> torch.Tensor:
-    """The 64-bit row hash shifted right by one as unsigned."""
-    return (HL.hash_limbs(limbs, use_kernel=use_kernel) >> 1) & _LOW63
+def _hash63(r_limbs: List[torch.Tensor], l_limbs: List[torch.Tensor],
+            use_kernel: bool) -> List[torch.Tensor]:
+    """Both sides' 64-bit row hashes shifted right by one as unsigned;
+    with ``use_kernel``, one launch for both."""
+    if use_kernel:
+        hashes = CB.hash_pairs_multi([r_limbs, l_limbs])
+    else:
+        hashes = [HL.hash_limbs(r_limbs), HL.hash_limbs(l_limbs)]
+    return [(h >> 1) & _LOW63 for h in hashes]
 
 
 def match_fused(l_limbs: List[torch.Tensor], r_limbs: List[torch.Tensor],
@@ -64,7 +73,7 @@ def match_fused(l_limbs: List[torch.Tensor], r_limbs: List[torch.Tensor],
     if not HL.limbs_hashable(l_limbs + r_limbs):
         return None
     n = int(r_excl.shape[0])
-    h_r = _hash63(r_limbs, use_kernel)
+    h_r, h_q = _hash63(r_limbs, l_limbs, use_kernel)
     build_limb = torch.where(r_excl, h_r | ORD.TOP_BIT, h_r)
     (sorted_h,), perm = ORD.sort_by_keys([build_limb])
     rl_s = [l[perm] for l in r_limbs]
@@ -75,7 +84,6 @@ def match_fused(l_limbs: List[torch.Tensor], r_limbs: List[torch.Tensor],
     rlen = HL.run_lengths(run_start)
 
     # probe: one single-limb bisection, counts gathered at the run start
-    h_q = _hash63(l_limbs, use_kernel)
     lo = HL.lower_bound(sorted_h, h_q)
     loc = lo.clamp(0, n - 1)
     hit = (sorted_h[loc] == h_q) & (lo < n)

@@ -70,12 +70,13 @@ def hash_limbs(limbs: List[torch.Tensor],
     """64-bit hash of each row's key limbs, as int64 bits.
 
     ``use_kernel`` routes the mixing loop through the hand-written CUDA
-    kernel (kernels/cuda_backend.py; its plain version on CPU tensors).
-    The loop below is the bit-identical plain form.
+    kernel (kernels/cuda_backend.py; its plain version on CPU tensors),
+    which reads the limbs where they lie.  The loop below is the
+    bit-identical plain form.
     """
     if use_kernel:
         from spark_rapids_tpu_torch.kernels import cuda_backend as CB
-        return CB.hash_pairs(torch.stack(limbs))
+        return CB.hash_pairs(limbs)
     n = limbs[0].shape[0]
     hi = torch.zeros((n,), dtype=torch.int64, device=limbs[0].device)
     lo = torch.zeros_like(hi)

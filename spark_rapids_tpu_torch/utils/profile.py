@@ -10,8 +10,9 @@ memory copy the card ran) and busy share, the host-to-device phase
 time from the plan's metrics, the kernels and copies that took the
 most device time, and the device durations of the hand-written
 ``hash_pairs`` kernel's launches as the trace recorded them; then the
-kernel alone at three shapes, cold and warm (``profile_kernel``).  The trace adds host overhead, so its wall time is
-longer than an untraced run's (``chip_smoke.py`` times those).
+kernel alone at three shapes, cold and warm (``profile_kernel``).  The
+trace adds host overhead, so its wall time is longer than an untraced
+run's (``chip_smoke.py`` times those).
 """
 
 from __future__ import annotations
@@ -98,32 +99,32 @@ def profile_query(session, query: str, tables, top: int = 8) -> Dict:
     return out
 
 
-def profile_kernel(n_limbs: int, n: int, device: torch.device,
-                   iters: int = 30) -> Dict:
-    """``hash_pairs``' own device durations at one shape, as the trace
-    records them: ``cold`` with a 256 MB write (which evicts the L2
-    cache) before each launch, ``warm`` back to back on one input.  The
-    trace holds no CUDA-event overhead, so it separates the kernel from
-    the floor of ``chip_smoke.py``'s event timing."""
+def trace_kernel(launch, device: torch.device, iters: int = 30) -> Dict:
+    """The device durations of the ``hash_pairs`` kernels that
+    ``launch()`` starts, as the trace records them: ``cold`` with a
+    256 MB write before each call (which evicts the L2 cache and leaves
+    it full of dirty lines, which the launch's own traffic then writes
+    back), ``cold_clean`` with a 256 MB read instead (clean lines),
+    ``warm`` back to back.  Per mode, the launches seen and their median
+    milliseconds (None without a trace of the card).  The trace holds no
+    CUDA-event overhead, so it separates the kernel from the floor of
+    ``chip_smoke.py``'s event timing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from spark_rapids_tpu_torch.kernels import cuda_backend as CB
-    gen = torch.Generator(device=device)
-    gen.manual_seed(7)
-    limbs = torch.randint(-(1 << 62), 1 << 62, (n_limbs, n),
-                          dtype=torch.int64, device=device, generator=gen)
     scratch = torch.empty(((256 << 20) // 4,), dtype=torch.int32,
                           device=device)
-    CB.hash_pairs(limbs)
+    launch()
     synchronize(device)
-    out = {"L": n_limbs, "n": n}
-    for mode in ("cold", "warm"):
+    out = {}
+    for mode in ("cold", "cold_clean", "warm"):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if mode == "cold":
                     scratch.zero_()
-                CB.hash_pairs(limbs)
+                elif mode == "cold_clean":
+                    scratch.sum()
+                launch()
             synchronize(device)
         us = [e.time_range.end - e.time_range.start for e in prof.events()
               if e.device_type == DeviceType.CUDA and "hash_pairs" in e.name]
@@ -131,6 +132,19 @@ def profile_kernel(n_limbs: int, n: int, device: torch.device,
         out[f"{mode}_median_ms"] = (statistics.median(us) / 1e3
                                     if us else None)
     return out
+
+
+def profile_kernel(n_limbs: int, n: int, device: torch.device,
+                   iters: int = 30) -> Dict:
+    """``trace_kernel`` of ``cuda_backend.hash_pairs`` on random
+    ``int64[n_limbs, n]`` limbs."""
+    from spark_rapids_tpu_torch.kernels import cuda_backend as CB
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    limbs = torch.randint(-(1 << 62), 1 << 62, (n_limbs, n),
+                          dtype=torch.int64, device=device, generator=gen)
+    return {"L": n_limbs, "n": n,
+            **trace_kernel(lambda: CB.hash_pairs(limbs), device, iters)}
 
 
 def main() -> int:

@@ -1,8 +1,9 @@
 """Rules of the PyTorch port as a package.
 
-* No file of ``spark_rapids_tpu_torch/``, and not ``chip_smoke.py``,
-  imports ``jax`` or anything of ``spark_rapids_tpu`` (checked on the
-  AST, so an import inside a function counts too).
+* No file of ``spark_rapids_tpu_torch/``, and neither ``chip_smoke.py``
+  nor ``hash_pairs_ab.py``, imports ``jax`` or anything of
+  ``spark_rapids_tpu`` (checked on the AST, so an import inside a
+  function counts too).
 * Entry points run on the card unless the caller asks for the CPU: a
   session created without ``device="cpu"`` raises when CUDA is
   unavailable.
@@ -29,7 +30,7 @@ from spark_rapids_tpu_torch.sql.session import TpuSession
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "hash_pairs_ab.py"]
 
 
 def _imported_modules(path: pathlib.Path):
