@@ -21,17 +21,20 @@ result line is not printed):
    and puts the host ahead of the device (``ms``, cold), and again back
    to back behind a device sleep (``ms_warm``); beside them the bound
    (bytes over the card's memory rate) and the plain version's time;
-4. TPC-H q1, q6, q3 and q4 at SF1 (6,000,000 lineitem, 1,500,000
-   orders and 150,000 customer rows) through the port's DataFrame API
-   on ``device="cuda"`` — the main path, one query at a time: the
-   kernel's launch counts are set to 0 just before each query and read
-   just after, and the hash-collision fallback count must stay 0.  Each
-   result is checked against an independent pyarrow computation (keys
-   and counts exactly, floats within 1e-9 relative) and against the
-   exact ``jnp`` rung on the card; the joins of q3 and q4 must take the
-   strategies of the JAX package's plan (read from the joins' metrics);
-   prints the median wall time of 3 warm runs per query and the phase
-   times;
+4. the fifteen TPC-H queries the port runs (q1, q6, q3, q4, q5, q7, q8,
+   q10, q11, q12, q15, q17, q18, q19, q21) at SF1 (6,000,000 lineitem,
+   1,500,000 orders, 150,000 customer, 200,000 part, 800,000 partsupp
+   and 10,000 supplier rows, 25 nations, 5 regions) through the port's
+   DataFrame API on ``device="cuda"`` — the main path, one query at a
+   time: the kernel's launch counts are set to 0 just before each
+   query and read just after, and the hash-collision fallback count
+   must stay 0.  Each result is checked against an independent pyarrow
+   computation (``ref_q*``: keys and counts exactly, floats within 1e-9
+   relative) and against the exact ``jnp`` rung on the card; every
+   join must take the strategy of the JAX package's plan at SF1
+   (``check_strategies``, read from the joins' metrics); prints the
+   median wall time of 3 warm runs per query, its H2D share and the
+   kernel's launches;
 5. the kernel at every shape the main path launched it with, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -75,7 +78,8 @@ MAIN_PATH_SHAPE = (3, 1 << 20)  # q1: flag limb + 128-bit key hash, 2^20 rows
 ODD_NS = (1, 3, 4095, (1 << 20) + 1)
 # join sides hashed in one launch: q3's (build, probe) and q4's
 JOIN_PAIRS = (((1, 1 << 18), (1, 1 << 18)), ((1, 1 << 18), (1, 1 << 16)))
-QUERIES = ("q1", "q6", "q3", "q4")
+QUERIES = ("q1", "q6", "q3", "q4", "q5", "q7", "q8", "q10", "q11", "q12",
+           "q15", "q17", "q18", "q19", "q21")
 FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
 RING_BYTES = 128 << 20  # inputs of one ring pass: > 2x the L2
 RING_LAUNCHES = 100
@@ -420,6 +424,322 @@ def ref_q4(t):
                     names=["o_orderpriority", "order_count"])
 
 
+def _rev(t):
+    """``l_extendedprice * (1 - l_discount)`` of a lineitem table."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    return pc.multiply(t["l_extendedprice"],
+                       pc.subtract(pa.scalar(1.0), t["l_discount"]))
+
+
+def _between(c, lo, hi):
+    import pyarrow.compute as pc
+    return pc.and_(pc.greater_equal(c, lo), pc.less_equal(c, hi))
+
+
+def _in(c, *values):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    return pc.is_in(c, value_set=pa.array(values))
+
+
+def _year(c):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    return pc.cast(pc.year(c), pa.int32())
+
+
+def ref_q5(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    r = t["region"]
+    r = r.filter(pc.equal(r["r_name"], "ASIA")).select(["r_regionkey"])
+    n = t["nation"].select(["n_nationkey", "n_regionkey", "n_name"])
+    o = t["orders"]
+    o = o.filter(pc.and_(
+        pc.greater_equal(o["o_orderdate"], _date(1994, 1, 1)),
+        pc.less(o["o_orderdate"], _date(1995, 1, 1)))).select(
+        ["o_orderkey", "o_custkey"])
+    li = t["lineitem"]
+    li = pa.table({"l_orderkey": li["l_orderkey"], "rev": _rev(li)})
+    j = r.join(n, "r_regionkey", "n_regionkey", join_type="inner")
+    j = j.join(t["customer"].select(["c_custkey", "c_nationkey"]),
+               "n_nationkey", "c_nationkey", join_type="inner")
+    j = j.join(o, "c_custkey", "o_custkey", join_type="inner")
+    j = j.join(li, "o_orderkey", "l_orderkey", join_type="inner")
+    g = j.group_by("n_name").aggregate([("rev", "sum")])
+    return pa.table([g["n_name"], g["rev_sum"]],
+                    names=["n_name", "revenue"])
+
+
+def ref_q7(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    na, nb = "NATION_06", "NATION_07"
+    n = t["nation"]
+    n = n.filter(_in(n["n_name"], na, nb)).select(["n_nationkey",
+                                                   "n_name"])
+    supp = t["supplier"].select(["s_suppkey", "s_nationkey"]).join(
+        n.rename_columns(["n1_key", "supp_nation"]), "s_nationkey",
+        "n1_key", join_type="inner")
+    cust = t["customer"].select(["c_custkey", "c_nationkey"]).join(
+        n.rename_columns(["n2_key", "cust_nation"]), "c_nationkey",
+        "n2_key", join_type="inner")
+    o = t["orders"].select(["o_orderkey", "o_custkey"]).join(
+        cust, "o_custkey", "c_custkey", join_type="inner")
+    li = t["lineitem"]
+    li = li.filter(_between(li["l_shipdate"], _date(1995, 1, 1),
+                            _date(1996, 12, 31)))
+    li = pa.table({"l_orderkey": li["l_orderkey"],
+                   "l_suppkey": li["l_suppkey"],
+                   "l_year": _year(li["l_shipdate"]), "volume": _rev(li)})
+    j = li.join(o, "l_orderkey", "o_orderkey", join_type="inner")
+    j = j.join(supp, "l_suppkey", "s_suppkey", join_type="inner")
+    j = j.filter(pc.or_(
+        pc.and_(pc.equal(j["supp_nation"], na),
+                pc.equal(j["cust_nation"], nb)),
+        pc.and_(pc.equal(j["supp_nation"], nb),
+                pc.equal(j["cust_nation"], na))))
+    g = j.group_by(["supp_nation", "cust_nation", "l_year"]).aggregate(
+        [("volume", "sum")])
+    return pa.table([g["supp_nation"], g["cust_nation"], g["l_year"],
+                     g["volume_sum"]],
+                    names=["supp_nation", "cust_nation", "l_year",
+                           "revenue"])
+
+
+def ref_q8(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    p = t["part"]
+    p = p.filter(pc.equal(p["p_type"], "ECONOMY ANODIZED STEEL")).select(
+        ["p_partkey"])
+    o = t["orders"]
+    o = o.filter(_between(o["o_orderdate"], _date(1995, 1, 1),
+                          _date(1996, 12, 31)))
+    o = pa.table({"o_orderkey": o["o_orderkey"],
+                  "o_custkey": o["o_custkey"],
+                  "o_year": _year(o["o_orderdate"])})
+    r = t["region"]
+    r = r.filter(pc.equal(r["r_name"], "AMERICA")).select(["r_regionkey"])
+    n1 = t["nation"].select(["n_nationkey", "n_regionkey"]).join(
+        r, "n_regionkey", "r_regionkey", join_type="inner")
+    cust = t["customer"].select(["c_custkey", "c_nationkey"]).join(
+        n1, "c_nationkey", "n_nationkey", join_type="inner")
+    supp = t["supplier"].select(["s_suppkey", "s_nationkey"]).join(
+        t["nation"].select(["n_nationkey", "n_name"]), "s_nationkey",
+        "n_nationkey", join_type="inner")
+    li = t["lineitem"]
+    li = pa.table({"l_orderkey": li["l_orderkey"],
+                   "l_partkey": li["l_partkey"],
+                   "l_suppkey": li["l_suppkey"], "volume": _rev(li)})
+    j = (li.join(p, "l_partkey", "p_partkey", join_type="inner")
+         .join(o, "l_orderkey", "o_orderkey", join_type="inner")
+         .join(cust, "o_custkey", "c_custkey", join_type="inner")
+         .join(supp, "l_suppkey", "s_suppkey", join_type="inner"))
+    nat = pc.if_else(pc.equal(j["n_name"], "NATION_05"), j["volume"], 0.0)
+    j = pa.table({"o_year": j["o_year"], "nat": nat,
+                  "volume": j["volume"]})
+    g = j.group_by("o_year").aggregate([("nat", "sum"),
+                                        ("volume", "sum")])
+    return pa.table([g["o_year"], pc.divide(g["nat_sum"],
+                                            g["volume_sum"])],
+                    names=["o_year", "mkt_share"])
+
+
+def ref_q10(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    o = t["orders"]
+    o = o.filter(pc.and_(
+        pc.greater_equal(o["o_orderdate"], _date(1993, 10, 1)),
+        pc.less(o["o_orderdate"], _date(1994, 1, 1)))).select(
+        ["o_orderkey", "o_custkey"])
+    li = t["lineitem"]
+    li = li.filter(pc.equal(li["l_returnflag"], "R"))
+    li = pa.table({"l_orderkey": li["l_orderkey"], "rev": _rev(li)})
+    j = (t["customer"].select(["c_custkey", "c_nationkey", "c_name",
+                               "c_acctbal"])
+         .join(o, "c_custkey", "o_custkey", join_type="inner")
+         .join(li, "o_orderkey", "l_orderkey", join_type="inner")
+         .join(t["nation"].select(["n_nationkey", "n_name"]),
+               "c_nationkey", "n_nationkey", join_type="inner"))
+    g = j.group_by(["c_custkey", "c_name", "c_acctbal", "n_name"]
+                   ).aggregate([("rev", "sum")])
+    g = g.sort_by([("rev_sum", "descending")]).slice(0, 20)
+    return pa.table([g["c_custkey"], g["c_name"], g["c_acctbal"],
+                     g["n_name"], g["rev_sum"]],
+                    names=["c_custkey", "c_name", "c_acctbal", "n_name",
+                           "revenue"])
+
+
+def ref_q11(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    n = t["nation"]
+    n = n.filter(pc.equal(n["n_name"], "NATION_07")).select(
+        ["n_nationkey"])
+    supp = t["supplier"].select(["s_suppkey", "s_nationkey"]).join(
+        n, "s_nationkey", "n_nationkey", join_type="inner")
+    ps = t["partsupp"].join(supp, "ps_suppkey", "s_suppkey", join_type="inner")
+    ps = pa.table({"ps_partkey": ps["ps_partkey"], "val": pc.multiply(
+        ps["ps_supplycost"], pc.cast(ps["ps_availqty"], pa.float64()))})
+    tot = pc.sum(ps["val"]).as_py() or 0.0
+    g = ps.group_by("ps_partkey").aggregate([("val", "sum")])
+    g = g.filter(pc.greater(g["val_sum"], 0.0001 * tot))
+    return pa.table([g["ps_partkey"], g["val_sum"]],
+                    names=["ps_partkey", "value"])
+
+
+def ref_q12(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    li = t["lineitem"]
+    li = li.filter(pc.and_(pc.and_(pc.and_(
+        _in(li["l_shipmode"], "MAIL", "SHIP"),
+        pc.greater_equal(li["l_receiptdate"], _date(1994, 1, 1))),
+        pc.and_(pc.less(li["l_receiptdate"], _date(1995, 1, 1)),
+                pc.less(li["l_commitdate"], li["l_receiptdate"]))),
+        pc.less(li["l_shipdate"], li["l_commitdate"]))).select(
+        ["l_orderkey", "l_shipmode"])
+    j = li.join(t["orders"].select(["o_orderkey", "o_orderpriority"]),
+                "l_orderkey", "o_orderkey", join_type="inner")
+    high = pc.cast(_in(j["o_orderpriority"], "1-URGENT", "2-HIGH"),
+                   pa.int64())
+    j = pa.table({"l_shipmode": j["l_shipmode"], "high": high,
+                  "low": pc.subtract(1, high)})
+    g = j.group_by("l_shipmode").aggregate([("high", "sum"),
+                                            ("low", "sum")])
+    return pa.table([g["l_shipmode"], g["high_sum"], g["low_sum"]],
+                    names=["l_shipmode", "high_line_count",
+                           "low_line_count"])
+
+
+def ref_q15(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    li = t["lineitem"]
+    li = li.filter(pc.and_(
+        pc.greater_equal(li["l_shipdate"], _date(1996, 1, 1)),
+        pc.less(li["l_shipdate"], _date(1996, 4, 1))))
+    rev = pa.table({"supplier_no": li["l_suppkey"], "rev": _rev(li)})
+    g = rev.group_by("supplier_no").aggregate([("rev", "sum")])
+    top = g.filter(pc.greater_equal(g["rev_sum"], pc.max(g["rev_sum"])))
+    supp = t["supplier"].select(["s_suppkey", "s_name", "s_address",
+                                 "s_phone"])
+    j = supp.join(top, "s_suppkey", "supplier_no", join_type="inner")
+    return pa.table([j["s_suppkey"], j["s_name"], j["s_address"],
+                     j["s_phone"], j["rev_sum"]],
+                    names=["s_suppkey", "s_name", "s_address", "s_phone",
+                           "total_revenue"])
+
+
+def ref_q17(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    p = t["part"]
+    p = p.filter(pc.and_(pc.equal(p["p_brand"], "Brand#23"),
+                         pc.equal(p["p_container"], "MED BOX")))
+    li = t["lineitem"].select(["l_partkey", "l_quantity",
+                               "l_extendedprice"])
+    li = li.filter(pc.is_in(li["l_partkey"], value_set=p["p_partkey"]))
+    avg = li.group_by("l_partkey").aggregate([("l_quantity", "mean")])
+    j = li.join(avg, "l_partkey", join_type="inner")
+    j = j.filter(pc.less(j["l_quantity"],
+                         pc.multiply(0.2, j["l_quantity_mean"])))
+    s = pc.sum(j["l_extendedprice"]).as_py()
+    return pa.table({"avg_yearly": pa.array(
+        [None if s is None else s / 7.0], pa.float64())})
+
+
+def ref_q18(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    li = t["lineitem"].select(["l_orderkey", "l_quantity"])
+    g = li.group_by("l_orderkey").aggregate([("l_quantity", "sum")])
+    big = g.filter(pc.greater(g["l_quantity_sum"], 300.0))["l_orderkey"]
+    o = t["orders"].select(["o_orderkey", "o_custkey", "o_orderdate",
+                            "o_totalprice"])
+    o = o.filter(pc.is_in(o["o_orderkey"], value_set=big))
+    j = (t["customer"].select(["c_custkey", "c_name"])
+         .join(o, "c_custkey", "o_custkey", join_type="inner")
+         .join(li, "o_orderkey", "l_orderkey", join_type="inner"))
+    g = j.group_by(["c_name", "c_custkey", "o_orderkey", "o_orderdate",
+                    "o_totalprice"]).aggregate([("l_quantity", "sum")])
+    g = g.sort_by([("o_totalprice", "descending"),
+                   ("o_orderdate", "ascending")]).slice(0, 100)
+    return pa.table([g["c_name"], g["c_custkey"], g["o_orderkey"],
+                     g["o_orderdate"], g["o_totalprice"],
+                     g["l_quantity_sum"]],
+                    names=["c_name", "c_custkey", "o_orderkey",
+                           "o_orderdate", "o_totalprice", "sum_qty"])
+
+
+def ref_q19(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    li = t["lineitem"]
+    li = li.filter(pc.and_(_in(li["l_shipmode"], "AIR", "REG AIR"),
+                           pc.equal(li["l_shipinstruct"],
+                                    "DELIVER IN PERSON")))
+    li = pa.table({"l_partkey": li["l_partkey"],
+                   "l_quantity": li["l_quantity"], "rev": _rev(li)})
+    p = t["part"].select(["p_partkey", "p_brand", "p_container",
+                          "p_size"])
+    j = li.join(p, "l_partkey", "p_partkey", join_type="inner")
+
+    def arm(brand, containers, qlo, qhi, shi):
+        return pc.and_(pc.and_(pc.equal(j["p_brand"], brand),
+                               _in(j["p_container"], *containers)),
+                       pc.and_(_between(j["l_quantity"], qlo, qhi),
+                               _between(j["p_size"], 1, shi)))
+
+    m = pc.or_(pc.or_(
+        arm("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"),
+            1.0, 11.0, 5),
+        arm("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"),
+            10.0, 20.0, 10)),
+        arm("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"),
+            20.0, 30.0, 15))
+    s = pc.sum(j.filter(m)["rev"]).as_py()
+    return pa.table({"revenue": pa.array([s], pa.float64())})
+
+
+def ref_q21(t):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    li = t["lineitem"].select(["l_orderkey", "l_suppkey", "l_commitdate",
+                               "l_receiptdate"])
+    late = li.filter(pc.greater(li["l_receiptdate"], li["l_commitdate"])
+                     ).select(["l_orderkey", "l_suppkey"])
+    def ndistinct(t, key, name):
+        g = t.group_by("l_orderkey").aggregate(
+            [("l_suppkey", "count_distinct")])
+        return pa.table({key: g["l_orderkey"],
+                         name: g["l_suppkey_count_distinct"]})
+
+    allcnt = ndistinct(li, "ak", "nsupp")
+    latecnt = ndistinct(late, "lk", "nlate")
+    o = t["orders"]
+    fo = o.filter(pc.equal(o["o_orderstatus"], "F"))["o_orderkey"]
+    n = t["nation"]
+    n = n.filter(pc.equal(n["n_name"], "NATION_10")).select(
+        ["n_nationkey"])
+    supp = t["supplier"].select(["s_suppkey", "s_name", "s_nationkey"])
+    supp = supp.join(n, "s_nationkey", "n_nationkey", join_type="inner")
+    j = late.filter(pc.is_in(late["l_orderkey"], value_set=fo))
+    j = j.join(allcnt, "l_orderkey", "ak", join_type="inner")
+    j = j.join(latecnt, "l_orderkey", "lk", join_type="inner")
+    j = j.filter(pc.and_(pc.greater_equal(j["nsupp"], 2),
+                         pc.equal(j["nlate"], 1)))
+    j = j.join(supp, "l_suppkey", "s_suppkey", join_type="inner")
+    g = j.group_by("s_name").aggregate([("l_orderkey", "count")])
+    g = g.sort_by([("l_orderkey_count", "descending"),
+                   ("s_name", "ascending")]).slice(0, 100)
+    return pa.table([g["s_name"], g["l_orderkey_count"]],
+                    names=["s_name", "numwait"])
+
+
 def rows_equal(a, b, tol=1e-9):
     """Row multiset equality: floats within ``tol`` relative (absolute
     below 1), everything else exactly — the repository's oracle rule."""
@@ -462,12 +782,68 @@ def join_strategies(df) -> list:
                         "streamedLeftGroups": m.get(
                             "streamedLeftGroups", 0),
                         "streamedRightGroups": m.get(
-                            "streamedRightGroups", 0)})
+                            "streamedRightGroups", 0),
+                        "subPartitionJoins": m.get(
+                            "subPartitionJoins", 0)})
         for c in node.children:
             walk(c)
 
     walk(df._last_plan)
     return out
+
+
+# The JAX package's single-process plan at SF1, root join first (its
+# exec/join.py::_convert_join broadcasts a side whose estimated size is
+# within autoBroadcastJoinThreshold, 10 MB; TpuSortMergeJoinExec.execute
+# then picks by live rows against join.targetRows, 2^18).  "bc right" /
+# "bc left": the broadcast side; "streamed left" / "streamed right":
+# the side cut into groups against the other, whole side; "sub": both
+# sides over the row cap, hash sub-partitioned; "in-core": one join of
+# both sides; "cross": the in-core cross product.  A "semi" prefix is a
+# left semi join (every other join here is inner or cross).  q21's semi
+# join with orders is "sub": orders narrowed to (o_orderkey,
+# o_orderstatus) is ~19 MB by estimate, and both its 5.2 M late
+# lineitems and ~0.74 M finished orders pass 2^18 live rows.
+STRATEGIES = {
+    "q5": ("streamed right", "in-core", "bc right", "bc right"),
+    "q7": ("in-core", "streamed left", "streamed left", "bc right",
+           "bc right"),
+    "q8": ("bc right",) * 5 + ("streamed right", "bc right"),
+    "q10": ("bc right", "streamed right", "bc left"),
+    "q11": ("cross", "streamed left", "bc right", "streamed left",
+            "bc right"),
+    "q12": ("streamed right",),
+    "q15": ("bc right", "cross"),
+    "q17": ("in-core", "semi bc right", "semi bc right"),
+    "q18": ("streamed right", "bc left", "semi streamed left"),
+    "q19": ("bc right",),
+    "q21": ("in-core", "sub", "sub", "semi sub", "bc right"),
+}
+
+
+def _strategy_holds(want: str, j: dict) -> bool:
+    jt = "inner"
+    if want.startswith("semi "):
+        jt, want = "left_semi", want[len("semi "):]
+    if want == "cross":
+        jt = "cross"
+    if j["join_type"] != jt:
+        return False
+    streamed = (j["streamedJoins"], j["streamedLeftGroups"] > 0,
+                j["streamedRightGroups"] > 0)
+    if want.startswith("bc "):
+        return (j["broadcast"] == want[3:] and j["streamedJoins"] == 0
+                and j["subPartitionJoins"] == 0)
+    if j["broadcast"] is not None:
+        return False
+    if want == "streamed left":
+        return streamed == (1, True, False) and not j["subPartitionJoins"]
+    if want == "streamed right":
+        return streamed == (1, False, True) and not j["subPartitionJoins"]
+    if want == "sub":
+        return streamed == (0, False, False) and j["subPartitionJoins"] == 1
+    return (streamed == (0, False, False)  # in-core, cross
+            and j["subPartitionJoins"] == 0)
 
 
 def check_strategies(q: str, joins: list) -> None:
@@ -497,6 +873,12 @@ def check_strategies(q: str, joins: list) -> None:
               and semi["streamedRightGroups"] > 0
               and semi["streamedLeftGroups"] == 0,
               f"q4 strategy {semi}")
+    elif q in STRATEGIES:
+        want = STRATEGIES[q]
+        check(len(joins) == len(want), f"{q} has {len(joins)} joins")
+        for i, (w, j) in enumerate(zip(want, joins)):
+            check(_strategy_holds(w, j),
+                  f"{q} join {i} (root first): want {w}, got {j}")
     else:
         check(not joins, f"{q} has joins")
 
@@ -566,13 +948,17 @@ def main() -> int:
         f"{k} {v.num_rows} rows" for k, v in tables.items())
         + f" in {gen_s:.3f} s", flush=True)
     t0 = time.perf_counter()
-    refs = {"q1": ref_q1(li), "q6": ref_q6(li), "q3": ref_q3(tables),
-            "q4": ref_q4(tables)}
-    print(f"[reference] pyarrow q1 q6 q3 q4 in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    refs = {q: globals()["ref_" + q](li if q in ("q1", "q6") else tables)
+            for q in QUERIES}
+    print(f"[reference] pyarrow {' '.join(QUERIES)} in "
+          f"{time.perf_counter() - t0:.3f} s; rows " + json.dumps(
+              {q: r.num_rows for q, r in refs.items()}), flush=True)
     check(refs["q1"].num_rows == 6, "reference q1 should have 6 groups")
     check(refs["q3"].num_rows == 10, "reference q3 should have 10 rows")
     check(refs["q4"].num_rows == 5, "reference q4 should have 5 groups")
+    check(refs["q10"].num_rows == 20, "reference q10 should have 20 rows")
+    for q, r in refs.items():
+        check(r.num_rows > 0, f"reference {q} is empty")
 
     def build(q, session):
         return getattr(tpch, q)(session, li if q in ("q1", "q6")
@@ -612,14 +998,17 @@ def main() -> int:
           f"hash_pairs launched {counts['q1']['hash_pairs_launches']} "
           f"times in q1, expected at least one per input batch plus one "
           f"per merge ({n_batches + 1})")
-    for q in ("q3", "q4"):
+    for q in QUERIES:
         joins = counts[q]["joins"]
         streamed = sum(j["streamedLeftGroups"] + j["streamedRightGroups"]
                        for j in joins)
-        # one launch (build and probe) per match of each streamed group
+        # one launch (build and probe) per match of each streamed group,
+        # of each broadcast join and of each sub-partition pair
         check(counts[q]["hash_pairs_launches"] >= streamed,
               f"{q}: {counts[q]['hash_pairs_launches']} hash_pairs "
               f"launches for {streamed} streamed join groups")
+        check(counts[q]["hash_pairs_launches"] > 0 or q == "q6",
+              f"{q}: hash_pairs was not launched")
 
     summary = {}
     for q in QUERIES:
@@ -652,13 +1041,15 @@ def main() -> int:
         summary[q] = {
             "lineitem_rows": li.num_rows, "wall_s_median": walls[i],
             "wall_s": walls, "h2d_s": ph["h2d_s"], "d2h_s": ph["d2h_s"],
+            "h2d_share": ph["h2d_s"] / walls[i],
             "execute_s": walls[i] - ph["h2d_s"] - ph["d2h_s"],
             "rows_per_s": li.num_rows / walls[i],
             "hash_pairs_launches": counts[q]["hash_pairs_launches"],
             "matches_reference": True, "cuda_equals_jnp_rung": True}
         print(f"[{q}] SF{SF:g} " + json.dumps(summary[q]), flush=True)
-    for q in ("q1", "q3", "q4"):
-        print(f"[{q} result]\n{first[q].to_pandas().to_string()}",
+    for q in QUERIES:
+        print(f"[{q} result] {first[q].num_rows} rows\n"
+              f"{first[q].slice(0, 6).to_pandas().to_string()}",
               flush=True)
 
     # -- the kernel at the main path's shapes ---------------------------------

@@ -139,6 +139,26 @@ def compact(batch: DeviceBatch) -> DeviceBatch:
     return DeviceBatch(batch.schema, cols, sel, compacted=True)
 
 
+def empty_batch(schema: T.StructType, device: torch.device,
+                bucket: int = 1024) -> DeviceBatch:
+    """A batch of ``bucket`` rows, none live (strings 8 bytes wide), as
+    the JAX package's ``empty_batch`` lays it out."""
+    cols = []
+    for f in schema.fields:
+        if isinstance(f.dtype, (T.StringType, T.BinaryType)):
+            cols.append(DeviceColumn(
+                f.dtype, torch.zeros((bucket, 8), dtype=torch.uint8,
+                                     device=device),
+                None, torch.zeros((bucket,), dtype=torch.int32,
+                                  device=device)))
+        else:
+            cols.append(DeviceColumn(f.dtype, torch.zeros(
+                (bucket,), dtype=torch_dtype(f.dtype), device=device)))
+    return DeviceBatch(schema, tuple(cols),
+                       torch.zeros((bucket,), dtype=torch.bool,
+                                   device=device), compacted=True)
+
+
 def slice_batch(batch: DeviceBatch, lo: int, cap: int) -> DeviceBatch:
     """Row slice ``[lo, lo + cap)`` of every tensor of a batch (views).
 

@@ -165,9 +165,9 @@ JOIN_TARGET_ROWS = (
     .doc("Row cap for one in-core sort-merge join. When a gathered side "
          "exceeds it and the other side fits, the big side streams "
          "through the join in groups of at most this many rows (the "
-         "streamed side of a broadcast join too); when neither fits, the "
-         "JAX package hash-sub-partitions both sides, which the port "
-         "does not have yet. Join outputs are re-batched to "
+         "streamed side of a broadcast join too); when neither fits, "
+         "both sides hash-sub-partition into pairs of about this many "
+         "rows. Join outputs are re-batched to "
          "spark.rapids.tpu.batchRows chunks.")
     .integer()
     .create_with_default(1 << 18)

@@ -4,9 +4,10 @@
  AggHelper]
 
 The counterpart of the JAX package's ``exec/aggregate.py`` for the
-q1/q6 slice: sum, count, count(*) and avg, grouped or global, in
-complete mode (update per input batch -> merge the partials -> final
-projection).
+ported queries: sum, min, max, count, count(*) and avg, grouped or
+global (and a group-by with no aggregate, the dedup below a
+count(DISTINCT)), in complete mode (update per input batch -> merge the
+partials -> final projection).
 
 The group-by keeps the JAX package's layout and protocol: key limbs
 from ``ops/ordering.py``; a group layout from the kernel plane (the
@@ -14,13 +15,23 @@ hash-grouped layout whose row hash is the CUDA kernel, or the exact
 full-key sort); live groups compacted to the front of a batch of
 unchanged capacity, in group order.  What differs is the reduction: the
 JAX package reduces with segmented ``associative_scan``s (scatter is
-serial on a TPU); here every row adds into its group's slot with one
-``index_add_`` keyed by group id.  A cumulative-sum difference is
+serial on a TPU); here every row adds into its group's slot keyed by
+group id (``scatter_reduce_`` for min and max, with the JAX package's
+NaN rules: NaN is the greatest value).  A cumulative-sum difference is
 deliberately not used for float sums — at 2^20 rows the running total
-reaches ~5e9 and the cancellation would ruin small groups.  On a CUDA
-device ``index_add_`` on float64 adds in atomic order, so float sums
-vary from run to run at the last-ulp level (and differ in the last ulps
-from the JAX package's scan order); counts and keys are exact.
+reaches ~5e9 and the cancellation would ruin small groups.
+
+Float sums must be deterministic, as the JAX package's scans are: a
+query that runs one subtree twice (TPC-H q15 filters a grouped sum by
+its own max) compares the two runs' sums exactly.  On a CUDA device
+``index_add_`` adds in atomic order, which varies from run to run in
+the last ulp, so float sums take ``torch.segment_reduce`` over the rows
+in group order instead (a segmented tree reduction, the same order in
+every run); integer sums and counts stay ``index_add_``, which is exact
+in any order.  (``index_put_(accumulate=True)`` is deterministic too,
+but adds a group's rows one after another: slow where groups are few.)
+Float sums differ in the last ulps from the JAX package's scan order;
+counts and keys are exact.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.aggregates import (
-    AggregateFunction, Average, Count, CountStar, Sum)
+    AggregateFunction, Average, Count, CountStar, Max, Min, Sum)
 from spark_rapids_tpu_torch.ops.expressions import Expression
 
 
@@ -53,7 +64,7 @@ def segment_groupby(
     backend: str = "jnp",
 ) -> Tuple[List[DeviceColumn], List[DeviceColumn], torch.Tensor,
            Optional[torch.Tensor]]:
-    """Group rows by keys; reduce values by kind (this slice: 'sum').
+    """Group rows by keys; reduce values by kind ('sum', 'min', 'max').
 
     Returns (out_key_cols, out_value_cols, out_sel, ok) — live groups
     compacted to the front in group order, capacity unchanged.
@@ -87,24 +98,29 @@ def segment_groupby(
     gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
     gid_row = torch.empty_like(gid)
     gid_row[perm] = gid
-    batcher = _ScanBatcher(gid_row, b)
+    batcher = _ScanBatcher(gid_row, b, perm, gid)
     nlive = batcher.add("add", sel.to(torch.int64), key="live")
     size = batcher.add("add", torch.ones_like(gid), key="size")
     plans = []
     for ci, (c, kind) in enumerate(value_cols):
-        if kind != "sum":
-            raise NotImplementedError(
-                f"spark_rapids_tpu_torch: '{kind}' reduction is not "
-                "ported yet")
         if c.validity is None:
             contrib, ckey = sel, "live"  # shared count for non-null inputs
         else:
             contrib, ckey = sel & c.validity, ("col", ci)
-        plans.append((c, batcher.add("add", contrib.to(torch.int64),
-                                     key=ckey),
-                      batcher.add("add", torch.where(
-                          contrib, c.data, torch.zeros(
-                              (), dtype=c.data.dtype, device=dev)))))
+        e = {"c": c, "kind": kind,
+             "n_contrib": batcher.add("add", contrib.to(torch.int64),
+                                      key=ckey)}
+        if kind == "sum":
+            e["agg"] = batcher.add("add", torch.where(
+                contrib, c.data, torch.zeros((), dtype=c.data.dtype,
+                                             device=dev)))
+        elif kind in ("min", "max"):
+            _plan_extreme(batcher, e, contrib)
+        else:
+            raise NotImplementedError(
+                f"spark_rapids_tpu_torch: '{kind}' reduction is not "
+                "ported yet")
+        plans.append(e)
     batcher.run()
 
     glive = batcher.get(nlive) > 0
@@ -117,9 +133,13 @@ def segment_groupby(
     src = perm[end][perm2]
     out_keys = [c.gather(src) for c in key_cols]
     out_vals = []
-    for c, n_contrib, agg in plans:
-        out_vals.append(DeviceColumn(c.dtype, batcher.get(agg)[perm2],
-                                     batcher.get(n_contrib)[perm2] > 0))
+    for e in plans:
+        n_contrib = batcher.get(e["n_contrib"])
+        agg = batcher.get(e["agg"])
+        if e["kind"] in ("min", "max"):
+            agg = _finish_extreme(batcher, e, agg, n_contrib)
+        out_vals.append(DeviceColumn(e["c"].dtype, agg[perm2],
+                                     n_contrib[perm2] > 0))
     out_sel = torch.arange(b, device=dev) < num_groups
     return out_keys, out_vals, out_sel, okf
 
@@ -129,20 +149,36 @@ class _ScanBatcher:
 
     The JAX package's batcher shares segmented scans among requests over
     the same logical input (a q1-shaped aggregate asks for the live-row
-    count eight times).  Here a request is one ``index_add_`` of the
-    input into its group's slot; ``add`` enqueues with an optional
-    logical-input key and returns a handle, ``run`` reduces, ``get``
-    returns the per-group result (indexed by group id).
+    count eight times).  Here a request is one ``index_add_`` (``add``;
+    ``segment_reduce`` in group order for float sums) or
+    ``scatter_reduce_`` (``min``, ``max``) of the input into its
+    group's slot; ``add`` enqueues with an optional logical-input key
+    and returns a handle, ``run`` reduces, ``get`` returns the per-group
+    result (indexed by group id).  ``perm`` orders the rows by group and
+    ``gid`` is the group id of each row in that order.
     """
 
-    def __init__(self, gid_row: torch.Tensor, num_slots: int):
+    def __init__(self, gid_row: torch.Tensor, num_slots: int,
+                 perm: torch.Tensor, gid: torch.Tensor):
         self.gid_row = gid_row
         self.num_slots = num_slots
+        self.perm = perm
+        self.gid = gid
+        self._lengths = None
         self._reqs: List[list] = []  # [tag, array, result]
         self._dedupe = {}
 
+    def _segment_sum(self, arr: torch.Tensor) -> torch.Tensor:
+        """Deterministic per-slot sum: a segmented reduction over the
+        rows in group order (every slot's rows are contiguous there)."""
+        if self._lengths is None:
+            self._lengths = torch.bincount(self.gid,
+                                           minlength=self.num_slots)
+        return torch.segment_reduce(arr[self.perm], "sum",
+                                    lengths=self._lengths, initial=0)
+
     def add(self, tag: str, arr, key=None) -> int:
-        if tag != "add":
+        if tag not in ("add", "min", "max"):
             raise NotImplementedError(
                 f"spark_rapids_tpu_torch: '{tag}' reduction is not ported "
                 "yet")
@@ -156,27 +192,99 @@ class _ScanBatcher:
 
     def run(self) -> None:
         for req in self._reqs:
-            _, arr, _ = req
+            tag, arr, _ = req
+            if tag == "add":
+                if arr.is_floating_point():
+                    # one order of addition in every run (module doc)
+                    req[2] = self._segment_sum(arr)
+                    continue
+                out = torch.zeros((self.num_slots,), dtype=arr.dtype,
+                                  device=arr.device)
+                req[2] = out.index_add_(0, self.gid_row, arr)
+                continue
+            # min/max over the rows of each slot only (a row that does
+            # not contribute carries the reduction's identity); a slot
+            # with no row stays 0 and is never a live group
             out = torch.zeros((self.num_slots,), dtype=arr.dtype,
                               device=arr.device)
-            req[2] = out.index_add_(0, self.gid_row, arr)
+            req[2] = out.scatter_reduce_(
+                0, self.gid_row, arr, "amin" if tag == "min" else "amax",
+                include_self=False)
 
     def get(self, i: int):
         return self._reqs[i][2]
 
 
+def _is_float(dt: T.DataType) -> bool:
+    return isinstance(dt, (T.FloatType, T.DoubleType))
+
+
+def _extreme_input(data: torch.Tensor, dt: T.DataType, contrib, kind):
+    """(values with the identity of ``kind`` where a row does not
+    contribute, NaN rows or None).  Floats follow Spark's total order
+    (NaN greatest) as the JAX package does: NaN rows leave the
+    reduction and are reinstated by ``_extreme_nan``; other types
+    reduce as integers (booleans as 0/1)."""
+    if isinstance(dt, (T.StringType, T.BinaryType)):
+        raise NotImplementedError(
+            f"spark_rapids_tpu_torch: {kind} of {dt} is not ported yet")
+    if _is_float(dt):
+        isn = torch.isnan(data)
+        ident = float("inf") if kind == "min" else float("-inf")
+        return torch.where(contrib & ~isn, data, ident), isn
+    x = data.to(torch.int64) if isinstance(dt, T.BooleanType) else data
+    info = torch.iinfo(x.dtype)
+    ident = info.max if kind == "min" else info.min
+    return torch.where(contrib, x, ident), None
+
+
+def _extreme_nan(kind: str, agg, n_contrib, n_real, any_nan):
+    """Spark's NaN rule on a float min/max: min is NaN only when every
+    contributing value is NaN, max whenever one is."""
+    nan = torch.full((), float("nan"), dtype=agg.dtype, device=agg.device)
+    if kind == "min":
+        return torch.where((n_real == 0) & (n_contrib > 0), nan, agg)
+    return torch.where(any_nan > 0, nan, agg)
+
+
+def _plan_extreme(batcher: "_ScanBatcher", e: dict, contrib) -> None:
+    c, kind = e["c"], e["kind"]
+    vals, isn = _extreme_input(c.data, c.dtype, contrib, kind)
+    e["agg"] = batcher.add(kind, vals)
+    if isn is not None:
+        e["n_real"] = batcher.add("add", (contrib & ~isn).to(torch.int64))
+        e["any_nan"] = batcher.add("add", (contrib & isn).to(torch.int64))
+
+
+def _finish_extreme(batcher: "_ScanBatcher", e: dict, agg, n_contrib):
+    if "n_real" in e:
+        return _extreme_nan(e["kind"], agg, n_contrib,
+                            batcher.get(e["n_real"]),
+                            batcher.get(e["any_nan"]))
+    return agg.to(e["c"].data.dtype)
+
+
 def _reduce_column(data: torch.Tensor, valid: torch.Tensor,
                    live: torch.Tensor, kind: str,
                    dt: T.DataType) -> DeviceColumn:
-    """Whole-array masked reduction -> 1-element column (sums of valid
-    live rows; null when no row contributes)."""
-    if kind != "sum":
+    """Whole-array masked reduction -> 1-element column, with the same
+    semantics as ``segment_groupby`` (sums and extremes of valid live
+    rows, NaN greatest; null when no row contributes)."""
+    contrib = valid & live
+    if kind == "sum":
+        v = torch.where(contrib, data, torch.zeros(
+            (), dtype=data.dtype, device=data.device)).sum(dtype=data.dtype)
+    elif kind in ("min", "max"):
+        vals, isn = _extreme_input(data, dt, contrib, kind)
+        v = vals.amin() if kind == "min" else vals.amax()
+        if isn is not None:
+            v = _extreme_nan(kind, v, contrib.sum(), (contrib & ~isn).sum(),
+                             (contrib & isn).sum())
+        v = v.to(data.dtype)
+    else:
         raise NotImplementedError(
             f"spark_rapids_tpu_torch: '{kind}' reduction is not ported "
             "yet")
-    contrib = valid & live
-    v = torch.where(contrib, data, torch.zeros(
-        (), dtype=data.dtype, device=data.device)).sum(dtype=data.dtype)
     return DeviceColumn(dt, v.reshape(1), torch.any(contrib).reshape(1))
 
 
@@ -223,6 +331,8 @@ def update_value_cols(fns: Sequence[AggregateFunction], batch: DeviceBatch
             out.append((DeviceColumn(rdt, data, c.validity), "sum"))
             out.append((DeviceColumn(T.LongT, valid.to(torch.int64)),
                         "sum"))
+        elif isinstance(fn, (Min, Max)):
+            out.append((c, "min" if isinstance(fn, Min) else "max"))
         else:
             raise NotImplementedError(
                 f"spark_rapids_tpu_torch: aggregate {fn.name} is not "
@@ -256,6 +366,8 @@ def final_project(fns: Sequence[AggregateFunction],
             out.append(DeviceColumn(
                 T.DoubleT, s.data / denom.to(torch.float64),
                 cnt.data > 0))
+        elif isinstance(fn, (Min, Max)):
+            out.append(mine[0])  # the buffer is the result
         else:
             raise NotImplementedError(
                 f"spark_rapids_tpu_torch: aggregate {fn.name} is not "

@@ -18,17 +18,21 @@ as a NaN flag plus a raw float limb.  Null and dead rows are excluded by
 a leading exclusion flag, so null keys never match (Spark equi-join
 semantics) but still surface in left and anti outputs.
 
-Ported: inner, left, left_semi and left_anti joins; the in-core path,
-the broadcast path, and the run-time pick by live row counts that
-streams the big side in bounded groups against a side that fits
-(``_broadcast_streamed``, ``_semi_stream_right``).  Not ported, and
-raising ``NotImplementedError`` naming itself: the hash sub-partition
-path for two oversized sides (``_sub_partition_join``), right joins
-(``_execute_swapped``), full and cross joins, residual join conditions
-(``_apply_condition``), the adaptive joins, and the co-partitioned
-(exchanged) plan.  The JAX package reserves device memory around each
-join step with its memory manager (``transient``, ``RetryOOM``); the
-port has no memory manager yet, so those calls are left out.
+Ported: inner, left, left_semi and left_anti joins and the cross join
+(a join without equi keys: the in-core cross product, ``_cross``); the
+in-core path, the broadcast path, the run-time pick by live row counts
+that streams the big side in bounded groups against a side that fits
+(``_broadcast_streamed``, ``_semi_stream_right``), and the hash
+sub-partition join of two oversized sides (``_sub_partition_join``).
+Not ported, and raising ``NotImplementedError`` naming itself: right
+joins (``_execute_swapped``), full joins, residual join conditions
+(``_apply_condition``, a cross join's included), the adaptive joins, and
+the co-partitioned (exchanged) plan.  The JAX package reserves device
+memory around each join step with its memory manager (``transient``,
+``RetryOOM``), sizes the sub-partition count by memory as well as rows
+(``k_mem``) and registers each sub-partition slice as a spillable; the
+port has no memory manager yet, so it sizes by rows alone and keeps the
+slices as plain device batches.
 """
 
 from __future__ import annotations
@@ -41,12 +45,14 @@ import torch
 from spark_rapids_tpu_torch import kernels as KN
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar.column import (
-    DeviceBatch, DeviceColumn, compact, round_up_pow2, slice_batch)
+    DeviceBatch, DeviceColumn, compact, empty_batch, round_up_pow2,
+    slice_batch)
 from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.expressions import Expression
+from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
 from spark_rapids_tpu_torch.plan.analysis import _not_ported
 
 
@@ -78,6 +84,55 @@ def _row_groups(batches: List[DeviceBatch], cap: int
             groups[-1].append(c)
             acc += c.capacity
     return groups
+
+
+# rows of capacity per chunk that split_by_pid sorts at once (the JAX
+# package's split_to_spillables default)
+_SPLIT_CHUNK_ROWS = 1 << 20
+
+
+def split_by_pid(batches: List[DeviceBatch], pid_fn, nbuckets: int
+                 ) -> List[List[Tuple[DeviceBatch, int]]]:
+    """Split batches by partition id: per bucket, its ``(slice, live
+    rows)`` pairs — the port's counterpart of the JAX package's
+    ``parallel/shuffle.py::split_to_spillables`` without the spill
+    registration.
+
+    The batches coalesce into chunks of at most ``_SPLIT_CHUNK_ROWS``
+    rows of capacity; each chunk's rows are stably sorted by bucket id (dead
+    rows last), one host read takes the bucket counts, and each
+    non-empty bucket's rows are gathered into a compacted slice of
+    ``max(8, next power of two)`` rows.  Within a bucket rows keep their
+    input order.
+    """
+    out: List[List[Tuple[DeviceBatch, int]]] = [[] for _ in range(nbuckets)]
+    i = 0
+    while i < len(batches):
+        chunk, acc = [], 0
+        while i < len(batches) and (not chunk or acc + batches[i].capacity
+                                    <= _SPLIT_CHUNK_ROWS):
+            chunk.append(compact(batches[i]))
+            acc += batches[i].capacity
+            i += 1
+        m = (chunk[0] if len(chunk) == 1 else
+             concat_device_batches(chunk[0].schema, chunk))
+        pid = torch.where(m.sel, pid_fn(m).to(torch.int64), nbuckets)
+        _, perm = torch.sort(pid, stable=True)
+        counts = torch.bincount(pid, minlength=nbuckets + 1)[:nbuckets]
+        counts = counts.tolist()  # the chunk's one host read
+        lo = 0
+        for b, n in enumerate(counts):
+            if n:
+                size = max(8, 1 << (n - 1).bit_length())
+                rows = perm[(lo + torch.arange(size, device=m.device)
+                             ).clamp(0, m.capacity - 1)]
+                part = DeviceBatch(
+                    m.schema, tuple(c.gather(rows) for c in m.columns),
+                    torch.arange(size, device=m.device) < n,
+                    compacted=True)
+                out[b].append((part, n))
+            lo += n
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +311,9 @@ class TpuSortMergeJoinExec(TpuExec):
     (``spark.rapids.tpu.batchRows``).  ``backend`` is the kernel plane's
     rung for the match ranges.
 
-    Metrics beyond the JAX package's (``streamedJoins``): the port
-    counts the groups of each side that streamed against the other
+    Metrics beyond the JAX package's (``streamedJoins``,
+    ``subPartitionJoins``, ``partitionTime``): the port counts the groups
+    of each side that streamed against the other
     (``streamedLeftGroups``, ``streamedRightGroups``), so that a run can
     tell which side stayed whole.
     """
@@ -295,8 +351,6 @@ class TpuSortMergeJoinExec(TpuExec):
             raise _not_ported("right outer join (_execute_swapped)")
         if jt == "full":
             raise _not_ported("full outer join")
-        if jt == "cross" or not self.left_keys:
-            raise _not_ported("cross join (a join without equi keys)")
         if self.condition is not None:
             raise _not_ported(
                 "residual join condition (_apply_condition)")
@@ -309,9 +363,10 @@ class TpuSortMergeJoinExec(TpuExec):
         with self.timer("gatherTime"):
             l_list = _gather_list(self.children[0])
             r_list = _gather_list(self.children[1])
+        nokey = jt == "cross" or not self.left_keys
         cap = self.sub_partition_rows
         l_counts = r_counts = None
-        if cap and not self.broadcast:
+        if cap and not nokey and not self.broadcast:
             # run-time strategy pick by LIVE rows (one device read for
             # both sides): a filtered side keeps its scan bucket but may
             # hold few live rows
@@ -338,14 +393,14 @@ class TpuSortMergeJoinExec(TpuExec):
                     yield from self._semi_stream_right(
                         l_list, l_counts, r_list, jt)
                     return
-                raise _not_ported(
-                    "hash sub-partition join of two sides over "
-                    f"spark.rapids.tpu.join.targetRows={cap} "
-                    f"({l_live} and {r_live} live rows; "
-                    "_sub_partition_join)")
+                # neither side fits: hash-split both
+                self.metric("subPartitionJoins").add(1)
+                yield from self._sub_partition_join(
+                    l_list, r_list, jt, live_rows=max(l_live, r_live))
+                return
         # a broadcast join's streamed side honors the row cap in bounded
         # groups (the broadcast side is capped by the byte threshold)
-        if cap and self.broadcast and sum(
+        if cap and not nokey and self.broadcast and sum(
                 b.capacity for b in (l_list if self.broadcast == "right"
                                      else r_list)) > cap:
             yield from self._broadcast_streamed(l_list, r_list, jt)
@@ -353,14 +408,21 @@ class TpuSortMergeJoinExec(TpuExec):
         lb = self._concat(0, l_list, l_counts)
         rb = self._concat(1, r_list, r_counts)
         with self.timer():
-            outs = list(self._merge_join(lb, rb, jt))
+            if nokey:
+                cb, total = self._cross(lb, rb)
+                outs = list(self._rebatch(cb, total))
+            else:
+                outs = list(self._merge_join(lb, rb, jt))
         yield from self._emit(outs)
 
-    def _concat(self, side: int, batches, counts=None) -> DeviceBatch:
-        """One batch of a side's gathered batches (every child yields at
-        least one batch: a scan of no rows yields one with no live row)."""
-        return concat_device_batches(self.children[side].schema, batches,
-                                     counts=counts)
+    def _concat(self, side: int, batches, counts=None, device=None
+                ) -> DeviceBatch:
+        """One batch of a side's batches; an empty batch on ``device``
+        when there are none (a sub-partition that received no row)."""
+        schema = self.children[side].schema
+        if not batches:
+            return empty_batch(schema, device)
+        return concat_device_batches(schema, batches, counts=counts)
 
     def _emit(self, outs: List[DeviceBatch]) -> Iterator[DeviceBatch]:
         for o in outs:
@@ -414,6 +476,78 @@ class TpuSortMergeJoinExec(TpuExec):
         out = lb.with_sel(lb.sel & keep)
         yield from self._emit(list(self._rebatch(self._project_semi(out),
                                                  out.capacity)))
+
+    def _sub_partition_join(self, l_list, r_list, jt, depth: int = 0,
+                            live_rows: Optional[int] = None
+                            ) -> Iterator[DeviceBatch]:
+        """Two oversized sides: a recursive hash split [REF:
+        GpuSubPartitionHashJoin].  Both sides re-hash on the join keys
+        with a seed of their own per depth into k sub-partitions, and
+        each pair joins on its own: equal keys land in equal
+        sub-partitions, so every join type's semantics hold per pair.
+
+        k = ceil(rows / ``join.targetRows``) clamped to [2, 256], rows
+        being the larger side's live rows (measured by the caller) or,
+        on a re-split, its capacity.  A pair still above the row cap
+        re-splits with the next seed, up to depth 3 (a single hot key
+        can never spread by key hash: past the cap the pair joins
+        in-core).  Pairs whose output must be empty for the join type
+        are skipped."""
+        side_cap = live_rows if live_rows else max(
+            sum(b.capacity for b in l_list) or 1,
+            sum(b.capacity for b in r_list) or 1)
+        k_rows = (-(-side_cap // self.sub_partition_rows)
+                  if self.sub_partition_rows else 1)
+        k = max(2, min(256, k_rows))
+        canon = tuple(
+            type(le.dtype) is not type(re.dtype)
+            and isinstance(le.dtype, _INT_FAMILY)
+            for le, re in zip(self.left_keys, self.right_keys))
+        # not Spark's shuffle seed 42; one per depth, so that a skewed
+        # sub-partition's keys spread again on the re-split
+        sub_seed = 0x53504C54 + depth
+        dev = (l_list or r_list)[0].device
+        with self.timer("partitionTime"):
+            l_parts = split_by_pid(
+                l_list, make_pid_fn(self.left_keys, k, canon, sub_seed), k)
+            r_parts = split_by_pid(
+                r_list, make_pid_fn(self.right_keys, k, canon, sub_seed), k)
+        for lp, rp in zip(l_parts, r_parts):
+            # inner/semi emit only matched left rows: an empty side means
+            # an empty pair; left/anti must still emit a left side
+            if jt in ("inner", "left_semi") and (not lp or not rp):
+                continue
+            if not lp and jt in ("left", "left_anti"):
+                continue
+            if (self.sub_partition_rows and depth < 3
+                    and max(sum(b.capacity for b, _ in lp) or 1,
+                            sum(b.capacity for b, _ in rp) or 1)
+                    > self.sub_partition_rows):
+                yield from self._sub_partition_join(
+                    [b for b, _ in lp], [b for b, _ in rp], jt, depth + 1)
+                continue
+            lb = self._concat(0, [b for b, _ in lp], [n for _, n in lp],
+                              dev)
+            rb = self._concat(1, [b for b, _ in rp], [n for _, n in rp],
+                              dev)
+            with self.timer():
+                outs = list(self._merge_join(lb, rb, jt))
+            yield from self._emit(outs)
+
+    def _cross(self, lb: DeviceBatch, rb: DeviceBatch
+               ) -> Tuple[DeviceBatch, int]:
+        """The in-core cross product of two compacted batches: output
+        row j pairs left row j // nr with right row j % nr (one host read
+        of both live counts picks the output bucket)."""
+        nl, nr = torch.stack([lb.sel.sum(), rb.sel.sum()]).tolist()
+        total = nl * nr
+        bucket = round_up_pow2(max(total, 1))
+        j = torch.arange(bucket, dtype=torch.int64, device=lb.device)
+        l_idx = j // max(nr, 1)
+        r_idx = j % max(nr, 1)
+        out_live = j < total
+        return self._materialize(lb, rb, l_idx, r_idx, out_live, out_live,
+                                 out_live), total
 
     # -- core ---------------------------------------------------------------
     def _match_ranges(self, lb: DeviceBatch, rb: DeviceBatch):

@@ -1,7 +1,10 @@
 """Aggregate functions with Spark result-type and null semantics — the
-q1/q6 subset (``Sum``, ``Count``, ``CountStar``, ``Average``).
+subset of the ported TPC-H queries (``Sum``, ``Min``, ``Max``,
+``Count``, ``CountStar``, ``Average``, and ``CountDistinct``, which the
+DataFrame API rewrites away before execution).
 
-[REF: sql-plugin/../aggregate/ :: GpuSum, GpuCount, GpuAverage]
+[REF: sql-plugin/../aggregate/ :: GpuSum, GpuMin, GpuMax, GpuCount,
+ GpuAverage]
 
 The same partial/merge/final split as the JAX package's
 ``ops/aggregates.py``: ``buffer_kinds`` names the reduction of each
@@ -24,7 +27,7 @@ class AggregateFunction:
 
     # class attributes (NOT dataclass fields — subclasses override them)
     name = "agg"
-    # reduction kind per buffer column; this slice reduces only "sum"
+    # reduction kind per buffer column: "sum", "min" or "max"
     buffer_kinds = None
 
     @property
@@ -55,6 +58,30 @@ class Sum(AggregateFunction):
 
     def buffer_dtypes(self):
         return [self.result_dtype, T.LongT]
+
+
+class Min(AggregateFunction):
+    name = "min"
+    buffer_kinds = ["min"]
+
+    @property
+    def result_dtype(self):
+        return self.input_dtype
+
+    def buffer_dtypes(self):
+        return [self.input_dtype]
+
+
+class Max(AggregateFunction):
+    name = "max"
+    buffer_kinds = ["max"]
+
+    @property
+    def result_dtype(self):
+        return self.input_dtype
+
+    def buffer_dtypes(self):
+        return [self.input_dtype]
 
 
 class Count(AggregateFunction):
@@ -93,3 +120,15 @@ class Average(AggregateFunction):
 
     def buffer_dtypes(self):
         return [T.DoubleT, T.LongT]
+
+
+class CountDistinct(AggregateFunction):
+    """count(DISTINCT x): ``GroupedData.agg`` rewrites it into a two-level
+    aggregate (a dedup group-by on (keys, x) below a plain count), so it
+    never reaches an exec.  [REF: Spark's RewriteDistinctAggregates]"""
+
+    name = "count_distinct"
+
+    @property
+    def result_dtype(self):
+        return T.LongT

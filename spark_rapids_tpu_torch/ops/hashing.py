@@ -1,6 +1,7 @@
-"""Spark murmur3 column hashing in 32-bit lanes — the subset that the
-grouped aggregate's wide-key tuple hash uses (``ops/ordering.py::
-group_sort_limbs`` past ``GROUP_HASH_LIMB_CAP``).
+"""Spark murmur3 column hashing in 32-bit lanes — the grouped
+aggregate's wide-key tuple hash (``ops/ordering.py::group_sort_limbs``
+past ``GROUP_HASH_LIMB_CAP``) and the partition id of a key tuple that
+the join's hash sub-partitioning splits by (``make_pid_fn``).
 
 [REF: spark-rapids-jni :: src/main/cpp/src/murmur_hash.cu]
 
@@ -10,12 +11,15 @@ A counterpart of the vectorized half of the JAX package's
 for bit.  torch has no uint32 add or shift, so every u32 value is held
 in an int64 tensor in [0, 2^32) and every step is masked; a 32x32-bit
 multiply is split into 16-bit halves so that no int64 product
-overflows.  Exchange partitioning (``partition_ids_from_hash``), the
-xxhash64 family and the ``Murmur3Hash`` expression belong to the join
-and exchange slices.
+overflows.  ``partition_ids_from_hash`` and ``make_pid_fn`` are the
+JAX package's ``ops/hashing.py`` and ``parallel/shuffle.py`` functions
+of those names, bit for bit.  The xxhash64 family and the
+``Murmur3Hash`` expression belong to the exchange slice.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
@@ -158,3 +162,45 @@ def hash_f64_tpu_safe(data: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     h1 = _mix_h1(h, _mix_k1(lo_b))
     h1 = _mix_h1(h1, _mix_k1(hi_b))
     return _fmix(h1, 8)
+
+
+def partition_ids_from_hash(h_i32: torch.Tensor,
+                            num_partitions: int) -> torch.Tensor:
+    """Spark's ``pmod(hash, n)``: the non-negative partition id (int32)
+    of each signed 32-bit hash."""
+    r = torch.remainder(h_i32.to(torch.int64), num_partitions)
+    return r.to(torch.int32)
+
+
+def make_pid_fn(keys: Sequence, nparts: int,
+                canon_int64: Sequence[bool] = (),
+                seed: Optional[int] = None):
+    """batch -> int32 partition ids by Spark's murmur3 of the key tuple.
+
+    ``seed`` overrides the Spark shuffle seed (42): the join's hash
+    sub-partitioning re-hashes with a different seed per depth.
+    ``canon_int64[i]`` widens key i to int64 before hashing (the two
+    sides of a join whose int keys differ in width must agree on every
+    id).  Float keys are normalized first (-0.0 -> 0.0, one NaN): equal
+    keys must land in one partition."""
+    canon = tuple(canon_int64) or (False,) * len(keys)
+    seed_v = SEED if seed is None else seed
+
+    def pids(batch) -> torch.Tensor:
+        h = torch.full((batch.capacity,), seed_v & M32, dtype=torch.int64,
+                       device=batch.device)
+        for e, widen in zip(keys, canon):
+            c = e.eval(batch)
+            dt, data, valid = c.dtype, c.data, c.valid_mask()
+            if widen and not isinstance(dt, T.LongType):
+                data, dt = data.to(torch.int64), T.LongT
+            if isinstance(dt, T.DoubleType):
+                h = torch.where(valid, hash_f64_tpu_safe(data, h), h)
+                continue
+            if isinstance(dt, T.FloatType):
+                data = torch.where(data == 0.0, 0.0, data)
+            h = hash_column((data, c.lengths), dt, h, valid)
+        h_i32 = torch.where(h >= 1 << 31, h - (1 << 32), h)
+        return partition_ids_from_hash(h_i32, nparts)
+
+    return pids

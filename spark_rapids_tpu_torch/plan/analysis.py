@@ -1,12 +1,13 @@
 """Name resolution and implicit type coercion (the analyzer) — the subset
-of TPC-H q1, q3, q4 and q6.
+of the ported TPC-H queries.
 
 The counterpart of the JAX package's ``plan/analysis.py``: unresolved
 ``sql.column.UExpr`` trees become bound, typed ``ops.expressions``
 nodes against a schema, with Spark's implicit-cast rules (widest
-numeric type for binary ops, comparison operands unified, literal
-widenings folded).  An operator outside this slice raises
-``NotImplementedError`` naming it.
+numeric type for binary ops, comparison operands and CASE branches
+unified, both sides of a division cast to double; literal widenings
+fold into a new literal, a column's widening is a ``Cast``).  An
+operator outside the port raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional, Tuple
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.ops import aggregates as A
+from spark_rapids_tpu_torch.ops import datetime_ops as D
 from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops import strings as S
 from spark_rapids_tpu_torch.sql.column import UExpr
@@ -90,7 +92,8 @@ def common_type(a: T.DataType, b: T.DataType) -> T.DataType:
 
 def cast_to(e: E.Expression, dt: T.DataType) -> E.Expression:
     """Literal widenings fold into a new literal (as the JAX analyzer
-    does); a cast of a column is not ported yet."""
+    does); anything else becomes a ``Cast``, which raises for the casts
+    the port lacks (strings, dates, decimals)."""
     if e.dtype == dt:
         return e
     if isinstance(e, E.Literal):
@@ -103,7 +106,7 @@ def cast_to(e: E.Expression, dt: T.DataType) -> E.Expression:
             if isinstance(dt, (T.DoubleType, T.FloatType)) and isinstance(
                     v, (int, float)):
                 return E.Literal(float(v), dt)
-    raise _not_ported(f"Cast({e} as {dt})")
+    return E.Cast(e, dt)
 
 
 def _coerce_pair(l: E.Expression, r: E.Expression):
@@ -114,6 +117,21 @@ def _coerce_pair(l: E.Expression, r: E.Expression):
 _BIN_ARITH = {"add": E.Add, "sub": E.Subtract, "mul": E.Multiply}
 _BIN_CMP = {"eq": E.EqualTo, "lt": E.LessThan, "le": E.LessThanOrEqual,
             "gt": E.GreaterThan, "ge": E.GreaterThanOrEqual}
+_DATE_FIELD = {"year": D.Year}
+_TYPE_NAMES = {"int": T.IntegerT, "integer": T.IntegerT, "long": T.LongT,
+               "bigint": T.LongT, "short": T.ShortT, "byte": T.ByteT,
+               "float": T.FloatT, "double": T.DoubleT,
+               "string": T.StringT, "boolean": T.BooleanT,
+               "date": T.DateT, "timestamp": T.TimestampT}
+
+
+def _parse_type(s) -> T.DataType:
+    if isinstance(s, T.DataType):
+        return s
+    key = str(s).strip().lower()
+    if key not in _TYPE_NAMES:
+        raise _not_ported(f"cast to type {s!r}")
+    return _TYPE_NAMES[key]
 
 
 def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
@@ -141,6 +159,10 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
                                         f"got {side.dtype}")
         l, r = _coerce_pair(l, r)
         return _BIN_ARITH[op](l, r)
+    if op == "div":
+        l = resolve(u.children[0], schema)
+        r = resolve(u.children[1], schema)
+        return E.Divide(cast_to(l, T.DoubleT), cast_to(r, T.DoubleT))
     if op in _BIN_CMP:
         l = resolve(u.children[0], schema)
         r = resolve(u.children[1], schema)
@@ -159,10 +181,28 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
         return cls(cast_to(l, T.BooleanT), cast_to(r, T.BooleanT))
     if op == "not":
         return E.Not(resolve(u.children[0], schema))
+    if op == "casewhen":
+        kids = [resolve(c, schema) for c in u.children]
+        has_else = len(kids) % 2 == 1
+        pairs = [(kids[i], kids[i + 1]) for i in range(0, len(kids) - 1, 2)]
+        else_v = kids[-1] if has_else else None
+        ct = pairs[0][1].dtype
+        for _, v in pairs[1:]:
+            ct = common_type(ct, v.dtype)
+        if else_v is not None:
+            ct = common_type(ct, else_v.dtype)
+            else_v = cast_to(else_v, ct)
+        pairs = [(p, cast_to(v, ct)) for p, v in pairs]
+        return E.CaseWhen(pairs, else_v)
+    if op == "cast":
+        return E.Cast(resolve(u.children[0], schema), _parse_type(u.payload))
+    if op in _DATE_FIELD:
+        return _DATE_FIELD[op](resolve(u.children[0], schema))
     raise _not_ported(f"expression '{op}'")
 
 
-_AGG_MAP = {"sum": A.Sum, "avg": A.Average, "count": A.Count}
+_AGG_MAP = {"sum": A.Sum, "min": A.Min, "max": A.Max, "count": A.Count,
+            "avg": A.Average, "count_distinct": A.CountDistinct}
 
 
 def resolve_aggregate(u: UExpr, schema: T.StructType
@@ -182,9 +222,13 @@ def resolve_aggregate(u: UExpr, schema: T.StructType
     cls = _AGG_MAP.get(kind)
     if cls is None:
         raise _not_ported(f"aggregate '{kind}'")
-    if kind == "avg":
-        child = cast_to(child, T.DoubleT)
     if kind in ("sum", "avg") and not T.is_numeric(child.dtype):
         raise AnalysisException(f"{kind} needs a numeric input, got "
                                 f"{child.dtype}")
-    return cls(child), alias or f"{kind}({u.children[0]})"
+    if kind == "avg" or (kind == "sum"
+                         and isinstance(child.dtype, T.FloatType)):
+        child = cast_to(child, T.DoubleT)
+    fn = cls(child)
+    if kind == "count_distinct":
+        return fn, alias or f"count(DISTINCT {u.children[0]})"
+    return fn, alias or f"{kind}({u.children[0]})"

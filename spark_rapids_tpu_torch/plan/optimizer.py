@@ -27,14 +27,26 @@ def transform_expr(e: E.Expression, fn) -> E.Expression:
         changes = {}
         for f in dataclasses.fields(e):
             v = getattr(e, f.name)
-            if isinstance(v, E.Expression):
-                nv = transform_expr(v, fn)
-                if nv is not v:
-                    changes[f.name] = nv
+            nv = _transform_field(v, fn)
+            if nv is not v:
+                changes[f.name] = nv
         if changes:
             e = dataclasses.replace(e, **changes)
     out = fn(e)
     return e if out is None else out
+
+
+def _transform_field(v, fn):
+    """A field of an expression node: an expression, or a list/tuple of
+    them (``CaseWhen.branches`` holds (predicate, value) pairs)."""
+    if isinstance(v, E.Expression):
+        return transform_expr(v, fn)
+    if isinstance(v, (list, tuple)):
+        items = [_transform_field(x, fn) for x in v]
+        if all(a is b for a, b in zip(items, v)):
+            return v
+        return type(v)(items) if isinstance(v, tuple) else items
+    return v
 
 
 def collect_refs(e: E.Expression, out: Set[int]) -> None:

@@ -2,9 +2,10 @@
 
 The counterpart of the JAX package's ``sql/column.py``: operator
 overloading builds an unresolved ``UExpr`` tree; the analyzer
-(plan/analysis.py) resolves it against a schema.  This slice ports the
-arithmetic, comparison and boolean operators, ``alias`` and sort
-direction; the analyzer raises on anything else.
+(plan/analysis.py) resolves it against a schema.  The port has the
+arithmetic (division included), comparison and boolean operators,
+``alias``, ``cast``, ``between``, ``isin``, the ``when(...).otherwise(...)``
+chain and sort direction; the analyzer raises on anything else.
 """
 
 from __future__ import annotations
@@ -65,6 +66,12 @@ class Column:
     def __rmul__(self, o):
         return self._bin("mul", o, True)
 
+    def __truediv__(self, o):
+        return self._bin("div", o)
+
+    def __rtruediv__(self, o):
+        return self._bin("div", o, True)
+
     def __eq__(self, o):  # type: ignore[override]
         return self._bin("eq", o)
 
@@ -97,6 +104,41 @@ class Column:
 
     def alias(self, name: str) -> "Column":
         return Column(UExpr("alias", name, (self._u,)))
+
+    def cast(self, dtype) -> "Column":
+        return Column(UExpr("cast", dtype, (self._u,)))
+
+    def between(self, low, high) -> "Column":
+        return (self >= low) & (self <= high)
+
+    def isin(self, *values) -> "Column":
+        """Membership test [REF: Spark Column.isin], lowered as an OR
+        chain of equalities (no ``In`` expression)."""
+        if len(values) == 1 and isinstance(values[0], (list, tuple, set)):
+            values = tuple(values[0])
+        if not values:
+            return lit(False)
+        out = self == values[0]
+        for v in values[1:]:
+            out = out | (self == v)
+        return out
+
+    def when(self, cond: "Column", value) -> "Column":
+        u = self._u
+        if u.op != "casewhen" or u.payload == "closed":
+            raise TypeError("when() only chains after functions.when(...) "
+                            "and before otherwise()")
+        return Column(UExpr("casewhen", u.payload,
+                            u.children + (_to_uexpr(cond),
+                                          _to_uexpr(value))))
+
+    def otherwise(self, value) -> "Column":
+        u = self._u
+        if u.op != "casewhen" or u.payload == "closed":
+            raise TypeError("otherwise() only follows when() and may "
+                            "appear once")
+        return Column(UExpr("casewhen", "closed",
+                            u.children + (_to_uexpr(value),)))
 
     def asc(self) -> "Column":
         return Column(UExpr("sortorder", ("asc", "nulls_first"), (self._u,)))

@@ -1,9 +1,11 @@
-"""DataFrame API — the subset of TPC-H q1, q3, q4 and q6.
+"""DataFrame API — the subset of the ported TPC-H queries.
 
 The counterpart of the JAX package's ``sql/dataframe.py``:
-``select``, ``filter``, ``groupBy(...).agg``, ``agg``, ``orderBy``,
+``select``, ``withColumnRenamed``, ``filter``, ``groupBy(...).agg``
+(count(DISTINCT) rewritten into two aggregates), ``agg``, ``orderBy``,
 ``limit``, ``join`` (USING joins on column names and expression joins on
-a ``Column`` condition), and the actions ``toArrow`` and ``collect``.
+a ``Column`` condition), ``crossJoin``, and the actions ``toArrow`` and
+``collect``.
 Transformations build the logical plan eagerly (pyspark-style errors at
 the call site); actions optimize, plan onto the session's device and
 pump the exec tree.
@@ -17,6 +19,7 @@ import pyarrow as pa
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
+from spark_rapids_tpu_torch.ops import aggregates as A
 from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops.expressions import BoundReference
 from spark_rapids_tpu_torch.plan import analysis as AN
@@ -101,6 +104,10 @@ class DataFrame:
         return self._derive(L.Project(self._plan, exprs,
                                       T.StructType(tuple(fields))))
 
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        return self.select(*[(col(n).alias(new) if n == old else n)
+                             for n in self.columns])
+
     def filter(self, condition: Column) -> "DataFrame":
         if isinstance(condition, str):
             raise NotImplementedError("SQL-string filters not yet supported")
@@ -184,6 +191,9 @@ class DataFrame:
         return self._derive(L.Join(
             self._plan, other._plan, how, left_keys, right_keys, None,
             T.StructType(tuple(fields))))
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return self.join(other, on=[], how="cross")
 
     def _expression_join(self, other: "DataFrame", on: Column, how: str
                          ) -> "DataFrame":
@@ -288,9 +298,41 @@ class GroupedData:
                                             self.df.schema)
             fns.append(fn)
             names.append(name)
+        if any(isinstance(f, A.CountDistinct) for f in fns):
+            return self._agg_distinct(fns, names)
         fields = [T.StructField(n, g.dtype)
                   for n, g in zip(self.names, self.grouping)]
         fields += [T.StructField(n, f.result_dtype)
                    for n, f in zip(names, fns)]
         return self.df._derive(L.Aggregate(
             self.df._plan, self.grouping, fns, T.StructType(tuple(fields))))
+
+    def _agg_distinct(self, fns, names) -> DataFrame:
+        """count(DISTINCT x): Spark's RewriteDistinctAggregates shape — a
+        dedup group-by on (keys, x) below a plain count (null x groups
+        too, and ``count`` skips it)."""
+        if not all(isinstance(f, A.CountDistinct) for f in fns):
+            raise AN.AnalysisException(
+                "mixing distinct and non-distinct aggregates in one "
+                "agg() is not yet supported")
+        if len(fns) != 1:
+            raise AN.AnalysisException(
+                "multiple count(DISTINCT) aggregates in one agg() are "
+                "not yet supported")
+        fn = fns[0]
+        nk = len(self.grouping)
+        inner_fields = [T.StructField(f"k{i}", g.dtype)
+                        for i, g in enumerate(self.grouping)]
+        inner_fields.append(T.StructField("_dv", fn.child.dtype))
+        inner = L.Aggregate(self.df._plan,
+                            list(self.grouping) + [fn.child], [],
+                            T.StructType(tuple(inner_fields)))
+        outer_grouping = [BoundReference(i, g.dtype)
+                          for i, g in enumerate(self.grouping)]
+        fields = [T.StructField(n, g.dtype)
+                  for n, g in zip(self.names, self.grouping)]
+        fields.append(T.StructField(names[0], T.LongT))
+        return self.df._derive(L.Aggregate(
+            inner, outer_grouping,
+            [A.Count(BoundReference(nk, fn.child.dtype))],
+            T.StructType(tuple(fields))))

@@ -1,5 +1,6 @@
-"""pyspark.sql.functions-compatible surface — the q1/q6 subset
-(``col``, ``lit``, ``sum``, ``avg``, ``count``)."""
+"""pyspark.sql.functions-compatible surface — the subset of the ported
+TPC-H queries (``col``, ``lit``, ``when``, ``year``, ``sum``, ``avg``,
+``min``, ``max``, ``count``, ``countDistinct``)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ def _agg(op):
 
 
 sum = _agg("sum")  # noqa: A001
+min = _agg("min")  # noqa: A001
+max = _agg("max")  # noqa: A001
 avg = _agg("avg")
 
 
@@ -29,3 +32,16 @@ def count(c) -> Column:
     if isinstance(c, str) and c == "*":
         return Column(UExpr("agg", "count_star", (UExpr("lit", 1),)))
     return Column(UExpr("agg", "count", (_cu(c),)))
+
+
+def countDistinct(c) -> Column:
+    return Column(UExpr("agg", "count_distinct", (_cu(c),)))
+
+
+def when(cond: Column, value) -> Column:
+    return Column(UExpr("casewhen", None,
+                        (_to_uexpr(cond), _to_uexpr(value))))
+
+
+def year(c) -> Column:
+    return Column(UExpr("year", None, (_cu(c),)))

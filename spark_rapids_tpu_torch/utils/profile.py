@@ -1,13 +1,15 @@
-"""Where the time of TPC-H q1, q6, q3 and q4 goes: one run under
+"""Where the time of the ported TPC-H queries goes: one run under
 ``torch.profiler``.
 
-    python3 -m spark_rapids_tpu_torch.utils.profile
+    python3 -m spark_rapids_tpu_torch.utils.profile [q1 q5 ...]
 
-runs each query once warm and once traced at SF1 on the CUDA card and
+runs each query named (by default all fifteen of ``tpch.QUERIES``) once
+warm and once traced at SF1 on the CUDA card and
 prints, per query, one JSON line: the traced run's wall time, the
 device's busy time (the union of the intervals of every kernel and
 memory copy the card ran) and busy share, the host-to-device phase
-time from the plan's metrics, the kernels and copies that took the
+time from the plan's metrics, the host operators with the most self
+time and the kernel launches, the kernels and copies that took the
 most device time, and the device durations of the hand-written
 ``hash_pairs`` kernel's launches as the trace recorded them; then the
 kernel alone at three shapes, cold and warm (``profile_kernel``).  The
@@ -51,8 +53,8 @@ def _query(tpch_mod, query: str, session, tables):
 
 
 def profile_query(session, query: str, tables, top: int = 8) -> Dict:
-    """Run ``query`` ('q1', 'q3', 'q4' or 'q6') once under the
-    profiler; ``tables`` is ``tpch.gen_tpch``'s dict."""
+    """Run ``query`` (one of ``tpch.QUERIES``) once under the profiler;
+    ``tables`` is ``tpch.gen_tpch``'s dict."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
@@ -77,9 +79,15 @@ def profile_query(session, query: str, tables, top: int = 8) -> Dict:
             kernel_us.append(d)
     h2d = sum(m.get("transferTime", 0.0) for name, m in df.metrics()
               if name == "TpuScanExec")
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     out = {"query": query, "rows": tables["lineitem"].num_rows,
            "device": str(session.device), "traced_wall_s": wall,
-           "h2d_s": h2d}
+           "h2d_s": h2d,
+           "kernel_launches": sum(a.count for a in prof.key_averages()
+                                  if a.key.startswith("cudaLaunch")),
+           "top_host": [{"name": a.key[:60],
+                         "self_ms": a.self_cpu_time_total / 1e3,
+                         "count": a.count} for a in host[:top]]}
     if not intervals:
         out["device_busy_s"] = None  # no device trace: not measured
         return out
@@ -147,11 +155,13 @@ def profile_kernel(n_limbs: int, n: int, device: torch.device,
             **trace_kernel(lambda: CB.hash_pairs(limbs), device, iters)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import sys
     from spark_rapids_tpu_torch.sql.session import TpuSession
+    queries = list(sys.argv[1:] if argv is None else argv) or tpch.QUERIES
     session = TpuSession()
     tables = tpch.gen_tpch(1.0)
-    for q in ("q1", "q6", "q3", "q4"):
+    for q in queries:
         _query(tpch, q, session, tables).toArrow()  # warm
         print("[profile] " + json.dumps(profile_query(session, q, tables)),
               flush=True)

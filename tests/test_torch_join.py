@@ -132,3 +132,27 @@ def test_sf1_strategies_at_a_small_scale():
         chip_smoke.check_strategies(q, chip_smoke.join_strategies(df))
         ref = getattr(chip_smoke, "ref_" + q)(t)
         assert chip_smoke.rows_equal(got, ref)
+
+
+def test_sf1_strategies_of_the_new_queries_at_a_small_scale():
+    """The joins of q5 ... q21 take the strategies that chip_smoke.py
+    pins for SF1, reproduced at sf 0.05 with both thresholds scaled by
+    sf: autoBroadcastJoinThreshold 10 MB / 20 and join.targetRows
+    2^18 / 20 (table sizes and live rows scale with sf).  No join sits
+    near a threshold: the nearest are q5's in-core join, whose orders
+    side holds 0.83 of targetRows, and q19's broadcast of part, 6.8 of
+    the 10 MB.  Each result must also match chip_smoke.py's pyarrow
+    reference."""
+    t = tpch.gen_tpch(0.05)
+    s = TpuSession({"spark.sql.autoBroadcastJoinThreshold": (10 << 20) // 20,
+                    "spark.rapids.tpu.join.targetRows": (1 << 18) // 20},
+                   device="cpu")
+    import chip_smoke
+    for q in chip_smoke.STRATEGIES:
+        df = getattr(tpch, q)(s, t)
+        got = df.toArrow()
+        chip_smoke.check_strategies(q, chip_smoke.join_strategies(df))
+        ref = getattr(chip_smoke, "ref_" + q)(t)
+        assert got.column_names == ref.column_names, q
+        assert got.num_rows > 0, q
+        assert chip_smoke.rows_equal(got, ref), q

@@ -68,10 +68,9 @@ _LAYOUTS = {
 
 @pytest.mark.parametrize("how, layout", [
     (h, l) for h in ("inner", "left", "left_semi", "left_anti")
-    for l in _LAYOUTS
-    # a left join cannot stream its right side: the JAX package
-    # sub-partitions both sides there, which is not ported
-    if (h, l) != ("left", "streamRight")])
+    # a left join cannot stream its right side: both packages
+    # sub-partition both sides there
+    for l in _LAYOUTS])
 @pytest.mark.parametrize("keys", ["long", "int_x_long", "string",
                                   "string_widths", "double"])
 def test_join_types_match_jax(how, layout, keys):
@@ -165,6 +164,13 @@ def _raises_cases():
             r, (col("k") == col("rk")) & (col("a") < 100), "inner"
         ).toArrow()
 
+    def cross_condition():
+        left, right = _sides()
+        s = TpuSession(device="cpu")
+        r = s.createDataFrame(right).select(col("k").alias("rk"), col("b"))
+        return s.createDataFrame(left).join(
+            r, col("a") < col("rk"), "cross").toArrow()
+
     def bare_limit():
         left, _ = _sides()
         return TpuSession(device="cpu").createDataFrame(left).limit(
@@ -181,12 +187,13 @@ def _raises_cases():
     return [
         pytest.param(join("right"), "right outer join", id="right"),
         pytest.param(join("full"), "full outer join", id="full"),
-        pytest.param(join("cross", on=None), "cross join", id="cross"),
+        pytest.param(cross_condition, "residual join condition",
+                     id="cross_condition"),
         pytest.param(residual, "residual join condition", id="residual"),
         pytest.param(
-            join("inner", conf=dict(no_bc, **{
+            join("right", conf=dict(no_bc, **{
                 "spark.rapids.tpu.join.targetRows": 256})),
-            "hash sub-partition join", id="sub_partition"),
+            "right outer join", id="sub_partition_right"),
         pytest.param(
             join("inner", conf=dict(no_bc, **{
                 "spark.rapids.tpu.adaptive.enabled": True})),

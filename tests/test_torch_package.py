@@ -60,6 +60,11 @@ def test_import_check_covers_the_join_slice():
         assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
+def test_import_check_covers_the_tpch_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "spark_rapids_tpu_torch/ops/datetime_ops.py" in names
+
+
 def test_session_without_cpu_raises_when_cuda_is_unavailable(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
@@ -92,12 +97,13 @@ def _table():
 
 
 @pytest.mark.parametrize("build, what", [
-    (lambda df: df.select(col("a") + col("f")), "Cast"),
-    (lambda df: df.agg(F.avg("a")), "Cast"),
+    (lambda df: df.select(col("a").cast("string")), "Cast"),
+    (lambda df: df.agg(F._agg("first")("a")), "aggregate 'first'"),
     (lambda df: df.limit(2), "limit without an order-by"),
     (lambda df: df.select(Column(UExpr("isnull", None, (col("a")._u,)))),
      "expression 'isnull'"),
-    (lambda df: df.agg(F._agg("min")("a")), "aggregate 'min'"),
+    (lambda df: df.filter(Column(UExpr("like", "x%", (col("s")._u,)))),
+     "expression 'like'"),
 ])
 def test_outside_the_slice_raises(build, what):
     df = TpuSession(device="cpu").createDataFrame(_table())
