@@ -1,22 +1,37 @@
-"""String comparison over padded byte matrices — the subset of the JAX
-package's ``ops/strings.py`` that the join slice needs (TPC-H q3's
-``c_mktsegment == 'BUILDING'``): ``_pad_to``, ``_lex_lt_le``,
-``StringComparison`` and ``string_comparison``.  The analyzer routes
-every comparison of two strings here, as the JAX analyzer does.  The
-other string expressions (``Like``, ``Substring``, predicates, casts)
-are a later slice.
+"""String expressions over padded byte matrices — the subset of the JAX
+package's ``ops/strings.py`` that the TPC-H queries need.
+
+Strings are ``uint8[B, W]`` matrices with int32 lengths
+(``columnar/column.py``), so each expression here is a few vectorised
+tensor operations over the whole batch, as in the JAX package:
+
+- ``StringComparison`` (``==``, ``<``, ``<=``, ``>``, ``>=``; the
+  analyzer routes every comparison of two strings here);
+- ``Substring`` (1-based, byte-indexed, a negative position counts from
+  the end);
+- ``StringPredicate`` (``startswith``, ``endswith``, ``contains`` with a
+  literal pattern);
+- ``Like`` (SQL LIKE with a literal pattern: ``%``, ``_`` matching one
+  byte, backslash escape).
+
+A pattern search compares every shift at once: the windows
+``data.unfold(1, p, 1)`` (a view, ``[B, W - p + 1, p]``) against the
+pattern in one broadcast.  Length, the case maps, trim, locate,
+replace, concat, reverse, pad, the string casts and RLike are later
+slices; the analyzer raises ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Optional
 
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn, round_up_pow2
 from spark_rapids_tpu_torch.ops.expressions import (
-    Expression, merge_validity)
+    Expression, Literal, merge_validity)
 
 
 def _pad_to(col: DeviceColumn, w: int) -> torch.Tensor:
@@ -78,3 +93,209 @@ class StringComparison(Expression):
 
 def string_comparison(op: str, l: Expression, r: Expression) -> Expression:
     return StringComparison(op, l, r)
+
+
+def _pattern_tensor(pat: bytes, dev) -> torch.Tensor:
+    """The pattern's bytes on ``dev``, copied without waiting for the
+    device (the host buffer is staged at once)."""
+    return torch.tensor(list(pat), dtype=torch.uint8).to(dev,
+                                                         non_blocking=True)
+
+
+def _window_match(c: DeviceColumn, pat: bytes,
+                  wild: Optional[List[bool]] = None) -> torch.Tensor:
+    """``[B, W - p + 1]``: the pattern matches at shift s inside the
+    string (``lengths >= s + p``); ``wild[j]`` marks a byte that matches
+    anything.  Needs ``0 < p <= W``."""
+    p = len(pat)
+    dev = c.data.device
+    eq = c.data.unfold(1, p, 1) == _pattern_tensor(pat, dev)
+    if wild is not None and any(wild):
+        eq = eq | _pattern_tensor(bytes(wild), dev).to(torch.bool)
+    shifts = torch.arange(eq.shape[1], device=dev)
+    return eq.all(dim=2) & (c.lengths[:, None] >= shifts[None, :] + p)
+
+
+@dataclasses.dataclass
+class Substring(Expression):
+    """substring(str, pos, len) — 1-based, a negative pos counts from the
+    end; byte-indexed (exact for ASCII), as the JAX package's device
+    path.  The output width is ``round_up_pow2(min(max(len, 1), W), 8)``
+    (a string key's width decides its limb layout downstream); bytes
+    past each row's length are zero."""
+
+    child: Expression
+    pos: int
+    length: int
+
+    @property
+    def dtype(self):
+        return T.StringT
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        w = c.data.shape[1]
+        slen = c.lengths
+        if self.pos > 0:
+            start = torch.full_like(slen, self.pos - 1)
+        elif self.pos == 0:
+            start = torch.zeros_like(slen)
+        else:
+            start = torch.clamp(slen + self.pos, min=0)
+        out_len = torch.clamp(slen - start, 0, max(self.length, 0)).to(
+            torch.int32)
+        ow = round_up_pow2(min(max(self.length, 1), w), 8)
+        cols = torch.arange(ow, device=slen.device)
+        idx = torch.clamp(start[:, None].long() + cols[None, :], 0, w - 1)
+        data = torch.gather(c.data, 1, idx)
+        data = data * (cols[None, :] < out_len[:, None]).to(torch.uint8)
+        return DeviceColumn(T.StringT, data, c.validity, out_len)
+
+
+@dataclasses.dataclass
+class StringPredicate(Expression):
+    """startswith / endswith / contains with a literal pattern."""
+
+    op: str
+    left: Expression
+    right: Expression  # a Literal
+    dtype: T.DataType = dataclasses.field(default_factory=T.BooleanType)
+
+    @property
+    def name(self):
+        return {"startswith": "StartsWith", "endswith": "EndsWith",
+                "contains": "Contains"}[self.op]
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def _pattern(self) -> bytes:
+        if not isinstance(self.right, Literal):
+            raise NotImplementedError(
+                f"{self.name} on TPU requires a literal pattern")
+        return str(self.right.value).encode()
+
+    def eval(self, batch):
+        c = self.left.eval(batch)
+        pat = self._pattern()
+        p = len(pat)
+        b, w = c.data.shape
+        dev = c.data.device
+        validity = merge_validity(c.validity,
+                                  self.right.eval(batch).validity)
+        if p == 0 or p > w:
+            return DeviceColumn(self.dtype, torch.full(
+                (b,), p == 0, dtype=torch.bool, device=dev), validity)
+        pv = _pattern_tensor(pat, dev)
+        if self.op == "startswith":
+            data = (c.data[:, :p] == pv).all(dim=1) & (c.lengths >= p)
+        elif self.op == "endswith":
+            idx = torch.clamp(c.lengths[:, None].long() - p
+                              + torch.arange(p, device=dev)[None, :],
+                              0, w - 1)
+            data = ((torch.gather(c.data, 1, idx) == pv).all(dim=1)
+                    & (c.lengths >= p))
+        else:  # contains: a match at any shift
+            data = _window_match(c, pat).any(dim=1)
+        return DeviceColumn(self.dtype, data, validity)
+
+
+def string_predicate(op, l, r) -> Expression:
+    return StringPredicate(op, l, r)
+
+
+def _parse_like(pattern: str, escape: str = "\\"):
+    """LIKE pattern -> list of segments; a segment is a list of
+    (byte | None) where None = '_' (any byte).  Segments are the literal
+    runs between '%'s."""
+    segs: List[List] = [[]]
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if ch == escape and i + 1 < len(pattern):
+            segs[-1].extend(pattern[i + 1].encode())
+            i += 2
+            continue
+        if ch == "%":
+            segs.append([])
+        elif ch == "_":
+            segs[-1].append(None)
+        else:
+            segs[-1].extend(ch.encode())
+        i += 1
+    return segs
+
+
+@dataclasses.dataclass
+class Like(Expression):
+    """SQL LIKE with a literal pattern ('%', '_', backslash escape).
+
+    [REF: GpuLike] Greedy leftmost per '%'-separated segment: an
+    anchored head, each middle segment at its leftmost match at or after
+    the current position, and a tail that must end exactly at the
+    string's length; each segment's match-at-shift matrix is one
+    broadcast compare.  '_' matches one byte (exact for ASCII).
+    Validity is the child's."""
+
+    child: Expression
+    pattern: str
+    dtype: T.DataType = dataclasses.field(default_factory=T.BooleanType)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    @staticmethod
+    def _seg_match(c: DeviceColumn, seg) -> torch.Tensor:
+        """``[B, W + 1]`` — the segment matches starting at shift s
+        (s <= length - p); the shifts past W - p are False."""
+        b, w = c.data.shape
+        p = len(seg)
+        dev = c.data.device
+        if p == 0:
+            return (torch.arange(w + 1, device=dev)[None, :]
+                    <= c.lengths[:, None])
+        if p > w:
+            return torch.zeros((b, w + 1), dtype=torch.bool, device=dev)
+        m = _window_match(c, bytes(0 if by is None else by for by in seg),
+                          [by is None for by in seg])
+        return torch.nn.functional.pad(m, (0, p))
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        b, w = c.data.shape
+        dev = c.data.device
+        segs = _parse_like(self.pattern)
+        if len(segs) == 1:
+            seg = segs[0]
+            data = self._seg_match(c, seg)[:, 0] & (c.lengths == len(seg))
+            return DeviceColumn(self.dtype, data, c.validity)
+        head, mids, tail = segs[0], segs[1:-1], segs[-1]
+        shifts = torch.arange(w + 1, device=dev)[None, :]
+        ok = torch.ones((b,), dtype=torch.bool, device=dev)
+        pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        if head:
+            ok = ok & self._seg_match(c, head)[:, 0]
+            pos = torch.full((b,), len(head), dtype=torch.int32, device=dev)
+        for seg in mids:
+            if not seg:
+                continue
+            m = self._seg_match(c, seg) & (shifts >= pos[:, None])
+            found = m.any(dim=1)
+            ok = ok & found
+            # argmax returns the first maximum: the leftmost match (bool
+            # argmax is not on every build, hence uint8)
+            first = torch.argmax(m.to(torch.uint8), dim=1).to(torch.int32)
+            pos = torch.where(found, first + len(seg), pos)
+        if tail:
+            end_shift = c.lengths - len(tail)
+            m = self._seg_match(c, tail)
+            at_end = torch.gather(
+                m, 1, torch.clamp(end_shift, 0, w)[:, None].long())[:, 0]
+            ok = ok & at_end & (end_shift >= pos)
+        return DeviceColumn(self.dtype, ok, c.validity)

@@ -6,8 +6,9 @@ The counterpart of the JAX package's ``plan/analysis.py``: unresolved
 nodes against a schema, with Spark's implicit-cast rules (widest
 numeric type for binary ops, comparison operands and CASE branches
 unified, both sides of a division cast to double; literal widenings
-fold into a new literal, a column's widening is a ``Cast``).  An
-operator outside the port raises ``NotImplementedError`` naming it.
+fold into a new literal, a column's widening is a ``Cast``), and the
+string expressions LIKE, substring, startswith, endswith and contains.
+An operator outside the port raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -198,6 +199,17 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
         return E.Cast(resolve(u.children[0], schema), _parse_type(u.payload))
     if op in _DATE_FIELD:
         return _DATE_FIELD[op](resolve(u.children[0], schema))
+    if op == "like":
+        child = resolve(u.children[0], schema)
+        if not isinstance(child.dtype, T.StringType):
+            raise AnalysisException("like needs a string operand")
+        return S.Like(child, u.payload)
+    if op == "substring":
+        pos, ln = u.payload
+        return S.Substring(resolve(u.children[0], schema), pos, ln)
+    if op in ("startswith", "endswith", "contains"):
+        return S.string_predicate(op, resolve(u.children[0], schema),
+                                  resolve(u.children[1], schema))
     raise _not_ported(f"expression '{op}'")
 
 

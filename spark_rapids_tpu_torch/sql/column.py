@@ -3,9 +3,11 @@
 The counterpart of the JAX package's ``sql/column.py``: operator
 overloading builds an unresolved ``UExpr`` tree; the analyzer
 (plan/analysis.py) resolves it against a schema.  The port has the
-arithmetic (division included), comparison and boolean operators,
-``alias``, ``cast``, ``between``, ``isin``, the ``when(...).otherwise(...)``
-chain and sort direction; the analyzer raises on anything else.
+arithmetic (division included), comparison (``!=`` included) and
+boolean operators, ``alias``, ``cast``, ``between``, ``isin``, the
+``when(...).otherwise(...)`` chain, sort direction, and the string
+methods ``substr``, ``startswith``, ``endswith``, ``contains`` and
+``like``; the analyzer raises on anything else.
 """
 
 from __future__ import annotations
@@ -75,6 +77,10 @@ class Column:
     def __eq__(self, o):  # type: ignore[override]
         return self._bin("eq", o)
 
+    def __ne__(self, o):  # type: ignore[override]
+        """Spark's null-propagating ``!=``: NOT (a == b)."""
+        return Column(UExpr("not", None, (self._bin("eq", o)._u,)))
+
     def __lt__(self, o):
         return self._bin("lt", o)
 
@@ -122,6 +128,22 @@ class Column:
         for v in values[1:]:
             out = out | (self == v)
         return out
+
+    def substr(self, start, length) -> "Column":
+        return Column(UExpr("substring", (start, length), (self._u,)))
+
+    def startswith(self, o) -> "Column":
+        return self._bin("startswith", o)
+
+    def endswith(self, o) -> "Column":
+        return self._bin("endswith", o)
+
+    def contains(self, o) -> "Column":
+        return self._bin("contains", o)
+
+    def like(self, pattern: str) -> "Column":
+        """SQL LIKE ('%', '_', backslash escape), literal pattern."""
+        return Column(UExpr("like", pattern, (self._u,)))
 
     def when(self, cond: "Column", value) -> "Column":
         u = self._u

@@ -3,7 +3,7 @@
 The counterpart of the JAX package's ``sql/dataframe.py``:
 ``select``, ``withColumnRenamed``, ``filter``, ``groupBy(...).agg``
 (count(DISTINCT) rewritten into two aggregates), ``agg``, ``orderBy``,
-``limit``, ``join`` (USING joins on column names and expression joins on
+``limit``, ``distinct``, ``join`` (USING joins on column names and expression joins on
 a ``Column`` condition), ``crossJoin``, and the actions ``toArrow`` and
 ``collect``.
 Transformations build the logical plan eagerly (pyspark-style errors at
@@ -150,6 +150,9 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return self._derive(L.Limit(self._plan, n))
+
+    def distinct(self) -> "DataFrame":
+        return self.groupBy(*self.columns).agg()
 
     def join(self, other: "DataFrame", on=None, how: str = "inner"
              ) -> "DataFrame":

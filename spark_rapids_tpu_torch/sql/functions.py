@@ -1,6 +1,6 @@
 """pyspark.sql.functions-compatible surface — the subset of the ported
-TPC-H queries (``col``, ``lit``, ``when``, ``year``, ``sum``, ``avg``,
-``min``, ``max``, ``count``, ``countDistinct``)."""
+TPC-H queries (``col``, ``lit``, ``when``, ``year``, ``substring``,
+``sum``, ``avg``, ``min``, ``max``, ``count``, ``countDistinct``)."""
 
 from __future__ import annotations
 
@@ -45,3 +45,7 @@ def when(cond: Column, value) -> Column:
 
 def year(c) -> Column:
     return Column(UExpr("year", None, (_cu(c),)))
+
+
+def substring(c, pos, length) -> Column:
+    return Column(UExpr("substring", (pos, length), (_cu(c),)))

@@ -3,7 +3,7 @@
 
     python3 -m spark_rapids_tpu_torch.utils.profile [q1 q5 ...]
 
-runs each query named (by default all fifteen of ``tpch.QUERIES``) once
+runs each query named (by default all 22 of ``tpch.QUERIES``) once
 warm and once traced at SF1 on the CUDA card and
 prints, per query, one JSON line: the traced run's wall time, the
 device's busy time (the union of the intervals of every kernel and

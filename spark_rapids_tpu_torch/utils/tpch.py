@@ -1,5 +1,5 @@
-"""TPC-H's eight tables, and the builders of the fifteen queries that
-need no string pattern matching, for this port.
+"""TPC-H's eight tables, and the builders of the 22 queries, for this
+port.
 
 ``gen_tpch`` reproduces the repository's ``bench.gen_tpch`` exactly (the same rng streams
 ``default_rng([seed, k])``, the same draws in the same order, the same
@@ -11,10 +11,8 @@ or one ``random`` per row against the cumulative ``p``) without building
 a Python list of n strings; the formatted string columns are built
 column-wise with arrow compute.
 
-``q1``, ``q3``, ``q4``, ``q5``, ``q6``, ``q7``, ``q8``, ``q10``, ``q11``,
-``q12``, ``q15``, ``q17``, ``q18``, ``q19`` and ``q21`` transcribe
-``bench.py``'s builders onto this port's DataFrame API (those import the
-JAX package).
+``q1`` … ``q22`` transcribe ``bench.py``'s builders onto this port's
+DataFrame API (those import the JAX package).
 """
 
 from __future__ import annotations
@@ -293,6 +291,38 @@ def q1(session, li: pa.Table):
             .orderBy("l_returnflag", "l_linestatus"))
 
 
+def q2(session, t: Dict[str, pa.Table]):
+    """TPC-H q2 (``bench.q2``): minimum cost supplier — ``endswith`` on
+    ``p_type``, a subtree joined with its own per-part minimum on a long
+    and a double key, a top 100 over four keys."""
+    region = _t(session, t, "region", "r_regionkey", "r_name").filter(
+        col("r_name") == "EUROPE")
+    nation = _t(session, t, "nation", "n_nationkey", "n_regionkey",
+                "n_name")
+    supp = _t(session, t, "supplier", "s_suppkey", "s_nationkey",
+              "s_name", "s_acctbal", "s_address", "s_phone", "s_comment")
+    ps = _t(session, t, "partsupp", "ps_partkey", "ps_suppkey",
+            "ps_supplycost")
+    part = _t(session, t, "part", "p_partkey", "p_mfgr", "p_size",
+              "p_type").filter(
+        (col("p_size") == 15) & col("p_type").endswith("BRASS"))
+    euro = (region.join(nation,
+                        col("r_regionkey") == col("n_regionkey"))
+            .join(supp, col("n_nationkey") == col("s_nationkey"))
+            .join(ps, col("s_suppkey") == col("ps_suppkey")))
+    j = part.join(euro, col("p_partkey") == col("ps_partkey"))
+    minc = (j.groupBy("p_partkey")
+            .agg(F.min(col("ps_supplycost")).alias("min_cost"))
+            .withColumnRenamed("p_partkey", "mc_partkey"))
+    return (j.join(minc, (col("p_partkey") == col("mc_partkey"))
+                   & (col("ps_supplycost") == col("min_cost")))
+            .select("s_acctbal", "s_name", "n_name", "p_partkey",
+                    "p_mfgr", "s_address", "s_phone", "s_comment")
+            .orderBy(col("s_acctbal").desc(), col("n_name"),
+                     col("s_name"), col("p_partkey"))
+            .limit(100))
+
+
 def q3(session, t: Dict[str, pa.Table]):
     """TPC-H q3 (``bench.q3``): shipping priority — two inner joins, a
     grouped sum and a top 10."""
@@ -436,6 +466,34 @@ def q8(session, t: Dict[str, pa.Table]):
             .orderBy("o_year"))
 
 
+def q9(session, t: Dict[str, pa.Table]):
+    """TPC-H q9 (``bench.q9``): product type profit — ``contains`` on
+    ``p_name``, six tables, a two-key join with partsupp."""
+    part = _t(session, t, "part", "p_partkey", "p_name").filter(
+        col("p_name").contains("green"))
+    li = _t(session, t, "lineitem", "l_orderkey", "l_partkey",
+            "l_suppkey", "l_quantity", "l_extendedprice", "l_discount")
+    supp = _t(session, t, "supplier", "s_suppkey", "s_nationkey")
+    ps = _t(session, t, "partsupp", "ps_partkey", "ps_suppkey",
+            "ps_supplycost")
+    orders = _t(session, t, "orders", "o_orderkey", "o_orderdate")
+    nation = _t(session, t, "nation", "n_nationkey", "n_name")
+    j = (li.join(part, col("l_partkey") == col("p_partkey"))
+         .join(supp, col("l_suppkey") == col("s_suppkey"))
+         .join(ps, (col("ps_partkey") == col("l_partkey"))
+               & (col("ps_suppkey") == col("l_suppkey")))
+         .join(orders, col("l_orderkey") == col("o_orderkey"))
+         .join(nation, col("s_nationkey") == col("n_nationkey"))
+         .select(col("n_name").alias("nation"),
+                 F.year(col("o_orderdate")).alias("o_year"),
+                 (col("l_extendedprice") * (1 - col("l_discount"))
+                  - col("ps_supplycost") * col("l_quantity"))
+                 .alias("amount")))
+    return (j.groupBy("nation", "o_year")
+            .agg(F.sum(col("amount")).alias("sum_profit"))
+            .orderBy(col("nation"), col("o_year").desc()))
+
+
 def q10(session, t: Dict[str, pa.Table]):
     """TPC-H q10 (``bench.q10``): returned item reporting — three joins,
     a grouped sum over a double and a string key, a top 20."""
@@ -504,6 +562,40 @@ def q12(session, t: Dict[str, pa.Table]):
             .orderBy("l_shipmode"))
 
 
+def q13(session, t: Dict[str, pa.Table]):
+    """TPC-H q13 (``bench.q13``): customer distribution — ``NOT LIKE``
+    over ``o_comment``, a left outer join, a count over a count."""
+    orders = (_t(session, t, "orders", "o_orderkey", "o_custkey",
+                 "o_comment")
+              .filter(~col("o_comment").like("%special%requests%"))
+              .select("o_orderkey", "o_custkey"))
+    cust = _t(session, t, "customer", "c_custkey")
+    per_cust = (cust.join(orders, col("c_custkey") == col("o_custkey"),
+                          "left")
+                .groupBy("c_custkey")
+                .agg(F.count(col("o_orderkey")).alias("c_count")))
+    return (per_cust.groupBy("c_count")
+            .agg(F.count("*").alias("custdist"))
+            .orderBy(col("custdist").desc(), col("c_count").desc()))
+
+
+def q14(session, t: Dict[str, pa.Table]):
+    """TPC-H q14 (``bench.q14``): promotion effect — ``LIKE 'PROMO%'``
+    inside a CASE sum."""
+    li = _t(session, t, "lineitem", "l_partkey", "l_extendedprice",
+            "l_discount", "l_shipdate").filter(
+        (col("l_shipdate") >= _D(1995, 9, 1))
+        & (col("l_shipdate") < _D(1995, 10, 1)))
+    part = _t(session, t, "part", "p_partkey", "p_type")
+    vol = col("l_extendedprice") * (1 - col("l_discount"))
+    promo = F.when(col("p_type").like("PROMO%"), vol).otherwise(0.0)
+    return (li.join(part, col("l_partkey") == col("p_partkey"))
+            .agg(F.sum(promo).alias("promo"),
+                 F.sum(vol).alias("total"))
+            .select((100.0 * col("promo")
+                     / col("total")).alias("promo_revenue")))
+
+
 def q15(session, t: Dict[str, pa.Table]):
     """TPC-H q15 (``bench.q15``): top supplier — a grouped sum crossed
     with its own global max."""
@@ -524,6 +616,30 @@ def q15(session, t: Dict[str, pa.Table]):
             .select("s_suppkey", "s_name", "s_address", "s_phone",
                     "total_revenue")
             .orderBy("s_suppkey"))
+
+
+def q16(session, t: Dict[str, pa.Table]):
+    """TPC-H q16 (``bench.q16``): parts/supplier relationship — ``!=``
+    and ``NOT LIKE`` on strings, a left anti join, count(DISTINCT) over
+    three group keys."""
+    bad_supp = (_t(session, t, "supplier", "s_suppkey", "s_comment")
+                .filter(col("s_comment")
+                        .like("%Customer%Complaints%"))
+                .select("s_suppkey"))
+    part = _t(session, t, "part", "p_partkey", "p_brand", "p_type",
+              "p_size").filter(
+        (col("p_brand") != "Brand#45")
+        & ~col("p_type").like("MEDIUM POLISHED%")
+        & col("p_size").isin(49, 14, 23, 45, 19, 3, 36, 9))
+    ps = _t(session, t, "partsupp", "ps_partkey", "ps_suppkey")
+    return (part.join(ps, col("p_partkey") == col("ps_partkey"))
+            .join(bad_supp, col("ps_suppkey") == col("s_suppkey"),
+                  "left_anti")
+            .groupBy("p_brand", "p_type", "p_size")
+            .agg(F.countDistinct(col("ps_suppkey"))
+                 .alias("supplier_cnt"))
+            .orderBy(col("supplier_cnt").desc(), col("p_brand"),
+                     col("p_type"), col("p_size")))
 
 
 def q17(session, t: Dict[str, pa.Table]):
@@ -599,6 +715,37 @@ def q19(session, t: Dict[str, pa.Table]):
                        * (1 - col("l_discount"))).alias("revenue")))
 
 
+def q20(session, t: Dict[str, pa.Table]):
+    """TPC-H q20 (``bench.q20``): potential part promotion —
+    ``startswith``, two semi joins, a two-key join, ``distinct``."""
+    NB = "NATION_03"
+    halfq = (_t(session, t, "lineitem", "l_partkey", "l_suppkey",
+                "l_quantity", "l_shipdate")
+             .filter((col("l_shipdate") >= _D(1994, 1, 1))
+                     & (col("l_shipdate") < _D(1995, 1, 1)))
+             .groupBy("l_partkey", "l_suppkey")
+             .agg(F.sum(col("l_quantity")).alias("sq")))
+    forest = _t(session, t, "part", "p_partkey", "p_name").filter(
+        col("p_name").startswith("forest")).select("p_partkey")
+    ps = (_t(session, t, "partsupp", "ps_partkey", "ps_suppkey",
+             "ps_availqty")
+          .join(forest, col("ps_partkey") == col("p_partkey"),
+                "left_semi")
+          .join(halfq, (col("ps_partkey") == col("l_partkey"))
+                & (col("ps_suppkey") == col("l_suppkey")))
+          .filter(col("ps_availqty") > 0.5 * col("sq"))
+          .select("ps_suppkey").distinct())
+    nation = _t(session, t, "nation", "n_nationkey", "n_name").filter(
+        col("n_name") == NB)
+    supp = _t(session, t, "supplier", "s_suppkey", "s_name",
+              "s_address", "s_nationkey").join(
+        nation, col("s_nationkey") == col("n_nationkey"))
+    return (supp.join(ps, col("s_suppkey") == col("ps_suppkey"),
+                      "left_semi")
+            .select("s_name", "s_address")
+            .orderBy("s_name"))
+
+
 def q21(session, t: Dict[str, pa.Table]):
     """TPC-H q21 (``bench.q21``): suppliers who kept orders waiting —
     two count(DISTINCT) group-bys joined back to late lineitems."""
@@ -634,7 +781,30 @@ def q21(session, t: Dict[str, pa.Table]):
             .limit(100))
 
 
-# the fifteen ported queries, in TPC-H order; q1 and q6 take lineitem,
-# the others the dict of tables
-QUERIES = ("q1", "q3", "q4", "q5", "q6", "q7", "q8", "q10", "q11", "q12",
-           "q15", "q17", "q18", "q19", "q21")
+def q22(session, t: Dict[str, pa.Table]):
+    """TPC-H q22 (``bench.q22``): global sales opportunity —
+    ``substring``, ``isin`` on strings, a cross join with an average, a
+    left anti join with orders."""
+    codes = ("13", "31", "23", "29", "30", "18", "17")
+    cust = (_t(session, t, "customer", "c_custkey", "c_phone",
+               "c_acctbal")
+            .select(col("c_custkey"), col("c_acctbal"),
+                    F.substring(col("c_phone"), 1, 2)
+                    .alias("cntrycode"))
+            .filter(col("cntrycode").isin(*codes)))
+    avg_bal = (cust.filter(col("c_acctbal") > 0.0)
+               .agg(F.avg(col("c_acctbal")).alias("ab")))
+    orders = _t(session, t, "orders", "o_custkey")
+    return (cust.crossJoin(avg_bal)
+            .filter(col("c_acctbal") > col("ab"))
+            .join(orders, col("c_custkey") == col("o_custkey"),
+                  "left_anti")
+            .groupBy("cntrycode")
+            .agg(F.count("*").alias("numcust"),
+                 F.sum(col("c_acctbal")).alias("totacctbal"))
+            .orderBy("cntrycode"))
+
+
+# the 22 queries, in TPC-H order; q1 and q6 take lineitem, the others
+# the dict of tables
+QUERIES = tuple(f"q{i}" for i in range(1, 23))

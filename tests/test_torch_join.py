@@ -135,14 +135,14 @@ def test_sf1_strategies_at_a_small_scale():
 
 
 def test_sf1_strategies_of_the_new_queries_at_a_small_scale():
-    """The joins of q5 ... q21 take the strategies that chip_smoke.py
+    """The joins of q2, q5 ... q22 take the strategies that chip_smoke.py
     pins for SF1, reproduced at sf 0.05 with both thresholds scaled by
     sf: autoBroadcastJoinThreshold 10 MB / 20 and join.targetRows
-    2^18 / 20 (table sizes and live rows scale with sf).  No join sits
-    near a threshold: the nearest are q5's in-core join, whose orders
-    side holds 0.83 of targetRows, and q19's broadcast of part, 6.8 of
-    the 10 MB.  Each result must also match chip_smoke.py's pyarrow
-    reference."""
+    2^18 / 20 (table sizes and live rows scale with sf).  The nearest
+    to a threshold: q9's lineitems of green parts, ~0.96 of targetRows;
+    q2's and q16's filtered part, 1.04 and 0.93 of the 10 MB; q5's
+    in-core join, whose orders side holds 0.83 of targetRows.  Each
+    result must also match chip_smoke.py's pyarrow reference."""
     t = tpch.gen_tpch(0.05)
     s = TpuSession({"spark.sql.autoBroadcastJoinThreshold": (10 << 20) // 20,
                     "spark.rapids.tpu.join.targetRows": (1 << 18) // 20},
@@ -154,5 +154,8 @@ def test_sf1_strategies_of_the_new_queries_at_a_small_scale():
         chip_smoke.check_strategies(q, chip_smoke.join_strategies(df))
         ref = getattr(chip_smoke, "ref_" + q)(t)
         assert got.column_names == ref.column_names, q
-        assert got.num_rows > 0, q
+        # q22's anti join keeps nobody at this scale: its input has rows
+        assert got.num_rows > 0 or (
+            q == "q22"
+            and chip_smoke.ref_q22_before_anti(t).num_rows > 0), q
         assert chip_smoke.rows_equal(got, ref), q

@@ -102,8 +102,8 @@ def _table():
     (lambda df: df.limit(2), "limit without an order-by"),
     (lambda df: df.select(Column(UExpr("isnull", None, (col("a")._u,)))),
      "expression 'isnull'"),
-    (lambda df: df.filter(Column(UExpr("like", "x%", (col("s")._u,)))),
-     "expression 'like'"),
+    (lambda df: df.filter(Column(UExpr("rlike", "x.*", (col("s")._u,)))),
+     "expression 'rlike'"),
 ])
 def test_outside_the_slice_raises(build, what):
     df = TpuSession(device="cpu").createDataFrame(_table())

@@ -1,6 +1,8 @@
 """The ported TPC-H slice on the CUDA card, where a CPU run cannot show
-a fault: float sums in atomic order.  Imports neither JAX nor the JAX
-package, so that it also runs on a machine with a card and no JAX:
+a fault: float sums in atomic order, and the seven string-pattern
+queries on the card against the same queries on the CPU.  Imports
+neither JAX nor the JAX package, so that it also runs on a machine with
+a card and no JAX:
 
     python3 -m pytest --noconftest -m gpu tests/test_torch_tpch_card.py
 
@@ -9,6 +11,8 @@ Every test carries the ``gpu`` marker and skips without a card.
 
 import pytest
 import torch
+
+import chip_smoke
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
@@ -20,8 +24,8 @@ from spark_rapids_tpu_torch.utils import tpch
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: atomic float adds run in a varying "
-                    "order only on the card")
+        pytest.skip("no CUDA device: these tests hold the port on the "
+                    "card")
     return torch.device("cuda")
 
 
@@ -51,3 +55,28 @@ def test_q15_finds_its_top_supplier_in_every_run(cuda_device):
     session = TpuSession(device=cuda_device)
     for _ in range(5):
         assert tpch.q15(session, t).toArrow().num_rows == 1
+
+
+@pytest.fixture(scope="module")
+def small_tables():
+    t = tpch.gen_tpch(0.01)
+    few = dict(t)  # q22 keeps customers only where orders are few
+    few["orders"] = t["orders"].slice(0, t["orders"].num_rows // 10)
+    return t, few
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("query",
+                         chip_smoke.STRING_QUERIES + ("q22_few_orders",))
+def test_string_query_on_the_card_equals_the_cpu(cuda_device, small_tables,
+                                                 query):
+    """Each string-pattern query gives the same rows on the card as on the
+    CPU (floats within 1e-9 relative), at sf 0.01."""
+    t, few = small_tables
+    q, tables = (("q22", few) if query == "q22_few_orders"
+                 else (query, t))
+    got = getattr(tpch, q)(TpuSession(device=cuda_device), tables).toArrow()
+    want = getattr(tpch, q)(TpuSession(device="cpu"), tables).toArrow()
+    assert got.schema == want.schema
+    assert chip_smoke.rows_equal(got, want)
+    assert got.num_rows > 0 or q == "q22"
