@@ -27,24 +27,48 @@ result line is not printed):
    1,500,000 orders, 150,000 customer, 200,000 part, 800,000 partsupp
    and 10,000 supplier rows, 25 nations, 5 regions) through the port's
    DataFrame API on ``device="cuda"`` — the main path, one query at a
-   time: the kernel's launch counts are set to 0 just before each
-   query and read just after, and the hash-collision fallback count
-   must stay 0.  Each result is checked against an independent pyarrow
-   computation (``ref_q*``: keys and counts exactly, floats within 1e-9
-   relative) and against the exact ``jnp`` rung on the card; every
-   join must take the strategy of the JAX package's plan at SF1
-   (``check_strategies``, read from the joins' metrics); prints the
-   median wall time of 3 warm runs per query, its H2D share and the
+   time: the device scan cache is cleared, and the query's first run
+   (its cold wall, which pays the host-to-device transfer) has the
+   kernel's launch counts set to 0 just before and read just after;
+   the hash-collision fallback count must stay 0.  Each result is
+   checked against an independent pyarrow computation (``ref_q*``: keys
+   and counts exactly, floats within 1e-9 relative) and against the
+   exact ``jnp`` rung on the card; every join must take the strategy of
+   the JAX package's plan at SF1 (``check_strategies``, read from the
+   joins' metrics).  3 warm runs follow, each of which must read every
+   scan from the cache (``transferTime`` 0) and match the reference;
+   prints the cold wall and its H2D share, the median warm wall and the
    kernel's launches, and for the seven string queries the ``opTime``
    of each filter or project holding a string pattern and the
    ``transferTime`` of the scans of string columns.  q22's reference
    may be empty (its anti join can keep nobody); then the customers
    that reach its anti join must not be;
-5. the string expressions of those queries (LIKE, NOT LIKE,
+5. ``[scan cache]``: every query once more without clearing the cache,
+   so that all 22 queries' tables are resident together; the memory
+   arbiter's budget, ``peakReserved``, the cached bytes and entries and
+   ``torch.cuda.max_memory_allocated`` — nothing may spill;
+6. ``[spill]``: q3 twice in a fresh arbiter whose pool holds about 1.5
+   of the 2^20-row lineitem batches q3 caches (at least q3's largest
+   single reservation): the first run's registrations and joins spill
+   the oldest entries to host, the second restores them; both equal
+   q3, with spilled and restored bytes above 0;
+7. ``[dict decode]``: q1, q12 and q19 cold over a lineitem whose four
+   low-cardinality string columns are dictionary-encoded (indices cross
+   to the card, which gathers the strings): each equals its plain run
+   and the reference; their cold H2D beside the plain cold H2D;
+8. ``[join variant]``: the four ``JOIN_VARIANTS`` of ``utils/tpch.py``
+   (``q13_right``, ``q17_cond``, ``q22_cond``, ``q3_full``) at SF1, each
+   driven as a path of its own (cache cleared, counts to 0 before its
+   cold run, read after): against pyarrow's right and full outer joins
+   (``ref_*``), their base queries (the same rows in the same order),
+   the exact rung and their strategies (``VARIANT_STRATEGIES``; q3_full
+   sub-partitions into k = 3); then 3 warm runs;
+9. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-6. the kernel at every shape the main path launched it with, timed as
+10. the kernel at every shape the main path (queries and variants)
+   launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
    ``torch.profiler`` after an L2-evicting write (``traced_ms``) and
@@ -53,7 +77,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-7. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+11. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -944,6 +968,52 @@ def ref_q22(t):
                     names=["cntrycode", "numcust", "totacctbal"])
 
 
+# the join variants (utils/tpch.py::JOIN_VARIANTS): pyarrow's right and
+# full outer joins, and a filter after an inner join (for q17_cond and
+# q22_cond, their base queries' references are exactly that)
+def ref_q13_right(t):
+    """q13_right by pyarrow's right outer join."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    o = t["orders"]
+    o = o.filter(pc.invert(_like(o["o_comment"], "%special%requests%")))
+    j = o.select(["o_orderkey", "o_custkey"]).join(
+        t["customer"].select(["c_custkey"]), keys="o_custkey",
+        right_keys="c_custkey", join_type="right outer",
+        coalesce_keys=False)
+    per = j.group_by("c_custkey").aggregate([("o_orderkey", "count")])
+    n = per["o_orderkey_count"]
+    g = pa.table({"c_count": n, "x": n}).group_by("c_count").aggregate(
+        [("x", "count")])
+    return pa.table([g["c_count"], g["x_count"]],
+                    names=["c_count", "custdist"])
+
+
+ref_q17_cond = ref_q17
+ref_q22_cond = ref_q22
+
+
+def ref_q3_full(t):
+    """q3_full by pyarrow's full outer join."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    c = t["customer"]
+    c = c.filter(pc.equal(c["c_mktsegment"], "BUILDING")).select(
+        ["c_custkey"])
+    o = t["orders"]
+    o = o.filter(pc.less(o["o_orderdate"], _date(1995, 3, 15))).select(
+        ["o_orderkey", "o_custkey", "o_totalprice"])
+    j = c.join(o, keys="c_custkey", right_keys="o_custkey",
+               join_type="full outer", coalesce_keys=False)
+    return pa.table({
+        "n": pa.array([j.num_rows], pa.int64()),
+        "n_cust": pa.array([pc.count(j["c_custkey"]).as_py()], pa.int64()),
+        "n_orders": pa.array([pc.count(j["o_orderkey"]).as_py()],
+                             pa.int64()),
+        "total_price": pa.array([pc.sum(j["o_totalprice"]).as_py()],
+                                pa.float64())})
+
+
 def rows_equal(a, b, tol=1e-9):
     """Row multiset equality: floats within ``tol`` relative (absolute
     below 1), everything else exactly — the repository's oracle rule."""
@@ -982,13 +1052,15 @@ def join_strategies(df) -> list:
             m = {k: v.value for k, v in node.metrics.items()}
             out.append({"join_type": node.join_type,
                         "broadcast": node.broadcast,
+                        "keys": len(node.left_keys),
                         "streamedJoins": m.get("streamedJoins", 0),
                         "streamedLeftGroups": m.get(
                             "streamedLeftGroups", 0),
                         "streamedRightGroups": m.get(
                             "streamedRightGroups", 0),
                         "subPartitionJoins": m.get(
-                            "subPartitionJoins", 0)})
+                            "subPartitionJoins", 0),
+                        "subPartitions": m.get("subPartitions", 0)})
         for c in node.children:
             walk(c)
 
@@ -1040,7 +1112,21 @@ STRATEGIES = {
     "q22": ("anti streamed right", "cross bc right"),
 }
 _JOIN_PREFIX = {"semi": "left_semi", "left": "left", "anti": "left_anti",
-                "cross": "cross"}
+                "cross": "cross", "right": "right", "full": "full"}
+# the join variants' plans at SF1: q13_right's right join runs as q13's
+# left join with the sides swapped (its strategy metrics are forwarded to
+# the right join's node) and sub-partitions; q3_full's full join must not
+# stream, its left side fits the row cap and its right side (~727k live
+# orders) does not: it sub-partitions into k = 3; q17_cond and q22_cond
+# keep their base queries' strategies ("cross" names a join without an
+# equi key, here an inner join with a condition)
+VARIANT_STRATEGIES = {
+    "q13_right": ("right sub",),
+    "q17_cond": STRATEGIES["q17"],
+    "q22_cond": STRATEGIES["q22"],
+    "q3_full": ("full sub",),
+}
+VARIANT_SUB_PARTITIONS = {"q3_full": 3}
 
 
 def _strategy_holds(want: str, j: dict) -> bool:
@@ -1048,6 +1134,8 @@ def _strategy_holds(want: str, j: dict) -> bool:
     head, _, rest = want.partition(" ")
     if head in _JOIN_PREFIX:
         jt, want = _JOIN_PREFIX[head], rest or "in-core"
+    if jt == "cross" and j["join_type"] == "inner" and j["keys"] == 0:
+        jt = "inner"  # an inner join without an equi key: a cross product
     if j["join_type"] != jt:
         return False
     streamed = (j["streamedJoins"], j["streamedLeftGroups"] > 0,
@@ -1102,6 +1190,55 @@ def check_strategies(q: str, joins: list) -> None:
                   f"{q} join {i} (root first): want {w}, got {j}")
     else:
         check(not joins, f"{q} has joins")
+
+
+def check_variant_strategies(v: str, joins: list) -> None:
+    want = VARIANT_STRATEGIES[v]
+    check(len(joins) == len(want), f"{v} has {len(joins)} joins")
+    for i, (w, j) in enumerate(zip(want, joins)):
+        check(_strategy_holds(w, j),
+              f"{v} join {i} (root first): want {w}, got {j}")
+    if v in VARIANT_SUB_PARTITIONS:
+        check(joins[0]["subPartitions"] == VARIANT_SUB_PARTITIONS[v],
+              f"{v}: k = {joins[0]['subPartitions']}, want "
+              f"{VARIANT_SUB_PARTITIONS[v]}")
+
+
+def build_on(q: str, session, tables):
+    """A query or join variant of ``utils/tpch.py`` over ``tables`` (q1
+    and q6 take lineitem alone)."""
+    from spark_rapids_tpu_torch.utils import tpch
+    return getattr(tpch, q)(session, tables["lineitem"] if q in ("q1", "q6")
+                            else tables)
+
+
+def scan_transfer_times(df) -> list:
+    """Each scan's ``transferTime`` in the last run (0 when it read the
+    scan cache)."""
+    return [m.get("transferTime", 0.0) for name, m in df.metrics()
+            if name == "TpuScanExec"]
+
+
+def cache_entries() -> list:
+    """(column names, spillable batch) of every cached scan batch."""
+    from spark_rapids_tpu_torch.exec import basic as B
+    return [(sp.schema.field_names(), sp)
+            for entries in list(B._scan_cache.values())
+            for pairs in entries.values() for sp, _ in pairs]
+
+
+DICT_COLUMNS = ("l_returnflag", "l_linestatus", "l_shipmode",
+                "l_shipinstruct")
+
+
+def dictionary_lineitem(li):
+    """lineitem with its four low-cardinality string columns
+    dictionary-encoded."""
+    import pyarrow.compute as pc
+    for name in DICT_COLUMNS:
+        li = li.set_column(li.column_names.index(name), name,
+                           pc.dictionary_encode(li[name]))
+    return li
 
 
 STRING_QUERIES = ("q2", "q9", "q13", "q14", "q16", "q20", "q22")
@@ -1197,6 +1334,252 @@ def string_expr_times(tables, session) -> list:
     return rows
 
 
+def timed(df):
+    """Run a DataFrame on its device: (result, wall seconds), the device
+    synchronized before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = df.toArrow()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def path_counts(df, CB, KN) -> dict:
+    """The kernel's launches in the run just made (the counts were set
+    to 0 just before it), and its joins' strategies."""
+    return {
+        "hash_pairs_launches": CB.launches,
+        "shapes": {f"{l}x{n}": c for (l, n), c
+                   in sorted(CB.launch_shapes.items())},
+        "cuda_rung_dispatches": KN.COUNTERS.dispatches["cuda"],
+        "jnp_rung_dispatches": KN.COUNTERS.dispatches["jnp"],
+        "collision_fallbacks": KN.COUNTERS.fallbacks,
+        "joins": join_strategies(df)}
+
+
+def check_result(name: str, got, want) -> None:
+    """Columns and rows equal to the pyarrow reference, floats finite."""
+    import numpy as np
+    import pyarrow as pa
+    check(got.column_names == want.column_names,
+          f"{name} columns {got.column_names}")
+    check(rows_equal(got, want),
+          f"{name} differs from the pyarrow reference:\n{got}\n{want}")
+    for c in got.columns:
+        if pa.types.is_floating(c.type):
+            check(bool(np.isfinite(c.to_numpy()).all()),
+                  f"{name} has non-finite values")
+
+
+def query_phase(q, session, exact, tables, ref, CB, KN):
+    """One TPC-H query: the scan cache cleared, its cold run (the main
+    path: the kernel's counts set to 0 just before it and read just
+    after), 3 warm runs that must read every scan from the cache, and
+    the exact rung.  Returns (cold result, counts, summary)."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    cold_df = build_on(q, session, tables)
+    got, cold_wall = timed(cold_df)
+    counts = path_counts(cold_df, CB, KN)
+    print(f"[main path] {q} " + json.dumps(counts), flush=True)
+    check(counts["collision_fallbacks"] == 0,
+          f"{q}: {counts['collision_fallbacks']} hash-collision fallbacks")
+    check_strategies(q, counts["joins"])
+    check_result(q, got, ref)
+    cold_ph = phase_times(cold_df)
+    walls, phases, metrics = [], [], []
+    for _ in range(3):
+        df = build_on(q, session, tables)
+        out, wall = timed(df)
+        walls.append(wall)
+        phases.append(phase_times(df))
+        metrics.append(df.metrics())
+        check(rows_equal(out, ref), f"{q} warm run differs")
+        check(all(t == 0 for t in scan_transfer_times(df)),
+              f"{q}: a warm scan missed the cache: "
+              f"{scan_transfer_times(df)}")
+    check(rows_equal(build_on(q, exact, tables).toArrow(), got),
+          f"{q}: cuda rung != jnp rung")
+    i = walls.index(statistics.median(walls))
+    ph = phases[i]
+    print(f"[{q} metrics] " + json.dumps(metrics[i]), flush=True)
+    rows = tables["lineitem"].num_rows
+    summary = {
+        "lineitem_rows": rows,
+        "cold_wall_s": cold_wall, "cold_h2d_s": cold_ph["h2d_s"],
+        "cold_h2d_share": cold_ph["h2d_s"] / cold_wall,
+        "wall_s_median": walls[i], "wall_s": walls,
+        "h2d_s": ph["h2d_s"], "d2h_s": ph["d2h_s"],
+        "execute_s": walls[i] - ph["h2d_s"] - ph["d2h_s"],
+        "rows_per_s": rows / walls[i],
+        "hash_pairs_launches": counts["hash_pairs_launches"],
+        "matches_reference": True, "cuda_equals_jnp_rung": True,
+        "warm_scans_cached": True}
+    if q in STRING_QUERIES:
+        summary["string_ops"] = string_op_times(cold_df)
+    print(f"[{q}] SF{SF:g} cold {cold_wall:.4f} s, warm {walls[i]:.4f} s "
+          + json.dumps(summary), flush=True)
+    return got, counts, summary
+
+
+def resident_phase(session, tables, refs, dev) -> dict:
+    """Every query once more, the cache not cleared, so that all 22
+    queries' tables are resident at once: the default budget must hold
+    them without a spill."""
+    import torch
+    from spark_rapids_tpu_torch.exec import basic as B
+    from spark_rapids_tpu_torch.runtime import memory as MM
+    t0 = time.perf_counter()
+    for q in QUERIES:
+        check(rows_equal(build_on(q, session, tables).toArrow(), refs[q]),
+              f"{q} differs in the resident pass")
+    torch.cuda.synchronize()
+    mgr = MM.peek_manager()
+    cached = cache_entries()
+    out = {
+        "pass_s": time.perf_counter() - t0, "budget": mgr.budget,
+        "peakReserved": mgr.metrics["peakReserved"],
+        "reserved": mgr._reserved,
+        "cached_bytes": sum(sp.nbytes for _, sp in cached),
+        "cache_entries": len(B._scan_cache),
+        "cached_batches": len(cached),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "spillToHostBytes": mgr.metrics["spillToHostBytes"],
+        "retryOOMs": mgr.metrics["retryOOMs"]}
+    print("[scan cache] " + json.dumps(out), flush=True)
+    check(out["spillToHostBytes"] == 0 and out["retryOOMs"] == 0,
+          "the default budget spilled with all 22 queries cached")
+    check(all(sp.tier == "device" for _, sp in cached),
+          "a cache entry is not on the device")
+    return out
+
+
+Q3_LINEITEM = ["l_orderkey", "l_extendedprice", "l_discount", "l_shipdate"]
+
+
+def spill_phase(session, conf, tables, ref, first, n_batches, dev) -> dict:
+    """q3 twice in a fresh manager whose pool holds about 1.5 of the
+    lineitem batches q3 caches (or q3's largest single reservation, if
+    that is more): the first run's registrations and join reservations
+    spill the oldest entries to host, the second run restores them.
+    Both results must equal q3's; the default manager comes back after
+    (which clears the cache).  ``conf`` is ``session``'s conf."""
+    from spark_rapids_tpu_torch.exec import basic as B
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import memory as MM
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    mgr = MM.peek_manager()
+    batch = [sp.nbytes for names, sp in cache_entries()
+             if names == Q3_LINEITEM]
+    check(len(batch) == n_batches, f"q3's lineitem batches: {batch}")
+    largest = []
+    reserve = mgr.reserve
+
+    def recording(nbytes, _restoring=None):
+        largest.append(nbytes)
+        return reserve(nbytes, _restoring)
+
+    clear_scan_cache()
+    mgr.reserve = recording  # q3's largest single reservation
+    check(rows_equal(build_on("q3", session, tables).toArrow(), ref),
+          "q3 differs while its reservations were read")
+    del mgr.reserve
+    pool = max(int(1.5 * batch[0]), int(1.05 * max(largest)))
+    small = TpuSession(dict(conf, **{"spark.rapids.tpu.memory.poolSize":
+                                     pool}), device=dev)
+    out = {"pool": pool, "lineitem_batch_bytes": batch[0],
+           "largest_reservation": max(largest), "walls_s": [],
+           "h2d_s": [], "runs": []}
+    for _ in range(2):
+        df = build_on("q3", small, tables)
+        got, wall = timed(df)
+        out["walls_s"].append(wall)
+        out["h2d_s"].append(phase_times(df)["h2d_s"])
+        smgr = MM.peek_manager()
+        out["runs"].append({k: smgr.metrics[k] for k in (
+            "spillToHostBytes", "restoredBytes", "peakReserved",
+            "retryOOMs")})
+        check(rows_equal(got, ref) and rows_equal(got, first, tol=0.0),
+              "q3 under the small pool differs")
+    print("[spill] " + json.dumps(out), flush=True)
+    check(smgr.budget == pool, f"spill manager budget {smgr.budget}")
+    check(out["runs"][0]["spillToHostBytes"] > 0,
+          "q3 under the small pool spilled nothing")
+    check(out["runs"][1]["restoredBytes"] > 0,
+          "q3's second run under the small pool restored nothing")
+    MM.get_manager(session.rapids_conf(), dev)
+    check(MM.peek_manager().budget == mgr.budget and not B._scan_cache,
+          "the default manager was not restored")
+    return out
+
+
+def dict_phase(session, tables, refs, first, summary) -> list:
+    """q1, q12 and q19 cold over a lineitem whose four low-cardinality
+    string columns are dictionary-encoded: each equals its plain run and
+    the pyarrow reference; their cold H2D beside the plain cold H2D."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    enc = dict(tables, lineitem=dictionary_lineitem(tables["lineitem"]))
+    rows = []
+    for q in ("q1", "q12", "q19"):
+        clear_scan_cache()
+        df = build_on(q, session, enc)
+        got, wall = timed(df)
+        check_result(f"{q} (dictionary lineitem)", got, refs[q])
+        check(rows_equal(got, first[q], tol=0.0),
+              f"{q} over dictionary columns differs from its plain run")
+        row = {"query": q, "cold_wall_s": wall,
+               "cold_h2d_s": phase_times(df)["h2d_s"],
+               "plain_cold_wall_s": summary[q]["cold_wall_s"],
+               "plain_cold_h2d_s": summary[q]["cold_h2d_s"]}
+        rows.append(row)
+        print("[dict decode] " + json.dumps(row), flush=True)
+    clear_scan_cache()
+    return rows
+
+
+def variant_phase(v, session, exact, tables, first, CB, KN) -> dict:
+    """One join variant as a query of its own: its cold run (counts set
+    to 0 just before, read just after) against the pyarrow reference,
+    its base query (the same rows in the same order), the exact rung
+    and its strategy; then 3 warm runs.  Returns the counts."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.utils import tpch
+    base = tpch.JOIN_VARIANTS[v]
+    want = globals()["ref_" + v](tables)
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    df = build_on(v, session, tables)
+    got, cold_wall = timed(df)
+    counts = path_counts(df, CB, KN)
+    print(f"[main path] {v} " + json.dumps(counts), flush=True)
+    check(counts["collision_fallbacks"] == 0,
+          f"{v}: {counts['collision_fallbacks']} hash-collision fallbacks")
+    check(counts["hash_pairs_launches"] > 0,
+          f"{v}: hash_pairs was not launched")
+    check_variant_strategies(v, counts["joins"])
+    check_result(v, got, want)
+    if base is not None:
+        check(got.equals(first[base]),
+              f"{v} differs from {base}:\n{got}\n{first[base]}")
+    check(rows_equal(build_on(v, exact, tables).toArrow(), got),
+          f"{v}: cuda rung != jnp rung")
+    warm = []
+    for _ in range(3):
+        out, wall = timed(build_on(v, session, tables))
+        warm.append(wall)
+        check(rows_equal(out, want), f"{v} warm run differs")
+    line = {"rows": got.num_rows, "equals_base": base,
+            "cold_wall_s": cold_wall,
+            "wall_s_median": statistics.median(warm), "wall_s": warm,
+            "hash_pairs_launches": counts["hash_pairs_launches"]}
+    print(f"[join variant] {v} SF{SF:g} " + json.dumps(line), flush=True)
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import pyarrow as pa
@@ -1285,34 +1668,20 @@ def main() -> int:
         check(r.num_rows > 0, f"reference {q} is empty")
 
     def build(q, session):
-        return getattr(tpch, q)(session, li if q in ("q1", "q6")
-                                else tables)
+        return build_on(q, session, tables)
 
     session = TpuSession(device=dev)
     check(session.device.type == "cuda", "session is not on the card")
     exact = TpuSession({"spark.rapids.tpu.kernel.backend": "jnp"},
                        device=dev)
 
-    # each query: counts to 0 just before, read just after
-    first, counts = {}, {}
+    # each query: the scan cache cleared, then its cold run (the main
+    # path: counts to 0 just before, read just after), 3 warm runs that
+    # must find every scan in the cache, and the exact rung
+    first, counts, summary = {}, {}, {}
     for q in QUERIES:
-        CB.reset_counts()
-        KN.COUNTERS.reset()
-        df = build(q, session)
-        first[q] = df.toArrow()
-        torch.cuda.synchronize()
-        counts[q] = {
-            "hash_pairs_launches": CB.launches,
-            "shapes": {f"{l}x{n}": c for (l, n), c
-                       in sorted(CB.launch_shapes.items())},
-            "cuda_rung_dispatches": KN.COUNTERS.dispatches["cuda"],
-            "jnp_rung_dispatches": KN.COUNTERS.dispatches["jnp"],
-            "collision_fallbacks": KN.COUNTERS.fallbacks,
-            "joins": join_strategies(df)}
-        print(f"[main path] {q} " + json.dumps(counts[q]), flush=True)
-        check(counts[q]["collision_fallbacks"] == 0,
-              f"{q}: {KN.COUNTERS.fallbacks} hash-collision fallbacks")
-        check_strategies(q, counts[q]["joins"])
+        first[q], counts[q], summary[q] = query_phase(
+            q, session, exact, tables, refs[q], CB, KN)
     main_shapes = {}
     for q in QUERIES:
         for key, c in counts[q]["shapes"].items():
@@ -1333,51 +1702,29 @@ def main() -> int:
               f"launches for {streamed} streamed join groups")
         check(counts[q]["hash_pairs_launches"] > 0 or q == "q6",
               f"{q}: hash_pairs was not launched")
-
-    summary = {}
-    for q in QUERIES:
-        got = first[q]
-        check(got.column_names == refs[q].column_names,
-              f"{q} columns {got.column_names}")
-        check(rows_equal(got, refs[q]),
-              f"{q} differs from the pyarrow reference:\n{got}\n"
-              f"{refs[q]}")
-        for c in got.columns:
-            if pa.types.is_floating(c.type):
-                check(bool(np.isfinite(c.to_numpy()).all()),
-                      f"{q} has non-finite values")
-        check(rows_equal(build(q, exact).toArrow(), got),
-              f"{q}: cuda rung != jnp rung")
-        walls, phases, metrics, df_runs = [], [], [], []
-        for _ in range(3):
-            df = build(q, session)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = df.toArrow()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            phases.append(phase_times(df))
-            metrics.append(df.metrics())
-            df_runs.append(df)
-            check(rows_equal(out, refs[q]), f"{q} warm run differs")
-        i = walls.index(statistics.median(walls))
-        ph = phases[i]
-        print(f"[{q} metrics] " + json.dumps(metrics[i]), flush=True)
-        summary[q] = {
-            "lineitem_rows": li.num_rows, "wall_s_median": walls[i],
-            "wall_s": walls, "h2d_s": ph["h2d_s"], "d2h_s": ph["d2h_s"],
-            "h2d_share": ph["h2d_s"] / walls[i],
-            "execute_s": walls[i] - ph["h2d_s"] - ph["d2h_s"],
-            "rows_per_s": li.num_rows / walls[i],
-            "hash_pairs_launches": counts[q]["hash_pairs_launches"],
-            "matches_reference": True, "cuda_equals_jnp_rung": True}
-        if q in STRING_QUERIES:
-            summary[q]["string_ops"] = string_op_times(df_runs[i])
-        print(f"[{q}] SF{SF:g} " + json.dumps(summary[q]), flush=True)
     for q in QUERIES:
         print(f"[{q} result] {first[q].num_rows} rows\n"
               f"{first[q].slice(0, 6).to_pandas().to_string()}",
               flush=True)
+
+    # -- the scan cache with all 22 queries' tables resident ---------------
+    resident_phase(session, tables, refs, dev)
+    # -- spill: q3 under a pool of ~1.5 of lineitem's cached batches --------
+    spill_phase(session, {}, tables, refs["q3"], first["q3"], n_batches,
+                dev)
+    # -- device dictionary decode: q1, q12, q19 cold -----------------------
+    dict_phase(session, tables, refs, first, summary)
+    # -- the join variants: right, residual, cross condition, full ---------
+    var_counts = {}
+    for v in tpch.JOIN_VARIANTS:
+        var_counts[v] = variant_phase(v, session, exact, tables, first,
+                                      CB, KN)
+    query_shapes = set(main_shapes)
+    for v in tpch.JOIN_VARIANTS:
+        for key, c in var_counts[v]["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + c
+    print("[join variant] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -1457,9 +1804,12 @@ def main() -> int:
         "name": "hash_pairs", "route": "cuda",
         "source": "spark_rapids_tpu_torch/kernels/csrc/hash_pairs.cu",
         "replaces": "spark_rapids_tpu/kernels/pallas_backend.py:42",
-        "launches": sum(counts[q]["hash_pairs_launches"] for q in QUERIES),
+        "launches": sum(c["hash_pairs_launches"] for c in
+                        list(counts.values()) + list(var_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
+        "launches_per_variant": {v: c["hash_pairs_launches"]
+                                 for v, c in var_counts.items()},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
         "ms_ring": kernel_row["ms_ring"],

@@ -82,6 +82,14 @@ class DeviceColumn:
                               device=self.data.device)
         return self.validity
 
+    def nbytes(self) -> int:
+        n = self.data.numel() * self.data.element_size()
+        if self.validity is not None:
+            n += self.validity.numel()
+        if self.lengths is not None:
+            n += self.lengths.numel() * 4
+        return n
+
     def gather(self, idx: torch.Tensor) -> "DeviceColumn":
         """Row gather (compaction, sort, group layout)."""
         return DeviceColumn(
@@ -118,6 +126,11 @@ class DeviceBatch:
 
     def num_rows_host(self) -> int:
         return int(self.num_rows())
+
+    def nbytes(self) -> int:
+        """Bytes of every column's data, lengths and validity, plus
+        ``sel`` (the JAX package's ``DeviceBatch.nbytes``)."""
+        return sum(c.nbytes() for c in self.columns) + self.sel.numel()
 
     def with_sel(self, sel: torch.Tensor) -> "DeviceBatch":
         return DeviceBatch(self.schema, self.columns, sel)
@@ -246,12 +259,31 @@ def arrow_column_to_device(arr, dt: T.DataType,
     _check_supported(dt)
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
-    if pa.types.is_dictionary(arr.type):
+    is_str = isinstance(dt, (T.StringType, T.BinaryType))
+    if pa.types.is_dictionary(arr.type) and (
+            not is_str or len(arr.dictionary) == 0
+            or arr.dictionary.null_count > 0):
+        # the device decode takes only string dictionaries with no null
+        # VALUES (index nulls are fine); everything else decodes to
+        # plain first — is_null() of a DictionaryArray does not see
+        # nulls stored in the dictionary values
         arr = arr.cast(arr.type.value_type)
     null_mask = np.asarray(arr.is_null())
     validity = (_to_device(~null_mask, device) if null_mask.any()
                 else None)
-    if isinstance(dt, (T.StringType, T.BinaryType)):
+    if pa.types.is_dictionary(arr.type):
+        # device dictionary decode: int32 indices and the dictionary's
+        # own (small) byte matrix cross to the device, and a gather
+        # expands them there — H2D bytes drop from n*W to n*4 + D*W.
+        # The matrix width is the dictionary's, as in the JAX package.
+        idx = _to_device(np.asarray(arr.indices.fill_null(0))
+                         .astype(np.int32), device)
+        dmat, dlens = _string_to_matrix(arr.dictionary)
+        return DeviceColumn(
+            dt, torch.index_select(_to_device(dmat, device), 0, idx),
+            validity,
+            torch.index_select(_to_device(dlens, device), 0, idx))
+    if is_str:
         mat, lengths = _string_to_matrix(arr)
         return DeviceColumn(dt, _to_device(mat, device), validity,
                             _to_device(lengths, device))

@@ -2,7 +2,9 @@
 
 The same builder DSL and the same key names as the JAX package's
 ``conf.py`` [REF: sql-plugin/../RapidsConf.scala :: RapidsConf], cut to
-the entries the slices ported so far (TPC-H q1, q3, q4, q6) use.  Values are validated the same way:
+the entries the slices ported so far use (the TPC-H queries, the join
+strategies and the memory arbiter of the scan cache).  Values are
+validated the same way:
 an unknown ``spark.rapids.*`` key raises, and so does a value the
 entry's checker rejects.  Keys outside the ``spark.rapids.`` namespace
 are kept raw.
@@ -80,6 +82,10 @@ class ConfBuilder:
 
     def integer(self) -> "ConfBuilder":
         self._converter = int
+        return self
+
+    def double(self) -> "ConfBuilder":
+        self._converter = float
         return self
 
     def bytes(self) -> "ConfBuilder":
@@ -171,6 +177,40 @@ JOIN_TARGET_ROWS = (
          "spark.rapids.tpu.batchRows chunks.")
     .integer()
     .create_with_default(1 << 18)
+)
+
+MEMORY_FRACTION = (
+    conf("spark.rapids.memory.gpu.allocFraction")
+    .doc("Fraction of device HBM the budget arbiter may hand out before "
+         "synchronous spill kicks in.")
+    .double()
+    .check(lambda v: 0.0 < v <= 1.0, "in (0, 1]")
+    .create_with_default(0.85)
+)
+
+POOL_SIZE = (
+    conf("spark.rapids.tpu.memory.poolSize")
+    .doc("Explicit device memory budget in bytes; 0 means derive from "
+         "allocFraction of detected HBM.")
+    .bytes()
+    .create_with_default(0)
+)
+
+HOST_SPILL_STORAGE = (
+    conf("spark.rapids.memory.host.spillStorageSize")
+    .doc("Host memory limit for spilled device buffers before they go to "
+         "disk. The port has no disk tier yet: a spill that would pass "
+         "this limit raises RetryOOM instead.")
+    .bytes()
+    .create_with_default(4 << 30)
+)
+
+FAULT_INJECT = (
+    conf("spark.rapids.tpu.test.injectOomAtAlloc")
+    .doc("Force an OOM at the Nth device allocation (test hook, mirrors "
+         "RmmSpark.forceRetryOOM). -1 disables.")
+    .integer()
+    .create_with_default(-1)
 )
 
 ADAPTIVE_PLANE_ENABLED = (

@@ -18,21 +18,22 @@ as a NaN flag plus a raw float limb.  Null and dead rows are excluded by
 a leading exclusion flag, so null keys never match (Spark equi-join
 semantics) but still surface in left and anti outputs.
 
-Ported: inner, left, left_semi and left_anti joins and the cross join
-(a join without equi keys: the in-core cross product, ``_cross``); the
+Ported: inner, left, right, full, left_semi and left_anti joins and the
+cross join (a join without equi keys: the in-core cross product,
+``_cross``); a residual condition on an inner or cross join
+(``_apply_condition``, a ``sel`` mask over the join output); right joins
+run as left joins with the sides swapped (``_execute_swapped``); the
 in-core path, the broadcast path, the run-time pick by live row counts
 that streams the big side in bounded groups against a side that fits
 (``_broadcast_streamed``, ``_semi_stream_right``), and the hash
 sub-partition join of two oversized sides (``_sub_partition_join``).
-Not ported, and raising ``NotImplementedError`` naming itself: right
-joins (``_execute_swapped``), full joins, residual join conditions
-(``_apply_condition``, a cross join's included), the adaptive joins, and
-the co-partitioned (exchanged) plan.  The JAX package reserves device
-memory around each join step with its memory manager (``transient``,
-``RetryOOM``), sizes the sub-partition count by memory as well as rows
-(``k_mem``) and registers each sub-partition slice as a spillable; the
-port has no memory manager yet, so it sizes by rows alone and keeps the
-slices as plain device batches.
+Each device step reserves its working set with the memory arbiter
+(``runtime/memory.py::transient``), so that a join can push scan-cache
+entries to host; an in-core join whose reservation fails falls to the
+sub-partition join.  Not ported, and raising ``NotImplementedError``
+naming itself: the adaptive joins and the co-partitioned (exchanged)
+plan.  The JAX package registers each sub-partition slice as a
+spillable; the port keeps the slices as plain device batches.
 """
 
 from __future__ import annotations
@@ -51,9 +52,9 @@ from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
 from spark_rapids_tpu_torch.ops import ordering as ORD
-from spark_rapids_tpu_torch.ops.expressions import Expression
+from spark_rapids_tpu_torch.ops.expressions import Expression, device_select
 from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
-from spark_rapids_tpu_torch.plan.analysis import _not_ported
+from spark_rapids_tpu_torch.runtime.memory import RetryOOM, get_manager
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +316,9 @@ class TpuSortMergeJoinExec(TpuExec):
     ``subPartitionJoins``, ``partitionTime``): the port counts the groups
     of each side that streamed against the other
     (``streamedLeftGroups``, ``streamedRightGroups``), so that a run can
-    tell which side stayed whole.
+    tell which side stayed whole, and the sub-partitions of the hash
+    split (``subPartitions``: k of the first split;
+    ``subPartitionResplits``: the sum of k over the re-splits).
     """
 
     def __init__(self, join_type: str, left_keys: Sequence[Expression],
@@ -345,27 +348,22 @@ class TpuSortMergeJoinExec(TpuExec):
     def num_partitions(self) -> int:
         return 1
 
-    def _check_ported(self) -> None:
-        jt = self.join_type
-        if jt == "right":
-            raise _not_ported("right outer join (_execute_swapped)")
-        if jt == "full":
-            raise _not_ported("full outer join")
-        if self.condition is not None:
-            raise _not_ported(
-                "residual join condition (_apply_condition)")
-
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
         if partition != 0:
             raise IndexError(f"partition {partition} of a 1-partition join")
-        self._check_ported()
         jt = self.join_type
+        if jt == "right":
+            yield from self._execute_swapped(partition)
+            return
         with self.timer("gatherTime"):
             l_list = _gather_list(self.children[0])
             r_list = _gather_list(self.children[1])
         nokey = jt == "cross" or not self.left_keys
+        mgr = get_manager()
+        total = (sum(b.nbytes() for b in l_list)
+                 + sum(b.nbytes() for b in r_list))
         cap = self.sub_partition_rows
-        l_counts = r_counts = None
+        l_counts = r_counts = side_live = None
         if cap and not nokey and not self.broadcast:
             # run-time strategy pick by LIVE rows (one device read for
             # both sides): a filtered side keeps its scan bucket but may
@@ -375,45 +373,115 @@ class TpuSortMergeJoinExec(TpuExec):
             r_counts = counts[len(l_list):]
             l_live = sum(l_counts) or 1
             r_live = sum(r_counts) or 1
-            if max(l_live, r_live) > cap:
+            side_live = max(l_live, r_live)
+            if side_live > cap:
                 # one side fits in-core: stream the other in bounded
-                # groups against it
-                if r_live <= cap:
+                # groups against it (never for a full join, whose
+                # unmatched right rows would repeat once per group)
+                if (r_live <= cap
+                        and jt in ("inner", "left", "left_semi",
+                                   "left_anti")):
                     self.metric("streamedJoins").add(1)
                     yield from self._broadcast_streamed(
-                        l_list, r_list, jt, side="right")
+                        l_list, r_list, jt, mgr, side="right")
                     return
                 if l_live <= cap and jt == "inner":
                     self.metric("streamedJoins").add(1)
                     yield from self._broadcast_streamed(
-                        l_list, r_list, jt, side="left")
+                        l_list, r_list, jt, mgr, side="left")
                     return
                 if l_live <= cap and jt in ("left_semi", "left_anti"):
                     self.metric("streamedJoins").add(1)
                     yield from self._semi_stream_right(
-                        l_list, l_counts, r_list, jt)
+                        l_list, l_counts, r_list, jt, mgr)
                     return
                 # neither side fits: hash-split both
                 self.metric("subPartitionJoins").add(1)
                 yield from self._sub_partition_join(
-                    l_list, r_list, jt, live_rows=max(l_live, r_live))
+                    l_list, r_list, jt, total, mgr, live_rows=side_live)
                 return
         # a broadcast join's streamed side honors the row cap in bounded
         # groups (the broadcast side is capped by the byte threshold)
         if cap and not nokey and self.broadcast and sum(
                 b.capacity for b in (l_list if self.broadcast == "right"
                                      else r_list)) > cap:
-            yield from self._broadcast_streamed(l_list, r_list, jt)
+            yield from self._broadcast_streamed(l_list, r_list, jt, mgr)
             return
-        lb = self._concat(0, l_list, l_counts)
-        rb = self._concat(1, r_list, r_counts)
-        with self.timer():
+        try:
+            # in-core: both sides and the expanded output live together
+            with mgr.transient(2 * total):
+                lb = self._concat(0, l_list, l_counts)
+                rb = self._concat(1, r_list, r_counts)
+                with self.timer():
+                    if nokey:
+                        cb, ctotal = self._cross(lb, rb)
+                        outs = list(self._rebatch(
+                            self._apply_condition(cb), ctotal))
+                    else:
+                        outs = list(self._merge_join(lb, rb, jt))
+                yield from self._emit(outs)
+                return
+        except RetryOOM:
             if nokey:
-                cb, total = self._cross(lb, rb)
-                outs = list(self._rebatch(cb, total))
-            else:
-                outs = list(self._merge_join(lb, rb, jt))
-        yield from self._emit(outs)
+                raise  # a cross product cannot hash-split
+            self.metric("subPartitionJoins").add(1)
+        yield from self._sub_partition_join(l_list, r_list, jt, total, mgr,
+                                            live_rows=side_live)
+
+    def _execute_swapped(self, partition: int) -> Iterator[DeviceBatch]:
+        """right outer = left outer with the sides swapped, its columns
+        remapped.  The inner node's strategy metrics are forwarded to
+        this node with their sides named as this node's (the JAX package
+        leaves them on the inner node, which no plan walk reaches)."""
+        inner = TpuSortMergeJoinExec(
+            "left", self.right_keys, self.left_keys, self.condition,
+            self._swapped_schema(), self.children[1], self.children[0],
+            using=self.using, sub_partition_rows=self.sub_partition_rows,
+            out_batch_rows=self.out_batch_rows, backend=self.backend)
+        n_lc = len(self.children[0].schema)
+        n_rc = len(self.children[1].schema)
+        if not self.using:
+            # swapped output: all right ++ all left -> left ++ right
+            order = ([n_rc + i for i in range(n_lc)]
+                     + [i for i in range(n_rc)])
+        else:
+            nk = len(self.left_keys)
+            lkey = [e.index for e in self.left_keys]
+            rkey = [e.index for e in self.right_keys]
+            n_l = len([i for i in range(n_lc) if i not in lkey])
+            n_r = len([i for i in range(n_rc) if i not in rkey])
+            # swapped output: [keys, right rest, left rest] -> [keys,
+            # left rest, right rest]
+            order = (list(range(nk))
+                     + [nk + n_r + i for i in range(n_l)]
+                     + [nk + i for i in range(n_r)])
+        try:
+            for b in inner.execute(partition):
+                self.metric("numOutputBatches").add(1)
+                yield DeviceBatch(self.schema,
+                                  tuple(b.columns[i] for i in order), b.sel,
+                                  compacted=b.compacted)
+        finally:
+            swap = {"streamedLeftGroups": "streamedRightGroups",
+                    "streamedRightGroups": "streamedLeftGroups"}
+            for k, m in inner.metrics.items():
+                if k != "numOutputBatches":
+                    self.metric(swap.get(k, k)).add(m.value)
+
+    def _swapped_schema(self) -> T.StructType:
+        if not self.using:
+            return T.StructType(
+                tuple(self.children[1].schema.fields)
+                + tuple(self.children[0].schema.fields))
+        nk = len(self.left_keys)
+        rkey = [e.index for e in self.right_keys]
+        lkey = [e.index for e in self.left_keys]
+        rf = [f for i, f in enumerate(self.children[1].schema.fields)
+              if i not in rkey]
+        lf = [f for i, f in enumerate(self.children[0].schema.fields)
+              if i not in lkey]
+        return T.StructType(tuple(self.schema.fields[:nk]) + tuple(rf)
+                            + tuple(lf))
 
     def _concat(self, side: int, batches, counts=None, device=None
                 ) -> DeviceBatch:
@@ -429,7 +497,7 @@ class TpuSortMergeJoinExec(TpuExec):
             self.metric("numOutputBatches").add(1)
             yield o
 
-    def _broadcast_streamed(self, l_list, r_list, jt,
+    def _broadcast_streamed(self, l_list, r_list, jt, mgr,
                             side: Optional[str] = None
                             ) -> Iterator[DeviceBatch]:
         """Join the streamed side in groups of at most the row cap
@@ -451,11 +519,12 @@ class TpuSortMergeJoinExec(TpuExec):
         for g in groups:
             gb = self._concat(0 if side == "right" else 1, g)
             lb, rb = (gb, bc) if side == "right" else (bc, gb)
-            with self.timer():
-                outs = list(self._merge_join(lb, rb, jt))
-            yield from self._emit(outs)
+            with mgr.transient(2 * (gb.nbytes() + bc.nbytes())):
+                with self.timer():
+                    outs = list(self._merge_join(lb, rb, jt))
+                yield from self._emit(outs)
 
-    def _semi_stream_right(self, l_list, l_counts, r_list, jt
+    def _semi_stream_right(self, l_list, l_counts, r_list, jt, mgr
                            ) -> Iterator[DeviceBatch]:
         """semi/anti with the LEFT side whole and an oversized RIGHT:
         stream the right side in bounded groups, OR-accumulating each
@@ -469,7 +538,8 @@ class TpuSortMergeJoinExec(TpuExec):
                               device=lb.device)
         for g in groups:
             rb = self._concat(1, g)
-            with self.timer():
+            with mgr.transient(2 * (lb.nbytes() + rb.nbytes())), \
+                    self.timer():
                 m, _, _, _ = self._match_ranges(lb, rb)
                 matched = matched | (m > 0)
         keep = matched if jt == "left_semi" else ~matched
@@ -477,7 +547,8 @@ class TpuSortMergeJoinExec(TpuExec):
         yield from self._emit(list(self._rebatch(self._project_semi(out),
                                                  out.capacity)))
 
-    def _sub_partition_join(self, l_list, r_list, jt, depth: int = 0,
+    def _sub_partition_join(self, l_list, r_list, jt, total: int, mgr,
+                            depth: int = 0,
                             live_rows: Optional[int] = None
                             ) -> Iterator[DeviceBatch]:
         """Two oversized sides: a recursive hash split [REF:
@@ -486,19 +557,24 @@ class TpuSortMergeJoinExec(TpuExec):
         each pair joins on its own: equal keys land in equal
         sub-partitions, so every join type's semantics hold per pair.
 
-        k = ceil(rows / ``join.targetRows``) clamped to [2, 256], rows
-        being the larger side's live rows (measured by the caller) or,
-        on a re-split, its capacity.  A pair still above the row cap
-        re-splits with the next seed, up to depth 3 (a single hot key
-        can never spread by key hash: past the cap the pair joins
-        in-core).  Pairs whose output must be empty for the join type
-        are skipped."""
+        k satisfies two ceilings, clamped to [2, 256]: memory (``total``
+        bytes of both sides over a quarter of the arbiter's budget) and
+        rows (the larger side's live rows, measured by the caller, or on
+        a re-split its capacity, over ``join.targetRows``).  A pair
+        still above the row cap re-splits with the next seed, up to
+        depth 3 (a single hot key can never spread by key hash: past the
+        cap the pair joins in-core).  Pairs whose output must be empty
+        for the join type are skipped; a full join keeps every pair with
+        rows on either side."""
+        k_mem = -(-total // max(mgr.budget // 4, 1))
         side_cap = live_rows if live_rows else max(
             sum(b.capacity for b in l_list) or 1,
             sum(b.capacity for b in r_list) or 1)
         k_rows = (-(-side_cap // self.sub_partition_rows)
                   if self.sub_partition_rows else 1)
-        k = max(2, min(256, k_rows))
+        k = max(2, min(256, max(k_mem, k_rows)))
+        self.metric("subPartitions" if depth == 0
+                    else "subPartitionResplits").add(k)
         canon = tuple(
             type(le.dtype) is not type(re.dtype)
             and isinstance(le.dtype, _INT_FAMILY)
@@ -519,20 +595,27 @@ class TpuSortMergeJoinExec(TpuExec):
                 continue
             if not lp and jt in ("left", "left_anti"):
                 continue
+            if not lp and not rp:
+                continue
+            pair_bytes = (sum(b.nbytes() for b, _ in lp)
+                          + sum(b.nbytes() for b, _ in rp))
             if (self.sub_partition_rows and depth < 3
                     and max(sum(b.capacity for b, _ in lp) or 1,
                             sum(b.capacity for b, _ in rp) or 1)
                     > self.sub_partition_rows):
                 yield from self._sub_partition_join(
-                    [b for b, _ in lp], [b for b, _ in rp], jt, depth + 1)
+                    [b for b, _ in lp], [b for b, _ in rp], jt,
+                    pair_bytes, mgr, depth + 1)
                 continue
-            lb = self._concat(0, [b for b, _ in lp], [n for _, n in lp],
-                              dev)
-            rb = self._concat(1, [b for b, _ in rp], [n for _, n in rp],
-                              dev)
-            with self.timer():
-                outs = list(self._merge_join(lb, rb, jt))
-            yield from self._emit(outs)
+            # clamped: one pair can exceed a tiny budget after padding
+            with mgr.transient(min(2 * max(pair_bytes, 1), mgr.budget)):
+                lb = self._concat(0, [b for b, _ in lp],
+                                  [n for _, n in lp], dev)
+                rb = self._concat(1, [b for b, _ in rp],
+                                  [n for _, n in rp], dev)
+                with self.timer():
+                    outs = list(self._merge_join(lb, rb, jt))
+                yield from self._emit(outs)
 
     def _cross(self, lb: DeviceBatch, rb: DeviceBatch
                ) -> Tuple[DeviceBatch, int]:
@@ -547,7 +630,20 @@ class TpuSortMergeJoinExec(TpuExec):
         r_idx = j % max(nr, 1)
         out_live = j < total
         return self._materialize(lb, rb, l_idx, r_idx, out_live, out_live,
-                                 out_live), total
+                                 out_live, "cross"), total
+
+    def _apply_condition(self, batch: DeviceBatch) -> DeviceBatch:
+        """The residual condition as a ``sel`` mask over the join output
+        (its references are bound against left ++ right, this node's
+        schema); a null condition drops the row.  The masked batch is
+        no longer compacted."""
+        if self.condition is None:
+            return batch
+        c = self.condition.eval(batch)
+        keep = c.data.to(torch.bool)
+        if c.validity is not None:
+            keep = keep & c.validity
+        return batch.with_sel(batch.sel & keep)
 
     # -- core ---------------------------------------------------------------
     def _match_ranges(self, lb: DeviceBatch, rb: DeviceBatch):
@@ -606,15 +702,45 @@ class TpuSortMergeJoinExec(TpuExec):
                                      out.capacity)
             return
         counts = m
-        if jt == "left":
+        if jt in ("left", "full"):
             counts = torch.where(lb.sel & (m == 0), 1, m)
-        bucket, li, off, total = _expand_counts(counts)
-        matched = m[li] > 0
-        r_sorted_pos = lo[li] + off
+        bucket, l_idx, off, total = _expand_counts(counts)
+        matched = m[l_idx] > 0
+        r_sorted_pos = lo[l_idx] + off
         r_idx = perm[r_sorted_pos.clamp(0, rb.capacity - 1)]
         out_live = torch.arange(bucket, device=lb.device) < total
-        out = self._materialize(lb, rb, li, r_idx, out_live,
-                                out_live & matched, out_live)
+        l_valid = out_live
+        r_valid = out_live & matched
+        if jt == "full":
+            # append the unmatched live right rows after the left-join
+            # block (one more host read: their count)
+            hit = torch.zeros((rb.capacity + 1,), dtype=torch.bool,
+                              device=rb.device)
+            hit[torch.where(r_valid, r_idx, rb.capacity)] = True
+            r_extra = torch.nonzero(rb.sel & ~hit[:rb.capacity]).flatten()
+            n_extra = int(r_extra.numel())
+            full_bucket = round_up_pow2(max(total + n_extra, 1))
+            pad = full_bucket - bucket
+            if pad > 0:
+                def grow(x):
+                    return torch.nn.functional.pad(x, (0, pad))
+                l_idx, r_idx = grow(l_idx), grow(r_idx)
+                l_valid, r_valid = grow(l_valid), grow(r_valid)
+                out_live = grow(out_live)
+            j = torch.arange(full_bucket, device=lb.device)
+            in_extra = (j >= total) & (j < total + n_extra)
+            if n_extra:
+                r_idx = torch.where(
+                    in_extra, r_extra[(j - total).clamp(0, n_extra - 1)],
+                    r_idx)
+            l_valid = l_valid & ~in_extra
+            r_valid = r_valid | in_extra
+            out_live = out_live | in_extra
+            total += n_extra
+        out = self._materialize(lb, rb, l_idx, r_idx, l_valid, r_valid,
+                                out_live, jt)
+        if jt == "inner":
+            out = self._apply_condition(out)
         yield from self._rebatch(out, total)
 
     def _rebatch(self, out: DeviceBatch, total: int
@@ -642,22 +768,32 @@ class TpuSortMergeJoinExec(TpuExec):
                            lb.sel)
 
     def _materialize(self, lb, rb, l_idx, r_idx, l_valid, r_valid,
-                     out_live) -> DeviceBatch:
+                     out_live, jt) -> DeviceBatch:
         """Gather the output columns: for USING joins the key columns
-        once (from the left) then the left and right non-key columns;
-        for expression joins all left then all right columns.  Live
-        rows are a prefix (``out_live``), so the batch is compacted."""
+        once (from the left; a full join coalesces them with the right
+        side's, padding string keys to the wider side) then the left and
+        right non-key columns; for expression and cross joins all left
+        then all right columns.  Live rows are a prefix (``out_live``),
+        so the batch is compacted."""
         lkey = [e.index for e in self.left_keys]
         rkey = [e.index for e in self.right_keys]
+        using = self.using and jt != "cross"
         cols: List[DeviceColumn] = []
-        if self.using:
-            for ki in lkey:
-                cols.append(_gather_col(lb.columns[ki], l_idx, l_valid))
+        if using:
+            for ki, rki in zip(lkey, rkey):
+                lc = _gather_col(lb.columns[ki], l_idx, l_valid)
+                if jt == "full":
+                    rc = _gather_col(rb.columns[rki], r_idx, r_valid)
+                    lv = lc.valid_mask()
+                    both = device_select(lv, lc, rc, lc.dtype)
+                    lc = DeviceColumn(lc.dtype, both.data,
+                                      lv | rc.valid_mask(), both.lengths)
+                cols.append(lc)
         for i, c in enumerate(lb.columns):
-            if not (self.using and i in lkey):
+            if not (using and i in lkey):
                 cols.append(_gather_col(c, l_idx, l_valid))
         for j, c in enumerate(rb.columns):
-            if not (self.using and j in rkey):
+            if not (using and j in rkey):
                 cols.append(_gather_col(c, r_idx, r_valid))
         return DeviceBatch(self.schema, tuple(cols), out_live,
                            compacted=True)

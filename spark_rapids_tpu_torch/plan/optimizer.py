@@ -3,7 +3,8 @@
 The counterpart of ``_inmemory_prune_head`` in the JAX package's
 ``plan/optimizer.py``: a Project or Aggregate head over a chain of
 Filters over an in-memory relation narrows the arrow table to the
-columns it references before the host-to-device transfer (the analog of
+columns it references before the host-to-device transfer (memoized per
+table and column set, so that the scan cache keeps hitting) (the analog of
 Spark's ColumnPruning), so that q1 and q6 move 7 and 4 of lineitem's 16
 columns to the device.  The rule reaches through both sides of a join
 and below a limit.  The JAX package's other rules (parquet
@@ -13,7 +14,8 @@ pushdown, dynamic partition pruning) are later slices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Set
+import weakref
+from typing import Set, Tuple
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.ops import expressions as E
@@ -56,6 +58,27 @@ def collect_refs(e: E.Expression, out: Set[int]) -> None:
         collect_refs(c, out)
 
 
+# Narrowed-table memo: ``pa.Table.select`` is zero-copy but makes a NEW
+# object on every call, and the device scan cache (exec/basic.py) keys on
+# table identity — without this memo every execution of a pruned plan
+# would transfer its columns again.  Entries die with their parent table.
+_narrow_memo: dict = {}
+
+
+def _narrow_table(table, names: Tuple[str, ...]):
+    key = (id(table), names)
+    hit = _narrow_memo.get(key)
+    if hit is not None:
+        return hit
+    out = table.select(list(names))
+    try:
+        weakref.finalize(table, _narrow_memo.pop, key, None)
+    except TypeError:
+        return out
+    _narrow_memo[key] = out
+    return out
+
+
 def _prune_head(plan):
     filters = []
     node = plan.child
@@ -86,7 +109,7 @@ def _prune_head(plan):
         return None
 
     child = L.InMemoryRelation(
-        node.table.select([fields[i].name for i in keep]),
+        _narrow_table(node.table, tuple(fields[i].name for i in keep)),
         T.StructType(tuple(fields[i] for i in keep)))
     for f in reversed(filters):
         child = L.Filter(child, transform_expr(f.condition, remap))

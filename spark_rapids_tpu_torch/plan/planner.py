@@ -73,11 +73,22 @@ def _convert_join(node: L.Join, left: TpuExec, right: TpuExec,
     else a sort-merge join that picks its strategy from live row counts
     at run time."""
     jt = node.join_type
+    # the JAX package's exec/join.py::_tag_join: these joins fall back to
+    # the CPU there, and the CPU-fallback plane is not ported yet
+    if node.condition is not None and jt not in ("inner", "cross"):
+        raise _not_ported(
+            f"CPU fallback of a join (residual join conditions on {jt} "
+            "joins not yet on device (inner/cross only))")
     for le, re in zip(node.left_keys, node.right_keys):
         if _join_key_family(le.dtype) != _join_key_family(re.dtype):
             raise _not_ported(
                 f"CPU fallback of a join with mismatched key types "
                 f"({le.dtype.simple_name} vs {re.dtype.simple_name})")
+        if type(le.dtype) is not type(re.dtype) and jt in ("right", "full"):
+            raise _not_ported(
+                "CPU fallback of a join (mixed-width int join keys not "
+                f"supported for {jt} joins (output key column would mix "
+                f"{le.dtype.simple_name} and {re.dtype.simple_name}))")
     common = dict(using=node.using,
                   sub_partition_rows=conf.get(C.JOIN_TARGET_ROWS),
                   out_batch_rows=conf.batch_rows,

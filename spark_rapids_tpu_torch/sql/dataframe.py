@@ -26,6 +26,7 @@ from spark_rapids_tpu_torch.plan import analysis as AN
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.optimizer import optimize
 from spark_rapids_tpu_torch.plan.planner import plan_physical
+from spark_rapids_tpu_torch.runtime.memory import get_manager
 from spark_rapids_tpu_torch.sql.column import Column, UExpr, col  # noqa: F401
 
 
@@ -256,8 +257,11 @@ class DataFrame:
 
     # -- actions ----------------------------------------------------------
     def _execute_plan(self) -> DeviceToHostExec:
-        plan = plan_physical(optimize(self._plan),
-                             self.session.rapids_conf(),
+        conf = self.session.rapids_conf()
+        # configure the budget arbiter from this query's conf before any
+        # device materialization (the JAX package's apply_overrides)
+        get_manager(conf, self.session.device)
+        plan = plan_physical(optimize(self._plan), conf,
                              self.session.device)
         return DeviceToHostExec(plan)
 

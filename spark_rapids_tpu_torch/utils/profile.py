@@ -54,7 +54,9 @@ def _query(tpch_mod, query: str, session, tables):
 
 def profile_query(session, query: str, tables, top: int = 8) -> Dict:
     """Run ``query`` (one of ``tpch.QUERIES``) once under the profiler;
-    ``tables`` is ``tpch.gen_tpch``'s dict."""
+    ``tables`` is ``tpch.gen_tpch``'s dict.  Scans an earlier run cached
+    are read from the scan cache (``h2d_s`` 0): ``main`` runs each query
+    once before, so that it traces the warm run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]

@@ -12,7 +12,9 @@ a Python list of n strings; the formatted string columns are built
 column-wise with arrow compute.
 
 ``q1`` … ``q22`` transcribe ``bench.py``'s builders onto this port's
-DataFrame API (those import the JAX package).
+DataFrame API (those import the JAX package); ``JOIN_VARIANTS`` are
+rewrites of four of them that run the right join, the full join and the
+residual join conditions.
 """
 
 from __future__ import annotations
@@ -808,3 +810,92 @@ def q22(session, t: Dict[str, pa.Table]):
 # the 22 queries, in TPC-H order; q1 and q6 take lineitem, the others
 # the dict of tables
 QUERIES = tuple(f"q{i}" for i in range(1, 23))
+
+
+# ---------------------------------------------------------------------------
+# join variants: rewrites of TPC-H queries (not engine features) that run
+# the right join, the residual join conditions and the full join
+# ---------------------------------------------------------------------------
+
+def q13_right(session, t: Dict[str, pa.Table]):
+    """q13 with its left join written as ``orders RIGHT JOIN customer``:
+    a swapped left join, the same rows in the same order, so the result
+    equals q13's."""
+    orders = (_t(session, t, "orders", "o_orderkey", "o_custkey",
+                 "o_comment")
+              .filter(~col("o_comment").like("%special%requests%"))
+              .select("o_orderkey", "o_custkey"))
+    cust = _t(session, t, "customer", "c_custkey")
+    per_cust = (orders.join(cust, col("o_custkey") == col("c_custkey"),
+                            "right")
+                .groupBy("c_custkey")
+                .agg(F.count(col("o_orderkey")).alias("c_count")))
+    return (per_cust.groupBy("c_count")
+            .agg(F.count("*").alias("custdist"))
+            .orderBy(col("custdist").desc(), col("c_count").desc()))
+
+
+def q17_cond(session, t: Dict[str, pa.Table]):
+    """q17 with ``l_quantity < 0.2 * aq`` in the join condition beside
+    ``l_partkey == ap`` (the spec's correlated predicate): an inner equi
+    join with a residual condition; equals q17."""
+    part = _t(session, t, "part", "p_partkey", "p_brand",
+              "p_container").filter(
+        (col("p_brand") == "Brand#23")
+        & (col("p_container") == "MED BOX")).select("p_partkey")
+    li = (_t(session, t, "lineitem", "l_partkey", "l_quantity",
+             "l_extendedprice")
+          .join(part, col("l_partkey") == col("p_partkey"),
+                "left_semi"))
+    avgq = (li.groupBy("l_partkey")
+            .agg(F.avg(col("l_quantity")).alias("aq"))
+            .withColumnRenamed("l_partkey", "ap"))
+    return (li.join(avgq, (col("l_partkey") == col("ap"))
+                    & (col("l_quantity") < 0.2 * col("aq")))
+            .agg(F.sum(col("l_extendedprice")).alias("s"))
+            .select((col("s") / 7.0).alias("avg_yearly")))
+
+
+def q22_cond(session, t: Dict[str, pa.Table]):
+    """q22 with ``c_acctbal > ab`` as the condition of the join with the
+    average: an inner join without an equi key (a cross product with a
+    condition); equals q22."""
+    codes = ("13", "31", "23", "29", "30", "18", "17")
+    cust = (_t(session, t, "customer", "c_custkey", "c_phone",
+               "c_acctbal")
+            .select(col("c_custkey"), col("c_acctbal"),
+                    F.substring(col("c_phone"), 1, 2)
+                    .alias("cntrycode"))
+            .filter(col("cntrycode").isin(*codes)))
+    avg_bal = (cust.filter(col("c_acctbal") > 0.0)
+               .agg(F.avg(col("c_acctbal")).alias("ab")))
+    orders = _t(session, t, "orders", "o_custkey")
+    return (cust.join(avg_bal, col("c_acctbal") > col("ab"))
+            .join(orders, col("c_custkey") == col("o_custkey"),
+                  "left_anti")
+            .groupBy("cntrycode")
+            .agg(F.count("*").alias("numcust"),
+                 F.sum(col("c_acctbal")).alias("totacctbal"))
+            .orderBy("cntrycode"))
+
+
+def q3_full(session, t: Dict[str, pa.Table]):
+    """q3's two filtered sides, ``customer`` (BUILDING) FULL JOIN
+    ``orders`` (before 1995-03-15), counted: rows, customers, orders and
+    the orders' total price."""
+    cust = _t(session, t, "customer", "c_custkey", "c_mktsegment").filter(
+        col("c_mktsegment") == "BUILDING")
+    orders = _t(session, t, "orders", "o_orderkey", "o_custkey",
+                "o_orderdate", "o_totalprice").filter(
+        col("o_orderdate") < _D(1995, 3, 15))
+    return (cust.join(orders, col("c_custkey") == col("o_custkey"),
+                      "full")
+            .agg(F.count("*").alias("n"),
+                 F.count(col("c_custkey")).alias("n_cust"),
+                 F.count(col("o_orderkey")).alias("n_orders"),
+                 F.sum(col("o_totalprice")).alias("total_price")))
+
+
+# variant -> the query it must equal (None: no base query)
+JOIN_VARIANTS = {"q13_right": "q13", "q17_cond": "q17",
+                 "q22_cond": "q22", "q3_full": None}

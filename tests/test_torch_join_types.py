@@ -1,9 +1,11 @@
 """The port's join exec against the JAX package on small numpy tables:
-inner, left, left_semi and left_anti joins with null and duplicate keys
-(int64, int32 x int64 and string keys; USING and expression joins) under
+inner, left, right, full, left_semi and left_anti joins with null and
+duplicate keys (int64, int32 x int64 and string keys; USING and
+expression joins, residual conditions on inner and cross joins) under
 each strategy the exec picks, the top-N, string comparisons, and the
-branches the slice does not port, each of which must raise
-``NotImplementedError`` naming itself.  Results must be equal under
+branches the port does not have, each of which must raise
+``NotImplementedError`` naming itself (the joins the JAX package runs
+on the CPU raise naming their CPU fallback).  Results must be equal under
 ``bench._rows_equal(tol=1e-6)``, the reference's oracle rule.
 """
 
@@ -66,13 +68,22 @@ _LAYOUTS = {
 }
 
 
-@pytest.mark.parametrize("how, layout", [
-    (h, l) for h in ("inner", "left", "left_semi", "left_anti")
-    # a left join cannot stream its right side: both packages
-    # sub-partition both sides there
-    for l in _LAYOUTS])
-@pytest.mark.parametrize("keys", ["long", "int_x_long", "string",
-                                  "string_widths", "double"])
+def _join_type_cases():
+    """(keys, how, layout).  A left or full join cannot stream its right
+    side, nor a right join (a swapped left join) its left side: both
+    packages sub-partition both sides there.  Mixed-width int keys on a
+    right or full join fall back to the CPU in the JAX package and raise
+    in the port (``test_unported_branch_raises``)."""
+    return [pytest.param(k, h, l, id=f"{k}-{h}-{l}")
+            for k in ("long", "int_x_long", "string", "string_widths",
+                      "double")
+            for h in ("inner", "left", "left_semi", "left_anti", "right",
+                      "full")
+            for l in _LAYOUTS
+            if not (k == "int_x_long" and h in ("right", "full"))]
+
+
+@pytest.mark.parametrize("keys, how, layout", _join_type_cases())
 def test_join_types_match_jax(how, layout, keys):
     n, n_right, conf = _LAYOUTS[layout]
     if keys == "long":
@@ -105,17 +116,38 @@ def test_join_types_match_jax(how, layout, keys):
     assert got.num_rows > 0
 
 
-@pytest.mark.parametrize("how", ["inner", "left_semi"])
-def test_expression_join_matches_jax(how):
+# case -> (how, condition over left (k, a, s) and right (rk, b, k2))
+_EXPRESSION_JOINS = {
+    "inner": ("inner", lambda c: c("k") == c("rk")),
+    "left_semi": ("left_semi", lambda c: c("k") == c("rk")),
+    # the right join's swapped output remaps all left ++ all right
+    "right": ("right", lambda c: c("k") == c("rk")),
+    "full": ("full", lambda c: c("k") == c("rk")),
+    # an equi key with a residual condition, applied as a sel mask
+    "residual": ("inner", lambda c: (c("k") == c("rk"))
+                 & (c("a") < 100 + c("k2") * 40)),
+    # no equi key: the cross product with the condition
+    "cross_condition": ("cross", lambda c: c("a") < c("rk")),
+}
+
+
+@pytest.mark.parametrize("case", list(_EXPRESSION_JOINS))
+def test_expression_join_matches_jax(case):
+    how, cond = _EXPRESSION_JOINS[case]
     left, right = _sides()
+    if how == "cross":
+        left = left.slice(0, 300)
 
     def build(s, F_, c):
-        r = s.createDataFrame(right).select(c("k").alias("rk"), c("b"))
-        return s.createDataFrame(left).join(r, c("k") == c("rk"), how)
+        r = s.createDataFrame(right).select(c("k").alias("rk"), c("b"),
+                                            c("k2"))
+        return s.createDataFrame(left).join(r, cond(c), how)
 
     got, want = _both(_LAYOUTS["streamLeft"][2], build)
     assert got.column_names == want.column_names
+    assert got.schema == want.schema
     assert bench._rows_equal(got, want, tol=1e-6)
+    assert got.num_rows > 0
 
 
 def test_topn_matches_jax():
@@ -156,20 +188,13 @@ def _raises_cases():
                 s.createDataFrame(right), on=on, how=how).toArrow()
         return run
 
-    def residual():
+    def residual_left():
         left, right = _sides()
         s = TpuSession(device="cpu")
         r = s.createDataFrame(right).select(col("k").alias("rk"), col("b"))
         return s.createDataFrame(left).join(
-            r, (col("k") == col("rk")) & (col("a") < 100), "inner"
+            r, (col("k") == col("rk")) & (col("a") < 100), "left"
         ).toArrow()
-
-    def cross_condition():
-        left, right = _sides()
-        s = TpuSession(device="cpu")
-        r = s.createDataFrame(right).select(col("k").alias("rk"), col("b"))
-        return s.createDataFrame(left).join(
-            r, col("a") < col("rk"), "cross").toArrow()
 
     def bare_limit():
         left, _ = _sides()
@@ -183,17 +208,19 @@ def _raises_cases():
         return s.createDataFrame(left).join(
             s.createDataFrame(right), on="k").toArrow()
 
+    def mixed_width_full():
+        left, right = _sides(pa.int32(), pa.int64())
+        s = TpuSession(device="cpu")
+        return s.createDataFrame(left).join(
+            s.createDataFrame(right), on="k", how="full").toArrow()
+
     no_bc = {"spark.sql.autoBroadcastJoinThreshold": 0}
     return [
-        pytest.param(join("right"), "right outer join", id="right"),
-        pytest.param(join("full"), "full outer join", id="full"),
-        pytest.param(cross_condition, "residual join condition",
-                     id="cross_condition"),
-        pytest.param(residual, "residual join condition", id="residual"),
-        pytest.param(
-            join("right", conf=dict(no_bc, **{
-                "spark.rapids.tpu.join.targetRows": 256})),
-            "right outer join", id="sub_partition_right"),
+        pytest.param(residual_left, "CPU fallback of a join .residual "
+                     "join conditions on left joins", id="residual_left"),
+        pytest.param(mixed_width_full, "CPU fallback of a join .mixed-width "
+                     "int join keys not supported for full joins",
+                     id="mixed_width_full"),
         pytest.param(
             join("inner", conf=dict(no_bc, **{
                 "spark.rapids.tpu.adaptive.enabled": True})),

@@ -65,6 +65,11 @@ def test_import_check_covers_the_tpch_slice():
     assert "spark_rapids_tpu_torch/ops/datetime_ops.py" in names
 
 
+def test_import_check_covers_the_scan_cache_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "spark_rapids_tpu_torch/runtime/memory.py" in names
+
+
 def test_session_without_cpu_raises_when_cuda_is_unavailable(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
@@ -84,6 +89,8 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.rapids.tpu.kernel.backend": "pallas"}, "invalid value"),
     ({"spark.rapids.tpu.batchRows": 0}, "invalid value"),
     ({"spark.rapids.sql.hasNans": "maybe"}, "cannot parse boolean"),
+    ({"spark.rapids.memory.gpu.allocFraction": 1.5}, "invalid value"),
+    ({"spark.rapids.tpu.memory.poolSize": "lots"}, "cannot parse byte"),
 ])
 def test_conf_is_validated(conf, match):
     with pytest.raises(ValueError, match=match):

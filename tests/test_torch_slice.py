@@ -93,11 +93,17 @@ def test_collect_rows(tables, jax_results):
 
 
 def test_profile_query_runs_and_unions_intervals(tables):
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
     from spark_rapids_tpu_torch.utils import profile as PR
+    clear_scan_cache()  # the first run stages its scans
     out = PR.profile_query(TpuSession(device="cpu"), "q1", tables)
     assert out["rows"] == tables["lineitem"].num_rows
     assert out["traced_wall_s"] > 0 and out["h2d_s"] > 0
     assert out["device_busy_s"] is None  # no card: not measured
+    # the next run reads them from the scan cache
+    assert PR.profile_query(TpuSession(device="cpu"), "q1",
+                            tables)["h2d_s"] == 0
+    clear_scan_cache()
     assert PR._busy_us([(5, 6), (0, 2), (1, 3), (3, 3)]) == 4
 
 

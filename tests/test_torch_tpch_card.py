@@ -80,3 +80,46 @@ def test_string_query_on_the_card_equals_the_cpu(cuda_device, small_tables,
     assert got.schema == want.schema
     assert chip_smoke.rows_equal(got, want)
     assert got.num_rows > 0 or q == "q22"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(tpch.JOIN_VARIANTS))
+def test_join_variant_on_the_card_equals_the_cpu(cuda_device, small_tables,
+                                                 variant):
+    """Each join variant (a right join, residual conditions, a full join)
+    gives the same rows on the card as on the CPU and as its pyarrow
+    reference, at sf 0.01."""
+    t, _ = small_tables
+    got = getattr(tpch, variant)(TpuSession(device=cuda_device),
+                                 t).toArrow()
+    want = getattr(tpch, variant)(TpuSession(device="cpu"), t).toArrow()
+    assert got.schema == want.schema
+    assert chip_smoke.rows_equal(got, want)
+    assert chip_smoke.rows_equal(got, getattr(chip_smoke,
+                                              "ref_" + variant)(t))
+
+
+@pytest.mark.gpu
+def test_scan_cache_and_dictionary_decode_on_the_card(cuda_device,
+                                                      small_tables):
+    """A warm run reads every scan from the card's cache and equals the
+    cold run; after a spill of every entry to host, the next run
+    restores them; q1 over dictionary-encoded lineitem equals q1."""
+    from spark_rapids_tpu_torch.exec import basic as B
+    t, _ = small_tables
+    session = TpuSession(device=cuda_device)
+    B.clear_scan_cache()
+    cold = tpch.q3(session, t).toArrow()
+    warm_df = tpch.q3(session, t)
+    assert warm_df.toArrow().equals(cold)
+    assert all(t_ == 0 for t_ in chip_smoke.scan_transfer_times(warm_df))
+    for _, sp in chip_smoke.cache_entries():
+        assert sp.tier == "device" and sp.device.type == "cuda"
+        sp.spill_to_host()
+    assert tpch.q3(session, t).toArrow().equals(cold)
+    assert all(sp.tier == "device" for _, sp in chip_smoke.cache_entries())
+    li = t["lineitem"]
+    plain = tpch.q1(session, li).toArrow()
+    enc = tpch.q1(session, chip_smoke.dictionary_lineitem(li)).toArrow()
+    assert enc.equals(plain)
+    B.clear_scan_cache()

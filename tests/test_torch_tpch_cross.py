@@ -115,9 +115,16 @@ def test_cross_join_matches_jax(n_right, conf):
 
 
 def test_cross_join_with_a_condition_raises():
-    s = TpuSession(device="cpu")
-    a = s.createDataFrame(pa.table({"a": [1, 2]}))
-    b = s.createDataFrame(pa.table({"b": [1, 3]}))
-    with pytest.raises(NotImplementedError,
-                       match="residual join condition"):
-        a.join(b, col("a") < col("b"), "cross").toArrow()
+    """A cross join with a condition no longer raises: the condition
+    masks the cross product, as in the JAX package."""
+    a, b = pa.table({"a": [1, 2, None]}), pa.table({"b": [1, 3, 2]})
+    out = []
+    for s, c in ((TpuSession(device="cpu"), col), (JaxSession({}), jcol)):
+        out.append(s.createDataFrame(a).join(
+            s.createDataFrame(b), c("a") < c("b"), "cross").toArrow())
+    got, want = out
+    assert got.schema == want.schema
+    assert sorted(got.to_pylist(), key=repr) == sorted(
+        want.to_pylist(), key=repr)
+    assert sorted((r["a"], r["b"]) for r in got.to_pylist()) == [
+        (1, 2), (1, 3), (2, 3)]

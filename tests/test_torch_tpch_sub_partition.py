@@ -128,9 +128,11 @@ def _join_both(case, how, monkeypatch):
     depths = []
     real = TpuSortMergeJoinExec._sub_partition_join
 
-    def spy(self, l_list, r_list, jt, depth=0, live_rows=None):
+    def spy(self, l_list, r_list, jt, total, mgr, depth=0,
+            live_rows=None):
         depths.append(depth)
-        return real(self, l_list, r_list, jt, depth, live_rows)
+        return real(self, l_list, r_list, jt, total, mgr, depth,
+                    live_rows)
 
     monkeypatch.setattr(TpuSortMergeJoinExec, "_sub_partition_join", spy)
     for session in (JaxSession(dict(SUB)),
