@@ -27,7 +27,11 @@ result line is not printed):
    1,500,000 orders, 150,000 customer, 200,000 part, 800,000 partsupp
    and 10,000 supplier rows, 25 nations, 5 regions) through the port's
    DataFrame API on ``device="cuda"`` — the main path, one query at a
-   time: the device scan cache is cleared, and the query's first run
+   time, every plan through the plan rewrite (``plan/overrides.py``)
+   under ``spark.rapids.sql.test.enabled=true``, so that any CPU
+   fallback raises (``[overrides]``: 0 fallback operators per query and
+   the rewrite's host time ``plan_ms``, median of the warm runs): the
+   device scan cache is cleared, and the query's first run
    (its cold wall, which pays the host-to-device transfer) has the
    kernel's launch counts set to 0 just before and read just after;
    the hash-collision fallback count must stay 0.  Each result is
@@ -56,18 +60,36 @@ result line is not printed):
    low-cardinality string columns are dictionary-encoded (indices cross
    to the card, which gathers the strings): each equals its plain run
    and the reference; their cold H2D beside the plain cold H2D;
-8. ``[join variant]``: the four ``JOIN_VARIANTS`` of ``utils/tpch.py``
-   (``q13_right``, ``q17_cond``, ``q22_cond``, ``q3_full``) at SF1, each
+8. ``[join variant]``: the ``JOIN_VARIANTS`` of ``utils/tpch.py`` that
+   run all on the card (``q13_right``, ``q17_cond``, ``q22_cond``,
+   ``q3_full``) at SF1, each
    driven as a path of its own (cache cleared, counts to 0 before its
    cold run, read after): against pyarrow's right and full outer joins
    (``ref_*``), their base queries (the same rows in the same order),
    the exact rung and their strategies (``VARIANT_STRATEGIES``; q3_full
    sub-partitions into k = 3); then 3 warm runs;
-9. the string expressions of the string queries (LIKE, NOT LIKE,
+9. ``[fallback]``: three plans with an operator on the CPU at SF1, each
+   a path of its own (cache cleared, counts to 0 before its cold run,
+   read after) under ``test.enabled`` with ``allowedNonGpu`` naming
+   exactly the exec that must fall (``FALLBACK_CASES``): q1 under
+   ``spark.rapids.sql.exec.Sort=false`` (4 rows cross to a CPU sort),
+   q22 under ``spark.rapids.sql.expression.Substring=false`` (customer's
+   project on the host, back through ``HostToDeviceExec`` and its
+   TargetSize coalesce into the device joins) and ``q13_cond`` (its left
+   join with a residual condition on the CPU between device scans and
+   device aggregates); each against its pyarrow reference and its
+   all-device run, with its fallback summary, its cold and warm walls
+   and its transitions' ``transferTime``;
+10. ``[oracle]``: ``utils/tpch.py::oracle_check`` on the card — bench's
+   CPU-oracle loop, the 22 builders at its small scales under
+   ``TPCH_SF1_CONF`` against the port's CPU session
+   (``spark.rapids.sql.enabled=false``), all equal;
+11. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-10. the kernel at every shape the main path (queries and variants)
+12. the kernel at every shape the main path (queries, variants and
+   fallback cases)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -77,7 +99,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-11. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+13. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -109,6 +131,9 @@ MAIN_PATH_SHAPE = (3, 1 << 20)  # q1: flag limb + 128-bit key hash, 2^20 rows
 # odd n (the vector path's scalar tail; rows of a stacked tensor that are
 # not 16-byte aligned)
 ODD_NS = (1, 3, 4095, (1 << 20) + 1)
+# the main path's session conf: test mode, so that any operator the plan
+# rewrite would leave on the CPU raises
+SESSION_CONF = {"spark.rapids.sql.test.enabled": True}
 # join sides hashed in one launch: q3's (build, probe) and q4's
 JOIN_PAIRS = (((1, 1 << 18), (1, 1 << 18)), ((1, 1 << 18), (1, 1 << 16)))
 QUERIES = ("q1", "q6", "q3", "q4", "q5", "q7", "q8", "q10", "q11", "q12",
@@ -991,6 +1016,9 @@ def ref_q13_right(t):
 
 ref_q17_cond = ref_q17
 ref_q22_cond = ref_q22
+# the ON-clause predicate of q13_cond's left join reads only orders, so
+# it equals filtering orders before the join: q13's reference
+ref_q13_cond = ref_q13
 
 
 def ref_q3_full(t):
@@ -1044,15 +1072,22 @@ def phase_times(df) -> dict:
 
 def join_strategies(df) -> list:
     """Each join of the last run's plan, root first: its type, planned
-    broadcast side, and the run-time strategy metrics."""
+    broadcast side, and the run-time strategy metrics; a join the plan
+    rewrite kept on the CPU (``CpuJoinExec``) has ``cpu`` set."""
     out = []
 
     def walk(node):
+        if type(node).__name__ == "CpuJoinExec":
+            out.append({"join_type": node.join_type, "broadcast": None,
+                        "keys": len(node.left_keys), "cpu": True,
+                        "streamedJoins": 0, "streamedLeftGroups": 0,
+                        "streamedRightGroups": 0, "subPartitionJoins": 0,
+                        "subPartitions": 0})
         if type(node).__name__ == "TpuSortMergeJoinExec":
             m = {k: v.value for k, v in node.metrics.items()}
             out.append({"join_type": node.join_type,
                         "broadcast": node.broadcast,
-                        "keys": len(node.left_keys),
+                        "keys": len(node.left_keys), "cpu": False,
                         "streamedJoins": m.get("streamedJoins", 0),
                         "streamedLeftGroups": m.get(
                             "streamedLeftGroups", 0),
@@ -1119,12 +1154,14 @@ _JOIN_PREFIX = {"semi": "left_semi", "left": "left", "anti": "left_anti",
 # stream, its left side fits the row cap and its right side (~727k live
 # orders) does not: it sub-partitions into k = 3; q17_cond and q22_cond
 # keep their base queries' strategies ("cross" names a join without an
-# equi key, here an inner join with a condition)
+# equi key, here an inner join with a condition); q13_cond's left join
+# with a residual condition stays on the CPU ("cpu": CpuJoinExec)
 VARIANT_STRATEGIES = {
     "q13_right": ("right sub",),
     "q17_cond": STRATEGIES["q17"],
     "q22_cond": STRATEGIES["q22"],
     "q3_full": ("full sub",),
+    "q13_cond": ("left cpu",),
 }
 VARIANT_SUB_PARTITIONS = {"q3_full": 3}
 
@@ -1136,8 +1173,10 @@ def _strategy_holds(want: str, j: dict) -> bool:
         jt, want = _JOIN_PREFIX[head], rest or "in-core"
     if jt == "cross" and j["join_type"] == "inner" and j["keys"] == 0:
         jt = "inner"  # an inner join without an equi key: a cross product
-    if j["join_type"] != jt:
+    if j["join_type"] != jt or j["cpu"] != (want == "cpu"):
         return False
+    if want == "cpu":
+        return True
     streamed = (j["streamedJoins"], j["streamedLeftGroups"] > 0,
                 j["streamedRightGroups"] > 0)
     if want.startswith("bc "):
@@ -1208,8 +1247,7 @@ def build_on(q: str, session, tables):
     """A query or join variant of ``utils/tpch.py`` over ``tables`` (q1
     and q6 take lineitem alone)."""
     from spark_rapids_tpu_torch.utils import tpch
-    return getattr(tpch, q)(session, tables["lineitem"] if q in ("q1", "q6")
-                            else tables)
+    return tpch.build(q, session, tables)
 
 
 def scan_transfer_times(df) -> list:
@@ -1389,12 +1427,16 @@ def query_phase(q, session, exact, tables, ref, CB, KN):
           f"{q}: {counts['collision_fallbacks']} hash-collision fallbacks")
     check_strategies(q, counts["joins"])
     check_result(q, got, ref)
+    fallback = cold_df.fallback_summary()
+    check(fallback["fallback_ops"] == 0 and fallback["device_ops"] > 0,
+          f"{q}: plan rewrite fell back: {fallback}")
     cold_ph = phase_times(cold_df)
-    walls, phases, metrics = [], [], []
+    walls, phases, metrics, plan_ms = [], [], [], []
     for _ in range(3):
         df = build_on(q, session, tables)
         out, wall = timed(df)
         walls.append(wall)
+        plan_ms.append(df.plan_ms)
         phases.append(phase_times(df))
         metrics.append(df.metrics())
         check(rows_equal(out, ref), f"{q} warm run differs")
@@ -1405,6 +1447,10 @@ def query_phase(q, session, exact, tables, ref, CB, KN):
           f"{q}: cuda rung != jnp rung")
     i = walls.index(statistics.median(walls))
     ph = phases[i]
+    print(f"[overrides] {q} " + json.dumps(dict(
+        fallback, plan_ms_cold=cold_df.plan_ms,
+        plan_ms_warm=statistics.median(plan_ms), plan_ms=plan_ms)),
+        flush=True)
     print(f"[{q} metrics] " + json.dumps(metrics[i]), flush=True)
     rows = tables["lineitem"].num_rows
     summary = {
@@ -1414,6 +1460,7 @@ def query_phase(q, session, exact, tables, ref, CB, KN):
         "wall_s_median": walls[i], "wall_s": walls,
         "h2d_s": ph["h2d_s"], "d2h_s": ph["d2h_s"],
         "execute_s": walls[i] - ph["h2d_s"] - ph["d2h_s"],
+        "plan_ms": statistics.median(plan_ms),
         "rows_per_s": rows / walls[i],
         "hash_pairs_launches": counts["hash_pairs_launches"],
         "matches_reference": True, "cuda_equals_jnp_rung": True,
@@ -1580,6 +1627,122 @@ def variant_phase(v, session, exact, tables, first, CB, KN) -> dict:
     return counts
 
 
+# the plans with an operator on the CPU: (name, query, conf, the exec
+# that must fall — what allowedNonGpu names —, how many of it, the
+# all-device query it must equal)
+FALLBACK_CASES = (
+    ("q1_cpu_sort", "q1", {"spark.rapids.sql.exec.Sort": False},
+     "CpuSortExec", 1, "q1"),
+    ("q22_host_substring", "q22",
+     {"spark.rapids.sql.expression.Substring": False},
+     "CpuProjectExec", 2, "q22"),
+    ("q13_cond", "q13_cond", {}, "CpuJoinExec", 1, "q13"),
+)
+
+
+def transition_times(df) -> list:
+    """Each transition of the last run, root first: its direction, rows
+    and ``transferTime`` (the root's device-to-host copy of the result
+    included)."""
+    out = []
+
+    def walk(node):
+        name = type(node).__name__
+        if name in ("HostToDeviceExec", "DeviceToHostExec"):
+            m = {k: v.value for k, v in node.metrics.items()}
+            out.append({"node": name,
+                        "rows": m.get("numOutputRows", 0),
+                        "batches": m.get("numOutputBatches", 0),
+                        "transferTime_s": m.get("transferTime", 0.0)})
+        for c in node.children:
+            walk(c)
+
+    walk(df._last_plan)
+    return out
+
+
+def fallback_phase(case, dev, tables, refs, first, CB, KN) -> dict:
+    """One plan with an operator on the CPU, as a path of its own: the
+    cache cleared and the counts set to 0 before its cold run, read
+    after; under test.enabled with allowedNonGpu naming exactly the exec
+    that must fall, so any other fallback raises.  Against its pyarrow
+    reference and its all-device run; then 3 warm runs."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    name, q, conf, cpu_exec, n_fallen, base = case
+    session = TpuSession(dict(conf, **{
+        "spark.rapids.sql.test.enabled": True,
+        "spark.rapids.sql.test.allowedNonGpu": cpu_exec}), device=dev)
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    df = build_on(q, session, tables)
+    got, cold_wall = timed(df)
+    counts = path_counts(df, CB, KN)
+    summary = df.fallback_summary()
+    print(f"[main path] {name} " + json.dumps(counts), flush=True)
+    check(summary["fallback_ops"] == n_fallen and all(
+        r.startswith(cpu_exec + ": ") for r in summary["fallback_reasons"]),
+        f"{name}: want {n_fallen} x {cpu_exec} on the CPU, got {summary}")
+    check(counts["collision_fallbacks"] == 0,
+          f"{name}: {counts['collision_fallbacks']} hash-collision "
+          "fallbacks")
+    check(counts["hash_pairs_launches"] > 0,
+          f"{name}: hash_pairs was not launched")
+    check_result(name, got, refs[base])
+    check(rows_equal(got, first[base]),
+          f"{name} differs from its all-device run:\n{got}\n{first[base]}")
+    cold_tr = transition_times(df)
+    if q == "q22":
+        check(sum(t["node"] == "HostToDeviceExec" for t in cold_tr) == 2,
+              f"{name}: transitions {cold_tr}")
+        check("TpuCoalesceBatches [target=" in df._last_plan.tree_string(),
+              f"{name}: no TargetSize coalesce above HostToDeviceExec")
+    warm, warm_tr = [], []
+    for _ in range(3):
+        wdf = build_on(q, session, tables)
+        out, wall = timed(wdf)
+        warm.append(wall)
+        warm_tr.append(transition_times(wdf))
+        check(rows_equal(out, refs[base]), f"{name} warm run differs")
+    i = warm.index(statistics.median(warm))
+    line = {"query": q, "conf": conf, "allowedNonGpu": cpu_exec,
+            "rows": got.num_rows, "fallback": summary,
+            "report": df._last_override.fallback_report(),
+            "cold_wall_s": cold_wall, "wall_s_median": warm[i],
+            "wall_s": warm, "all_device_equal": True,
+            "cold_transitions": cold_tr, "warm_transitions": warm_tr[i],
+            "hash_pairs_launches": counts["hash_pairs_launches"]}
+    print(f"[fallback] {name} SF{SF:g} " + json.dumps(line), flush=True)
+    return counts
+
+
+def oracle_phase(dev) -> dict:
+    """bench's CPU-oracle loop on the card (``tpch.oracle_check``): the
+    22 builders at its small scales under ``TPCH_SF1_CONF`` against the
+    port's CPU session; all must be equal."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.utils import tpch
+    clear_scan_cache()
+    cache = {}
+
+    def tables_for(sf):
+        if sf not in cache:
+            cache[sf] = tpch.gen_tpch(sf)
+        return cache[sf]
+
+    t0 = time.perf_counter()
+    out = tpch.oracle_check(tables_for, device=dev)
+    line = {"seconds": time.perf_counter() - t0, "equal": out,
+            "scales": sorted(cache)}
+    print("[oracle] " + json.dumps(line), flush=True)
+    bad = [q for q, ok in out.items() if not ok]
+    check(len(out) == 22 and not bad,
+          f"oracle_check: the card differs from the CPU session on {bad}")
+    clear_scan_cache()
+    return line
+
+
 def main() -> int:
     import numpy as np
     import pyarrow as pa
@@ -1670,10 +1833,11 @@ def main() -> int:
     def build(q, session):
         return build_on(q, session, tables)
 
-    session = TpuSession(device=dev)
+    # test mode: any CPU fallback in the main path raises
+    session = TpuSession(dict(SESSION_CONF), device=dev)
     check(session.device.type == "cuda", "session is not on the card")
-    exact = TpuSession({"spark.rapids.tpu.kernel.backend": "jnp"},
-                       device=dev)
+    exact = TpuSession(dict(SESSION_CONF, **{
+        "spark.rapids.tpu.kernel.backend": "jnp"}), device=dev)
 
     # each query: the scan cache cleared, then its cold run (the main
     # path: counts to 0 just before, read just after), 3 warm runs that
@@ -1710,21 +1874,37 @@ def main() -> int:
     # -- the scan cache with all 22 queries' tables resident ---------------
     resident_phase(session, tables, refs, dev)
     # -- spill: q3 under a pool of ~1.5 of lineitem's cached batches --------
-    spill_phase(session, {}, tables, refs["q3"], first["q3"], n_batches,
-                dev)
+    spill_phase(session, SESSION_CONF, tables, refs["q3"], first["q3"],
+                n_batches, dev)
     # -- device dictionary decode: q1, q12, q19 cold -----------------------
     dict_phase(session, tables, refs, first, summary)
     # -- the join variants: right, residual, cross condition, full ---------
     var_counts = {}
+    fallback_names = {c[1] for c in FALLBACK_CASES}
     for v in tpch.JOIN_VARIANTS:
-        var_counts[v] = variant_phase(v, session, exact, tables, first,
-                                      CB, KN)
+        if v not in fallback_names:  # q13_cond is a [fallback] case
+            var_counts[v] = variant_phase(v, session, exact, tables, first,
+                                          CB, KN)
     query_shapes = set(main_shapes)
-    for v in tpch.JOIN_VARIANTS:
+    for v in var_counts:
         for key, c in var_counts[v]["shapes"].items():
             main_shapes[key] = main_shapes.get(key, 0) + c
     print("[join variant] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+
+    # -- plans with an operator on the CPU ----------------------------------
+    refs["q13_cond"] = ref_q13_cond(tables)
+    fb_counts = {}
+    for case in FALLBACK_CASES:
+        fb_counts[case[0]] = fallback_phase(case, dev, tables, refs, first,
+                                            CB, KN)
+    for c in fb_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[fallback] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- bench's CPU-oracle loop on the card --------------------------------
+    oracle_phase(dev)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -1805,11 +1985,14 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/kernels/csrc/hash_pairs.cu",
         "replaces": "spark_rapids_tpu/kernels/pallas_backend.py:42",
         "launches": sum(c["hash_pairs_launches"] for c in
-                        list(counts.values()) + list(var_counts.values())),
+                        list(counts.values()) + list(var_counts.values())
+                        + list(fb_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
                                  for v, c in var_counts.items()},
+        "launches_per_fallback_case": {k: c["hash_pairs_launches"]
+                                       for k, c in fb_counts.items()},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
         "ms_ring": kernel_row["ms_ring"],

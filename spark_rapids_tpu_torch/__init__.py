@@ -4,7 +4,10 @@ Same module paths and class names as the JAX package (``TpuSession``,
 ``DeviceColumn``, ``TpuHashAggregateExec``, ...), so each counterpart is
 easy to find; inside, plain PyTorch functions on tensors with an explicit
 ``device``.  Entry points run on the CUDA card unless the caller asks for
-``device="cpu"``; there is no silent CPU fallback.
+``device="cpu"``.  An operator the device path lacks falls back to the
+numpy CPU oracle through the plan rewrite (``plan/overrides.py``), which
+reports it (``explain(True)``, ``fallback_summary()``) and, under
+``spark.rapids.sql.test.enabled``, raises instead.
 
 Unsigned 64-bit values (sort limbs, hashes) are carried as ``int64`` bit
 patterns: torch has no usable uint64/uint32 arithmetic.  Before any sort

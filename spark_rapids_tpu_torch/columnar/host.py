@@ -1,0 +1,113 @@
+"""Host columns for the CPU fallback and oracle path.
+
+The counterpart of the JAX package's ``columnar/host.py``: numpy data
+plus a validity mask (True = valid, None = all valid).  CPU execs
+evaluate expressions over these with ``eval_cpu``; strings are object
+arrays of Python ``str``.  The types are the port's: numbers, booleans,
+strings, binary, dates (int32 days) and timestamps (int64 microseconds,
+UTC); decimal and nested columns raise ``NotImplementedError`` as they
+do on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import pyarrow as pa
+
+from spark_rapids_tpu_torch.columnar import dtypes as T
+
+
+@dataclasses.dataclass
+class HostCol:
+    dtype: T.DataType
+    data: np.ndarray            # object array for strings on host
+    validity: Optional[np.ndarray] = None  # bool, True = valid; None = all
+
+    def valid_mask(self, n=None) -> np.ndarray:
+        if self.validity is None:
+            return np.ones(len(self.data) if n is None else n, dtype=bool)
+        return self.validity
+
+    def __len__(self):
+        return len(self.data)
+
+
+@dataclasses.dataclass
+class HostBatch:
+    schema: T.StructType
+    columns: List[HostCol]
+
+    @property
+    def num_rows(self):
+        return len(self.columns[0]) if self.columns else 0
+
+
+def _not_ported(dt: T.DataType) -> NotImplementedError:
+    return NotImplementedError(
+        f"spark_rapids_tpu_torch: host columns of type {dt.simple_name} "
+        "are not ported yet")
+
+
+def from_arrow_table(tbl: pa.Table) -> HostBatch:
+    fields = []
+    cols = []
+    for name, col in zip(tbl.column_names, tbl.columns):
+        dt = T.from_arrow(col.type)
+        fields.append(T.StructField(name, dt))
+        cols.append(from_arrow_column(col, dt))
+    return HostBatch(T.StructType(tuple(fields)), cols)
+
+
+def from_arrow_column(col, dt: T.DataType) -> HostCol:
+    if isinstance(col, pa.ChunkedArray):
+        col = col.combine_chunks()
+    if pa.types.is_dictionary(col.type):
+        col = col.cast(col.type.value_type)
+    nulls = np.asarray(col.is_null())
+    validity = ~nulls if nulls.any() else None
+    if isinstance(dt, (T.DecimalType, T.ArrayType, T.StructType,
+                       T.MapType)):
+        raise _not_ported(dt)
+    if isinstance(dt, (T.StringType, T.BinaryType)):
+        data = np.array(
+            ["" if v is None else v for v in col.to_pylist()], dtype=object)
+    elif isinstance(dt, T.DateType):
+        data = np.asarray(col.cast(pa.date32()).cast(pa.int32()).fill_null(0))
+    elif isinstance(dt, T.TimestampType):
+        c = col
+        if c.type.unit != "us":
+            c = c.cast(pa.timestamp("us", tz=c.type.tz))
+        data = np.asarray(c.cast(pa.int64()).fill_null(0))
+    elif isinstance(dt, T.BooleanType):
+        data = np.asarray(col.cast(pa.int8()).fill_null(0)).astype(bool)
+    else:
+        data = np.asarray(col.fill_null(0)).astype(T.to_numpy_dtype(dt))
+    return HostCol(dt, data, validity)
+
+
+def to_arrow_table(batch: HostBatch) -> pa.Table:
+    arrays = [to_arrow_column(c) for c in batch.columns]
+    return pa.table(arrays, names=[f.name for f in batch.schema.fields])
+
+
+def to_arrow_column(c: HostCol) -> pa.Array:
+    mask = None
+    if c.validity is not None:
+        mask = ~c.validity
+    if isinstance(c.dtype, (T.DecimalType, T.ArrayType, T.StructType,
+                            T.MapType)):
+        raise _not_ported(c.dtype)
+    if isinstance(c.dtype, (T.StringType, T.BinaryType)):
+        # the object array converts in one call (a masked slot's value
+        # is ignored)
+        return pa.array(c.data, type=T.to_arrow(c.dtype), mask=mask)
+    if isinstance(c.dtype, T.DateType):
+        return pa.array(c.data.astype(np.int32), type=pa.int32(),
+                        mask=mask).cast(pa.date32())
+    if isinstance(c.dtype, T.TimestampType):
+        return pa.array(c.data.astype(np.int64), type=pa.int64(),
+                        mask=mask).cast(pa.timestamp("us", tz="UTC"))
+    return pa.array(c.data, type=T.to_arrow(c.dtype), mask=mask)

@@ -2,19 +2,25 @@
 
 The same builder DSL and the same key names as the JAX package's
 ``conf.py`` [REF: sql-plugin/../RapidsConf.scala :: RapidsConf], cut to
-the entries the slices ported so far use (the TPC-H queries, the join
-strategies and the memory arbiter of the scan cache).  Values are
-validated the same way:
-an unknown ``spark.rapids.*`` key raises, and so does a value the
-entry's checker rejects.  Keys outside the ``spark.rapids.`` namespace
-are kept raw.
+the entries the slices ported so far use (the plan rewrite's switches,
+the TPC-H queries, the join strategies and the memory arbiter of the
+scan cache).  Values are validated the same way: an unknown
+``spark.rapids.*`` key raises, and so does a value the entry's checker
+rejects.  The per-operator kill switches ``spark.rapids.sql.exec.<Name>``
+and ``spark.rapids.sql.expression.<Name>`` are parsed as booleans
+without a registry entry (``is_op_enabled`` reads them); ``<Name>``
+must be a rule of the plan rewrite or an expression class of the port,
+else the key raises as an unknown one.  Keys outside
+the ``spark.rapids.`` namespace are kept raw, except the Spark core keys
+registered here (``spark.sql.ansi.enabled``,
+``spark.sql.autoBroadcastJoinThreshold``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 _SIZE_RE = re.compile(r"^(\d+)([kKmMgGtT]?)[bB]?$")
 _SIZE_MULT = {"": 1, "k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
@@ -113,6 +119,61 @@ class ConfBuilder:
 def conf(key: str) -> ConfBuilder:
     return ConfBuilder(key)
 
+
+SQL_ENABLED = (
+    conf("spark.rapids.sql.enabled")
+    .doc("Enable columnar acceleration on TPU. When false every operator "
+         "runs on the CPU fallback path (the correctness oracle).")
+    .boolean()
+    .create_with_default(True)
+)
+
+EXPLAIN = (
+    conf("spark.rapids.sql.explain")
+    .doc("Explain mode for plan conversion: NONE, ALL, or NOT_ON_GPU "
+         "(log every operator that could not be accelerated and why).")
+    .string()
+    .check(lambda v: v.upper() in ("NONE", "ALL", "NOT_ON_GPU",
+                                   "NOT_ON_TPU"),
+           "one of NONE, ALL, NOT_ON_GPU, NOT_ON_TPU")
+    .create_with_default("NONE")
+)
+
+TEST_ENABLED = (
+    conf("spark.rapids.sql.test.enabled")
+    .doc("Test mode: raise instead of silently falling back to CPU for any "
+         "operator not in the allow-list (see test.allowedNonGpu).")
+    .boolean()
+    .create_with_default(False)
+)
+
+TEST_ALLOWED_NON_GPU = (
+    conf("spark.rapids.sql.test.allowedNonGpu")
+    .doc("Comma-separated operator class names permitted to fall back to "
+         "CPU when test.enabled is on.")
+    .string()
+    .create_with_default("")
+)
+
+BATCH_SIZE_BYTES = (
+    conf("spark.rapids.sql.batchSizeBytes")
+    .doc("Target device batch size; coalescing concatenates small batches "
+         "up to this size. TPU default is smaller than the reference's 1g "
+         "because padded static-shape buckets amplify footprint.")
+    .bytes()
+    .create_with_default(512 << 20)
+)
+
+ANSI_ENABLED = (
+    conf("spark.sql.ansi.enabled")
+    .doc("ANSI mode (Spark core key). The device lowers arithmetic, casts "
+         "and sums with non-ANSI semantics, so under true the plan "
+         "rewrite keeps those expressions and sums on the CPU, as the "
+         "JAX package does. The CPU path is non-ANSI too: results still "
+         "wrap on overflow and null on invalid input; nothing raises.")
+    .boolean()
+    .create_with_default(False)
+)
 
 BATCH_ROWS = (
     conf("spark.rapids.tpu.batchRows")
@@ -236,6 +297,16 @@ class RapidsConf:
             e = REGISTRY.get(k)
             if e is not None:
                 self._values[k] = e.convert(v)
+            elif k.startswith(("spark.rapids.sql.expression.",
+                               "spark.rapids.sql.exec.")):
+                # per-op kill switches, named after the overrides
+                # plane's rules and expression classes
+                from spark_rapids_tpu_torch.plan.overrides import op_names
+                kind, name = k[len("spark.rapids.sql."):].split(".", 1)
+                if name not in op_names(kind):
+                    unknown.append(k)
+                    continue
+                self._values[k] = _parse_bool(v)
             elif k.startswith("spark.rapids."):
                 unknown.append(k)
             else:
@@ -248,6 +319,32 @@ class RapidsConf:
 
     def get_raw(self, key: str, default=None):
         return self._values.get(key, default)
+
+    def is_op_enabled(self, kind: str, name: str,
+                      default: bool = True) -> bool:
+        """Per-op kill switch, e.g. spark.rapids.sql.expression.Substring."""
+        return self._values.get(f"spark.rapids.sql.{kind}.{name}", default)
+
+    @property
+    def sql_enabled(self) -> bool:
+        return self.get(SQL_ENABLED)
+
+    @property
+    def explain(self) -> str:
+        return str(self.get(EXPLAIN)).upper()
+
+    @property
+    def test_enabled(self) -> bool:
+        return self.get(TEST_ENABLED)
+
+    @property
+    def allowed_non_gpu(self) -> List[str]:
+        s = str(self.get(TEST_ALLOWED_NON_GPU)).strip()
+        return [x.strip() for x in s.split(",") if x.strip()]
+
+    @property
+    def ansi_enabled(self) -> bool:
+        return self.get(ANSI_ENABLED)
 
     @property
     def batch_rows(self) -> int:

@@ -32,19 +32,25 @@ in any order.  (``index_put_(accumulate=True)`` is deterministic too,
 but adds a group's rows one after another: slow where groups are few.)
 Float sums differ in the last ulps from the JAX package's scan order;
 counts and keys are exact.
+
+``CpuAggregateExec`` is the JAX package's CPU oracle for the same
+functions: a dict of groups in first-seen order, updated row by row in
+Python, finals as Spark defines them.
 """
 
 from __future__ import annotations
 
 from typing import Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import kernels as KN
 from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.columnar import host as H
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, compact, torch_dtype)
-from spark_rapids_tpu_torch.exec.base import TpuExec, fuse_upstream
+from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec, fuse_upstream
 from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
 from spark_rapids_tpu_torch.ops import ordering as ORD
@@ -536,3 +542,146 @@ class TpuHashAggregateExec(TpuExec):
             bufs.append(_reduce_column(data, valid, sel, kind,
                                        partials[0].columns[j].dtype))
         return _one_row_batch(self.schema, final_project(self.fns, bufs))
+
+
+# ---------------------------------------------------------------------------
+# CPU oracle exec
+# ---------------------------------------------------------------------------
+
+class CpuAggregateExec(CpuExec):
+    def __init__(self, grouping: Sequence[Expression],
+                 fns: Sequence[AggregateFunction],
+                 schema: T.StructType, child: CpuExec):
+        super().__init__(schema, child)
+        self.grouping = list(grouping)
+        self.fns = list(fns)
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        child = self.children[0]
+        groups = {}
+        order: List[tuple] = []
+        for p in range(child.num_partitions()):
+            for b in child.execute(p):
+                n = b.num_rows
+                key_cols = [g.eval_cpu(b) for g in self.grouping]
+                val_cols = [None if isinstance(fn, CountStar)
+                            else fn.child.eval_cpu(b) for fn in self.fns]
+                for i in range(n):
+                    key = tuple(
+                        None if (kc.validity is not None
+                                 and not kc.validity[i])
+                        else _norm_key(kc.data[i], kc.dtype)
+                        for kc in key_cols)
+                    st = groups.get(key)
+                    if st is None:
+                        st = [_new_acc() for _ in self.fns]
+                        groups[key] = st
+                        order.append(key)
+                    for acc, fn, vc in zip(st, self.fns, val_cols):
+                        _acc_update(acc, fn, vc, i)
+        if not self.grouping and not groups:
+            groups[()] = [_new_acc() for _ in self.fns]
+            order.append(())
+        rows = []
+        for key in order:
+            st = groups[key]
+            rows.append(list(key) + [_acc_final(a, fn)
+                                     for a, fn in zip(st, self.fns)])
+        cols = list(zip(*rows)) if rows else [[] for _ in self.schema.fields]
+        out_cols = []
+        for vals, f in zip(cols, self.schema.fields):
+            vals = list(vals)
+            validity = np.array([v is not None for v in vals], bool)
+            if isinstance(f.dtype, (T.StringType, T.BinaryType)):
+                data = np.array([v if v is not None else "" for v in vals],
+                                dtype=object)
+            else:
+                npdt = T.to_numpy_dtype(f.dtype)
+                data = np.array([v if v is not None else 0 for v in vals])
+                data = data.astype(npdt, copy=False)
+            out_cols.append(H.HostCol(
+                f.dtype, data, None if validity.all() else validity))
+        yield H.HostBatch(self.schema, out_cols)
+
+
+def _norm_key(v, dt):
+    if isinstance(dt, (T.FloatType, T.DoubleType)):
+        f = float(v)
+        if np.isnan(f):
+            return "NaN"
+        if f == 0.0:
+            return 0.0  # -0.0 and 0.0 one group (Spark normalizes keys)
+        return f
+    if isinstance(dt, T.BooleanType):
+        return bool(v)
+    if isinstance(dt, (T.StringType, T.BinaryType)):
+        return v
+    return int(v)
+
+
+def _new_acc():
+    return {"sum": 0, "count": 0, "min": None, "max": None}
+
+
+def _acc_update(acc, fn, vc, i):
+    if isinstance(fn, CountStar):
+        acc["count"] += 1
+        return
+    valid = vc.validity is None or bool(vc.validity[i])
+    if not valid:
+        return
+    v = vc.data[i]
+    if isinstance(fn, Count):
+        acc["count"] += 1
+    elif isinstance(fn, (Sum, Average)):
+        acc["count"] += 1
+        if T.is_integral(fn.child.dtype):
+            with np.errstate(over="ignore"):  # Spark non-ANSI sum wraps
+                acc["sum"] = np.int64(acc["sum"] + np.int64(v))
+        else:
+            acc["sum"] = float(acc["sum"]) + float(v)
+    elif isinstance(fn, Min):
+        acc["min"] = v if acc["min"] is None else _spark_min(acc["min"], v, fn)
+    elif isinstance(fn, Max):
+        acc["max"] = v if acc["max"] is None else _spark_max(acc["max"], v, fn)
+
+
+def _total_key(v, dt):
+    if isinstance(dt, (T.FloatType, T.DoubleType)):
+        f = float(v)
+        if np.isnan(f):
+            return (1, 0.0)
+        return (0, f)
+    return (0, v)
+
+
+def _spark_min(a, b, fn):
+    dt = fn.child.dtype
+    return a if _total_key(a, dt) <= _total_key(b, dt) else b
+
+
+def _spark_max(a, b, fn):
+    dt = fn.child.dtype
+    return a if _total_key(a, dt) >= _total_key(b, dt) else b
+
+
+def _acc_final(acc, fn):
+    if isinstance(fn, (Count, CountStar)):
+        return int(acc["count"])
+    if isinstance(fn, Sum):
+        if acc["count"] == 0:
+            return None
+        return acc["sum"]
+    if isinstance(fn, Average):
+        if acc["count"] == 0:
+            return None
+        return float(acc["sum"]) / acc["count"]
+    if isinstance(fn, Min):
+        return acc["min"]
+    if isinstance(fn, Max):
+        return acc["max"]
+    raise NotImplementedError(fn.name)
+

@@ -5,10 +5,12 @@
 The counterpart of the JAX package's ``exec/base.py``: a physical plan
 is a tree; ``execute(partition)`` returns an iterator of batches for
 that partition (iterator chaining = operator pipelining).  ``TpuExec``
-nodes pump ``DeviceBatch``; ``CpuExec`` nodes pump host data (here only
-the device-to-host transition, which yields ``pyarrow.Table``s).  The
-JAX package's trace, stats, cancel and shape planes, which wrap every
-pump, are not ported yet.
+nodes pump ``DeviceBatch`` (torch tensors on the session's device);
+``CpuExec`` nodes pump ``columnar/host.py::HostBatch`` (the numpy
+fallback and oracle path).  Transition nodes (``exec/transitions.py``)
+convert at each boundary the plan rewrite (``plan/overrides.py``)
+finds.  The JAX package's trace, stats, cancel and shape planes, which
+wrap every pump, are not ported yet.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ class ExecNode:
 
 
 class CpuExec(ExecNode):
-    """Operator over host data."""
+    """Operator over HostBatch — the CPU fallback and oracle path."""
 
 
 class TpuExec(ExecNode):

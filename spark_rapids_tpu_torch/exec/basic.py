@@ -1,10 +1,13 @@
-"""Basic physical operators: scan, project, filter, coalesce.
+"""Basic physical operators: scan, project, filter, limits, coalesce.
 
 [REF: sql-plugin/../basicPhysicalOperators.scala :: GpuProjectExec,
- GpuFilterExec; GpuCoalesceBatches.scala]
+ GpuFilterExec; GpuCoalesceBatches.scala; limit.scala]
 
 The counterparts of the JAX package's ``exec/basic.py`` operators of the
-same names:
+same names.  The ``Cpu*`` execs are the numpy fallback and oracle path
+the planner plans first (``plan/overrides.py`` converts what it can);
+the limits exist only on the CPU so far (their device execs are a later
+slice).  On the device:
 
 * ``TpuScanExec`` caches the device batches of an in-memory table and
   registers them with the memory arbiter (``runtime/memory.py``).
@@ -25,12 +28,41 @@ import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.columnar import host as H
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, compact, host_to_device, round_up_pow2)
-from spark_rapids_tpu_torch.exec.base import TpuExec
+from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec
 from spark_rapids_tpu_torch.ops.expressions import Expression
 from spark_rapids_tpu_torch.runtime.memory import (
     RetryOOM, SpillableBatch, get_manager)
+
+
+class CpuScanExec(CpuExec):
+    """In-memory arrow table scan -> HostBatch per ``batch_rows`` slice."""
+
+    def __init__(self, table: pa.Table, schema: T.StructType,
+                 batch_rows: int = 1 << 20):
+        super().__init__(schema)
+        self.table = table
+        self.batch_rows = batch_rows
+
+    def estimated_size_bytes(self):
+        return self.table.nbytes
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        if partition != 0:
+            raise IndexError(f"partition {partition} of a 1-partition scan")
+        part = self.table
+        for lo in range(0, max(part.num_rows, 1), self.batch_rows):
+            chunk = part.slice(lo, self.batch_rows)
+            if chunk.num_rows == 0 and lo > 0:
+                break
+            with self.timer():
+                b = H.from_arrow_table(chunk)
+                b = H.HostBatch(self.schema, b.columns)
+            self.metric("numOutputRows").add(b.num_rows)
+            self.metric("numOutputBatches").add(1)
+            yield b
 
 
 # Device-resident cache of in-memory relations: repeated executions of a
@@ -166,6 +198,25 @@ class TpuScanExec(TpuExec):
             _scan_cache_put(self.table, key, out)
 
 
+class CpuProjectExec(CpuExec):
+    def __init__(self, exprs: Sequence[Expression], schema: T.StructType,
+                 child: CpuExec):
+        super().__init__(schema, child)
+        self.exprs = list(exprs)
+
+    def node_string(self):
+        return f"Project [{', '.join(str(e) for e in self.exprs)}]"
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        for b in self.children[0].execute(partition):
+            with self.timer():
+                cols = [e.eval_cpu(b) for e in self.exprs]
+                out = H.HostBatch(self.schema, cols)
+            self.metric("numOutputRows").add(out.num_rows)
+            self.metric("numOutputBatches").add(1)
+            yield out
+
+
 class TpuProjectExec(TpuExec):
     """[REF: basicPhysicalOperators.scala :: GpuProjectExec]"""
 
@@ -191,6 +242,31 @@ class TpuProjectExec(TpuExec):
         for b in self.children[0].execute(partition):
             with self.timer():
                 out = run(b)
+            self.metric("numOutputBatches").add(1)
+            yield out
+
+
+class CpuFilterExec(CpuExec):
+    def __init__(self, condition: Expression, child: CpuExec):
+        super().__init__(child.schema, child)
+        self.condition = condition
+
+    def node_string(self):
+        return f"Filter [{self.condition}]"
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        for b in self.children[0].execute(partition):
+            with self.timer():
+                c = self.condition.eval_cpu(b)
+                keep = c.data.astype(bool)
+                if c.validity is not None:
+                    keep = keep & c.validity  # null predicate drops the row
+                cols = [H.HostCol(col.dtype, col.data[keep],
+                                  None if col.validity is None
+                                  else col.validity[keep])
+                        for col in b.columns]
+                out = H.HostBatch(b.schema, cols)
+            self.metric("numOutputRows").add(out.num_rows)
             self.metric("numOutputBatches").add(1)
             yield out
 
@@ -229,28 +305,102 @@ class TpuFilterExec(TpuExec):
             yield out
 
 
-class TpuCoalesceBatchesExec(TpuExec):
-    """Concatenate all device batches of the partition into one — the
-    RequireSingleBatch goal, what the global sort above it needs (the
-    JAX package's row-budget goal has no caller on this slice yet).
+def _head(b: H.HostBatch, take: int) -> H.HostBatch:
+    return H.HostBatch(b.schema, [
+        H.HostCol(c.dtype, c.data[:take],
+                  None if c.validity is None else c.validity[:take])
+        for c in b.columns])
 
-    [REF: GpuCoalesceBatches.scala :: GpuCoalesceBatches]
-    """
 
-    def __init__(self, child: TpuExec):
+class CpuLocalLimitExec(CpuExec):
+    def __init__(self, n: int, child: CpuExec):
         super().__init__(child.schema, child)
+        self.n = n
 
     def node_string(self):
-        return "TpuCoalesceBatches [single]"
+        return f"LocalLimit [{self.n}]"
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        remaining = self.n
+        for b in self.children[0].execute(partition):
+            if remaining <= 0:
+                break
+            take = min(remaining, b.num_rows)
+            remaining -= take
+            yield _head(b, take)
+
+
+class CpuGlobalLimitExec(CpuExec):
+    """Single-partition global cut across all child partitions.
+
+    [REF: limit.scala :: GpuGlobalLimitExec] — planned above a per-
+    partition LocalLimit, exactly Spark's GlobalLimit(LocalLimit(...)).
+    """
+
+    def __init__(self, n: int, child: CpuExec):
+        super().__init__(child.schema, child)
+        self.n = n
+
+    def node_string(self):
+        return f"GlobalLimit [{self.n}]"
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        remaining = self.n
+        child = self.children[0]
+        for p in range(child.num_partitions()):
+            for b in child.execute(p):
+                if remaining <= 0:
+                    return
+                take = min(remaining, b.num_rows)
+                remaining -= take
+                yield _head(b, take)
+
+
+class TpuCoalesceBatchesExec(TpuExec):
+    """Concatenate small device batches up to a target row budget.
+
+    [REF: GpuCoalesceBatches.scala :: GpuCoalesceBatches] — goal-directed,
+    as the JAX package's: ``target_rows`` (the TargetSize goal, above a
+    host-to-device transition) or ``require_single`` (RequireSingleBatch,
+    under the global sort, which needs the whole partition).
+    """
+
+    def __init__(self, child: TpuExec, target_rows: Optional[int] = None,
+                 require_single: bool = False):
+        if target_rows is None and not require_single:
+            raise ValueError("a TargetSize coalesce needs target_rows")
+        super().__init__(child.schema, child)
+        self.target_rows = target_rows
+        self.require_single = require_single
+
+    def node_string(self):
+        goal = ("single" if self.require_single
+                else f"target={self.target_rows}")
+        return f"TpuCoalesceBatches [{goal}]"
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
-        pending = [compact(b) for b in self.children[0].execute(partition)]
-        if not pending:
-            return
+        pending: List[DeviceBatch] = []
+        counts: List[int] = []
+        for b in self.children[0].execute(partition):
+            b = compact(b)
+            if not self.require_single:
+                (n,) = live_counts([b])
+                if pending and sum(counts) + n > self.target_rows:
+                    yield self._emit(pending, counts)
+                    pending, counts = [], []
+                counts.append(n)
+            pending.append(b)
+        if pending:
+            yield self._emit(pending, counts or None)
+
+    def _emit(self, batches: List[DeviceBatch], counts) -> DeviceBatch:
         with self.timer("concatTime"):
-            out = concat_device_batches(self.schema, pending)
+            out = concat_device_batches(self.schema, batches, counts)
         self.metric("numOutputBatches").add(1)
-        yield out
+        return out
 
 
 def live_counts(batches: Sequence[DeviceBatch]) -> List[int]:

@@ -1,8 +1,14 @@
-"""Sort-merge equi-join on the device.
+"""Join execs: the CPU oracle hash join and the device sort-merge join.
 
 [REF: sql-plugin/../GpuShuffledHashJoinExec.scala, GpuBroadcastHashJoinExec]
 
-The counterpart of the JAX package's ``exec/join.py`` (its device half):
+The counterpart of the JAX package's ``exec/join.py``.  ``CpuJoinExec``
+is its CPU oracle (a Python dict of the right side's keys, the residual
+condition evaluated over the candidate pairs, numpy gathers); the plan
+rewrite converts it through ``_tag_join``/``_convert_join`` and keeps it
+on the CPU for what the device join lacks (a residual condition on an
+outer, semi or anti join; mixed-width int keys on a right or full join;
+key types of different families).  The device half:
 the join keys encode as 64-bit limbs; the build (right) side is sorted
 once; each left row finds its ``[lo, lo + m)`` range of matching build
 rows — through ``kernels/hash_join.py::match_fused`` (one hash limb, the
@@ -41,16 +47,20 @@ from __future__ import annotations
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch import kernels as KN
 from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.columnar import host as H
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, compact, empty_batch, round_up_pow2,
     slice_batch)
-from spark_rapids_tpu_torch.exec.base import TpuExec
+from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec
 from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
+from spark_rapids_tpu_torch.exec.sort import _concat_host
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.expressions import Expression, device_select
 from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
@@ -65,6 +75,202 @@ def _gather_list(child) -> List[DeviceBatch]:
     """The child's batches (all partitions), compacted."""
     return [compact(b) for p in range(child.num_partitions())
             for b in child.execute(p)]
+
+
+def _gather_all(child, schema) -> H.HostBatch:
+    """A CPU child's batches (all partitions) concatenated into one host
+    batch (the host branch of the JAX package's ``_gather_all``)."""
+    batches = [b for p in range(child.num_partitions())
+               for b in child.execute(p)]
+    if not batches:
+        return H.HostBatch(schema, [
+            H.HostCol(f.dtype,
+                      np.array([], dtype=object)
+                      if isinstance(f.dtype, (T.StringType, T.BinaryType))
+                      else np.zeros(0, T.to_numpy_dtype(f.dtype)), None)
+            for f in schema.fields])
+    return _concat_host(schema, batches)
+
+
+# ---------------------------------------------------------------------------
+# CPU oracle
+# ---------------------------------------------------------------------------
+
+class CpuJoinExec(CpuExec):
+    def __init__(self, join_type: str, left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 condition: Optional[Expression], schema: T.StructType,
+                 left: CpuExec, right: CpuExec, using: bool = True):
+        super().__init__(schema, left, right)
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.condition = condition
+        self.using = using
+
+    def node_string(self):
+        cond = f" cond={self.condition}" if self.condition else ""
+        return f"Join [{self.join_type}{cond}]"
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        lb = _gather_all(self.children[0], self.children[0].schema)
+        rb = _gather_all(self.children[1], self.children[1].schema)
+        with self.timer():
+            out = self._join(lb, rb)
+        self.metric("numOutputRows").add(out.num_rows)
+        self.metric("numOutputBatches").add(1)
+        yield out
+
+    def _join(self, lb: H.HostBatch, rb: H.HostBatch) -> H.HostBatch:
+        nl, nr = lb.num_rows, rb.num_rows
+        jt = self.join_type
+
+        def key_tuple(cols, i):
+            out = []
+            for c in cols:
+                if c.validity is not None and not c.validity[i]:
+                    return None
+                v = c.data[i]
+                if isinstance(c.dtype, (T.FloatType, T.DoubleType)):
+                    f = float(v)
+                    v = "NaN" if np.isnan(f) else (0.0 if f == 0.0 else f)
+                elif isinstance(c.dtype, (T.StringType, T.BinaryType)):
+                    pass
+                else:
+                    v = int(v)
+                out.append(v)
+            return tuple(out)
+
+        # 1. candidate pairs from equi keys (or the full cross space)
+        if jt == "cross" or not self.left_keys:
+            cl = np.repeat(np.arange(nl, dtype=np.int64), nr)
+            cr = np.tile(np.arange(nr, dtype=np.int64), nl)
+        else:
+            lk = [e.eval_cpu(lb) for e in self.left_keys]
+            rk = [e.eval_cpu(rb) for e in self.right_keys]
+            index = {}
+            for j in range(nr):
+                k = key_tuple(rk, j)
+                if k is not None:
+                    index.setdefault(k, []).append(j)
+            cl_list, cr_list = [], []
+            for i in range(nl):
+                k = key_tuple(lk, i)
+                for j in (index.get(k, []) if k is not None else []):
+                    cl_list.append(i)
+                    cr_list.append(j)
+            cl = np.array(cl_list, dtype=np.int64)
+            cr = np.array(cr_list, dtype=np.int64)
+
+        # 2. residual condition filters candidates (null -> drop), eval'd
+        #    vectorized over the candidate pair batch in the
+        #    left++right layout its refs were bound against
+        if self.condition is not None and len(cl):
+            pair_fields = tuple(self.children[0].schema.fields) + tuple(
+                self.children[1].schema.fields)
+            pair_cols = []
+            for c in lb.columns:
+                pair_cols.append(H.HostCol(
+                    c.dtype, c.data[cl],
+                    None if c.validity is None else c.validity[cl]))
+            for c in rb.columns:
+                pair_cols.append(H.HostCol(
+                    c.dtype, c.data[cr],
+                    None if c.validity is None else c.validity[cr]))
+            pb = H.HostBatch(T.StructType(pair_fields), pair_cols)
+            cv = self.condition.eval_cpu(pb)
+            keep = cv.data.astype(bool)
+            if cv.validity is not None:
+                keep &= cv.validity
+            cl, cr = cl[keep], cr[keep]
+
+        # 3. join-type semantics over surviving pairs
+        pairs: List[Tuple[int, int]] = []
+        matched_l = np.zeros(nl, dtype=bool)
+        matched_r = np.zeros(nr, dtype=bool)
+        matched_l[cl] = True
+        matched_r[cr] = True
+        if jt == "left_semi":
+            pairs = [(i, -1) for i in range(nl) if matched_l[i]]
+        elif jt == "left_anti":
+            pairs = [(i, -1) for i in range(nl) if not matched_l[i]]
+        else:
+            pairs = list(zip(cl.tolist(), cr.tolist()))
+            if jt in ("left", "full"):
+                # preserve left-row grouping order like the loop did
+                merged: List[Tuple[int, int]] = []
+                gi = 0
+                for i in range(nl):
+                    while gi < len(pairs) and pairs[gi][0] == i:
+                        merged.append(pairs[gi])
+                        gi += 1
+                    if not matched_l[i]:
+                        merged.append((i, -1))
+                pairs = merged + pairs[gi:]
+            if jt == "right":
+                pairs = [(i, j) for (i, j) in pairs if j >= 0]
+                pairs += [(-1, j) for j in range(nr) if not matched_r[j]]
+            elif jt == "full":
+                pairs += [(-1, j) for j in range(nr) if not matched_r[j]]
+
+        lidx = np.array([p[0] for p in pairs], dtype=np.int64)
+        ridx = np.array([p[1] for p in pairs], dtype=np.int64)
+        return self._materialize(lb, rb, lidx, ridx)
+
+    def _materialize(self, lb, rb, lidx, ridx) -> H.HostBatch:
+        lkey_idx = [e.index for e in self.left_keys]
+        rkey_idx = [e.index for e in self.right_keys]
+        semi = self.join_type in ("left_semi", "left_anti")
+        cross = self.join_type == "cross" or not self.using
+        cols: List[H.HostCol] = []
+        out_i = 0
+
+        def gather(c: H.HostCol, idx) -> Tuple[np.ndarray, np.ndarray]:
+            take = np.clip(idx, 0, max(len(c.data) - 1, 0))
+            if len(c.data) == 0:
+                data = np.zeros(len(idx), dtype=c.data.dtype)
+            else:
+                data = c.data[take]
+            valid = (c.validity[take] if c.validity is not None
+                     else np.ones(len(idx), bool)) if len(c.data) else \
+                np.zeros(len(idx), bool)
+            valid = valid & (idx >= 0)
+            return data, valid
+
+        if not cross:
+            for ki in range(len(lkey_idx)):
+                f = self.schema.fields[out_i]
+                ld, lv = gather(lb.columns[lkey_idx[ki]], lidx)
+                if self.join_type in ("right", "full"):
+                    rd, rv = gather(rb.columns[rkey_idx[ki]], ridx)
+                    data = np.where(lv, ld, rd)
+                    valid = lv | rv
+                else:
+                    data, valid = ld, lv
+                cols.append(H.HostCol(f.dtype, data,
+                                      None if valid.all() else valid))
+                out_i += 1
+        for i in range(len(lb.columns)):
+            if not cross and i in lkey_idx:
+                continue
+            f = self.schema.fields[out_i]
+            data, valid = gather(lb.columns[i], lidx)
+            cols.append(H.HostCol(f.dtype, data,
+                                  None if valid.all() else valid))
+            out_i += 1
+        if not semi:
+            for j in range(len(rb.columns)):
+                if not cross and j in rkey_idx:
+                    continue
+                f = self.schema.fields[out_i]
+                data, valid = gather(rb.columns[j], ridx)
+                cols.append(H.HostCol(f.dtype, data,
+                                      None if valid.all() else valid))
+                out_i += 1
+        return H.HostBatch(self.schema, cols)
 
 
 def _row_groups(batches: List[DeviceBatch], cap: int
@@ -797,3 +1003,74 @@ class TpuSortMergeJoinExec(TpuExec):
                 cols.append(_gather_col(c, r_idx, r_valid))
         return DeviceBatch(self.schema, tuple(cols), out_live,
                            compacted=True)
+
+
+# ---------------------------------------------------------------------------
+# The plan rewrite's rule for joins
+# ---------------------------------------------------------------------------
+
+def _tag_join(meta):
+    """The JAX package's ``_tag_join``: what keeps a join on the CPU."""
+    from spark_rapids_tpu_torch.plan.overrides import tag_expression
+    cpu = meta.cpu
+    if cpu.condition is not None:
+        if cpu.join_type not in ("inner", "cross"):
+            meta.will_not_work(
+                f"residual join conditions on {cpu.join_type} joins not "
+                "yet on device (inner/cross only)")
+        else:
+            tag_expression(cpu.condition, meta)
+    for le, re in zip(cpu.left_keys, cpu.right_keys):
+        lf, rf = _join_key_family(le.dtype), _join_key_family(re.dtype)
+        if lf != rf:
+            meta.will_not_work(
+                f"join key type mismatch: {le.dtype.simple_name} vs "
+                f"{re.dtype.simple_name} (no implicit cast inserted)")
+        elif (type(le.dtype) is not type(re.dtype)
+              and cpu.join_type in ("right", "full")):
+            # right/full coalesce the two key columns into one output
+            # column typed after the left key — mixed int widths would
+            # smuggle int64 data under an int32 schema
+            meta.will_not_work(
+                "mixed-width int join keys not supported for "
+                f"{cpu.join_type} joins (output key column would mix "
+                f"{le.dtype.simple_name} and {re.dtype.simple_name})")
+    for e in list(cpu.left_keys) + list(cpu.right_keys):
+        tag_expression(e, meta)
+
+
+def _convert_join(cpu, ch, conf, device):
+    """The JAX package's single-process ``_convert_join``: broadcast the
+    small side when its estimate fits ``autoBroadcastJoinThreshold``,
+    else a sort-merge join that picks its strategy from live row counts
+    at run time.  The ICI-exchanged (co-partitioned) plan belongs to the
+    exchange plane, which is not ported (ROADMAP A.4 / A.10)."""
+    from spark_rapids_tpu_torch.plan.analysis import _not_ported
+    jt = cpu.join_type
+    common = dict(using=cpu.using,
+                  sub_partition_rows=conf.get(C.JOIN_TARGET_ROWS),
+                  out_batch_rows=conf.batch_rows,
+                  backend=conf.kernel_backend)
+    thresh = conf.get(C.BROADCAST_THRESHOLD)
+    if thresh and thresh > 0:
+        rsize = cpu.children[1].estimated_size_bytes()
+        lsize = cpu.children[0].estimated_size_bytes()
+        if (rsize is not None and rsize <= thresh
+                and jt in ("inner", "left", "left_semi", "left_anti",
+                           "cross")):
+            return TpuSortMergeJoinExec(
+                jt, cpu.left_keys, cpu.right_keys, cpu.condition,
+                cpu.schema, ch[0], TpuBroadcastExchangeExec(ch[1]),
+                broadcast="right", **common)
+        if lsize is not None and lsize <= thresh and jt == "inner":
+            return TpuSortMergeJoinExec(
+                jt, cpu.left_keys, cpu.right_keys, cpu.condition,
+                cpu.schema, TpuBroadcastExchangeExec(ch[0]), ch[1],
+                broadcast="left", **common)
+    if (conf.get(C.ADAPTIVE_PLANE_ENABLED) and cpu.left_keys
+            and jt in ("inner", "left", "left_semi", "left_anti")):
+        raise _not_ported("adaptive join (TpuAdaptiveLocalJoinExec, "
+                          "spark.rapids.tpu.adaptive.enabled)")
+    return TpuSortMergeJoinExec(
+        jt, cpu.left_keys, cpu.right_keys, cpu.condition, cpu.schema,
+        ch[0], ch[1], **common)

@@ -7,17 +7,21 @@ The counterpart of the JAX package's ``ops/datetime_ops.py``
 since the epoch, timestamps int64 microseconds since the epoch (UTC),
 and the calendar decomposition is the integer-only civil calendar
 algorithm.  Every division is a floor division: a truncating one would
-give wrong fields for days before 1970.
+give wrong fields for days before 1970.  ``eval_cpu`` is the JAX
+package's numpy twin (``np_civil_from_days``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.host import HostCol
+from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops.expressions import Expression
 
 MICROS_PER_DAY = 86_400_000_000
@@ -43,6 +47,21 @@ def civil_from_days(z: torch.Tensor):
     return y.to(torch.int32), m.to(torch.int32), d.to(torch.int32)
 
 
+def np_civil_from_days(z: np.ndarray):
+    """The JAX package's ``civil_from_days`` with ``xp=np``."""
+    z = z.astype(np.int64) + 719468
+    era = np.where(z >= 0, z, z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + np.where(mp < 10, 3, -9)
+    y = y + (m <= 2)
+    return y.astype(np.int32), m.astype(np.int32), d.astype(np.int32)
+
+
 @dataclasses.dataclass
 class _DateField(Expression):
     child: Expression
@@ -62,6 +81,22 @@ class _DateField(Expression):
         parts = civil_from_days(days)
         return DeviceColumn(self.dtype, parts[self.FIELD], c.validity)
 
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        days = c.data
+        if isinstance(self.child.dtype, T.TimestampType):
+            # floor to days (micros may be negative)
+            days = np.where(days >= 0, days // MICROS_PER_DAY,
+                            -((-days + MICROS_PER_DAY - 1)
+                              // MICROS_PER_DAY))
+        parts = np_civil_from_days(days)
+        return HostCol(self.dtype, parts[self.FIELD], c.validity)
+
 
 class Year(_DateField):
     FIELD = 0
+
+
+# -- TypeSig declarations (the JAX package's, see expressions.py) ----------
+Year.type_sig = E.SIG_INTEGRAL
+Year.input_sig = E.SIG_DATETIME

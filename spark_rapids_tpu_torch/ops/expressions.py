@@ -6,7 +6,11 @@ same names, with the same Spark semantics (non-ANSI arithmetic and
 division, NaN greater than every other value in comparisons,
 three-valued And/Or, a null predicate taking a conditional's else
 branch, Java's numeric casts).
-Each node evaluates with ``eval(batch)`` on tensors.  Expressions that
+Each node lowers two ways, as there: ``eval(DeviceBatch)`` on tensors,
+and ``eval_cpu(HostBatch)`` in numpy, the CPU fallback and oracle path
+(the JAX package's bodies, copied).  Each class also declares the
+TypeSig the plan rewrite checks (``type_sig``, ``input_sig``; the
+``ansi_sensitive`` flag).  Expressions that
 this slice does not port are not defined here; the analyzer raises
 ``NotImplementedError`` naming them.
 """
@@ -16,14 +20,25 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, torch_dtype)
+from spark_rapids_tpu_torch.columnar.host import HostBatch, HostCol
 
 
 def merge_validity(*vs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    out = None
+    for v in vs:
+        if v is None:
+            continue
+        out = v if out is None else (out & v)
+    return out
+
+
+def merge_validity_h(*vs: Optional[np.ndarray]) -> Optional[np.ndarray]:
     out = None
     for v in vs:
         if v is None:
@@ -36,10 +51,56 @@ def _is_float(dt: T.DataType) -> bool:
     return isinstance(dt, (T.FloatType, T.DoubleType))
 
 
+# ---------------------------------------------------------------------------
+# TypeSig: per-expression declared type support [REF: TypeChecks.scala ::
+# TypeSig/ExprChecks].  Each expression class declares the type TAGS its
+# device lowering accepts for inputs (``input_sig``) and produces
+# (``type_sig``); the plan rewrite checks both while tagging.
+# ---------------------------------------------------------------------------
+
+SIG_TAGS = ("boolean", "byte", "short", "int", "long", "float", "double",
+            "decimal", "string", "binary", "date", "timestamp", "null",
+            "array", "map", "struct")
+
+SIG_ALL_SCALAR = frozenset(SIG_TAGS) - {"array", "map", "struct"}
+SIG_NUMERIC = frozenset({"byte", "short", "int", "long", "float",
+                         "double", "decimal", "null"})
+SIG_INTEGRAL = frozenset({"byte", "short", "int", "long", "null"})
+SIG_FLOATING = frozenset({"float", "double", "null"})
+SIG_STRINGY = frozenset({"string", "binary", "null"})
+SIG_BOOLEAN = frozenset({"boolean", "null"})
+SIG_DATETIME = frozenset({"date", "timestamp", "null"})
+SIG_ALL = frozenset(SIG_TAGS)
+
+
+def sig_tag(dt: T.DataType) -> str:
+    """Type tag of a dtype for TypeSig membership checks."""
+    if isinstance(dt, T.DecimalType):
+        return "decimal"
+    if isinstance(dt, T.ArrayType):
+        return "array"
+    if isinstance(dt, T.MapType):
+        return "map"
+    if isinstance(dt, T.StructType):
+        return "struct"
+    return {T.BooleanType: "boolean", T.ByteType: "byte",
+            T.ShortType: "short", T.IntegerType: "int",
+            T.LongType: "long", T.FloatType: "float",
+            T.DoubleType: "double", T.StringType: "string",
+            T.BinaryType: "binary", T.DateType: "date",
+            T.TimestampType: "timestamp",
+            T.NullType: "null"}.get(type(dt), dt.simple_name)
+
+
 class Expression:
     """Base expression.  Subclasses are dataclasses with typed children."""
 
     dtype: T.DataType
+    # TypeSig declarations; tagging checks result dtype against
+    # ``type_sig`` and every child dtype against ``input_sig`` (None =
+    # same as type_sig).  Default = every scalar type; classes narrow.
+    type_sig: frozenset = SIG_ALL_SCALAR
+    input_sig: Optional[frozenset] = None
 
     @property
     def children(self) -> Sequence["Expression"]:
@@ -51,6 +112,9 @@ class Expression:
 
     def eval(self, batch: DeviceBatch) -> DeviceColumn:
         raise NotImplementedError(f"{self.name}.eval")
+
+    def eval_cpu(self, batch: HostBatch) -> HostCol:
+        raise NotImplementedError(f"{self.name}.eval_cpu")
 
     def __str__(self):
         cs = ", ".join(str(c) for c in self.children)
@@ -64,6 +128,9 @@ class BoundReference(Expression):
     nullable: bool = True
 
     def eval(self, batch):
+        return batch.columns[self.index]
+
+    def eval_cpu(self, batch):
         return batch.columns[self.index]
 
     def __str__(self):
@@ -112,6 +179,20 @@ class Literal(Expression):
                             torch.full((b,), len(bs), dtype=torch.int32,
                                        device=dev))
 
+    def eval_cpu(self, batch):
+        n = batch.num_rows
+        if self.value is None:
+            if isinstance(self.dtype, (T.StringType, T.BinaryType)):
+                return HostCol(self.dtype, np.full(n, "", object),
+                               np.zeros(n, bool))
+            npdt = (np.int32 if isinstance(self.dtype, T.NullType)
+                    else T.to_numpy_dtype(self.dtype))
+            return HostCol(self.dtype, np.zeros(n, npdt), np.zeros(n, bool))
+        if isinstance(self.dtype, T.StringType):
+            return HostCol(self.dtype, np.array([self.value] * n, object))
+        return HostCol(self.dtype,
+                       np.full(n, self.value, T.to_numpy_dtype(self.dtype)))
+
     def __str__(self):
         return repr(self.value)
 
@@ -132,6 +213,9 @@ class Alias(Expression):
     def eval(self, batch):
         return self.child.eval(batch)
 
+    def eval_cpu(self, batch):
+        return self.child.eval_cpu(batch)
+
     def __str__(self):
         return f"{self.child} AS {self.alias_name}"
 
@@ -142,6 +226,10 @@ class Alias(Expression):
 
 @dataclasses.dataclass
 class _BinaryArith(Expression):
+    # device lowering implements NON-ANSI Spark semantics (overflow
+    # wraps, invalid ops null); under spark.sql.ansi.enabled the planner
+    # keeps these on CPU [REF: GpuOverrides ANSI checks]
+    ansi_sensitive = True
     left: Expression
     right: Expression
 
@@ -162,6 +250,14 @@ class _BinaryArith(Expression):
         # integer overflow wraps (non-ANSI Spark), as torch's int ops do
         return DeviceColumn(self.dtype, self._op(l.data, r.data),
                             merge_validity(l.validity, r.validity))
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            data = self._op(l.data, r.data)
+        return HostCol(self.dtype, data,
+                       merge_validity_h(l.validity, r.validity))
 
 
 class Add(_BinaryArith):
@@ -184,6 +280,8 @@ class Divide(Expression):
     """Double division; x / 0 -> null (non-ANSI Spark).  The analyzer
     casts both sides to double."""
 
+    ansi_sensitive = True
+
     left: Expression
     right: Expression
 
@@ -202,6 +300,15 @@ class Divide(Expression):
         data = l.data / torch.where(zero, 1.0, r.data)
         return DeviceColumn(self.dtype, torch.where(zero, 0.0, data),
                             merge_validity(l.validity, r.validity, ~zero))
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        zero = r.data == 0.0
+        with np.errstate(all="ignore"):
+            data = np.where(zero, 0.0, l.data / np.where(zero, 1.0, r.data))
+        return HostCol(self.dtype, data,
+                       merge_validity_h(l.validity, r.validity, ~zero))
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +348,22 @@ class _BinaryComparison(Expression):
         return DeviceColumn(self.dtype, data,
                             merge_validity(l.validity, r.validity))
 
+    def eval_cpu(self, batch):
+        if isinstance(self.left.dtype, (T.StringType, T.BinaryType)):
+            raise NotImplementedError(
+                "string comparison handled in strings.py")
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            if _is_float(self.left.dtype):
+                data = self._cmp_h(l.data, r.data, np.isnan(l.data),
+                                   np.isnan(r.data))
+            else:
+                zeros = np.zeros(len(l.data), bool)
+                data = self._cmp_h(l.data, r.data, zeros, zeros)
+        return HostCol(self.dtype, data,
+                       merge_validity_h(l.validity, r.validity))
+
 
 class EqualTo(_BinaryComparison):
     def _cmp(self, a, b):
@@ -248,6 +371,9 @@ class EqualTo(_BinaryComparison):
 
     def _cmp_nan(self, a, b, an, bn):
         return (an & bn) | (a == b)
+
+    def _cmp_h(self, a, b, an, bn):
+        return np.where(an & bn, True, a == b)
 
 
 class LessThan(_BinaryComparison):
@@ -257,6 +383,9 @@ class LessThan(_BinaryComparison):
     def _cmp_nan(self, a, b, an, bn):
         return torch.where(bn & ~an, True, torch.where(an, False, a < b))
 
+    def _cmp_h(self, a, b, an, bn):
+        return np.where(bn & ~an, True, np.where(an, False, a < b))
+
 
 class LessThanOrEqual(_BinaryComparison):
     def _cmp(self, a, b):
@@ -264,6 +393,9 @@ class LessThanOrEqual(_BinaryComparison):
 
     def _cmp_nan(self, a, b, an, bn):
         return torch.where(bn, True, torch.where(an, False, a <= b))
+
+    def _cmp_h(self, a, b, an, bn):
+        return np.where(bn, True, np.where(an, False, a <= b))
 
 
 class GreaterThan(_BinaryComparison):
@@ -273,6 +405,9 @@ class GreaterThan(_BinaryComparison):
     def _cmp_nan(self, a, b, an, bn):
         return torch.where(an & ~bn, True, torch.where(bn, False, a > b))
 
+    def _cmp_h(self, a, b, an, bn):
+        return np.where(an & ~bn, True, np.where(bn, False, a > b))
+
 
 class GreaterThanOrEqual(_BinaryComparison):
     def _cmp(self, a, b):
@@ -280,6 +415,9 @@ class GreaterThanOrEqual(_BinaryComparison):
 
     def _cmp_nan(self, a, b, an, bn):
         return torch.where(an, True, torch.where(bn, False, a >= b))
+
+    def _cmp_h(self, a, b, an, bn):
+        return np.where(an, True, np.where(bn, False, a >= b))
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +436,10 @@ class Not(Expression):
     def eval(self, batch):
         c = self.child.eval(batch)
         return DeviceColumn(self.dtype, ~c.data, c.validity)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        return HostCol(self.dtype, ~c.data.astype(bool), c.validity)
 
 
 @dataclasses.dataclass
@@ -321,6 +463,14 @@ class And(Expression):
         return DeviceColumn(self.dtype, l.data & r.data & validity,
                             validity)
 
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        lv, rv = l.valid_mask(), r.valid_mask()
+        ld, rd = l.data.astype(bool), r.data.astype(bool)
+        validity = (lv & rv) | (lv & ~ld) | (rv & ~rd)
+        return HostCol(self.dtype, ld & rd & validity, validity)
+
 
 @dataclasses.dataclass
 class Or(Expression):
@@ -341,6 +491,14 @@ class Or(Expression):
         data = (l.data & lv) | (r.data & rv)
         validity = (lv & rv) | (lv & l.data) | (rv & r.data)
         return DeviceColumn(self.dtype, data, validity)
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        lv, rv = l.valid_mask(), r.valid_mask()
+        ld, rd = l.data.astype(bool), r.data.astype(bool)
+        validity = (lv & rv) | (lv & ld) | (rv & rd)
+        return HostCol(self.dtype, (ld & lv) | (rd & rv), validity)
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +540,15 @@ class If(Expression):
         out = device_select(cond, t, f, self.dtype)
         out.validity = torch.where(cond, t.valid_mask(), f.valid_mask())
         return out
+
+    def eval_cpu(self, batch):
+        p = self.pred.eval_cpu(batch)
+        t = self.true_value.eval_cpu(batch)
+        f = self.false_value.eval_cpu(batch)
+        cond = p.data.astype(bool) & p.valid_mask()
+        data = np.where(cond, t.data, f.data)
+        validity = np.where(cond, t.valid_mask(), f.valid_mask())
+        return HostCol(self.dtype, data, validity)
 
 
 @dataclasses.dataclass
@@ -425,6 +592,23 @@ class CaseWhen(Expression):
             validity = torch.where(cond, v.valid_mask(), validity)
         return DeviceColumn(self.dtype, acc.data, validity, acc.lengths)
 
+    def eval_cpu(self, batch):
+        n = batch.num_rows
+        if self.else_value is not None:
+            e = self.else_value.eval_cpu(batch)
+            data, validity = e.data.copy(), e.valid_mask().copy()
+        else:
+            first = self.branches[0][1].eval_cpu(batch)
+            data = np.zeros_like(first.data)
+            validity = np.zeros(n, bool)
+        for pred, val in reversed(self.branches):
+            p = pred.eval_cpu(batch)
+            v = val.eval_cpu(batch)
+            cond = p.data.astype(bool) & p.valid_mask()
+            data = np.where(cond, v.data, data)
+            validity = np.where(cond, v.valid_mask(), validity)
+        return HostCol(self.dtype, data, validity)
+
 
 # ---------------------------------------------------------------------------
 # casts  [REF: GpuCast.scala] — numeric and boolean only
@@ -451,6 +635,7 @@ class Cast(Expression):
     ``!= 0``.  Casts from or to strings, dates and decimals are not
     ported and raise when built."""
 
+    ansi_sensitive = True
     child: Expression
     dtype: T.DataType
 
@@ -469,6 +654,27 @@ class Cast(Expression):
     def eval(self, batch):
         c = self.child.eval(batch)
         return DeviceColumn(self.dtype, self._cast(c.data), c.validity)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            return HostCol(self.dtype, self._cast_h(c.data), c.validity)
+
+    def _cast_h(self, data: np.ndarray) -> np.ndarray:
+        """The JAX package's numpy ``_cast``."""
+        src, dst = self.child.dtype, self.dtype
+        npdt = T.to_numpy_dtype(dst)
+        if isinstance(dst, T.BooleanType):
+            return data != 0
+        if isinstance(src, T.BooleanType):
+            return data.astype(npdt)
+        if _is_float(src) and T.is_integral(dst):
+            # java (T) cast: NaN -> 0, saturate at bounds, truncate to 0
+            lo, hi = _INT_RANGES[type(dst)]
+            d = np.where(np.isnan(data), 0.0, data)
+            d = np.clip(d, lo, hi)
+            return np.trunc(d).astype(npdt)
+        return data.astype(npdt)  # java narrowing wraps
 
     def _cast(self, data: torch.Tensor) -> torch.Tensor:
         src, dst = self.child.dtype, self.dtype
@@ -489,3 +695,20 @@ class Cast(Expression):
 
     def __str__(self):
         return f"cast({self.child} as {self.dtype.simple_name})"
+
+
+# ---------------------------------------------------------------------------
+# TypeSig declarations [REF: TypeChecks.scala — per-op type signatures],
+# the JAX package's for the classes this port has.
+# ---------------------------------------------------------------------------
+
+for _cls in (Add, Subtract, Multiply, Divide):
+    _cls.type_sig = SIG_NUMERIC
+for _cls in (EqualTo, LessThan, LessThanOrEqual, GreaterThan,
+             GreaterThanOrEqual):
+    _cls.type_sig = SIG_BOOLEAN
+    _cls.input_sig = SIG_ALL_SCALAR
+for _cls in (Not, And, Or):
+    _cls.type_sig = SIG_BOOLEAN
+# column pass-through carries everything a batch can hold
+BoundReference.type_sig = SIG_ALL

@@ -16,12 +16,16 @@ Unsigned values are carried as int64 BIT PATTERNS (torch has no usable
 uint64): a limb here holds exactly the bits of the JAX package's uint64
 limb.  Every right shift is masked, and ``sortable`` flips the top bit
 before any sort or ``<`` so that signed order equals unsigned order.
+
+``np_order_keys`` is the JAX package's host twin (numpy uint64 limbs
+for ``np.lexsort``), which the CPU sort uses.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
@@ -261,3 +265,58 @@ def sort_by_keys(limbs: List[torch.Tensor]
         idx = torch.argsort(sortable(l[perm]), stable=True)
         perm = perm[idx]
     return [l[perm] for l in limbs], perm
+
+
+# ----------------------------------------------------------------------------
+# Host (numpy oracle) twin
+# ----------------------------------------------------------------------------
+
+def np_order_keys(data: np.ndarray, validity: Optional[np.ndarray],
+                  dt: T.DataType, ascending: bool = True,
+                  nulls_first: bool = True) -> List[np.ndarray]:
+    """uint64 limbs of a host column whose lexicographic order is the SQL
+    order (the JAX package's ``np_order_keys``)."""
+    if isinstance(dt, (T.StringType, T.BinaryType)):
+        # host strings are object arrays — map to sortable tuples via bytes
+        enc = np.array([
+            v.encode() if isinstance(v, str) else bytes(v) for v in data
+        ], dtype=object)
+        mx = max((len(v) for v in enc), default=0)
+        limbs = []
+        padded = np.zeros((len(enc), mx + 1), dtype=np.uint8)
+        for i, v in enumerate(enc):
+            padded[i, :len(v)] = np.frombuffer(v, np.uint8)
+        wpad = (-(mx + 1)) % 8
+        padded = np.pad(padded, ((0, 0), (0, wpad)))
+        for i in range(padded.shape[1] // 8):
+            limb = np.zeros(len(enc), np.uint64)
+            for j in range(8):
+                limb = (limb << np.uint64(8)) | padded[:, i * 8 + j].astype(
+                    np.uint64)
+            limbs.append(limb)
+        limbs.append(np.array([len(v) for v in enc], np.uint64))
+    elif isinstance(dt, T.FloatType):
+        canon = np.where(np.isnan(data), np.float32(np.nan),
+                         data.astype(np.float32))
+        bits = canon.view(np.uint32)
+        neg = (bits >> np.uint32(31)) != 0
+        limbs = [np.where(neg, ~bits, bits | np.uint32(1 << 31)).astype(
+            np.uint64)]
+    elif isinstance(dt, T.DoubleType):
+        canon = np.where(np.isnan(data), np.nan, data.astype(np.float64))
+        bits = canon.view(np.uint64)
+        neg = (bits >> np.uint64(63)) != 0
+        limbs = [np.where(neg, ~bits, bits | np.uint64(1 << 63))]
+    elif isinstance(dt, T.BooleanType):
+        limbs = [data.astype(np.uint64)]
+    else:
+        limbs = [(data.astype(np.int64).view(np.uint64))
+                 ^ np.uint64(1 << 63)]
+    if not ascending:
+        limbs = [~l for l in limbs]
+    if validity is not None:
+        nl = np.where(validity, np.uint64(1 if nulls_first else 0),
+                      np.uint64(0 if nulls_first else 1))
+        limbs = [np.where(validity, l, np.uint64(0)) for l in limbs]
+        limbs = [nl] + limbs
+    return limbs

@@ -16,7 +16,10 @@ tensor operations over the whole batch, as in the JAX package:
 
 A pattern search compares every shift at once: the windows
 ``data.unfold(1, p, 1)`` (a view, ``[B, W - p + 1, p]``) against the
-pattern in one broadcast.  Length, the case maps, trim, locate,
+pattern in one broadcast.  Each class also has the JAX package's
+``eval_cpu`` over host strings (codepoint-indexed, Python ``str``
+operations and a regex for LIKE), the CPU fallback and oracle path, and
+its TypeSig.  Length, the case maps, trim, locate,
 replace, concat, reverse, pad, the string casts and RLike are later
 slices; the analyzer raises ``NotImplementedError`` naming them.
 """
@@ -26,12 +29,15 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, round_up_pow2
+from spark_rapids_tpu_torch.columnar.host import HostCol
+from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops.expressions import (
-    Expression, Literal, merge_validity)
+    Expression, Literal, merge_validity, merge_validity_h)
 
 
 def _pad_to(col: DeviceColumn, w: int) -> torch.Tensor:
@@ -89,6 +95,24 @@ class StringComparison(Expression):
         lt, le = _lex_lt_le(l, r)
         data = {"lt": lt, "le": le, "gt": ~le, "ge": ~lt}[self.op]
         return DeviceColumn(self.dtype, data, validity)
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        n = len(l.data)
+        la = np.array([s.encode() if isinstance(s, str) else s
+                       for s in l.data], object)
+        ra = np.array([s.encode() if isinstance(s, str) else s
+                       for s in r.data], object)
+        if self.op == "eq":
+            data = np.array([la[i] == ra[i] for i in range(n)])
+            return HostCol(self.dtype, data,
+                           merge_validity_h(l.validity, r.validity))
+        cmp = {"lt": lambda x, y: x < y, "le": lambda x, y: x <= y,
+               "gt": lambda x, y: x > y, "ge": lambda x, y: x >= y}[self.op]
+        data = np.array([cmp(la[i], ra[i]) for i in range(n)])
+        return HostCol(self.dtype, data,
+                       merge_validity_h(l.validity, r.validity))
 
 
 def string_comparison(op: str, l: Expression, r: Expression) -> Expression:
@@ -155,6 +179,20 @@ class Substring(Expression):
         data = data * (cols[None, :] < out_len[:, None]).to(torch.uint8)
         return DeviceColumn(T.StringT, data, c.validity, out_len)
 
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        out = np.empty(len(c.data), object)
+        for i, s in enumerate(c.data):
+            p = self.pos
+            if p > 0:
+                st = p - 1
+            elif p == 0:
+                st = 0
+            else:
+                st = max(len(s) + p, 0)
+            out[i] = s[st:st + max(self.length, 0)]
+        return HostCol(T.StringT, out, c.validity)
+
 
 @dataclasses.dataclass
 class StringPredicate(Expression):
@@ -203,6 +241,15 @@ class StringPredicate(Expression):
         else:  # contains: a match at any shift
             data = _window_match(c, pat).any(dim=1)
         return DeviceColumn(self.dtype, data, validity)
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        f = {"startswith": str.startswith, "endswith": str.endswith,
+             "contains": str.__contains__}[self.op]
+        data = np.array([f(l.data[i], r.data[i]) for i in range(len(l.data))])
+        return HostCol(self.dtype, data,
+                       merge_validity_h(l.validity, r.validity))
 
 
 def string_predicate(op, l, r) -> Expression:
@@ -299,3 +346,37 @@ class Like(Expression):
                 m, 1, torch.clamp(end_shift, 0, w)[:, None].long())[:, 0]
             ok = ok & at_end & (end_shift >= pos)
         return DeviceColumn(self.dtype, ok, c.validity)
+
+    def eval_cpu(self, batch):
+        import re as _re
+        c = self.child.eval_cpu(batch)
+        # translate LIKE -> regex (escape-aware)
+        rx = ""
+        i = 0
+        pat = self.pattern
+        while i < len(pat):
+            ch = pat[i]
+            if ch == "\\" and i + 1 < len(pat):
+                rx += _re.escape(pat[i + 1])
+                i += 2
+                continue
+            if ch == "%":
+                rx += "(?s:.*)"
+            elif ch == "_":
+                rx += "(?s:.)"
+            else:
+                rx += _re.escape(ch)
+            i += 1
+        prog = _re.compile(rx)
+        data = np.array([prog.fullmatch(str(s)) is not None
+                         for s in c.data], dtype=bool)
+        return HostCol(self.dtype, data, c.validity)
+
+
+# -- TypeSig declarations (the JAX package's, see expressions.py) ----------
+_STR_INT = E.SIG_STRINGY | E.SIG_INTEGRAL
+for _cls in (StringComparison, StringPredicate, Like):
+    _cls.type_sig = E.SIG_BOOLEAN
+    _cls.input_sig = E.SIG_STRINGY
+Substring.type_sig = E.SIG_STRINGY
+Substring.input_sig = _STR_INT

@@ -3,7 +3,8 @@
 The counterparts of the JAX package's ``plan/logical.py`` nodes of the
 same names.  The DataFrame API resolves names and coerces types eagerly,
 so logical nodes already hold bound, typed expressions; physical
-planning (plan/planner.py) maps them straight onto device execs.
+planning (plan/planner.py) maps them onto CPU execs, and the plan
+rewrite (plan/overrides.py) moves what it can onto the device.
 """
 
 from __future__ import annotations

@@ -1,0 +1,446 @@
+"""The plan-rewrite engine: CPU physical plan -> device plan with fallback.
+
+[REF: sql-plugin/../GpuOverrides.scala :: GpuOverrides (expressions/execs
+ rule maps, wrapPlan), RapidsMeta.scala :: SparkPlanMeta.tagForGpu /
+ willNotWorkOnGpu / convertToGpu, GpuTransitionOverrides.scala]
+
+The counterpart of the JAX package's ``plan/overrides.py``, with the same
+mechanics and the same reason texts:
+
+* every exec class the port has carries a rule in ``EXEC_RULES``;
+* each plan node is wrapped in an ``ExecMeta`` that collects readable
+  "cannot run on TPU because ..." reasons (type checks, the per-op
+  kill switches ``spark.rapids.sql.{exec,expression}.<Name>``, missing
+  rules);
+* subtrees tagged ok convert to device execs, and transitions
+  (``HostToDeviceExec`` / ``DeviceToHostExec``) go in at every boundary;
+* the coalesce pass adds a TargetSize coalesce above every host-to-device
+  transition and a RequireSingleBatch coalesce under the global sort;
+* ``spark.rapids.sql.explain=NOT_ON_TPU|ALL`` prints the rewrite, and
+  ``spark.rapids.sql.test.enabled`` turns an unexpected fallback into an
+  ``AssertionError``.
+
+The port's rules convert onto the session's device, so ``convert``
+takes it beside the conf.  Planes the port lacks are left out of
+``apply_overrides``: whole-stage fusion (``fuse_plan``, ROADMAP A.9),
+the resilience plane's ``configure_from_conf`` (A.7), the
+multi-executor validation ``_validate_multiproc`` (A.10), the LORE dump
+taps ``install_lore_taps`` (A.12) and the ICI exchange branches of the
+aggregate, sort and join conversions (A.4 / A.10).  The limits have no
+device exec yet (A.5): they fall back with "no TPU rule".
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, List, Optional, Type
+
+import torch
+
+from spark_rapids_tpu_torch import conf as C
+from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.conf import RapidsConf
+from spark_rapids_tpu_torch.exec import basic as B
+from spark_rapids_tpu_torch.exec.aggregate import (
+    CpuAggregateExec, TpuHashAggregateExec)
+from spark_rapids_tpu_torch.exec.base import CpuExec, ExecNode, TpuExec
+from spark_rapids_tpu_torch.exec.join import (
+    CpuJoinExec, TpuBroadcastExchangeExec, _convert_join, _tag_join)
+from spark_rapids_tpu_torch.exec.misc import (
+    CpuTopNExec, _convert_topn, _tag_topn)
+from spark_rapids_tpu_torch.exec.sort import (
+    CpuSortExec, TpuSortExec, _convert_sort, _tag_sort)
+from spark_rapids_tpu_torch.exec.transitions import (
+    DeviceToHostExec, HostToDeviceExec)
+from spark_rapids_tpu_torch.ops import aggregates as A
+from spark_rapids_tpu_torch.ops.expressions import (
+    BoundReference, Expression, sig_tag)
+
+
+# ---------------------------------------------------------------------------
+# Type support lattice — the TypeSig analog
+# [REF: sql-plugin/../TypeChecks.scala :: TypeSig]
+# ---------------------------------------------------------------------------
+
+def is_device_supported_type(dt: T.DataType) -> Optional[str]:
+    """None if supported on device; else the reason string."""
+    if isinstance(dt, T.DecimalType):
+        if dt.precision > 38:
+            return f"decimal precision {dt.precision} > 38"
+        return None
+    if isinstance(dt, (T.ArrayType, T.MapType, T.StructType)):
+        return f"nested type {dt.simple_name} not yet supported on device"
+    if isinstance(dt, (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
+                       T.LongType, T.FloatType, T.DoubleType, T.StringType,
+                       T.BinaryType, T.DateType, T.TimestampType, T.NullType)):
+        return None
+    return f"type {dt.simple_name} not supported on device"
+
+
+def is_device_supported_output_type(dt: T.DataType) -> Optional[str]:
+    """Exec OUTPUT columns additionally allow array<primitive> (the JAX
+    package's collect_list result) while expressions over arrays stay
+    unsupported."""
+    if isinstance(dt, T.ArrayType):
+        et = dt.element_type
+        if isinstance(et, (T.ArrayType, T.MapType, T.StructType,
+                           T.StringType, T.BinaryType, T.DecimalType)):
+            return (f"array element type {et.simple_name} not supported "
+                    "on device")
+        return None
+    return is_device_supported_type(dt)
+
+
+# ---------------------------------------------------------------------------
+# Meta: per-node tagging state
+# ---------------------------------------------------------------------------
+
+class ExecMeta:
+    def __init__(self, cpu: CpuExec, conf: RapidsConf,
+                 children: List["ExecMeta"]):
+        self.cpu = cpu
+        self.conf = conf
+        self.children = children
+        self.reasons: List[str] = []
+        self.rule: Optional["ExecRule"] = None
+
+    def will_not_work(self, reason: str):
+        if reason not in self.reasons:
+            self.reasons.append(reason)
+
+    @property
+    def can_run_on_tpu(self) -> bool:
+        return not self.reasons
+
+    def tag_expressions(self, exprs):
+        for e in exprs:
+            tag_expression(e, self)
+
+    def tag(self):
+        rule = EXEC_RULES.get(type(self.cpu))
+        if rule is None:
+            self.will_not_work(
+                f"no TPU rule for exec {type(self.cpu).__name__}")
+            return
+        self.rule = rule
+        if not self.conf.is_op_enabled("exec", rule.name):
+            self.will_not_work(
+                f"exec {rule.name} disabled by "
+                f"spark.rapids.sql.exec.{rule.name}=false")
+        for f in self.cpu.schema.fields:
+            r = is_device_supported_output_type(f.dtype)
+            if r:
+                self.will_not_work(f"output column '{f.name}': {r}")
+        # a CPU-falling child feeds this node through an H2D transition —
+        # every column of the child's schema must survive the transfer
+        # [REF: GpuTransitionOverrides.scala — transition type validation]
+        for c in self.children:
+            if not c.can_run_on_tpu:
+                for f in c.cpu.schema.fields:
+                    r = is_device_supported_output_type(f.dtype)
+                    if r:
+                        self.will_not_work(
+                            f"input column '{f.name}' cannot cross the "
+                            f"host→device transition: {r}")
+        rule.tag(self)
+
+
+def tag_expression(e: Expression, meta: ExecMeta):
+    name = type(e).__name__
+    if not meta.conf.is_op_enabled("expression", name):
+        meta.will_not_work(
+            f"expression {name} disabled by "
+            f"spark.rapids.sql.expression.{name}=false")
+    if meta.conf.ansi_enabled and getattr(type(e), "ansi_sensitive", False):
+        meta.will_not_work(
+            f"expression {name} under spark.sql.ansi.enabled=true: device "
+            "lowering implements non-ANSI semantics (overflow wraps, "
+            "invalid input nulls) — CPU fallback until ANSI kernels exist")
+    if isinstance(e, BoundReference):
+        # direct column pass-through supports everything a batch can
+        # carry; computed expressions stay restricted to scalar types
+        r = is_device_supported_output_type(e.dtype)
+    else:
+        r = is_device_supported_type(e.dtype)
+    if r:
+        meta.will_not_work(f"expression {e}: {r}")
+    # per-op TypeSig [REF: TypeChecks.scala]: the class declares which
+    # type tags its device lowering produces/accepts
+    cls = type(e)
+    tag = sig_tag(e.dtype)
+    if tag not in cls.type_sig:
+        meta.will_not_work(
+            f"expression {name} does not produce {tag} on device "
+            f"(type sig: {', '.join(sorted(cls.type_sig))})")
+    in_sig = cls.input_sig if cls.input_sig is not None else cls.type_sig
+    for c in e.children:
+        ctag = sig_tag(c.dtype)
+        if ctag not in in_sig:
+            meta.will_not_work(
+                f"expression {name} does not accept a {ctag} input on "
+                f"device (input sig: {', '.join(sorted(in_sig))})")
+    # the port's device lowering is ``eval``
+    if type(e).eval is Expression.eval:
+        meta.will_not_work(f"expression {name} has no TPU implementation")
+    for c in e.children:
+        tag_expression(c, meta)
+
+
+# ---------------------------------------------------------------------------
+# Rules
+# ---------------------------------------------------------------------------
+
+class ExecRule:
+    """One entry of the GpuOverrides execs map.
+
+    ``convert(cpu, tpu_children, conf, device)`` builds the device exec
+    on the session's device."""
+
+    def __init__(self, name: str,
+                 tag: Callable[[ExecMeta], None],
+                 convert: Callable[[CpuExec, List[TpuExec], RapidsConf,
+                                    torch.device], TpuExec]):
+        self.name = name
+        self._tag = tag
+        self.convert = convert
+
+    def tag(self, meta: ExecMeta):
+        self._tag(meta)
+
+
+EXEC_RULES: Dict[Type[CpuExec], ExecRule] = {}
+
+
+def _convert_scan(cpu: B.CpuScanExec, children, conf, device):
+    return B.TpuScanExec(cpu.table, cpu.schema, device, cpu.batch_rows,
+                         conf.min_bucket_rows)
+
+
+EXEC_RULES[B.CpuScanExec] = ExecRule(
+    "InMemoryScan", lambda m: None, _convert_scan)
+
+EXEC_RULES[B.CpuProjectExec] = ExecRule(
+    "Project",
+    lambda m: m.tag_expressions(m.cpu.exprs),
+    lambda cpu, ch, conf, device: B.TpuProjectExec(cpu.exprs, cpu.schema,
+                                                   ch[0]))
+
+EXEC_RULES[B.CpuFilterExec] = ExecRule(
+    "Filter",
+    lambda m: m.tag_expressions([m.cpu.condition]),
+    lambda cpu, ch, conf, device: B.TpuFilterExec(cpu.condition, ch[0]))
+
+
+def _tag_aggregate(meta: ExecMeta):
+    cpu: CpuAggregateExec = meta.cpu
+    meta.tag_expressions(cpu.grouping)
+    for fn in cpu.fns:
+        if isinstance(fn, A.Sum) and meta.conf.ansi_enabled:
+            meta.will_not_work(
+                "sum under spark.sql.ansi.enabled=true: device sum wraps "
+                "on overflow (non-ANSI) — CPU fallback")
+        if not isinstance(fn, (A.Sum, A.Min, A.Max, A.Count, A.CountStar,
+                               A.Average)):
+            meta.will_not_work(
+                f"aggregate function {fn.name} has no TPU implementation")
+            continue
+        if not isinstance(fn, A.CountStar):
+            meta.tag_expressions([fn.child])
+
+
+def _convert_aggregate(cpu, ch, conf, device):
+    return TpuHashAggregateExec(cpu.grouping, cpu.fns, cpu.schema, ch[0],
+                                backend=conf.kernel_backend)
+
+
+# the JAX package registers the next four lazily
+# (``_register_lazy_rules``); the port's exec modules import this module
+# only inside functions, so their rules register here, at import
+EXEC_RULES[CpuAggregateExec] = ExecRule(
+    "HashAggregate", _tag_aggregate, _convert_aggregate)
+EXEC_RULES[CpuSortExec] = ExecRule(
+    "Sort", _tag_sort, _convert_sort)
+EXEC_RULES[CpuJoinExec] = ExecRule(
+    "SortMergeJoin", _tag_join, _convert_join)
+EXEC_RULES[CpuTopNExec] = ExecRule(
+    "TakeOrderedAndProject", _tag_topn, _convert_topn)
+
+
+def op_names(kind: str) -> frozenset:
+    """The names a kill switch ``spark.rapids.sql.<kind>.<Name>`` may
+    carry: a rule's name (``exec``) or an expression class that
+    ``tag_expression`` meets (``expression``)."""
+    if kind == "exec":
+        return frozenset(r.name for r in EXEC_RULES.values())
+    # the modules that define the string and date expressions
+    from spark_rapids_tpu_torch.ops import datetime_ops, strings  # noqa: F401
+    names, stack = set(), [Expression]
+    while stack:
+        for cls in stack.pop().__subclasses__():
+            stack.append(cls)
+            if not cls.__name__.startswith("_"):
+                names.add(cls.__name__)
+    return frozenset(names)
+
+
+# ---------------------------------------------------------------------------
+# The rewrite pass
+# ---------------------------------------------------------------------------
+
+class OverrideResult:
+    def __init__(self, plan: ExecNode, metas: List[ExecMeta]):
+        self.plan = plan
+        self.metas = metas
+
+    def fallback_report(self) -> List[str]:
+        out = []
+        for m in self.metas:
+            if not m.can_run_on_tpu:
+                for r in m.reasons:
+                    out.append(
+                        f"!Exec <{type(m.cpu).__name__}> cannot run on TPU "
+                        f"because {r}")
+        return out
+
+    def fallback_summary(self) -> dict:
+        """The fallback budget as a metric [REF: ExplainPlanImpl]: how
+        many plan operators run on device vs fell back, with reasons."""
+        device = sum(1 for m in self.metas if m.can_run_on_tpu)
+        fallen = [m for m in self.metas if not m.can_run_on_tpu]
+        return {
+            "device_ops": device,
+            "fallback_ops": len(fallen),
+            "device_fraction": round(
+                device / max(len(self.metas), 1), 3),
+            "fallback_reasons": sorted(
+                {f"{type(m.cpu).__name__}: {r}"
+                 for m in fallen for r in m.reasons}),
+        }
+
+
+def wrap(cpu: CpuExec, conf: RapidsConf,
+         all_metas: List[ExecMeta]) -> ExecMeta:
+    children = [wrap(c, conf, all_metas) for c in cpu.children
+                if isinstance(c, CpuExec)]
+    meta = ExecMeta(cpu, conf, children)
+    meta.tag()
+    all_metas.append(meta)
+    return meta
+
+
+def _rebuild_cpu(cpu: CpuExec, new_children: List[ExecNode]) -> CpuExec:
+    """Copy a CPU exec onto (possibly transition-wrapped) children.
+
+    A shallow copy, not in-place mutation: the original plan nodes stay
+    pristine, so re-planning a DataFrame never sees a half-rewritten
+    tree."""
+    clone = copy.copy(cpu)
+    clone._children = tuple(new_children)
+    clone.metrics = {k: type(m)(m.name) for k, m in cpu.metrics.items()}
+    return clone
+
+
+def convert_meta(meta: ExecMeta, device: torch.device) -> ExecNode:
+    """Bottom-up conversion with transition insertion."""
+    converted = [convert_meta(c, device) for c in meta.children]
+    if meta.can_run_on_tpu:
+        tpu_children = [
+            c if isinstance(c, TpuExec) else HostToDeviceExec(c, device)
+            for c in converted
+        ]
+        return meta.rule.convert(meta.cpu, tpu_children, meta.conf, device)
+    cpu_children = [
+        c if isinstance(c, CpuExec) else DeviceToHostExec(c)
+        for c in converted
+    ]
+    return _rebuild_cpu(meta.cpu, cpu_children)
+
+
+def _estimated_row_bytes(schema: T.StructType,
+                         str_width: Optional[int] = None) -> int:
+    """Rough bytes/row for batch-size targeting.  ``str_width``: known
+    string-matrix width; default is a 40-byte planning-time guess."""
+    total = 0
+    for f in schema.fields:
+        if isinstance(f.dtype, (T.StringType, T.BinaryType)):
+            total += (max(str_width, 8) + 4) if str_width is not None \
+                else 40
+        else:
+            total += 8
+        total += 1  # validity
+    return max(total, 1)
+
+
+def insert_coalesce(node: ExecNode, conf: RapidsConf) -> ExecNode:
+    """The GpuTransitionOverrides coalesce pass [REF:
+    GpuTransitionOverrides.scala + GpuCoalesceBatches.scala]:
+
+    * a TargetSize coalesce above every H2D transition (CPU-fallback
+      sources emit small batches; merge them up to
+      ``spark.rapids.sql.batchSizeBytes``, row-capped at
+      ``spark.rapids.tpu.batchRows``, before device operators), and
+    * a RequireSingleBatch coalesce under the global sort (a
+      single-partition child), the batching contract as a plan node.
+      Joins deliberately get none: a pre-concatenated side would bypass
+      the join's row-capped streaming and sub-partitioning.
+    """
+    node._children = tuple(insert_coalesce(c, conf)
+                           for c in node.children)
+    if isinstance(node, HostToDeviceExec):
+        target = max(conf.get(C.BATCH_SIZE_BYTES)
+                     // _estimated_row_bytes(node.schema),
+                     conf.min_bucket_rows)
+        target = min(target, conf.batch_rows)
+        return B.TpuCoalesceBatchesExec(node, target_rows=target)
+    if isinstance(node, TpuSortExec):
+        node._children = tuple(
+            B.TpuCoalesceBatchesExec(c, require_single=True)
+            if isinstance(c, TpuExec) and c.num_partitions() == 1
+            and not isinstance(
+                c, (B.TpuCoalesceBatchesExec, TpuBroadcastExchangeExec))
+            else c
+            for c in node._children)
+    return node
+
+
+def apply_overrides(cpu_plan: CpuExec, conf: RapidsConf,
+                    device: torch.device) -> OverrideResult:
+    """GpuOverrides.apply + GpuTransitionOverrides in one pass.  A CPU
+    session (``spark.rapids.sql.enabled=false``) keeps the CPU plan and
+    places nothing on the device."""
+    if not conf.sql_enabled:
+        return OverrideResult(cpu_plan, [])
+    # configure the budget arbiter from this query's conf before any
+    # device materialization
+    from spark_rapids_tpu_torch.runtime.memory import get_manager
+    get_manager(conf, device)
+    metas: List[ExecMeta] = []
+    root = wrap(cpu_plan, conf, metas)
+    plan = convert_meta(root, device)
+    if isinstance(plan, TpuExec):
+        plan = DeviceToHostExec(plan)
+    plan = insert_coalesce(plan, conf)
+    result = OverrideResult(plan, metas)
+
+    explain = conf.explain
+    report = result.fallback_report()
+    if explain == "ALL" or (explain in ("NOT_ON_GPU", "NOT_ON_TPU")
+                            and report):
+        print("TPU plan rewrite:")
+        for line in report:
+            print("  " + line)
+        if explain == "ALL":
+            print(plan.tree_string())
+
+    if conf.test_enabled and report:
+        allowed = set(conf.allowed_non_gpu)
+        bad = [m for m in metas if not m.can_run_on_tpu
+               and type(m.cpu).__name__ not in allowed
+               and (EXEC_RULES.get(type(m.cpu)) is None
+                    or EXEC_RULES[type(m.cpu)].name not in allowed)]
+        if bad:
+            lines = "\n".join(r for m in bad for r in m.reasons)
+            raise AssertionError(
+                "Part of the plan is not columnar (TPU test mode): \n"
+                + lines)
+    return result

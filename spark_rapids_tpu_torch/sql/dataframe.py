@@ -4,29 +4,34 @@ The counterpart of the JAX package's ``sql/dataframe.py``:
 ``select``, ``withColumnRenamed``, ``filter``, ``groupBy(...).agg``
 (count(DISTINCT) rewritten into two aggregates), ``agg``, ``orderBy``,
 ``limit``, ``distinct``, ``join`` (USING joins on column names and expression joins on
-a ``Column`` condition), ``crossJoin``, and the actions ``toArrow`` and
-``collect``.
+a ``Column`` condition), ``crossJoin``, the actions ``toArrow`` and
+``collect``, and ``explain`` and ``fallback_summary``.
 Transformations build the logical plan eagerly (pyspark-style errors at
-the call site); actions optimize, plan onto the session's device and
-pump the exec tree.
+the call site); actions optimize, plan a CPU exec tree, let the plan
+rewrite (``plan/overrides.py``) move what it can onto the session's
+device, and pump the result.
 """
 
 from __future__ import annotations
 
 from typing import List, Union
 
+import time
+
 import pyarrow as pa
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
-from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
+from spark_rapids_tpu_torch.columnar import host as H
+from spark_rapids_tpu_torch.exec.base import ExecNode
 from spark_rapids_tpu_torch.ops import aggregates as A
 from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops.expressions import BoundReference
 from spark_rapids_tpu_torch.plan import analysis as AN
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.optimizer import optimize
+from spark_rapids_tpu_torch.plan.overrides import (
+    OverrideResult, apply_overrides)
 from spark_rapids_tpu_torch.plan.planner import plan_physical
-from spark_rapids_tpu_torch.runtime.memory import get_manager
 from spark_rapids_tpu_torch.sql.column import Column, UExpr, col  # noqa: F401
 
 
@@ -76,6 +81,10 @@ class DataFrame:
         self.session = session
         self._plan = plan
         self._last_plan = None
+        self._last_override = None
+        # host milliseconds of the last plan rewrite: _execute_plan
+        # called to the plan returned
+        self.plan_ms = None
 
     @property
     def schema(self) -> T.StructType:
@@ -256,21 +265,46 @@ class DataFrame:
             T.StructType(tuple(fields)), using=False))
 
     # -- actions ----------------------------------------------------------
-    def _execute_plan(self) -> DeviceToHostExec:
+    def _rewrite(self) -> OverrideResult:
         conf = self.session.rapids_conf()
-        # configure the budget arbiter from this query's conf before any
-        # device materialization (the JAX package's apply_overrides)
-        get_manager(conf, self.session.device)
-        plan = plan_physical(optimize(self._plan), conf,
-                             self.session.device)
-        return DeviceToHostExec(plan)
+        cpu = plan_physical(optimize(self._plan), conf)
+        return apply_overrides(cpu, conf, self.session.device)
+
+    def _execute_plan(self) -> ExecNode:
+        t0 = time.perf_counter()
+        result = self._rewrite()
+        self._last_override = result
+        self.plan_ms = (time.perf_counter() - t0) * 1e3
+        return result.plan
+
+    def fallback_summary(self) -> dict:
+        """Device-vs-fallback operator counts for the last planned
+        execution (the reference's explain=NOT_ON_GPU signal as a
+        metric [REF: ExplainPlanImpl])."""
+        if self._last_override is None:
+            self._execute_plan()
+        return self._last_override.fallback_summary()
+
+    def explain(self, extended: bool = False) -> None:
+        """Print the physical plan (device nodes starred); ``True`` adds
+        the fallback report.  The JAX package's ``"metrics"`` and
+        ``"analyze"`` modes belong to the tracing plane, not ported."""
+        if isinstance(extended, str):
+            raise NotImplementedError(
+                f"spark_rapids_tpu_torch: explain({extended!r}) is not "
+                "ported yet")
+        result = self._rewrite()
+        print(result.plan.tree_string())
+        if extended:
+            for line in result.fallback_report():
+                print(line)
 
     def toArrow(self) -> pa.Table:
         """Execute and return the result as an Arrow table."""
         plan = self._execute_plan()
         self._last_plan = plan
-        tables = [t for p in range(plan.num_partitions())
-                  for t in plan.execute(p)]
+        tables = [H.to_arrow_table(b) for p in range(plan.num_partitions())
+                  for b in plan.execute(p)]
         if not tables:
             return pa.table([pa.array([], type=T.to_arrow(f.dtype))
                              for f in self.schema.fields],

@@ -13,14 +13,22 @@ column-wise with arrow compute.
 
 ``q1`` … ``q22`` transcribe ``bench.py``'s builders onto this port's
 DataFrame API (those import the JAX package); ``JOIN_VARIANTS`` are
-rewrites of four of them that run the right join, the full join and the
-residual join conditions.
+rewrites of five of them that run the right join, the full join and the
+residual join conditions (``q13_cond`` the one the plan rewrite keeps on
+the CPU).
+
+``TPCH_SF1_CONF`` is ``bench.TPCH_SF1_CONF`` less the keys of planes the
+port has not got (``UNPORTED_SF1_KEYS``, each with its ROADMAP item; the
+port refuses them), and ``oracle_check`` is bench's CPU-oracle loop: each
+builder at a small scale under the accelerated session and under
+``TpuSession({"spark.rapids.sql.enabled": False})``, compared with a
+copy of ``bench._rows_equal(tol=1e-6)``.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import pyarrow as pa
@@ -813,6 +821,71 @@ QUERIES = tuple(f"q{i}" for i in range(1, 23))
 
 
 # ---------------------------------------------------------------------------
+# bench's accelerated conf and its CPU-oracle loop
+# ---------------------------------------------------------------------------
+
+# the keys of bench.TPCH_SF1_CONF whose planes the port lacks, with the
+# ROADMAP item that brings each; the port rejects or refuses them
+UNPORTED_SF1_KEYS = {
+    "spark.rapids.tpu.adaptive.enabled": "A.4",
+    "spark.rapids.tpu.exchange.mode": "A.4",
+    "spark.rapids.tpu.fusion.enabled": "A.9",
+    "spark.rapids.tpu.cache.enabled": "A.9",
+    "spark.rapids.tpu.cache.minRuntimeMs": "A.9",
+}
+
+TPCH_SF1_CONF = {"spark.rapids.sql.enabled": True,
+                 "spark.rapids.tpu.batchRows": 1 << 16,
+                 "spark.rapids.tpu.kernel.backend": "auto"}
+
+# q2/q7/q11's filters are so selective that sf 0.002 yields zero rows (a
+# vacuous check): those three check at sf 0.01 instead (bench.py)
+ORACLE_SF = {"q2": 0.01, "q7": 0.01, "q11": 0.01}
+ORACLE_DEFAULT_SF = 0.002
+
+
+def rows_equal(a: pa.Table, b: pa.Table, tol: float = 1e-9) -> bool:
+    """Row multiset equality: floats within ``tol`` relative (absolute
+    below 1), everything else exactly (``bench._rows_equal``)."""
+    la = [tuple(r.values()) for r in a.to_pylist()]
+    lb = [tuple(r.values()) for r in b.to_pylist()]
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(sorted(la, key=repr), sorted(lb, key=repr)):
+        for u, v in zip(x, y):
+            if isinstance(u, float) and isinstance(v, float):
+                if abs(u - v) > tol * max(1.0, abs(u), abs(v)):
+                    return False
+            elif u != v:
+                return False
+    return True
+
+
+def build(q: str, session, t: Dict[str, pa.Table]):
+    """Query ``q`` (a TPC-H query or a join variant) over the dict of
+    tables (q1 and q6 take lineitem alone)."""
+    return globals()[q](session, t["lineitem"] if q in ("q1", "q6") else t)
+
+
+def oracle_check(tables_for: Callable[[float], Dict[str, pa.Table]],
+                 device="cuda") -> Dict[str, bool]:
+    """bench.py's CPU-oracle loop on the port: each of the 22 builders at
+    its small scale (``tables_for(sf)``, sf from ``ORACLE_SF``) under
+    ``TPCH_SF1_CONF`` on ``device`` and under the CPU session, compared
+    with ``rows_equal(tol=1e-6)``.  Returns ``{query: equal}``."""
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    accel = TpuSession(dict(TPCH_SF1_CONF), device=device)
+    cpu = TpuSession({"spark.rapids.sql.enabled": False}, device=device)
+    out = {}
+    for q in QUERIES:
+        t = tables_for(ORACLE_SF.get(q, ORACLE_DEFAULT_SF))
+        a = build(q, accel, t).toArrow()
+        b = build(q, cpu, t).toArrow()
+        out[q] = rows_equal(a, b, tol=1e-6)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # join variants: rewrites of TPC-H queries (not engine features) that run
 # the right join, the residual join conditions and the full join
 # ---------------------------------------------------------------------------
@@ -828,6 +901,25 @@ def q13_right(session, t: Dict[str, pa.Table]):
     cust = _t(session, t, "customer", "c_custkey")
     per_cust = (orders.join(cust, col("o_custkey") == col("c_custkey"),
                             "right")
+                .groupBy("c_custkey")
+                .agg(F.count(col("o_orderkey")).alias("c_count")))
+    return (per_cust.groupBy("c_count")
+            .agg(F.count("*").alias("custdist"))
+            .orderBy(col("custdist").desc(), col("c_count").desc()))
+
+
+def q13_cond(session, t: Dict[str, pa.Table]):
+    """TPC-H q13 as the specification writes it: ``customer LEFT OUTER
+    JOIN orders ON c_custkey = o_custkey AND o_comment NOT LIKE
+    '%special%requests%'``.  Equals q13; the residual condition on a
+    left join keeps the join on the CPU (between device scans and
+    device aggregates)."""
+    orders = _t(session, t, "orders", "o_orderkey", "o_custkey",
+                "o_comment")
+    cust = _t(session, t, "customer", "c_custkey")
+    per_cust = (cust.join(orders, (col("c_custkey") == col("o_custkey"))
+                          & ~col("o_comment").like("%special%requests%"),
+                          "left")
                 .groupBy("c_custkey")
                 .agg(F.count(col("o_orderkey")).alias("c_count")))
     return (per_cust.groupBy("c_count")
@@ -898,4 +990,4 @@ def q3_full(session, t: Dict[str, pa.Table]):
 
 # variant -> the query it must equal (None: no base query)
 JOIN_VARIANTS = {"q13_right": "q13", "q17_cond": "q17",
-                 "q22_cond": "q22", "q3_full": None}
+                 "q22_cond": "q22", "q3_full": None, "q13_cond": "q13"}

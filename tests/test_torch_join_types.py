@@ -5,7 +5,8 @@ expression joins, residual conditions on inner and cross joins) under
 each strategy the exec picks, the top-N, string comparisons, and the
 branches the port does not have, each of which must raise
 ``NotImplementedError`` naming itself (the joins the JAX package runs
-on the CPU raise naming their CPU fallback).  Results must be equal under
+on the CPU fall back to the port's CPU join with the JAX package's
+fallback report).  Results must be equal under
 ``bench._rows_equal(tol=1e-6)``, the reference's oracle rule.
 """
 
@@ -180,59 +181,81 @@ def test_string_literal_comparison_matches_jax():
 # ---------------------------------------------------------------------------
 
 def _raises_cases():
-    def join(how, on="k", conf=None):
-        def run():
+    """(build, conf, what): ``what`` names the ``NotImplementedError`` of
+    a branch the port does not have; None marks a branch the JAX package
+    runs on the CPU, which the port now falls back to as well."""
+    def join(how, on="k"):
+        def build(s, F, col):
             left, right = _sides()
-            s = TpuSession(conf or {}, device="cpu")
             return s.createDataFrame(left).join(
-                s.createDataFrame(right), on=on, how=how).toArrow()
-        return run
+                s.createDataFrame(right), on=on, how=how)
+        return build
 
-    def residual_left():
+    def residual_left(s, F, col):
         left, right = _sides()
-        s = TpuSession(device="cpu")
         r = s.createDataFrame(right).select(col("k").alias("rk"), col("b"))
         return s.createDataFrame(left).join(
-            r, (col("k") == col("rk")) & (col("a") < 100), "left"
-        ).toArrow()
+            r, (col("k") == col("rk")) & (col("a") < 100), "left")
 
-    def bare_limit():
+    def bare_limit(s, F, col):
         left, _ = _sides()
-        return TpuSession(device="cpu").createDataFrame(left).limit(
-            3).toArrow()
+        return s.createDataFrame(left).limit(3)
 
-    def mismatched_keys():
+    def mismatched_keys(s, F, col):
         left, _ = _sides()
         _, right = _sides(pa.string())
-        s = TpuSession(device="cpu")
-        return s.createDataFrame(left).join(
-            s.createDataFrame(right), on="k").toArrow()
+        return s.createDataFrame(left).join(s.createDataFrame(right),
+                                            on="k")
 
-    def mixed_width_full():
+    def mixed_width_full(s, F, col):
         left, right = _sides(pa.int32(), pa.int64())
-        s = TpuSession(device="cpu")
-        return s.createDataFrame(left).join(
-            s.createDataFrame(right), on="k", how="full").toArrow()
+        return s.createDataFrame(left).join(s.createDataFrame(right),
+                                            on="k", how="full")
 
     no_bc = {"spark.sql.autoBroadcastJoinThreshold": 0}
     return [
-        pytest.param(residual_left, "CPU fallback of a join .residual "
-                     "join conditions on left joins", id="residual_left"),
-        pytest.param(mixed_width_full, "CPU fallback of a join .mixed-width "
-                     "int join keys not supported for full joins",
-                     id="mixed_width_full"),
-        pytest.param(
-            join("inner", conf=dict(no_bc, **{
-                "spark.rapids.tpu.adaptive.enabled": True})),
+        pytest.param(residual_left, {}, None, id="residual_left"),
+        pytest.param(mixed_width_full, {}, None, id="mixed_width_full"),
+        pytest.param(join("inner"), dict(no_bc, **{
+            "spark.rapids.tpu.adaptive.enabled": True}),
             "adaptive join", id="adaptive"),
-        pytest.param(bare_limit, "limit without an order-by",
-                     id="bare_limit"),
-        pytest.param(mismatched_keys, "mismatched key types",
-                     id="mismatched_keys"),
+        pytest.param(bare_limit, {}, None, id="bare_limit"),
+        pytest.param(mismatched_keys, {}, None, id="mismatched_keys"),
     ]
 
 
-@pytest.mark.parametrize("run, what", _raises_cases())
-def test_unported_branch_raises(run, what):
-    with pytest.raises(NotImplementedError, match=what):
-        run()
+# the limits have no device exec in the port yet (ROADMAP A.5): where the
+# JAX package runs a bare limit on the device, the port falls back
+LIMIT_FALLBACK = [
+    "!Exec <CpuLocalLimitExec> cannot run on TPU because no TPU rule for "
+    "exec CpuLocalLimitExec",
+    "!Exec <CpuGlobalLimitExec> cannot run on TPU because no TPU rule for "
+    "exec CpuGlobalLimitExec"]
+
+
+@pytest.mark.parametrize("build, conf, what", _raises_cases())
+def test_unported_branch_raises(build, conf, what):
+    """A branch the port does not have raises naming itself (the adaptive
+    join); a join the JAX package keeps on the CPU (a residual condition
+    on a left join, mixed-width int keys on a full join, key types of
+    different families) falls back to the port's CPU join with the JAX
+    package's result and fallback report, and so does a bare limit (with
+    the report of the port's CPU-only limits)."""
+    session = TpuSession(dict(conf), device="cpu")
+    if what is not None:
+        with pytest.raises(NotImplementedError, match=what):
+            build(session, F, col).toArrow()
+        return
+    df = build(session, F, col)
+    got = df.toArrow()
+    jdf = build(JaxSession(dict(conf)), JF, jcol)
+    want = jdf.toArrow()
+    assert got.schema == want.schema
+    assert bench._rows_equal(got, want, tol=1e-6)
+    want_report = jdf._last_override.fallback_report()
+    if build.__name__ == "bare_limit":
+        assert want_report == []
+        want_report = LIMIT_FALLBACK
+    else:
+        assert want_report  # the JAX package falls back too
+    assert df._last_override.fallback_report() == want_report

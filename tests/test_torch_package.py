@@ -9,7 +9,8 @@
   unavailable.
 * The ``spark.rapids.*`` conf is validated as the JAX package's is, and
   what the slice does not port raises ``NotImplementedError`` instead of
-  running elsewhere.
+  running elsewhere; an operator the port has only on the CPU (a bare
+  limit) falls back there visibly, in the plan rewrite's report.
 """
 
 import ast
@@ -70,6 +71,13 @@ def test_import_check_covers_the_scan_cache_slice():
     assert "spark_rapids_tpu_torch/runtime/memory.py" in names
 
 
+def test_import_check_covers_the_overrides_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("plan/overrides.py", "columnar/host.py",
+                "exec/transitions.py", "plan/planner.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
+
+
 def test_session_without_cpu_raises_when_cuda_is_unavailable(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
@@ -91,6 +99,15 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.rapids.sql.hasNans": "maybe"}, "cannot parse boolean"),
     ({"spark.rapids.memory.gpu.allocFraction": 1.5}, "invalid value"),
     ({"spark.rapids.tpu.memory.poolSize": "lots"}, "cannot parse byte"),
+    ({"spark.rapids.sql.explain": "SOMETIMES"}, "invalid value"),
+    ({"spark.rapids.sql.exec.Sort": "maybe"}, "cannot parse boolean"),
+    ({"spark.rapids.sql.expression.Like": "off?"}, "cannot parse boolean"),
+    ({"spark.sql.ansi.enabled": "perhaps"}, "cannot parse boolean"),
+    ({"spark.rapids.sql.exec.SortExec": False}, "unknown spark.rapids"),
+    ({"spark.rapids.sql.exec.CpuSortExec": False}, "unknown spark.rapids"),
+    ({"spark.rapids.sql.expression.Upper": False}, "unknown spark.rapids"),
+    ({"spark.rapids.sql.incompatibleOps.enabled": True},
+     "unknown spark.rapids"),
 ])
 def test_conf_is_validated(conf, match):
     with pytest.raises(ValueError, match=match):
@@ -106,16 +123,29 @@ def _table():
 @pytest.mark.parametrize("build, what", [
     (lambda df: df.select(col("a").cast("string")), "Cast"),
     (lambda df: df.agg(F._agg("first")("a")), "aggregate 'first'"),
-    (lambda df: df.limit(2), "limit without an order-by"),
+    pytest.param(lambda df: df.limit(2), None, id="limit"),
     (lambda df: df.select(Column(UExpr("isnull", None, (col("a")._u,)))),
      "expression 'isnull'"),
     (lambda df: df.filter(Column(UExpr("rlike", "x.*", (col("s")._u,)))),
      "expression 'rlike'"),
 ])
 def test_outside_the_slice_raises(build, what):
+    """What the slice does not port raises naming itself; a bare limit
+    (``what`` None), which the port has on the CPU only, falls back
+    there with the rewrite's report and the JAX package's result."""
     df = TpuSession(device="cpu").createDataFrame(_table())
-    with pytest.raises(NotImplementedError, match=what):
-        build(df).toArrow()
+    if what is not None:
+        with pytest.raises(NotImplementedError, match=what):
+            build(df).toArrow()
+        return
+    from spark_rapids_tpu.sql.session import TpuSession as JaxSession
+    out = build(df)
+    got = out.toArrow()
+    want = build(JaxSession().createDataFrame(_table())).toArrow()
+    assert got.equals(want) and got.num_rows == 2
+    assert out.fallback_summary()["fallback_reasons"] == [
+        "CpuGlobalLimitExec: no TPU rule for exec CpuGlobalLimitExec",
+        "CpuLocalLimitExec: no TPU rule for exec CpuLocalLimitExec"]
 
 
 def test_host_device_round_trip_keeps_nulls_and_strings():

@@ -1,6 +1,8 @@
 """The ported TPC-H slice on the CUDA card, where a CPU run cannot show
-a fault: float sums in atomic order, and the seven string-pattern
-queries on the card against the same queries on the CPU.  Imports
+a fault: float sums in atomic order, the seven string-pattern queries
+and the join variants (``q13_cond``'s CPU join between device scans and
+aggregates among them) on the card against the same queries on the CPU,
+and bench's CPU-oracle loop on the card.  Imports
 neither JAX nor the JAX package, so that it also runs on a machine with
 a card and no JAX:
 
@@ -97,6 +99,23 @@ def test_join_variant_on_the_card_equals_the_cpu(cuda_device, small_tables,
     assert chip_smoke.rows_equal(got, want)
     assert chip_smoke.rows_equal(got, getattr(chip_smoke,
                                               "ref_" + variant)(t))
+
+
+@pytest.mark.gpu
+def test_oracle_check_on_the_card(cuda_device):
+    """bench's CPU-oracle loop (``tpch.oracle_check``) on the card: the 22
+    builders at its small scales under ``TPCH_SF1_CONF`` equal the
+    port's CPU session."""
+    cache = {}
+
+    def tables_for(sf):
+        if sf not in cache:
+            cache[sf] = tpch.gen_tpch(sf)
+        return cache[sf]
+
+    out = tpch.oracle_check(tables_for, device=cuda_device)
+    assert list(out) == list(tpch.QUERIES)
+    assert all(out.values()), out
 
 
 @pytest.mark.gpu

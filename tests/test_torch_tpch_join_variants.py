@@ -1,4 +1,4 @@
-"""The four TPC-H join variants (``utils/tpch.py::JOIN_VARIANTS``)
+"""The five TPC-H join variants (``utils/tpch.py::JOIN_VARIANTS``)
 through the port against the JAX package, where each is built with the
 JAX package's own API, and against its base query.
 
@@ -10,7 +10,10 @@ JAX package's own API, and against its base query.
   join without an equi key (a cross product with a condition); equals
   q22;
 * ``q3_full``: q3's filtered ``customer`` FULL JOIN its filtered
-  ``orders``, counted.
+  ``orders``, counted;
+* ``q13_cond``: q13 as the specification writes it, the NOT LIKE in the
+  ON clause of the left join; the plan rewrite keeps that join on the
+  CPU in both packages (the same fallback report); equals q13.
 
 They run at ``bench.py``'s oracle scale (sf 0.002) under the defaults
 and under ``autoBroadcastJoinThreshold=0`` with ``join.targetRows=1024``
@@ -106,6 +109,19 @@ def jax_q22_cond(s, t):
             .orderBy("cntrycode"))
 
 
+def jax_q13_cond(s, t):
+    orders = _t(s, t, "orders", "o_orderkey", "o_custkey", "o_comment")
+    cust = _t(s, t, "customer", "c_custkey")
+    per_cust = (cust.join(orders, (jcol("c_custkey") == jcol("o_custkey"))
+                          & ~jcol("o_comment").like("%special%requests%"),
+                          "left")
+                .groupBy("c_custkey")
+                .agg(JF.count(jcol("o_orderkey")).alias("c_count")))
+    return (per_cust.groupBy("c_count")
+            .agg(JF.count("*").alias("custdist"))
+            .orderBy(jcol("custdist").desc(), jcol("c_count").desc()))
+
+
 def jax_q3_full(s, t):
     cust = _t(s, t, "customer", "c_custkey", "c_mktsegment").filter(
         jcol("c_mktsegment") == "BUILDING")
@@ -157,13 +173,15 @@ def _run(variant, conf, t):
     want = jdf.toArrow()
     assert got.schema == want.schema
     assert bench._rows_equal(got, want, tol=1e-6)
+    assert (df._last_override.fallback_report()
+            == jdf._last_override.fallback_report())
     return got, df, _joins(jdf._last_override.plan)
 
 
 @pytest.mark.parametrize("conf", list(CONFS))
 @pytest.mark.parametrize("variant, data", [
     ("q13_right", "sf"), ("q17_cond", "sf"), ("q22_cond", "sf"),
-    ("q22_cond", "few_orders"), ("q3_full", "sf")])
+    ("q22_cond", "few_orders"), ("q3_full", "sf"), ("q13_cond", "sf")])
 def test_variant_matches_jax_and_its_base_query(tables, variant, data,
                                                 conf):
     t = tables[data]
@@ -187,6 +205,12 @@ def test_variant_matches_jax_and_its_base_query(tables, variant, data,
         assert [(jt, bc)] == [(j, b) for j, b, _ in want_joins]
         assert (jt, bc) == ("right", None)
         assert [strategy] == [s for _, _, s in base_joins]
+    elif variant == "q13_cond":
+        # the left join stays on the CPU: no device join in either plan
+        assert joins == want_joins == []
+        assert df.fallback_summary()["fallback_reasons"] == [
+            "CpuJoinExec: residual join conditions on left joins not yet "
+            "on device (inner/cross only)"]
     elif variant == "q22_cond":
         # the inner join without an equi key stands where q22 crosses
         assert joins == want_joins
