@@ -84,14 +84,33 @@ result line is not printed):
    CPU-oracle loop, the 22 builders at its small scales under
    ``TPCH_SF1_CONF`` against the port's CPU session
    (``spark.rapids.sql.enabled=false``), all equal;
-11. the string expressions of the string queries (LIKE, NOT LIKE,
+11. ``[partitions]``: q1, q6, q3, q13, q18 and q21 under
+   ``spark.default.parallelism=8``, each a path of its own (cache
+   cleared, counts to 0 before its cold run, read after): against
+   pyarrow, its 1-partition run of phase 4 and that run's join
+   strategies, 8 scan-cache entries per table, then 2 warm runs from
+   the cache; the walls beside phase 4's;
+12. ``[exchange]``: q18's inner aggregate over
+   ``repartition(16, "l_orderkey")`` of lineitem's three columns through
+   the host shuffle (MULTITHREADED) and the in-process exchange
+   (CACHE_ONLY), each with AQE on and off, each a path of its own,
+   against pyarrow's ``group_by`` and beside the same aggregate without
+   the repartition; with AQE off both transports' partitions on the card
+   row for row, their row counts equal to this script's numpy Spark
+   murmur3 pmod 16; orders (every column) round robin, 93,750 rows a
+   partition and the (o_orderkey, o_comment) multiset of the input;
+   customer by its string key ``c_mktsegment``, counts against the
+   numpy murmur3 of the UTF-8 bytes, unsplit under AQE; the exchanges'
+   ``partitionTime``, ``writeTime``, ``readTime``, ``transferTime``,
+   ``bytesWritten`` and the AQE reads, and the tudo build's seconds;
+13. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-12. the kernel at every shape the main path (queries, variants and
-   fallback cases)
-   launched it with, bit for bit against its plain version, timed as
-   in phase 3 and by a ring of distinct inputs larger than the L2 cache
+14. the kernel at every shape the main path (queries, variants,
+   fallback cases, partitions and exchanges) launched it with, bit for
+   bit against its plain version, timed as in phase 3 and by a ring of
+   distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
    ``torch.profiler`` after an L2-evicting write (``traced_ms``) and
    read (``traced_clean_ms``), called from a list of limbs through
@@ -99,7 +118,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-13. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+15. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -1743,6 +1762,457 @@ def oracle_phase(dev) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# multi-partition execution and the exchange plane
+# ---------------------------------------------------------------------------
+
+# queries run again under spark.default.parallelism=8: string group keys
+# (q1), keyless (q6), broadcast and streamed joins (q3), the
+# sub-partition join (q13), semi joins and the most hash_pairs launches
+# (q18, q21)
+PARTITION_QUERIES = ("q1", "q6", "q3", "q13", "q18", "q21")
+PARTITIONS = 8
+EXCHANGE_PARTS = 16
+EXCHANGE_RUNS = (("MULTITHREADED", True), ("MULTITHREADED", False),
+                 ("CACHE_ONLY", True), ("CACHE_ONLY", False))
+
+
+def _fmix32(h, length):
+    import numpy as np
+    h = h ^ np.uint32(length) if np.isscalar(length) else h ^ length
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x85EBCA6B)
+    h ^= h >> np.uint32(13)
+    h *= np.uint32(0xC2B2AE35)
+    h ^= h >> np.uint32(16)
+    return h
+
+
+def _mix_k1(k):
+    import numpy as np
+    k = k * np.uint32(0xCC9E2D51)
+    k = (k << np.uint32(15)) | (k >> np.uint32(17))
+    return k * np.uint32(0x1B873593)
+
+
+def _mix_h1(h, k):
+    import numpy as np
+    h = h ^ k
+    h = (h << np.uint32(13)) | (h >> np.uint32(19))
+    return h * np.uint32(5) + np.uint32(0xE6546B64)
+
+
+def spark_murmur3_long(values, seed: int = 42):
+    """Spark's ``Murmur3_x86_32.hashLong`` of int64 values (numpy,
+    written here so the check does not lean on the package)."""
+    import numpy as np
+    v = np.asarray(values, np.int64).view(np.uint64)
+    lo = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (v >> np.uint64(32)).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = np.full(v.shape, seed, np.uint32)
+        h = _mix_h1(h, _mix_k1(lo))
+        h = _mix_h1(h, _mix_k1(hi))
+        return _fmix32(h, 8)
+
+
+def spark_murmur3_bytes(b: bytes, seed: int = 42) -> int:
+    """Spark's ``hashUnsafeBytes`` of one UTF-8 string: 4-byte
+    little-endian blocks, then each tail byte sign-extended."""
+    import numpy as np
+    with np.errstate(over="ignore"):
+        h = np.uint32(seed)
+        aligned = len(b) - len(b) % 4
+        for i in range(0, aligned, 4):
+            h = _mix_h1(h, _mix_k1(np.uint32(int.from_bytes(
+                b[i:i + 4], "little"))))
+        for i in range(aligned, len(b)):
+            byte = b[i] - 256 if b[i] >= 128 else b[i]
+            h = _mix_h1(h, _mix_k1(np.uint32(byte & 0xFFFFFFFF)))
+        return int(_fmix32(np.uint32(h), len(b)))
+
+
+def spark_pmod(h, n: int):
+    """Spark's partition id: ``pmod(hash as int32, n)``."""
+    import numpy as np
+    return np.mod(np.asarray(h, np.uint32).view(np.int32).astype(np.int64),
+                  n)
+
+
+def find_node(node, name):
+    if type(node).__name__ == name:
+        return node
+    for c in node.children:
+        r = find_node(c, name)
+        if r is not None:
+            return r
+    return None
+
+
+def cache_partitions() -> dict:
+    """Cached scan entries per table: the partition counts of their keys
+    and how many partitions each holds."""
+    from spark_rapids_tpu_torch.exec import basic as B
+    return {str(tid): {"num_partitions": sorted({k[0] for k in e}),
+                       "entries": len(e)}
+            for tid, e in B._scan_cache.items()}
+
+
+def _strategy_key(joins) -> list:
+    return [(j["join_type"], j["broadcast"], j["cpu"], j["streamedJoins"],
+             j["subPartitionJoins"]) for j in joins]
+
+
+def partitions_phase(q, dev, tables, ref, first, summary, main_counts,
+                     CB, KN) -> dict:
+    """One query under spark.default.parallelism=8, a path of its own:
+    the cache cleared and the counts set to 0 before its cold run, read
+    after; against pyarrow and its 1-partition run of phase 4, with the
+    1-partition run's join strategies; 8 cache entries per scanned
+    table; then 2 warm runs that must read every scan from the cache."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    session = TpuSession(dict(SESSION_CONF, **{
+        "spark.default.parallelism": PARTITIONS}), device=dev)
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    df = build_on(q, session, tables)
+    got, cold_wall = timed(df)
+    counts = path_counts(df, CB, KN)
+    print(f"[main path] partitions {q} " + json.dumps(counts), flush=True)
+    check(counts["collision_fallbacks"] == 0,
+          f"partitions {q}: {counts['collision_fallbacks']} hash-collision "
+          "fallbacks")
+    check(counts["hash_pairs_launches"] > 0 or q == "q6",
+          f"partitions {q}: hash_pairs was not launched")
+    check(df.fallback_summary()["fallback_ops"] == 0,
+          f"partitions {q}: {df.fallback_summary()}")
+    check_result(f"partitions {q}", got, ref)
+    check(rows_equal(got, first[q]),
+          f"{q} under {PARTITIONS} partitions differs from its "
+          f"1-partition run:\n{got}\n{first[q]}")
+    check(_strategy_key(counts["joins"])
+          == _strategy_key(main_counts["joins"]),
+          f"partitions {q}: join strategies {counts['joins']} differ from "
+          f"the 1-partition run's {main_counts['joins']}")
+    scans = find_scans(df._last_plan)
+    check(scans and all(n.num_partitions() == PARTITIONS for n in scans),
+          f"partitions {q}: scans of {[n.num_partitions() for n in scans]}"
+          " partitions")
+    cached = cache_partitions()
+    check(cached and all(c == {"num_partitions": [PARTITIONS],
+                               "entries": PARTITIONS}
+                         for c in cached.values()),
+          f"partitions {q}: scan cache entries {cached}")
+    warm = []
+    for _ in range(2):
+        wdf = build_on(q, session, tables)
+        out, wall = timed(wdf)
+        warm.append(wall)
+        check(rows_equal(out, ref), f"partitions {q} warm run differs")
+        check(all(t == 0 for t in scan_transfer_times(wdf)),
+              f"partitions {q}: a warm scan missed the cache")
+    line = {"partitions": PARTITIONS, "rows": got.num_rows,
+            "cold_wall_s": cold_wall,
+            "cold_h2d_s": phase_times(df)["h2d_s"],
+            "wall_s_median": statistics.median(warm), "wall_s": warm,
+            "one_partition_cold_wall_s": summary[q]["cold_wall_s"],
+            "one_partition_wall_s_median": summary[q]["wall_s_median"],
+            "hash_pairs_launches": counts["hash_pairs_launches"],
+            "one_partition_hash_pairs_launches":
+                summary[q]["hash_pairs_launches"],
+            "scan_cache_entries_per_table": sorted(
+                c["entries"] for c in cached.values()),
+            "equals_one_partition_run": True}
+    print(f"[partitions] {q} SF{SF:g} " + json.dumps(line), flush=True)
+    return counts
+
+
+def find_scans(node) -> list:
+    out = [node] if type(node).__name__ == "TpuScanExec" else []
+    for c in node.children:
+        out += find_scans(c)
+    return out
+
+
+def exchange_metrics(df) -> dict:
+    """The exchange's and the AQE read's metrics of the last run."""
+    out = {}
+    for name in ("TpuHostShuffleExchangeExec", "TpuShuffleExchangeExec"):
+        ex = find_node(df._last_plan, name)
+        if ex is not None:
+            m = {k: v.value for k, v in ex.metrics.items()}
+            out.update(exchange=name, **{k: m.get(k, 0) for k in (
+                "partitionTime", "writeTime", "readTime", "transferTime",
+                "bytesWritten")})
+    aqe = find_node(df._last_plan, "TpuAQEShuffleReadExec")
+    if aqe is not None:
+        out["aqe_reads"] = aqe.num_partitions()
+        out["coalescedReads"] = aqe.metrics["coalescedReads"].value
+        out["splitSkewedPartitions"] = aqe.metric(
+            "splitSkewedPartitions").value
+    return out
+
+
+def device_partitions(exchange, nparts: int) -> list:
+    """Each output partition of an exchange as its live rows on the card:
+    per column ``(data, validity, lengths)``, batches concatenated."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.column import compact
+    out = []
+    for p in range(nparts):
+        parts = []
+        for b in exchange.execute(p):
+            b = compact(b)
+            n = int(b.sel.sum())
+            parts.append([(c.data[:n], c.valid_mask()[:n],
+                           None if c.lengths is None else c.lengths[:n])
+                          for c in b.columns])
+        cols = []
+        for ci in range(len(exchange.schema.fields)):
+            pieces = [pt[ci] for pt in parts]
+            if not pieces:
+                cols.append(None)
+                continue
+            w = max((x[0].shape[1] for x in pieces
+                     if x[0].dim() == 2), default=0)
+            data = torch.cat([
+                torch.nn.functional.pad(x[0], (0, w - x[0].shape[1]))
+                if x[0].dim() == 2 else x[0] for x in pieces])
+            cols.append((data, torch.cat([x[1] for x in pieces]),
+                         None if pieces[0][2] is None
+                         else torch.cat([x[2] for x in pieces])))
+        out.append(cols)
+    return out
+
+
+def _rows_of(part) -> int:
+    return 0 if part[0] is None else int(part[0][0].shape[0])
+
+
+def same_partitions(a: list, b: list) -> bool:
+    """Two exchanges' partitions hold the same rows in the same order
+    (string matrices compared up to the wider one's zero padding)."""
+    import torch
+    if len(a) != len(b):
+        return False
+    for pa_, pb_ in zip(a, b):
+        if _rows_of(pa_) != _rows_of(pb_):
+            return False
+        if _rows_of(pa_) == 0:
+            continue
+        for (da, va, la), (db, vb, lb) in zip(pa_, pb_):
+            if not torch.equal(va, vb):
+                return False
+            if la is not None:
+                w = min(da.shape[1], db.shape[1])
+                if not (torch.equal(la, lb)
+                        and torch.equal(da[:, :w], db[:, :w])
+                        and not da[:, w:].any() and not db[:, w:].any()):
+                    return False
+            elif not torch.equal(da, db):
+                return False
+    return True
+
+
+def exchange_phase(dev, tables, CB, KN) -> dict:
+    """The exchange plane at SF1, each run a path of its own (cache
+    cleared and counts set to 0 before its cold run, read after):
+
+    1. q18's inner aggregate, ``lineitem(l_orderkey, l_quantity,
+       l_returnflag).repartition(16, "l_orderkey").groupBy("l_orderkey")
+       .agg(sum(l_quantity))``, under MULTITHREADED and CACHE_ONLY, each
+       with AQE on (the default) and off: every run equals pyarrow's
+       ``group_by``; with AQE off the two transports' partitions hold the
+       same rows in the same order, counted as this script's numpy
+       murmur3 pmod 16 counts them;
+    2. orders, every column, ``.repartition(16)`` round robin under
+       MULTITHREADED: 93,750 rows per partition (AQE off), and the
+       multiset of (o_orderkey, o_comment) is the input's (AQE on);
+    3. customer ``.repartition(16, "c_mktsegment")``: per-partition
+       counts against the numpy murmur3 of the UTF-8 bytes (AQE off); AQE
+       on must not split the hash exchange.
+
+    Returns the counts of the aggregate runs (the others launch no
+    kernel), by name."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch import native as NAT
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    li = tables["lineitem"].select(["l_orderkey", "l_quantity",
+                                    "l_returnflag"])
+    want = li.group_by("l_orderkey").aggregate([("l_quantity", "sum")])
+    want = want.sort_by("l_orderkey")
+    want_keys = want.column("l_orderkey").to_numpy()
+    want_sums = want.column("l_quantity_sum").to_numpy()
+
+    def check_sums(name, got):
+        got = got.sort_by("l_orderkey")
+        check(np.array_equal(got.column("l_orderkey").to_numpy(),
+                             want_keys), f"{name}: group keys differ")
+        g = got.column("q").to_numpy()
+        check(bool(np.allclose(g, want_sums, rtol=1e-12, atol=0)),
+              f"{name}: sums differ from pyarrow's")
+
+    def session(mode, aqe):
+        return TpuSession(dict(SESSION_CONF, **{
+            "spark.rapids.shuffle.mode": mode,
+            "spark.sql.adaptive.enabled": aqe}), device=dev)
+
+    def agg(s, repartition=True):
+        df = s.createDataFrame(li)
+        if repartition:
+            df = df.repartition(EXCHANGE_PARTS, "l_orderkey")
+        return df.groupBy("l_orderkey").agg(F.sum("l_quantity").alias("q"))
+
+    # the serializer's library first, so no run's writeTime holds its
+    # build
+    t0 = time.perf_counter()
+    NAT.load_library("tudo")
+    print("[exchange] tudo build " + json.dumps(
+        {"seconds": time.perf_counter() - t0,
+         "compile_seconds": NAT.build_seconds.get("tudo")}), flush=True)
+    counts = {}
+    # the same aggregate without the repartition, for scale
+    plain = session("CACHE_ONLY", True)
+    clear_scan_cache()
+    _, plain_cold = timed(agg(plain, False))
+    plain_warm = [timed(agg(plain, False))[1] for _ in range(2)]
+    for mode, aqe in EXCHANGE_RUNS:
+        name = f"agg {mode} aqe={'on' if aqe else 'off'}"
+        s = session(mode, aqe)
+        clear_scan_cache()
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        df = agg(s)
+        got, cold = timed(df)
+        counts[name] = c = path_counts(df, CB, KN)
+        print(f"[main path] exchange {name} " + json.dumps(c), flush=True)
+        check(c["hash_pairs_launches"] > 0,
+              f"exchange {name}: hash_pairs was not launched")
+        check(c["collision_fallbacks"] == 0,
+              f"exchange {name}: hash-collision fallbacks")
+        check(df.fallback_summary()["fallback_ops"] == 0,
+              f"exchange {name}: {df.fallback_summary()}")
+        check_sums(name, got)
+        ex = exchange_metrics(df)
+        want_ex = ("TpuHostShuffleExchangeExec" if mode == "MULTITHREADED"
+                   else "TpuShuffleExchangeExec")
+        check(ex.get("exchange") == want_ex and ("aqe_reads" in ex) == aqe,
+              f"exchange {name}: plan {df._last_plan.tree_string()}")
+        warm, warm_ex = [], []
+        for _ in range(2):
+            wdf = agg(s)
+            out, wall = timed(wdf)
+            warm.append(wall)
+            warm_ex.append(exchange_metrics(wdf))
+            check_sums(name + " warm", out)
+        # the exchange's metrics of the cold run (its timers hold the
+        # scan's H2D: they time the child's pull) and of the faster warm
+        # run
+        line = dict(cold=ex, warm=warm_ex[warm.index(min(warm))],
+                    rows=got.num_rows, cold_wall_s=cold,
+                    wall_s_median=statistics.median(warm), wall_s=warm,
+                    hash_pairs_launches=c["hash_pairs_launches"],
+                    without_repartition_cold_wall_s=plain_cold,
+                    without_repartition_wall_s_median=statistics.median(
+                        plain_warm))
+        print(f"[exchange] {name} SF{SF:g} " + json.dumps(line), flush=True)
+
+    # both transports, AQE off: partitions row for row, counts by murmur3
+    want_counts = np.bincount(spark_pmod(spark_murmur3_long(
+        li.column("l_orderkey").to_numpy()), EXCHANGE_PARTS),
+        minlength=EXCHANGE_PARTS)
+    parts = {}
+    for mode in ("MULTITHREADED", "CACHE_ONLY"):
+        df = session(mode, False).createDataFrame(li).repartition(
+            EXCHANGE_PARTS, "l_orderkey")
+        plan = df._execute_plan()
+        t0 = time.perf_counter()
+        parts[mode] = device_partitions(plan.children[0], EXCHANGE_PARTS)
+        got_counts = [_rows_of(p) for p in parts[mode]]
+        check(got_counts == want_counts.tolist(),
+              f"exchange {mode}: partition rows {got_counts}, numpy "
+              f"murmur3 says {want_counts.tolist()}")
+        print(f"[exchange] hash {mode} partition rows " + json.dumps(
+            {"rows": got_counts, "equal_numpy_murmur3": True,
+             "read_s": time.perf_counter() - t0}), flush=True)
+    check(same_partitions(parts["MULTITHREADED"], parts["CACHE_ONLY"]),
+          "exchange: the two transports' partitions differ")
+    del parts
+
+    # orders, every column, round robin through the host shuffle
+    orders = tables["orders"]
+    n = orders.num_rows
+    clear_scan_cache()
+    df = session("MULTITHREADED", False).createDataFrame(orders) \
+        .repartition(EXCHANGE_PARTS)
+    plan = df._execute_plan()
+    t0 = time.perf_counter()
+    rr = device_partitions(plan.children[0], EXCHANGE_PARTS)
+    rr_counts = [_rows_of(p) for p in rr]
+    del rr
+    want_rr = np.bincount(np.arange(n) % EXCHANGE_PARTS).tolist()
+    check(rr_counts == want_rr, f"exchange orders round robin: {rr_counts}")
+    ex = find_node(plan, "TpuHostShuffleExchangeExec")
+    print("[exchange] orders roundrobin MULTITHREADED " + json.dumps(
+        {"rows": rr_counts, "seconds": time.perf_counter() - t0,
+         "bytesWritten": ex.metrics["bytesWritten"].value,
+         "writeTime": ex.metrics["writeTime"].value,
+         "readTime": ex.metrics["readTime"].value,
+         "transferTime": ex.metrics["transferTime"].value}), flush=True)
+    del df, plan, ex
+    df = session("MULTITHREADED", True).createDataFrame(orders) \
+        .repartition(EXCHANGE_PARTS)
+    got, wall = timed(df)
+    check(got.num_rows == n, f"orders round robin: {got.num_rows} rows")
+    keep = ["o_orderkey", "o_comment"]
+    check(got.select(keep).sort_by("o_orderkey").equals(
+        orders.select(keep).sort_by("o_orderkey")),
+        "orders round robin: (o_orderkey, o_comment) differ from the input")
+    print("[exchange] orders roundrobin MULTITHREADED aqe=on " + json.dumps(
+        dict(exchange_metrics(df), wall_s=wall, rows=got.num_rows,
+             multiset_equal=True)), flush=True)
+    del df, got
+
+    # customer by its 5-value string key
+    cust = tables["customer"]
+    seg = cust.column("c_mktsegment").to_pylist()
+    pid_of = {v: int(spark_pmod(spark_murmur3_bytes(v.encode()),
+                                EXCHANGE_PARTS)) for v in set(seg)}
+    want_c = np.bincount([pid_of[v] for v in seg],
+                         minlength=EXCHANGE_PARTS).tolist()
+    for aqe in (False, True):
+        df = session("MULTITHREADED", aqe).createDataFrame(cust) \
+            .repartition(EXCHANGE_PARTS, "c_mktsegment")
+        plan = df._execute_plan()
+        t0 = time.perf_counter()
+        if not aqe:
+            cp = device_partitions(plan.children[0], EXCHANGE_PARTS)
+            got_c = [_rows_of(p) for p in cp]
+            check(got_c == want_c, f"customer by c_mktsegment: {got_c}, "
+                  f"numpy murmur3 says {want_c}")
+            ex = find_node(plan, "TpuHostShuffleExchangeExec")
+            line = {"rows": got_c, "equal_numpy_murmur3": True,
+                    "partitionTime": ex.metrics["partitionTime"].value,
+                    "bytesWritten": ex.metrics["bytesWritten"].value}
+        else:
+            out = df.toArrow()
+            check(out.num_rows == cust.num_rows, "customer rows lost")
+            line = exchange_metrics(df)
+            check(line["splitSkewedPartitions"] == 0,
+                  "the hash exchange over c_mktsegment was split")
+        line["seconds"] = time.perf_counter() - t0
+        print(f"[exchange] customer c_mktsegment aqe="
+              f"{'on' if aqe else 'off'} " + json.dumps(line), flush=True)
+    clear_scan_cache()
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import pyarrow as pa
@@ -1906,6 +2376,24 @@ def main() -> int:
     # -- bench's CPU-oracle loop on the card --------------------------------
     oracle_phase(dev)
 
+    # -- multi-partition execution: six queries under 8 partitions ----------
+    part_counts = {}
+    for q in PARTITION_QUERIES:
+        part_counts[q] = partitions_phase(q, dev, tables, refs[q], first,
+                                          summary, counts[q], CB, KN)
+    # -- the exchange plane: repartition through both transports -------------
+    ex_counts = exchange_phase(dev, tables, CB, KN)
+    new_paths = list(part_counts.values()) + list(ex_counts.values())
+    check(sum(c["hash_pairs_launches"] for c in part_counts.values()) > 0
+          and sum(c["hash_pairs_launches"] for c in ex_counts.values()) > 0,
+          "hash_pairs was not launched under [partitions] or [exchange]")
+    for c in new_paths:
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[partitions/exchange] hash_pairs shapes the 22 queries did not "
+          "launch: " + json.dumps(sorted(set(main_shapes) - query_shapes)),
+          flush=True)
+
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
     for line in string_rows:
@@ -1986,13 +2474,17 @@ def main() -> int:
         "replaces": "spark_rapids_tpu/kernels/pallas_backend.py:42",
         "launches": sum(c["hash_pairs_launches"] for c in
                         list(counts.values()) + list(var_counts.values())
-                        + list(fb_counts.values())),
+                        + list(fb_counts.values()) + new_paths),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
                                  for v, c in var_counts.items()},
         "launches_per_fallback_case": {k: c["hash_pairs_launches"]
                                        for k, c in fb_counts.items()},
+        "launches_per_partitions_query": {
+            q: c["hash_pairs_launches"] for q, c in part_counts.items()},
+        "launches_per_exchange_run": {
+            k: c["hash_pairs_launches"] for k, c in ex_counts.items()},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
         "ms_ring": kernel_row["ms_ring"],

@@ -3,8 +3,8 @@
 The same builder DSL and the same key names as the JAX package's
 ``conf.py`` [REF: sql-plugin/../RapidsConf.scala :: RapidsConf], cut to
 the entries the slices ported so far use (the plan rewrite's switches,
-the TPC-H queries, the join strategies and the memory arbiter of the
-scan cache).  Values are validated the same way: an unknown
+the TPC-H queries, the join strategies, the memory arbiter of the
+scan cache and the exchange plane).  Values are validated the same way: an unknown
 ``spark.rapids.*`` key raises, and so does a value the entry's checker
 rejects.  The per-operator kill switches ``spark.rapids.sql.exec.<Name>``
 and ``spark.rapids.sql.expression.<Name>`` are parsed as booleans
@@ -13,7 +13,8 @@ must be a rule of the plan rewrite or an expression class of the port,
 else the key raises as an unknown one.  Keys outside
 the ``spark.rapids.`` namespace are kept raw, except the Spark core keys
 registered here (``spark.sql.ansi.enabled``,
-``spark.sql.autoBroadcastJoinThreshold``).
+``spark.sql.autoBroadcastJoinThreshold``, ``spark.sql.adaptive.*``);
+``spark.default.parallelism`` stays raw, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -274,6 +275,55 @@ FAULT_INJECT = (
     .create_with_default(-1)
 )
 
+SHUFFLE_MODE = (
+    conf("spark.rapids.shuffle.mode")
+    .doc("Shuffle transport: MULTITHREADED (host-path serialization "
+         "through shuffle files, works everywhere), ICI (collective "
+         "all_to_all across the devices — not ported: planning raises "
+         "NotImplementedError), or CACHE_ONLY (the in-process device "
+         "exchange: sel-mask views of the map batches).")
+    .string()
+    .check(lambda v: v.upper() in ("MULTITHREADED", "ICI", "CACHE_ONLY"),
+           "one of MULTITHREADED, ICI, CACHE_ONLY")
+    .create_with_default("MULTITHREADED")
+)
+
+EXCHANGE_MODE = (
+    conf("spark.rapids.tpu.exchange.mode")
+    .doc("ICI exchange transport: compiled, host or auto. Only consulted "
+         "when spark.rapids.shuffle.mode=ICI, which the port does not "
+         "have: the JAX package reads it nowhere else, so outside ICI "
+         "the value changes nothing there and nothing here.")
+    .string()
+    .check(lambda v: v.lower() in ("compiled", "host", "auto"),
+           "one of compiled, host, auto")
+    .create_with_default("auto")
+)
+
+SHUFFLE_THREADS = (
+    conf("spark.rapids.shuffle.multiThreaded.writer.threads")
+    .doc("Serializer thread pool size for MULTITHREADED shuffle.")
+    .integer()
+    .create_with_default(4)
+)
+
+ADAPTIVE_ENABLED = (
+    conf("spark.sql.adaptive.enabled")
+    .doc("Adaptive query execution: shuffle-read coalescing of small "
+         "partitions and splitting of skewed ones, planned from measured "
+         "partition sizes (Spark core key, honored here).")
+    .boolean()
+    .create_with_default(True)
+)
+
+ADVISORY_PARTITION_SIZE = (
+    conf("spark.sql.adaptive.advisoryPartitionSizeInBytes")
+    .doc("Target bytes per shuffle-read partition after AQE coalescing/"
+         "skew-splitting (Spark core key, honored here).")
+    .bytes()
+    .create_with_default(64 << 20)
+)
+
 ADAPTIVE_PLANE_ENABLED = (
     conf("spark.rapids.tpu.adaptive.enabled")
     .doc("Master switch of the JAX package's adaptive execution plane "
@@ -353,6 +403,14 @@ class RapidsConf:
     @property
     def min_bucket_rows(self) -> int:
         return self.get(MIN_BUCKET_ROWS)
+
+    @property
+    def shuffle_mode(self) -> str:
+        return str(self.get(SHUFFLE_MODE)).upper()
+
+    @property
+    def exchange_mode(self) -> str:
+        return str(self.get(EXCHANGE_MODE)).lower()
 
     @property
     def kernel_backend(self) -> str:

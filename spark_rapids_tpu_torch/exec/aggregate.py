@@ -6,8 +6,8 @@
 The counterpart of the JAX package's ``exec/aggregate.py`` for the
 ported queries: sum, min, max, count, count(*) and avg, grouped or
 global (and a group-by with no aggregate, the dedup below a
-count(DISTINCT)), in complete mode (update per input batch -> merge the
-partials -> final projection).
+count(DISTINCT)), in complete mode (update per input batch of every
+input partition -> merge the partials -> final projection).
 
 The group-by keeps the JAX package's layout and protocol: key limbs
 from ``ops/ordering.py``; a group layout from the kernel plane (the
@@ -49,7 +49,7 @@ from spark_rapids_tpu_torch import kernels as KN
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar import host as H
 from spark_rapids_tpu_torch.columnar.column import (
-    DeviceBatch, DeviceColumn, compact, torch_dtype)
+    DeviceBatch, DeviceColumn, compact, empty_batch, torch_dtype)
 from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec, fuse_upstream
 from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
@@ -385,23 +385,34 @@ def final_project(fns: Sequence[AggregateFunction],
 # The exec
 # ---------------------------------------------------------------------------
 
+def _pull_all(src) -> Iterator[DeviceBatch]:
+    """Every batch of every partition of ``src``, partition by partition
+    (the complete-mode aggregate's input)."""
+    for p in range(src.num_partitions()):
+        yield from src.execute(p)
+
+
 class TpuHashAggregateExec(TpuExec):
     """Hash aggregate in complete mode: update per input batch -> merge
     the partials -> final projection [REF: GpuHashAggregateExec].
 
     Upstream filter/project run inside the partial pass
-    (``fuse_upstream``).  The JAX package's partial/final modes (around a
-    shuffle), OOM retry, input coalescing and skip-agg pass are later
-    slices.
+    (``fuse_upstream``).  The input is every partition of the child, in
+    order; one partition out.  ``device`` holds the empty batch that
+    stands in for an input with no batch at all (an AQE read of a host
+    shuffle yields none for an empty range).  The JAX package's
+    partial/final modes (around an ICI exchange), OOM retry, input
+    coalescing and skip-agg pass are later slices.
     """
 
     def __init__(self, grouping: Sequence[Expression],
                  fns: Sequence[AggregateFunction],
                  schema: T.StructType, child: TpuExec,
-                 backend: str = "auto"):
+                 backend: str = "auto", device=None):
         super().__init__(schema, child)
         self.grouping = list(grouping)
         self.fns = list(fns)
+        self.device = device
         self.mode = "complete"
         # spark.rapids.tpu.kernel.backend, resolved to a ladder start
         self.backend = KN.resolve("agg", backend)
@@ -476,8 +487,10 @@ class TpuHashAggregateExec(TpuExec):
 
     def _execute_grouped(self, src, pre) -> List[DeviceBatch]:
         with self.timer("partialTime"):
-            # a scan yields at least one batch, live rows or not
-            partials = [self._partial(b, pre) for b in src.execute(0)]
+            partials = [self._partial(b, pre) for b in _pull_all(src)]
+            if not partials:
+                partials = [self._partial(
+                    empty_batch(src.schema, self.device), pre)]
         with self.timer("mergeTime"):
             return self._merge_bounded(partials, self._merge_final)
 
@@ -510,8 +523,10 @@ class TpuHashAggregateExec(TpuExec):
     def _execute_global(self, src, pre) -> DeviceBatch:
         """Per-batch masked REDUCTION (no sort); the single-batch case
         fuses the final projection."""
-        stream = src.execute(0)
-        first = next(stream)  # a scan yields at least one batch
+        stream = _pull_all(src)
+        first = next(stream, None)
+        if first is None:
+            first = empty_batch(src.schema, self.device)
         second = next(stream, None)
         if second is None:
             return self._reduce_batch(first, pre, final=True)

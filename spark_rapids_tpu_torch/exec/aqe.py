@@ -1,0 +1,109 @@
+"""Adaptive query execution: shuffle-read coalescing and skew splitting.
+
+[REF: sql-plugin shims :: GpuAQEShuffleReadExec /
+ GpuCustomShuffleReaderExec, GpuQueryStagePrepOverrides]
+
+The counterpart of the JAX package's ``exec/aqe.py``.  The reference
+re-plans query stages from map-output statistics: it merges adjacent
+small shuffle partitions up to the advisory size and splits skewed
+ones.  Both exchanges here run their map stage at the first read, so
+the same statistics (live rows per partition on the device exchange,
+serialized bytes per partition on the host one) exist before the reduce
+side pumps, and ``num_partitions()`` is the re-planning point — called
+at planning (by the coalesce pass) it runs the map stage there:
+
+* a run of adjacent small partitions reads as one ``[lo, hi)`` range;
+* a skewed partition of a round-robin exchange reads as k
+  rank-interleaved slices (a hash exchange never splits: its consumers
+  rely on every key staying in one partition).
+
+The JAX package's row-target retargeting from the adaptive plane's
+observations (``retarget``) waits for that plane (ROADMAP A.9); the
+plan rewrite refuses ``spark.rapids.tpu.adaptive.enabled`` here.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Iterator, List, Optional
+
+import numpy as np
+
+from spark_rapids_tpu_torch.columnar.column import DeviceBatch
+from spark_rapids_tpu_torch.exec.base import TpuExec
+
+
+class TpuAQEShuffleReadExec(TpuExec):
+    """Plans its output partitioning from the exchange's measured sizes.
+
+    Works over any exchange with the shaped-read protocol:
+    ``aqe_partition_stats() -> ("rows"|"bytes", sizes)``,
+    ``execute_pid_range(lo, hi)``, ``execute_split(p, j, k)``.  Read
+    specs: ``("range", lo, hi)`` coalesces map partitions [lo, hi);
+    ``("split", p, j, k)`` is slice j of k of skewed partition p.
+    """
+
+    def __init__(self, child: TpuExec, target_bytes: int, row_bytes: int,
+                 allow_split: bool = False):
+        super().__init__(child.schema, child)
+        self.target_bytes = max(int(target_bytes), 1)
+        self.row_bytes = max(int(row_bytes), 1)
+        # splitting scatters one map partition's rows across reads: only
+        # valid when no consumer relies on key co-partitioning (a
+        # round-robin repartition)
+        self.allow_split = allow_split
+        self._specs: Optional[List[tuple]] = None
+        self._lock = threading.Lock()
+
+    def node_string(self):
+        spec = (f"{len(self._specs)} reads" if self._specs is not None
+                else "unplanned")
+        return f"TpuAQEShuffleRead [{spec}]"
+
+    def _plan(self) -> List[tuple]:
+        with self._lock:
+            if self._specs is not None:
+                return self._specs
+            unit, sizes = self.children[0].aqe_partition_stats()
+            counts = [int(c) for c in sizes]
+            target = (max(self.target_bytes // self.row_bytes, 1)
+                      if unit == "rows" else self.target_bytes)
+            specs: List[tuple] = []
+            i, n = 0, len(counts)
+            while i < n:
+                if self.allow_split and counts[i] > 2 * target:
+                    k = int(np.ceil(counts[i] / target))  # skewed
+                    specs.extend(("split", i, j, k) for j in range(k))
+                    self.metric("splitSkewedPartitions").add(1)
+                    i += 1
+                    continue
+                lo, run = i, 0
+                while (i < n
+                       and (self.allow_split is False
+                            or counts[i] <= 2 * target)
+                       and (run == 0 or run + counts[i] <= target)):
+                    run += counts[i]
+                    i += 1
+                specs.append(("range", lo, i))
+            if not specs:  # an empty input still needs one partition
+                specs = [("range", 0, self.children[0].num_partitions())]
+            merged = sum(1 for s in specs if s[0] == "range"
+                         and s[2] - s[1] > 1)
+            self.metric("coalescedReads").add(merged)
+            self._specs = specs
+            return specs
+
+    def num_partitions(self) -> int:
+        return len(self._plan())
+
+    def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        spec = self._plan()[partition]
+        child = self.children[0]
+        with self.timer():
+            if spec[0] == "range":
+                it = child.execute_pid_range(spec[1], spec[2])
+            else:
+                it = child.execute_split(spec[1], spec[2], spec[3])
+        for b in it:
+            self.metric("numOutputBatches").add(1)
+            yield b

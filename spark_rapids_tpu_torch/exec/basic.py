@@ -37,22 +37,40 @@ from spark_rapids_tpu_torch.runtime.memory import (
     RetryOOM, SpillableBatch, get_manager)
 
 
+def _slice_table(table: pa.Table, num_partitions: int) -> List[pa.Table]:
+    """The scan partitions of an in-memory table: ``num_partitions``
+    contiguous row ranges of ``ceil(n / num_partitions)`` rows (the last
+    ones shorter or empty)."""
+    n = table.num_rows
+    if num_partitions <= 1:
+        return [table]
+    step = (n + num_partitions - 1) // num_partitions
+    out = []
+    for i in range(num_partitions):
+        lo = min(i * step, n)
+        out.append(table.slice(lo, min(step, n - lo)))
+    return out
+
+
 class CpuScanExec(CpuExec):
-    """In-memory arrow table scan -> HostBatch per ``batch_rows`` slice."""
+    """In-memory arrow table scan -> HostBatch per ``batch_rows`` slice
+    of each partition."""
 
     def __init__(self, table: pa.Table, schema: T.StructType,
-                 batch_rows: int = 1 << 20):
+                 num_partitions: int = 1, batch_rows: int = 1 << 20):
         super().__init__(schema)
         self.table = table
+        self._num_partitions = num_partitions
         self.batch_rows = batch_rows
+
+    def num_partitions(self) -> int:
+        return self._num_partitions
 
     def estimated_size_bytes(self):
         return self.table.nbytes
 
     def execute(self, partition: int) -> Iterator[H.HostBatch]:
-        if partition != 0:
-            raise IndexError(f"partition {partition} of a 1-partition scan")
-        part = self.table
+        part = _slice_table(self.table, self._num_partitions)[partition]
         for lo in range(0, max(part.num_rows, 1), self.batch_rows):
             chunk = part.slice(lo, self.batch_rows)
             if chunk.num_rows == 0 and lo > 0:
@@ -116,9 +134,9 @@ def _scan_cache_put(table: pa.Table, key, batches):
 
 class TpuScanExec(TpuExec):
     """In-memory arrow table scan -> padded DeviceBatch per ``batch_rows``
-    slice: the host-to-device transfer point (timed as
+    slice of each partition: the host-to-device transfer point (timed as
     ``transferTime``).  An empty table still yields one batch (with no
-    live row), so consumers always see at least one.
+    live row), so consumers always see at least one per partition.
 
     The first run over a table registers its batches with the memory
     arbiter and caches them; later runs yield the cached batches
@@ -128,28 +146,30 @@ class TpuScanExec(TpuExec):
     """
 
     def __init__(self, table: pa.Table, schema: T.StructType,
-                 device: torch.device, batch_rows: int = 1 << 20,
-                 min_bucket: int = 1024):
+                 device: torch.device, num_partitions: int = 1,
+                 batch_rows: int = 1 << 20, min_bucket: int = 1024):
         super().__init__(schema)
         self.table = table
         self.device = device
+        self._num_partitions = num_partitions
         self.batch_rows = batch_rows
         self.min_bucket = min_bucket
+
+    def num_partitions(self) -> int:
+        return self._num_partitions
 
     def estimated_size_bytes(self):
         return self.table.nbytes
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
-        if partition != 0:
-            raise IndexError(f"partition {partition} of a 1-partition scan")
         # the JAX package's key (num_partitions, batch_rows, min_bucket,
         # partition), plus the device: sessions of one process may run
-        # on different devices
-        key = (1, self.batch_rows, self.min_bucket, partition,
-               str(self.device))
+        # on different devices.  Each partition is an entry of its own.
+        key = (self._num_partitions, self.batch_rows, self.min_bucket,
+               partition, str(self.device))
         cached = _scan_cache_get(self.table, key)
         if cached is None:
-            yield from self._stream(key, register=True)
+            yield from self._stream(partition, key, register=True)
             return
         for bi, (sp, nrows) in enumerate(cached):
             try:
@@ -160,21 +180,22 @@ class TpuScanExec(TpuExec):
                 # REMAINDER from the arrow table (earlier batches were
                 # already yielded — restarting at 0 would duplicate rows)
                 _scan_cache_evict(id(self.table))
-                yield from self._stream(start_batch=bi)
+                yield from self._stream(partition, start_batch=bi)
                 return
             self.metric("numOutputRows").add(nrows)
             self.metric("numOutputBatches").add(1)
             yield restored
 
-    def _stream(self, key=None, register: bool = False,
+    def _stream(self, partition: int, key=None, register: bool = False,
                 start_batch: int = 0) -> Iterator[DeviceBatch]:
         out = []
-        n = self.table.num_rows
+        part = _slice_table(self.table, self._num_partitions)[partition]
+        n = part.num_rows
         start = start_batch * self.batch_rows
         if start and start >= n:
             return
         for lo in range(start, max(n, 1), self.batch_rows):
-            chunk = self.table.slice(lo, self.batch_rows)
+            chunk = part.slice(lo, self.batch_rows)
             with self.timer("transferTime"):
                 b = host_to_device(chunk, self.device,
                                    min_bucket=self.min_bucket)

@@ -36,9 +36,12 @@ sub-partition join of two oversized sides (``_sub_partition_join``).
 Each device step reserves its working set with the memory arbiter
 (``runtime/memory.py::transient``), so that a join can push scan-cache
 entries to host; an in-core join whose reservation fails falls to the
-sub-partition join.  Not ported, and raising ``NotImplementedError``
-naming itself: the adaptive joins and the co-partitioned (exchanged)
-plan.  The JAX package registers each sub-partition slice as a
+sub-partition join.  A broadcast join streams partition by partition
+of its other side and has that side's partitions; every other join
+gathers all partitions of both sides into one.  Not ported, and raising
+``NotImplementedError`` naming itself: the adaptive joins; the
+co-partitioned plan over ICI exchanges is not reached (the rewrite
+refuses ICI).  The JAX package registers each sub-partition slice as a
 spillable; the port keeps the slices as plain device batches.
 """
 
@@ -71,10 +74,11 @@ from spark_rapids_tpu_torch.runtime.memory import RetryOOM, get_manager
 # helpers
 # ---------------------------------------------------------------------------
 
-def _gather_list(child) -> List[DeviceBatch]:
-    """The child's batches (all partitions), compacted."""
-    return [compact(b) for p in range(child.num_partitions())
-            for b in child.execute(p)]
+def _gather_list(child, partition=None) -> List[DeviceBatch]:
+    """The child's batches (all partitions, or just one), compacted."""
+    parts = (range(child.num_partitions()) if partition is None
+             else [partition])
+    return [compact(b) for p in parts for b in child.execute(p)]
 
 
 def _gather_all(child, schema) -> H.HostBatch:
@@ -552,18 +556,28 @@ class TpuSortMergeJoinExec(TpuExec):
         return f"TpuSortMergeJoin [{self.join_type}{bc}{cond}]"
 
     def num_partitions(self) -> int:
+        # a broadcast join streams partition by partition of the other
+        # side; any other join gathers both sides into one partition
+        if self.broadcast == "right":
+            return self.children[0].num_partitions()
+        if self.broadcast == "left":
+            return self.children[1].num_partitions()
         return 1
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
-        if partition != 0:
-            raise IndexError(f"partition {partition} of a 1-partition join")
         jt = self.join_type
         if jt == "right":
             yield from self._execute_swapped(partition)
             return
+        lpart = partition if self.broadcast == "right" else None
+        rpart = partition if self.broadcast == "left" else None
         with self.timer("gatherTime"):
-            l_list = _gather_list(self.children[0])
-            r_list = _gather_list(self.children[1])
+            l_list = _gather_list(self.children[0], lpart)
+            r_list = _gather_list(self.children[1], rpart)
+        # a streamed partition may hold no batch (an AQE read of a host
+        # shuffle yields none for an empty range): its empty stand-in
+        # goes on the other side's device
+        dev = (l_list or r_list)[0].device if (l_list or r_list) else None
         nokey = jt == "cross" or not self.left_keys
         mgr = get_manager()
         total = (sum(b.nbytes() for b in l_list)
@@ -616,8 +630,8 @@ class TpuSortMergeJoinExec(TpuExec):
         try:
             # in-core: both sides and the expanded output live together
             with mgr.transient(2 * total):
-                lb = self._concat(0, l_list, l_counts)
-                rb = self._concat(1, r_list, r_counts)
+                lb = self._concat(0, l_list, l_counts, dev)
+                rb = self._concat(1, r_list, r_counts, dev)
                 with self.timer():
                     if nokey:
                         cb, ctotal = self._cross(lb, rb)

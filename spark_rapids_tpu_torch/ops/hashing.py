@@ -13,14 +13,20 @@ in an int64 tensor in [0, 2^32) and every step is masked; a 32x32-bit
 multiply is split into 16-bit halves so that no int64 product
 overflows.  ``partition_ids_from_hash`` and ``make_pid_fn`` are the
 JAX package's ``ops/hashing.py`` and ``parallel/shuffle.py`` functions
-of those names, bit for bit.  The xxhash64 family and the
-``Murmur3Hash`` expression belong to the exchange slice.
+of those names, bit for bit.  The exchanges' partition ids (``exec/
+exchange.py``, ``shuffle/exchange.py``) are ``hash_column`` over the
+key tuple from seed 42, ``int32_from_u32`` and ``partition_ids_from_
+hash``: on the device, and on the host over torch CPU tensors of the
+numpy columns (strings padded by ``host_strings_to_matrix``), as the
+JAX package's numpy path, bit for bit.  The xxhash64 family and the
+``Murmur3Hash`` expression are later slices.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
@@ -164,6 +170,26 @@ def hash_f64_tpu_safe(data: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return _fmix(h1, 8)
 
 
+def int32_from_u32(h: torch.Tensor) -> torch.Tensor:
+    """A u32 hash held in int64 -> its signed 32-bit value (still
+    int64): the JAX package's bitcast of the uint32 hash to int32."""
+    return torch.where(h >= 1 << 31, h - (1 << 32), h)
+
+
+def host_strings_to_matrix(data) -> tuple:
+    """Host object-array of str/bytes -> (uint8[B, W] matrix, int32
+    lengths), W the longest value's byte length (at least 1): the
+    padding helper of the host hash and shuffle paths."""
+    enc = [v.encode() if isinstance(v, str) else bytes(v) for v in data]
+    w = max(max((len(v) for v in enc), default=1), 1)
+    mat = np.zeros((len(enc), w), np.uint8)
+    lengths = np.zeros(len(enc), np.int32)
+    for i, v in enumerate(enc):
+        mat[i, :len(v)] = np.frombuffer(v, np.uint8)
+        lengths[i] = len(v)
+    return mat, lengths
+
+
 def partition_ids_from_hash(h_i32: torch.Tensor,
                             num_partitions: int) -> torch.Tensor:
     """Spark's ``pmod(hash, n)``: the non-negative partition id (int32)
@@ -200,7 +226,6 @@ def make_pid_fn(keys: Sequence, nparts: int,
             if isinstance(dt, T.FloatType):
                 data = torch.where(data == 0.0, 0.0, data)
             h = hash_column((data, c.lengths), dt, h, valid)
-        h_i32 = torch.where(h >= 1 << 31, h - (1 << 32), h)
-        return partition_ids_from_hash(h_i32, nparts)
+        return partition_ids_from_hash(int32_from_u32(h), nparts)
 
     return pids

@@ -1,4 +1,5 @@
-"""Logical plan nodes — the subset of TPC-H q1, q3, q4 and q6.
+"""Logical plan nodes — the subset the TPC-H queries and ``repartition``
+use.
 
 The counterparts of the JAX package's ``plan/logical.py`` nodes of the
 same names.  The DataFrame API resolves names and coerces types eagerly,
@@ -42,6 +43,7 @@ class LogicalPlan:
 class InMemoryRelation(LogicalPlan):
     table: pa.Table
     schema: T.StructType
+    num_partitions: int = 1
 
     @property
     def name(self):
@@ -129,3 +131,18 @@ class Join(LogicalPlan):
     @property
     def children(self):
         return (self.left, self.right)
+
+
+@dataclasses.dataclass
+class Repartition(LogicalPlan):
+    child: LogicalPlan
+    num_partitions: int
+    keys: Optional[List[Expression]] = None  # None = round robin
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+    @property
+    def children(self):
+        return (self.child,)

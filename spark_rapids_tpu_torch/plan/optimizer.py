@@ -7,7 +7,7 @@ columns it references before the host-to-device transfer (memoized per
 table and column set, so that the scan cache keeps hitting) (the analog of
 Spark's ColumnPruning), so that q1 and q6 move 7 and 4 of lineitem's 16
 columns to the device.  The rule reaches through both sides of a join
-and below a limit.  The JAX package's other rules (parquet
+and below a limit or a repartition.  The JAX package's other rules (parquet
 pushdown, dynamic partition pruning) are later slices.
 """
 
@@ -110,7 +110,7 @@ def _prune_head(plan):
 
     child = L.InMemoryRelation(
         _narrow_table(node.table, tuple(fields[i].name for i in keep)),
-        T.StructType(tuple(fields[i] for i in keep)))
+        T.StructType(tuple(fields[i] for i in keep)), node.num_partitions)
     for f in reversed(filters):
         child = L.Filter(child, transform_expr(f.condition, remap))
     if isinstance(plan, L.Project):
@@ -127,7 +127,7 @@ def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
         return dataclasses.replace(plan, left=optimize(plan.left),
                                    right=optimize(plan.right))
     if isinstance(plan, (L.Project, L.Filter, L.Aggregate, L.Sort,
-                         L.Limit)):
+                         L.Limit, L.Repartition)):
         plan = dataclasses.replace(plan, child=optimize(plan.child))
     if isinstance(plan, (L.Project, L.Aggregate)):
         pruned = _prune_head(plan)

@@ -26,8 +26,13 @@ takes it beside the conf.  Planes the port lacks are left out of
 the resilience plane's ``configure_from_conf`` (A.7), the
 multi-executor validation ``_validate_multiproc`` (A.10), the LORE dump
 taps ``install_lore_taps`` (A.12) and the ICI exchange branches of the
-aggregate, sort and join conversions (A.4 / A.10).  The limits have no
-device exec yet (A.5): they fall back with "no TPU rule".
+aggregate, sort and join conversions (A.10): under
+``spark.rapids.shuffle.mode=ICI`` the rewrite raises.  The limits have
+no device exec yet (A.5): they fall back with "no TPU rule".  A
+repartition converts by ``spark.rapids.shuffle.mode``
+(``exec/exchange.py::_convert_exchange``); the coalesce pass asks a
+sort's child for its partition count, which on an AQE read runs the
+exchange's map stage at planning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.aggregate import (
     CpuAggregateExec, TpuHashAggregateExec)
 from spark_rapids_tpu_torch.exec.base import CpuExec, ExecNode, TpuExec
+from spark_rapids_tpu_torch.exec.exchange import (
+    CpuShuffleExchangeExec, _convert_exchange, _tag_exchange)
 from spark_rapids_tpu_torch.exec.join import (
     CpuJoinExec, TpuBroadcastExchangeExec, _convert_join, _tag_join)
 from spark_rapids_tpu_torch.exec.misc import (
@@ -212,7 +219,8 @@ EXEC_RULES: Dict[Type[CpuExec], ExecRule] = {}
 
 
 def _convert_scan(cpu: B.CpuScanExec, children, conf, device):
-    return B.TpuScanExec(cpu.table, cpu.schema, device, cpu.batch_rows,
+    return B.TpuScanExec(cpu.table, cpu.schema, device,
+                         cpu.num_partitions(), cpu.batch_rows,
                          conf.min_bucket_rows)
 
 
@@ -250,10 +258,10 @@ def _tag_aggregate(meta: ExecMeta):
 
 def _convert_aggregate(cpu, ch, conf, device):
     return TpuHashAggregateExec(cpu.grouping, cpu.fns, cpu.schema, ch[0],
-                                backend=conf.kernel_backend)
+                                backend=conf.kernel_backend, device=device)
 
 
-# the JAX package registers the next four lazily
+# the JAX package registers the next five lazily
 # (``_register_lazy_rules``); the port's exec modules import this module
 # only inside functions, so their rules register here, at import
 EXEC_RULES[CpuAggregateExec] = ExecRule(
@@ -264,6 +272,8 @@ EXEC_RULES[CpuJoinExec] = ExecRule(
     "SortMergeJoin", _tag_join, _convert_join)
 EXEC_RULES[CpuTopNExec] = ExecRule(
     "TakeOrderedAndProject", _tag_topn, _convert_topn)
+EXEC_RULES[CpuShuffleExchangeExec] = ExecRule(
+    "ShuffleExchange", _tag_exchange, _convert_exchange)
 
 
 def op_names(kind: str) -> frozenset:
@@ -410,6 +420,12 @@ def apply_overrides(cpu_plan: CpuExec, conf: RapidsConf,
     places nothing on the device."""
     if not conf.sql_enabled:
         return OverrideResult(cpu_plan, [])
+    if conf.shuffle_mode == "ICI":
+        # the JAX package plans its collective exchange, partial/final
+        # aggregates and co-partitioned joins there
+        from spark_rapids_tpu_torch.plan.analysis import _not_ported
+        raise _not_ported("spark.rapids.shuffle.mode=ICI (the collective "
+                          "all_to_all exchange plane)")
     # configure the budget arbiter from this query's conf before any
     # device materialization
     from spark_rapids_tpu_torch.runtime.memory import get_manager

@@ -6,7 +6,9 @@ overrides engine (``plan/overrides.py``) then rewrites supported
 subtrees onto the device [REF: sql-plugin/../GpuOverrides.scala ::
 ColumnarOverrideRules].  A limit over a sort (``Limit(Sort)``,
 ``Limit(Project(Sort))``) plans a TakeOrderedAndProject; any other limit
-plans ``GlobalLimit(LocalLimit(...))``.
+plans ``GlobalLimit(LocalLimit(...))``.  A repartition plans a
+``CpuShuffleExchangeExec``, which the rewrite converts by
+``spark.rapids.shuffle.mode``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from spark_rapids_tpu_torch.conf import RapidsConf
 from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.aggregate import CpuAggregateExec
 from spark_rapids_tpu_torch.exec.base import CpuExec
+from spark_rapids_tpu_torch.exec.exchange import CpuShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.join import CpuJoinExec
 from spark_rapids_tpu_torch.exec.misc import CpuTopNExec
 from spark_rapids_tpu_torch.exec.sort import CpuSortExec
@@ -23,7 +26,8 @@ from spark_rapids_tpu_torch.plan import logical as L
 
 def plan_physical(node: L.LogicalPlan, conf: RapidsConf) -> CpuExec:
     if isinstance(node, L.InMemoryRelation):
-        return B.CpuScanExec(node.table, node.schema, conf.batch_rows)
+        return B.CpuScanExec(node.table, node.schema, node.num_partitions,
+                             conf.batch_rows)
     if isinstance(node, L.Project):
         return B.CpuProjectExec(node.exprs, node.schema,
                                 plan_physical(node.child, conf))
@@ -57,4 +61,7 @@ def plan_physical(node: L.LogicalPlan, conf: RapidsConf) -> CpuExec:
                            plan_physical(node.left, conf),
                            plan_physical(node.right, conf),
                            using=node.using)
+    if isinstance(node, L.Repartition):
+        return CpuShuffleExchangeExec(
+            plan_physical(node.child, conf), node.num_partitions, node.keys)
     raise NotImplementedError(f"no physical plan for {node.name}")

@@ -3,7 +3,7 @@
 The counterpart of the JAX package's ``sql/dataframe.py``:
 ``select``, ``withColumnRenamed``, ``filter``, ``groupBy(...).agg``
 (count(DISTINCT) rewritten into two aggregates), ``agg``, ``orderBy``,
-``limit``, ``distinct``, ``join`` (USING joins on column names and expression joins on
+``limit``, ``distinct``, ``repartition``, ``join`` (USING joins on column names and expression joins on
 a ``Column`` condition), ``crossJoin``, the actions ``toArrow`` and
 ``collect``, and ``explain`` and ``fallback_summary``.
 Transformations build the logical plan eagerly (pyspark-style errors at
@@ -160,6 +160,13 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return self._derive(L.Limit(self._plan, n))
+
+    def repartition(self, num: int, *cols) -> "DataFrame":
+        """``num`` partitions: by the Spark murmur3 hash of ``cols``, or
+        round robin without keys."""
+        keys = [AN.resolve(_to_column(c)._u, self.schema)
+                for c in cols] or None
+        return self._derive(L.Repartition(self._plan, num, keys))
 
     def distinct(self) -> "DataFrame":
         return self.groupBy(*self.columns).agg()

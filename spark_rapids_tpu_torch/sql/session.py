@@ -3,7 +3,8 @@
 The counterpart of the JAX package's ``sql/session.py``:
 ``TpuSession(conf)`` validates the ``spark.rapids.*`` conf once and
 ``createDataFrame(pa.Table)`` returns a DataFrame over an in-memory
-relation.  The port's session also carries the device its queries run
+relation of ``spark.default.parallelism`` partitions.  The port's
+session also carries the device its queries run
 on: the CUDA card unless the caller asks for ``device="cpu"``; a
 missing card raises here, at creation.
 """
@@ -23,12 +24,6 @@ class TpuSession:
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
                  device="cuda"):
         self._conf = RapidsConf(conf)
-        parallelism = int(self._conf.get_raw("spark.default.parallelism",
-                                             1))
-        if parallelism != 1:
-            raise NotImplementedError(
-                "spark_rapids_tpu_torch: multi-partition execution "
-                "(spark.default.parallelism > 1) is not ported yet")
         self.device = resolve_device(device)
 
     def rapids_conf(self) -> RapidsConf:
@@ -44,4 +39,7 @@ class TpuSession:
         st = T.StructType(tuple(
             T.StructField(n, T.from_arrow(data.schema.field(n).type))
             for n in data.column_names))
-        return DataFrame(self, InMemoryRelation(data, st))
+        # in-memory tables slice into spark.default.parallelism scan
+        # partitions (a raw key, as in the JAX package)
+        nparts = int(self._conf.get_raw("spark.default.parallelism", 1))
+        return DataFrame(self, InMemoryRelation(data, st, nparts))

@@ -827,8 +827,7 @@ QUERIES = tuple(f"q{i}" for i in range(1, 23))
 # the keys of bench.TPCH_SF1_CONF whose planes the port lacks, with the
 # ROADMAP item that brings each; the port rejects or refuses them
 UNPORTED_SF1_KEYS = {
-    "spark.rapids.tpu.adaptive.enabled": "A.4",
-    "spark.rapids.tpu.exchange.mode": "A.4",
+    "spark.rapids.tpu.adaptive.enabled": "A.9",
     "spark.rapids.tpu.fusion.enabled": "A.9",
     "spark.rapids.tpu.cache.enabled": "A.9",
     "spark.rapids.tpu.cache.minRuntimeMs": "A.9",
@@ -836,6 +835,9 @@ UNPORTED_SF1_KEYS = {
 
 TPCH_SF1_CONF = {"spark.rapids.sql.enabled": True,
                  "spark.rapids.tpu.batchRows": 1 << 16,
+                 # consulted only under spark.rapids.shuffle.mode=ICI,
+                 # in the JAX package as in the port
+                 "spark.rapids.tpu.exchange.mode": "compiled",
                  "spark.rapids.tpu.kernel.backend": "auto"}
 
 # q2/q7/q11's filters are so selective that sf 0.002 yields zero rows (a

@@ -78,6 +78,14 @@ def test_import_check_covers_the_overrides_slice():
         assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
+def test_import_check_covers_the_exchange_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("exec/exchange.py", "exec/aqe.py", "shuffle/__init__.py",
+                "shuffle/serializer.py", "shuffle/manager.py",
+                "shuffle/exchange.py", "native/__init__.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
+
+
 def test_session_without_cpu_raises_when_cuda_is_unavailable(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
@@ -108,10 +116,69 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.rapids.sql.expression.Upper": False}, "unknown spark.rapids"),
     ({"spark.rapids.sql.incompatibleOps.enabled": True},
      "unknown spark.rapids"),
+    ({"spark.rapids.shuffle.mode": "UCX"}, "invalid value"),
+    ({"spark.rapids.tpu.exchange.mode": "sometimes"}, "invalid value"),
+    ({"spark.rapids.shuffle.multiThreaded.writer.threads": "four"},
+     "invalid literal"),
+    ({"spark.sql.adaptive.enabled": "maybe"}, "cannot parse boolean"),
+    ({"spark.sql.adaptive.advisoryPartitionSizeInBytes": "big"},
+     "cannot parse byte"),
+    ({"spark.rapids.tpu.exchange.donate": True}, "unknown spark.rapids"),
 ])
 def test_conf_is_validated(conf, match):
     with pytest.raises(ValueError, match=match):
         TpuSession(conf, device="cpu")
+
+
+def test_exchange_confs_read_as_the_jax_package_reads_them():
+    conf = TpuSession({"spark.rapids.shuffle.mode": "cache_only",
+                       "spark.rapids.tpu.exchange.mode": "COMPILED",
+                       "spark.sql.adaptive.advisoryPartitionSizeInBytes":
+                       "1m"}, device="cpu").rapids_conf()
+    from spark_rapids_tpu_torch import conf as C
+    assert conf.shuffle_mode == "CACHE_ONLY"
+    assert conf.exchange_mode == "compiled"
+    assert conf.get(C.ADVISORY_PARTITION_SIZE) == 1 << 20
+    assert conf.get(C.ADAPTIVE_ENABLED) is True
+    assert conf.get(C.SHUFFLE_THREADS) == 4
+    assert TpuSession(device="cpu").rapids_conf().shuffle_mode == \
+        "MULTITHREADED"
+
+
+def test_ici_shuffle_mode_raises_at_planning():
+    """ICI passes the conf check and is refused when a device plan is
+    built; a CPU session under it plans nothing on the device."""
+    df = TpuSession({"spark.rapids.shuffle.mode": "ICI"},
+                    device="cpu").createDataFrame(_table())
+    with pytest.raises(NotImplementedError,
+                       match="spark.rapids.shuffle.mode=ICI"):
+        df.repartition(2, "a").toArrow()
+    with pytest.raises(NotImplementedError, match="ICI"):
+        df.groupBy("s").agg(F.sum("a")).toArrow()
+    cpu = TpuSession({"spark.rapids.shuffle.mode": "ICI",
+                      "spark.rapids.sql.enabled": False}, device="cpu")
+    assert cpu.createDataFrame(_table()).repartition(2, "a").toArrow() \
+        .num_rows == 3
+
+
+def test_aqe_read_under_the_adaptive_plane_raises():
+    """The JAX package's AQE read re-targets its rows from the adaptive
+    plane, which is not ported: the rewrite refuses it, with AQE off it
+    plans the bare exchange."""
+    on = {"spark.rapids.tpu.adaptive.enabled": True}
+    df = TpuSession(on, device="cpu").createDataFrame(_table())
+    with pytest.raises(NotImplementedError, match="retargeting"):
+        df.repartition(2).toArrow()
+    off = dict(on, **{"spark.sql.adaptive.enabled": False})
+    assert TpuSession(off, device="cpu").createDataFrame(_table()) \
+        .repartition(2).toArrow().num_rows == 3
+
+
+def test_parallelism_is_a_raw_key():
+    s = TpuSession({"spark.default.parallelism": 3}, device="cpu")
+    df = s.createDataFrame(_table())
+    assert df._plan.num_partitions == 3
+    assert df.toArrow().equals(_table())
 
 
 def _table():
