@@ -103,12 +103,24 @@ result line is not printed):
    numpy murmur3 of the UTF-8 bytes, unsplit under AQE; the exchanges'
    ``partitionTime``, ``writeTime``, ``readTime``, ``transferTime``,
    ``bytesWritten`` and the AQE reads, and the tudo build's seconds;
-13. the string expressions of the string queries (LIKE, NOT LIKE,
+13. ``[operators]``: the limits (``lineitem.limit(100000)`` and a
+   filtered ``limit(1000)`` under 1 and 8 partitions, equal to the
+   table's first rows; the scan batches they pulled), q1 over a union
+   of two halves of lineitem, ``session.range`` of 2^27 ids summed and
+   counted against the closed form, q1 over ``lineitem.sample(0.1,
+   seed=42)`` under 1 and 8 partitions against this script's numpy
+   murmur3 draw, a rollup of lineitem and a cube of orders against
+   pyarrow per grouping set (``hash_pairs`` launched on each), and the
+   out-of-core sort of 6M rows under a pool of its input's bytes (one
+   out-of-core sort, at least 3 output batches, spilled bytes, rows
+   equal to pyarrow's stable order and to the in-core run), each
+   aggregate a path of its own; 0 fallback operators throughout;
+14. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-14. the kernel at every shape the main path (queries, variants,
-   fallback cases, partitions and exchanges) launched it with, bit for
+15. the kernel at every shape the main path (queries, variants,
+   fallback cases, partitions, exchanges and operators) launched it with, bit for
    bit against its plain version, timed as in phase 3 and by a ring of
    distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -118,7 +130,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-15. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+16. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -176,6 +188,340 @@ RING_BYTES = 128 << 20  # inputs of one ring pass: > 2x the L2
 RING_LAUNCHES = 100
 RING_MAX = 400  # ring entries at most (the launch queue holds ~1000)
 GATE_CYCLES = 40_000_000  # device sleep that lets the host queue a run
+
+
+# -- [operators]: limits, union, range, sample, rollup/cube, out-of-core sort
+
+LIMIT_PARTITIONS = (1, 8)
+RANGE_END = 1 << 27  # 134M ids, 1 GiB of int64 made on the card
+SAMPLE_FRACTION, SAMPLE_SEED = 0.1, 42
+UNION_SPLIT = datetime.date(1995, 6, 17)
+# the generator's lineitem has no l_linenumber: l_partkey breaks the
+# orderkey ties in its place
+SORT_COLUMNS = ["l_orderkey", "l_partkey", "l_extendedprice",
+                "l_shipdate"]
+
+
+def spark_murmur3_int(values, seeds):
+    """Spark's ``Murmur3_x86_32.hashInt`` of u32 values under per-value
+    seeds (numpy, written here so the check does not lean on the
+    package)."""
+    import numpy as np
+    with np.errstate(over="ignore"):
+        h = _mix_h1(np.asarray(seeds, np.uint32),
+                    _mix_k1(np.asarray(values, np.uint32)))
+        return _fmix32(h, 4)
+
+
+def sample_mask(n: int, nparts: int, fraction: float, seed: int):
+    """The rows ``sample(fraction, seed)`` keeps of an n-row table in
+    ``nparts`` scan partitions of ``ceil(n / nparts)`` rows: a row's
+    ordinal in its partition, hashed with ``seed + partition``, below
+    ``fraction * 2^32``."""
+    import numpy as np
+    step = -(-n // nparts)
+    rows = np.arange(n, dtype=np.int64)
+    part = rows // step
+    thresh = min(int(fraction * 4294967296.0), 0xFFFFFFFF)
+    h = spark_murmur3_int((rows - part * step).astype(np.uint32),
+                          ((seed + part) & 0xFFFFFFFF).astype(np.uint32))
+    return h < np.uint32(thresh)
+
+
+def ref_grouping_sets(table, keys, sets, aggs):
+    """rollup/cube by pyarrow: ``group_by`` per grouping set, the keys
+    outside the set null.  ``aggs``: (output name, column, pyarrow
+    function); ``count`` counts rows."""
+    import pyarrow as pa
+    t = table.append_column("_one", pa.array(
+        [1] * table.num_rows, pa.int64()))
+    out = []
+    for s in sets:
+        by = [keys[i] for i in s] or ["_one"]
+        g = t.group_by(by).aggregate(
+            [(("_one", "sum") if fn == "count" else (c, fn))
+             for _, c, fn in aggs])
+        n = g.num_rows
+        cols = {k: (g[k] if i in s else pa.nulls(n, table.schema.field(
+            k).type)) for i, k in enumerate(keys)}
+        for name, c, fn in aggs:
+            cols[name] = g["_one_sum" if fn == "count" else f"{c}_{fn}"]
+        out.append(pa.table(cols))
+    return pa.concat_tables(out)
+
+
+def scan_batches(df) -> int:
+    """Batches the plan's scans yielded in the last run."""
+    return sum(m.get("numOutputBatches", 0) for name, m in df.metrics()
+               if name == "TpuScanExec")
+
+
+def operators_phase(dev, tables, refs, CB, KN, range_end=RANGE_END
+                    ) -> dict:
+    """The slice's operators at SF1 under ``SESSION_CONF`` (any fallback
+    raises), each aggregate a path of its own (counts set to 0 before
+    its run, read after; the scan cache cleared once, at the start):
+
+    1. limits: ``lineitem.limit(100000)`` and ``lineitem.filter(
+       l_quantity > 45).limit(1000)`` under parallelism 1 and 8, equal
+       to the table's and the filtered table's first rows; the scan
+       batches they pulled;
+    2. union: q1 over the union of lineitem below and at or above
+       1995-06-17, equal to q1's pyarrow reference;
+    3. range: ``range(0, 2^27)`` and ``range(5, 2^27, 3,
+       numPartitions=8)``, sum and count against the closed form; the
+       warm wall and ids per second;
+    4. sample: ``lineitem.sample(0.1, seed=42)``'s count and q1 over it
+       under parallelism 1 and 8, against this script's numpy murmur3
+       draw (count exactly, q1 within 1e-9);
+    5. rollup of lineitem by (l_returnflag, l_linestatus), 10 rows (the
+       generator draws the two independently: 6 pairs, 3 flags, the
+       total), and cube of orders by (o_orderpriority, o_orderstatus),
+       24 rows, against pyarrow per grouping set;
+    6. the out-of-core sort: lineitem's (l_orderkey, l_partkey,
+       l_extendedprice, l_shipdate) by extendedprice descending, then
+       orderkey and partkey, in core under the default pool, then
+       under a pool of the sorted input's bytes (half the in-core
+       working set): one out-of-core sort of at least 3 output batches
+       that spills, equal to pyarrow's stable sort and to the in-core
+       run row for row.
+
+    Returns the counts of the paths that aggregate, by name."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import memory as MM
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import tpch
+    t_phase = time.perf_counter()
+    li, orders = tables["lineitem"], tables["orders"]
+
+    def session(nparts=1, **conf):
+        return TpuSession(dict(SESSION_CONF, **{
+            "spark.default.parallelism": nparts}, **conf), device=dev)
+
+    def no_fallback(name, df):
+        fb = df.fallback_summary()
+        check(fb["fallback_ops"] == 0 and fb["device_ops"] > 0,
+              f"{name}: plan rewrite fell back: {fb}")
+
+    counts = {}
+
+    def path(name, build, want):
+        """An aggregate's path: counts to 0, the cold run, read; against
+        ``want``; one warm run."""
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        df = build()
+        got, cold = timed(df)
+        counts[name] = c = path_counts(df, CB, KN)
+        print(f"[main path] operators {name} " + json.dumps(c), flush=True)
+        no_fallback(name, df)
+        check(c["hash_pairs_launches"] > 0,
+              f"operators {name}: hash_pairs was not launched")
+        check(c["collision_fallbacks"] == 0,
+              f"operators {name}: hash-collision fallbacks")
+        check(got.column_names == want.column_names
+              and rows_equal(got, want),
+              f"operators {name} differs from its reference:\n"
+              f"{got}\n{want}")
+        warm_out, warm = timed(build())
+        check(rows_equal(warm_out, got, 0.0),
+              f"operators {name}: the warm run differs")
+        return got, {"cold_wall_s": cold, "warm_wall_s": warm,
+                     "rows": got.num_rows,
+                     "hash_pairs_launches": c["hash_pairs_launches"]}
+
+    clear_scan_cache()
+    # -- limits
+    over45 = li.filter(pc.greater(li["l_quantity"], 45))
+    for nparts in LIMIT_PARTITIONS:
+        s = session(nparts)
+        for name, build, want in (
+                ("limit 100000",
+                 lambda: s.createDataFrame(li).limit(100_000),
+                 li.slice(0, 100_000)),
+                ("filter l_quantity > 45 limit 1000",
+                 lambda: s.createDataFrame(li)
+                 .filter(col("l_quantity") > 45).limit(1000),
+                 over45.slice(0, 1000))):
+            df = build()
+            got, wall = timed(df)
+            no_fallback(name, df)
+            check(got.equals(want), f"operators {name} (parallelism "
+                  f"{nparts}) differs from the table's first rows")
+            tree = df._last_plan.tree_string()
+            check("*TpuGlobalLimit" in tree and "*TpuLocalLimit" in tree,
+                  f"operators {name}: {tree}")
+            print("[operators] " + json.dumps(
+                {"query": name, "partitions": nparts, "rows": got.num_rows,
+                 "wall_s": wall, "scan_batches_pulled": scan_batches(df),
+                 "equal_first_rows": True}), flush=True)
+
+    # -- union: q1 over two halves of lineitem
+    s = session()
+    _, line = path("union q1", lambda: tpch.q1_over(
+        s.createDataFrame(li).filter(col("l_shipdate") < UNION_SPLIT)
+        .union(s.createDataFrame(li)
+               .filter(col("l_shipdate") >= UNION_SPLIT))), refs["q1"])
+    print("[operators] union q1 " + json.dumps(line), flush=True)
+
+    # -- range: ids made on the card, sum and count
+    n1 = range_end
+    n2 = -(-(range_end - 5) // 3)
+    for name, build, want in (
+            (f"range(0, {range_end})",
+             lambda: session().range(0, range_end),
+             (n1 * (n1 - 1) // 2, n1)),
+            (f"range(5, {range_end}, 3, numPartitions=8)",
+             lambda: session().range(5, range_end, 3, numPartitions=8),
+             (5 * n2 + 3 * n2 * (n2 - 1) // 2, n2))):
+        def agg(build=build):
+            return build().agg(F.sum("id").alias("s"),
+                               F.count("*").alias("n"))
+        walls = []
+        for _ in range(2):
+            df = agg()
+            got, wall = timed(df)
+            walls.append(wall)
+            no_fallback(name, df)
+            check((got.column("s")[0].as_py(), got.column("n")[0].as_py())
+                  == want, f"operators {name}: {got.to_pylist()}, closed "
+                  f"form {want}")
+        print("[operators] " + json.dumps(
+            {"query": name + ".agg(sum, count)", "ids": want[1],
+             "cold_wall_s": walls[0], "warm_wall_s": walls[1],
+             "ids_per_s": want[1] / walls[1], "equal_closed_form": True}),
+            flush=True)
+
+    # -- sample: the draw against numpy's murmur3, under 1 and 8 partitions
+    for nparts in LIMIT_PARTITIONS:
+        s = session(nparts)
+        mask = sample_mask(li.num_rows, nparts, SAMPLE_FRACTION,
+                           SAMPLE_SEED)
+        kept = li.filter(pa.array(mask))
+
+        def sampled(s=s):
+            return s.createDataFrame(li).sample(SAMPLE_FRACTION,
+                                                seed=SAMPLE_SEED)
+        df = sampled().agg(F.count("*").alias("n"))
+        got, wall = timed(df)
+        no_fallback("sample count", df)
+        check(got.column("n")[0].as_py() == int(mask.sum()),
+              f"operators sample (parallelism {nparts}): "
+              f"{got.column('n')[0]} rows, numpy murmur3 keeps "
+              f"{int(mask.sum())}")
+        _, line = path(f"sample q1 parallelism {nparts}",
+                       lambda: tpch.q1_over(sampled()), ref_q1(kept))
+        line.update(partitions=nparts, sampled_rows=int(mask.sum()),
+                    count_wall_s=wall, equal_numpy_murmur3=True)
+        print("[operators] sample q1 " + json.dumps(line), flush=True)
+
+    # -- rollup and cube
+    s = session()
+    rollup_want = ref_grouping_sets(
+        li, ["l_returnflag", "l_linestatus"], [[0, 1], [0], []],
+        [("sq", "l_quantity", "sum"), ("sp", "l_extendedprice", "sum"),
+         ("ad", "l_discount", "mean"), ("c", None, "count")])
+    cube_want = ref_grouping_sets(
+        orders, ["o_orderpriority", "o_orderstatus"],
+        [[0, 1], [0], [1], []],
+        [("st", "o_totalprice", "sum"), ("c", None, "count")])
+    check(rollup_want.num_rows == 10 and cube_want.num_rows == 24,
+          f"grouping-set references: {rollup_want.num_rows} and "
+          f"{cube_want.num_rows} rows")
+    for name, build, want in (
+            ("rollup lineitem", lambda: s.createDataFrame(li).rollup(
+                "l_returnflag", "l_linestatus").agg(
+                F.sum("l_quantity").alias("sq"),
+                F.sum("l_extendedprice").alias("sp"),
+                F.avg("l_discount").alias("ad"),
+                F.count("*").alias("c")), rollup_want),
+            ("cube orders", lambda: s.createDataFrame(orders).cube(
+                "o_orderpriority", "o_orderstatus").agg(
+                F.sum("o_totalprice").alias("st"),
+                F.count("*").alias("c")), cube_want)):
+        _, line = path(name, build, want)
+        line["hash_pairs_shapes"] = counts[name]["shapes"]
+        print(f"[operators] {name} " + json.dumps(line), flush=True)
+
+    # -- the out-of-core sort
+    def sort_query(s):
+        return s.createDataFrame(li).select(*SORT_COLUMNS).orderBy(
+            col("l_extendedprice").desc(), "l_orderkey", "l_partkey")
+
+    srt = li.select(SORT_COLUMNS)
+    want = srt.take(pc.sort_indices(srt, sort_keys=[
+        ("l_extendedprice", "descending"), ("l_orderkey", "ascending"),
+        ("l_partkey", "ascending")]))
+    s = session()
+    mgr = MM.get_manager(s.rapids_conf(), dev)
+    reserve, largest = mgr.reserve, []
+
+    def recording(nbytes, _restoring=None):
+        largest.append(nbytes)
+        return reserve(nbytes, _restoring)
+
+    runs = {}
+    clear_scan_cache()
+    mgr.reserve = recording  # the in-core sort's transient: 2x its input
+    try:
+        in_core, in_cold = timed(sort_query(s))
+    finally:
+        del mgr.reserve
+    sorted_bytes = max(largest) // 2
+    in_warm_df = sort_query(s)
+    _, in_warm = timed(in_warm_df)
+    sort = find_node(in_warm_df._last_plan, "TpuSortExec")
+    check(sort.metric("outOfCoreSorts").value == 0,
+          "the in-core sort went out of core under the default pool")
+    check(in_core.equals(want), "operators in-core sort differs from "
+          "pyarrow's stable sort_indices order")
+    runs["in_core"] = {"pool": mgr.budget, "cold_wall_s": in_cold,
+                       "warm_wall_s": in_warm}
+    pool = sorted_bytes
+    tight = session(**{"spark.rapids.tpu.memory.poolSize": pool})
+    walls, metrics = [], []
+    for _ in range(2):
+        df = sort_query(tight)
+        got, wall = timed(df)
+        no_fallback("out-of-core sort", df)
+        walls.append(wall)
+        sort = find_node(df._last_plan, "TpuSortExec")
+        smgr = MM.peek_manager()
+        # this run's share of the arbiter's running totals
+        before = metrics[-1] if metrics else {}
+        metrics.append(dict(
+            {k: sort.metric(k).value for k in
+             ("outOfCoreSorts", "numOutputBatches")},
+            peakReserved=smgr.metrics["peakReserved"],
+            **{k: smgr.metrics[k] - before.get("total_" + k, 0) for k in (
+                "spillToHostBytes", "restoredBytes", "retryOOMs")},
+            **{"total_" + k: smgr.metrics[k] for k in (
+                "spillToHostBytes", "restoredBytes", "retryOOMs")}))
+        check(smgr.budget == pool, f"sort pool {smgr.budget} != {pool}")
+        check(got.equals(want) and got.equals(in_core),
+              "the out-of-core sort differs from pyarrow's stable order "
+              "or from the in-core run")
+    first = metrics[0]
+    check(first["outOfCoreSorts"] == 1 and first["numOutputBatches"] >= 3
+          and first["spillToHostBytes"] > 0,
+          f"out-of-core sort metrics {metrics}")
+    runs["out_of_core"] = {"pool": pool, "cold_wall_s": walls[0],
+                           "warm_wall_s": walls[1], "runs": metrics}
+    print("[operators] out-of-core sort " + json.dumps(dict(
+        rows=li.num_rows, sorted_input_bytes=sorted_bytes,
+        in_core_working_set_bytes=2 * sorted_bytes,
+        equal_pyarrow_stable_sort=True, equal_in_core=True, **runs)),
+        flush=True)
+    MM.get_manager(session().rapids_conf(), dev)
+    clear_scan_cache()
+    print(f"[operators] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2393,6 +2739,13 @@ def main() -> int:
     print("[partitions/exchange] hash_pairs shapes the 22 queries did not "
           "launch: " + json.dumps(sorted(set(main_shapes) - query_shapes)),
           flush=True)
+    # -- limits, union, range, sample, rollup/cube, out-of-core sort --------
+    op_counts = operators_phase(dev, tables, refs, CB, KN)
+    for c in op_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[operators] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -2474,7 +2827,8 @@ def main() -> int:
         "replaces": "spark_rapids_tpu/kernels/pallas_backend.py:42",
         "launches": sum(c["hash_pairs_launches"] for c in
                         list(counts.values()) + list(var_counts.values())
-                        + list(fb_counts.values()) + new_paths),
+                        + list(fb_counts.values()) + new_paths
+                        + list(op_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -2485,6 +2839,8 @@ def main() -> int:
             q: c["hash_pairs_launches"] for q, c in part_counts.items()},
         "launches_per_exchange_run": {
             k: c["hash_pairs_launches"] for k, c in ex_counts.items()},
+        "launches_per_operators_path": {
+            k: c["hash_pairs_launches"] for k, c in op_counts.items()},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
         "ms_ring": kernel_row["ms_ring"],

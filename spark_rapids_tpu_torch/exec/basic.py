@@ -1,13 +1,13 @@
-"""Basic physical operators: scan, project, filter, limits, coalesce.
+"""Basic physical operators: scan, project, filter, limits, union,
+coalesce.
 
 [REF: sql-plugin/../basicPhysicalOperators.scala :: GpuProjectExec,
- GpuFilterExec; GpuCoalesceBatches.scala; limit.scala]
+ GpuFilterExec, GpuUnionExec; GpuCoalesceBatches.scala; limit.scala]
 
 The counterparts of the JAX package's ``exec/basic.py`` operators of the
 same names.  The ``Cpu*`` execs are the numpy fallback and oracle path
-the planner plans first (``plan/overrides.py`` converts what it can);
-the limits exist only on the CPU so far (their device execs are a later
-slice).  On the device:
+the planner plans first (``plan/overrides.py`` converts what it can).
+On the device:
 
 * ``TpuScanExec`` caches the device batches of an in-memory table and
   registers them with the memory arbiter (``runtime/memory.py``).
@@ -16,6 +16,15 @@ slice).  On the device:
 * ``TpuProjectExec`` evaluates the bound expressions per batch.
 * Both are fusible: a consumer (the aggregate) pulls from the scan and
   applies them itself.
+* ``TpuLocalLimitExec`` / ``TpuGlobalLimitExec`` keep the first n live
+  rows by a live-prefix mask (``cumsum(sel) <= remaining``), one host
+  read of the kept count per batch.  Both stop pulling as soon as n rows
+  are out (the JAX package's pull one batch more, and the global limit
+  one batch of the next partition); the global limit pulls the child's
+  partitions one after another (its single-process branch: the
+  multi-executor quota is ROADMAP A.10).
+* ``TpuUnionExec``: the partitions of its children one after another,
+  under the first child's schema.
 """
 
 from __future__ import annotations
@@ -214,7 +223,15 @@ class TpuScanExec(TpuExec):
                     for sp, _ in out:
                         sp.close()
                     out = None
-            yield b
+            try:
+                yield b
+            except GeneratorExit:
+                # abandoned mid-partition (a limit has its rows): the
+                # partial registrations would hold arbiter bytes that
+                # no cache entry reads
+                for sp, _ in out or ():
+                    sp.close()
+                raise
         if register and out is not None:
             _scan_cache_put(self.table, key, out)
 
@@ -378,6 +395,113 @@ class CpuGlobalLimitExec(CpuExec):
                 take = min(remaining, b.num_rows)
                 remaining -= take
                 yield _head(b, take)
+
+
+def _live_prefix(b: DeviceBatch, remaining: int):
+    """(the batch with only its first ``remaining`` live rows live, how
+    many it kept): a mask, no shape change; the count is the limit's one
+    host read per batch."""
+    keep = b.sel & (torch.cumsum(b.sel.to(torch.int32), 0) <= remaining)
+    return (DeviceBatch(b.schema, b.columns, keep, compacted=b.compacted),
+            int(keep.sum()))
+
+
+class TpuLocalLimitExec(TpuExec):
+    """Keep the first n live rows of the partition (batch order).
+
+    [REF: limit.scala :: GpuLocalLimitExec]
+    """
+
+    def __init__(self, n: int, child: TpuExec):
+        super().__init__(child.schema, child)
+        self.n = n
+
+    def node_string(self):
+        return f"TpuLocalLimit [{self.n}]"
+
+    def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        yield from _limit(self, self.n,
+                          [self.children[0].execute(partition)])
+
+
+class TpuGlobalLimitExec(TpuExec):
+    """The first n live rows across the child's partitions, in partition
+    order, as one partition.  [REF: limit.scala :: GpuGlobalLimitExec]
+    """
+
+    def __init__(self, n: int, child: TpuExec):
+        super().__init__(child.schema, child)
+        self.n = n
+
+    def node_string(self):
+        return f"TpuGlobalLimit [{self.n}]"
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        child = self.children[0]
+        # lazily: a partition's pump starts only if rows are still wanted
+        yield from _limit(self, self.n, (child.execute(p) for p in
+                                         range(child.num_partitions())))
+
+
+def _limit(node: TpuExec, n: int, streams) -> Iterator[DeviceBatch]:
+    """The first ``n`` live rows of the streams' batches, in order.  The
+    check follows each yield, so no batch is pulled once ``n`` rows are
+    out, and an abandoned stream closes (its scan frees what it held)."""
+    remaining = n
+    for stream in streams:
+        if remaining <= 0:
+            return
+        for b in stream:
+            with node.timer():
+                out, kept = _live_prefix(b, remaining)
+            remaining -= kept
+            node.metric("numOutputRows").add(kept)
+            node.metric("numOutputBatches").add(1)
+            yield out
+            if remaining <= 0:
+                return
+
+
+class CpuUnionExec(CpuExec):
+    def __init__(self, children_: Sequence[CpuExec]):
+        super().__init__(children_[0].schema, *children_)
+
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions() for c in self.children)
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        child, p = _union_child(self, partition)
+        for b in child.execute(p):
+            yield H.HostBatch(self.schema, b.columns)
+
+
+class TpuUnionExec(TpuExec):
+    """[REF: GpuUnionExec] — partitions concatenate across children."""
+
+    def __init__(self, children_: Sequence[TpuExec]):
+        super().__init__(children_[0].schema, *children_)
+
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions() for c in self.children)
+
+    def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        child, p = _union_child(self, partition)
+        for b in child.execute(p):
+            yield DeviceBatch(self.schema, b.columns, b.sel,
+                              compacted=b.compacted)
+
+
+def _union_child(node, partition: int):
+    """(child, its partition) that a union's ``partition`` reads."""
+    for c in node.children:
+        np_ = c.num_partitions()
+        if partition < np_:
+            return c, partition
+        partition -= np_
+    raise IndexError("partition out of range")
 
 
 class TpuCoalesceBatchesExec(TpuExec):

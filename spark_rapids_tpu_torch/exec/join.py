@@ -67,6 +67,7 @@ from spark_rapids_tpu_torch.exec.sort import _concat_host
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.expressions import Expression, device_select
 from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
+from spark_rapids_tpu_torch.parallel.shuffle import split_slices
 from spark_rapids_tpu_torch.runtime.memory import RetryOOM, get_manager
 
 
@@ -297,52 +298,16 @@ def _row_groups(batches: List[DeviceBatch], cap: int
     return groups
 
 
-# rows of capacity per chunk that split_by_pid sorts at once (the JAX
-# package's split_to_spillables default)
-_SPLIT_CHUNK_ROWS = 1 << 20
-
-
 def split_by_pid(batches: List[DeviceBatch], pid_fn, nbuckets: int
                  ) -> List[List[Tuple[DeviceBatch, int]]]:
     """Split batches by partition id: per bucket, its ``(slice, live
-    rows)`` pairs — the port's counterpart of the JAX package's
-    ``parallel/shuffle.py::split_to_spillables`` without the spill
-    registration.
-
-    The batches coalesce into chunks of at most ``_SPLIT_CHUNK_ROWS``
-    rows of capacity; each chunk's rows are stably sorted by bucket id (dead
-    rows last), one host read takes the bucket counts, and each
-    non-empty bucket's rows are gathered into a compacted slice of
-    ``max(8, next power of two)`` rows.  Within a bucket rows keep their
-    input order.
-    """
+    rows)`` pairs — the JAX package's ``split_to_spillables`` without
+    the spill registration (``parallel/shuffle.py::split_slices``, in
+    chunks of 2^20 rows of capacity, rows in input order per bucket).
+    ``batches`` stays as it was."""
     out: List[List[Tuple[DeviceBatch, int]]] = [[] for _ in range(nbuckets)]
-    i = 0
-    while i < len(batches):
-        chunk, acc = [], 0
-        while i < len(batches) and (not chunk or acc + batches[i].capacity
-                                    <= _SPLIT_CHUNK_ROWS):
-            chunk.append(compact(batches[i]))
-            acc += batches[i].capacity
-            i += 1
-        m = (chunk[0] if len(chunk) == 1 else
-             concat_device_batches(chunk[0].schema, chunk))
-        pid = torch.where(m.sel, pid_fn(m).to(torch.int64), nbuckets)
-        _, perm = torch.sort(pid, stable=True)
-        counts = torch.bincount(pid, minlength=nbuckets + 1)[:nbuckets]
-        counts = counts.tolist()  # the chunk's one host read
-        lo = 0
-        for b, n in enumerate(counts):
-            if n:
-                size = max(8, 1 << (n - 1).bit_length())
-                rows = perm[(lo + torch.arange(size, device=m.device)
-                             ).clamp(0, m.capacity - 1)]
-                part = DeviceBatch(
-                    m.schema, tuple(c.gather(rows) for c in m.columns),
-                    torch.arange(size, device=m.device) < n,
-                    compacted=True)
-                out[b].append((part, n))
-            lo += n
+    for i, part, n in split_slices(list(batches), pid_fn, nbuckets):
+        out[i].append((part, n))
     return out
 
 

@@ -1,5 +1,5 @@
-"""Logical plan nodes — the subset the TPC-H queries and ``repartition``
-use.
+"""Logical plan nodes — the subset the TPC-H queries, ``repartition``,
+``union``, ``session.range``, ``sample`` and rollup/cube use.
 
 The counterparts of the JAX package's ``plan/logical.py`` nodes of the
 same names.  The DataFrame API resolves names and coerces types eagerly,
@@ -131,6 +131,60 @@ class Join(LogicalPlan):
     @property
     def children(self):
         return (self.left, self.right)
+
+
+@dataclasses.dataclass
+class Range(LogicalPlan):
+    """session.range — generated ids, no backing data."""
+
+    start: int
+    end: int
+    step: int
+    schema: T.StructType
+    num_partitions: int = 1
+
+
+@dataclasses.dataclass
+class Sample(LogicalPlan):
+    """Bernoulli sample (without replacement)."""
+
+    child: LogicalPlan
+    fraction: float
+    seed: int
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+    @property
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class Expand(LogicalPlan):
+    """Grouping-sets row multiplication [REF: Spark Expand]."""
+
+    child: LogicalPlan
+    projections: List[List[Expression]]
+    schema: T.StructType
+
+    @property
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class Union(LogicalPlan):
+    inputs: List[LogicalPlan]
+
+    @property
+    def schema(self):
+        return self.inputs[0].schema
+
+    @property
+    def children(self):
+        return tuple(self.inputs)
 
 
 @dataclasses.dataclass

@@ -6,9 +6,10 @@ Filters over an in-memory relation narrows the arrow table to the
 columns it references before the host-to-device transfer (memoized per
 table and column set, so that the scan cache keeps hitting) (the analog of
 Spark's ColumnPruning), so that q1 and q6 move 7 and 4 of lineitem's 16
-columns to the device.  The rule reaches through both sides of a join
-and below a limit or a repartition.  The JAX package's other rules (parquet
-pushdown, dynamic partition pruning) are later slices.
+columns to the device.  The rule reaches through both sides of a join,
+below a limit, a repartition, a sample or an expand, and into each
+input of a union.  The JAX package's other rules (parquet pushdown,
+dynamic partition pruning) are later slices.
 """
 
 from __future__ import annotations
@@ -123,11 +124,13 @@ def _prune_head(plan):
 
 
 def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
+    if isinstance(plan, L.Union):
+        return L.Union([optimize(c) for c in plan.inputs])
     if isinstance(plan, L.Join):
         return dataclasses.replace(plan, left=optimize(plan.left),
                                    right=optimize(plan.right))
     if isinstance(plan, (L.Project, L.Filter, L.Aggregate, L.Sort,
-                         L.Limit, L.Repartition)):
+                         L.Limit, L.Repartition, L.Sample, L.Expand)):
         plan = dataclasses.replace(plan, child=optimize(plan.child))
     if isinstance(plan, (L.Project, L.Aggregate)):
         pruned = _prune_head(plan)

@@ -27,8 +27,7 @@ the resilience plane's ``configure_from_conf`` (A.7), the
 multi-executor validation ``_validate_multiproc`` (A.10), the LORE dump
 taps ``install_lore_taps`` (A.12) and the ICI exchange branches of the
 aggregate, sort and join conversions (A.10): under
-``spark.rapids.shuffle.mode=ICI`` the rewrite raises.  The limits have
-no device exec yet (A.5): they fall back with "no TPU rule".  A
+``spark.rapids.shuffle.mode=ICI`` the rewrite raises.  A
 repartition converts by ``spark.rapids.shuffle.mode``
 (``exec/exchange.py::_convert_exchange``); the coalesce pass asks a
 sort's child for its partition count, which on an AQE read runs the
@@ -53,8 +52,7 @@ from spark_rapids_tpu_torch.exec.exchange import (
     CpuShuffleExchangeExec, _convert_exchange, _tag_exchange)
 from spark_rapids_tpu_torch.exec.join import (
     CpuJoinExec, TpuBroadcastExchangeExec, _convert_join, _tag_join)
-from spark_rapids_tpu_torch.exec.misc import (
-    CpuTopNExec, _convert_topn, _tag_topn)
+from spark_rapids_tpu_torch.exec import misc as M
 from spark_rapids_tpu_torch.exec.sort import (
     CpuSortExec, TpuSortExec, _convert_sort, _tag_sort)
 from spark_rapids_tpu_torch.exec.transitions import (
@@ -238,6 +236,21 @@ EXEC_RULES[B.CpuFilterExec] = ExecRule(
     lambda m: m.tag_expressions([m.cpu.condition]),
     lambda cpu, ch, conf, device: B.TpuFilterExec(cpu.condition, ch[0]))
 
+EXEC_RULES[B.CpuLocalLimitExec] = ExecRule(
+    "LocalLimit",
+    lambda m: None,
+    lambda cpu, ch, conf, device: B.TpuLocalLimitExec(cpu.n, ch[0]))
+
+EXEC_RULES[B.CpuGlobalLimitExec] = ExecRule(
+    "GlobalLimit",
+    lambda m: None,
+    lambda cpu, ch, conf, device: B.TpuGlobalLimitExec(cpu.n, ch[0]))
+
+EXEC_RULES[B.CpuUnionExec] = ExecRule(
+    "Union",
+    lambda m: None,
+    lambda cpu, ch, conf, device: B.TpuUnionExec(ch))
+
 
 def _tag_aggregate(meta: ExecMeta):
     cpu: CpuAggregateExec = meta.cpu
@@ -261,7 +274,7 @@ def _convert_aggregate(cpu, ch, conf, device):
                                 backend=conf.kernel_backend, device=device)
 
 
-# the JAX package registers the next five lazily
+# the JAX package registers the next eight lazily
 # (``_register_lazy_rules``); the port's exec modules import this module
 # only inside functions, so their rules register here, at import
 EXEC_RULES[CpuAggregateExec] = ExecRule(
@@ -270,10 +283,16 @@ EXEC_RULES[CpuSortExec] = ExecRule(
     "Sort", _tag_sort, _convert_sort)
 EXEC_RULES[CpuJoinExec] = ExecRule(
     "SortMergeJoin", _tag_join, _convert_join)
-EXEC_RULES[CpuTopNExec] = ExecRule(
-    "TakeOrderedAndProject", _tag_topn, _convert_topn)
+EXEC_RULES[M.CpuTopNExec] = ExecRule(
+    "TakeOrderedAndProject", M._tag_topn, M._convert_topn)
 EXEC_RULES[CpuShuffleExchangeExec] = ExecRule(
     "ShuffleExchange", _tag_exchange, _convert_exchange)
+EXEC_RULES[M.CpuRangeExec] = ExecRule(
+    "Range", lambda m: None, M._convert_range)
+EXEC_RULES[M.CpuSampleExec] = ExecRule(
+    "Sample", lambda m: None, M._convert_sample)
+EXEC_RULES[M.CpuExpandExec] = ExecRule(
+    "Expand", M._tag_expand, M._convert_expand)
 
 
 def op_names(kind: str) -> frozenset:

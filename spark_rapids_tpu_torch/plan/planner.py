@@ -8,7 +8,8 @@ ColumnarOverrideRules].  A limit over a sort (``Limit(Sort)``,
 ``Limit(Project(Sort))``) plans a TakeOrderedAndProject; any other limit
 plans ``GlobalLimit(LocalLimit(...))``.  A repartition plans a
 ``CpuShuffleExchangeExec``, which the rewrite converts by
-``spark.rapids.shuffle.mode``.
+``spark.rapids.shuffle.mode``.  A range plans ``CpuRangeExec`` with
+``spark.rapids.tpu.batchRows`` ids a batch.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from spark_rapids_tpu_torch.exec.aggregate import CpuAggregateExec
 from spark_rapids_tpu_torch.exec.base import CpuExec
 from spark_rapids_tpu_torch.exec.exchange import CpuShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.join import CpuJoinExec
-from spark_rapids_tpu_torch.exec.misc import CpuTopNExec
+from spark_rapids_tpu_torch.exec.misc import (
+    CpuExpandExec, CpuRangeExec, CpuSampleExec, CpuTopNExec)
 from spark_rapids_tpu_torch.exec.sort import CpuSortExec
 from spark_rapids_tpu_torch.plan import logical as L
 
@@ -50,6 +52,17 @@ def plan_physical(node: L.LogicalPlan, conf: RapidsConf) -> CpuExec:
         return B.CpuGlobalLimitExec(
             node.n, B.CpuLocalLimitExec(node.n,
                                         plan_physical(node.child, conf)))
+    if isinstance(node, L.Range):
+        return CpuRangeExec(node.start, node.end, node.step, node.schema,
+                            node.num_partitions, conf.batch_rows)
+    if isinstance(node, L.Sample):
+        return CpuSampleExec(node.fraction, node.seed,
+                             plan_physical(node.child, conf))
+    if isinstance(node, L.Expand):
+        return CpuExpandExec(node.projections, node.schema,
+                             plan_physical(node.child, conf))
+    if isinstance(node, L.Union):
+        return B.CpuUnionExec([plan_physical(c, conf) for c in node.inputs])
     if isinstance(node, L.Aggregate):
         return CpuAggregateExec(node.grouping, node.aggregates, node.schema,
                                 plan_physical(node.child, conf))

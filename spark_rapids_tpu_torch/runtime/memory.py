@@ -4,7 +4,7 @@
  spark-rapids-jni :: RmmSpark (forceRetryOOM injection)]
 
 The counterpart of the JAX package's ``runtime/memory.py``, cut to what
-the scan cache and the join use.  The arbiter is an accounting layer
+the scan cache, the join and the out-of-core sort use.  The arbiter is an accounting layer
 above the allocator: operators ``reserve()`` bytes (``transient`` around
 a device step), and registered ``SpillableBatch``es are the reclaim
 pool.  A reservation that would pass the budget spills the oldest
@@ -71,7 +71,10 @@ class SpillableBatch:
 
     Tiers: device (batch live, bytes counted) -> host (a host copy of
     every tensor).  ``get()`` restores to the device, re-reserving its
-    bytes.  [REF: SpillableColumnarBatch]
+    bytes.  ``reserve=False`` registers bytes that are already on the
+    device without counting them (the out-of-core sort's slices, cut
+    from an input its reservation never held): they count from their
+    first restore on.  [REF: SpillableColumnarBatch]
     """
 
     def __init__(self, batch: DeviceBatch, manager: "DeviceMemoryManager",
@@ -87,6 +90,9 @@ class SpillableBatch:
         self.compacted = batch.compacted
         self.device = batch.device
         self.nbytes = batch.nbytes()
+        # live rows, where the registrant knows them (the out-of-core
+        # split's slices): a concat reads it instead of the device
+        self.live_rows: Optional[int] = None
         if reserve:
             manager.reserve(self.nbytes)
         manager._register(self)

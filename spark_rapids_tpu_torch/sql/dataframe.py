@@ -1,11 +1,15 @@
 """DataFrame API — the subset of the ported TPC-H queries.
 
 The counterpart of the JAX package's ``sql/dataframe.py``:
-``select``, ``withColumnRenamed``, ``filter``, ``groupBy(...).agg``
-(count(DISTINCT) rewritten into two aggregates), ``agg``, ``orderBy``,
-``limit``, ``distinct``, ``repartition``, ``join`` (USING joins on column names and expression joins on
-a ``Column`` condition), ``crossJoin``, the actions ``toArrow`` and
-``collect``, and ``explain`` and ``fallback_summary``.
+``select``, ``withColumn``, ``withColumnRenamed``, ``drop``, ``filter``,
+``groupBy(...).agg`` (count(DISTINCT) rewritten into two aggregates)
+and ``GroupedData``'s ``count/sum/min/max/avg``, ``rollup`` and
+``cube`` (grouping sets through ``Expand``), ``agg``, ``orderBy``,
+``limit``, ``union``, ``sample``, ``distinct``, ``repartition``,
+``join`` (USING joins on column names and expression joins on a
+``Column`` condition), ``crossJoin``, the actions ``toArrow``,
+``collect``, ``count``, ``toPandas`` and ``show``, and ``explain`` and
+``fallback_summary``.
 Transformations build the logical plan eagerly (pyspark-style errors at
 the call site); actions optimize, plan a CPU exec tree, let the plan
 rewrite (``plan/overrides.py``) move what it can onto the session's
@@ -14,9 +18,10 @@ device, and pump the result.
 
 from __future__ import annotations
 
-from typing import List, Union
-
+import itertools
+import random
 import time
+from typing import List, Union
 
 import pyarrow as pa
 
@@ -114,9 +119,19 @@ class DataFrame:
         return self._derive(L.Project(self._plan, exprs,
                                       T.StructType(tuple(fields))))
 
+    def withColumn(self, name: str, c: Column) -> "DataFrame":
+        """Add a column, or replace one of the same name in place."""
+        if name in self.columns:
+            return self.select(*[(c.alias(name) if n == name else n)
+                                 for n in self.columns])
+        return self.select(*self.columns, c.alias(name))
+
     def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
         return self.select(*[(col(n).alias(new) if n == old else n)
                              for n in self.columns])
+
+    def drop(self, *names) -> "DataFrame":
+        return self.select(*[n for n in self.columns if n not in names])
 
     def filter(self, condition: Column) -> "DataFrame":
         if isinstance(condition, str):
@@ -136,6 +151,22 @@ class DataFrame:
             exprs.append(e)
             names.append(_output_name(u, e))
         return GroupedData(self, exprs, names)
+
+    def rollup(self, *cols) -> "GroupedData":
+        """Hierarchical grouping sets: (a, b), (a), () for rollup(a, b).
+        [REF: GpuExpandExec.scala — Spark's Expand + Aggregate plan]"""
+        g = self.groupBy(*cols)
+        nk = len(g.grouping)
+        g.sets = [list(range(k)) for k in range(nk, -1, -1)]
+        return g
+
+    def cube(self, *cols) -> "GroupedData":
+        """All 2^n grouping sets, the widest first."""
+        g = self.groupBy(*cols)
+        nk = len(g.grouping)
+        g.sets = [list(s) for r in range(nk, -1, -1)
+                  for s in itertools.combinations(range(nk), r)]
+        return g
 
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, [], []).agg(*aggs)
@@ -160,6 +191,36 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return self._derive(L.Limit(self._plan, n))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """Every row of both, by position, under this DataFrame's schema
+        (Spark's ``union`` keeps duplicates)."""
+        if len(other.schema) != len(self.schema):
+            raise AN.AnalysisException("union: column count mismatch")
+        return self._derive(L.Union([self._plan, other._plan]))
+
+    unionAll = union
+
+    def sample(self, withReplacement=None, fraction=None, seed=None
+               ) -> "DataFrame":
+        """Bernoulli sample, in pyspark's three forms: ``sample(fraction)``,
+        ``sample(fraction, seed)`` and ``sample(withReplacement,
+        fraction, seed)``; a keyword ``seed=`` wins over the positional
+        one.  Without a seed, a random one is drawn."""
+        if isinstance(withReplacement, float):
+            s2 = seed if seed is not None else fraction
+            withReplacement, fraction, seed = (
+                False, withReplacement, None if s2 is None else int(s2))
+        if withReplacement:
+            raise NotImplementedError(
+                "sample(withReplacement=True) is not supported")
+        if fraction is None or not (0.0 <= fraction <= 1.0):
+            raise AN.AnalysisException(
+                f"sample fraction must be in [0, 1], got {fraction}")
+        if seed is None:
+            seed = random.randint(0, 2**31 - 1)
+        return self._derive(L.Sample(self._plan, float(fraction),
+                                     int(seed)))
 
     def repartition(self, num: int, *cols) -> "DataFrame":
         """``num`` partitions: by the Spark murmur3 hash of ``cols``, or
@@ -330,6 +391,15 @@ class DataFrame:
         cols = [tbl.column(i).to_pylist() for i in range(tbl.num_columns)]
         return [Row(vals, names) for vals in zip(*cols)] if cols else []
 
+    def count(self) -> int:
+        return self.toArrow().num_rows
+
+    def toPandas(self):
+        return self.toArrow().to_pandas()
+
+    def show(self, n: int = 20, truncate: bool = True):
+        print(self.limit(n).toArrow().to_pandas().to_string())
+
 
 
 class GroupedData:
@@ -337,6 +407,7 @@ class GroupedData:
         self.df = df
         self.grouping = grouping
         self.names = names
+        self.sets = None  # grouping sets (rollup/cube); None = plain
 
     def agg(self, *aggs) -> DataFrame:
         fns = []
@@ -347,13 +418,64 @@ class GroupedData:
             fns.append(fn)
             names.append(name)
         if any(isinstance(f, A.CountDistinct) for f in fns):
+            if self.sets is not None:
+                raise AN.AnalysisException(
+                    "count(DISTINCT) under rollup/cube is not yet "
+                    "supported")
             return self._agg_distinct(fns, names)
+        if self.sets is not None:
+            return self._agg_grouping_sets(fns, names)
         fields = [T.StructField(n, g.dtype)
                   for n, g in zip(self.names, self.grouping)]
         fields += [T.StructField(n, f.result_dtype)
                    for n, f in zip(names, fns)]
         return self.df._derive(L.Aggregate(
             self.df._plan, self.grouping, fns, T.StructType(tuple(fields))))
+
+    def _agg_grouping_sets(self, fns, names) -> DataFrame:
+        """rollup/cube: Spark's ResolveGroupingAnalytics shape — an
+        Expand (the child's columns, each key or a null in its place,
+        and the grouping id), an aggregate over the keys and ``_gid``,
+        and a project that drops ``_gid``.  ``_gid`` keeps a rolled-up
+        null apart from a null key."""
+        child_schema = self.df.schema
+        nc = len(child_schema)
+        nk = len(self.grouping)
+        projections = []
+        for s in self.sets:
+            inc = set(s)
+            proj = [BoundReference(i, f.dtype, f.nullable)
+                    for i, f in enumerate(child_schema.fields)]
+            for i, g in enumerate(self.grouping):
+                proj.append(g if i in inc else E.Literal(None, g.dtype))
+            # Spark's grouping_id: bit (nk-1-i) set when key i is NOT in
+            # the grouping set
+            gid = sum(1 << (nk - 1 - i) for i in range(nk)
+                      if i not in inc)
+            proj.append(E.Literal(gid, T.IntegerT))
+            projections.append(proj)
+        ex_fields = (list(child_schema.fields)
+                     + [T.StructField(f"_g{i}", g.dtype, True)
+                        for i, g in enumerate(self.grouping)]
+                     + [T.StructField("_gid", T.IntegerT, False)])
+        expand = L.Expand(self.df._plan, projections,
+                          T.StructType(tuple(ex_fields)))
+        grouping = [BoundReference(nc + i, g.dtype, True)
+                    for i, g in enumerate(self.grouping)]
+        grouping.append(BoundReference(nc + nk, T.IntegerT, False))
+        key_fields = [T.StructField(n, g.dtype, True)
+                      for n, g in zip(self.names, self.grouping)]
+        agg_fields = [T.StructField(n, f.result_dtype)
+                      for n, f in zip(names, fns)]
+        agg = L.Aggregate(expand, grouping, fns, T.StructType(tuple(
+            key_fields + [T.StructField("_gid", T.IntegerT, False)]
+            + agg_fields)))
+        exprs = ([BoundReference(i, g.dtype, True)
+                  for i, g in enumerate(self.grouping)]
+                 + [BoundReference(nk + 1 + i, f.result_dtype)
+                    for i, f in enumerate(fns)])
+        return self.df._derive(L.Project(
+            agg, exprs, T.StructType(tuple(key_fields + agg_fields))))
 
     def _agg_distinct(self, fns, names) -> DataFrame:
         """count(DISTINCT x): Spark's RewriteDistinctAggregates shape — a
@@ -384,3 +506,32 @@ class GroupedData:
             inner, outer_grouping,
             [A.Count(BoundReference(nk, fn.child.dtype))],
             T.StructType(tuple(fields))))
+
+    def count(self) -> DataFrame:
+        from spark_rapids_tpu_torch.sql import functions as F
+        return self.agg(F.count("*").alias("count"))
+
+    def _simple(self, kind, *cols) -> DataFrame:
+        """``kind`` of each named column, or of every numeric column
+        that is not a grouping key."""
+        from spark_rapids_tpu_torch.sql import functions as F
+        targets = cols or [
+            f.name for f in self.df.schema.fields
+            if T.is_numeric(f.dtype) and f.name not in self.names]
+        fn = getattr(F, kind)
+        return self.agg(*[fn(col(c)).alias(f"{kind}({c})")
+                          for c in targets])
+
+    def sum(self, *cols) -> DataFrame:
+        return self._simple("sum", *cols)
+
+    def min(self, *cols) -> DataFrame:
+        return self._simple("min", *cols)
+
+    def max(self, *cols) -> DataFrame:
+        return self._simple("max", *cols)
+
+    def avg(self, *cols) -> DataFrame:
+        return self._simple("avg", *cols)
+
+    mean = avg

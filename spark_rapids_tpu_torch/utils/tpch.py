@@ -283,7 +283,13 @@ def q6(session, li: pa.Table):
 
 def q1(session, li: pa.Table):
     """TPC-H q1 (``bench.q1``): pricing summary report."""
-    return (session.createDataFrame(li)
+    return q1_over(session.createDataFrame(li))
+
+
+def q1_over(df):
+    """q1's projection, filter, aggregate and order over a DataFrame of
+    lineitem rows (a union, a sample)."""
+    return (df
             .select("l_returnflag", "l_linestatus", "l_quantity",
                     "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
             .filter(col("l_shipdate") <= _D(1998, 9, 2))

@@ -224,13 +224,8 @@ def _raises_cases():
     ]
 
 
-# the limits have no device exec in the port yet (ROADMAP A.5): where the
-# JAX package runs a bare limit on the device, the port falls back
-LIMIT_FALLBACK = [
-    "!Exec <CpuLocalLimitExec> cannot run on TPU because no TPU rule for "
-    "exec CpuLocalLimitExec",
-    "!Exec <CpuGlobalLimitExec> cannot run on TPU because no TPU rule for "
-    "exec CpuGlobalLimitExec"]
+# a bare limit runs on the device in both packages: no fallback line
+LIMIT_FALLBACK = []
 
 
 @pytest.mark.parametrize("build, conf, what", _raises_cases())
@@ -239,8 +234,8 @@ def test_unported_branch_raises(build, conf, what):
     join); a join the JAX package keeps on the CPU (a residual condition
     on a left join, mixed-width int keys on a full join, key types of
     different families) falls back to the port's CPU join with the JAX
-    package's result and fallback report, and so does a bare limit (with
-    the report of the port's CPU-only limits)."""
+    package's result and fallback report.  A bare limit runs on the
+    device with the JAX package's result and its empty report."""
     session = TpuSession(dict(conf), device="cpu")
     if what is not None:
         with pytest.raises(NotImplementedError, match=what):
@@ -254,8 +249,10 @@ def test_unported_branch_raises(build, conf, what):
     assert bench._rows_equal(got, want, tol=1e-6)
     want_report = jdf._last_override.fallback_report()
     if build.__name__ == "bare_limit":
-        assert want_report == []
-        want_report = LIMIT_FALLBACK
+        assert want_report == LIMIT_FALLBACK
+        tree = df._last_plan.tree_string()
+        assert "*TpuGlobalLimit [3]" in tree and "*TpuLocalLimit [3]" in tree
+        assert tree == jdf._last_plan.tree_string()
     else:
         assert want_report  # the JAX package falls back too
     assert df._last_override.fallback_report() == want_report

@@ -9,8 +9,10 @@
   unavailable.
 * The ``spark.rapids.*`` conf is validated as the JAX package's is, and
   what the slice does not port raises ``NotImplementedError`` instead of
-  running elsewhere; an operator the port has only on the CPU (a bare
-  limit) falls back there visibly, in the plan rewrite's report.
+  running elsewhere; a bare limit runs on the device, with the JAX
+  package's result and its empty fallback report.  The kill switches of
+  the limits, union, range, sample and expand are valid names, and each
+  turned off falls back with the JAX package's reason.
 """
 
 import ast
@@ -86,6 +88,13 @@ def test_import_check_covers_the_exchange_slice():
         assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
+def test_import_check_covers_the_operators_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("parallel/__init__.py", "parallel/shuffle.py",
+                "exec/sort.py", "exec/misc.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
+
+
 def test_session_without_cpu_raises_when_cuda_is_unavailable(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
@@ -124,10 +133,45 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.sql.adaptive.advisoryPartitionSizeInBytes": "big"},
      "cannot parse byte"),
     ({"spark.rapids.tpu.exchange.donate": True}, "unknown spark.rapids"),
+    ({"spark.rapids.sql.exec.LocalLimit": False}, None),
+    ({"spark.rapids.sql.exec.GlobalLimit": False}, None),
+    ({"spark.rapids.sql.exec.Union": False}, None),
+    ({"spark.rapids.sql.exec.Range": False}, None),
+    ({"spark.rapids.sql.exec.Sample": False}, None),
+    ({"spark.rapids.sql.exec.Expand": False}, None),
 ])
 def test_conf_is_validated(conf, match):
-    with pytest.raises(ValueError, match=match):
-        TpuSession(conf, device="cpu")
+    """A bad key or value raises (``match``); a kill switch of an exec
+    (``match`` None) is accepted, and on a query holding that exec the
+    exec falls back with the JAX package's report and result."""
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            TpuSession(conf, device="cpu")
+        return
+    from spark_rapids_tpu.sql import functions as JF
+    from spark_rapids_tpu.sql.session import TpuSession as JaxSession
+    (key,) = conf
+    build = _KILL_SWITCH_QUERIES[key.rsplit(".", 1)[1]]
+    df = build(TpuSession(dict(conf), device="cpu"), F)
+    got = df.toArrow()
+    jdf = build(JaxSession(dict(conf)), JF)
+    want = jdf.toArrow()
+    report = df._last_override.fallback_report()
+    assert report == jdf._last_override.fallback_report()
+    assert report and all(f"{key}=false" in line for line in report)
+    assert repr(got.to_pylist()) == repr(want.to_pylist())
+
+
+_KILL_SWITCH_QUERIES = {
+    "LocalLimit": lambda s, F: s.createDataFrame(_table()).limit(2),
+    "GlobalLimit": lambda s, F: s.createDataFrame(_table()).limit(2),
+    "Union": lambda s, F: s.createDataFrame(_table()).union(
+        s.createDataFrame(_table())),
+    "Range": lambda s, F: s.range(2, 9, 2),
+    "Sample": lambda s, F: s.createDataFrame(_table()).sample(0.5, 3),
+    "Expand": lambda s, F: s.createDataFrame(_table()).rollup("s").agg(
+        F.count("*").alias("c")).orderBy("s", "c"),
+}
 
 
 def test_exchange_confs_read_as_the_jax_package_reads_them():
@@ -198,8 +242,8 @@ def _table():
 ])
 def test_outside_the_slice_raises(build, what):
     """What the slice does not port raises naming itself; a bare limit
-    (``what`` None), which the port has on the CPU only, falls back
-    there with the rewrite's report and the JAX package's result."""
+    (``what`` None) runs on the device, with the JAX package's result
+    and its empty fallback report."""
     df = TpuSession(device="cpu").createDataFrame(_table())
     if what is not None:
         with pytest.raises(NotImplementedError, match=what):
@@ -208,11 +252,12 @@ def test_outside_the_slice_raises(build, what):
     from spark_rapids_tpu.sql.session import TpuSession as JaxSession
     out = build(df)
     got = out.toArrow()
-    want = build(JaxSession().createDataFrame(_table())).toArrow()
+    jout = build(JaxSession().createDataFrame(_table()))
+    want = jout.toArrow()
     assert got.equals(want) and got.num_rows == 2
-    assert out.fallback_summary()["fallback_reasons"] == [
-        "CpuGlobalLimitExec: no TPU rule for exec CpuGlobalLimitExec",
-        "CpuLocalLimitExec: no TPU rule for exec CpuLocalLimitExec"]
+    assert out.fallback_summary() == jout.fallback_summary()
+    assert out.fallback_summary()["fallback_reasons"] == []
+    assert out._last_override.fallback_report() == []
 
 
 def test_host_device_round_trip_keeps_nulls_and_strings():
