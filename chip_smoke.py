@@ -115,14 +115,29 @@ result line is not printed):
    out-of-core sort, at least 3 output batches, spilled bytes, rows
    equal to pyarrow's stable order and to the in-core run), each
    aggregate a path of its own; 0 fallback operators throughout;
-14. the string expressions of the string queries (LIKE, NOT LIKE,
+14. ``[strings]``: the rest of the string expressions, the device regex
+   engine and the string casts at SF1 under ``test.enabled`` with
+   ``incompatibleOps`` and ``castStringToFloat`` on, each run a path of
+   its own against this script's pyarrow reference with 0 fallback
+   operators: the phone-code report over customer (a DFA ``rlike``,
+   grouped by ``cast(substring(c_phone, 1, 2) as int)``), the
+   part-catalogue cleanup over part (ten string expressions row for
+   row, and grouped by ``regexp_extract`` and ``lower``, with the tuple
+   hash of its keys timed alone), the comment search over orders
+   (``rlike('special.*requests')`` selects q13's LIKE rows; the
+   arbiter's ``peakReserved``), the cast round trip over lineitem (all
+   6,000,000 rows survive int -> string -> long), the same catalogue and
+   a float cast to string in a plain session (the JAX package's
+   fallback reasons, the same rows), and each new expression alone
+   against its byte bound; the DFA's state count per pattern;
+15. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-15. the kernel at every shape the main path (queries, variants,
-   fallback cases, partitions, exchanges and operators) launched it with, bit for
-   bit against its plain version, timed as in phase 3 and by a ring of
-   distinct inputs larger than the L2 cache
+16. the kernel at every shape the main path (queries, variants,
+   fallback cases, partitions, exchanges, operators and strings)
+   launched it with, bit for bit against its plain version, timed as
+   in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
    ``torch.profiler`` after an L2-evicting write (``traced_ms``) and
    read (``traced_clean_ms``), called from a list of limbs through
@@ -130,7 +145,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-16. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+17. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -522,6 +537,546 @@ def operators_phase(dev, tables, refs, CB, KN, range_end=RANGE_END
     print(f"[operators] phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return counts
+
+
+STRINGS_CONF = {"spark.rapids.sql.incompatibleOps.enabled": True,
+                "spark.rapids.sql.castStringToFloat.enabled": True}
+PHONE_PATTERN = "^(1[3-9]|2[0-9])-[0-9]{3}-[0-9]{4}$"
+COMMENT_PATTERN = "special.*requests"
+NAME_WORD = "[a-z]+$"
+VOWELS = "[aeiou]+"
+# the plan rewrite's reasons for the incompatible expressions and the
+# float cast (the JAX package's texts)
+INCOMPAT_REASONS = {
+    "Lower": "expression Lower is not fully compatible with Spark "
+             "(ASCII-only case mapping on device; non-ASCII bytes pass "
+             "through unchanged); set "
+             "spark.rapids.sql.incompatibleOps.enabled=true to enable",
+    "StringReverse": "expression StringReverse is not fully compatible "
+                     "with Spark (byte-based reverse differs from Spark on "
+                     "non-ASCII); set "
+                     "spark.rapids.sql.incompatibleOps.enabled=true to "
+                     "enable",
+    "StringPad": "expression StringPad is not fully compatible with Spark "
+                 "(byte-based padding differs from Spark on non-ASCII); "
+                 "set spark.rapids.sql.incompatibleOps.enabled=true to "
+                 "enable"}
+FLOAT_TO_STRING_REASON = ("expression Cast: cast floating→string not on "
+                          "device (Java shortest-round-trip formatting)")
+
+
+def catalogue_query(s, part):
+    """Run 2: the part-catalogue cleanup, ten string expressions sorted
+    by p_partkey."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    return s.createDataFrame(part).select(
+        col("p_partkey"),
+        F.lower(col("p_type")).alias("type_lc"),
+        F.length(col("p_name")).alias("name_len"),
+        F.locate("green", col("p_name")).alias("green_at"),
+        F.concat(col("p_mfgr"), F.lit("/"), col("p_brand")).alias(
+            "mfgr_brand"),
+        F.lpad(col("p_size").cast("string"), 4, "0").alias("size4"),
+        F.reverse(col("p_container")).alias("container_rev"),
+        F.rtrim(F.rpad(col("p_brand"), 12, " ")).alias("brand"),
+        F.replace(col("p_type"), "BRASS", "Cu-Zn").alias("type_cu"),
+        F.regexp_replace(col("p_name"), VOWELS, "").alias("consonants"),
+        F.regexp_extract(col("p_name"), NAME_WORD, 0).alias("last_word"),
+    ).orderBy("p_partkey")
+
+
+def ref_catalogue(part):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    srt = part.take(pc.sort_indices(part, sort_keys=[("p_partkey",
+                                                      "ascending")]))
+    name, ptype = srt["p_name"], srt["p_type"]
+    last = pc.struct_field(pc.extract_regex(name, f"(?P<w>{NAME_WORD})"),
+                           [0])
+    return pa.table({
+        "p_partkey": srt["p_partkey"],
+        "type_lc": pc.utf8_lower(ptype),
+        "name_len": pc.utf8_length(name),
+        "green_at": pc.add(pc.find_substring(name, "green"), 1),
+        "mfgr_brand": pc.binary_join_element_wise(
+            srt["p_mfgr"], pa.array(["/"] * srt.num_rows), srt["p_brand"],
+            ""),
+        "size4": pc.utf8_lpad(pc.cast(srt["p_size"], pa.string()), 4, "0"),
+        "container_rev": pc.cast(pc.binary_reverse(
+            pc.cast(srt["p_container"], pa.binary())), pa.string()),
+        "brand": pc.utf8_rtrim(pc.utf8_rpad(srt["p_brand"], 12, " "), " "),
+        "type_cu": pc.replace_substring(ptype, "BRASS", "Cu-Zn"),
+        "consonants": pc.replace_substring_regex(name, VOWELS, ""),
+        "last_word": pc.fill_null(last, ""),
+    })
+
+
+def catalogue_grouped(s, part):
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    return s.createDataFrame(part).groupBy(
+        F.regexp_extract(col("p_name"), NAME_WORD, 0).alias("last_word"),
+        F.lower(col("p_type")).alias("type_lc")).agg(
+        F.count("*").alias("n"),
+        F.sum(F.length(col("p_name"))).alias("name_bytes"))
+
+
+def ref_catalogue_grouped(part):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    last = pc.fill_null(pc.struct_field(pc.extract_regex(
+        part["p_name"], f"(?P<w>{NAME_WORD})"), [0]), "")
+    t = pa.table({"last_word": last,
+                  "type_lc": pc.utf8_lower(part["p_type"]),
+                  "len": pc.cast(pc.utf8_length(part["p_name"]),
+                                 pa.int64())})
+    g = t.group_by(["last_word", "type_lc"]).aggregate(
+        [([], "count_all"), ("len", "sum")])
+    return pa.table({"last_word": g["last_word"], "type_lc": g["type_lc"],
+                     "n": g["count_all"], "name_bytes": g["len_sum"]})
+
+
+def phone_report(s, customer):
+    """Run 1: customers with a phone of country code 13-29, counted and
+    summed by that code, cast to int."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    return s.createDataFrame(customer).filter(
+        col("c_phone").rlike(PHONE_PATTERN)).groupBy(
+        F.substring(col("c_phone"), 1, 2).cast("int").alias("cc")).agg(
+        F.count("*").alias("n"), F.sum("c_acctbal").alias("bal"))
+
+
+def ref_phone_report(customer):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    c = customer.filter(pc.match_substring_regex(customer["c_phone"],
+                                                 PHONE_PATTERN))
+    t = pa.table({"cc": pc.cast(pc.utf8_slice_codeunits(c["c_phone"], 0, 2),
+                                pa.int32()),
+                  "bal": c["c_acctbal"]})
+    g = t.group_by("cc").aggregate([([], "count_all"), ("bal", "sum")])
+    return pa.table({"cc": g["cc"], "n": g["count_all"],
+                     "bal": g["bal_sum"]})
+
+
+def comment_search(s, orders):
+    """Run 3: orders whose comment matches special.*requests, the
+    comment bytes summed by priority."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    return s.createDataFrame(orders).filter(
+        col("o_comment").rlike(COMMENT_PATTERN)).groupBy(
+        "o_orderpriority").agg(
+        F.sum(F.length(col("o_comment"))).alias("comment_bytes"))
+
+
+def ref_comment_search(orders):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    o = orders.filter(pc.match_substring_regex(orders["o_comment"],
+                                               COMMENT_PATTERN))
+    t = pa.table({"o_orderpriority": o["o_orderpriority"],
+                  "len": pc.cast(pc.utf8_length(o["o_comment"]),
+                                 pa.int64())})
+    g = t.group_by("o_orderpriority").aggregate([("len", "sum")])
+    return pa.table({"o_orderpriority": g["o_orderpriority"],
+                     "comment_bytes": g["len_sum"]})
+
+
+def cast_queries(s, li):
+    """Run 4: the cast round trip over lineitem, three aggregates."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    d = s.createDataFrame(li)
+    return {
+        "round trip": d.filter(col("l_orderkey").cast("string")
+                               .cast("long") == col("l_orderkey"))
+        .agg(F.count("*").alias("n")),
+        "parsed sum": d.agg(F.sum(F.concat(
+            col("l_partkey").cast("string"), F.lit(".25"))
+            .cast("double")).alias("s")),
+        "flag count": d.filter((col("l_returnflag") == "R").cast("string")
+                               .cast("boolean"))
+        .agg(F.count("*").alias("n"))}
+
+
+def ref_cast_queries(li):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    parsed = pc.cast(pc.binary_join_element_wise(
+        pc.cast(li["l_partkey"], pa.string()),
+        pa.array([".25"] * li.num_rows), ""), pa.float64())
+    back = pc.cast(pc.cast(li["l_orderkey"], pa.string()), pa.int64())
+    flag = pc.cast(pc.cast(pc.equal(li["l_returnflag"], "R"), pa.string()),
+                   pa.bool_())
+    return {
+        "round trip": pa.table({"n": pa.array([pc.sum(pc.equal(
+            back, li["l_orderkey"])).as_py()], pa.int64())}),
+        "parsed sum": pa.table({"s": pa.array([pc.sum(parsed).as_py()],
+                                              pa.float64())}),
+        "flag count": pa.table({"n": pa.array([pc.sum(flag).as_py()],
+                                              pa.int64())})}
+
+
+def float_to_string(s, li):
+    from spark_rapids_tpu_torch.sql.column import col
+    return s.createDataFrame(li).select(
+        col("l_extendedprice").cast("string").alias("price"))
+
+
+def ref_float_to_string(li):
+    """Java's Double.toString, which for |x| in [1e-3, 1e7) prints as
+    Python's repr does."""
+    import numpy as np
+    import pyarrow as pa
+    v = li["l_extendedprice"].to_numpy()
+    check(bool(((np.abs(v) >= 1e-3) & (np.abs(v) < 1e7)).all()),
+          "l_extendedprice outside [1e-3, 1e7): Java's format differs")
+    return pa.table({"price": pa.array([repr(float(x)) for x in v])})
+
+
+def new_string_exprs():
+    """``(name, table, columns, prep, build)`` of each expression the
+    string slice added: ``build(refs)`` over the scan's columns, or over
+    the output of ``prep(refs)`` (the casts from a string time the cast
+    alone, on the string the main path's inner cast makes)."""
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.ops import expressions as E
+    from spark_rapids_tpu_torch.ops import strings as S
+
+    def lit(v):
+        return E.Literal(v, T.StringT)
+
+    return (
+        ("length", "part", ["p_name"], None, lambda r: S.Length(r[0])),
+        ("upper", "part", ["p_type"], None, lambda r: S.Upper(r[0])),
+        ("lower", "part", ["p_type"], None, lambda r: S.Lower(r[0])),
+        ("trim", "part", ["p_container"], None,
+         lambda r: S.Trim(r[0], "both")),
+        ("ltrim", "part", ["p_container"], None,
+         lambda r: S.Trim(r[0], "leading")),
+        ("rtrim", "part", ["p_container"], None,
+         lambda r: S.Trim(r[0], "trailing")),
+        ("locate 'green'", "part", ["p_name"], None,
+         lambda r: S.StringLocate(lit("green"), r[0], 1)),
+        ("replace 'BRASS' 'Cu-Zn'", "part", ["p_type"], None,
+         lambda r: S.StringReplace(r[0], "BRASS", "Cu-Zn")),
+        ("concat p_mfgr '/' p_brand", "part", ["p_mfgr", "p_brand"], None,
+         lambda r: S.Concat([r[0], lit("/"), r[1]])),
+        ("reverse", "part", ["p_container"], None,
+         lambda r: S.StringReverse(r[0])),
+        ("lpad 4 '0'", "part", ["p_brand"], None,
+         lambda r: S.StringPad(r[0], 4, "0", True)),
+        ("rpad 12 ' '", "part", ["p_brand"], None,
+         lambda r: S.StringPad(r[0], 12, " ", False)),
+        ("cast long as string", "lineitem", ["l_orderkey"], None,
+         lambda r: E.Cast(r[0], T.StringT)),
+        ("cast boolean as string", "lineitem", ["l_returnflag"],
+         lambda r: S.StringComparison("eq", r[0], lit("R")),
+         lambda r: E.Cast(r[0], T.StringT)),
+        ("cast string as long", "lineitem", ["l_orderkey"],
+         lambda r: E.Cast(r[0], T.StringT),
+         lambda r: E.Cast(r[0], T.LongT)),
+        ("cast string as boolean", "lineitem", ["l_returnflag"],
+         lambda r: E.Cast(S.StringComparison("eq", r[0], lit("R")),
+                          T.StringT),
+         lambda r: E.Cast(r[0], T.BooleanT)),
+        ("cast string as double", "lineitem", ["l_partkey"],
+         lambda r: S.Concat([E.Cast(r[0], T.StringT), lit(".25")]),
+         lambda r: E.Cast(r[0], T.DoubleT)),
+        (f"rlike {PHONE_PATTERN!r}", "customer", ["c_phone"], None,
+         lambda r: S.RLike(r[0], PHONE_PATTERN)),
+        (f"rlike {COMMENT_PATTERN!r}", "orders", ["o_comment"], None,
+         lambda r: S.RLike(r[0], COMMENT_PATTERN)),
+        (f"regexp_extract {NAME_WORD!r} 0", "part", ["p_name"], None,
+         lambda r: S.RegexpExtract(r[0], NAME_WORD, 0)),
+        (f"regexp_replace {VOWELS!r} ''", "part", ["p_name"], None,
+         lambda r: S.RegexpReplace(r[0], VOWELS, "")),
+    )
+
+
+def _col_bytes(c) -> int:
+    """A column's data and lengths bytes (its validity not counted, as
+    ``[string expression]`` counts them)."""
+    n = c.data.numel() * c.data.element_size()
+    return n + (0 if c.lengths is None else 4 * c.capacity)
+
+
+def new_string_expr_times(tables, session) -> list:
+    """Each of ``new_string_exprs()`` alone on the card at the batches of
+    its scan (``host_to_device`` at the session's batch rows): the time
+    of the expression over those batches (``cuda_ms``: events around
+    the calls, host time included) against its byte bound, every input
+    column's bytes read once and the output's written once, over the
+    memory rate."""
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.column import (
+        DeviceBatch, host_to_device)
+    from spark_rapids_tpu_torch.ops import expressions as E
+    conf = session.rapids_conf()
+    rows = []
+    for name, table, columns, prep, build in new_string_exprs():
+        tbl = tables[table].select(columns)
+        batches = [host_to_device(tbl.slice(lo, conf.batch_rows),
+                                  session.device,
+                                  min_bucket=conf.min_bucket_rows)
+                   for lo in range(0, tbl.num_rows, conf.batch_rows)]
+        refs = [E.BoundReference(i, f.dtype)
+                for i, f in enumerate(batches[0].schema.fields)]
+        if prep is not None:
+            inner = prep(refs)
+            batches = [DeviceBatch(
+                T.StructType((T.StructField("x", inner.dtype),)),
+                (inner.eval(b),), b.sel) for b in batches]
+            refs = [E.BoundReference(0, inner.dtype)]
+        expr = build(refs)
+        outs = [expr.eval(b) for b in batches]
+        in_bytes = sum(_col_bytes(c) for b in batches for c in b.columns)
+        out_bytes = sum(_col_bytes(o) for o in outs)
+        ms = cuda_ms(lambda: [expr.eval(b) for b in batches], iters=10)
+        bound = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+        line = {"expression": name, "table": table, "columns": columns,
+                "rows": tbl.num_rows,
+                "batches": [list(b.columns[0].data.shape)
+                            for b in batches],
+                "output_width": (None if outs[0].lengths is None
+                                 else int(outs[0].data.shape[1])),
+                "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+                "pct_of_bound": 100.0 * bound / ms}
+        rx = getattr(expr, "_rx", None)
+        if rx is not None and rx() is not None:
+            line["dfa_states"] = int(rx().table.shape[0])
+        rows.append(line)
+        del batches, outs
+    return rows
+
+
+def strings_phase(dev, tables, CB, KN, query_shapes) -> dict:
+    """The string slice's expressions at SF1 under ``SESSION_CONF``
+    with ``STRINGS_CONF`` (any fallback raises), each run a path of its
+    own (counts set to 0 before its cold run, read after; the scan cache
+    cleared once, at the start), each against this script's pyarrow
+    reference, then 2 warm runs:
+
+    1. the phone-code report over customer: ``c_phone`` against a
+       pattern outside the simple transpile (the DFA runs on the card),
+       grouped by ``cast(substring(c_phone, 1, 2) as int)`` with count
+       and ``sum(c_acctbal)``;
+    2. the part-catalogue cleanup over part: ten string expressions
+       sorted by ``p_partkey``, row for row, and its grouped form by
+       ``regexp_extract(p_name, '[a-z]+$', 0)`` and ``lower(p_type)``
+       (more than 3 key limbs: the tuple hash, timed alone beside);
+    3. the comment search over orders: ``rlike('special.*requests')``
+       selects exactly q13's ``like('%special%requests%')`` rows, then
+       the comment bytes by priority; the arbiter's ``peakReserved`` and
+       ``max_memory_allocated`` of the run;
+    4. the cast round trip over lineitem: the int -> string -> long
+       round trip keeps all 6,000,000 rows, a string built by concat
+       parses to double and sums, a boolean round-trips through a
+       string;
+    5. fallback: run 2's select and ``cast(l_extendedprice as string)``
+       in a session without test mode and without ``incompatibleOps``:
+       the report names ``Lower``, ``StringReverse``, ``StringPad`` and
+       the float cast with the JAX package's reasons, and the rows
+       equal the device run's and the reference;
+    6. every new expression alone at the batches of its scan, against
+       its byte bound.
+
+    Returns the counts of the runs, by name."""
+    import pyarrow.compute as pc
+    import torch
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.ops import regex_device as RXD
+    from spark_rapids_tpu_torch.runtime import memory as MM
+    from spark_rapids_tpu_torch.sql.column import col
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t_phase = time.perf_counter()
+    s = TpuSession(dict(SESSION_CONF, **STRINGS_CONF), device=dev)
+    counts, lines = {}, {}
+
+    def dfa_states(*patterns):
+        return {p: int(RXD.compile_regex(p).table.shape[0])
+                for p in patterns}
+
+    def run(name, build, want, ordered=False, hashed=True):
+        """A run's path: counts to 0, the cold run, read; against
+        ``want``; 2 warm runs equal to the cold one."""
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        df = build()
+        got, cold = timed(df)
+        counts[name] = c = path_counts(df, CB, KN)
+        print(f"[main path] strings {name} " + json.dumps(c), flush=True)
+        fb = df.fallback_summary()
+        check(fb["fallback_ops"] == 0 and fb["device_ops"] > 0,
+              f"strings {name}: plan rewrite fell back: {fb}")
+        check(df._last_override.fallback_report() == [],
+              f"strings {name}: {df._last_override.fallback_report()}")
+        check(c["collision_fallbacks"] == 0,
+              f"strings {name}: hash-collision fallbacks")
+        check(not hashed or c["hash_pairs_launches"] > 0,
+              f"strings {name}: hash_pairs was not launched")
+        check(got.column_names == want.column_names,
+              f"strings {name} columns {got.column_names}")
+        if ordered:
+            for cname in want.column_names:
+                check(got[cname].to_pylist() == want[cname].to_pylist(),
+                      f"strings {name}: column {cname} differs from the "
+                      "pyarrow reference")
+        else:
+            check(rows_equal(got, want), f"strings {name} differs from "
+                  f"its pyarrow reference:\n{got}\n{want}")
+        warm = []
+        for _ in range(2):
+            out, wall = timed(build())
+            warm.append(wall)
+            check(rows_equal(out, got, 0.0),
+                  f"strings {name}: a warm run differs")
+        lines[name] = line = {
+            "rows": got.num_rows, "cold_wall_s": cold,
+            "warm_wall_s": statistics.median(warm), "warm_walls_s": warm,
+            "hash_pairs_launches": c["hash_pairs_launches"],
+            "hash_pairs_shapes": c["shapes"],
+            "new_hash_pairs_shapes": sorted(set(c["shapes"])
+                                            - query_shapes),
+            "fallback_ops": 0, "equal_reference": True}
+        return got, line
+
+    clear_scan_cache()
+    customer, part = tables["customer"], tables["part"]
+    orders, li = tables["orders"], tables["lineitem"]
+
+    # -- 1. the phone-code report
+    want = ref_phone_report(customer)
+    check(want.num_rows > 0, "reference phone report is empty")
+    _, line = run("phone report", lambda: phone_report(s, customer), want)
+    line["dfa_states"] = dfa_states(PHONE_PATTERN)
+    print("[strings] phone report " + json.dumps(line), flush=True)
+
+    # -- 2. the part catalogue, as a select and grouped
+    want = ref_catalogue(part)
+    selected, line = run("catalogue", lambda: catalogue_query(s, part), want,
+                         ordered=True, hashed=False)
+    line["dfa_states"] = dfa_states(VOWELS, NAME_WORD)
+    print("[strings] catalogue " + json.dumps(line), flush=True)
+    want = ref_catalogue_grouped(part)
+    _, line = run("catalogue grouped", lambda: catalogue_grouped(s, part),
+                  want)
+    line["dfa_states"] = dfa_states(NAME_WORD)
+    line["tuple_hash"] = tuple_hash_times(s, part)
+    print("[strings] catalogue grouped " + json.dumps(line), flush=True)
+
+    # -- 3. the comment search, with the memory it takes
+    def by_rlike():
+        return s.createDataFrame(orders).filter(
+            col("o_comment").rlike(COMMENT_PATTERN)).select("o_orderkey")
+
+    def by_like():
+        return s.createDataFrame(orders).filter(
+            col("o_comment").like("%special%requests%")).select(
+            "o_orderkey")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    want = ref_comment_search(orders)
+    _, line = run("comment search", lambda: comment_search(s, orders), want)
+    mgr = MM.peek_manager()
+    line.update(peakReserved=mgr.metrics["peakReserved"],
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                dfa_states=dfa_states(COMMENT_PATTERN))
+    rl, _ = timed(by_rlike())
+    lk, _ = timed(by_like())
+    ref_keys = orders.filter(pc.match_like(
+        orders["o_comment"], "%special%requests%"))["o_orderkey"]
+    check(rl.num_rows > 0 and sorted(rl["o_orderkey"].to_pylist())
+          == sorted(lk["o_orderkey"].to_pylist())
+          == sorted(ref_keys.to_pylist()),
+          "strings comment search: rlike and q13's LIKE select different "
+          "rows")
+    line["rlike_rows_equal_like_rows"] = rl.num_rows
+    print("[strings] comment search " + json.dumps(line), flush=True)
+
+    # -- 4. the cast round trip
+    wants = ref_cast_queries(li)
+    check(wants["round trip"]["n"][0].as_py() == li.num_rows,
+          "reference cast round trip lost rows")
+    for name in ("round trip", "parsed sum", "flag count"):
+        got, line = run(f"cast {name}",
+                        lambda name=name: cast_queries(s, li)[name],
+                        wants[name], hashed=False)
+        if name == "round trip":
+            check(got["n"][0].as_py() == li.num_rows
+                  == int(6_000_000 * SF),
+                  f"cast round trip kept {got['n'][0]} rows")
+        line["result"] = got.to_pylist()[0]
+        print(f"[strings] cast {name} " + json.dumps(line), flush=True)
+
+    # -- 5. the same without test mode and without incompatibleOps
+    plain = TpuSession(device=dev)
+    df = catalogue_query(plain, part)
+    got, wall = timed(df)
+    report = df._last_override.fallback_report()
+    for cls, reason in INCOMPAT_REASONS.items():
+        check(any(reason in r for r in report),
+              f"strings fallback: no {cls} reason in {report}")
+    check(got.equals(selected), "strings fallback: the catalogue differs "
+          "from its device run")
+    fb = df.fallback_summary()
+    check(fb["fallback_ops"] > 0, f"strings fallback: {fb}")
+    df2 = float_to_string(plain, li)
+    got2, wall2 = timed(df2)
+    report2 = df2._last_override.fallback_report()
+    check(any(FLOAT_TO_STRING_REASON in r for r in report2),
+          f"strings fallback: no float cast reason in {report2}")
+    check(got2["price"].to_pylist()
+          == ref_float_to_string(li)["price"].to_pylist(),
+          "strings fallback: cast(l_extendedprice as string) differs from "
+          "Java's format")
+    line = {"catalogue": {"wall_s": wall, "fallback": fb,
+                          "report": report, "equal_device_run": True},
+            "cast l_extendedprice as string": {
+                "rows": got2.num_rows, "wall_s": wall2,
+                "fallback": df2.fallback_summary(), "report": report2,
+                "equal_reference": True}}
+    print("[strings] fallback " + json.dumps(line), flush=True)
+    del got2
+
+    # -- 6. each new expression alone
+    for row in new_string_expr_times(tables, s):
+        print("[strings] expression " + json.dumps(row), flush=True)
+    clear_scan_cache()
+    print(f"[strings] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts
+
+
+def tuple_hash_times(s, part) -> dict:
+    """B.2's Python tuple-hash loop on run 2's grouped keys: the key
+    columns evaluated on the card at the scan's batches, then
+    ``ordering.group_sort_limbs`` (more than 3 limbs: four murmur3
+    passes over each string key byte by byte) timed alone."""
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.column import host_to_device
+    from spark_rapids_tpu_torch.ops import expressions as E
+    from spark_rapids_tpu_torch.ops import ordering as O
+    from spark_rapids_tpu_torch.ops import strings as S
+    conf = s.rapids_conf()
+    tbl = part.select(["p_name", "p_type"])
+    batches = [host_to_device(tbl.slice(lo, conf.batch_rows), s.device,
+                              min_bucket=conf.min_bucket_rows)
+               for lo in range(0, tbl.num_rows, conf.batch_rows)]
+    keys = [S.RegexpExtract(E.BoundReference(0, T.StringT), NAME_WORD, 0),
+            S.Lower(E.BoundReference(1, T.StringT))]
+    cols = [[k.eval(b) for k in keys] for b in batches]
+    limbs = [O.group_sort_limbs(c, b.sel)[0] for c, b in zip(cols, batches)]
+    return {"batches": [[int(b.capacity)] + [int(c.data.shape[1])
+                                             for c in cs]
+                        for b, cs in zip(batches, cols)],
+            "limbs_after_hash": len(limbs[0]),
+            "ms": cuda_ms(lambda: [O.group_sort_limbs(c, b.sel)
+                                   for c, b in zip(cols, batches)],
+                          iters=5)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2746,6 +3301,16 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[operators] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- the string expressions, the regex engine and the string casts -------
+    str_counts = strings_phase(dev, tables, CB, KN, query_shapes)
+    check(str_counts["phone report"]["hash_pairs_launches"] > 0
+          and str_counts["catalogue grouped"]["hash_pairs_launches"] > 0,
+          "hash_pairs was not launched on [strings] runs 1-2")
+    for c in str_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[strings] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -2828,7 +3393,8 @@ def main() -> int:
         "launches": sum(c["hash_pairs_launches"] for c in
                         list(counts.values()) + list(var_counts.values())
                         + list(fb_counts.values()) + new_paths
-                        + list(op_counts.values())),
+                        + list(op_counts.values())
+                        + list(str_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -2841,6 +3407,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in ex_counts.items()},
         "launches_per_operators_path": {
             k: c["hash_pairs_launches"] for k, c in op_counts.items()},
+        "launches_per_strings_run": {
+            k: c["hash_pairs_launches"] for k, c in str_counts.items()},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
         "ms_ring": kernel_row["ms_ring"],

@@ -4,7 +4,8 @@ The same builder DSL and the same key names as the JAX package's
 ``conf.py`` [REF: sql-plugin/../RapidsConf.scala :: RapidsConf], cut to
 the entries the slices ported so far use (the plan rewrite's switches,
 the TPC-H queries, the join strategies, the memory arbiter of the
-scan cache and the exchange plane).  Values are validated the same way: an unknown
+scan cache, the exchange plane and the string expressions' gates).
+Values are validated the same way: an unknown
 ``spark.rapids.*`` key raises, and so does a value the entry's checker
 rejects.  The per-operator kill switches ``spark.rapids.sql.exec.<Name>``
 and ``spark.rapids.sql.expression.<Name>`` are parsed as booleans
@@ -200,6 +201,23 @@ HAS_NANS = (
          "does not have yet.")
     .boolean()
     .create_with_default(True)
+)
+
+INCOMPATIBLE_OPS = (
+    conf("spark.rapids.sql.incompatibleOps.enabled")
+    .doc("Enable operators whose results differ from Spark CPU in corner "
+         "cases (documented per op).")
+    .boolean()
+    .create_with_default(False)
+)
+
+CAST_STRING_TO_FLOAT = (
+    conf("spark.rapids.sql.castStringToFloat.enabled")
+    .doc("Allow device string→float/double casts. Results can differ "
+         "from Java's parseDouble by 1 ulp beyond 15 significant digits "
+         "(same caveat as the reference's flag of this name).")
+    .boolean()
+    .create_with_default(False)
 )
 
 KERNEL_BACKENDS = ("auto", "cuda", "jnp")

@@ -611,7 +611,7 @@ class CaseWhen(Expression):
 
 
 # ---------------------------------------------------------------------------
-# casts  [REF: GpuCast.scala] — numeric and boolean only
+# casts  [REF: GpuCast.scala]: numeric, boolean and string
 # ---------------------------------------------------------------------------
 
 _INT_RANGES = {
@@ -627,13 +627,24 @@ def _castable(dt: T.DataType) -> bool:
         dt, (T.FloatType, T.DoubleType, T.BooleanType))
 
 
+def _string_castable(dt: T.DataType) -> bool:
+    """The other side of a cast from or to a string that the port has."""
+    return _castable(dt) or isinstance(
+        dt, (T.StringType, T.DateType, T.TimestampType))
+
+
 @dataclasses.dataclass
 class Cast(Expression):
     """Java's casts among int, long, float, double and boolean: integral
     narrowing wraps, floating to integral maps NaN to 0, saturates at the
     type's bounds and truncates toward zero, anything to boolean is
-    ``!= 0``.  Casts from or to strings, dates and decimals are not
-    ported and raise when built."""
+    ``!= 0``.  Casts from or to a string run on the device where
+    ``device_support_reason`` allows (integral and boolean both ways,
+    string to floating under ``castStringToFloat``) through
+    ``ops/strings.py``'s device casts, and on the host otherwise, with
+    the JAX package's host semantics.  Casts from or to decimals, and
+    between dates or timestamps and numbers, are not ported and raise
+    when built."""
 
     ansi_sensitive = True
     child: Expression
@@ -641,7 +652,11 @@ class Cast(Expression):
 
     def __post_init__(self):
         src, dst = self.child.dtype, self.dtype
-        if not (_castable(src) and _castable(dst)):
+        stringy = isinstance(src, T.StringType) or isinstance(
+            dst, T.StringType)
+        if not ((_castable(src) and _castable(dst)) or (
+                stringy and _string_castable(src)
+                and _string_castable(dst))):
             raise NotImplementedError(
                 f"spark_rapids_tpu_torch: Cast({self.child} as "
                 f"{dst.simple_name}) from {src.simple_name} is not "
@@ -651,14 +666,123 @@ class Cast(Expression):
     def children(self):
         return (self.child,)
 
+    def device_support_reason(self, conf):
+        """Per-combination device support (the tagging hook); None = ok.
+        The JAX package's reasons, less its decimal branches."""
+        from spark_rapids_tpu_torch import conf as C
+        src, dst = self.child.dtype, self.dtype
+        src_s = isinstance(src, T.StringType)
+        dst_s = isinstance(dst, T.StringType)
+        if not (src_s or dst_s):
+            return None
+        if src_s and (T.is_integral(dst) or isinstance(dst, T.BooleanType)):
+            return None
+        if src_s and isinstance(dst, (T.FloatType, T.DoubleType)):
+            if conf.get(C.CAST_STRING_TO_FLOAT):
+                return None
+            return ("cast string→floating can differ from Java by 1 ulp "
+                    "beyond 15 significant digits; set spark.rapids.sql."
+                    "castStringToFloat.enabled=true to run on device")
+        if dst_s and (T.is_integral(src) or isinstance(src, T.BooleanType)):
+            return None
+        if dst_s and isinstance(src, (T.FloatType, T.DoubleType)):
+            return ("cast floating→string not on device (Java "
+                    "shortest-round-trip formatting)")
+        return (f"cast {src.simple_name}→{dst.simple_name} not yet on "
+                "device")
+
     def eval(self, batch):
+        from spark_rapids_tpu_torch.ops import strings as S
         c = self.child.eval(batch)
+        src, dst = self.child.dtype, self.dtype
+        if isinstance(dst, T.StringType):
+            if isinstance(src, T.BooleanType):
+                return S.cast_bool_to_string_device(c)
+            if T.is_integral(src):
+                return S.cast_int_to_string_device(c)
+            raise NotImplementedError(f"cast {src}→string on device")
+        if isinstance(src, T.StringType):
+            if isinstance(dst, T.BooleanType):
+                return S.cast_string_to_bool_device(c)
+            if T.is_integral(dst):
+                return S.cast_string_to_int_device(c, dst)
+            if isinstance(dst, (T.FloatType, T.DoubleType)):
+                return S.cast_string_to_float_device(c, dst)
+            raise NotImplementedError(f"cast string→{dst} on device")
         return DeviceColumn(self.dtype, self._cast(c.data), c.validity)
 
     def eval_cpu(self, batch):
         c = self.child.eval_cpu(batch)
+        if isinstance(self.child.dtype, T.StringType) or isinstance(
+                self.dtype, T.StringType):
+            return self._cast_string_cpu(c)
         with np.errstate(all="ignore"):
             return HostCol(self.dtype, self._cast_h(c.data), c.validity)
+
+    def _cast_string_cpu(self, c: HostCol) -> HostCol:
+        """The JAX package's host string casts: a date or timestamp
+        becomes the string of its int32 days or int64 microseconds, and a
+        string parses into one as a number (its ``_cast_string_cpu``,
+        kept bit for bit)."""
+        src, dst = self.child.dtype, self.dtype
+        n = len(c.data)
+        if isinstance(dst, T.StringType):
+            out = np.empty(n, object)
+            for i in range(n):
+                v = c.data[i]
+                if isinstance(src, T.BooleanType):
+                    out[i] = "true" if v else "false"
+                elif isinstance(src, (T.FloatType, T.DoubleType)):
+                    out[i] = repr(float(v))
+                else:
+                    out[i] = str(v)
+            return HostCol(dst, out, c.validity)
+        # string -> numeric: invalid -> null (non-ANSI).  Integral casts
+        # accept decimal strings truncated toward zero ('3.7' -> 3) and
+        # null out-of-range values, matching Spark (and the device casts
+        # in ops/strings.py).
+        import re as _re
+        data = np.zeros(n, T.to_numpy_dtype(dst))
+        validity = c.valid_mask().copy()
+        int_pat = _re.compile(r"^([+-]?)(\d*)(?:\.(\d*))?$")
+        lo_hi = _INT_RANGES.get(type(dst))
+        if isinstance(dst, T.BooleanType):
+            for i in range(n):
+                if not validity[i]:
+                    continue
+                s = str(c.data[i]).strip().lower()
+                if s in ("true", "t", "yes", "y", "1"):
+                    data[i] = True
+                elif s in ("false", "f", "no", "n", "0"):
+                    data[i] = False
+                else:
+                    validity[i] = False
+            return HostCol(dst, data, validity)
+        for i in range(n):
+            if not validity[i]:
+                continue
+            s = str(c.data[i]).strip()
+            try:
+                if T.is_integral(dst):
+                    m = int_pat.match(s)
+                    if (not m or not (m.group(2) or m.group(3))):
+                        validity[i] = False
+                        continue
+                    v = int(m.group(2) or "0")
+                    if m.group(1) == "-":
+                        v = -v
+                    if not (lo_hi[0] <= v <= lo_hi[1]):
+                        validity[i] = False
+                        continue
+                    data[i] = v
+                else:
+                    if "_" in s:  # Python float() accepts these; Java no
+                        validity[i] = False
+                        continue
+                    data[i] = float(s)
+            except (ValueError, OverflowError):
+                validity[i] = False
+        return HostCol(dst, data, validity)
 
     def _cast_h(self, data: np.ndarray) -> np.ndarray:
         """The JAX package's numpy ``_cast``."""

@@ -1,5 +1,5 @@
 """Name resolution and implicit type coercion (the analyzer) — the subset
-of the ported TPC-H queries.
+of the port.
 
 The counterpart of the JAX package's ``plan/analysis.py``: unresolved
 ``sql.column.UExpr`` trees become bound, typed ``ops.expressions``
@@ -7,8 +7,12 @@ nodes against a schema, with Spark's implicit-cast rules (widest
 numeric type for binary ops, comparison operands and CASE branches
 unified, both sides of a division cast to double; literal widenings
 fold into a new literal, a column's widening is a ``Cast``), and the
-string expressions LIKE, substring, startswith, endswith and contains.
-An operator outside the port raises ``NotImplementedError`` naming it.
+string expressions of ``ops/strings.py``: LIKE, substring, the
+predicates, length, the case maps, trim, replace, locate, concat,
+reverse, the pads and the regular expressions (``rlike`` transpiles a
+simple pattern to a comparison or predicate first).  An operator
+outside the port (``split``, ``get_json_object`` among them) raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -94,7 +98,8 @@ def common_type(a: T.DataType, b: T.DataType) -> T.DataType:
 def cast_to(e: E.Expression, dt: T.DataType) -> E.Expression:
     """Literal widenings fold into a new literal (as the JAX analyzer
     does); anything else becomes a ``Cast``, which raises for the casts
-    the port lacks (strings, dates, decimals)."""
+    the port lacks (decimals; dates and timestamps to and from
+    numbers)."""
     if e.dtype == dt:
         return e
     if isinstance(e, E.Literal):
@@ -207,10 +212,83 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
     if op == "substring":
         pos, ln = u.payload
         return S.Substring(resolve(u.children[0], schema), pos, ln)
+    if op in ("upper", "lower", "length"):
+        return S.string_unary(op, resolve(u.children[0], schema))
+    if op in ("trim", "ltrim", "rtrim"):
+        side = {"trim": "both", "ltrim": "leading",
+                "rtrim": "trailing"}[op]
+        child = resolve(u.children[0], schema)
+        if not isinstance(child.dtype, T.StringType):
+            raise AnalysisException(f"{op} needs a string operand")
+        return S.Trim(child, side)
+    if op == "replace":
+        search, repl = u.payload
+        child = resolve(u.children[0], schema)
+        if not isinstance(child.dtype, T.StringType):
+            raise AnalysisException("replace needs a string operand")
+        return S.StringReplace(child, search, repl)
+    if op == "locate":
+        substr = resolve(u.children[0], schema)
+        child = resolve(u.children[1], schema)
+        return S.StringLocate(substr, child, u.payload)
+    if op == "rlike":
+        return _rlike(resolve(u.children[0], schema), u.payload)
+    if op == "regexp_extract":
+        pattern, idx = u.payload
+        S.check_regex_supported(pattern)
+        return S.RegexpExtract(resolve(u.children[0], schema), pattern,
+                               idx)
+    if op == "regexp_replace":
+        pattern, repl = u.payload
+        S.check_regex_supported(pattern)
+        return S.RegexpReplace(resolve(u.children[0], schema), pattern,
+                               repl)
+    if op == "reverse":
+        child = resolve(u.children[0], schema)
+        if not isinstance(child.dtype, T.StringType):
+            raise AnalysisException("reverse needs a string operand")
+        return S.StringReverse(child)
+    if op in ("lpad", "rpad"):
+        ln, pad = u.payload
+        child = resolve(u.children[0], schema)
+        if not isinstance(child.dtype, T.StringType):
+            raise AnalysisException(f"{op} needs a string operand")
+        return S.StringPad(child, int(ln), str(pad), op == "lpad")
     if op in ("startswith", "endswith", "contains"):
         return S.string_predicate(op, resolve(u.children[0], schema),
                                   resolve(u.children[1], schema))
+    if op == "concat":
+        return S.Concat([resolve(c, schema) for c in u.children])
     raise _not_ported(f"expression '{op}'")
+
+
+def _rlike(child: E.Expression, pattern: str) -> E.Expression:
+    """``rlike``: a simple pattern transpiles to the device predicates
+    (the RegexParser fast path [REF: CudfRegexTranspiler]); only the
+    rest becomes ``RLike``."""
+    if not isinstance(child.dtype, T.StringType):
+        raise AnalysisException("rlike needs a string operand")
+    S.check_regex_supported(pattern)
+    simple = S.regex_as_simple(pattern)
+    if not simple:
+        return S.RLike(child, pattern)
+    kind, lit = simple
+
+    def one(lit2):
+        if kind == "eq":
+            return S.string_comparison("eq", child,
+                                       E.Literal(lit2, T.StringT))
+        return S.string_predicate(kind, child, E.Literal(lit2, T.StringT))
+
+    if kind not in ("eq", "endswith"):
+        return one(lit)
+    # Java's '$' (Pattern.find, no UNIX_LINES) also matches just before a
+    # FINAL line terminator: "abc\n" rlike "abc$" is true, so OR in each
+    # terminator variant
+    out = one(lit)
+    for term in ("\n", "\r\n", "\r", "\u0085", "\u2028", "\u2029"):
+        out = E.Or(out, one(lit + term))
+    return out
 
 
 _AGG_MAP = {"sum": A.Sum, "min": A.Min, "max": A.Max, "count": A.Count,

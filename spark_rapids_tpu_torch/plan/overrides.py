@@ -156,11 +156,22 @@ def tag_expression(e: Expression, meta: ExecMeta):
         meta.will_not_work(
             f"expression {name} disabled by "
             f"spark.rapids.sql.expression.{name}=false")
+    incompat = getattr(type(e), "incompat", None)
+    if incompat and not meta.conf.get(C.INCOMPATIBLE_OPS):
+        meta.will_not_work(
+            f"expression {name} is not fully compatible with Spark "
+            f"({incompat}); set "
+            "spark.rapids.sql.incompatibleOps.enabled=true to enable")
     if meta.conf.ansi_enabled and getattr(type(e), "ansi_sensitive", False):
         meta.will_not_work(
             f"expression {name} under spark.sql.ansi.enabled=true: device "
             "lowering implements non-ANSI semantics (overflow wraps, "
             "invalid input nulls) — CPU fallback until ANSI kernels exist")
+    hook = getattr(e, "device_support_reason", None)
+    if hook is not None:
+        r = hook(meta.conf)
+        if r:
+            meta.will_not_work(f"expression {name}: {r}")
     if isinstance(e, BoundReference):
         # direct column pass-through supports everything a batch can
         # carry; computed expressions stay restricted to scalar types

@@ -6,8 +6,8 @@ overloading builds an unresolved ``UExpr`` tree; the analyzer
 arithmetic (division included), comparison (``!=`` included) and
 boolean operators, ``alias``, ``cast``, ``between``, ``isin``, the
 ``when(...).otherwise(...)`` chain, sort direction, and the string
-methods ``substr``, ``startswith``, ``endswith``, ``contains`` and
-``like``; the analyzer raises on anything else.
+methods ``substr``, ``startswith``, ``endswith``, ``contains``,
+``like`` and ``rlike``; the analyzer raises on anything else.
 """
 
 from __future__ import annotations
@@ -144,6 +144,11 @@ class Column:
     def like(self, pattern: str) -> "Column":
         """SQL LIKE ('%', '_', backslash escape), literal pattern."""
         return Column(UExpr("like", pattern, (self._u,)))
+
+    def rlike(self, pattern: str) -> "Column":
+        """Regex match (a simple pattern becomes a comparison or
+        predicate; the rest runs the device DFA or the host ``re``)."""
+        return Column(UExpr("rlike", pattern, (self._u,)))
 
     def when(self, cond: "Column", value) -> "Column":
         u = self._u

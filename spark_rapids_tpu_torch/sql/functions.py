@@ -1,6 +1,7 @@
-"""pyspark.sql.functions-compatible surface — the subset of the ported
-TPC-H queries (``col``, ``lit``, ``when``, ``year``, ``substring``,
-``sum``, ``avg``, ``min``, ``max``, ``count``, ``countDistinct``)."""
+"""pyspark.sql.functions-compatible surface — the subset of the port
+(``col``, ``lit``, ``when``, ``year``, the string functions, ``sum``,
+``avg``, ``min``, ``max``, ``count``, ``countDistinct``), with the JAX
+package's signatures."""
 
 from __future__ import annotations
 
@@ -43,9 +44,62 @@ def when(cond: Column, value) -> Column:
                         (_to_uexpr(cond), _to_uexpr(value))))
 
 
-def year(c) -> Column:
-    return Column(UExpr("year", None, (_cu(c),)))
+def _unary(op):
+    def fn(c) -> Column:
+        return Column(UExpr(op, None, (_cu(c),)))
+    fn.__name__ = op
+    return fn
+
+
+year = _unary("year")
+upper = _unary("upper")
+lower = _unary("lower")
+length = _unary("length")
+trim = _unary("trim")
+ltrim = _unary("ltrim")
+rtrim = _unary("rtrim")
+reverse = _unary("reverse")
 
 
 def substring(c, pos, length) -> Column:
     return Column(UExpr("substring", (pos, length), (_cu(c),)))
+
+
+def concat(*cols) -> Column:
+    return Column(UExpr("concat", None, tuple(_cu(c) for c in cols)))
+
+
+def rlike(c, pattern: str) -> Column:
+    return Column(UExpr("rlike", pattern, (_cu(c),)))
+
+
+def regexp_extract(c, pattern: str, idx: int = 1) -> Column:
+    return Column(UExpr("regexp_extract", (pattern, idx), (_cu(c),)))
+
+
+def regexp_replace(c, pattern: str, replacement: str) -> Column:
+    return Column(UExpr("regexp_replace", (pattern, replacement),
+                        (_cu(c),)))
+
+
+def lpad(c, length: int, pad: str = " ") -> Column:
+    return Column(UExpr("lpad", (length, pad), (_cu(c),)))
+
+
+def rpad(c, length: int, pad: str = " ") -> Column:
+    return Column(UExpr("rpad", (length, pad), (_cu(c),)))
+
+
+def replace(c, search: str, replacement: str) -> Column:
+    """replace(str, search, replace) with a literal search and
+    replacement."""
+    return Column(UExpr("replace", (search, replacement), (_cu(c),)))
+
+
+def instr(c, substr: str) -> Column:
+    """1-based position of the first occurrence; 0 if absent."""
+    return Column(UExpr("locate", 1, (UExpr("lit", substr), _cu(c))))
+
+
+def locate(substr: str, c, pos: int = 1) -> Column:
+    return Column(UExpr("locate", pos, (UExpr("lit", substr), _cu(c))))

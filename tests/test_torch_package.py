@@ -88,6 +88,13 @@ def test_import_check_covers_the_exchange_slice():
         assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
+def test_import_check_covers_the_strings_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("ops/regex_device.py", "ops/strings.py",
+                "ops/expressions.py", "sql/functions.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
+
+
 def test_import_check_covers_the_operators_slice():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("parallel/__init__.py", "parallel/shuffle.py",
@@ -122,9 +129,9 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.sql.ansi.enabled": "perhaps"}, "cannot parse boolean"),
     ({"spark.rapids.sql.exec.SortExec": False}, "unknown spark.rapids"),
     ({"spark.rapids.sql.exec.CpuSortExec": False}, "unknown spark.rapids"),
-    ({"spark.rapids.sql.expression.Upper": False}, "unknown spark.rapids"),
-    ({"spark.rapids.sql.incompatibleOps.enabled": True},
+    ({"spark.rapids.sql.expression.GetJsonObject": False},
      "unknown spark.rapids"),
+    ({"spark.rapids.sql.expression.Split": True}, "unknown spark.rapids"),
     ({"spark.rapids.shuffle.mode": "UCX"}, "invalid value"),
     ({"spark.rapids.tpu.exchange.mode": "sometimes"}, "invalid value"),
     ({"spark.rapids.shuffle.multiThreaded.writer.threads": "four"},
@@ -139,26 +146,44 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.rapids.sql.exec.Range": False}, None),
     ({"spark.rapids.sql.exec.Sample": False}, None),
     ({"spark.rapids.sql.exec.Expand": False}, None),
+    ({"spark.rapids.sql.expression.Upper": False,
+      "spark.rapids.sql.incompatibleOps.enabled": True}, None),
+    ({"spark.rapids.sql.expression.RLike": False}, None),
+    ({"spark.rapids.sql.expression.StringPad": False,
+      "spark.rapids.sql.incompatibleOps.enabled": True}, None),
+    ({"spark.rapids.sql.incompatibleOps.enabled": True}, None),
+    ({"spark.rapids.sql.castStringToFloat.enabled": True}, None),
 ])
 def test_conf_is_validated(conf, match):
-    """A bad key or value raises (``match``); a kill switch of an exec
-    (``match`` None) is accepted, and on a query holding that exec the
-    exec falls back with the JAX package's report and result."""
+    """A bad key or value raises (``match``); a kill switch of an exec or
+    expression, or a registered gate (``match`` None), is accepted, and
+    on a query it touches the report and result are the JAX package's: a
+    kill switch's operator falls back naming the key, a gate turned on
+    keeps its operator on the device.  The first key is the one under
+    test; a second turns on the gate an incompatible expression needs,
+    so that only the kill switch reports."""
     if match is not None:
         with pytest.raises(ValueError, match=match):
             TpuSession(conf, device="cpu")
         return
     from spark_rapids_tpu.sql import functions as JF
     from spark_rapids_tpu.sql.session import TpuSession as JaxSession
-    (key,) = conf
-    build = _KILL_SWITCH_QUERIES[key.rsplit(".", 1)[1]]
+    key = next(iter(conf))
+    gate = key.endswith(".enabled")
+    build = _KILL_SWITCH_QUERIES[key if gate else key.rsplit(".", 1)[1]]
     df = build(TpuSession(dict(conf), device="cpu"), F)
     got = df.toArrow()
     jdf = build(JaxSession(dict(conf)), JF)
     want = jdf.toArrow()
     report = df._last_override.fallback_report()
     assert report == jdf._last_override.fallback_report()
-    assert report and all(f"{key}=false" in line for line in report)
+    if gate:
+        from spark_rapids_tpu_torch import conf as C
+        assert TpuSession(device="cpu").rapids_conf().get(
+            C.REGISTRY[key]) is False  # the JAX package's default
+        assert report == []
+    else:
+        assert report and all(f"{key}=false" in line for line in report)
     assert repr(got.to_pylist()) == repr(want.to_pylist())
 
 
@@ -171,6 +196,19 @@ _KILL_SWITCH_QUERIES = {
     "Sample": lambda s, F: s.createDataFrame(_table()).sample(0.5, 3),
     "Expand": lambda s, F: s.createDataFrame(_table()).rollup("s").agg(
         F.count("*").alias("c")).orderBy("s", "c"),
+    "Upper": lambda s, F: s.createDataFrame(_table()).select(
+        F.upper(F.col("s")).alias("u")),
+    "RLike": lambda s, F: s.createDataFrame(_table()).filter(
+        F.col("s").rlike("[a-x]+")),
+    "StringPad": lambda s, F: s.createDataFrame(_table()).select(
+        F.lpad(F.col("s"), 3, "*").alias("p")),
+    "spark.rapids.sql.incompatibleOps.enabled":
+        lambda s, F: s.createDataFrame(_table()).select(
+            F.upper(F.col("s")).alias("u"),
+            F.reverse(F.col("s")).alias("r")),
+    "spark.rapids.sql.castStringToFloat.enabled":
+        lambda s, F: s.createDataFrame(_table()).select(
+            F.col("s").cast("double").alias("d")),
 }
 
 
@@ -232,13 +270,14 @@ def _table():
 
 
 @pytest.mark.parametrize("build, what", [
-    (lambda df: df.select(col("a").cast("string")), "Cast"),
+    (lambda df: df.select(col("a").cast(T.DecimalType(10, 2))), "Cast"),
     (lambda df: df.agg(F._agg("first")("a")), "aggregate 'first'"),
     pytest.param(lambda df: df.limit(2), None, id="limit"),
     (lambda df: df.select(Column(UExpr("isnull", None, (col("a")._u,)))),
      "expression 'isnull'"),
-    (lambda df: df.filter(Column(UExpr("rlike", "x.*", (col("s")._u,)))),
-     "expression 'rlike'"),
+    (lambda df: df.select(Column(UExpr("split", (",", -1),
+                                       (col("s")._u,)))),
+     "expression 'split'"),
 ])
 def test_outside_the_slice_raises(build, what):
     """What the slice does not port raises naming itself; a bare limit
