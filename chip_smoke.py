@@ -130,12 +130,28 @@ result line is not printed):
    a float cast to string in a plain session (the JAX package's
    fallback reasons, the same rows), and each new expression alone
    against its byte bound; the DFA's state count per pattern;
-15. the string expressions of the string queries (LIKE, NOT LIKE,
+15. ``[retry]``: the memory runtime under the main path, each run a
+   path of its own under ``test.enabled`` against pyarrow: q3 twice
+   under ``[spill]``'s pool with the host tier at one lineitem batch
+   (host copies overflow to disk: spilled bytes per tier, every disk
+   restore CRC-checked, the spill directory's peak file count, and no
+   file left once the cache is cleared; both runs equal q3 exactly);
+   q1 under a pool of 0.75 of one scan batch (the scan streams
+   uncached and every partial splits its batch: ``splitRetries`` at
+   least the batches); q18 with an OOM injected at its first
+   aggregate reservation (read from a recording run; ``retryOOMs``);
+   the aggregates' ``skippedAggPasses``, ``repartitionMerges`` and
+   timers in q3, q10 and q18 at the default conf (q18's inner
+   aggregate's merge repartitions); ``q3_full`` under a pool of about
+   1.5 of its largest sub-partition pair, with an OOM injected at an
+   aggregate reservation made while only its slices are on the card
+   (the retry spills them; equal to its phase-8 run);
+16. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-16. the kernel at every shape the main path (queries, variants,
-   fallback cases, partitions, exchanges, operators and strings)
+17. the kernel at every shape the main path (queries, variants,
+   fallback cases, partitions, exchanges, operators, strings and retry)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -145,7 +161,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-17. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+18. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -2483,6 +2499,304 @@ def spill_phase(session, conf, tables, ref, first, n_batches, dev) -> dict:
     return out
 
 
+# -- [retry]: OOM retry, the disk tier, the aggregate's bounded passes -----
+
+# q3_full's pool in multiples of its largest sub-partition pair's bytes
+SUB_POOL_PAIRS = 1.5
+AGG_REPORTED = ("skippedAggPasses", "repartitionMerges", "partialTime",
+                "decideTime", "mergeTime", "numOutputBatches")
+EARLIER_WARM_S = {"q18": 1.7408, "q3": 0.40}  # PERF.md, the previous slice
+
+
+def find_nodes(node, name) -> list:
+    """Every node of a plan named ``name``, root first."""
+    out = [node] if type(node).__name__ == name else []
+    for c in node.children:
+        out += find_nodes(c, name)
+    return out
+
+
+def _caller_outside(paths):
+    """The first frame above this one whose file is not in ``paths``."""
+    f = sys._getframe(2)
+    while f is not None and f.f_code.co_filename.endswith(paths):
+        f = f.f_back
+    return f
+
+
+def recorded_reservations(run, probe=lambda mgr: None) -> list:
+    """``run()`` with every arbiter reservation recorded: (allocation
+    index, bytes, calling function, its file, ``probe(manager)`` just
+    before) — the caller is the first frame outside the arbiter and
+    ``contextlib``."""
+    from spark_rapids_tpu_torch.runtime import memory as MM
+    seen = []
+    reserve = MM.DeviceMemoryManager.reserve
+
+    def recording(self, nbytes, _restoring=None):
+        f = _caller_outside((os.path.join("runtime", "memory.py"),
+                             "contextlib.py"))
+        state = probe(self)
+        reserve(self, nbytes, _restoring)
+        seen.append((self._alloc_count, nbytes, f.f_code.co_name,
+                     f.f_code.co_filename, state))
+
+    MM.DeviceMemoryManager.reserve = recording
+    try:
+        run()
+    finally:
+        MM.DeviceMemoryManager.reserve = reserve
+    return seen
+
+
+def retry_run(name, q, session, tables, ref, CB, KN) -> tuple:
+    """One run of the phase as a path of its own: the scan cache cleared
+    and the kernel's counts set to 0 just before, read just after; the
+    result against the pyarrow reference with 0 fallback operators.
+    Returns (result, wall, counts, DataFrame)."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    df = build_on(q, session, tables)
+    got, wall = timed(df)
+    counts = path_counts(df, CB, KN)
+    print(f"[main path] retry {name} " + json.dumps(counts), flush=True)
+    check(counts["collision_fallbacks"] == 0,
+          f"retry {name}: hash-collision fallbacks")
+    check(counts["hash_pairs_launches"] > 0,
+          f"retry {name}: hash_pairs was not launched")
+    check_result(f"retry {name}", got, ref)
+    fallback = df.fallback_summary()
+    check(fallback["fallback_ops"] == 0 and fallback["device_ops"] > 0,
+          f"retry {name}: plan rewrite fell back: {fallback}")
+    return got, wall, counts, df
+
+
+def agg_metrics(df) -> list:
+    """Each aggregate's pass metrics and key count, root first."""
+    return [dict({k: a.metric(k).value for k in AGG_REPORTED},
+                 keys=len(a.grouping))
+            for a in find_nodes(df._last_plan, "TpuHashAggregateExec")]
+
+
+def retry_phase(session, tables, refs, first, summary, spill, n_batches,
+                dev, CB, KN) -> dict:
+    """The memory runtime under the main path at SF1, five runs, each a
+    path of its own under ``test.enabled``: q3 twice with the host tier
+    at one lineitem batch (the disk tier: CRC-checked restores, an empty
+    spill directory after), q1 under a pool below one scan batch (split
+    retries), q18 with an OOM injected at its first aggregate
+    reservation, q3/q10/q18's aggregate passes at the default conf
+    (q18's inner aggregate's merge repartitions), and ``q3_full`` under
+    a pool of about 1.5 of its largest sub-partition pair (its slices
+    spill).  The default manager
+    comes back after (which clears the cache).  Returns each run's
+    counts."""
+    import shutil
+    import tempfile
+    from spark_rapids_tpu_torch.exec import basic as B
+    from spark_rapids_tpu_torch.exec import join as J
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import memory as MM
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t_phase = time.perf_counter()
+    default_budget = MM.peek_manager().budget
+    counts = {}
+
+    def small(**conf):
+        return TpuSession(dict(SESSION_CONF, **conf), device=dev)
+
+    # -- 1. disk tier: q3 twice, the host tier at one lineitem batch ------
+    root = tempfile.mkdtemp(prefix="tpuq-spill-")
+    verified, files = [], [0]
+    verify = MM._verify_crc_sidecar
+    to_disk = MM.SpillableBatch.spill_to_disk
+
+    def verifying(path):
+        verified.append(os.path.exists(path + ".crc32"))
+        return verify(path)
+
+    def counting(self):
+        freed = to_disk(self)
+        files[0] = max(files[0], len(os.listdir(self._mgr.spill_path)))
+        return freed
+
+    MM._verify_crc_sidecar = verifying
+    MM.SpillableBatch.spill_to_disk = counting
+    disk = small(**{"spark.rapids.tpu.memory.poolSize": spill["pool"],
+                    "spark.rapids.memory.host.spillStorageSize":
+                        spill["lineitem_batch_bytes"],
+                    "spark.rapids.tpu.spillPath": root})
+    runs = []
+    try:
+        for i in range(2):
+            if i == 0:
+                got, wall, counts["disk tier"], _ = retry_run(
+                    "disk tier", "q3", disk, tables, refs["q3"], CB, KN)
+            else:
+                got, wall = timed(build_on("q3", disk, tables))
+            check(rows_equal(got, first["q3"], tol=0.0),
+                  f"q3 run {i + 1} with the disk tier differs from q3")
+            m = MM.peek_manager()
+            runs.append(dict({k: m.metrics[k] for k in (
+                "spillToHostBytes", "spillToDiskBytes", "restoredBytes",
+                "retryOOMs", "peakReserved")}, wall_s=wall))
+        mgr = MM.peek_manager()
+        clear_scan_cache()
+        left = (os.listdir(mgr.spill_path)
+                if os.path.isdir(mgr.spill_path) else [])
+    finally:
+        MM._verify_crc_sidecar = verify
+        MM.SpillableBatch.spill_to_disk = to_disk
+        shutil.rmtree(root, ignore_errors=True)
+    line = {"pool": spill["pool"],
+            "host_limit": spill["lineitem_batch_bytes"], "runs": runs,
+            "disk_restores_crc_checked": len(verified),
+            "peak_spill_files": files[0], "files_left": len(left),
+            "reserved_after_clear": mgr._reserved}
+    print("[retry] disk tier " + json.dumps(line), flush=True)
+    check(mgr.budget == spill["pool"], "disk-tier manager budget")
+    check(runs[-1]["spillToDiskBytes"] > 0, "q3 spilled nothing to disk")
+    check(runs[-1]["restoredBytes"] > 0, "q3 restored nothing")
+    check(verified and all(verified),
+          f"a disk restore had no CRC sidecar: {verified}")
+    check(not left, f"spill files left after the cache was cleared: {left}")
+
+    # -- 2. split retry: q1 under a pool of 0.75 of one scan batch --------
+    MM.get_manager(session.rapids_conf(), dev)
+    clear_scan_cache()
+    build_on("q1", session, tables).toArrow()
+    batch = max(sp.nbytes for names, sp in cache_entries()
+                if "l_returnflag" in names)
+    split = small(**{"spark.rapids.tpu.memory.poolSize":
+                     int(0.75 * batch)})
+    got, wall, counts["split retry"], _ = retry_run(
+        "split retry", "q1", split, tables, refs["q1"], CB, KN)
+    m = MM.peek_manager().metrics
+    line = {"pool": int(0.75 * batch), "scan_batch_bytes": batch,
+            "wall_s": wall, "q1_warm_wall_s": summary["q1"]["wall_s_median"],
+            "splitRetries": m["splitRetries"], "retryOOMs": m["retryOOMs"],
+            "scan_batches": n_batches, "cached_batches": len(cache_entries())}
+    print("[retry] split retry " + json.dumps(line), flush=True)
+    check(m["splitRetries"] >= n_batches,
+          f"q1 split {m['splitRetries']} times over {n_batches} batches")
+
+    # -- 3. an OOM injected at q18's first aggregate reservation -----------
+    MM.reset_manager()
+    clear_scan_cache()
+    seen = recorded_reservations(
+        lambda: build_on("q18", session, tables).toArrow())
+    agg = [i for i, _, _, f, _ in seen
+           if f.endswith(os.path.join("exec", "aggregate.py"))]
+    check(bool(agg), "q18 made no aggregate reservation")
+    inject = small(**{"spark.rapids.tpu.test.injectOomAtAlloc": agg[0]})
+    got, wall, counts["injected oom"], _ = retry_run(
+        "injected oom", "q18", inject, tables, refs["q18"], CB, KN)
+    check(rows_equal(got, first["q18"]), "q18 under injection differs")
+    m = MM.peek_manager().metrics
+    line = {"inject_at": agg[0], "reservations": len(seen),
+            "wall_s": wall, "retryOOMs": m["retryOOMs"],
+            "splitRetries": m["splitRetries"],
+            "spillToHostBytes": m["spillToHostBytes"]}
+    print("[retry] injected oom " + json.dumps(line), flush=True)
+    check(m["retryOOMs"] >= 1, "the injected OOM was not retried")
+
+    # -- 4. the aggregate's passes at the default conf ---------------------
+    MM.get_manager(session.rapids_conf(), dev)
+    for q in ("q3", "q10", "q18"):
+        got, wall, counts[f"passes {q}"], df = retry_run(
+            f"passes {q}", q, session, tables, refs[q], CB, KN)
+        aggs = agg_metrics(df)
+        line = {"cold_wall_s": wall,
+                "warm_wall_s": summary[q]["wall_s_median"],
+                "earlier_warm_wall_s": EARLIER_WARM_S.get(q),
+                "aggregates": aggs}
+        print(f"[retry] aggregate passes {q} " + json.dumps(line),
+              flush=True)
+    # q18's inner aggregate: 1.5M groups of 6M rows, one key
+    inner = [a for a in aggs if a["keys"] == 1]
+    check(len(inner) == 1 and inner[0]["repartitionMerges"] >= 1,
+          f"q18's inner aggregate did not repartition: {aggs}")
+    # -- 5. q3_full under a pool of ~1.5 of its largest pair ----------------
+    # The split sizes each pair to about a quarter of the pool and its
+    # slices are unreserved, so the pool alone never reaches them: an OOM
+    # injected at an aggregate reservation made while only slices are
+    # left on the card makes the retry spill them (later pairs restore
+    # theirs from host).
+    MM.get_manager(session.rapids_conf(), dev)
+    clear_scan_cache()
+    seen = recorded_reservations(
+        lambda: build_on("q3_full", session, tables).toArrow())
+    pair = max(n for _, n, fn, _, _ in seen
+               if fn == "_sub_partition_join") // 2
+    pool = int(SUB_POOL_PAIRS * pair)
+    tagged, slice_spilled = set(), [0]
+    splitter = J.split_to_spillables
+    spill_host = MM.SpillableBatch.spill_to_host
+
+    def tagging(*a, **kw):
+        out = splitter(*a, **kw)
+        tagged.update(id(sp) for part in out for sp in part)
+        return out
+
+    def spilling(self):
+        freed = spill_host(self)
+        if id(self) in tagged:
+            slice_spilled[0] += freed
+        return freed
+
+    def only_slices(mgr):
+        on = [id(sp) in tagged for sp in mgr._spillables.values()
+              if sp.tier == "device"]
+        return bool(on) and all(on)
+
+    J.split_to_spillables = tagging
+    MM.SpillableBatch.spill_to_host = spilling
+    try:
+        sub_conf = {"spark.rapids.tpu.memory.poolSize": pool}
+        MM.reset_manager()
+        clear_scan_cache()
+        seen = recorded_reservations(
+            lambda: build_on("q3_full", small(**sub_conf), tables).toArrow(),
+            probe=only_slices)
+        at = [i for i, _, _, f, slices_only in seen if slices_only
+              and f.endswith(os.path.join("exec", "aggregate.py"))]
+        check(bool(at), "q3_full: no aggregate reservation while only "
+              "slices were on the card")
+        tagged.clear()
+        slice_spilled[0] = 0
+        sub = small(**dict(sub_conf, **{
+            "spark.rapids.tpu.test.injectOomAtAlloc": at[0]}))
+        got, wall, counts["sub-partition join"], df = retry_run(
+            "sub-partition join", "q3_full", sub, tables, refs["q3_full"],
+            CB, KN)
+    finally:
+        J.split_to_spillables = splitter
+        MM.SpillableBatch.spill_to_host = spill_host
+    check(rows_equal(got, first["q3_full"]),
+          "q3_full under the small pool differs from its phase-8 run")
+    m = MM.peek_manager().metrics
+    joins = join_strategies(df)
+    line = {"pool": pool, "largest_pair_bytes": pair, "inject_at": at[0],
+            "wall_s": wall, "slices": len(tagged),
+            "slice_spill_bytes": slice_spilled[0], "joins": joins,
+            "spillToHostBytes": m["spillToHostBytes"],
+            "restoredBytes": m["restoredBytes"], "retryOOMs": m["retryOOMs"],
+            "splitRetries": m["splitRetries"]}
+    print("[retry] sub-partition join " + json.dumps(line), flush=True)
+    check(sum(j["subPartitionJoins"] for j in joins) >= 1,
+          "q3_full did not sub-partition")
+    check(m["retryOOMs"] >= 1 and slice_spilled[0] > 0,
+          "no sub-partition slice spilled")
+
+    MM.get_manager(session.rapids_conf(), dev)
+    check(MM.peek_manager().budget == default_budget and not B._scan_cache,
+          "the default manager was not restored")
+    print(f"[retry] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def dict_phase(session, tables, refs, first, summary) -> list:
     """q1, q12 and q19 cold over a lineitem whose four low-cardinality
     string columns are dictionary-encoded: each equals its plain run and
@@ -2532,6 +2846,7 @@ def variant_phase(v, session, exact, tables, first, CB, KN) -> dict:
     if base is not None:
         check(got.equals(first[base]),
               f"{v} differs from {base}:\n{got}\n{first[base]}")
+    first[v] = got
     check(rows_equal(build_on(v, exact, tables).toArrow(), got),
           f"{v}: cuda rung != jnp rung")
     warm = []
@@ -3245,8 +3560,8 @@ def main() -> int:
     # -- the scan cache with all 22 queries' tables resident ---------------
     resident_phase(session, tables, refs, dev)
     # -- spill: q3 under a pool of ~1.5 of lineitem's cached batches --------
-    spill_phase(session, SESSION_CONF, tables, refs["q3"], first["q3"],
-                n_batches, dev)
+    spill = spill_phase(session, SESSION_CONF, tables, refs["q3"],
+                        first["q3"], n_batches, dev)
     # -- device dictionary decode: q1, q12, q19 cold -----------------------
     dict_phase(session, tables, refs, first, summary)
     # -- the join variants: right, residual, cross condition, full ---------
@@ -3310,6 +3625,15 @@ def main() -> int:
         for key, n in c["shapes"].items():
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[strings] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- the memory runtime: disk tier, OOM retry, the aggregate's passes ----
+    refs["q3_full"] = ref_q3_full(tables)
+    retry_counts = retry_phase(session, tables, refs, first, summary, spill,
+                               n_batches, dev, CB, KN)
+    for c in retry_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[retry] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
@@ -3394,7 +3718,8 @@ def main() -> int:
                         list(counts.values()) + list(var_counts.values())
                         + list(fb_counts.values()) + new_paths
                         + list(op_counts.values())
-                        + list(str_counts.values())),
+                        + list(str_counts.values())
+                        + list(retry_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -3409,6 +3734,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in op_counts.items()},
         "launches_per_strings_run": {
             k: c["hash_pairs_launches"] for k, c in str_counts.items()},
+        "launches_per_retry_run": {
+            k: c["hash_pairs_launches"] for k, c in retry_counts.items()},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
         "ms_ring": kernel_row["ms_ring"],

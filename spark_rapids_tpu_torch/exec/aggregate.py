@@ -56,7 +56,14 @@ from spark_rapids_tpu_torch.exec.basic import (
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.aggregates import (
     AggregateFunction, Average, Count, CountStar, Max, Min, Sum)
-from spark_rapids_tpu_torch.ops.expressions import Expression
+from spark_rapids_tpu_torch.ops.expressions import BoundReference, Expression
+from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
+from spark_rapids_tpu_torch.parallel.shuffle import split_to_spillables
+from spark_rapids_tpu_torch.runtime.memory import (
+    RetryOOM, get_manager, with_retry)
+
+# the repartitioned merge's bucket hash seed ("AGRB")
+AGG_SEED = 0x41475242
 
 
 # ---------------------------------------------------------------------------
@@ -398,17 +405,25 @@ class TpuHashAggregateExec(TpuExec):
 
     Upstream filter/project run inside the partial pass
     (``fuse_upstream``).  The input is every partition of the child, in
-    order; one partition out.  ``device`` holds the empty batch that
-    stands in for an input with no batch at all (an AQE read of a host
-    shuffle yields none for an empty range).  The JAX package's
-    partial/final modes (around an ICI exchange), OOM retry, input
-    coalescing and skip-agg pass are later slices.
+    order; one partition out (one batch per merge bucket).  ``device``
+    holds the empty batch that stands in for an input with no batch at
+    all (an AQE read of a host shuffle yields none for an empty range).
+    The passes are memory-bounded as the JAX package's: input batches
+    coalesce up to ``bucket_rows`` live rows
+    (``spark.rapids.tpu.agg.bucketRows``), each partial runs under
+    ``with_retry`` with a ``transient`` reservation of its input, a
+    first partial that keeps more than ``skip_ratio`` of its rows
+    (``spark.rapids.sql.agg.skipAggPassReductionRatio``) makes the later
+    batches skip their reduction, and an exploded merge re-partitions
+    its partials by key into spillable buckets.  The JAX package's
+    partial/final modes (around an ICI exchange) are a later slice.
     """
 
     def __init__(self, grouping: Sequence[Expression],
                  fns: Sequence[AggregateFunction],
                  schema: T.StructType, child: TpuExec,
-                 backend: str = "auto", device=None):
+                 backend: str = "auto", device=None,
+                 bucket_rows: int = 1 << 18, skip_ratio: float = 1.0):
         super().__init__(schema, child)
         self.grouping = list(grouping)
         self.fns = list(fns)
@@ -416,6 +431,10 @@ class TpuHashAggregateExec(TpuExec):
         self.mode = "complete"
         # spark.rapids.tpu.kernel.backend, resolved to a ladder start
         self.backend = KN.resolve("agg", backend)
+        # spark.rapids.tpu.agg.bucketRows: partial-pass input coalescing
+        self.bucket_rows = bucket_rows
+        # spark.rapids.sql.agg.skipAggPassReductionRatio
+        self.skip_ratio = skip_ratio
 
     def node_string(self):
         keys = ", ".join(str(g) for g in self.grouping)
@@ -470,6 +489,16 @@ class TpuHashAggregateExec(TpuExec):
 
         return self._dispatch(run)
 
+    def _update_raw(self, batch: DeviceBatch, pre) -> DeviceBatch:
+        """Buffer-schema batch WITHOUT the per-batch reduction — the
+        skip-agg-pass path: keys + per-row update buffers pass straight
+        to the merge, whose single reduction then does all the work."""
+        b = pre(batch)
+        keys = [g.eval(b) for g in self.grouping]
+        vals = [c for c, _ in update_value_cols(self.fns, b)]
+        return DeviceBatch(self._buffer_schema(), tuple(keys + vals),
+                           b.sel)
+
     def _merge_final(self, merged: DeviceBatch) -> DeviceBatch:
         nk = len(self.grouping)
         keys = list(merged.columns[:nk])
@@ -485,54 +514,196 @@ class TpuHashAggregateExec(TpuExec):
 
         return self._dispatch(run)
 
-    def _execute_grouped(self, src, pre) -> List[DeviceBatch]:
+    # -- grouped: the memory-bounded passes -----------------------------
+
+    def _coalesced(self, stream) -> Iterator[DeviceBatch]:
+        """Group input batches up to ``bucket_rows`` LIVE rows before the
+        partial pass: fewer, larger partials.  The live counts of up to
+        32 batches come back in one device read (``live_counts``)."""
+        cap = self.bucket_rows
+        if not cap:
+            yield from stream
+            return
+
+        def flush(window) -> Iterator[DeviceBatch]:
+            if not window:
+                return
+            if len(window) == 1:
+                yield window[0]
+                return
+            counts = live_counts(window)  # one read
+            group: List[DeviceBatch] = []
+            gcounts: List[int] = []
+            acc = 0
+            for b, n in zip(window, counts):
+                if group and acc + n > cap:
+                    yield self._emit_group(group, gcounts)
+                    group, gcounts, acc = [], [], 0
+                group.append(b)
+                gcounts.append(n)
+                acc += n
+            if group:
+                yield self._emit_group(group, gcounts)
+
+        window: List[DeviceBatch] = []
+        wcap = 0
+        for b in stream:
+            if b.capacity >= cap and not window:
+                yield b
+                continue
+            window.append(b)
+            wcap += b.capacity
+            if len(window) >= 32 or wcap >= 8 * cap:
+                yield from flush(window)
+                window, wcap = [], 0
+        yield from flush(window)
+
+    def _emit_group(self, group, gcounts) -> DeviceBatch:
+        if len(group) == 1:
+            return group[0]
+        with self.timer("concatTime"):
+            batches = [compact(b) for b in group]
+            return concat_device_batches(batches[0].schema, batches,
+                                         counts=gcounts)
+
+    def _decide_skip(self, outs1: List[DeviceBatch], n_in: int) -> bool:
+        """Should later batches skip the per-batch reduction?
+        ``outs1`` = the first input batch's partial(s) (plural when the
+        OOM retry split it), ``n_in`` its live rows [REF:
+        GpuHashAggregateExec skipAggPassReductionRatio]."""
+        if self.skip_ratio >= 1.0:
+            return False
+        # small batches can't establish the ratio (64 rows -> 60 groups
+        # says nothing about 6M rows)
+        if n_in < 4096:
+            return False
+        n_groups = sum(live_counts(outs1))
+        return (n_groups / max(n_in, 1)) > self.skip_ratio
+
+    def _partial_stream(self, stream, pre, mgr
+                        ) -> Tuple[Optional[List[DeviceBatch]], bool]:
+        """Coalesce, run the first group's partial under retry, decide
+        the skip-agg pass from its reduction ratio, stream the rest.
+        Returns (partials | None for an empty stream, skip)."""
+        stream = self._coalesced(stream)
+        first = next(stream, None)
+        if first is None:
+            return None, False
+
+        def closure_partial(b):
+            with mgr.transient(b.nbytes()):
+                return self._partial(b, pre)
+
+        with self.timer("decideTime"):
+            n_in = (live_counts([first])[0]
+                    if self.skip_ratio < 1.0 else 0)
+            outs1 = list(with_retry(
+                iter([first]), closure_partial,
+                max_attempts=mgr.retry_max_attempts, manager=mgr))
+            skip = self._decide_skip(outs1, n_in)
+        if skip:
+            self.metric("skippedAggPasses").add(1)
+
+        def closure(b):
+            with mgr.transient(b.nbytes()):
+                if skip:
+                    return self._update_raw(b, pre)
+                return self._partial(b, pre)
+
         with self.timer("partialTime"):
-            partials = [self._partial(b, pre) for b in _pull_all(src)]
-            if not partials:
-                partials = [self._partial(
-                    empty_batch(src.schema, self.device), pre)]
+            partials = outs1 + list(with_retry(
+                stream, closure, max_attempts=mgr.retry_max_attempts,
+                manager=mgr))
+        return partials, skip
+
+    def _execute_grouped(self, src, pre) -> List[DeviceBatch]:
+        """Update per batch under the OOM-retry framework: a RetryOOM
+        spills the arbiter's pool and re-runs the batch; repeated
+        pressure halves it by rows (partials merge regardless) [REF:
+        withRetry + GpuAggregateIterator].  The input is pulled lazily,
+        one upstream batch live at a time."""
+        mgr = get_manager()
+        partials, _skip = self._partial_stream(_pull_all(src), pre, mgr)
+        if partials is None:
+            partials = [self._partial(
+                empty_batch(src.schema, self.device), pre)]
         with self.timer("mergeTime"):
             return self._merge_bounded(partials, self._merge_final)
 
     def _merge_bounded(self, partials: List[DeviceBatch],
                        merge_fn) -> List[DeviceBatch]:
-        """Concat + merge partial buffer batches.
-
-        When the merged cardinality explodes (total live rows beyond
-        twice one batch — TPC-H q3's partials over many small join
-        outputs), the JAX package re-partitions the partials by key and
-        merges each bucket, because XLA would otherwise compile a merge
-        kernel at the exploded bucket.  Eager PyTorch compiles nothing,
-        and the concat holds no more rows than the partials already do,
-        so the port merges the one concat; the result is the same set of
-        groups (``repartitionMerges`` counts where the JAX package would
-        have split)."""
+        """Concat + merge partial buffer batches, with the
+        merge-explosion repartition fallback [REF: GpuAggregateExec
+        repartition fallback]: when the partials' live rows pass twice
+        the largest capacity, they re-hash-partition by grouping key
+        into spillable buckets and each bucket merges on its own (equal
+        keys share a bucket), so the merge's peak is one bucket."""
         partials = [compact(p) for p in partials]
         if len(partials) == 1:
             return [merge_fn(partials[0])]
         schema = self._buffer_schema()
+        if len(partials) <= 2:
+            return [merge_fn(concat_device_batches(schema, partials))]
         counts = live_counts(partials)
         total = sum(counts)
         cap = max(b.capacity for b in partials)
-        if len(partials) > 2 and total > 2 * cap:
-            self.metric("repartitionMerges").add(1)
-        return [merge_fn(concat_device_batches(schema, partials, counts))]
+        if total <= 2 * cap:
+            return [merge_fn(concat_device_batches(schema, partials,
+                                                   counts))]
+        self.metric("repartitionMerges").add(1)
+        k = int(min(64, max(2, -(-total // cap))))
+        keys = [BoundReference(i, g.dtype)
+                for i, g in enumerate(self.grouping)]
+        # not the shuffle seed 42: partials that crossed a seed-42
+        # hash-mod-nparts exchange would collapse into few buckets
+        pid_fn = make_pid_fn(keys, k, seed=AGG_SEED)
+        slices = split_to_spillables(
+            partials, lambda b, aux: pid_fn(b), k, get_manager())
+        out = []
+        for i in range(k):
+            if not slices[i]:
+                continue
+            bs = [s.get() for s in slices[i]]
+            bcounts = [s.live_rows for s in slices[i]]
+            out.append(merge_fn(concat_device_batches(
+                schema, bs, counts=bcounts)))
+            for s in slices[i]:
+                s.close()
+        return out
 
     # -- global (keyless) aggregate ------------------------------------
 
     def _execute_global(self, src, pre) -> DeviceBatch:
-        """Per-batch masked REDUCTION (no sort); the single-batch case
-        fuses the final projection."""
+        """Per-batch masked REDUCTION (no sort) under ``with_retry``; the
+        single-batch case fuses the final projection, and falls through
+        to the splittable two-phase path when its reservation fails."""
+        mgr = get_manager()
         stream = _pull_all(src)
         first = next(stream, None)
         if first is None:
-            first = empty_batch(src.schema, self.device)
+            return self._reduce_batch(
+                empty_batch(src.schema, self.device), pre, final=True)
         second = next(stream, None)
         if second is None:
-            return self._reduce_batch(first, pre, final=True)
-        partials = [self._reduce_batch(first, pre),
-                    self._reduce_batch(second, pre)]
-        partials += [self._reduce_batch(b, pre) for b in stream]
+            try:
+                with mgr.transient(first.nbytes()):
+                    return self._reduce_batch(first, pre, final=True)
+            except RetryOOM:
+                pass  # fall through to the splittable two-phase path
+
+        def closure(b):
+            with mgr.transient(b.nbytes()):
+                return self._reduce_batch(b, pre)
+
+        def inputs():
+            yield first
+            if second is not None:
+                yield second
+            yield from stream
+
+        partials = list(with_retry(
+            inputs(), closure, max_attempts=mgr.retry_max_attempts,
+            manager=mgr))
         return self._reduce_merge_final(partials)
 
     def _reduce_batch(self, batch: DeviceBatch, pre,

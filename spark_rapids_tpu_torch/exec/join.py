@@ -41,8 +41,7 @@ of its other side and has that side's partitions; every other join
 gathers all partitions of both sides into one.  Not ported, and raising
 ``NotImplementedError`` naming itself: the adaptive joins; the
 co-partitioned plan over ICI exchanges is not reached (the rewrite
-refuses ICI).  The JAX package registers each sub-partition slice as a
-spillable; the port keeps the slices as plain device batches.
+refuses ICI).
 """
 
 from __future__ import annotations
@@ -67,7 +66,7 @@ from spark_rapids_tpu_torch.exec.sort import _concat_host
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.expressions import Expression, device_select
 from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
-from spark_rapids_tpu_torch.parallel.shuffle import split_slices
+from spark_rapids_tpu_torch.parallel.shuffle import split_to_spillables
 from spark_rapids_tpu_torch.runtime.memory import RetryOOM, get_manager
 
 
@@ -296,19 +295,6 @@ def _row_groups(batches: List[DeviceBatch], cap: int
             groups[-1].append(c)
             acc += c.capacity
     return groups
-
-
-def split_by_pid(batches: List[DeviceBatch], pid_fn, nbuckets: int
-                 ) -> List[List[Tuple[DeviceBatch, int]]]:
-    """Split batches by partition id: per bucket, its ``(slice, live
-    rows)`` pairs — the JAX package's ``split_to_spillables`` without
-    the spill registration (``parallel/shuffle.py::split_slices``, in
-    chunks of 2^20 rows of capacity, rows in input order per bucket).
-    ``batches`` stays as it was."""
-    out: List[List[Tuple[DeviceBatch, int]]] = [[] for _ in range(nbuckets)]
-    for i, part, n in split_slices(list(batches), pid_fn, nbuckets):
-        out[i].append((part, n))
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -738,9 +724,11 @@ class TpuSortMergeJoinExec(TpuExec):
                             ) -> Iterator[DeviceBatch]:
         """Two oversized sides: a recursive hash split [REF:
         GpuSubPartitionHashJoin].  Both sides re-hash on the join keys
-        with a seed of their own per depth into k sub-partitions, and
-        each pair joins on its own: equal keys land in equal
-        sub-partitions, so every join type's semantics hold per pair.
+        with a seed of their own per depth into k sub-partitions, each
+        (batch x sub-partition) slice registers as a spillable, and each
+        pair joins on its own: peak device memory is about one pair.
+        Equal keys land in equal sub-partitions, so every join type's
+        semantics hold per pair.
 
         k satisfies two ceilings, clamped to [2, 256]: memory (``total``
         bytes of both sides over a quarter of the arbiter's budget) and
@@ -750,7 +738,8 @@ class TpuSortMergeJoinExec(TpuExec):
         depth 3 (a single hot key can never spread by key hash: past the
         cap the pair joins in-core).  Pairs whose output must be empty
         for the join type are skipped; a full join keeps every pair with
-        rows on either side."""
+        rows on either side.  The split drains ``l_list`` and
+        ``r_list``, so the inputs free as their slices are cut."""
         k_mem = -(-total // max(mgr.budget // 4, 1))
         side_cap = live_rows if live_rows else max(
             sum(b.capacity for b in l_list) or 1,
@@ -768,39 +757,51 @@ class TpuSortMergeJoinExec(TpuExec):
         # sub-partition's keys spread again on the re-split
         sub_seed = 0x53504C54 + depth
         dev = (l_list or r_list)[0].device
+
+        def split(batches, keys):
+            pid_fn = make_pid_fn(keys, k, canon, sub_seed)
+            return split_to_spillables(batches, lambda b, aux: pid_fn(b),
+                                       k, mgr)
+
         with self.timer("partitionTime"):
-            l_parts = split_by_pid(
-                l_list, make_pid_fn(self.left_keys, k, canon, sub_seed), k)
-            r_parts = split_by_pid(
-                r_list, make_pid_fn(self.right_keys, k, canon, sub_seed), k)
-        for lp, rp in zip(l_parts, r_parts):
+            l_slices = split(l_list, self.left_keys)
+            r_slices = split(r_list, self.right_keys)
+        for lp, rp in zip(l_slices, r_slices):
             # inner/semi emit only matched left rows: an empty side means
             # an empty pair; left/anti must still emit a left side
-            if jt in ("inner", "left_semi") and (not lp or not rp):
+            if ((jt in ("inner", "left_semi") and (not lp or not rp))
+                    or (not lp and jt in ("left", "left_anti"))
+                    or (not lp and not rp)):
+                for sp in lp + rp:
+                    sp.close()
                 continue
-            if not lp and jt in ("left", "left_anti"):
-                continue
-            if not lp and not rp:
-                continue
-            pair_bytes = (sum(b.nbytes() for b, _ in lp)
-                          + sum(b.nbytes() for b, _ in rp))
+            pair_bytes = (sum(sp.nbytes for sp in lp)
+                          + sum(sp.nbytes for sp in rp))
+            # capacity is read off the spillables (no restore); the
+            # registrations stay open until the pair is done, so that
+            # the arbiter keeps seeing (and can spill) its bytes
             if (self.sub_partition_rows and depth < 3
-                    and max(sum(b.capacity for b, _ in lp) or 1,
-                            sum(b.capacity for b, _ in rp) or 1)
+                    and max(sum(sp.capacity for sp in lp) or 1,
+                            sum(sp.capacity for sp in rp) or 1)
                     > self.sub_partition_rows):
                 yield from self._sub_partition_join(
-                    [b for b, _ in lp], [b for b, _ in rp], jt,
+                    [sp.get() for sp in lp], [sp.get() for sp in rp], jt,
                     pair_bytes, mgr, depth + 1)
+                for sp in lp + rp:
+                    sp.close()
                 continue
             # clamped: one pair can exceed a tiny budget after padding
             with mgr.transient(min(2 * max(pair_bytes, 1), mgr.budget)):
-                lb = self._concat(0, [b for b, _ in lp],
-                                  [n for _, n in lp], dev)
-                rb = self._concat(1, [b for b, _ in rp],
-                                  [n for _, n in rp], dev)
+                lb = self._concat(0, [sp.get() for sp in lp],
+                                  [sp.live_rows for sp in lp], dev)
+                rb = self._concat(1, [sp.get() for sp in rp],
+                                  [sp.live_rows for sp in rp], dev)
                 with self.timer():
                     outs = list(self._merge_join(lb, rb, jt))
+                del lb, rb
                 yield from self._emit(outs)
+                for sp in lp + rp:
+                    sp.close()
 
     def _cross(self, lb: DeviceBatch, rb: DeviceBatch
                ) -> Tuple[DeviceBatch, int]:

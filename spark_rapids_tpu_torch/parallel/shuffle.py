@@ -1,5 +1,5 @@
 """Bucket splits of device batches: the range partition ids and the
-spillable split under the out-of-core sort.
+spillable split.
 
 [REF: sql-plugin/../GpuRangePartitioning.scala; GpuOutOfCoreSortIterator]
 
@@ -8,8 +8,8 @@ The port's own copy of four functions of the JAX package's
 (rows stably sorted by bucket id, and where each bucket's run starts),
 ``range_pid_fn`` (a row's bucket by a lexicographic search of its sort
 key limbs among sampled boundary rows) and ``split_to_spillables``,
-whose cutting (``split_slices``) the join's hash sub-partitioning
-shares (``exec/join.py::split_by_pid``).
+under the out-of-core sort, the join's hash sub-partitioning and the
+aggregate's repartitioned merge.
 The mesh, the collective exchange and the hash exchange programs of
 that module are ROADMAP A.10.
 """
@@ -54,15 +54,20 @@ def range_pid_fn(orders) -> Callable:
     return pids
 
 
-def split_slices(batches: List[DeviceBatch], ids_fn, nbuckets: int,
-                 chunk_rows: int = 1 << 20):
-    """Split batches by bucket id (``ids_fn(batch)``): yields
-    ``(bucket, slice, live rows)``.
+def split_to_spillables(batches: List[DeviceBatch], ids_fn, nbuckets: int,
+                        mgr, aux=None, chunk_rows: int = 1 << 20
+                        ) -> List[List[SpillableBatch]]:
+    """Split batches by bucket id (``ids_fn(batch, aux)``), each slice
+    registered with the arbiter as an unreserved spillable
+    (``SpillableBatch(reserve=False)``, ``live_rows`` set): per bucket,
+    its slices in input order.
 
     The batches coalesce into chunks of at most ``chunk_rows`` rows of
-    capacity (a larger batch is a chunk of its own).  Each chunk's rows
-    are stably sorted by bucket (dead rows last), one host read takes
-    the bucket counts, and each non-empty bucket is cut into one
+    capacity (a larger batch is a chunk of its own); as this path
+    usually runs after a ``RetryOOM``, the cap is lowered so that a
+    chunk and its sorted copy fit a quarter of the budget.  Each chunk's
+    rows are stably sorted by bucket (dead rows last), one host read
+    takes the bucket counts, and each non-empty bucket is cut into one
     compacted slice of ``max(8, next power of two)`` rows.  Within a
     bucket, rows keep their input order.
 
@@ -70,6 +75,13 @@ def split_slices(batches: List[DeviceBatch], ids_fn, nbuckets: int,
     list, and only emptying it lets the input free as its slices are
     cut."""
     from spark_rapids_tpu_torch.exec.basic import concat_device_batches
+    out: List[List[SpillableBatch]] = [[] for _ in range(nbuckets)]
+    if not batches:
+        return out
+    row_b = max(1, batches[0].nbytes() // max(batches[0].capacity, 1))
+    budget_rows = max(1024, int(mgr.budget) // (4 * row_b))
+    chunk_rows = min(chunk_rows,
+                     1 << max(10, budget_rows.bit_length() - 1))
     while batches:
         chunk, acc = [], 0
         while batches and (not chunk
@@ -79,7 +91,7 @@ def split_slices(batches: List[DeviceBatch], ids_fn, nbuckets: int,
         merged = (chunk[0] if len(chunk) == 1 else
                   concat_device_batches(chunk[0].schema, chunk))
         del chunk
-        pid_s, perm = _sorted_pids(merged, ids_fn(merged), nbuckets)
+        pid_s, perm = _sorted_pids(merged, ids_fn(merged, aux), nbuckets)
         bounds = _partition_bounds(pid_s, nbuckets)
         counts = (bounds[1:] - bounds[:-1]).tolist()  # the chunk's one read
         dev = merged.device
@@ -89,32 +101,11 @@ def split_slices(batches: List[DeviceBatch], ids_fn, nbuckets: int,
                 size = max(8, 1 << (n - 1).bit_length())
                 iota = torch.arange(size, device=dev)
                 rows = perm[(lo + iota).clamp(0, merged.capacity - 1)]
-                yield i, DeviceBatch(merged.schema, tuple(
+                sp = SpillableBatch(DeviceBatch(merged.schema, tuple(
                     c.gather(rows) for c in merged.columns), iota < n,
-                    compacted=True), n
+                    compacted=True), mgr, reserve=False)
+                sp.live_rows = n
+                out[i].append(sp)
             lo += n
         del merged, pid_s, perm
-
-
-def split_to_spillables(batches: List[DeviceBatch], ids_fn, nbuckets: int,
-                        mgr, aux=None, chunk_rows: int = 1 << 20
-                        ) -> List[List[SpillableBatch]]:
-    """``split_slices`` by ``ids_fn(batch, aux)``, each slice registered
-    with the arbiter as an unreserved spillable
-    (``SpillableBatch(reserve=False)``, ``live_rows`` set): per bucket,
-    its slices in input order.  As this path usually runs after a
-    ``RetryOOM``, chunks are capped so that one and its sorted copy fit
-    a quarter of the budget.  Drains ``batches``."""
-    out: List[List[SpillableBatch]] = [[] for _ in range(nbuckets)]
-    if not batches:
-        return out
-    row_b = max(1, batches[0].nbytes() // max(batches[0].capacity, 1))
-    budget_rows = max(1024, int(mgr.budget) // (4 * row_b))
-    chunk_rows = min(chunk_rows,
-                     1 << max(10, budget_rows.bit_length() - 1))
-    for i, part, n in split_slices(batches, lambda m: ids_fn(m, aux),
-                                   nbuckets, chunk_rows):
-        sp = SpillableBatch(part, mgr, reserve=False)
-        sp.live_rows = n
-        out[i].append(sp)
     return out

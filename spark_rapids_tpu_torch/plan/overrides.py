@@ -282,7 +282,9 @@ def _tag_aggregate(meta: ExecMeta):
 
 def _convert_aggregate(cpu, ch, conf, device):
     return TpuHashAggregateExec(cpu.grouping, cpu.fns, cpu.schema, ch[0],
-                                backend=conf.kernel_backend, device=device)
+                                backend=conf.kernel_backend, device=device,
+                                bucket_rows=conf.get(C.AGG_BUCKET_ROWS),
+                                skip_ratio=conf.get(C.AGG_SKIP_RATIO))
 
 
 # the JAX package registers the next eight lazily

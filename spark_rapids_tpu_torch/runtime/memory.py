@@ -1,32 +1,47 @@
-"""Device byte budget arbiter and host spill tier.
+"""Device byte budget arbiter, spill tiers and the OOM-retry framework.
 
-[REF: sql-plugin/../GpuDeviceManager.scala, spill/SpillFramework.scala;
+[REF: sql-plugin/../GpuDeviceManager.scala, spill/SpillFramework.scala,
+ RmmRapidsRetryIterator.scala :: withRetry / splitSpillableInHalfByRows;
  spark-rapids-jni :: RmmSpark (forceRetryOOM injection)]
 
-The counterpart of the JAX package's ``runtime/memory.py``, cut to what
-the scan cache, the join and the out-of-core sort use.  The arbiter is an accounting layer
-above the allocator: operators ``reserve()`` bytes (``transient`` around
-a device step), and registered ``SpillableBatch``es are the reclaim
-pool.  A reservation that would pass the budget spills the oldest
-registration to host first; when nothing is left to spill it raises
-``RetryOOM``.  ``injectOomAtAlloc`` forces a ``RetryOOM`` at the N-th
-reservation.
+The counterpart of the JAX package's ``runtime/memory.py``.  The arbiter
+is an accounting layer above the allocator: operators ``reserve()``
+bytes (``transient`` around a device step), and registered
+``SpillableBatch``es are the reclaim pool.  A reservation that would
+pass the budget spills the oldest registration device -> host; a host
+tier past ``spark.rapids.memory.host.spillStorageSize`` pushes its
+oldest copies on to disk (one ``.npz`` with a CRC32 sidecar under a
+per-process subdirectory of ``spark.rapids.tpu.spillPath``).  When
+nothing is left to spill the reservation raises ``RetryOOM``, which
+``with_retry`` catches: spill about one batch's bytes and re-run, halve
+the input by rows (``SplitAndRetryOOM``), re-run the closure per half.
+``injectOomAtAlloc`` forces a ``RetryOOM`` at the N-th reservation.
 
-Not ported: the disk tier (with its CRC sidecars), tenancy, ``with_retry``
-and the leak tracker.  Where the JAX package would push a host copy to
-disk because ``spillStorageSize`` is full, the port raises ``RetryOOM``
-instead.
+Not ported: tenancy (per-tenant HBM shares, ``suspend_spill``) and the
+failure domains of ``runtime/resilience.py``.  Without them the two IO
+sites act once, without a retry loop: a disk write that fails with an
+``OSError`` keeps the host copy (the JAX package's ``degrade``
+outcome), and a restore from a missing, corrupt or CRC-mismatched file
+raises ``SpillReadError``, tagged ``spill_read``.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import os
+import shutil
 import threading
-from typing import Dict, List, Optional
+import uuid
+import zipfile
+import zlib
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from spark_rapids_tpu_torch.columnar.column import DeviceBatch, DeviceColumn
+from spark_rapids_tpu_torch.columnar.column import (
+    DeviceBatch, DeviceColumn, slice_batch)
 
 
 class RetryOOM(RuntimeError):
@@ -35,6 +50,19 @@ class RetryOOM(RuntimeError):
 
 class SplitAndRetryOOM(RetryOOM):
     """Re-running whole won't fit; caller must halve the input."""
+
+
+class SpillReadError(RuntimeError):
+    """A disk-tier restore failed: the file is missing, unreadable or no
+    longer matches its CRC32 sidecar.  The data is gone, so nothing is
+    restored; ``domain`` names the failure domain (``spill_read``)."""
+
+    domain = "spill_read"
+
+    def __init__(self, cause: BaseException):
+        super().__init__(f"spill_read failed after 1 attempt(s): "
+                         f"{type(cause).__name__}: {cause}")
+        self.cause = cause
 
 
 def _leaves(batch: DeviceBatch) -> List[Optional[torch.Tensor]]:
@@ -56,21 +84,94 @@ def _rebuild(like: "SpillableBatch", leaves) -> DeviceBatch:
                        compacted=like.compacted)
 
 
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     """A host copy of a tensor: pinned for a CUDA tensor (so that the
     restore is an asynchronous DMA), an owned clone for a CPU one."""
-    if t.device.type == "cuda":
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t)
-        return h
-    return t.clone()
+    return _pinned(t) if t.device.type == "cuda" else t.clone()
+
+
+def _from_disk(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host tensor of a loaded array, pinned when it goes on to a
+    CUDA device (as the host tier's copies are)."""
+    t = torch.from_numpy(a)
+    return _pinned(t) if device.type == "cuda" else t
+
+
+# ---------------------------------------------------------------------------
+# spill-file integrity + per-process spill directory lifetime
+# ---------------------------------------------------------------------------
+
+def _file_crc32(path: str) -> int:
+    """CRC32 of a file's bytes, chunked (spill files can be large)."""
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                return crc
+            crc = zlib.crc32(chunk, crc)
+
+
+def _write_crc_sidecar(path: str) -> None:
+    with open(path + ".crc32", "w") as f:
+        f.write(f"{_file_crc32(path):08x}\n")
+
+
+def _verify_crc_sidecar(path: str) -> None:
+    """Raise ``ValueError`` when the payload no longer matches its
+    recorded CRC — a garbled batch must never restore silently."""
+    sidecar = path + ".crc32"
+    if not os.path.exists(sidecar):
+        return  # pre-integrity spill file; np.load is the only check
+    with open(sidecar) as f:
+        want = int(f.read().strip(), 16)
+    got = _file_crc32(path)
+    if got != want:
+        raise ValueError(
+            f"spill file {path} corrupt: crc32 {got:08x} != "
+            f"recorded {want:08x}")
+
+
+def _unlink_spill(path: str) -> None:
+    for p in (path, path + ".crc32"):
+        if os.path.exists(p):
+            os.unlink(p)
+
+
+# every per-process spill subdirectory ever handed to a manager in this
+# process; one atexit hook removes them all, so a normal exit strands
+# no orphan .npz files under the shared spillPath root
+_SPILL_DIRS: set = set()
+_SPILL_DIRS_LOCK = threading.Lock()
+
+
+def _cleanup_spill_dirs() -> None:
+    with _SPILL_DIRS_LOCK:
+        dirs = list(_SPILL_DIRS)
+        _SPILL_DIRS.clear()
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _register_spill_dir(path: str) -> None:
+    with _SPILL_DIRS_LOCK:
+        if not _SPILL_DIRS:
+            atexit.register(_cleanup_spill_dirs)
+        _SPILL_DIRS.add(path)
 
 
 class SpillableBatch:
     """A device batch registered with the arbiter as reclaimable.
 
     Tiers: device (batch live, bytes counted) -> host (a host copy of
-    every tensor).  ``get()`` restores to the device, re-reserving its
+    every tensor) -> disk (one ``.npz`` of those copies under
+    ``spillPath``).  ``get()`` restores to the device, re-reserving its
     bytes.  ``reserve=False`` registers bytes that are already on the
     device without counting them (the out-of-core sort's slices, cut
     from an input its reservation never held): they count from their
@@ -82,16 +183,27 @@ class SpillableBatch:
         self._mgr = manager
         self._batch: Optional[DeviceBatch] = batch
         self._host: Optional[list] = None
-        # True while the host copy is counted in the manager's _host_used
+        self._disk_path: Optional[str] = None
+        # which leaves are None (no validity or lengths): the .npz holds
+        # only the tensors
+        self._absent: Tuple[bool, ...] = ()
+        # True only while this batch's host copy is counted in the
+        # manager's _host_used (a disk restore staged in _host is NOT)
         self._host_accounted = False
         # True while the device bytes are counted in _reserved
         self._device_accounted = reserve
+        # set when a disk spill degraded (stayed in the host tier); the
+        # host-limit eviction loop must skip such victims or it spins
+        self._disk_spill_failed = False
         self.schema = batch.schema
         self.compacted = batch.compacted
         self.device = batch.device
         self.nbytes = batch.nbytes()
-        # live rows, where the registrant knows them (the out-of-core
-        # split's slices): a concat reads it instead of the device
+        # static row capacity, readable without restoring a spilled
+        # batch (the join's re-split check must not force an unspill)
+        self.capacity = batch.capacity
+        # live rows, where the registrant knows them (the split's
+        # slices): a concat reads it instead of the device
         self.live_rows: Optional[int] = None
         if reserve:
             manager.reserve(self.nbytes)
@@ -103,49 +215,99 @@ class SpillableBatch:
             return "device"
         if self._host is not None:
             return "host"
-        return "closed"
+        return "disk"
 
     def spill_to_host(self) -> int:
-        """Device -> host.  Returns bytes freed on the device.  Raises
-        ``RetryOOM`` when the host tier (``spillStorageSize``) cannot
-        take the copy: the port has no disk tier to push it on to."""
+        """Device -> host.  Returns bytes freed on the device."""
         if self._batch is None:
             return 0
-        mgr = self._mgr
-        if mgr._host_used + self.nbytes > mgr.host_limit:
-            raise RetryOOM(
-                f"host spill tier full: {mgr._host_used} of "
-                f"{mgr.host_limit} B used, cannot take {self.nbytes} B "
-                "(the disk tier is not ported)")
         self._host = [None if x is None else _to_host(x)
                       for x in _leaves(self._batch)]
         self._batch = None
         self._host_accounted = True
         was_accounted = self._device_accounted
         self._device_accounted = False
-        mgr._on_spill(self, self.nbytes, release_device=was_accounted)
+        self._mgr._on_spill(self, self.nbytes, release_device=was_accounted)
         return self.nbytes
+
+    def spill_to_disk(self) -> int:
+        """Host -> disk.  Returns host bytes freed (0 when the write
+        failed: the batch stays in the host tier, marked so that the
+        eviction loop skips it, and no partial file is left)."""
+        if self._host is None:
+            return 0
+        leaves = self._host
+        path = os.path.join(self._mgr.spill_path,
+                            f"spill-{uuid.uuid4().hex}.npz")
+        try:
+            os.makedirs(self._mgr.spill_path, exist_ok=True)
+            np.savez(path, *[x.numpy() for x in leaves if x is not None])
+            # integrity sidecar: restore refuses a payload whose bytes
+            # no longer match what was written
+            _write_crc_sidecar(path)
+        except OSError:
+            self._disk_spill_failed = True
+            _unlink_spill(path)  # drop any partial file
+            return 0
+        if self._disk_path is not None:
+            _unlink_spill(self._disk_path)
+        self._disk_path = path
+        self._absent = tuple(x is None for x in leaves)
+        freed = sum(x.numel() * x.element_size()
+                    for x in leaves if x is not None)
+        self._host = None
+        if self._host_accounted:
+            with self._mgr._lock:
+                self._mgr._host_used = max(0, self._mgr._host_used - freed)
+            self._host_accounted = False
+        self._mgr._on_disk_spill(self, freed)
+        return freed
+
+    def _read_disk(self) -> list:
+        """The leaves from this batch's spill file, CRC-checked."""
+        try:
+            _verify_crc_sidecar(self._disk_path)
+            with np.load(self._disk_path) as z:
+                arrays = iter([z[k] for k in z.files])
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile,
+                zlib.error) as e:
+            raise SpillReadError(e) from e
+        return [None if absent else _from_disk(next(arrays), self.device)
+                for absent in self._absent]
 
     def get(self) -> DeviceBatch:
         """Restore (if needed) and return the device batch."""
         if self._batch is not None:
             return self._batch
-        if self._host is None:
-            raise RuntimeError("get() of a closed SpillableBatch")
+        from_host = self._host is not None
+        if not from_host:
+            if self._disk_path is None:
+                raise RuntimeError("get() of a closed SpillableBatch")
+            # disk staging never touches _host_used accounting
+            self._host = self._read_disk()
+            _unlink_spill(self._disk_path)
+            self._disk_path = None
+        # taken before the reservation: its spills may push this very
+        # host copy on to disk (as in the JAX package, whose file then
+        # stays until close or the next disk spill)
+        leaves = self._host
         self._mgr.reserve(self.nbytes, _restoring=self)
         self._device_accounted = True
         self._batch = _rebuild(self, [
             None if x is None else x.to(self.device, non_blocking=True)
-            for x in self._host])
+            for x in leaves])
         self._host = None
         self._mgr.metrics["restoredBytes"] += self.nbytes
-        if self._host_accounted:
+        if from_host and self._host_accounted:
             self._host_accounted = False
             self._mgr._on_restore(self)
         return self._batch
 
     def close(self):
         self._mgr._unregister(self)
+        if self._disk_path is not None:
+            _unlink_spill(self._disk_path)
+            self._disk_path = None
         self._batch = None
         self._host = None
 
@@ -161,17 +323,36 @@ class DeviceMemoryManager:
     def __init__(self, budget: Optional[int] = None,
                  alloc_fraction: float = 0.85,
                  host_limit: int = 4 << 30,
+                 spill_path: str = "/tmp/tpuq-spill",
                  inject_oom_at: int = -1,
+                 retry_max_attempts: int = 8,
+                 debug: bool = False,
                  device=None):
+        self.retry_max_attempts = retry_max_attempts
         self._lock = threading.RLock()
         self._spillables: Dict[int, SpillableBatch] = {}
+        # leak tracker [REF: cudf MemoryCleaner]: with debug on, every
+        # registration records its creation stack; unreleased handles
+        # are reported at exit (LEAK DETECTED)
+        self.debug = debug
+        self._origins: Dict[int, str] = {}
+        if debug:
+            atexit.register(self.report_leaks)
         self._reserved = 0
         self._host_used = 0
         self.host_limit = host_limit
+        # each manager spills into its own per-process subdirectory of
+        # the configured root (created at the first disk spill); the
+        # atexit hook removes the whole subtree on normal exit
+        self.spill_root = spill_path
+        self.spill_path = os.path.join(
+            spill_path, f"proc-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+        _register_spill_dir(self.spill_path)
         self._alloc_count = 0
         self._inject_at = inject_oom_at
-        self.metrics = {"spillToHostBytes": 0, "restoredBytes": 0,
-                        "retryOOMs": 0, "peakReserved": 0}
+        self.metrics = {"spillToHostBytes": 0, "spillToDiskBytes": 0,
+                        "restoredBytes": 0, "retryOOMs": 0,
+                        "splitRetries": 0, "peakReserved": 0}
         self.budget = budget if budget else self._detect_budget(
             alloc_fraction, device)
 
@@ -203,11 +384,7 @@ class DeviceMemoryManager:
                     f"allocation of {nbytes} B exceeds the whole budget "
                     f"({self.budget} B) — split required")
             while self._reserved + nbytes > self.budget:
-                try:
-                    spilled = self._spill_one(exclude=_restoring)
-                except RetryOOM as e:
-                    raise self._oom(RetryOOM, str(e)) from e
-                if not spilled:
+                if not self._spill_one(exclude=_restoring):
                     raise self._oom(
                         RetryOOM,
                         f"cannot reserve {nbytes} B: {self._reserved} of "
@@ -243,14 +420,59 @@ class DeviceMemoryManager:
     def _register(self, s: SpillableBatch) -> None:
         with self._lock:
             self._spillables[id(s)] = s
+            if self.debug:
+                import traceback
+                self._origins[id(s)] = "".join(
+                    traceback.format_stack(limit=12)[:-2])
+
+    def leaked(self, include_pinned: bool = False) -> List[tuple]:
+        """(batch, origin-stack) for every never-closed registration.
+        The scan cache is a deliberate long-lived pool — excluded unless
+        ``include_pinned`` (its entries close on eviction)."""
+        from spark_rapids_tpu_torch.exec.basic import _scan_cache
+        pinned = {id(sp) for entries in list(_scan_cache.values())
+                  for pairs in entries.values() for sp, _ in pairs}
+        with self._lock:
+            return [(s, self._origins.get(i, "<enable memory.gpu.debug "
+                                             "for stacks>"))
+                    for i, s in self._spillables.items()
+                    if include_pinned or i not in pinned]
+
+    def spill_pressure(self) -> float:
+        """Occupancy fraction of the HOST spill tier (0.0 = empty,
+        >= 1.0 = the next host spill will push victims to disk)."""
+        if self.host_limit <= 0:
+            return 0.0
+        return self._host_used / self.host_limit
+
+    def report_leaks(self) -> int:
+        leaks = self.leaked()
+        for s, origin in leaks:
+            print(f"LEAK DETECTED: spillable batch {s.nbytes} B "
+                  f"(tier={s.tier}) never closed; created at:\n{origin}")
+        return len(leaks)
+
+    def reclaim_all(self) -> int:
+        """Close every non-pinned registered spillable.  Closing releases
+        device/host accounting and unlinks disk spill files (+ CRC
+        sidecars), so ``report_leaks()`` returns 0 afterwards.  Returns
+        the number of batches reclaimed."""
+        n = 0
+        for s, _origin in self.leaked():
+            s.close()
+            n += 1
+        return n
 
     def _unregister(self, s: SpillableBatch) -> None:
         with self._lock:
             self._spillables.pop(id(s), None)
+            self._origins.pop(id(s), None)
             if s.tier == "device" and s._device_accounted:
                 s._device_accounted = False
                 self.release(s.nbytes)
             elif s._host_accounted:
+                # host-tier bytes leave the host budget when the batch is
+                # closed (staged disk restores were never counted)
                 s._host_accounted = False
                 self._host_used = max(0, self._host_used - s.nbytes)
 
@@ -261,6 +483,17 @@ class DeviceMemoryManager:
                 self.release(nbytes)
             self._host_used += nbytes
             self.metrics["spillToHostBytes"] += nbytes
+            while self._host_used > self.host_limit:
+                victim = next(
+                    (v for v in self._spillables.values()
+                     if v.tier == "host" and v._host_accounted
+                     and not v._disk_spill_failed and v is not s), None)
+                if victim is None:
+                    break
+                victim.spill_to_disk()  # decrements _host_used itself
+
+    def _on_disk_spill(self, s: SpillableBatch, nbytes: int) -> None:
+        self.metrics["spillToDiskBytes"] += nbytes
 
     def _on_restore(self, s: SpillableBatch) -> None:
         with self._lock:
@@ -283,8 +516,18 @@ def _build(conf, device=None) -> DeviceMemoryManager:
         budget=conf.get(C.POOL_SIZE) or None,
         alloc_fraction=conf.get(C.MEMORY_FRACTION),
         host_limit=conf.get(C.HOST_SPILL_STORAGE),
+        spill_path=conf.get(C.SPILL_PATH),
         inject_oom_at=conf.get(C.FAULT_INJECT),
+        retry_max_attempts=conf.get(C.RETRY_MAX),
+        debug=str(conf.get(C.MEMORY_DEBUG)).upper() == "STDOUT",
         device=device)
+
+
+def _identity(m: DeviceMemoryManager) -> tuple:
+    # the configured spill ROOT, not the per-instance subdirectory, or
+    # every get_manager(conf) would rebuild the arbiter
+    return (m.budget, m.host_limit, m._inject_at, m.retry_max_attempts,
+            m.spill_root, m.debug)
 
 
 def get_manager(conf=None, device=None) -> DeviceMemoryManager:
@@ -299,9 +542,7 @@ def get_manager(conf=None, device=None) -> DeviceMemoryManager:
             _manager = _build(conf, device)
         elif conf is not None:
             cfg = _build(conf, device)
-            if (cfg.budget, cfg.host_limit, cfg._inject_at) != (
-                    _manager.budget, _manager.host_limit,
-                    _manager._inject_at):
+            if _identity(cfg) != _identity(_manager):
                 _manager = cfg
                 replaced = True
         mgr = _manager
@@ -320,3 +561,79 @@ def reset_manager() -> None:
     global _manager
     with _manager_lock:
         _manager = None
+
+
+# ---------------------------------------------------------------------------
+# the retry framework [REF: RmmRapidsRetryIterator.scala :: withRetry]
+# ---------------------------------------------------------------------------
+
+def split_batch_in_half(batch: DeviceBatch) -> List[DeviceBatch]:
+    """Halve a batch by row range (the splitSpillableInHalfByRows
+    analog).  Views — each half keeps a pow-2 capacity."""
+    cap = batch.capacity
+    if cap <= 1:
+        raise SplitAndRetryOOM("cannot split a 1-row batch")
+    half = cap // 2
+    return [slice_batch(batch, 0, half), slice_batch(batch, half, half)]
+
+
+def with_retry(
+    inputs: Iterable[DeviceBatch],
+    closure: Callable[[DeviceBatch], object],
+    max_attempts: Optional[int] = None,
+    manager: Optional[DeviceMemoryManager] = None,
+    allow_split: bool = True,
+):
+    """Run ``closure`` over each input batch with OOM rollback.
+
+    On ``RetryOOM``: spill registered spillables and re-run the same
+    batch.  On ``SplitAndRetryOOM`` (or a repeated RetryOOM): split the
+    batch in half by rows and process the halves independently — the
+    caller's closure must be merge-friendly (partial aggregates, sorted
+    runs, ...).  Yields one result per processed (sub-)batch.  Attempts
+    default to the manager's ``spark.rapids.tpu.retry.maxAttempts``.
+
+    ``inputs`` is consumed LAZILY — one upstream batch is live at a
+    time, so spilling actually frees device memory instead of fighting a
+    pinned input list.
+    """
+    mgr = manager or get_manager()
+    if max_attempts is None:
+        max_attempts = mgr.retry_max_attempts
+    it = iter(inputs)
+    work: List[Tuple[DeviceBatch, int]] = []  # pending (sub-)batches
+    while True:
+        if work:
+            batch, attempts = work.pop(0)
+        else:
+            batch = next(it, None)
+            if batch is None:
+                return
+            attempts = 0
+        try:
+            yield closure(batch)
+        except SplitAndRetryOOM:
+            if not allow_split:
+                raise
+            mgr.metrics["splitRetries"] += 1
+            halves = split_batch_in_half(batch)
+            work = [(h, attempts + 1) for h in halves] + work
+        except RetryOOM:
+            if attempts + 1 >= max_attempts:
+                raise
+            # free device pressure INCREMENTALLY: spill victims until
+            # roughly this batch's working set is free, not the whole
+            # pool (draining everything evicts the scan cache on the
+            # first transient OOM and forces full re-materialization)
+            freed, target = 0, max(batch.nbytes(), 1)
+            for s in list(mgr._spillables.values()):
+                if s.tier == "device":
+                    freed += s.spill_to_host()
+                    if freed >= target:
+                        break
+            if attempts >= 1 and allow_split and batch.capacity > 1:
+                mgr.metrics["splitRetries"] += 1
+                halves = split_batch_in_half(batch)
+                work = [(h, attempts + 1) for h in halves] + work
+            else:
+                work.insert(0, (batch, attempts + 1))

@@ -2,12 +2,13 @@
 package's on the same sequence of registrations, spills, restores and
 reservations with the same budget: after every step both managers must
 hold the same tiers, the same reserved bytes and the same ``metrics``
-(``spillToHostBytes``, ``restoredBytes``, ``peakReserved``,
-``retryOOMs``).  Batches come from the same arrow tables through each
+(``spillToHostBytes``, ``spillToDiskBytes``, ``restoredBytes``,
+``peakReserved``, ``retryOOMs``, ``splitRetries``) and the same host
+tier bytes.  Batches come from the same arrow tables through each
 package's ``host_to_device``.  Plus the port's own rules: the memory
-confs, the manager's replacement (which evicts the scan cache), and the
-host tier that raises ``RetryOOM`` where the JAX package would spill to
-disk.
+confs and the manager's replacement (which evicts the scan cache).
+The disk tier, ``with_retry`` and the leak tracker are held against
+the JAX package in ``tests/test_torch_disk_spill.py``.
 """
 
 import numpy as np
@@ -24,8 +25,8 @@ from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.runtime import memory as M
 
 CPU = torch.device("cpu")
-METRICS = ("spillToHostBytes", "restoredBytes", "peakReserved",
-           "retryOOMs")
+METRICS = ("spillToHostBytes", "spillToDiskBytes", "restoredBytes",
+           "peakReserved", "retryOOMs", "splitRetries")
 
 
 @pytest.fixture(autouse=True)
@@ -50,8 +51,7 @@ class _Side:
     """One package's manager, batches and spillables, driven by name."""
 
     def __init__(self, mod, make_batch, budget, tmp_path=None, **kw):
-        if mod is JM:
-            kw["spill_path"] = str(tmp_path)
+        kw["spill_path"] = str(tmp_path / mod.__name__.split(".")[0])
         self.mod = mod
         self.mgr = mod.DeviceMemoryManager(budget=budget, **kw)
         self.make_batch = make_batch
@@ -62,11 +62,8 @@ class _Side:
                                                 self.mgr))
 
     def state(self):
-        # the JAX package reports a closed batch as "disk" (no copy on
-        # either tier); the port, which has no disk tier, as "closed"
-        tiers = ["closed" if s.tier == "disk" and s._disk_path is None
-                 else s.tier for s in self.sps]
-        return (tiers, self.mgr._reserved,
+        return ([s.tier for s in self.sps], self.mgr._reserved,
+                self.mgr._host_used,
                 {k: self.mgr.metrics[k] for k in METRICS})
 
 
@@ -74,7 +71,7 @@ def _both(tmp_path, budget, **kw):
     jax_side = _Side(JM, lambda seed: jax_h2d(_table(seed)), budget,
                      tmp_path, **kw)
     port_side = _Side(M, lambda seed: host_to_device(_table(seed), CPU),
-                      budget, **kw)
+                      budget, tmp_path, **kw)
     return jax_side, port_side
 
 
@@ -191,21 +188,22 @@ def test_transient_releases_on_exit_and_on_error(tmp_path):
     assert port.mgr._reserved == port.sps[1].nbytes
 
 
-def test_host_tier_full_raises_retry_oom():
-    """No disk tier in the port: where the JAX package would push a host
-    copy to disk, the spill (and the reservation that needed it)
-    raises RetryOOM, and nothing changes tier."""
+def test_host_limit_pushes_to_disk(tmp_path):
+    """``tests/test_memory.py::test_host_limit_pushes_to_disk``: a host
+    tier of one batch pushes its oldest copy on to disk; the restore
+    reads it back; closing removes the file."""
     size = _size()
-    mgr = M.DeviceMemoryManager(budget=int(size * 1.5), host_limit=size)
-    s1 = M.SpillableBatch(host_to_device(_table(1), CPU), mgr)
-    s2 = M.SpillableBatch(host_to_device(_table(2), CPU), mgr)  # s1 out
-    assert (s1.tier, s2.tier) == ("host", "device")
-    with pytest.raises(M.RetryOOM, match="host spill tier full"):
-        M.SpillableBatch(host_to_device(_table(3), CPU), mgr)
-    assert (s1.tier, s2.tier) == ("host", "device")
-    assert mgr.metrics["retryOOMs"] == 1
-    with pytest.raises(M.RetryOOM, match="host spill tier full"):
-        s2.spill_to_host()
+    port = _run(_both(tmp_path, size, host_limit=size), [
+        lambda s: s.register(1),
+        lambda s: s.register(2),  # s1 -> host
+        lambda s: s.register(3),  # s2 -> host, s1 -> disk
+        lambda s: s.sps[0].get(),  # s3 -> host, s2 -> disk
+        lambda s: s.sps[1].close(),
+    ])
+    assert [s.tier for s in port.sps] == ["device", "disk", "host"]
+    assert port.mgr.metrics["spillToDiskBytes"] == 2 * size
+    assert port.mgr._host_used == size
+    assert not port.sps[1]._disk_path
 
 
 def test_memory_confs_and_budget_match_jax():
@@ -214,19 +212,32 @@ def test_memory_confs_and_budget_match_jax():
     raw = {"spark.rapids.tpu.memory.poolSize": "64m",
            "spark.rapids.memory.gpu.allocFraction": 0.5,
            "spark.rapids.memory.host.spillStorageSize": "1g",
-           "spark.rapids.tpu.test.injectOomAtAlloc": 7}
+           "spark.rapids.tpu.test.injectOomAtAlloc": 7,
+           "spark.rapids.tpu.spillPath": "/nonexistent/spill",
+           "spark.rapids.tpu.retry.maxAttempts": 3,
+           "spark.rapids.memory.gpu.debug": "stdout"}
     port, jax = RapidsConf(raw), JaxConf(raw)
     from spark_rapids_tpu_torch import conf as C
     for pe, je in ((C.POOL_SIZE, JC.POOL_SIZE),
                    (C.MEMORY_FRACTION, JC.MEMORY_FRACTION),
                    (C.HOST_SPILL_STORAGE, JC.HOST_SPILL_STORAGE),
-                   (C.FAULT_INJECT, JC.FAULT_INJECT)):
-        assert pe.key == je.key and pe.doc.startswith(je.doc[:40])
+                   (C.FAULT_INJECT, JC.FAULT_INJECT),
+                   (C.SPILL_PATH, JC.SPILL_PATH),
+                   (C.RETRY_MAX, JC.RETRY_MAX),
+                   (C.MEMORY_DEBUG, JC.MEMORY_DEBUG)):
+        assert pe.key == je.key and pe.doc == je.doc
         assert pe.default == je.default
         assert port.get(pe) == jax.get(je)
     mgr = M.get_manager(port, CPU)
-    assert (mgr.budget, mgr.host_limit, mgr._inject_at) == (
-        64 << 20, 1 << 30, 7)
+    jmgr = JM.get_manager(jax)
+    ident = ("budget", "host_limit", "_inject_at", "retry_max_attempts",
+             "spill_root", "debug")
+    assert [getattr(mgr, a) for a in ident] == [
+        getattr(jmgr, a) for a in ident] == [
+        64 << 20, 1 << 30, 7, 3, "/nonexistent/spill", True]
+    import atexit
+    atexit.unregister(mgr.report_leaks)
+    atexit.unregister(jmgr.report_leaks)
     # without poolSize: allocFraction of the JAX package's 4 GiB CPU
     # fallback, as its manager computes on the CPU platform
     frac = {"spark.rapids.memory.gpu.allocFraction": 0.5}
@@ -251,7 +262,8 @@ def test_get_manager_stable_across_same_conf_replaced_on_change():
     b = M.get_manager(RapidsConf(
         {"spark.rapids.tpu.memory.poolSize": "2g"}), CPU)
     assert b is not a and b.budget == 2 << 30
-    assert not B._scan_cache and sp.tier == "closed"
+    # closed: no copy on any tier (the JAX package reports it as "disk")
+    assert not B._scan_cache and sp.tier == "disk" and not sp._disk_path
     assert a._reserved == 0
     M.reset_manager()
     assert M.peek_manager() is None

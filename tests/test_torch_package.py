@@ -140,6 +140,11 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.sql.adaptive.advisoryPartitionSizeInBytes": "big"},
      "cannot parse byte"),
     ({"spark.rapids.tpu.exchange.donate": True}, "unknown spark.rapids"),
+    ({"spark.rapids.tpu.retry.maxAttempts": 0}, "invalid value"),
+    ({"spark.rapids.sql.agg.skipAggPassReductionRatio": 0.0},
+     "invalid value"),
+    ({"spark.rapids.memory.gpu.debug": "LOUD"}, "invalid value"),
+    ({"spark.rapids.tpu.agg.bucketRows": "many"}, "invalid literal"),
     ({"spark.rapids.sql.exec.LocalLimit": False}, None),
     ({"spark.rapids.sql.exec.GlobalLimit": False}, None),
     ({"spark.rapids.sql.exec.Union": False}, None),
