@@ -146,12 +146,27 @@ result line is not printed):
    1.5 of its largest sub-partition pair, with an OOM injected at an
    aggregate reservation made while only its slices are on the card
    (the retry spills them; equal to its phase-8 run);
-16. the string expressions of the string queries (LIKE, NOT LIKE,
+16. ``[pump]``: the pump's concurrency at SF1, each run a path of its
+   own under ``test.enabled``: plans whose root keeps its partitions
+   (lineitem's large-quantity lines, lineitem broadcast-joined with one
+   brand's parts, the part-catalogue select) under 8 partitions at
+   ``concurrentGpuTasks`` 1, 2 and 4 (and the first at ``pumpDepth``
+   1), each against pyarrow and row for row against the run at one
+   permit, the semaphore's high-water mark within the permits, its wait
+   time, the cold and warm walls; q1 and q18 under 8 partitions (one
+   task, inline) against ``[partitions]``; q3 and q18 under bucketing
+   off, pow2 and a forced ladder, bit for bit, with the shape plane's
+   hits, misses and pad rows and bytes; and the kernel build cache: two
+   processes warming q1 up into one fresh ``kernel.cacheDir`` (the
+   second builds nothing), and a third after a manifest version is
+   changed (it builds again);
+17. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-17. the kernel at every shape the main path (queries, variants,
-   fallback cases, partitions, exchanges, operators, strings and retry)
+18. the kernel at every shape the main path (queries, variants,
+   fallback cases, partitions, exchanges, operators, strings, retry and
+   pump)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -161,7 +176,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-18. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+19. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -584,6 +599,12 @@ FLOAT_TO_STRING_REASON = ("expression Cast: cast floating→string not on "
 def catalogue_query(s, part):
     """Run 2: the part-catalogue cleanup, ten string expressions sorted
     by p_partkey."""
+    return catalogue_select(s, part).orderBy("p_partkey")
+
+
+def catalogue_select(s, part):
+    """The part-catalogue cleanup's ten string expressions, unsorted: a
+    root that keeps its partitions."""
     from spark_rapids_tpu_torch.sql import functions as F
     from spark_rapids_tpu_torch.sql.column import col
     return s.createDataFrame(part).select(
@@ -598,8 +619,7 @@ def catalogue_query(s, part):
         F.rtrim(F.rpad(col("p_brand"), 12, " ")).alias("brand"),
         F.replace(col("p_type"), "BRASS", "Cu-Zn").alias("type_cu"),
         F.regexp_replace(col("p_name"), VOWELS, "").alias("consonants"),
-        F.regexp_extract(col("p_name"), NAME_WORD, 0).alias("last_word"),
-    ).orderBy("p_partkey")
+        F.regexp_extract(col("p_name"), NAME_WORD, 0).alias("last_word"))
 
 
 def ref_catalogue(part):
@@ -2797,6 +2817,297 @@ def retry_phase(session, tables, refs, first, summary, spill, n_batches,
     return counts
 
 
+PUMP_PERMITS = (1, 2, 4)
+PUMP_BRAND = "Brand#23"
+PUMP_LINEITEM = ["l_orderkey", "l_partkey", "l_extendedprice", "l_discount"]
+PUMP_JOINED = ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
+               "l_discount", "p_container"]
+PUMP_WARM_RUNS = 3
+SHAPE_CONFS = {
+    "off": {"spark.rapids.tpu.kernel.bucketing": "off"},
+    "pow2": {"spark.rapids.tpu.kernel.bucketing": "pow2"},
+    # a single rung that swallows every small batch: padding forced
+    "ladder": {"spark.rapids.tpu.kernel.bucketing": "ladder",
+               "spark.rapids.tpu.kernel.bucketLadder": "8192",
+               "spark.rapids.tpu.kernel.maxPadFraction": 0.99}}
+CACHE_SF = 0.01
+# one process of the build-cache check: a session whose kernel.cacheDir
+# is argv[1], warmed up on q1 at SF argv[2]; prints the warmup report
+CACHE_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+from spark_rapids_tpu_torch.kernels import cuda_backend as CB
+from spark_rapids_tpu_torch.runtime import kernel_cache as KC
+from spark_rapids_tpu_torch.sql.session import TpuSession
+from spark_rapids_tpu_torch.utils import tpch
+s = TpuSession({"spark.rapids.tpu.kernel.cacheDir": sys.argv[1]})
+li = tpch.gen_tpch(float(sys.argv[2]))["lineitem"]
+rep = s.warmup([lambda sess: tpch.q1(sess, li)])
+rep.update(cache_dir=KC.persistent_cache_dir(), build_dir=str(CB.BUILD_DIR),
+           launches=CB.launches, process_s=time.perf_counter() - t0)
+print(json.dumps(rep))
+"""
+
+
+def pump_filter(s, li):
+    """Lineitem's large-quantity lines (about a tenth), four columns: a
+    filter whose root keeps its partitions."""
+    from spark_rapids_tpu_torch.sql.column import col
+    return (s.createDataFrame(li).filter(col("l_quantity") > 45)
+            .select(*PUMP_LINEITEM))
+
+
+def ref_pump_filter(li):
+    import pyarrow.compute as pc
+    return li.filter(pc.greater(li["l_quantity"], 45)).select(PUMP_LINEITEM)
+
+
+def pump_join(s, t):
+    """q17's join without its aggregate: lineitem broadcast-joined with
+    one brand's parts, six columns; the join streams lineitem partition
+    by partition."""
+    from spark_rapids_tpu_torch.sql.column import col
+    part = (s.createDataFrame(t["part"])
+            .select("p_partkey", "p_brand", "p_container")
+            .filter(col("p_brand") == PUMP_BRAND))
+    return (s.createDataFrame(t["lineitem"])
+            .join(part, col("l_partkey") == col("p_partkey"))
+            .select(*PUMP_JOINED))
+
+
+def ref_pump_join(t):
+    import pyarrow.compute as pc
+    part = t["part"].filter(pc.equal(t["part"]["p_brand"], PUMP_BRAND))
+    li = t["lineitem"].select(PUMP_JOINED[:5])
+    return li.join(part.select(["p_partkey", "p_container"]), "l_partkey",
+                   right_keys="p_partkey",
+                   join_type="inner").select(PUMP_JOINED)
+
+
+def pump_run(tag, build, session, ref, CB, KN, base=None) -> tuple:
+    """One setting of ``[pump]``: a cold run (the scan cache cleared; a
+    path of its own: the counts set to 0 just before, read just after)
+    and ``PUMP_WARM_RUNS`` warm runs, each row for row equal to ``base``
+    (the run at one permit, which must equal pyarrow as a multiset);
+    the semaphore's high-water mark of each run within the permits.
+    Returns (cold result, line, counts, cold DataFrame)."""
+    from spark_rapids_tpu_torch import conf as C
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import semaphore as SEM
+    conf = session.rapids_conf()
+    permits = conf.get(C.CONCURRENT_TASKS)
+    sem = SEM.get_semaphore(conf)
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    sem.reset_query_stats()
+    df = build(session)
+    got, cold = timed(df)
+    counts = path_counts(df, CB, KN)
+    print(f"[main path] pump {tag} " + json.dumps(counts), flush=True)
+    check(counts["collision_fallbacks"] == 0,
+          f"pump {tag}: hash-collision fallbacks")
+    fallback = df.fallback_summary()
+    check(fallback["fallback_ops"] == 0 and fallback["device_ops"] > 0,
+          f"pump {tag}: plan rewrite fell back: {fallback}")
+    if base is None:  # the run at one permit: against pyarrow
+        check_result(f"pump {tag}", got, ref)
+        base = got
+    # row for row equal to the run at one permit, which equals pyarrow
+    check(got.equals(base), f"pump {tag} differs row for row from the run "
+          "at one permit")
+    peaks = [sem.max_holders]
+    waits = [df._last_plan.metric("semaphoreWaitTime").value]
+    warm = []
+    for _ in range(PUMP_WARM_RUNS):
+        sem.reset_query_stats()
+        wdf = build(session)
+        out, wall = timed(wdf)
+        warm.append(wall)
+        peaks.append(sem.max_holders)
+        waits.append(wdf._last_plan.metric("semaphoreWaitTime").value)
+        check(out.equals(base), f"pump {tag}: a warm run differs")
+        check(all(t == 0 for t in scan_transfer_times(wdf)),
+              f"pump {tag}: a warm scan missed the cache")
+    check(max(peaks) <= permits and sem.holders == 0,
+          f"pump {tag}: {max(peaks)} holders at {permits} permits")
+    line = {"rows": got.num_rows, "permits": permits,
+            "pump_depth": conf.get(C.EXEC_PUMP_DEPTH),
+            "tasks": df._last_plan.num_partitions(),
+            "peak_holders": max(peaks), "peak_holders_per_run": peaks,
+            "semaphoreWaitTime_s": waits, "cold_wall_s": cold,
+            "cold_h2d_s": phase_times(df)["h2d_s"],
+            "wall_s_median": statistics.median(warm), "wall_s": warm,
+            "d2h_s_cold": phase_times(df)["d2h_s"],
+            "hash_pairs_launches": counts["hash_pairs_launches"]}
+    print(f"[pump] {tag} " + json.dumps(line), flush=True)
+    return got, line, counts, df
+
+
+def pump_phase(dev, tables, refs, part_runs, CB, KN) -> dict:
+    """The pump's concurrency at SF1, every run a path of its own under
+    ``test.enabled``: plans whose root keeps its partitions (a filter, a
+    broadcast join and the part-catalogue select) under 8 partitions at
+    1, 2 and 4 permits (and the filter at ``pumpDepth`` 1); q1 and q18
+    under 8 partitions (one task, inline) against ``[partitions]``; q3
+    and q18 under the three bucketing policies, bit for bit; and the
+    kernel build cache across processes.  Returns each run's counts."""
+    import shutil
+    import tempfile
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import kernel_cache as KC
+    from spark_rapids_tpu_torch.runtime import shapes
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t_phase = time.perf_counter()
+    counts = {}
+    li, part = tables["lineitem"], tables["part"]
+    plans = {"filter": (lambda s: pump_filter(s, li), ref_pump_filter(li)),
+             "broadcast join": (lambda s: pump_join(s, tables),
+                                ref_pump_join(tables)),
+             "catalogue": (lambda s: catalogue_select(s, part),
+                           ref_catalogue(part))}
+    settings = [(name, p, 2) for name in plans for p in PUMP_PERMITS]
+    settings.append(("filter", 1, 1))
+    base, lines = {}, {}
+    for name, permits, depth in settings:
+        build, ref = plans[name]
+        tag = f"{name} permits={permits} depth={depth}"
+        session = TpuSession(dict(SESSION_CONF, **STRINGS_CONF, **{
+            "spark.default.parallelism": PARTITIONS,
+            "spark.rapids.sql.concurrentGpuTasks": permits,
+            "spark.rapids.tpu.exec.pumpDepth": depth}), device=dev)
+        got, lines[tag], counts[tag], df = pump_run(
+            tag, build, session, ref, CB, KN, base.get(name))
+        base.setdefault(name, got)
+        check(lines[tag]["tasks"] == PARTITIONS,
+              f"pump {tag}: {lines[tag]['tasks']} tasks")
+        if name == "broadcast join":
+            joins = join_strategies(df)
+            check(len(joins) == 1 and joins[0]["broadcast"] == "right"
+                  and joins[0]["streamedJoins"] == 0,
+                  f"pump {tag}: part is not the broadcast side: {joins}")
+    check(sum(counts[f"broadcast join permits={p} depth=2"]
+              ["hash_pairs_launches"] for p in PUMP_PERMITS) > 0,
+          "hash_pairs was not launched on the [pump] broadcast joins")
+
+    sections = {"roots_s": time.perf_counter() - t_phase}
+    # -- q1 and q18 under 8 partitions: one task, run inline ---------------
+    for q in ("q1", "q18"):
+        session = TpuSession(dict(SESSION_CONF, **{
+            "spark.default.parallelism": PARTITIONS}), device=dev)
+        clear_scan_cache()
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        df = build_on(q, session, tables)
+        got, cold = timed(df)
+        counts[f"partitions {q}"] = path_counts(df, CB, KN)
+        check(df._last_plan.num_partitions() == 1,
+              f"pump {q}: {df._last_plan.num_partitions()} tasks")
+        check(rows_equal(got, part_runs[q]["rows"], tol=0.0),
+              f"pump {q} differs from its [partitions] run")
+        warm = [timed(build_on(q, session, tables))[1] for _ in range(2)]
+        line = {"tasks": 1, "cold_wall_s": cold,
+                "wall_s_median": statistics.median(warm), "wall_s": warm,
+                "partitions_cold_wall_s": part_runs[q]["cold_wall_s"],
+                "partitions_wall_s_median": part_runs[q]["wall_s_median"],
+                "hash_pairs_launches":
+                    counts[f"partitions {q}"]["hash_pairs_launches"]}
+        print(f"[pump] partitions {q} " + json.dumps(line), flush=True)
+
+    sections["partitions_s"] = (time.perf_counter() - t_phase
+                                - sum(sections.values()))
+    # -- the shape plane: q3 and q18 under each bucketing policy ------------
+    for q in ("q3", "q18"):
+        clear_scan_cache()
+        build_on(q, TpuSession(dict(SESSION_CONF), device=dev),
+                 tables).toArrow()  # stages the scans
+        results, line = {}, {}
+        for mode, conf in SHAPE_CONFS.items():
+            # a session installs its policy when it is made
+            session = TpuSession(dict(SESSION_CONF, **conf), device=dev)
+            CB.reset_counts()
+            KN.COUNTERS.reset()
+            before = shapes.snapshot()
+            df = build_on(q, session, tables)
+            got, wall = timed(df)
+            delta = [a - b for a, b in zip(shapes.snapshot(), before)]
+            counts[f"shapes {q} {mode}"] = path_counts(df, CB, KN)
+            results[mode] = got
+            line[mode] = {"hits": delta[0], "misses": delta[1],
+                          "pad_rows": delta[2], "pad_bytes": delta[3],
+                          "warm_wall_s": wall,
+                          "hash_pairs_launches": CB.launches}
+            check(all(t == 0 for t in scan_transfer_times(df)),
+                  f"shapes {q} {mode}: a scan missed the cache")
+            check(got.equals(results["off"]),
+                  f"{q} under bucketing={mode} differs bit for bit from "
+                  "bucketing=off")
+        check_result(f"shapes {q}", results["off"], refs[q])
+        check(line["off"]["hits"] == line["off"]["misses"] == 0,
+              f"shapes {q}: bucketing=off bucketed")
+        check(all(line[m]["hits"] + line[m]["misses"] > 0
+                  for m in ("pow2", "ladder")),
+              f"shapes {q}: the shape pump saw no batch")
+        print(f"[pump] shapes {q} " + json.dumps(line), flush=True)
+
+    sections["shapes_s"] = (time.perf_counter() - t_phase
+                            - sum(sections.values()))
+    # -- the kernel build cache across processes ----------------------------
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="tpuq-kernel-cache-")
+
+    def child(name):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", CACHE_CHILD, root,
+                              str(CACHE_SF)], cwd=here, capture_output=True,
+                             text=True, timeout=600)
+        check(res.returncode == 0, f"build cache {name} process failed "
+              f"({res.returncode}):\n{res.stdout[-2000:]}{res.stderr[-4000:]}")
+        rep = json.loads(res.stdout.strip().splitlines()[-1])
+        rep["wall_with_start_s"] = time.perf_counter() - t0
+        print(f"[pump] build cache {name} " + json.dumps(rep), flush=True)
+        check(rep["plans"] == 1 and rep["launches"] > 0,
+              f"build cache {name}: q1 did not run on the card: {rep}")
+        check(rep["build_dir"].startswith(root),
+              f"build cache {name}: built outside kernel.cacheDir: {rep}")
+        return rep
+
+    try:
+        first = child("first")
+        second = child("second")
+        check(first["compiles"] >= 1 and first["compile_seconds"] > 0,
+              f"the first process built nothing: {first}")
+        check(second["compiles"] == 0 and second["wall_s"] < first["wall_s"],
+              f"the second process built again or was not faster: {second}")
+        manifest = os.path.join(first["cache_dir"], KC.MANIFEST_NAME)
+        with open(manifest) as f:
+            stamped = json.load(f)
+        check(stamped == KC._cache_versions(),
+              f"manifest {stamped} != {KC._cache_versions()}")
+        stamped["nvcc"] = "0.0-stale"
+        with open(manifest, "w") as f:
+            json.dump(stamped, f)
+        third = child("after a version change")
+        check(third["compiles"] >= 1,
+              f"a changed manifest did not rebuild: {third}")
+        with open(manifest) as f:
+            check(json.load(f) == KC._cache_versions(),
+                  "the manifest was not rewritten")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("[pump] build cache " + json.dumps({
+        "versions": KC._cache_versions(),
+        "first_compiles": first["compiles"],
+        "first_compile_s": first["compile_seconds"],
+        "first_wall_s": first["wall_s"], "second_wall_s": second["wall_s"],
+        "rebuilt_compiles": third["compiles"]}), flush=True)
+    sections["build_cache_s"] = (time.perf_counter() - t_phase
+                                 - sum(sections.values()))
+    print(f"[pump] phase {time.perf_counter() - t_phase:.1f} s "
+          + json.dumps(sections), flush=True)
+    return counts
+
+
 def dict_phase(session, tables, refs, first, summary) -> list:
     """q1, q12 and q19 cold over a lineitem whose four low-cardinality
     string columns are dictionary-encoded: each equals its plain run and
@@ -3080,12 +3391,13 @@ def _strategy_key(joins) -> list:
 
 
 def partitions_phase(q, dev, tables, ref, first, summary, main_counts,
-                     CB, KN) -> dict:
+                     CB, KN, runs=None) -> dict:
     """One query under spark.default.parallelism=8, a path of its own:
     the cache cleared and the counts set to 0 before its cold run, read
     after; against pyarrow and its 1-partition run of phase 4, with the
     1-partition run's join strategies; 8 cache entries per scanned
-    table; then 2 warm runs that must read every scan from the cache."""
+    table; then 2 warm runs that must read every scan from the cache.
+    ``runs[q]`` keeps the cold result and the walls for ``[pump]``."""
     from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
     from spark_rapids_tpu_torch.sql.session import TpuSession
     session = TpuSession(dict(SESSION_CONF, **{
@@ -3142,6 +3454,8 @@ def partitions_phase(q, dev, tables, ref, first, summary, main_counts,
                 c["entries"] for c in cached.values()),
             "equals_one_partition_run": True}
     print(f"[partitions] {q} SF{SF:g} " + json.dumps(line), flush=True)
+    if runs is not None:
+        runs[q] = dict(line, rows=got)
     return counts
 
 
@@ -3593,10 +3907,11 @@ def main() -> int:
     oracle_phase(dev)
 
     # -- multi-partition execution: six queries under 8 partitions ----------
-    part_counts = {}
+    part_counts, part_runs = {}, {}
     for q in PARTITION_QUERIES:
         part_counts[q] = partitions_phase(q, dev, tables, refs[q], first,
-                                          summary, counts[q], CB, KN)
+                                          summary, counts[q], CB, KN,
+                                          part_runs)
     # -- the exchange plane: repartition through both transports -------------
     ex_counts = exchange_phase(dev, tables, CB, KN)
     new_paths = list(part_counts.values()) + list(ex_counts.values())
@@ -3634,6 +3949,13 @@ def main() -> int:
         for key, n in c["shapes"].items():
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[retry] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- the pump's concurrency: the task pool, prefetch, shapes, cache -------
+    pump_counts = pump_phase(dev, tables, refs, part_runs, CB, KN)
+    for c in pump_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[pump] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
@@ -3719,7 +4041,8 @@ def main() -> int:
                         + list(fb_counts.values()) + new_paths
                         + list(op_counts.values())
                         + list(str_counts.values())
-                        + list(retry_counts.values())),
+                        + list(retry_counts.values())
+                        + list(pump_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -3736,6 +4059,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in str_counts.items()},
         "launches_per_retry_run": {
             k: c["hash_pairs_launches"] for k, c in retry_counts.items()},
+        "launches_per_pump_run": {
+            k: c["hash_pairs_launches"] for k, c in pump_counts.items()},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
         "ms_ring": kernel_row["ms_ring"],

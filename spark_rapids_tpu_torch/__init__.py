@@ -17,3 +17,5 @@ signed order equals unsigned order, and every right shift is masked.
 This package imports torch, numpy and pyarrow only — never jax, and
 nothing of ``spark_rapids_tpu``.
 """
+
+__version__ = "0.1.0"

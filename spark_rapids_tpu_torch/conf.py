@@ -4,8 +4,9 @@ The same builder DSL and the same key names as the JAX package's
 ``conf.py`` [REF: sql-plugin/../RapidsConf.scala :: RapidsConf], cut to
 the entries the slices ported so far use (the plan rewrite's switches,
 the TPC-H queries, the join strategies, the memory arbiter with its
-spill tiers and OOM retry, the aggregate's passes, the exchange plane
-and the string expressions' gates).
+spill tiers and OOM retry, the aggregate's passes, the exchange plane,
+the string expressions' gates, the device semaphore, the prefetching
+pump, the shape plane and the kernel build cache).
 Values are validated the same way: an unknown
 ``spark.rapids.*`` key raises, and so does a value the entry's checker
 rejects.  The per-operator kill switches ``spark.rapids.sql.exec.<Name>``
@@ -261,6 +262,93 @@ KERNEL_BACKEND = (
     .check(lambda v: v.lower() in KERNEL_BACKENDS,
            "one of " + ", ".join(KERNEL_BACKENDS))
     .create_with_default("auto")
+)
+
+
+CONCURRENT_TASKS = (
+    conf("spark.rapids.sql.concurrentGpuTasks")
+    .doc("Number of tasks that may hold the device semaphore concurrently "
+         "[REF: GpuSemaphore.scala].")
+    .integer()
+    .create_with_default(2)
+)
+
+EXEC_PUMP_DEPTH = (
+    conf("spark.rapids.tpu.exec.pumpDepth")
+    .doc("Batches kept in flight by the double-buffered exec pump: each "
+         "operator's output iterator is pre-pulled up to this depth so "
+         "JAX async dispatch overlaps the producer's H2D/compute with "
+         "the consumer's compute/D2H. 1 disables prefetch. Bounded "
+         "small on purpose — holding all outputs alive costs ~60% "
+         "exchange bandwidth (utils/exchange_bench.py).")
+    .integer()
+    .check(lambda v: 1 <= int(v) <= 8, "in [1, 8]")
+    .create_with_default(2)
+)
+
+
+def _valid_ladder(v) -> bool:
+    """CSV of strictly-increasing positive row counts ('' = unset)."""
+    s = str(v).strip()
+    if not s:
+        return True
+    try:
+        rungs = [int(x.strip()) for x in s.split(",")]
+    except ValueError:
+        return False
+    return (all(r > 0 for r in rungs)
+            and all(a < b for a, b in zip(rungs, rungs[1:])))
+
+
+KERNEL_CACHE_DIR = (
+    conf("spark.rapids.tpu.kernel.cacheDir")
+    .doc("Directory where the built kernel libraries (the nvcc-built "
+         "CUDA kernels and the g++-built native shuffle library) are "
+         "kept across processes, under a subdirectory named after the "
+         "GPU and its compute capability. The directory carries a "
+         "manifest versioned on (torch, its CUDA, nvcc, g++, engine); a "
+         "version mismatch clears it wholesale. Empty (default) builds "
+         "into build/ at the root of the checkout. Ignored by a session "
+         "on the CPU, which builds no kernel.")
+    .string()
+    .create_with_default("")
+)
+
+KERNEL_BUCKETING = (
+    conf("spark.rapids.tpu.kernel.bucketing")
+    .doc("Batch-shape bucketing policy of the shape plane: 'pow2' pads "
+         "device batch capacities up to power-of-two row buckets, "
+         "'ladder' pads up to the explicit rung list in "
+         "kernel.bucketLadder (pow2 above the top rung), 'off' disables "
+         "re-bucketing at the exec pump boundary. Fewer distinct shapes "
+         "means fewer (op, schema, bucket) XLA compiles.")
+    .string()
+    .check(lambda v: str(v).lower() in ("off", "pow2", "ladder"),
+           "one of off, pow2, ladder")
+    .create_with_default("pow2")
+)
+
+KERNEL_BUCKET_LADDER = (
+    conf("spark.rapids.tpu.kernel.bucketLadder")
+    .doc("Comma-separated strictly-increasing row-count rungs for "
+         "kernel.bucketing=ladder, e.g. '1024,8192,65536,1048576'. "
+         "Capacities above the top rung fall back to pow2 rounding. "
+         "Empty means ladder mode behaves like pow2.")
+    .string()
+    .check(_valid_ladder, "comma-separated strictly-increasing "
+                          "positive integers")
+    .create_with_default("")
+)
+
+KERNEL_MAX_PAD_FRACTION = (
+    conf("spark.rapids.tpu.kernel.maxPadFraction")
+    .doc("Upper bound on the padding a bucket may introduce, as "
+         "(bucket - capacity) / bucket. A rung that would exceed it is "
+         "rejected in favor of the batch's pow2 bucket, trading a "
+         "possible extra compile for bounded pad-waste bytes.")
+    .double()
+    .check(lambda v: 0.0 <= v < 1.0, "in [0, 1)")
+    .create_with_default(0.75)
 )
 
 

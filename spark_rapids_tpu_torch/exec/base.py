@@ -9,17 +9,29 @@ nodes pump ``DeviceBatch`` (torch tensors on the session's device);
 ``CpuExec`` nodes pump ``columnar/host.py::HostBatch`` (the numpy
 fallback and oracle path).  Transition nodes (``exec/transitions.py``)
 convert at each boundary the plan rewrite (``plan/overrides.py``)
-finds.  The JAX package's trace, stats, cancel and shape planes, which
-wrap every pump, are not ported yet.
+finds.
+
+Every subclass's ``execute`` is wrapped at class creation
+(``_wrap_execute``), as in the JAX package: a device operator's output
+is pumped ``spark.rapids.tpu.exec.pumpDepth`` batches ahead of its
+consumer (``_prefetch_pump``, innermost) and pinned to the shape
+plane's bucket (``_shape_pump``, ``runtime/shapes.py``).  A limit's
+subtree is not prefetched (``no_prefetch``): the limit stops pulling
+once it has its rows.  The JAX package's cancel (ROADMAP A.7c), stats
+and trace pumps (A.9) are not ported yet.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import threading
 import time
 from typing import Dict, Iterator, Tuple
 
+from spark_rapids_tpu_torch import kernels
 from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.runtime import shapes
 
 
 class Metric:
@@ -59,8 +71,92 @@ class MetricTimer:
         return False
 
 
+def _shape_pump(it: Iterator) -> Iterator:
+    """Pin every pumped DeviceBatch to the shape plane's canonical
+    bucket (runtime/shapes.py).  Pad rows are dead (sel False)."""
+    try:
+        for batch in it:
+            yield shapes.bucket_batch(batch)[0]
+    finally:
+        _close(it)
+
+
+def _prefetch_pump(it: Iterator, depth: int) -> Iterator:
+    """Keep up to ``depth`` batches in flight ahead of the consumer.
+
+    Kernel launches are asynchronous: pulling batch N+1 from the
+    producer while the consumer still holds batch N queues N+1's copies
+    and kernels on the stream behind N's, so that the host work of one
+    batch overlaps the device work of the other.  Only the in-flight
+    window is kept alive; ``spark.rapids.tpu.exec.pumpDepth`` = 1
+    disables it."""
+    buf: collections.deque = collections.deque()
+    exhausted = False
+    try:
+        while True:
+            while not exhausted and len(buf) < depth:
+                try:
+                    buf.append(next(it))
+                except StopIteration:
+                    exhausted = True
+            if not buf:
+                return
+            yield buf.popleft()
+    finally:
+        _close(it)
+
+
+def _close(it: Iterator) -> None:
+    """Close an abandoned producer now (a scan frees what it holds),
+    not when the collector finds it."""
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
+
+
+def no_prefetch_below(node: "ExecNode") -> None:
+    """Pump ``node``'s subtree without prefetch: a limit's, whose
+    producers must not run past the batch that completes its rows."""
+    for c in node.children:
+        c.no_prefetch = True
+        no_prefetch_below(c)
+
+
+def _wrap_execute(fn):
+    @functools.wraps(fn)
+    def execute(self, partition: int) -> Iterator:
+        it = fn(self, partition)
+        if not isinstance(self, TpuExec):
+            return it
+        depth = kernels.current_policy().pump_depth
+        if depth > 1 and not self.no_prefetch:
+            # innermost: the producer runs ahead of every downstream
+            # pump, so its launches queue behind the consumer's batch
+            it = _prefetch_pump(it, depth)
+        if shapes.current_policy().enabled:
+            # downstream pumps and consumers see the bucketed batch
+            it = _shape_pump(it)
+        return it
+
+    execute._wrapped = True
+    return execute
+
+
 class ExecNode:
-    """Base physical operator."""
+    """Base physical operator.
+
+    Subclass ``execute`` methods are wrapped at class creation
+    (``_wrap_execute``), so no exec opts in or out of the pump's
+    planes individually."""
+
+    # set on a limit's subtree: its pumps never run ahead of the limit
+    no_prefetch = False
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        fn = cls.__dict__.get("execute")
+        if fn is not None and not getattr(fn, "_wrapped", False):
+            cls.execute = _wrap_execute(fn)
 
     def __init__(self, schema: T.StructType, *children: "ExecNode"):
         self.schema = schema

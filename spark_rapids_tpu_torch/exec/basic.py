@@ -22,7 +22,9 @@ On the device:
   are out (the JAX package's pull one batch more, and the global limit
   one batch of the next partition); the global limit pulls the child's
   partitions one after another (its single-process branch: the
-  multi-executor quota is ROADMAP A.10).
+  multi-executor quota is ROADMAP A.10).  Their subtrees are pumped
+  without prefetch (``exec/base.py::no_prefetch_below``), else a
+  producer would run a batch past the one that completes the rows.
 * ``TpuUnionExec``: the partitions of its children one after another,
   under the first child's schema.
 """
@@ -40,7 +42,8 @@ from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar import host as H
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, compact, host_to_device, round_up_pow2)
-from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec
+from spark_rapids_tpu_torch.exec.base import (
+    CpuExec, TpuExec, no_prefetch_below)
 from spark_rapids_tpu_torch.ops.expressions import Expression
 from spark_rapids_tpu_torch.runtime.memory import (
     RetryOOM, SpillableBatch, get_manager)
@@ -101,8 +104,9 @@ _scan_cache_lock = threading.Lock()
 
 
 def _scan_cache_get(table: pa.Table, key):
-    ent = _scan_cache.get(id(table))
-    return None if ent is None else ent.get(key)
+    with _scan_cache_lock:
+        ent = _scan_cache.get(id(table))
+        return None if ent is None else ent.get(key)
 
 
 def _scan_cache_evict(tid):
@@ -420,6 +424,7 @@ class TpuLocalLimitExec(TpuExec):
         return f"TpuLocalLimit [{self.n}]"
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        no_prefetch_below(self)
         yield from _limit(self, self.n,
                           [self.children[0].execute(partition)])
 
@@ -441,6 +446,7 @@ class TpuGlobalLimitExec(TpuExec):
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
         child = self.children[0]
+        no_prefetch_below(self)
         # lazily: a partition's pump starts only if rows are still wanted
         yield from _limit(self, self.n, (child.execute(p) for p in
                                          range(child.num_partitions())))

@@ -18,11 +18,17 @@ hash collision (``ok`` False) — a correctness rule of the hash layout,
 not a device fallback — or when the rung found the keys unhashable and
 ran the exact layout itself (``ok`` None).  A failed build or launch is
 an exception and propagates; it never descends.
+
+The module also holds the kernel plane's policy, as the JAX package's
+does: the session installs ``KernelPolicy`` once (``configure``) and the
+exec pump reads its ``pump_depth`` (``spark.rapids.tpu.exec.pumpDepth``).
+The rung itself stays a per-session conf read at planning.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict
 
 _KERNELS = ("agg", "join")
@@ -33,17 +39,57 @@ _LADDERS = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """One immutable kernel-plane policy (the conf snapshot, parsed)."""
+
+    backend: str = "auto"   # spark.rapids.tpu.kernel.backend
+    pump_depth: int = 2     # spark.rapids.tpu.exec.pumpDepth
+
+
+_POLICY = KernelPolicy()
+_LOCK = threading.Lock()
+
+
+def configure(conf) -> KernelPolicy:
+    """Install the policy from a session's RapidsConf."""
+    from spark_rapids_tpu_torch import conf as C
+    pol = KernelPolicy(
+        backend=str(conf.get(C.KERNEL_BACKEND)).lower(),
+        pump_depth=int(conf.get(C.EXEC_PUMP_DEPTH)))
+    global _POLICY
+    with _LOCK:
+        _POLICY = pol
+    return pol
+
+
+def current_policy() -> KernelPolicy:
+    return _POLICY
+
+
 @dataclasses.dataclass
 class KernelCounters:
-    """Dispatches by the rung that produced the result, and descents."""
+    """Dispatches by the rung that produced the result, and descents.
+    Partitions pump on a task pool, so updates take the lock."""
 
     dispatches: Dict[str, int] = dataclasses.field(
         default_factory=lambda: {"cuda": 0, "jnp": 0})
     fallbacks: int = 0
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    def note_dispatch(self, rung: str) -> None:
+        with self._lock:
+            self.dispatches[rung] += 1
+
+    def note_fallback(self) -> None:
+        with self._lock:
+            self.fallbacks += 1
 
     def reset(self) -> None:
-        self.dispatches = {"cuda": 0, "jnp": 0}
-        self.fallbacks = 0
+        with self._lock:
+            self.dispatches = {"cuda": 0, "jnp": 0}
+            self.fallbacks = 0
 
 
 COUNTERS = KernelCounters()
@@ -74,11 +120,11 @@ def dispatch(kernel: str, backend: str,
     for be in _LADDERS[backend]:
         payload, okf = runner(be)()
         if be == "jnp" or okf is None:
-            COUNTERS.dispatches["jnp"] += 1
+            COUNTERS.note_dispatch("jnp")
             return payload
         if not bool(okf):
-            COUNTERS.fallbacks += 1
+            COUNTERS.note_fallback()
             continue
-        COUNTERS.dispatches[be] += 1
+        COUNTERS.note_dispatch(be)
         return payload
     raise AssertionError(f"kernel ladder for {backend!r} has no floor")

@@ -17,7 +17,10 @@ run the plain PyTorch version beside it (``hash_pairs_plain``), which
 the CPU tests hold against the JAX package bit for bit and the chip
 smoke test holds the kernel against.  ``launches`` counts the kernel's
 launches and ``launch_shapes`` the row sets hashed at each ``(L, n)``
-shape; ``reset_counts`` sets both to 0.
+shape, both under a lock (partitions pump on a task pool);
+``reset_counts`` sets both to 0.  ``BUILD_DIR`` moves under
+``spark.rapids.tpu.kernel.cacheDir`` when a session sets it
+(``runtime/kernel_cache.py``), and every build is counted there.
 """
 
 from __future__ import annotations
@@ -29,10 +32,13 @@ import shutil
 import struct
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
+
+from spark_rapids_tpu_torch.runtime import kernel_cache as KC
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -48,6 +54,7 @@ launches = 0
 launch_shapes: Dict[Tuple[int, int], int] = {}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 
 
@@ -74,6 +81,7 @@ def build(verbose: bool = False) -> Path:
     out = BUILD_DIR / f"hash_pairs_{digest}.so"
     if out.exists() and not verbose:
         return out
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
@@ -86,6 +94,7 @@ def build(verbose: bool = False) -> Path:
         print(res.stdout + res.stderr, end="", flush=True)
         ptxas_log(out).write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
+    KC.note_build(time.perf_counter() - t0)
     return out
 
 
@@ -216,9 +225,10 @@ def hash_pairs_multi(limb_sets: Sequence[LimbSet]) -> List[torch.Tensor]:
         else:
             with torch.cuda.device(device):
                 _launch(lib, args, device.index)
-        for ptrs, _, n in todo:
-            shape = (len(ptrs), n)
-            launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
+        with _count_lock:
+            for ptrs, _, n in todo:
+                shape = (len(ptrs), n)
+                launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
     return outs
 
 
@@ -233,7 +243,8 @@ def _launch(lib, args: List[bytes], device_index: int) -> None:
             raise RuntimeError(f"hash_pairs kernel launch failed: CUDA "
                                f"error {err} (launch {k + 1} of "
                                f"{len(args)})")
-        launches += 1
+        with _count_lock:
+            launches += 1
 
 
 _ZEROS = (0,) * (_SET_FIELDS * MAX_SETS)
@@ -264,5 +275,6 @@ def launch_args(todo: Sequence[Tuple[List[int], int, int]],
 def reset_counts() -> None:
     """Set the launch counts to 0."""
     global launches
-    launches = 0
-    launch_shapes.clear()
+    with _count_lock:
+        launches = 0
+        launch_shapes.clear()

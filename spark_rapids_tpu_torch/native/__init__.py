@@ -9,6 +9,9 @@ raises with the compiler's output (as ``kernels/cuda_backend.py`` does
 for ``nvcc``); the JAX package returns None there and falls back to
 Python.  The flags leave out the JAX package's ``-march=native``: the
 build directory travels with a copy of the checkout to other machines.
+``BUILD_DIR`` moves under ``spark.rapids.tpu.kernel.cacheDir`` when a
+session sets it (``runtime/kernel_cache.py``), and every build is
+counted there.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from spark_rapids_tpu_torch.runtime import kernel_cache as KC
 
 _SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -60,6 +65,7 @@ def build(name: str) -> Path:
                            + " ".join(cmd) + "\n" + res.stdout + res.stderr)
     os.replace(tmp, out)
     build_seconds[name] = time.perf_counter() - t0
+    KC.note_build(build_seconds[name])
     return out
 
 

@@ -24,6 +24,7 @@ import time
 from typing import List, Union
 
 import pyarrow as pa
+import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar import host as H
@@ -371,13 +372,62 @@ class DataFrame:
         """Execute and return the result as an Arrow table."""
         plan = self._execute_plan()
         self._last_plan = plan
-        tables = [H.to_arrow_table(b) for p in range(plan.num_partitions())
-                  for b in plan.execute(p)]
+        tables = self._pump_partitions(plan, self.session.rapids_conf(),
+                                       self.session.device)
         if not tables:
             return pa.table([pa.array([], type=T.to_arrow(f.dtype))
                              for f in self.schema.fields],
                             names=self.columns)
         return pa.concat_tables(tables)
+
+    @staticmethod
+    def _pump_partitions(plan, conf, device) -> List[pa.Table]:
+        """Execute every partition.  A plan with device work runs its
+        partitions on a task pool (the Spark-task-slot analog), each
+        task holding a permit of the device semaphore [REF:
+        GpuSemaphore.scala] — permits =
+        ``spark.rapids.sql.concurrentGpuTasks``; a plan without pumps
+        its partitions one after another on this thread.
+
+        Every task runs on this thread's current CUDA stream, so that
+        the query's kernels queue on one stream in the order they are
+        launched (a new thread starts on the default stream); the
+        tasks overlap their host work.  The JAX package binds the
+        query's cancel token in each task at this point (ROADMAP
+        A.7c)."""
+        from spark_rapids_tpu_torch import conf as C
+        from spark_rapids_tpu_torch.exec.base import TpuExec
+        from spark_rapids_tpu_torch.parallel.executor import run_pump_tasks
+        from spark_rapids_tpu_torch.runtime import scheduler
+
+        def has_device_work(node) -> bool:
+            return isinstance(node, TpuExec) or any(
+                has_device_work(c) for c in node.children)
+
+        def pump(p: int) -> List[pa.Table]:
+            return [H.to_arrow_table(b) for b in plan.execute(p)]
+
+        parts = list(range(plan.num_partitions()))
+        if not has_device_work(plan):
+            return [t for p in parts for t in pump(p)]
+
+        waits: List[float] = []  # this query's waits only
+        stream = (torch.cuda.current_stream(device)
+                  if device.type == "cuda" else None)
+
+        def task(p: int) -> List[pa.Table]:
+            # torch.cuda.stream(None) changes nothing (a CPU session)
+            with scheduler.device_hold(conf, waited_out=waits), \
+                    torch.cuda.stream(stream):
+                return pump(p)
+
+        # a single task still holds a permit: a 1-partition query counts
+        # against the concurrency cap like any other
+        permits = int(conf.get(C.CONCURRENT_TASKS) or 2)
+        workers = min(len(parts), max(permits * 2, 4))
+        chunks = run_pump_tasks(task, parts, max_workers=workers)
+        plan.metric("semaphoreWaitTime").add(sum(waits))
+        return [t for chunk in chunks for t in chunk]
 
     def metrics(self):
         """Operator metrics of the last execution, root first."""

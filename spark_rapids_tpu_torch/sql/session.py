@@ -8,12 +8,18 @@ relation of ``spark.default.parallelism`` partitions, and
 (made on the device, no host data).  The port's
 session also carries the device its queries run
 on: the CUDA card unless the caller asks for ``device="cpu"``; a
-missing card raises here, at creation.
+missing card raises here, at creation.  Creation installs the shape
+plane's policy, the kernel plane's policy and the persistent kernel
+cache from the conf, in the JAX package's order; ``warmup(plans)``
+drains plans outside ``toArrow`` so that the kernels they need are
+built now (and, with ``spark.rapids.tpu.kernel.cacheDir``, kept for
+later processes).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, Iterable, Optional
 
 import pyarrow as pa
 
@@ -27,6 +33,17 @@ class TpuSession:
                  device="cuda"):
         self._conf = RapidsConf(conf)
         self.device = resolve_device(device)
+        # shape plane: batch-shape bucketing for every exec pump
+        # (spark.rapids.tpu.kernel.bucketing/bucketLadder/maxPadFraction)
+        from spark_rapids_tpu_torch.runtime import shapes
+        shapes.configure(self._conf)
+        # kernel plane: the prefetching pump (spark.rapids.tpu.exec.pumpDepth)
+        from spark_rapids_tpu_torch import kernels
+        kernels.configure(self._conf)
+        # persistent cache of built kernel libraries
+        # (spark.rapids.tpu.kernel.cacheDir; none on the CPU)
+        from spark_rapids_tpu_torch.runtime import kernel_cache
+        kernel_cache.configure_persistent_cache(self._conf, self.device)
 
     def rapids_conf(self) -> RapidsConf:
         return self._conf
@@ -64,3 +81,33 @@ class TpuSession:
         return DataFrame(self, Range(int(start), int(end), int(step),
                                      schema,
                                      numPartitions or self._parallelism()))
+
+    def warmup(self, plans: Iterable[Any]) -> Dict[str, Any]:
+        """Build the kernels a set of plans will need.
+
+        ``plans`` is an iterable of DataFrames (or callables taking this
+        session and returning one).  Each plan is planned and every
+        partition drained through the full exec pipeline, outside
+        ``toArrow``; the results are discarded.  With
+        ``spark.rapids.tpu.kernel.cacheDir`` set, what is built lands in
+        the cache for later processes.
+
+        Returns ``{"plans", "compiles", "compile_seconds", "wall_s"}``:
+        a compile is a library build in this process.
+        """
+        from spark_rapids_tpu_torch.runtime import kernel_cache
+        t0 = time.perf_counter()
+        c0, s0 = kernel_cache.compile_snapshot()
+        count = 0
+        for p in plans:
+            df = p(self) if callable(p) else p
+            plan = df._execute_plan()
+            for part in range(plan.num_partitions()):
+                for _ in plan.execute(part):
+                    pass
+            count += 1
+        c1, s1 = kernel_cache.compile_snapshot()
+        return {"plans": count,
+                "compiles": c1 - c0,
+                "compile_seconds": round(s1 - s0, 6),
+                "wall_s": round(time.perf_counter() - t0, 6)}
