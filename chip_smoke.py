@@ -160,13 +160,35 @@ result line is not printed):
    processes warming q1 up into one fresh ``kernel.cacheDir`` (the
    second builds nothing), and a third after a manifest version is
    changed (it builds again);
-17. the string expressions of the string queries (LIKE, NOT LIKE,
+17. ``[faults]``: the failure domains at SF1, each run a path of its
+   own under ``test.enabled``: a transient fault in each of the eight
+   domains (``execute`` in q3's ``hash_pairs``, ``transfer`` at q1's
+   root pull, ``compile`` in a fresh build into a temporary
+   ``kernel.cacheDir``, ``alloc`` at q3's first aggregate reservation,
+   ``spill_write`` and ``spill_read`` in q3 over the disk tier,
+   ``shuffle_ser`` and ``shuffle_exchange`` in q18's inner aggregate
+   behind the host shuffle), each equal to its clean run row for row
+   with retries equal to the fires and no degraded op; a terminal
+   ``execute`` fault degraded (equal to q3, one breaker, the plain
+   version's calls counted) and, with ``hostDegrade`` off, failed
+   tagged ``execute``; a terminal ``shuffle_exchange`` fault, tagged;
+   q18 cancelled from a second thread after its first launch and q3
+   under a deadline of a third of its cold wall, with their latencies;
+   after each failed or cancelled run no spillable, permit, spill file
+   or query scope left and the next clean run equal to pyarrow; the
+   ``[pump]`` catalogue at 4 permits under lockdep with
+   ``raiseOnCycle`` (no violation).  The resilience counters show no
+   injected fault, breaker or degraded op before the phase and move
+   nowhere after it.  ``python3 chip_smoke.py --faults`` runs this
+   phase alone (after the build, the kernel checks, q1, q3 and q18
+   cold and ``[spill]``);
+18. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-18. the kernel at every shape the main path (queries, variants,
-   fallback cases, partitions, exchanges, operators, strings, retry and
-   pump)
+19. the kernel at every shape the main path (queries, variants,
+   fallback cases, partitions, exchanges, operators, strings, retry,
+   pump and faults)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -176,7 +198,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-19. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+20. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -198,6 +220,9 @@ import sys
 import time
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+# ``python3 chip_smoke.py --faults``: the [faults] phase alone (with the
+# clean runs and the spill pool it needs)
+FAULTS_ONLY = "--faults" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -3108,6 +3133,388 @@ def pump_phase(dev, tables, refs, part_runs, CB, KN) -> dict:
     return counts
 
 
+# -- [faults]: failure domains, retry policy, breakers, cancel, lockdep ----
+
+FAULT_POLL_MS = 50
+FAULT_PARTS = 16  # q18's inner aggregate behind the host shuffle
+
+
+def q18_inner(s, li):
+    """q18's inner aggregate behind ``repartition(16, "l_orderkey")``, as
+    ``[exchange]`` runs it."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    return (s.createDataFrame(li).repartition(FAULT_PARTS, "l_orderkey")
+            .groupBy("l_orderkey").agg(F.sum("l_quantity").alias("q")))
+
+
+def faults_phase(dev, tables, refs, first, spill, CB, KN) -> dict:
+    """The failure domains at SF1 on the card, each run a path of its
+    own (cache cleared and counts set to 0 before it, read after), under
+    ``test.enabled``:
+
+    1. a transient fault in each of the eight domains (``execute`` in
+       q3's ``hash_pairs``; ``transfer`` at q1's root pull; ``compile``
+       in a fresh build into a temporary ``kernel.cacheDir``; ``alloc``
+       at q3's first aggregate reservation, read from a recording run;
+       ``spill_write`` and ``spill_read`` in q3 over the disk tier, as
+       ``[retry]`` runs it; ``shuffle_ser`` and ``shuffle_exchange`` in
+       q18's inner aggregate behind the host shuffle): each equal to its
+       clean run row for row, retries equal to the fires, no degraded
+       op;
+    2. terminal ``execute`` faults: degraded (equal to q3, the breaker
+       tripped, ``execute`` named, the plain version's calls counted)
+       and, with ``hostDegrade`` off, a ``TerminalDeviceError`` tagged
+       ``execute``; a terminal ``shuffle_exchange`` fault, tagged;
+    3. q18 cancelled from a second thread once its first kernel
+       launched, and q3 under ``timeout_ms``: request-to-raise
+       latencies;
+    4. after each failed or cancelled run: no spillable left, no
+       semaphore permit held, an empty spill directory, and the next
+       clean run equal to pyarrow;
+    5. the ``[pump]`` catalogue root at 4 permits under lockdep with
+       ``raiseOnCycle``: no violation.
+
+    Returns each run's counts."""
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from spark_rapids_tpu_torch import native as NAT
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import cancel as CN
+    from spark_rapids_tpu_torch.runtime import kernel_cache as KC
+    from spark_rapids_tpu_torch.runtime import lockdep as LD
+    from spark_rapids_tpu_torch.runtime import memory as MM
+    from spark_rapids_tpu_torch.runtime import resilience as R
+    from spark_rapids_tpu_torch.runtime import semaphore as SEM
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t_phase = time.perf_counter()
+    before = R.counters_snapshot()
+    print("[faults] counters before the phase " + json.dumps(before),
+          flush=True)
+    # no injected fault, exhausted retry, breaker or degraded op yet;
+    # retries only of the OOM rollback (``alloc``)
+    check(not before["faults_injected"] and before["retry_exhausted"] == 0
+          and before["breaker_trips"] == 0
+          and before["host_degraded_ops"] == 0
+          and set(before["retries"]) <= {"alloc"},
+          f"failure-domain activity before [faults]: {before}")
+    li = tables["lineitem"]
+    li18 = li.select(["l_orderkey", "l_quantity", "l_returnflag"])
+    default_conf = TpuSession(dict(SESSION_CONF), device=dev).rapids_conf()
+    counts, lines = {}, {}
+
+    def session(inject=None, **conf):
+        full = dict(SESSION_CONF, **{
+            "spark.rapids.tpu.query.cancelPollMs": FAULT_POLL_MS}, **conf)
+        for d, (at, n) in (inject or {}).items():
+            full[f"spark.rapids.tpu.test.inject.{d}.at"] = at
+            full[f"spark.rapids.tpu.test.inject.{d}.transientCount"] = n
+        return TpuSession(full, device=dev)
+
+    def settled(name):
+        """No spillable, permit, spill file or query scope is left."""
+        mgr, sem = MM.peek_manager(), SEM.peek_semaphore()
+        files = (os.listdir(mgr.spill_path)
+                 if mgr is not None and os.path.isdir(mgr.spill_path)
+                 else [])
+        state = {"leaks": mgr.report_leaks() if mgr is not None else 0,
+                 "permits_held": sem.holders if sem is not None else 0,
+                 "spill_files": len(files),
+                 "open_queries": len(R.open_queries())
+                 + len(CN.active_queries())}
+        check(state == {"leaks": 0, "permits_held": 0, "spill_files": 0,
+                        "open_queries": 0},
+              f"faults {name}: not settled: {state}")
+        return state
+
+    def faulted(name, build, sess, inject):
+        """One run with ``inject`` armed: (result or the error, wall,
+        its entry, the fires, the path's counts)."""
+        R.INJECTOR.reset()
+        clear_scan_cache()
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        f0 = R.counters_snapshot()["faults_injected"]
+        df = build(sess)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            got = df.toArrow()
+        except BaseException as e:  # noqa: BLE001 (read below)
+            got = e
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        R.INJECTOR.reset()
+        f1 = R.counters_snapshot()["faults_injected"]
+        fires = {d: f1.get(d, 0) - f0.get(d, 0) for d in inject
+                 if f1.get(d, 0) - f0.get(d, 0)}
+        counts[name] = c = path_counts(df, CB, KN)
+        c["plain_calls"] = CB.plain_calls
+        print(f"[main path] faults {name} " + json.dumps(c), flush=True)
+        return got, wall, df._last_query_entry, fires, c
+
+    def transient(name, build, sess, inject, clean):
+        got, wall, entry, fires, c = faulted(name, build, sess, inject)
+        check(not isinstance(got, BaseException),
+              f"faults {name}: {got!r}")
+        res = entry.get("resilience") or {}
+        line = {"wall_s": wall, "fires": fires,
+                "retries": res.get("retries", {}),
+                "degraded_ops": res.get("degraded_ops", []),
+                "hash_pairs_launches": c["hash_pairs_launches"]}
+        lines[name] = line
+        print(f"[faults] {name} " + json.dumps(line), flush=True)
+        check(sum(fires.values()) > 0, f"faults {name}: nothing fired")
+        # retries equal to fires in the armed domains; beside them only
+        # the OOM rollback's own (a small pool's ``alloc`` retries)
+        check({d: line["retries"].get(d, 0) for d in inject} == {
+            d: fires.get(d, 0) for d in inject}
+            and set(line["retries"]) - set(inject) <= {"alloc"},
+            f"faults {name}: retries {line['retries']} != fires {fires}")
+        check(not line["degraded_ops"], f"faults {name}: degraded")
+        check(got.equals(clean),
+              f"faults {name}: differs row for row from its clean run")
+        return got
+
+    def failing(name, build, sess, inject, domain, ref, clean_build):
+        got, wall, entry, fires, c = faulted(name, build, sess, inject)
+        check(isinstance(got, R.TerminalDeviceError)
+              and got.domain == domain,
+              f"faults {name}: expected a TerminalDeviceError tagged "
+              f"{domain}, got {got!r}")
+        check(entry["status"] == "error", f"faults {name}: {entry}")
+        after = settled(name)
+        nxt = clean_build(session()).toArrow()
+        check_result(f"faults {name} next clean run", nxt, ref)
+        lines[name] = {"wall_s": wall, "fires": fires, "error": str(got),
+                       "after": after}
+        print(f"[faults] {name} " + json.dumps(lines[name]), flush=True)
+
+    # -- 1. transient faults ---------------------------------------------
+    q3 = lambda s: build_on("q3", s, tables)  # noqa: E731
+    q1 = lambda s: build_on("q1", s, tables)  # noqa: E731
+    transient("execute transient", q3, session({"execute": (2, 2)}),
+              {"execute": (2, 2)}, first["q3"])
+    transient("transfer transient", q1, session({"transfer": (1, 1)}),
+              {"transfer": (1, 1)}, first["q1"])
+    # compile: a fresh build into a temporary cacheDir (the build sites
+    # move there for the run and come back after)
+    cache_root = tempfile.mkdtemp(prefix="tpuq-faults-cache-")
+    saved = (CB.BUILD_DIR, NAT.BUILD_DIR, KC._PERSISTENT_DIR)
+    try:
+        sess = session({"compile": (1, 1)}, **{
+            "spark.rapids.tpu.kernel.cacheDir": cache_root})
+        KC.clear()
+        b0 = KC.compile_snapshot()[0]
+        transient("compile transient", q1, sess, {"compile": (1, 1)},
+                  first["q1"])
+        builds = KC.compile_snapshot()[0] - b0
+        lines["compile transient"]["builds"] = builds
+        check(builds == 1, f"faults compile: {builds} builds")
+    finally:
+        CB.BUILD_DIR, NAT.BUILD_DIR, KC._PERSISTENT_DIR = saved
+        KC.clear()
+        shutil.rmtree(cache_root, ignore_errors=True)
+    # alloc: the first aggregate reservation of q3, from a recording run
+    MM.reset_manager()
+    clear_scan_cache()
+    seen = recorded_reservations(lambda: q3(session()).toArrow())
+    agg = [i for i, _, _, f, _ in seen
+           if f.endswith(os.path.join("exec", "aggregate.py"))]
+    check(bool(agg), "q3 made no aggregate reservation")
+    MM.reset_manager()
+    transient("alloc transient", q3, session({"alloc": (agg[0], 1)}),
+              {"alloc": (agg[0], 1)}, first["q3"])
+    lines["alloc transient"]["at"] = agg[0]
+    # spill_write and spill_read: q3 over the disk tier
+    root = tempfile.mkdtemp(prefix="tpuq-faults-spill-")
+    disk = {"spark.rapids.tpu.memory.poolSize": spill["pool"],
+            "spark.rapids.memory.host.spillStorageSize":
+                spill["lineitem_batch_bytes"],
+            "spark.rapids.tpu.spillPath": root}
+    try:
+        transient("spill_write transient", q3,
+                  session({"spill_write": (1, 1)}, **disk),
+                  {"spill_write": (1, 1)}, first["q3"])
+        # the cold run above left scan batches on disk: the warm run
+        # restores them
+        sess = session({"spill_read": (1, 1)}, **disk)
+        R.INJECTOR.reset()
+        f0 = R.counters_snapshot()["faults_injected"].get("spill_read", 0)
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        df = q3(sess)
+        got, wall = timed(df)
+        R.INJECTOR.reset()
+        fires = (R.counters_snapshot()["faults_injected"]
+                 .get("spill_read", 0) - f0)
+        counts["spill_read transient"] = path_counts(df, CB, KN)
+        res = df._last_query_entry.get("resilience") or {}
+        lines["spill_read transient"] = {
+            "wall_s": wall, "fires": {"spill_read": fires},
+            "retries": res.get("retries", {}),
+            "restoredBytes": MM.peek_manager().metrics["restoredBytes"]}
+        print("[faults] spill_read transient " + json.dumps(
+            lines["spill_read transient"]), flush=True)
+        check(fires == 1 and res.get("retries", {}).get("spill_read") == 1
+              and set(res.get("retries", {})) <= {"spill_read", "alloc"}
+              and not res.get("degraded_ops"),
+              f"faults spill_read: {lines['spill_read transient']}")
+        check(got.equals(first["q3"]), "faults spill_read: q3 differs")
+        clear_scan_cache()
+        settled("spill tier")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        MM.get_manager(default_conf, dev)
+    # shuffle_ser and shuffle_exchange: q18's inner aggregate
+    q18i = lambda s: q18_inner(s, li18)  # noqa: E731
+    clear_scan_cache()
+    clean18, wall18 = timed(q18i(session()))
+    want18 = li18.group_by("l_orderkey").aggregate(
+        [("l_quantity", "sum")]).rename_columns(["l_orderkey", "q"])
+    check(rows_equal(clean18, want18.select(["l_orderkey", "q"]), 1e-12),
+          "faults: q18's inner aggregate differs from pyarrow")
+    for d in ("shuffle_ser", "shuffle_exchange"):
+        transient(f"{d} transient", q18i, session({d: (1, 1)}),
+                  {d: (1, 1)}, clean18)
+
+    # -- 2. terminal faults ------------------------------------------------
+    got, wall, entry, fires, c = faulted(
+        "execute terminal degraded", q3, session({"execute": (2, 0)}),
+        {"execute": (2, 0)})
+    check(not isinstance(got, BaseException),
+          f"faults execute terminal degraded: {got!r}")
+    res = entry.get("resilience") or {}
+    lines["execute terminal degraded"] = line = {
+        "wall_s": wall, "fires": fires,
+        "degraded_domains": sorted({d["domain"]
+                                    for d in res.get("degraded_ops", [])}),
+        "breaker_trips": res.get("breaker_trips", 0),
+        "hash_pairs_launches": c["hash_pairs_launches"],
+        "hash_pairs_plain_calls": c["plain_calls"],
+        "fallback_report": [x for x in entry.get("fallback_report", [])
+                            if x.startswith("!")]}
+    print("[faults] execute terminal degraded " + json.dumps(line),
+          flush=True)
+    check(line["degraded_domains"] == ["execute"]
+          and line["breaker_trips"] >= 1 and line["hash_pairs_plain_calls"]
+          > 0, f"faults execute terminal degraded: {line}")
+    check(got.equals(first["q3"]),
+          "faults execute terminal degraded: q3 differs row for row")
+    failing("execute terminal", q3,
+            session({"execute": (2, 0)}, **{
+                "spark.rapids.tpu.retry.hostDegrade.enabled": False}),
+            {"execute": (2, 0)}, "execute", refs["q3"], q3)
+    failing("shuffle_exchange terminal", q18i,
+            session({"shuffle_exchange": (1, 0)}),
+            {"shuffle_exchange": (1, 0)}, "shuffle_exchange",
+            clean18, q18i)
+
+    # -- 3. cancel ---------------------------------------------------------
+    q18 = lambda s: build_on("q18", s, tables)  # noqa: E731
+    sess = session()
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    df = q18(sess)
+    box = {}
+
+    def run18():
+        try:
+            box["out"] = df.toArrow()
+        except BaseException as e:  # noqa: BLE001 (read below)
+            box["err"] = e
+            box["at"] = time.perf_counter()
+
+    th = threading.Thread(target=run18, name="faults-q18", daemon=True)
+    t_start = time.perf_counter()
+    th.start()
+    while th.is_alive() and CB.launches == 0:
+        time.sleep(0.001)
+    time.sleep(0.05)  # partway through the device work
+    t_req = time.perf_counter()
+    sent = sess.cancel()
+    th.join(timeout=120)
+    check(not th.is_alive(), "faults: q18 ignored its cancel")
+    torch.cuda.synchronize()
+    counts["cancel q18"] = path_counts(df, CB, KN)
+    entry = df._last_query_entry
+    lines["cancel q18"] = line = {
+        "cancel_sent": sent, "after_s": t_req - t_start,
+        "request_to_raise_s": box.get("at", t_req) - t_req,
+        "token_latency_s": (entry.get("cancel") or {}).get("latency_s"),
+        "status": entry["status"],
+        "hash_pairs_launches": CB.launches,
+        "after": settled("cancel q18")}
+    print("[faults] cancel q18 " + json.dumps(line), flush=True)
+    check(sent and isinstance(box.get("err"), CN.QueryCancelled)
+          and entry["cancel"]["reason"] == "user",
+          f"faults: q18 was not cancelled: {line} {box}")
+    check_result("faults q18 after its cancel", q18(session()).toArrow(),
+                 refs["q18"])
+    # q3 under a deadline of a third of its clean cold wall
+    clear_scan_cache()
+    _, cold3 = timed(q3(session()))
+    timeout_ms = max(1, int(cold3 * 1000 / 3))
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    df = q3(session())
+    t0 = time.perf_counter()
+    try:
+        df.toArrow(timeout_ms=timeout_ms)
+        err = None
+    except CN.QueryCancelled as e:
+        err = e
+    t_raise = time.perf_counter()
+    torch.cuda.synchronize()
+    counts["deadline q3"] = path_counts(df, CB, KN)
+    entry = df._last_query_entry
+    lines["deadline q3"] = line = {
+        "timeout_ms": timeout_ms, "clean_cold_wall_s": cold3,
+        "raised_after_s": t_raise - t0,
+        "token_latency_s": (entry.get("cancel") or {}).get("latency_s"),
+        "status": entry["status"], "after": settled("deadline q3")}
+    print("[faults] deadline q3 " + json.dumps(line), flush=True)
+    check(err is not None and err.reason == "deadline",
+          f"faults: q3 under its deadline: {line}")
+    check_result("faults q3 after its deadline", q3(session()).toArrow(),
+                 refs["q3"])
+
+    # -- 4. lockdep over the [pump] catalogue root at 4 permits ------------
+    part = tables["part"]
+    LD.reset()
+    sess = session(**STRINGS_CONF, **{
+        "spark.default.parallelism": PARTITIONS,
+        "spark.rapids.sql.concurrentGpuTasks": 4,
+        "spark.rapids.tpu.lockdep.enabled": True,
+        "spark.rapids.tpu.lockdep.raiseOnCycle": True})
+    try:
+        clear_scan_cache()
+        got, wall = timed(catalogue_select(sess, part))
+    finally:
+        LD.disable()
+    check(rows_equal(got, ref_catalogue(part)),
+          "faults: the catalogue under lockdep differs from pyarrow")
+    lines["lockdep catalogue"] = line = {
+        "wall_s": wall, "violations": [str(v) for v in LD.violations()],
+        **LD.counters_snapshot()}
+    print("[faults] lockdep catalogue permits=4 " + json.dumps(line),
+          flush=True)
+    check(not line["violations"], f"faults: lockdep: {line}")
+    LD.reset()
+
+    after = R.counters_snapshot()
+    total = time.perf_counter() - t_phase
+    print("[faults] " + json.dumps({
+        "phase_s": total, "card": nvidia_smi_line(),
+        "counters_after": after,
+        "walls_s": {k: v["wall_s"] for k, v in lines.items()
+                    if "wall_s" in v}}), flush=True)
+    return counts
+
+
 def dict_phase(session, tables, refs, first, summary) -> list:
     """q1, q12 and q19 cold over a lineitem whose four low-cardinality
     string columns are dictionary-encoded: each equals its plain run and
@@ -3743,6 +4150,35 @@ def exchange_phase(dev, tables, CB, KN) -> dict:
     return counts
 
 
+def faults_only(dev, tables, refs, CB, KN) -> int:
+    """``--faults``: q1, q3 and q18 cold (their clean runs), ``[spill]``
+    (the disk tier's pool), then ``[faults]`` alone."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import resilience as RES
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t0 = time.perf_counter()
+    session = TpuSession(dict(SESSION_CONF), device=dev)
+    first = {}
+    for q in ("q1", "q3", "q18"):
+        clear_scan_cache()
+        first[q] = build_on(q, session, tables).toArrow()
+        check_result(f"{q} clean", first[q], refs[q])
+    clear_scan_cache()
+    build_on("q3", session, tables).toArrow()
+    n_batches = -(-tables["lineitem"].num_rows
+                  // session.rapids_conf().batch_rows)
+    spill = spill_phase(session, SESSION_CONF, tables, refs["q3"],
+                        first["q3"], n_batches, dev)
+    counts = faults_phase(dev, tables, refs, first, spill, CB, KN)
+    print("[faults only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()},
+        "counters": RES.counters_snapshot()}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import pyarrow as pa
@@ -3832,6 +4268,9 @@ def main() -> int:
 
     def build(q, session):
         return build_on(q, session, tables)
+
+    if FAULTS_ONLY:
+        return faults_only(dev, tables, refs, CB, KN)
 
     # test mode: any CPU fallback in the main path raises
     session = TpuSession(dict(SESSION_CONF), device=dev)
@@ -3957,6 +4396,15 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[pump] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- the failure domains: faults, retries, breakers, cancel, lockdep -----
+    from spark_rapids_tpu_torch.runtime import resilience as RES
+    fault_counts = faults_phase(dev, tables, refs, first, spill, CB, KN)
+    after_faults = RES.counters_snapshot()
+    for c in fault_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[faults] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -4042,7 +4490,8 @@ def main() -> int:
                         + list(op_counts.values())
                         + list(str_counts.values())
                         + list(retry_counts.values())
-                        + list(pump_counts.values())),
+                        + list(pump_counts.values())
+                        + list(fault_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -4061,6 +4510,10 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in retry_counts.items()},
         "launches_per_pump_run": {
             k: c["hash_pairs_launches"] for k, c in pump_counts.items()},
+        "launches_per_faults_run": {
+            k: c["hash_pairs_launches"] for k, c in fault_counts.items()},
+        "plain_calls_per_faults_run": {
+            k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,
         "ms": kernel_row["ms"], "ms_warm": kernel_row["ms_warm"],
         "ms_ring": kernel_row["ms_ring"],
@@ -4075,6 +4528,10 @@ def main() -> int:
         "ptxas": ptxas,
         "shape": {"L": MAIN_PATH_SHAPE[0], "n": MAIN_PATH_SHAPE[1]},
         "main_path_shapes": shape_rows}]
+    # no failure-domain activity outside [faults]
+    end = RES.counters_snapshot()
+    check(end == after_faults,
+          f"failure-domain counters moved after [faults]: {end}")
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -354,7 +354,25 @@ def host_to_device(table: pa.Table, device: torch.device,
 
 
 def device_to_host(batch: DeviceBatch) -> pa.Table:
-    """DeviceBatch -> pyarrow.Table (compacts first)."""
+    """DeviceBatch -> pyarrow.Table (compacts first).
+
+    The ``transfer`` failure domain (``runtime/resilience.py``) wraps
+    the whole pull, so that a transient injected fault retries the
+    actual copy.  Exhaustion degrades to the plain path, which is this
+    same blocking pull: the port's pull has no overlapped variant to
+    give up (the JAX package's degrade drops its async prefetch)."""
+    from spark_rapids_tpu_torch.runtime import resilience as R
+    if R.active():
+        def attempt():
+            R.INJECTOR.on("transfer")
+            return _device_to_host_impl(batch)
+
+        return R.run_guarded("transfer", attempt, op="device_to_host",
+                             degrade=lambda: _device_to_host_impl(batch))
+    return _device_to_host_impl(batch)
+
+
+def _device_to_host_impl(batch: DeviceBatch) -> pa.Table:
     batch = compact(batch)
     n = batch.num_rows_host()
     arrays = []

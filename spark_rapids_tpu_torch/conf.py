@@ -6,7 +6,8 @@ the entries the slices ported so far use (the plan rewrite's switches,
 the TPC-H queries, the join strategies, the memory arbiter with its
 spill tiers and OOM retry, the aggregate's passes, the exchange plane,
 the string expressions' gates, the device semaphore, the prefetching
-pump, the shape plane and the kernel build cache).
+pump, the shape plane, the kernel build cache and the failure domains:
+retry policy, deadlines, fault injection and lockdep).
 Values are validated the same way: an unknown
 ``spark.rapids.*`` key raises, and so does a value the entry's checker
 rejects.  The per-operator kill switches ``spark.rapids.sql.exec.<Name>``
@@ -415,6 +416,179 @@ RETRY_MAX = (
     .integer()
     .check(lambda v: v >= 1, "at least 1")
     .create_with_default(8)
+)
+
+RETRY_BACKOFF_BASE_MS = (
+    conf("spark.rapids.tpu.retry.backoffBaseMs")
+    .doc("Base delay for the retry policy's exponential backoff: attempt "
+         "n sleeps ~base*2^(n-1) ms (capped by retry.backoffMaxMs, "
+         "scaled by deterministic seeded jitter). 0 disables sleeping.")
+    .double()
+    .check(lambda v: v >= 0.0, "non-negative")
+    .create_with_default(5.0)
+)
+
+RETRY_BACKOFF_MAX_MS = (
+    conf("spark.rapids.tpu.retry.backoffMaxMs")
+    .doc("Upper bound on a single retry backoff sleep in milliseconds.")
+    .double()
+    .check(lambda v: v >= 0.0, "non-negative")
+    .create_with_default(1000.0)
+)
+
+RETRY_JITTER_SEED = (
+    conf("spark.rapids.tpu.retry.jitterSeed")
+    .doc("Seed for the retry policy's backoff jitter. Jitter is a pure "
+         "function of (seed, domain, attempt), so a run is exactly "
+         "reproducible under the same seed.")
+    .integer()
+    .create_with_default(0)
+)
+
+RETRY_BUDGET_PER_QUERY = (
+    conf("spark.rapids.tpu.retry.budgetPerQuery")
+    .doc("Total retries one query may spend across every failure domain "
+         "before further faults are treated as exhausted (degrade or "
+         "fail instead of retry-storming). 0 disables the budget.")
+    .integer()
+    .check(lambda v: v >= 0, "non-negative")
+    .create_with_default(64)
+)
+
+RETRY_HOST_DEGRADE = (
+    conf("spark.rapids.tpu.retry.hostDegrade.enabled")
+    .doc("When an injected fault exhausts its retries in a degradable "
+         "failure domain (execute, transfer, compile, spill_write), trip "
+         "the per-op circuit breaker and re-run the step on its plain "
+         "path (the kernel's plain PyTorch version on the same device; "
+         "a plain pull; the host copy kept) instead of failing the "
+         "query. Disable to surface a domain-tagged terminal error "
+         "instead. A real kernel build or launch failure never "
+         "degrades.")
+    .boolean()
+    .create_with_default(True)
+)
+
+QUERY_TIMEOUT_MS = (
+    conf("spark.rapids.tpu.query.timeoutMs")
+    .doc("Per-query deadline in milliseconds, enforced in-process by "
+         "the cooperative cancellation layer (runtime/cancel.py): when "
+         "a query exceeds it, every blocking boundary raises "
+         "QueryCancelled(reason='deadline') and the engine reclaims "
+         "the query's resources (semaphore permits, device "
+         "reservations, spill files). An explicit "
+         "collect(timeout_ms=...) overrides this. <= 0 disables.")
+    .integer()
+    .create_with_default(0)
+)
+
+CANCEL_POLL_MS = (
+    conf("spark.rapids.tpu.query.cancelPollMs")
+    .doc("Upper bound on how long any blocking wait (semaphore, retry "
+         "backoff, spill IO, shuffle) may park before re-polling the "
+         "query's CancelToken. Cancels and deadline expiries surface "
+         "within ~2x this interval; registered waiters (the device "
+         "semaphore) wake immediately.")
+    .integer()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(50)
+)
+
+INJECT_EXECUTE_AT = (
+    conf("spark.rapids.tpu.test.injectExecuteErrorAt")
+    .doc("Raise an injected device error at the Nth hash_pairs dispatch "
+         "(resilience test hook, the faultinj analog). -1 disables.")
+    .integer()
+    .create_with_default(-1)
+)
+
+INJECT_TRANSFER_AT = (
+    conf("spark.rapids.tpu.test.injectTransferErrorAt")
+    .doc("Raise an injected device error at the Nth device→host "
+         "transfer. -1 disables.")
+    .integer()
+    .create_with_default(-1)
+)
+
+INJECT_TRANSIENT_COUNT = (
+    conf("spark.rapids.tpu.test.injectTransientCount")
+    .doc("How many injected device errors are transient (recoverable by "
+         "the retry policy) before they turn terminal. Legacy alias for "
+         "the execute/transfer domains' inject.<domain>.transientCount.")
+    .integer()
+    .create_with_default(0)
+)
+
+# The failure domains whose chokepoints the port has.  Each gets an
+# independently armable injection pair:
+# ``spark.rapids.tpu.test.inject.<domain>.at`` (fire from the Nth call
+# on; -1 disables) and ``.transientCount`` (transient fires before the
+# fault turns terminal / the domain disarms).
+FAILURE_DOMAINS = ("execute", "transfer", "alloc", "spill_write",
+                   "spill_read", "shuffle_ser", "shuffle_exchange",
+                   "compile")
+
+# The JAX package's other domains guard planes the port does not have
+# yet; their injection keys are refused, naming where each comes.
+REFUSED_FAILURE_DOMAINS = {
+    "collective": "ROADMAP A.10 (the collective exchange plane)",
+    "rendezvous": "ROADMAP A.10 (multi-executor rendezvous)",
+    "peer_loss": "ROADMAP A.10 (multi-executor rendezvous)",
+    "tenancy": "ROADMAP A.11 (tenancy and the serving layer)",
+}
+
+
+def refused_domain_message(domain: str) -> str:
+    return (f"the {domain!r} failure domain is not ported: its plane "
+            f"comes with {REFUSED_FAILURE_DOMAINS[domain]}")
+
+
+INJECT_DOMAIN_AT: Dict[str, ConfEntry] = {}
+INJECT_DOMAIN_TRANSIENT: Dict[str, ConfEntry] = {}
+for _dom in FAILURE_DOMAINS:
+    INJECT_DOMAIN_AT[_dom] = (
+        conf(f"spark.rapids.tpu.test.inject.{_dom}.at")
+        .doc(f"Arm the '{_dom}' failure domain: raise an injected fault "
+             "from its Nth call on (resilience test hook, the faultinj "
+             "analog). -1 disables.")
+        .integer()
+        .create_with_default(-1)
+    )
+    INJECT_DOMAIN_TRANSIENT[_dom] = (
+        conf(f"spark.rapids.tpu.test.inject.{_dom}.transientCount")
+        .doc(f"How many '{_dom}' injected faults are transient before "
+             "they turn terminal (0 = the first fire is terminal).")
+        .integer()
+        .create_with_default(0)
+    )
+for _dom in REFUSED_FAILURE_DOMAINS:
+    for _suffix, _default in (("at", -1), ("transientCount", 0)):
+        (conf(f"spark.rapids.tpu.test.inject.{_dom}.{_suffix}")
+         .doc(f"Refused: {refused_domain_message(_dom)}. Only its "
+              f"default ({_default}) is accepted.")
+         .integer()
+         .check(lambda v, d=_default: v == d, refused_domain_message(_dom))
+         .create_with_default(_default))
+del _dom, _suffix, _default
+
+LOCKDEP_ENABLED = (
+    conf("spark.rapids.tpu.lockdep.enabled")
+    .doc("Lockdep-style runtime watchdog: records the acquisition order "
+         "of the engine's tracked locks in one process-wide graph and "
+         "reports any edge that closes a cycle (a latent deadlock) from "
+         "a single observation of both orders. Diagnostic; adds "
+         "per-acquisition bookkeeping.")
+    .boolean()
+    .create_with_default(False)
+)
+
+LOCKDEP_RAISE_ON_CYCLE = (
+    conf("spark.rapids.tpu.lockdep.raiseOnCycle")
+    .doc("With lockdep enabled, raise LockOrderViolation at the "
+         "acquisition that closes a cycle instead of only recording it "
+         "for the violations report.")
+    .boolean()
+    .create_with_default(False)
 )
 
 MEMORY_DEBUG = (

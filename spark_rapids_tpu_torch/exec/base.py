@@ -17,8 +17,11 @@ is pumped ``spark.rapids.tpu.exec.pumpDepth`` batches ahead of its
 consumer (``_prefetch_pump``, innermost) and pinned to the shape
 plane's bucket (``_shape_pump``, ``runtime/shapes.py``).  A limit's
 subtree is not prefetched (``no_prefetch``): the limit stops pulling
-once it has its rows.  The JAX package's cancel (ROADMAP A.7c), stats
-and trace pumps (A.9) are not ported yet.
+once it has its rows.  Inside a query, every operator's output (device
+or host) polls the query's cancel token before each batch
+(``_cancellable_pump``, outermost), so that every operator boundary is
+a cancellation point.  The JAX package's stats and trace pumps (A.9)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Dict, Iterator, Tuple
 
 from spark_rapids_tpu_torch import kernels
 from spark_rapids_tpu_torch.columnar import dtypes as T
-from spark_rapids_tpu_torch.runtime import shapes
+from spark_rapids_tpu_torch.runtime import cancel, shapes
 
 
 class Metric:
@@ -106,6 +109,22 @@ def _prefetch_pump(it: Iterator, depth: int) -> Iterator:
         _close(it)
 
 
+def _cancellable_pump(tok, it: Iterator) -> Iterator:
+    """Poll the query's CancelToken before each pumped batch; a cancel
+    closes the producer before ``QueryCancelled`` leaves."""
+    it = iter(it)
+    try:
+        while True:
+            tok.check()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            yield batch
+    finally:
+        _close(it)
+
+
 def _close(it: Iterator) -> None:
     """Close an abandoned producer now (a scan frees what it holds),
     not when the collector finds it."""
@@ -126,16 +145,18 @@ def _wrap_execute(fn):
     @functools.wraps(fn)
     def execute(self, partition: int) -> Iterator:
         it = fn(self, partition)
-        if not isinstance(self, TpuExec):
-            return it
-        depth = kernels.current_policy().pump_depth
-        if depth > 1 and not self.no_prefetch:
-            # innermost: the producer runs ahead of every downstream
-            # pump, so its launches queue behind the consumer's batch
-            it = _prefetch_pump(it, depth)
-        if shapes.current_policy().enabled:
-            # downstream pumps and consumers see the bucketed batch
-            it = _shape_pump(it)
+        if isinstance(self, TpuExec):
+            depth = kernels.current_policy().pump_depth
+            if depth > 1 and not self.no_prefetch:
+                # innermost: the producer runs ahead of every downstream
+                # pump, so its launches queue behind the consumer's batch
+                it = _prefetch_pump(it, depth)
+            if shapes.current_policy().enabled:
+                # downstream pumps and consumers see the bucketed batch
+                it = _shape_pump(it)
+        tok = cancel.current()
+        if tok is not None:
+            it = _cancellable_pump(tok, it)
         return it
 
     execute._wrapped = True

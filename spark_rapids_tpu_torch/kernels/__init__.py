@@ -28,8 +28,9 @@ The rung itself stays a per-session conf read at planning.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Callable, Dict
+
+from spark_rapids_tpu_torch.runtime import lockdep
 
 _KERNELS = ("agg", "join")
 
@@ -48,7 +49,7 @@ class KernelPolicy:
 
 
 _POLICY = KernelPolicy()
-_LOCK = threading.Lock()
+_LOCK = lockdep.tracked_lock("kernels._LOCK")
 
 
 def configure(conf) -> KernelPolicy:
@@ -75,8 +76,9 @@ class KernelCounters:
     dispatches: Dict[str, int] = dataclasses.field(
         default_factory=lambda: {"cuda": 0, "jnp": 0})
     fallbacks: int = 0
-    _lock: threading.Lock = dataclasses.field(
-        default_factory=threading.Lock, repr=False, compare=False)
+    _lock: object = dataclasses.field(
+        default_factory=lambda: lockdep.tracked_lock("kernels.KernelCounters"),
+        repr=False, compare=False)
 
     def note_dispatch(self, rung: str) -> None:
         with self._lock:

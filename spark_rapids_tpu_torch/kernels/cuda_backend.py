@@ -21,6 +21,16 @@ shape, both under a lock (partitions pump on a task pool);
 ``reset_counts`` sets both to 0.  ``BUILD_DIR`` moves under
 ``spark.rapids.tpu.kernel.cacheDir`` when a session sets it
 (``runtime/kernel_cache.py``), and every build is counted there.
+
+Two failure domains of ``runtime/resilience.py`` sit here: ``compile``
+around a build that is needed (the port's counterpart of the JAX
+package's jit-wrapper build) and ``execute`` around each dispatch of
+``hash_pairs_multi`` (its counterpart of ``cached_kernel``'s call).
+Only injected faults retry there; a failed ``nvcc`` or launch raises as
+it would without them.  When an injected fault exhausts its retries
+with ``retry.hostDegrade.enabled``, the dispatch runs the plain version
+on the same device instead, counted in ``plain_calls`` and recorded as
+the query's degraded op.
 """
 
 from __future__ import annotations
@@ -31,14 +41,15 @@ import os
 import shutil
 import struct
 import subprocess
-import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from spark_rapids_tpu_torch.runtime import kernel_cache as KC
+from spark_rapids_tpu_torch.runtime import lockdep
+from spark_rapids_tpu_torch.runtime import resilience as R
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -52,9 +63,12 @@ MAX_SETS = 2  # row sets in one launch (kSets)
 # row sets it hashed by shape (L limbs, n rows)
 launches = 0
 launch_shapes: Dict[Tuple[int, int], int] = {}
+# dispatches the plain version served in place of the kernel (an
+# injected execute or compile fault that exhausted its retries)
+plain_calls = 0
 
-_lock = threading.Lock()
-_count_lock = threading.Lock()
+_lock = lockdep.tracked_lock("kernels.cuda_backend._lock")
+_count_lock = lockdep.tracked_lock("kernels.cuda_backend._count_lock")
 _lib = None
 
 
@@ -69,18 +83,34 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False) -> Optional[Path]:
     """Compile ``csrc/hash_pairs.cu`` (once per source digest); returns
     the shared library's path.  ``verbose`` builds even when the library
     exists, adds ``-Xptxas -v`` (which changes no code, so the library
     keeps its name), prints the compiler's report of registers and
-    spills and writes it beside the library (``ptxas_log``)."""
+    spills and writes it beside the library (``ptxas_log``).
+
+    A build passes the ``compile`` failure domain; None when an
+    injected fault there exhausted its retries and degraded (the
+    dispatch then runs the plain version)."""
     src = _CSRC / "hash_pairs.cu"
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                           ).hexdigest()[:16]
     out = BUILD_DIR / f"hash_pairs_{digest}.so"
     if out.exists() and not verbose:
         return out
+    if not R.active():
+        return _build(src, out, verbose)
+
+    def attempt():
+        R.INJECTOR.on("compile")
+        return _build(src, out, verbose)
+
+    return R.run_guarded("compile", attempt, op="hash_pairs",
+                         degrade=lambda: None)
+
+
+def _build(src: Path, out: Path, verbose: bool) -> Path:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
@@ -117,7 +147,10 @@ def _library():
         return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            path = build()
+            if path is None:
+                return None  # the compile domain degraded
+            lib = ctypes.CDLL(str(path))
             fn = lib.hash_pairs_launch
             fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -207,11 +240,34 @@ def hash_pairs_multi(limb_sets: Sequence[LimbSet]) -> List[torch.Tensor]:
         if d != device:
             raise ValueError("hash_pairs_multi: row sets on different "
                              "devices")
+    if not R.active():
+        return _dispatch(limb_sets, sets, device)
+
+    def attempt():
+        R.INJECTOR.on("execute")
+        return _dispatch(limb_sets, sets, device)
+
+    return R.run_guarded("execute", attempt, op="hash_pairs",
+                         degrade=lambda: _plain_in_place(limb_sets))
+
+
+def _plain_in_place(limb_sets: Sequence[LimbSet]) -> List[torch.Tensor]:
+    """The plain version in place of the kernel, on the limbs' device."""
+    global plain_calls
+    with _count_lock:
+        plain_calls += 1
+    return [hash_pairs_plain(s) for s in limb_sets]
+
+
+def _dispatch(limb_sets: Sequence[LimbSet], sets, device
+              ) -> List[torch.Tensor]:
     if device.type == "cpu":
         return [hash_pairs_plain(s) for s in limb_sets]
     if device.type != "cuda":
         raise ValueError(f"hash_pairs: unsupported device {device}")
     lib = _library()
+    if lib is None:  # the build degraded: the plain version on the card
+        return _plain_in_place(limb_sets)
     outs, todo = [], []
     for ptrs, n, _ in sets:
         out = torch.empty((n,), dtype=_I64, device=device)
@@ -273,8 +329,9 @@ def launch_args(todo: Sequence[Tuple[List[int], int, int]],
 
 
 def reset_counts() -> None:
-    """Set the launch counts to 0."""
-    global launches
+    """Set the launch counts (and ``plain_calls``) to 0."""
+    global launches, plain_calls
     with _count_lock:
         launches = 0
+        plain_calls = 0
         launch_shapes.clear()

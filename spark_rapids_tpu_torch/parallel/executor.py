@@ -11,10 +11,11 @@ gauge) with A.9; the in-flight count is a module integer here
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, List, Sequence
 
-_pump_lock = threading.Lock()
+from spark_rapids_tpu_torch.runtime import lockdep
+
+_pump_lock = lockdep.tracked_lock("parallel.executor._pump_lock")
 _pump_inflight = 0  # tasks submitted and not yet completed
 
 

@@ -21,12 +21,13 @@ mechanics and the same reason texts:
   ``AssertionError``.
 
 The port's rules convert onto the session's device, so ``convert``
-takes it beside the conf.  Planes the port lacks are left out of
-``apply_overrides``: whole-stage fusion (``fuse_plan``, ROADMAP A.9),
-the resilience plane's ``configure_from_conf`` (A.7), the
-multi-executor validation ``_validate_multiproc`` (A.10), the LORE dump
-taps ``install_lore_taps`` (A.12) and the ICI exchange branches of the
-aggregate, sort and join conversions (A.10): under
+takes it beside the conf.  As in the JAX package, ``apply_overrides``
+arms the fault injector and refreshes the retry policy from the conf
+(``runtime/resilience.py::configure_from_conf``).  Planes the port
+lacks are left out of it: whole-stage fusion (``fuse_plan``, ROADMAP
+A.9), the multi-executor validation ``_validate_multiproc`` (A.10), the
+LORE dump taps ``install_lore_taps`` (A.12) and the ICI exchange
+branches of the aggregate, sort and join conversions (A.10): under
 ``spark.rapids.shuffle.mode=ICI`` the rewrite raises.  A
 repartition converts by ``spark.rapids.shuffle.mode``
 (``exec/exchange.py::_convert_exchange``); the coalesce pass asks a
@@ -462,6 +463,11 @@ def apply_overrides(cpu_plan: CpuExec, conf: RapidsConf,
     # device materialization
     from spark_rapids_tpu_torch.runtime.memory import get_manager
     get_manager(conf, device)
+    # arm the fault injector and refresh the retry policy from this
+    # query's conf (spark.rapids.tpu.test.inject.*, retry.*)
+    from spark_rapids_tpu_torch.runtime.resilience import (
+        configure_from_conf)
+    configure_from_conf(conf)
     metas: List[ExecMeta] = []
     root = wrap(cpu_plan, conf, metas)
     plan = convert_meta(root, device)

@@ -28,14 +28,15 @@ import os
 import re
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
+
+from spark_rapids_tpu_torch.runtime import lockdep
 
 MANIFEST_NAME = "tpuq_cache_manifest.json"
 _PERSISTENT_DIR: Optional[str] = None
 
-_LOCK = threading.Lock()
+_LOCK = lockdep.tracked_lock("runtime.kernel_cache._LOCK")
 _BUILDS = [0, 0.0]  # library builds, seconds spent in them
 
 

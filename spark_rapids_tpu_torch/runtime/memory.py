@@ -17,12 +17,17 @@ nothing is left to spill the reservation raises ``RetryOOM``, which
 the input by rows (``SplitAndRetryOOM``), re-run the closure per half.
 ``injectOomAtAlloc`` forces a ``RetryOOM`` at the N-th reservation.
 
-Not ported: tenancy (per-tenant HBM shares, ``suspend_spill``) and the
-failure domains of ``runtime/resilience.py``.  Without them the two IO
-sites act once, without a retry loop: a disk write that fails with an
-``OSError`` keeps the host copy (the JAX package's ``degrade``
-outcome), and a restore from a missing, corrupt or CRC-mismatched file
-raises ``SpillReadError``, tagged ``spill_read``.
+Three failure domains of ``runtime/resilience.py`` sit here, as in the
+JAX package: ``alloc`` in ``reserve`` (an injected fault is a
+``RetryOOM``, ridden out by ``with_retry``, whose retries count as
+``alloc`` retries and which polls the query's cancel token),
+``spill_write`` around the disk write (IO errors and injected faults
+retry; exhaustion keeps the host copy) and ``spill_read`` around the
+restore (retries, then a ``TerminalDeviceError`` tagged ``spill_read``:
+the data is gone).
+
+Not ported: tenancy (per-tenant HBM shares, ``suspend_spill``), ROADMAP
+A.11.
 """
 
 from __future__ import annotations
@@ -31,9 +36,7 @@ import atexit
 import contextlib
 import os
 import shutil
-import threading
 import uuid
-import zipfile
 import zlib
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -42,6 +45,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, slice_batch)
+from spark_rapids_tpu_torch.runtime import cancel, lockdep
+from spark_rapids_tpu_torch.runtime import resilience as R
 
 
 class RetryOOM(RuntimeError):
@@ -50,19 +55,6 @@ class RetryOOM(RuntimeError):
 
 class SplitAndRetryOOM(RetryOOM):
     """Re-running whole won't fit; caller must halve the input."""
-
-
-class SpillReadError(RuntimeError):
-    """A disk-tier restore failed: the file is missing, unreadable or no
-    longer matches its CRC32 sidecar.  The data is gone, so nothing is
-    restored; ``domain`` names the failure domain (``spill_read``)."""
-
-    domain = "spill_read"
-
-    def __init__(self, cause: BaseException):
-        super().__init__(f"spill_read failed after 1 attempt(s): "
-                         f"{type(cause).__name__}: {cause}")
-        self.cause = cause
 
 
 def _leaves(batch: DeviceBatch) -> List[Optional[torch.Tensor]]:
@@ -148,7 +140,7 @@ def _unlink_spill(path: str) -> None:
 # process; one atexit hook removes them all, so a normal exit strands
 # no orphan .npz files under the shared spillPath root
 _SPILL_DIRS: set = set()
-_SPILL_DIRS_LOCK = threading.Lock()
+_SPILL_DIRS_LOCK = lockdep.tracked_lock("runtime.memory._SPILL_DIRS_LOCK")
 
 
 def _cleanup_spill_dirs() -> None:
@@ -231,21 +223,35 @@ class SpillableBatch:
         return self.nbytes
 
     def spill_to_disk(self) -> int:
-        """Host -> disk.  Returns host bytes freed (0 when the write
-        failed: the batch stays in the host tier, marked so that the
-        eviction loop skips it, and no partial file is left)."""
+        """Host -> disk, through the ``spill_write`` failure domain.
+        Returns host bytes freed (0 when the write degraded: the batch
+        stays in the host tier, marked so that the eviction loop skips
+        it, and no partial file is left)."""
         if self._host is None:
             return 0
         leaves = self._host
         path = os.path.join(self._mgr.spill_path,
                             f"spill-{uuid.uuid4().hex}.npz")
-        try:
+
+        def attempt():
+            R.INJECTOR.on("spill_write")
             os.makedirs(self._mgr.spill_path, exist_ok=True)
             np.savez(path, *[x.numpy() for x in leaves if x is not None])
             # integrity sidecar: restore refuses a payload whose bytes
             # no longer match what was written
             _write_crc_sidecar(path)
-        except OSError:
+            return True
+
+        def degrade():
+            return False  # keep the host copy; the data is still safe
+
+        try:
+            ok = R.run_guarded("spill_write", attempt, op="spill_to_disk",
+                               degrade=degrade)
+        except BaseException:
+            _unlink_spill(path)  # a cancel or a terminal error
+            raise
+        if not ok:
             self._disk_spill_failed = True
             _unlink_spill(path)  # drop any partial file
             return 0
@@ -264,14 +270,19 @@ class SpillableBatch:
         return freed
 
     def _read_disk(self) -> list:
-        """The leaves from this batch's spill file, CRC-checked."""
-        try:
+        """The leaves from this batch's spill file, CRC-checked, through
+        the ``spill_read`` failure domain: IO faults (a missing, corrupt
+        or CRC-mismatched file) retry, and exhaustion raises a
+        ``TerminalDeviceError`` tagged ``spill_read`` — there is no
+        plain path to degrade to."""
+        def attempt():
+            R.INJECTOR.on("spill_read")
             _verify_crc_sidecar(self._disk_path)
             with np.load(self._disk_path) as z:
-                arrays = iter([z[k] for k in z.files])
-        except (OSError, ValueError, EOFError, zipfile.BadZipFile,
-                zlib.error) as e:
-            raise SpillReadError(e) from e
+                return [z[k] for k in z.files]
+
+        arrays = iter(R.run_guarded("spill_read", attempt,
+                                    op="spill_restore"))
         return [None if absent else _from_disk(next(arrays), self.device)
                 for absent in self._absent]
 
@@ -329,7 +340,8 @@ class DeviceMemoryManager:
                  debug: bool = False,
                  device=None):
         self.retry_max_attempts = retry_max_attempts
-        self._lock = threading.RLock()
+        self._lock = lockdep.tracked_lock(
+            "runtime.memory.DeviceMemoryManager", reentrant=True)
         self._spillables: Dict[int, SpillableBatch] = {}
         # leak tracker [REF: cudf MemoryCleaner]: with debug on, every
         # registration records its creation stack; unreleased handles
@@ -378,6 +390,13 @@ class DeviceMemoryManager:
             if self._inject_at >= 0 and self._alloc_count == self._inject_at:
                 raise self._oom(RetryOOM, "injected OOM at allocation "
                                 f"{self._alloc_count}")
+            if R.INJECTOR.armed:
+                # the ``alloc`` failure domain: an injected fault here is
+                # a forced OOM, ridden out by the OOM rollback machinery
+                try:
+                    R.INJECTOR.on("alloc")
+                except R.InjectedDeviceError as e:
+                    raise self._oom(RetryOOM, str(e)) from e
             if nbytes > self.budget:
                 raise self._oom(
                     SplitAndRetryOOM,
@@ -505,7 +524,7 @@ class DeviceMemoryManager:
 # ---------------------------------------------------------------------------
 
 _manager: Optional[DeviceMemoryManager] = None
-_manager_lock = threading.Lock()
+_manager_lock = lockdep.tracked_lock("runtime.memory._manager_lock")
 
 
 def _build(conf, device=None) -> DeviceMemoryManager:
@@ -591,7 +610,9 @@ def with_retry(
     batch in half by rows and process the halves independently — the
     caller's closure must be merge-friendly (partial aggregates, sorted
     runs, ...).  Yields one result per processed (sub-)batch.  Attempts
-    default to the manager's ``spark.rapids.tpu.retry.maxAttempts``.
+    default to the manager's ``spark.rapids.tpu.retry.maxAttempts``;
+    every retry counts as an ``alloc`` retry of the resilience layer
+    (``R.note_retry``), and each round polls the query's cancel token.
 
     ``inputs`` is consumed LAZILY — one upstream batch is live at a
     time, so spilling actually frees device memory instead of fighting a
@@ -603,6 +624,7 @@ def with_retry(
     it = iter(inputs)
     work: List[Tuple[DeviceBatch, int]] = []  # pending (sub-)batches
     while True:
+        cancel.check()
         if work:
             batch, attempts = work.pop(0)
         else:
@@ -616,11 +638,14 @@ def with_retry(
             if not allow_split:
                 raise
             mgr.metrics["splitRetries"] += 1
+            R.note_retry("alloc")
             halves = split_batch_in_half(batch)
             work = [(h, attempts + 1) for h in halves] + work
         except RetryOOM:
             if attempts + 1 >= max_attempts:
+                R.note_exhausted()
                 raise
+            R.note_retry("alloc")
             # free device pressure INCREMENTALLY: spill victims until
             # roughly this batch's working set is free, not the whole
             # pool (draining everything evicts the scan cache on the

@@ -15,20 +15,26 @@ swapping under a waiter would let two queries admit through different
 instances and break the cap); a conf with a different permit count
 resizes it in place under its own condition variable.
 
-Not ported yet: the cancel token's wait interval and the preempt path
-(``preempt_pending``, the per-thread permit stack the suspend provider
-walks) come with ROADMAP A.7c and A.11, and the registry gauges and
-counters (``tpuq_semaphore_*``) with A.9.  Without a token every wait
-parks at most 0.1 s and re-checks, as the JAX package's does.
+A waiter of a query polls its cancel token (``runtime/cancel.py``):
+it registers the condition variable with the token, so that a cancel
+or a deadline wakes it at once, parks at most the token's wait
+interval, and raises ``QueryCancelled`` without being admitted.
+Without a token every wait parks at most 0.1 s and re-checks, as the
+JAX package's does.
+
+Not ported yet: the preempt path (``preempt_pending``, the per-thread
+permit stack the suspend provider walks) comes with ROADMAP A.11, and
+the registry gauges and counters (``tpuq_semaphore_*``) with A.9.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 from collections import OrderedDict
 from typing import Optional
+
+from spark_rapids_tpu_torch.runtime import cancel, lockdep
 
 
 class DeviceSemaphore:
@@ -49,7 +55,8 @@ class DeviceSemaphore:
     WAIT_S = 0.1
 
     def __init__(self, permits: int):
-        self._cv = threading.Condition()
+        self._cv = lockdep.tracked_condition(
+            "runtime.semaphore.DeviceSemaphore._cv")
         self.permits = max(1, int(permits))
         self.holders = 0          # currently admitted tasks
         self.waiting = 0          # tasks currently blocked in acquire
@@ -68,32 +75,50 @@ class DeviceSemaphore:
         """Block until admitted; returns the seconds spent waiting (0.0
         on the uncontended path).  Only time blocked in the condition
         wait counts, on the monotonic clock.  ``query_id`` names the
-        window the wait is charged to."""
+        window the wait is charged to (by default the calling thread's
+        query).  A cancel or deadline of that query raises
+        ``QueryCancelled`` from the wait, unadmitted."""
+        tok = cancel.current()
+        if query_id is None and tok is not None:
+            query_id = tok.query_id
         waited = 0.0
         blocked = False
-        with self._cv:
-            try:
-                while self.holders >= self.permits:
-                    if not blocked:
-                        blocked = True
-                        self.waiting += 1
-                    t0 = time.monotonic()
-                    self._cv.wait(timeout=self.WAIT_S)
-                    waited += time.monotonic() - t0
-            finally:
-                if blocked:
-                    self.waiting -= 1
-            self.holders += 1
-            self.max_holders = max(self.max_holders, self.holders)
-            self.peak_holders = max(self.peak_holders, self.holders)
-            self.wait_time += waited
-            for w in self._windows.values():
-                if self.holders > w["max_holders"]:
-                    w["max_holders"] = self.holders
-            if waited and query_id is not None:
-                w = self._windows.get(query_id)
-                if w is not None:
-                    w["wait_time"] += waited
+        registered = False
+        try:
+            with self._cv:
+                try:
+                    while self.holders >= self.permits:
+                        if not blocked:
+                            blocked = True
+                            self.waiting += 1
+                        if tok is not None:
+                            tok.check()
+                            if not registered:
+                                tok.add_waiter(self._cv)
+                                registered = True
+                            timeout = tok.wait_interval()
+                        else:
+                            timeout = self.WAIT_S
+                        t0 = time.monotonic()
+                        self._cv.wait(timeout=timeout)
+                        waited += time.monotonic() - t0
+                finally:
+                    if blocked:
+                        self.waiting -= 1
+                self.holders += 1
+                self.max_holders = max(self.max_holders, self.holders)
+                self.peak_holders = max(self.peak_holders, self.holders)
+                self.wait_time += waited
+                for w in self._windows.values():
+                    if self.holders > w["max_holders"]:
+                        w["max_holders"] = self.holders
+                if waited and query_id is not None:
+                    w = self._windows.get(query_id)
+                    if w is not None:
+                        w["wait_time"] += waited
+        finally:
+            if registered:
+                tok.remove_waiter(self._cv)
         return waited
 
     def release(self) -> None:
@@ -145,7 +170,7 @@ class DeviceSemaphore:
 
 
 _semaphore: Optional[DeviceSemaphore] = None
-_sem_lock = threading.Lock()
+_sem_lock = lockdep.tracked_lock("runtime.semaphore._sem_lock")
 
 
 def get_semaphore(conf=None) -> DeviceSemaphore:

@@ -34,11 +34,11 @@ plane's per-operator ``padded_rows`` wait for ROADMAP A.9.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Optional, Tuple
 
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, _pad_col, round_up_pow2)
+from spark_rapids_tpu_torch.runtime import lockdep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +72,7 @@ class ShapePolicy:
 # The active policy: the session installs it once and every pump
 # boundary reads one attribute.
 _POLICY = ShapePolicy()
-_LOCK = threading.Lock()
+_LOCK = lockdep.tracked_lock("runtime.shapes._LOCK")
 # hits, misses, pad rows, pad bytes
 _COUNTS = [0, 0, 0, 0]
 

@@ -10,8 +10,10 @@ function), each map batch comes to the host in one device-to-host
 round (every column, its validity and lengths, the live mask and the
 ids, then one wait), and the native tudo serializer writes every
 partition's rows into the map partition's shuffle file.  Reduce side:
-seek-read the partition's sections, concatenate them on the host (numpy
-views), one host-to-device copy per read.  Rows come out in the order
+seek-read the partition's sections (through the ``shuffle_exchange``
+failure domain, polling the query's cancel token per partition),
+concatenate them on the host (numpy views), one host-to-device copy per
+read.  Rows come out in the order
 of the in-process exchange (the bucketing is stable and map files read
 in order).  Shuffle files die with the exec.
 
@@ -38,6 +40,8 @@ from spark_rapids_tpu_torch.columnar.column import (
 from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.exec.exchange import device_partition_ids
 from spark_rapids_tpu_torch.ops.expressions import Expression
+from spark_rapids_tpu_torch.runtime import cancel
+from spark_rapids_tpu_torch.runtime import resilience as R
 from spark_rapids_tpu_torch.shuffle.manager import (
     ShuffleEnv, ShuffleReader, ShuffleWriter)
 from spark_rapids_tpu_torch.shuffle.serializer import HostColView
@@ -182,6 +186,7 @@ class TpuHostShuffleExchangeExec(TpuExec):
             row_base = 0
             with self.timer("writeTime"):
                 for m in range(child.num_partitions()):
+                    cancel.check()
                     writer = ShuffleWriter(env, sid, m, self.nparts,
                                            self.nthreads)
                     try:
@@ -227,10 +232,26 @@ class TpuHostShuffleExchangeExec(TpuExec):
         return "bytes", sizes
 
     def _read_concat(self, parts) -> tuple:
+        """The reduce-side fetch, through the ``shuffle_exchange``
+        failure domain.  Map files are immutable once written, so the
+        read is idempotent and a retry reads again (``bytesRead`` counts
+        every attempt).  Not degradable: exhaustion is a domain-tagged
+        terminal error."""
         reader = ShuffleReader(ShuffleEnv.get(), self._shuffle_id,
                                self._map_parts, self.schema)
+        parts = list(parts)
+
+        def attempt():
+            R.INJECTOR.on("shuffle_exchange")
+            records = []
+            for p in parts:
+                cancel.check()
+                records.extend(reader.read_partition(p))
+            return records
+
         with self.timer("readTime"):
-            records = [r for p in parts for r in reader.read_partition(p)]
+            records = R.run_guarded("shuffle_exchange", attempt,
+                                    op="shuffle_read")
             return _concat_views(self.schema, records)
 
     def _emit(self, cols, n) -> DeviceBatch:

@@ -15,8 +15,9 @@ from the per-record size table), the local-filesystem analog of Spark's
 IndexShuffleBlockResolver index.  Serialization rides the native tudo
 library, threaded by ``spark.rapids.shuffle.multiThreaded.writer.threads``.
 Shuffle files live in a temporary directory of the process, removed at
-exit.  The JAX package's resilience guard around serialization and reads
-(ROADMAP A.7) and its telemetry counters (A.9) are left out.
+exit.  Serialization passes the ``shuffle_ser`` failure domain
+(``runtime/resilience.py``), as in the JAX package; its telemetry
+counters (A.9) are left out.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.runtime import resilience as R
 from spark_rapids_tpu_torch.shuffle.serializer import (
     HostColView, deserialize, serialize_partitions)
 
@@ -96,11 +98,22 @@ class ShuffleWriter:
     def write_batch(self, cols: Sequence[HostColView], pids: np.ndarray,
                     live: Optional[np.ndarray]) -> int:
         """Serialize one batch's rows into per-partition sections and
-        append them as one record; returns the bytes written."""
-        # scratch=True: the sections are written to the map file before
-        # this thread serializes its next batch
-        sections = serialize_partitions(cols, pids, live, self.nparts,
+        append them as one record; returns the bytes written.
+
+        Serialization passes the ``shuffle_ser`` failure domain: the
+        sections are made (retryably: nothing is written until they
+        are) before any byte reaches the map file, so a retried fault
+        never leaves a partial record.  Not degradable: exhaustion is a
+        domain-tagged terminal error."""
+        def attempt():
+            R.INJECTOR.on("shuffle_ser")
+            # scratch=True: the sections are written to the map file
+            # before this thread serializes its next batch
+            return serialize_partitions(cols, pids, live, self.nparts,
                                         self.nthreads, scratch=True)
+
+        sections = R.run_guarded("shuffle_ser", attempt,
+                                 op="shuffle_serialize")
         sizes = np.array([len(s) for s in sections], np.int64)
         self._f.write(sizes.tobytes())
         for s in sections:

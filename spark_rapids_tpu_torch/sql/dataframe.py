@@ -14,6 +14,16 @@ Transformations build the logical plan eagerly (pyspark-style errors at
 the call site); actions optimize, plan a CPU exec tree, let the plan
 rewrite (``plan/overrides.py``) move what it can onto the session's
 device, and pump the result.
+
+Each execution (``toArrow``) is a query: it gets an id, opens the
+resilience scope and the cancel scope (``runtime/resilience.py``,
+``runtime/cancel.py``; ``timeout_ms`` or
+``spark.rapids.tpu.query.timeoutMs`` deadlines it), and closes both in
+``finally``.  A cancelled query's registered spillables are reclaimed
+before ``QueryCancelled`` reaches the caller.  Each execution leaves an
+entry in the session's ``query_history``: its id, status, error, the
+resilience rollup and a fallback-report line per op degraded at run
+time.
 """
 
 from __future__ import annotations
@@ -21,7 +31,7 @@ from __future__ import annotations
 import itertools
 import random
 import time
-from typing import List, Union
+from typing import List, Optional, Union
 
 import pyarrow as pa
 import torch
@@ -80,6 +90,9 @@ def _output_name(u: UExpr, e) -> str:
     if u.op in ("alias", "attr"):
         return u.payload
     return str(e)
+
+
+_QUERY_IDS = itertools.count(1)
 
 
 class DataFrame:
@@ -368,17 +381,80 @@ class DataFrame:
             for line in result.fallback_report():
                 print(line)
 
-    def toArrow(self) -> pa.Table:
-        """Execute and return the result as an Arrow table."""
+    def toArrow(self, timeout_ms: Optional[float] = None) -> pa.Table:
+        """Execute and return the result as an Arrow table.
+
+        ``timeout_ms`` puts an in-process deadline on this execution
+        (overriding ``spark.rapids.tpu.query.timeoutMs``): when it
+        expires, every blocking boundary raises
+        ``QueryCancelled(reason="deadline")``, and the query's resources
+        are reclaimed before the exception reaches the caller."""
+        from spark_rapids_tpu_torch.runtime import cancel
+        from spark_rapids_tpu_torch.runtime import resilience
+        conf = self.session.rapids_conf()
         plan = self._execute_plan()
         self._last_plan = plan
-        tables = self._pump_partitions(plan, self.session.rapids_conf(),
-                                       self.session.device)
-        if not tables:
-            return pa.table([pa.array([], type=T.to_arrow(f.dtype))
-                             for f in self.schema.fields],
-                            names=self.columns)
-        return pa.concat_tables(tables)
+        qid = next(_QUERY_IDS)
+        rwin = resilience.begin_query(qid)
+        cwin = cancel.begin_query(qid, conf, timeout_ms=timeout_ms)
+        error = cancelled = None
+        try:
+            tables = self._pump_partitions(plan, conf, self.session.device)
+            if not tables:
+                out = pa.table([pa.array([], type=T.to_arrow(f.dtype))
+                                for f in self.schema.fields],
+                               names=self.columns)
+            else:
+                out = pa.concat_tables(tables)
+        except cancel.QueryCancelled as e:
+            cancelled = e
+            error = f"{type(e).__name__}: {e}"
+            # the cancelled pumps abandoned their registered spillables:
+            # close them all, so that the device accounting unwinds and
+            # the disk spill files are unlinked
+            from spark_rapids_tpu_torch.runtime import memory
+            mgr = memory.peek_manager()
+            if mgr is not None:
+                mgr.reclaim_all()
+            raise
+        except BaseException as e:
+            error = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            res = resilience.finish_query(rwin)
+            cancel.finish_query(cwin)
+            if rwin is not None:  # nested executions record nothing
+                self._record_query(qid, error, res, cancelled, cwin)
+        return out
+
+    def _record_query(self, qid, error, res, cancelled, ctoken) -> None:
+        """One entry per execution in the session's ``query_history``:
+        what this port records of the JAX package's event-log entry."""
+        entry = {"query_id": qid,
+                 "status": ("cancelled" if cancelled is not None
+                            else "error" if error else "ok")}
+        if error:
+            entry["error"] = error
+        if cancelled is not None:
+            cinfo = {"reason": cancelled.reason}
+            if ctoken is not None:
+                if ctoken.latency_s is not None:
+                    cinfo["latency_s"] = round(ctoken.latency_s, 6)
+                if ctoken.detail:
+                    cinfo["detail"] = ctoken.detail
+            entry["cancel"] = cinfo
+        override = self._last_override
+        if override is not None:
+            entry["fallback_report"] = override.fallback_report()
+        if res is not None:
+            entry["resilience"] = res
+            # runtime degradations join the plan-time fallback report
+            entry.setdefault("fallback_report", []).extend(
+                f"!{d['op']} degraded to the host path at runtime "
+                f"[{d['domain']}] because {d['cause']}"
+                for d in res["degraded_ops"])
+        self._last_query_entry = entry
+        self.session._record_query(entry)
 
     @staticmethod
     def _pump_partitions(plan, conf, device) -> List[pa.Table]:
@@ -392,13 +468,14 @@ class DataFrame:
         Every task runs on this thread's current CUDA stream, so that
         the query's kernels queue on one stream in the order they are
         launched (a new thread starts on the default stream); the
-        tasks overlap their host work.  The JAX package binds the
-        query's cancel token in each task at this point (ROADMAP
-        A.7c)."""
+        tasks overlap their host work.  Each task also binds the
+        query's cancel token, so that every blocking boundary under it
+        (semaphore, retry backoff, spill IO, shuffle) polls that query's
+        token and charges that query's resilience scope."""
         from spark_rapids_tpu_torch import conf as C
         from spark_rapids_tpu_torch.exec.base import TpuExec
         from spark_rapids_tpu_torch.parallel.executor import run_pump_tasks
-        from spark_rapids_tpu_torch.runtime import scheduler
+        from spark_rapids_tpu_torch.runtime import cancel, scheduler
 
         def has_device_work(node) -> bool:
             return isinstance(node, TpuExec) or any(
@@ -414,10 +491,12 @@ class DataFrame:
         waits: List[float] = []  # this query's waits only
         stream = (torch.cuda.current_stream(device)
                   if device.type == "cuda" else None)
+        tok = cancel.current()
 
         def task(p: int) -> List[pa.Table]:
             # torch.cuda.stream(None) changes nothing (a CPU session)
-            with scheduler.device_hold(conf, waited_out=waits), \
+            with cancel.bind(tok), \
+                    scheduler.device_hold(conf, waited_out=waits), \
                     torch.cuda.stream(stream):
                 return pump(p)
 
@@ -435,8 +514,10 @@ class DataFrame:
             raise RuntimeError("no execution yet — run collect()/toArrow()")
         return self._last_plan.collect_metrics()
 
-    def collect(self) -> List[Row]:
-        tbl = self.toArrow()
+    def collect(self, timeout_ms: Optional[float] = None) -> List[Row]:
+        """Collect rows; ``timeout_ms`` deadlines the execution
+        in-process (``QueryCancelled(reason="deadline")`` on expiry)."""
+        tbl = self.toArrow(timeout_ms=timeout_ms)
         names = tuple(tbl.column_names)
         cols = [tbl.column(i).to_pylist() for i in range(tbl.num_columns)]
         return [Row(vals, names) for vals in zip(*cols)] if cols else []

@@ -13,13 +13,21 @@ plane's policy, the kernel plane's policy and the persistent kernel
 cache from the conf, in the JAX package's order; ``warmup(plans)``
 drains plans outside ``toArrow`` so that the kernels they need are
 built now (and, with ``spark.rapids.tpu.kernel.cacheDir``, kept for
-later processes).
+later processes).  Creation also turns on the lock-order watchdog when
+``spark.rapids.tpu.lockdep.enabled`` asks for it.
+
+The query lifecycle: ``cancel(query_id)`` stops an in-flight query
+(``runtime/cancel.py``), ``active_queries()`` lists them, and
+``query_history(n)`` / ``last_query_profile()`` return the entries the
+executions left: id, status, error, the resilience rollup and the
+degraded ops.  The JAX package's telemetry, health verdicts, traces and
+stats profile in those entries come with ROADMAP A.9.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import pyarrow as pa
 
@@ -29,10 +37,16 @@ from spark_rapids_tpu_torch.runtime.device import resolve_device
 
 
 class TpuSession:
+    QUERY_HISTORY_CAP = 256
+
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
                  device="cuda"):
         self._conf = RapidsConf(conf)
         self.device = resolve_device(device)
+        self._query_history: List[Dict[str, Any]] = []
+        # conf-gated lock-order watchdog (spark.rapids.tpu.lockdep.*)
+        from spark_rapids_tpu_torch.runtime import lockdep
+        lockdep.configure(self._conf)
         # shape plane: batch-shape bucketing for every exec pump
         # (spark.rapids.tpu.kernel.bucketing/bucketLadder/maxPadFraction)
         from spark_rapids_tpu_torch.runtime import shapes
@@ -47,6 +61,43 @@ class TpuSession:
 
     def rapids_conf(self) -> RapidsConf:
         return self._conf
+
+    # -- observability ------------------------------------------------------
+    def _record_query(self, entry: Dict[str, Any]) -> None:
+        self._query_history.append(entry)
+        if len(self._query_history) > self.QUERY_HISTORY_CAP:
+            del self._query_history[:-self.QUERY_HISTORY_CAP]
+
+    def query_history(self, n: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Entries of the queries this session executed, oldest first;
+        ``n`` keeps the most recent n."""
+        h = self._query_history
+        return list(h[-n:] if n else h)
+
+    def last_query_profile(self) -> Optional[Dict[str, Any]]:
+        """The entry of the most recent query (None before the first)."""
+        return self._query_history[-1] if self._query_history else None
+
+    # -- query lifecycle ----------------------------------------------------
+    def active_queries(self) -> List[int]:
+        """Ids of the queries executing now (cancellable)."""
+        from spark_rapids_tpu_torch.runtime import cancel
+        return cancel.active_queries()
+
+    def cancel(self, query_id: Optional[int] = None,
+               reason: str = "user") -> bool:
+        """Cancel an in-flight query: every blocking boundary of its
+        execution raises ``QueryCancelled`` within ~2x
+        ``spark.rapids.tpu.query.cancelPollMs`` and the query's
+        resources are reclaimed.  With no ``query_id``, cancels the
+        oldest active query.  False when nothing matched."""
+        from spark_rapids_tpu_torch.runtime import cancel
+        if query_id is None:
+            active = cancel.active_queries()
+            if not active:
+                return False
+            query_id = active[0]
+        return cancel.cancel_query(query_id, reason=reason)
 
     def createDataFrame(self, data) -> "DataFrame":
         from spark_rapids_tpu_torch.plan.logical import InMemoryRelation

@@ -29,6 +29,17 @@ from spark_rapids_tpu_torch.columnar import dtypes as T  # noqa: E402
 from spark_rapids_tpu_torch.columnar.column import from_numpy_batch  # noqa: E402
 from spark_rapids_tpu_torch.exec import aggregate as AGG  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 5000
 _FLAGS = ["A", "N", "R", "", "NN"]
 

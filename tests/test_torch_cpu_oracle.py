@@ -17,6 +17,7 @@ import datetime
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 import bench
 
@@ -34,6 +35,17 @@ from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops import strings as S
 from spark_rapids_tpu_torch.sql.session import TpuSession
 from spark_rapids_tpu_torch.utils import tpch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PORT = (E, S, D, T)
 JAX = (JE, JS, JD, JT)

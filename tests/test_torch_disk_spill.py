@@ -2,18 +2,16 @@
 the JAX package's (``runtime/memory.py`` in both packages).
 
 Mirrors the cases of ``tests/test_memory.py`` (the spillable lifecycle,
-the retry framework, the spill files' integrity and the per-process
-spill directories) and the leak tracker's two cases of
-``tests/test_observability.py``, except the ones that arm the JAX
-package's fault injector (the failure domains of
-``runtime/resilience.py`` are not ported).  Each case runs the same
-steps on both packages' managers over the same 100-row batches (each
-package's ``host_to_device`` of one seeded table): tiers, reserved and
-host bytes, ``metrics``, the restored bits, the spill files' arrays and
-the outcome of a bad restore must agree.  Without the failure domains,
-the port's failed disk write keeps the host copy at once (the JAX
-package's ``degrade`` outcome) and a bad restore raises
-``SpillReadError`` tagged ``spill_read``.
+the retry framework, the spill files' integrity, the per-process spill
+directories and the cases that arm the fault injector's ``spill_read``
+and ``spill_write`` domains) and the leak tracker's two cases of
+``tests/test_observability.py``.  Each case runs the same steps on both
+packages' managers over the same 100-row batches (each package's
+``host_to_device`` of one seeded table): tiers, reserved and host
+bytes, ``metrics``, the restored bits, the spill files' arrays and the
+outcome of a bad restore must agree.  A bad restore retries and then
+raises ``TerminalDeviceError`` tagged ``spill_read`` in both packages;
+a failed disk write retries and then keeps the host copy.
 """
 
 import atexit
@@ -33,7 +31,19 @@ from spark_rapids_tpu.sql.session import TpuSession as JaxSession
 from spark_rapids_tpu_torch.columnar.column import host_to_device
 from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.runtime import memory as M
+from spark_rapids_tpu_torch.runtime import resilience as PR
 from spark_rapids_tpu_torch.sql.session import TpuSession
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CPU = torch.device("cpu")
 METRICS = ("spillToHostBytes", "spillToDiskBytes", "restoredBytes",
@@ -42,16 +52,27 @@ METRICS = ("spillToHostBytes", "spillToDiskBytes", "restoredBytes",
 
 @pytest.fixture(autouse=True)
 def _fresh():
-    """Fresh arbiters and scan caches; the JAX package's retry policy
-    without backoff (its restore retries a missing file before giving
-    up)."""
-    old = R._policy
-    R._policy = R.RetryPolicy(backoff_base_ms=0)
+    """Fresh arbiters and scan caches; both packages' retry policies
+    without backoff (a restore retries a missing file before giving up),
+    and a clean injector and out-of-query breaker set (these calls run
+    outside any query scope, where a breaker tripped by one case would
+    send the next case's spill straight to its degrade path)."""
+    olds = (R._policy, PR._policy)
+    # outside any query scope on the JAX side too (its depth stays
+    # raised after some of its test files, ROADMAP "Reference side")
+    R._STATE.depth = 0
+    for mod in (R, PR):
+        mod._policy = mod.RetryPolicy(backoff_base_ms=0)
+        mod.INJECTOR.reset()
+        mod._STATE.breakers = set()
     for mod, basic in ((M, B), (JM, JB)):
         mod.reset_manager()
         basic.clear_scan_cache()
     yield
-    R._policy = old
+    R._policy, PR._policy = olds
+    for mod in (R, PR):
+        mod.INJECTOR.reset()
+        mod._STATE.breakers = set()
     for mod, basic in ((M, B), (JM, JB)):
         mod.reset_manager()
         basic.clear_scan_cache()
@@ -273,7 +294,8 @@ def test_split_batch_in_half_keeps_pow2_halves(tmp_path):
 def _bad_restore(pkg, spoil):
     sp, _ = _disk(pkg)
     spoil(sp._disk_path)
-    err = (R.TerminalDeviceError if pkg.mod is JM else M.SpillReadError)
+    err = (R.TerminalDeviceError if pkg.mod is JM
+           else PR.TerminalDeviceError)
     with pytest.raises(err, match="spill_read") as ei:
         sp.get()
     sp.close()
@@ -297,9 +319,10 @@ def _garble(path):
 @pytest.mark.parametrize("spoil", [os.unlink, _garble, _flip_a_bit],
                          ids=["missing", "corrupt", "bitflip"])
 def test_bad_restore_raises_spill_read(tmp_path, spoil):
-    """A missing, garbled or bit-flipped spill file never restores: the
-    error is tagged ``spill_read`` (never a bare FileNotFoundError), its
-    cause is the JAX package's, and the state is the JAX package's."""
+    """A missing, garbled or bit-flipped spill file never restores: its
+    retries exhaust and the ``TerminalDeviceError`` is tagged
+    ``spill_read`` (never a bare FileNotFoundError), its cause is the
+    JAX package's, and the state is the JAX package's."""
     jax, port = (_bad_restore(p, spoil) for p in _pair(tmp_path))
     assert jax[0] == port[0] == "spill_read"
     assert jax[1] == port[1] and jax[3] == port[3]
@@ -311,10 +334,11 @@ def test_bad_restore_raises_spill_read(tmp_path, spoil):
 
 def test_failed_disk_write_keeps_the_host_copy(tmp_path):
     """A spill path that cannot be written (a file where the directory
-    should be) makes the write fail with an OSError: the batch stays in
-    the host tier (0 bytes freed, as the JAX package's ``degrade``
-    outcome), no partial file or sidecar is left, the host-limit
-    eviction skips it, and its data restores intact."""
+    should be) makes the write fail with an OSError: its retries exhaust
+    and the batch stays in the host tier (0 bytes freed, the
+    ``spill_write`` domain's degrade), no partial file or sidecar is
+    left, the host-limit eviction skips it, and its data restores
+    intact."""
     root = tmp_path / "not-a-directory"
     root.write_text("")
     b = host_to_device(_table(9), CPU)
@@ -453,3 +477,47 @@ def test_leak_tracker_excludes_scan_cache():
         # the scan cache's registrations are pinned, not leaks
         assert mgr.leaked() == []
         assert len(mgr.leaked(include_pinned=True)) == 1
+
+
+# ---------------------------------------------------------------------------
+# the injector armed at the spill tier's two IO sites
+# (``tests/test_memory.py``'s cases that arm ``R.INJECTOR``)
+# ---------------------------------------------------------------------------
+
+def _injector(pkg):
+    return (R if pkg.mod is JM else PR).INJECTOR
+
+
+def test_disk_restore_transient_injection_recovers(tmp_path):
+    """One transient ``spill_read`` fault: the restore retries and
+    returns the data; the state is the JAX package's."""
+    out = []
+    for pkg in _pair(tmp_path):
+        sp, ref = _disk(pkg)
+        _injector(pkg).configure({"spill_read": (1, 1)})
+        got = _col(sp.get(), 0)
+        assert np.array_equal(got, ref)
+        assert not _injector(pkg).armed  # the one fire was spent
+        out.append(pkg.state())
+        sp.close()
+    assert out[0] == out[1]
+
+
+def test_spill_write_terminal_fault_keeps_host_copy(tmp_path):
+    """A terminal ``spill_write`` fault degrades: the batch stays in the
+    host tier (0 bytes freed), marked so that the eviction skips it, no
+    partial file or sidecar is left, and the data restores intact — in
+    both packages, with the same state."""
+    out = []
+    for pkg in _pair(tmp_path):
+        sp = pkg.register(9)
+        ref = _col(sp.get(), 0).copy()
+        sp.spill_to_host()
+        _injector(pkg).configure({"spill_write": (1, 0)})
+        assert sp.spill_to_disk() == 0
+        assert sp.tier == "host" and sp._disk_spill_failed
+        assert _files(pkg) == 0
+        out.append(pkg.state())
+        assert np.array_equal(_col(sp.get(), 0), ref)
+        sp.close()
+    assert out[0] == out[1]

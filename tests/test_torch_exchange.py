@@ -21,6 +21,7 @@ against the JAX package's on the same seeded inputs.
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 import bench
 
@@ -32,6 +33,17 @@ from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.runtime import memory as M
 from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql.session import TpuSession
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 BASE = {"spark.default.parallelism": 2, "spark.rapids.tpu.batchRows": 512}
 KEYS = [("i",), ("l",), ("d",), ("s",), ("i", "s"), ()]

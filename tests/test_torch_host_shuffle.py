@@ -20,6 +20,7 @@ import os
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu.columnar import dtypes as JT
 from spark_rapids_tpu.columnar import host as JH
@@ -34,6 +35,16 @@ from spark_rapids_tpu_torch.runtime import memory as M
 from spark_rapids_tpu_torch.shuffle import serializer as SER
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleEnv
 from spark_rapids_tpu_torch.sql.session import TpuSession
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

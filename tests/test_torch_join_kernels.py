@@ -47,6 +47,16 @@ from spark_rapids_tpu_torch.ops import ordering as ORD  # noqa: E402
 from spark_rapids_tpu_torch.sql.session import TpuSession  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u64(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint64)
 

@@ -14,6 +14,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 import pytest
+import torch
 
 import bench
 
@@ -24,6 +25,16 @@ from spark_rapids_tpu.sql.session import TpuSession as JaxSession
 from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql.column import col
 from spark_rapids_tpu_torch.sql.session import TpuSession
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,16 @@ from spark_rapids_tpu_torch.kernels import cuda_backend as CB  # noqa: E402
 from spark_rapids_tpu_torch.kernels import hash_layout as HL  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _limbs_np(n_limbs: int, n: int, seed: int):
     rng = np.random.default_rng(seed)
     out = []

@@ -24,6 +24,17 @@ from spark_rapids_tpu_torch.conf import RapidsConf
 from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.runtime import memory as M
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 METRICS = ("spillToHostBytes", "spillToDiskBytes", "restoredBytes",
            "peakReserved", "retryOOMs", "splitRetries")

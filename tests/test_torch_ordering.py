@@ -31,6 +31,17 @@ from spark_rapids_tpu_torch.exec.aggregate import segment_groupby  # noqa: E402
 from spark_rapids_tpu_torch.kernels import hash_layout as HL  # noqa: E402
 from spark_rapids_tpu_torch.ops import ordering as ORD  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 3000
 _WORDS = ["", "a", "ab", "abc", "MAIL", "TRUCK", "REG AIR", "été",
           "DELIVER IN PER", "x" * 12]

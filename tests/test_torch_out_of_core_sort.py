@@ -31,6 +31,16 @@ from spark_rapids_tpu_torch.sql.column import col
 from spark_rapids_tpu_torch.sql.session import TpuSession
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _fresh_manager():
     M.reset_manager()

@@ -47,6 +47,17 @@ from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql.session import TpuSession
 from spark_rapids_tpu_torch.utils import tpch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SF = 0.002
 
 

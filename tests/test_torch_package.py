@@ -31,6 +31,17 @@ from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql.column import Column, UExpr, col
 from spark_rapids_tpu_torch.sql.session import TpuSession
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "hash_pairs_ab.py"]
@@ -71,6 +82,14 @@ def test_import_check_covers_the_tpch_slice():
 def test_import_check_covers_the_scan_cache_slice():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert "spark_rapids_tpu_torch/runtime/memory.py" in names
+
+
+def test_import_check_covers_the_failure_domain_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("runtime/cancel.py", "runtime/resilience.py",
+                "runtime/faultinj.py", "runtime/lockdep.py",
+                "utils/harness.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
 def test_import_check_covers_the_overrides_slice():

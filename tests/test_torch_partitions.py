@@ -23,6 +23,7 @@ port against the JAX package, at ``bench.py``'s oracle scales.
 """
 
 import pytest
+import torch
 
 import bench
 
@@ -37,6 +38,17 @@ from spark_rapids_tpu_torch.runtime import memory as M
 from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql.session import TpuSession
 from spark_rapids_tpu_torch.utils import tpch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SF = 0.002
 QUERIES = ("q1", "q3", "q4", "q6", "q12", "q13", "q14", "q15", "q17",

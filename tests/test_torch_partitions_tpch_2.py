@@ -13,6 +13,7 @@ own 1-partition result.
 """
 
 import pytest
+import torch
 
 import bench
 
@@ -23,6 +24,17 @@ from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.runtime import memory as M
 from spark_rapids_tpu_torch.sql.session import TpuSession
 from spark_rapids_tpu_torch.utils import tpch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 QUERIES = ('q10', 'q11', 'q16', 'q18', 'q20', 'q21')
 CONF = {"spark.default.parallelism": 4}

@@ -14,6 +14,7 @@ every row.
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 import bench
 
@@ -39,6 +40,17 @@ from spark_rapids_tpu_torch.plan import analysis as AN  # noqa: E402
 from spark_rapids_tpu_torch.sql import functions as F  # noqa: E402
 from spark_rapids_tpu_torch.sql.column import UExpr, col  # noqa: E402
 from spark_rapids_tpu_torch.sql.session import TpuSession  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 W = 16
 N = 700  # live rows; the batch holds 1024

@@ -17,6 +17,7 @@ report the JAX package's strategy metrics.
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 import bench
 
@@ -29,6 +30,17 @@ from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql.column import col
 from spark_rapids_tpu_torch.sql.session import TpuSession
 from spark_rapids_tpu_torch.utils import tpch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # case -> (query, scale)
 CASES = {"q11": ("q11", 0.01), "q11_sf0.02": ("q11", 0.02),

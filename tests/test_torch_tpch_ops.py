@@ -19,6 +19,7 @@ import math
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 import bench
 
@@ -42,6 +43,17 @@ from spark_rapids_tpu_torch.sql import functions as F  # noqa: E402
 from spark_rapids_tpu_torch.sql.column import col  # noqa: E402
 from spark_rapids_tpu_torch.sql.session import TpuSession  # noqa: E402
 from spark_rapids_tpu_torch.utils import tpch  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N = 4000
 

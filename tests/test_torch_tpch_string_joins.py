@@ -14,6 +14,7 @@ and report its strategy metrics, and no hash collision may fall back.
 """
 
 import pytest
+import torch
 
 import bench
 
@@ -22,6 +23,17 @@ from spark_rapids_tpu.sql.session import TpuSession as JaxSession
 from spark_rapids_tpu_torch import kernels as KN
 from spark_rapids_tpu_torch.sql.session import TpuSession
 from spark_rapids_tpu_torch.utils import tpch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 QUERIES = {"q2": 0.01, "q9": 0.002, "q20": 0.002}  # query -> scale
 CONFS = {

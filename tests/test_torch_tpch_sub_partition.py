@@ -16,6 +16,7 @@ as both packages pick the same sub-partition count at these sizes.
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 import bench
 
@@ -36,6 +37,17 @@ from spark_rapids_tpu_torch.ops import expressions as E  # noqa: E402
 from spark_rapids_tpu_torch.ops.hashing import make_pid_fn  # noqa: E402
 from spark_rapids_tpu_torch.sql.session import TpuSession  # noqa: E402
 from spark_rapids_tpu_torch.utils import tpch  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small tables: torch's intra-op threads only oversubscribe the
+    cores beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SF = 0.002
 CONFS = {
