@@ -182,13 +182,32 @@ result line is not printed):
    nowhere after it.  ``python3 chip_smoke.py --faults`` runs this
    phase alone (after the build, the kernel checks, q1, q3 and q18
    cold and ``[spill]``);
-18. the string expressions of the string queries (LIKE, NOT LIKE,
+18. ``[breadth]``: the scalar and aggregate breadth at SF1, each run a
+   path of its own under ``test.enabled``, against this script's numpy
+   and pyarrow references: a lineitem profile by (returnflag,
+   linestatus) on the gathered holistic pass (the variance family of
+   three columns, ``percentile``, ``approx_percentile``, ``first``, min
+   and max over strings, ``mean``) and its ``approx_count_distinct``;
+   a report over every 60th order's lines (``%``, the date fields and
+   arithmetic, unary minus, ``abs``, ``floor``/``ceil``/``round``, the
+   math functions, ``coalesce``/``isNull``/``eqNullSafe`` over a
+   ``when`` column null on part of the rows) row for row, and grouped by
+   month over all rows; Spark's ``hash`` and ``xxhash64`` of
+   (l_orderkey, l_comment) against this script's numpy murmur3 and
+   xxhash64 (lineitem gets an ``l_comment`` at set-up: its order's
+   comment and its ship instruction); ``xxhash64(l_comment)`` alone over
+   6,000,000 rows against its byte bound; the report under
+   ``spark.rapids.sql.expression.Remainder=false``, falling back with
+   the JAX package's reason and giving the same rows.
+   ``python3 chip_smoke.py --breadth`` runs this phase alone (after the
+   build and the kernel checks);
+19. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-19. the kernel at every shape the main path (queries, variants,
+20. the kernel at every shape the main path (queries, variants,
    fallback cases, partitions, exchanges, operators, strings, retry,
-   pump and faults)
+   pump, faults and breadth)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -198,7 +217,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-20. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+21. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -223,6 +242,8 @@ H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 # ``python3 chip_smoke.py --faults``: the [faults] phase alone (with the
 # clean runs and the spill pool it needs)
 FAULTS_ONLY = "--faults" in sys.argv[1:]
+# ``python3 chip_smoke.py --breadth``: the [breadth] phase alone
+BREADTH_ONLY = "--breadth" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -4150,6 +4171,669 @@ def exchange_phase(dev, tables, CB, KN) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [breadth]: the scalar and aggregate breadth at SF1
+# ---------------------------------------------------------------------------
+
+REPORT_EVERY = 60  # the report's filter: l_orderkey % 60 == 0
+BREADTH_KILL = "spark.rapids.sql.expression.Remainder"
+KILL_REASON = ("expression Remainder disabled by "
+               f"{BREADTH_KILL}=false")  # the JAX package's text
+PROFILE_VARIANCE = ("stddev_samp", "stddev_pop", "var_samp", "var_pop")
+PROFILE_COLUMNS = ("l_extendedprice", "l_discount", "l_quantity")
+
+
+def with_comment(li, orders):
+    """lineitem with an ``l_comment``: the generator (``bench``'s,
+    column for column) has none, so each line takes its order's
+    ``o_comment`` joined to its ``l_shipinstruct`` — 19 to 70 bytes,
+    across the 32-byte stripe of xxhash64 — made on the host at set-up
+    (``o_orderkey`` is the row number of orders)."""
+    import pyarrow.compute as pc
+    comment = pc.binary_join_element_wise(
+        pc.take(orders["o_comment"], li["l_orderkey"]),
+        li["l_shipinstruct"], " ")
+    return li.append_column("l_comment", comment)
+
+
+def lineitem_profile(s, li):
+    """Run 1: a profiling query — the variance family of three columns,
+    the exact median price, the nearest-rank 90th quantity percentile,
+    the first ship mode in table order, string extremes and a mean, by
+    (l_returnflag, l_linestatus): the gathered holistic pass."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    aggs = [getattr(F, fn)(c).alias(f"{fn}_{c}")
+            for fn in PROFILE_VARIANCE for c in PROFILE_COLUMNS]
+    aggs += [F.percentile("l_extendedprice", 0.5).alias("p50_price"),
+             F.approx_percentile("l_quantity", 0.9).alias("p90_qty"),
+             F.first("l_shipmode").alias("first_mode"),
+             F.min("l_shipmode").alias("min_mode"),
+             F.max("l_shipinstruct").alias("max_instr"),
+             F.mean("l_tax").alias("mean_tax")]
+    return s.createDataFrame(li).groupBy(
+        "l_returnflag", "l_linestatus").agg(*aggs)
+
+
+def lineitem_suppliers(s, li):
+    """Run 1b: ``approx_count_distinct(l_suppkey)`` by the profile's
+    keys (a distinct aggregate cannot share an ``agg`` with others, in
+    either package)."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    return s.createDataFrame(li).groupBy(
+        "l_returnflag", "l_linestatus").agg(
+        F.approx_count_distinct("l_suppkey").alias("suppliers"))
+
+
+def _groups(li, keys):
+    """{key tuple: row indices in table order} of a small-cardinality
+    grouping of string columns (their dictionary codes combined)."""
+    import numpy as np
+    import pyarrow.compute as pc
+    code = np.zeros(li.num_rows, np.int64)
+    dicts = []
+    for k in keys:
+        enc = pc.dictionary_encode(li[k]).combine_chunks()
+        code = code * len(enc.dictionary) + enc.indices.to_numpy()
+        dicts.append(enc.dictionary.to_pylist())
+    out = {}
+    for c in np.unique(code):
+        parts, rest = [], int(c)
+        for d in reversed(dicts):
+            parts.append(d[rest % len(d)])
+            rest //= len(d)
+        out[tuple(reversed(parts))] = np.flatnonzero(code == c)
+    return out
+
+
+def ref_lineitem_profile(li):
+    """numpy per group: two-pass variances, the percentiles by the JAX
+    package's rank rules (exact: p(n-1) interpolated; approx: element
+    ceil(pn) - 1 of the sorted values), the first row's ship mode, the
+    byte-order string extremes, the mean."""
+    import math
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    rows = []
+    cols = {c: li[c].to_numpy() for c in PROFILE_COLUMNS + ("l_tax",)}
+    mode, instr = li["l_shipmode"], li["l_shipinstruct"]
+    for (rf, ls), idx in _groups(li, ["l_returnflag",
+                                      "l_linestatus"]).items():
+        row = {"l_returnflag": rf, "l_linestatus": ls}
+        for fn in PROFILE_VARIANCE:
+            for c in PROFILE_COLUMNS:
+                v = np.var(cols[c][idx], ddof=1 if "samp" in fn else 0)
+                row[f"{fn}_{c}"] = float(np.sqrt(v) if "stddev" in fn
+                                         else v)
+        price = np.sort(cols["l_extendedprice"][idx])
+        r = 0.5 * (len(price) - 1)
+        lo = math.floor(r)
+        row["p50_price"] = float(price[lo] + (r - lo)
+                                 * (price[math.ceil(r)] - price[lo]))
+        qty = np.sort(cols["l_quantity"][idx])
+        row["p90_qty"] = float(qty[min(max(math.ceil(0.9 * len(qty)) - 1,
+                                           0), len(qty) - 1)])
+        row["first_mode"] = mode[int(idx[0])].as_py()
+        # pyarrow orders strings by their bytes, as Spark does
+        row["min_mode"] = pc.min_max(mode.take(idx))["min"].as_py()
+        row["max_instr"] = pc.min_max(instr.take(idx))["max"].as_py()
+        row["mean_tax"] = float(cols["l_tax"][idx].mean())
+        rows.append(row)
+    return pa.Table.from_pylist(rows)
+
+
+def ref_lineitem_suppliers(li):
+    import numpy as np
+    import pyarrow as pa
+    rows = []
+    supp = li["l_suppkey"].to_numpy()
+    for (rf, ls), idx in _groups(li, ["l_returnflag",
+                                      "l_linestatus"]).items():
+        rows.append({"l_returnflag": rf, "l_linestatus": ls,
+                     "suppliers": int(len(np.unique(supp[idx])))})
+    return pa.Table.from_pylist(rows)
+
+
+def _maybe_net(F, col):
+    """``price * (1 - discount)`` where the discount is above 5%, null on
+    the other rows."""
+    return F.when(col("l_discount") > 0.05,
+                  col("l_extendedprice") * (1 - col("l_discount")))
+
+
+def date_report(s, li):
+    """Run 2: the date-and-arithmetic report over lines of every 60th
+    order (about 100,000 rows), row for row."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    price, qty = col("l_extendedprice"), col("l_quantity")
+    maybe = _maybe_net(F, col)
+    return s.createDataFrame(li).filter(
+        col("l_orderkey") % REPORT_EVERY == 0).select(
+        "l_orderkey",
+        F.month(col("l_shipdate")).alias("month"),
+        F.dayofmonth(col("l_shipdate")).alias("day"),
+        F.datediff(col("l_receiptdate"), col("l_shipdate")).alias("transit"),
+        F.date_add(col("l_shipdate"), 30).alias("due"),
+        F.date_sub(col("l_commitdate"), 7).alias("warn"),
+        (-qty).alias("neg_qty"),
+        F.abs(price - 50000).alias("dev"),
+        F.floor(price / 7).alias("floor7"), F.ceil(price / 7).alias("ceil7"),
+        F.round(price * col("l_discount"), 2).alias("disc_amt"),
+        F.sqrt(price).alias("sqrt_price"), F.log(qty).alias("log_qty"),
+        F.exp(col("l_discount")).alias("exp_disc"),
+        F.pow(col("l_tax") + 1, qty).alias("pow_tax"),
+        F.coalesce(maybe, price).alias("net"),
+        maybe.isNull().alias("full_price"),
+        maybe.eqNullSafe(price * (1 - col("l_discount"))).alias("eqns"),
+        (col("l_partkey") % 7).alias("pmod"))
+
+
+def ref_date_report(li):
+    """numpy over the same rows, in table order."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    f = li.filter(every_mask(li, REPORT_EVERY))
+    ship = f["l_shipdate"].cast(pa.int32()).to_numpy()
+    receipt = f["l_receiptdate"].cast(pa.int32()).to_numpy()
+    commit = f["l_commitdate"].cast(pa.int32()).to_numpy()
+    price = f["l_extendedprice"].to_numpy()
+    qty = f["l_quantity"].to_numpy()
+    disc = f["l_discount"].to_numpy()
+    tax = f["l_tax"].to_numpy()
+    x = price * disc
+    rounded = np.sign(x) * np.floor(np.abs(x) * 100.0 + 0.5) / 100.0
+    discounted = disc > 0.05
+    net = price * (1 - disc)
+    return pa.table({
+        "l_orderkey": f["l_orderkey"],
+        "month": pc.cast(pc.month(f["l_shipdate"]), pa.int32()),
+        "day": pc.cast(pc.day(f["l_shipdate"]), pa.int32()),
+        "transit": pa.array((receipt - ship).astype(np.int32)),
+        "due": pa.array(ship + 30, pa.int32()).cast(pa.date32()),
+        "warn": pa.array(commit - 7, pa.int32()).cast(pa.date32()),
+        "neg_qty": pa.array(-qty),
+        "dev": pa.array(np.abs(price - 50000.0)),
+        "floor7": pa.array(np.floor(price / 7.0).astype(np.int64)),
+        "ceil7": pa.array(np.ceil(price / 7.0).astype(np.int64)),
+        "disc_amt": pa.array(rounded),
+        "sqrt_price": pa.array(np.sqrt(price)),
+        "log_qty": pa.array(np.log(qty)),
+        "exp_disc": pa.array(np.exp(disc)),
+        "pow_tax": pa.array(np.power(tax + 1.0, qty)),
+        "net": pa.array(np.where(discounted, net, price)),
+        "full_price": pa.array(~discounted),
+        "eqns": pa.array(discounted),
+        "pmod": pa.array(f["l_partkey"].to_numpy() % 7),
+    })
+
+
+def month_report(s, li):
+    """Run 2b: the report's expressions grouped by ``month(l_shipdate)``
+    over all 6,000,000 rows (plain aggregates, the variance family and a
+    numeric first: the partial/merge passes through ``hash_pairs``)."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    price = col("l_extendedprice")
+    return s.createDataFrame(li).groupBy(
+        F.month(col("l_shipdate")).alias("month")).agg(
+        F.count("*").alias("n"),
+        F.sum(F.datediff(col("l_receiptdate"), col("l_shipdate"))).alias(
+            "transit"),
+        F.sum(F.floor(price / 7)).alias("floor7"),
+        F.max(F.round(price * col("l_discount"), 2)).alias("max_disc"),
+        F.sum(col("l_partkey") % 7).alias("pmod"),
+        F.sum(F.coalesce(_maybe_net(F, col), price)).alias("net"),
+        F.stddev_samp("l_discount").alias("sd_disc"),
+        F.var_pop("l_tax").alias("vp_tax"),
+        F.first("l_orderkey").alias("first_order"),
+        F.avg(F.abs(price - 50000)).alias("mean_dev"))
+
+
+def ref_month_report(li):
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    month = pc.month(li["l_shipdate"]).to_numpy()
+    price = li["l_extendedprice"].to_numpy()
+    disc = li["l_discount"].to_numpy()
+    tax = li["l_tax"].to_numpy()
+    transit = (li["l_receiptdate"].cast(pa.int32()).to_numpy().astype(
+        np.int64) - li["l_shipdate"].cast(pa.int32()).to_numpy())
+    x = price * disc
+    rounded = np.sign(x) * np.floor(np.abs(x) * 100.0 + 0.5) / 100.0
+    net = np.where(disc > 0.05, price * (1 - disc), price)
+    pmod = li["l_partkey"].to_numpy() % 7
+    okey = li["l_orderkey"].to_numpy()
+    rows = []
+    for m in np.unique(month):
+        idx = np.flatnonzero(month == m)
+        rows.append({
+            "month": int(m), "n": int(len(idx)),
+            "transit": int(transit[idx].sum()),
+            "floor7": int(np.floor(price[idx] / 7.0).astype(np.int64).sum()),
+            "max_disc": float(rounded[idx].max()),
+            "pmod": int(pmod[idx].sum()), "net": float(net[idx].sum()),
+            "sd_disc": float(np.std(disc[idx], ddof=1)),
+            "vp_tax": float(np.var(tax[idx])),
+            "first_order": int(okey[idx[0]]),
+            "mean_dev": float(np.abs(price[idx] - 50000.0).mean())})
+    return pa.Table.from_pylist(rows)
+
+
+def hash_report(s, li):
+    """Run 3: Spark's two hashes of (l_orderkey, l_comment) over the
+    report's rows."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    return s.createDataFrame(li).filter(
+        col("l_orderkey") % REPORT_EVERY == 0).select(
+        "l_orderkey", "l_comment",
+        F.hash(col("l_orderkey"), col("l_comment")).alias("murmur3"),
+        F.xxhash64(col("l_orderkey"), col("l_comment")).alias("xxhash64"))
+
+
+# -- this script's own Spark xxhash64 (numpy uint64) --------------------------
+
+XXH_P = (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+         0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5)
+_M64 = (1 << 64) - 1
+
+
+def xxh64_bytes_py(b: bytes, seed: int) -> int:
+    """Spark's ``XXH64.hashUnsafeBytes`` of one byte string, Python
+    ints (the scalar check of ``np_xxh64_strings``)."""
+    p1, p2, p3, p4, p5 = XXH_P
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & _M64
+
+    def rnd(acc, x):
+        return (rotl((acc + x * p2) & _M64, 31) * p1) & _M64
+
+    n, i = len(b), 0
+    if n >= 32:
+        v = [(seed + p1 + p2) & _M64, (seed + p2) & _M64, seed,
+             (seed - p1) & _M64]
+        while i + 32 <= n:
+            v = [rnd(v[k], int.from_bytes(b[i + 8 * k:i + 8 * k + 8],
+                                          "little")) for k in range(4)]
+            i += 32
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12)
+             + rotl(v[3], 18)) & _M64
+        for x in v:
+            h = (((h ^ rnd(0, x)) * p1) + p4) & _M64
+    else:
+        h = (seed + p5) & _M64
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        h = (rotl(h ^ rnd(0, int.from_bytes(b[i:i + 8], "little")), 27)
+             * p1 + p4) & _M64
+        i += 8
+    if i + 4 <= n:
+        h = (rotl(h ^ ((int.from_bytes(b[i:i + 4], "little") * p1) & _M64),
+                  23) * p2 + p3) & _M64
+        i += 4
+    while i < n:
+        h = (rotl(h ^ ((b[i] * p5) & _M64), 11) * p1) & _M64
+        i += 1
+    h ^= h >> 33
+    h = (h * p2) & _M64
+    h ^= h >> 29
+    h = (h * p3) & _M64
+    return h ^ (h >> 32)
+
+
+def _np_u64(x):
+    import numpy as np
+    return np.uint64(x)
+
+
+def np_xxh64_fmix(h):
+    import numpy as np
+    h = h ^ (h >> np.uint64(33))
+    h = h * _np_u64(XXH_P[1])
+    h = h ^ (h >> np.uint64(29))
+    h = h * _np_u64(XXH_P[2])
+    return h ^ (h >> np.uint64(32))
+
+
+def _np_rotl(x, r):
+    import numpy as np
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def np_xxh64_long(values, seed):
+    """Spark's ``XXH64.hashLong`` of int64 values with per-row uint64
+    seeds."""
+    import numpy as np
+    p1, p2, _, p4, p5 = (_np_u64(p) for p in XXH_P)
+    with np.errstate(over="ignore"):
+        v = np.asarray(values, np.int64).view(np.uint64)
+        h = seed + p5 + np.uint64(8)
+        h = h ^ (_np_rotl(v * p2, 31) * p1)
+        return np_xxh64_fmix(_np_rotl(h, 27) * p1 + p4)
+
+
+def string_matrix(arr):
+    """A pyarrow string array -> (uint8[n, W] zero-padded, int64 byte
+    lengths)."""
+    import numpy as np
+    import pyarrow.compute as pc
+    arr = arr.combine_chunks() if hasattr(arr, "combine_chunks") else arr
+    n = len(arr)
+    offs = np.frombuffer(arr.buffers()[1], np.int32)[arr.offset:
+                                                     arr.offset + n + 1]
+    data = np.frombuffer(arr.buffers()[2], np.uint8)
+    lengths = pc.binary_length(arr).to_numpy().astype(np.int64)
+    w = max(int(lengths.max(initial=0)), 1)
+    mat = np.zeros((n, w), np.uint8)
+    for j in range(w):
+        rows = lengths > j
+        mat[rows, j] = data[offs[:-1][rows] + j]
+    return mat, lengths
+
+
+def np_xxh64_strings(mat, lengths, seed):
+    """Spark's ``XXH64.hashUnsafeBytes`` of each row (per-row uint64
+    seeds): the stripes at fixed offsets, then the 8-byte words, the
+    4-byte word and the tail bytes gathered at each row's own offset."""
+    import numpy as np
+    p1, p2, p3, p4, p5 = (_np_u64(p) for p in XXH_P)
+    n, w = mat.shape
+    m = mat.astype(np.uint64)
+    rows = np.arange(n)
+
+    def word_at(pos, nbytes):
+        k = np.zeros(n, np.uint64)
+        for j in range(nbytes):
+            k |= m[rows, np.minimum(pos + j, w - 1)] << np.uint64(8 * j)
+        return k
+
+    def rnd(acc, x):
+        return _np_rotl(acc + x * p2, 31) * p1
+
+    with np.errstate(over="ignore"):
+        stripes = (lengths // 32) * 32
+        v = [seed + p1 + p2, seed + p2, seed.copy(), seed - p1]
+        for base in range(0, w - 31, 32):
+            on = base + 32 <= stripes
+            for k in range(4):
+                at = np.full(n, base + 8 * k)
+                v[k] = np.where(on, rnd(v[k], word_at(at, 8)), v[k])
+        big = (_np_rotl(v[0], 1) + _np_rotl(v[1], 7) + _np_rotl(v[2], 12)
+               + _np_rotl(v[3], 18))
+        for x in v:
+            big = (big ^ rnd(np.uint64(0), x)) * p1 + p4
+        h = np.where(lengths >= 32, big, seed + p5) + lengths.astype(
+            np.uint64)
+        pos = stripes.copy()
+        for _ in range(3):
+            on = pos + 8 <= lengths
+            nh = _np_rotl(h ^ rnd(np.uint64(0), word_at(pos, 8)), 27) * p1 + p4
+            h, pos = np.where(on, nh, h), np.where(on, pos + 8, pos)
+        on = pos + 4 <= lengths
+        nh = _np_rotl(h ^ (word_at(pos, 4) * p1), 23) * p2 + p3
+        h, pos = np.where(on, nh, h), np.where(on, pos + 4, pos)
+        for _ in range(3):
+            on = pos < lengths
+            nh = _np_rotl(h ^ (word_at(pos, 1) * p5), 11) * p1
+            h, pos = np.where(on, nh, h), np.where(on, pos + 1, pos)
+        return np_xxh64_fmix(h)
+
+
+def np_murmur3_strings(mat, lengths, seed):
+    """Spark's ``hashUnsafeBytes`` (murmur3 x86_32) of each row, per-row
+    uint32 seeds: 4-byte little-endian blocks, then each tail byte
+    sign-extended as a block of its own."""
+    import numpy as np
+    m = mat.astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = seed.astype(np.uint32)
+        aligned = lengths - lengths % 4
+        for blk in range(0, mat.shape[1] - 3, 4):
+            k = (m[:, blk] | (m[:, blk + 1] << np.uint32(8))
+                 | (m[:, blk + 2] << np.uint32(16))
+                 | (m[:, blk + 3] << np.uint32(24)))
+            h = np.where(blk + 4 <= aligned, _mix_h1(h, _mix_k1(k)), h)
+        for pos in range(mat.shape[1]):
+            b = m[:, pos]
+            signed = np.where(b >= 128, b | np.uint32(0xFFFFFF00), b)
+            h = np.where((pos >= aligned) & (pos < lengths),
+                         _mix_h1(h, _mix_k1(signed)), h)
+        return _fmix32(h, lengths.astype(np.uint32))
+
+
+def ref_hash_report(f):
+    """numpy Spark hashes of the report rows' (l_orderkey, l_comment),
+    each string seeded by its key's hash; a few rows held against the
+    scalar forms too."""
+    import numpy as np
+    import pyarrow as pa
+    key = f["l_orderkey"].to_numpy()
+    mat, lengths = string_matrix(f["l_comment"])
+    mm = np_murmur3_strings(mat, lengths, spark_murmur3_long(key))
+    xx = np_xxh64_strings(mat, lengths, np_xxh64_long(key, _np_u64(42)))
+    comments = f["l_comment"].to_pylist()
+    for i in range(0, len(key), max(1, len(key) // 64)):
+        b = comments[i].encode()
+        seed = int(spark_murmur3_long([key[i]])[0])
+        check(int(mm[i]) == spark_murmur3_bytes(b, seed),
+              f"numpy murmur3 differs from its scalar form at row {i}")
+        s64 = int(np_xxh64_long([key[i]], _np_u64(42))[0])
+        check(int(xx[i]) == xxh64_bytes_py(b, s64),
+              f"numpy xxhash64 differs from its scalar form at row {i}")
+    return pa.table({"l_orderkey": f["l_orderkey"],
+                     "l_comment": f["l_comment"],
+                     "murmur3": pa.array(mm.view(np.int32)),
+                     "xxhash64": pa.array(xx.view(np.int64))})
+
+
+def xxhash_alone(tables, session) -> dict:
+    """``xxhash64(l_comment)`` alone over all 6,000,000 rows at the
+    batches of their scan (``host_to_device`` at the session's batch
+    rows): the expression's time by CUDA events around the calls
+    (``cuda_ms``, host time included) beside its byte bound (the
+    comment matrix and lengths read once, the hashes written once, over
+    the memory rate); every 60th row against this script's numpy
+    xxhash64."""
+    import numpy as np
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.column import host_to_device
+    from spark_rapids_tpu_torch.ops import expressions as E
+    from spark_rapids_tpu_torch.ops import hashing as HH
+    conf = session.rapids_conf()
+    tbl = tables["lineitem"].select(["l_comment"])
+    batches = [host_to_device(tbl.slice(lo, conf.batch_rows),
+                              session.device,
+                              min_bucket=conf.min_bucket_rows)
+               for lo in range(0, tbl.num_rows, conf.batch_rows)]
+    expr = HH.XxHash64([E.BoundReference(0, T.StringT)])
+    outs = [expr.eval(b) for b in batches]
+    got = torch.cat([o.data[:min(conf.batch_rows, tbl.num_rows - i *
+                                 conf.batch_rows)]
+                     for i, o in enumerate(outs)]).cpu().numpy()
+    sample = tbl.take(np.arange(0, tbl.num_rows, REPORT_EVERY))
+    mat, lengths = string_matrix(sample["l_comment"])
+    want = np_xxh64_strings(mat, lengths,
+                            np.full(len(lengths), 42, np.uint64))
+    check(np.array_equal(got[::REPORT_EVERY], want.view(np.int64)),
+          "xxhash64(l_comment) alone differs from the numpy reference")
+    in_bytes = sum(_col_bytes(c) for b in batches for c in b.columns)
+    out_bytes = sum(_col_bytes(o) for o in outs)
+    ms = cuda_ms(lambda: [expr.eval(b) for b in batches], iters=10)
+    bound = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    return {"expression": "xxhash64(l_comment)", "rows": tbl.num_rows,
+            "batches": [list(b.columns[0].data.shape) for b in batches],
+            "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+            "pct_of_bound": 100.0 * bound / ms,
+            "equal_reference_rows": int(len(want))}
+
+
+def breadth_phase(dev, tables, CB, KN, query_shapes) -> dict:
+    """The scalar and aggregate breadth at SF1 under ``SESSION_CONF``
+    (any fallback raises), each run a path of its own (the scan cache
+    cleared, counts set to 0 before its cold run, read after), each
+    against this script's numpy/pyarrow reference, then 2 warm runs
+    equal to the cold one:
+
+    1. the lineitem profile (``lineitem_profile``: the gathered holistic
+       pass) and its supplier count (``approx_count_distinct``);
+    2. the date-and-arithmetic report over every 60th order's lines,
+       row for row, and its expressions grouped by month over all rows
+       (``hash_pairs`` launched);
+    3. ``hash`` and ``xxhash64`` of (l_orderkey, l_comment) over the
+       report's rows, exactly;
+    4. ``xxhash64(l_comment)`` alone over all rows against its byte
+       bound;
+    5. the report under ``spark.rapids.sql.expression.Remainder=false``
+       in a session without test mode: it falls back naming the switch
+       with the JAX package's reason, and gives the device run's rows.
+
+    Floats are held within 1e-9 relative (the repository's oracle rule),
+    the percentiles, ``first``, the string extremes, integers, dates,
+    booleans and hashes exactly.  Returns the counts of the runs."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t_phase = time.perf_counter()
+    li = with_comment(tables["lineitem"], tables["orders"])
+    tables = dict(tables, lineitem=li)
+    s = TpuSession(dict(SESSION_CONF), device=dev)
+    counts, lines = {}, {}
+
+    def run(name, build, want, ordered=False, hashed=True, exact=()):
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        clear_scan_cache()
+        df = build()
+        got, cold = timed(df)
+        counts[name] = c = path_counts(df, CB, KN)
+        print(f"[main path] breadth {name} " + json.dumps(c), flush=True)
+        fb = df.fallback_summary()
+        check(fb["fallback_ops"] == 0 and fb["device_ops"] > 0,
+              f"breadth {name}: plan rewrite fell back: {fb}")
+        check(c["collision_fallbacks"] == 0,
+              f"breadth {name}: hash-collision fallbacks")
+        check(not hashed or c["hash_pairs_launches"] > 0,
+              f"breadth {name}: hash_pairs was not launched")
+        check(got.column_names == want.column_names,
+              f"breadth {name} columns {got.column_names}")
+        if ordered:
+            check(rows_equal_ordered(got, want),
+                  f"breadth {name} differs from its reference row for row")
+        else:
+            check(rows_equal(got, want), f"breadth {name} differs from "
+                  f"its reference:\n{got}\n{want}")
+        for cname in exact:
+            g = sorted(map(repr, zip(*(got[k].to_pylist() for k in
+                                       got.column_names[:2] + [cname]))))
+            w = sorted(map(repr, zip(*(want[k].to_pylist() for k in
+                                       want.column_names[:2] + [cname]))))
+            check(g == w, f"breadth {name}: {cname} is not exact")
+        warm = []
+        for _ in range(2):
+            out, wall = timed(build())
+            warm.append(wall)
+            check(rows_equal(out, got, 0.0),
+                  f"breadth {name}: a warm run differs")
+        lines[name] = line = {
+            "rows": got.num_rows, "cold_wall_s": cold,
+            "warm_wall_s": statistics.median(warm), "warm_walls_s": warm,
+            "hash_pairs_launches": c["hash_pairs_launches"],
+            "hash_pairs_shapes": c["shapes"],
+            "new_hash_pairs_shapes": sorted(set(c["shapes"])
+                                            - query_shapes),
+            "fallback_ops": 0, "equal_reference": True}
+        print(f"[breadth] {name} " + json.dumps(line), flush=True)
+        return got
+
+    # -- 1. the lineitem profile (holistic) and its distinct suppliers
+    profile = run("lineitem profile", lambda: lineitem_profile(s, li),
+                  ref_lineitem_profile(li), hashed=False,
+                  exact=("p50_price", "p90_qty", "first_mode", "min_mode",
+                         "max_instr"))
+    check(profile.num_rows == 6, "the profile should have 6 groups")
+    run("lineitem suppliers", lambda: lineitem_suppliers(s, li),
+        ref_lineitem_suppliers(li))
+    # -- 2. the report, row for row, and grouped by month over all rows
+    report = run("date report", lambda: date_report(s, li),
+                 ref_date_report(li), ordered=True, hashed=False)
+    check(90_000 < report.num_rows < 110_000,
+          f"the report has {report.num_rows} rows")
+    run("month report", lambda: month_report(s, li), ref_month_report(li),
+        exact=("n", "transit", "floor7", "pmod", "first_order"))
+    # -- 3. the two hashes over the report's rows
+    f = li.filter(every_mask(li, REPORT_EVERY))
+    run("hashes", lambda: hash_report(s, li), ref_hash_report(f),
+        ordered=True, hashed=False)
+    # -- 4. xxhash64 alone over every comment
+    alone = xxhash_alone(tables, s)
+    print("[breadth] alone " + json.dumps(alone), flush=True)
+    # -- 5. the kill switch: the report falls back, the same rows
+    plain = TpuSession({BREADTH_KILL: False}, device=dev)
+    clear_scan_cache()
+    df = date_report(plain, li)
+    got, wall = timed(df)
+    report_lines = df._last_override.fallback_report()
+    fb = df.fallback_summary()
+    check(report_lines and all(KILL_REASON in r for r in report_lines),
+          f"kill switch: the fallback report {report_lines}")
+    check(fb["fallback_ops"] >= 1, f"kill switch: no fallback: {fb}")
+    check(rows_equal_ordered(got, report),
+          "kill switch: the rows differ from the device run's")
+    line = {"rows": got.num_rows, "wall_s": wall,
+            "fallback_report": report_lines, "fallback_ops":
+            fb["fallback_ops"], "device_ops": fb["device_ops"],
+            "equal_device_run": True}
+    print("[breadth] kill switch " + json.dumps(line), flush=True)
+    print("[breadth] " + json.dumps({
+        "seconds": time.perf_counter() - t_phase,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()},
+        "cold_wall_s": {k: v["cold_wall_s"] for k, v in lines.items()},
+        "warm_wall_s": {k: v["warm_wall_s"] for k, v in lines.items()},
+        "xxhash64_alone_ms": alone["ms"],
+        "xxhash64_alone_bound_ms": alone["bound_ms"]}), flush=True)
+    return counts
+
+
+def every_mask(t, every: int):
+    """``l_orderkey % every == 0`` as a pyarrow mask."""
+    import pyarrow as pa
+    return pa.array(t["l_orderkey"].to_numpy() % every == 0)
+
+
+def rows_equal_ordered(a, b, tol=1e-9) -> bool:
+    """Row for row in order: floats within ``tol`` relative (absolute
+    below 1), everything else exactly."""
+    if a.num_rows != b.num_rows or a.column_names != b.column_names:
+        return False
+    for name in a.column_names:
+        for u, v in zip(a[name].to_pylist(), b[name].to_pylist()):
+            if isinstance(u, float) and isinstance(v, float):
+                if not (u == v or abs(u - v)
+                        <= tol * max(1.0, abs(u), abs(v))):
+                    return False
+            elif u != v:
+                return False
+    return True
+
+
+def breadth_only(dev, tables, CB, KN) -> int:
+    """``--breadth``: the [breadth] phase alone (after the build and the
+    kernel checks)."""
+    t0 = time.perf_counter()
+    counts = breadth_phase(dev, tables, CB, KN, set())
+    print("[breadth only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()}}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def faults_only(dev, tables, refs, CB, KN) -> int:
     """``--faults``: q1, q3 and q18 cold (their clean runs), ``[spill]``
     (the disk tier's pool), then ``[faults]`` alone."""
@@ -4243,6 +4927,8 @@ def main() -> int:
     print(f"[generate] SF{SF:g}: " + ", ".join(
         f"{k} {v.num_rows} rows" for k, v in tables.items())
         + f" in {gen_s:.3f} s", flush=True)
+    if BREADTH_ONLY:
+        return breadth_only(dev, tables, CB, KN)
     check(len(QUERIES) == 22 and set(QUERIES) == set(tpch.QUERIES)
           == {f"q{i}" for i in range(1, 23)},
           f"QUERIES lists {sorted(QUERIES)}, not TPC-H's 22")
@@ -4405,6 +5091,13 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[faults] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- the scalar and aggregate breadth: expressions, hashes, aggregates --
+    breadth_counts = breadth_phase(dev, tables, CB, KN, query_shapes)
+    for c in breadth_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[breadth] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -4491,7 +5184,8 @@ def main() -> int:
                         + list(str_counts.values())
                         + list(retry_counts.values())
                         + list(pump_counts.values())
-                        + list(fault_counts.values())),
+                        + list(fault_counts.values())
+                        + list(breadth_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -4512,6 +5206,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in pump_counts.items()},
         "launches_per_faults_run": {
             k: c["hash_pairs_launches"] for k, c in fault_counts.items()},
+        "launches_per_breadth_run": {
+            k: c["hash_pairs_launches"] for k, c in breadth_counts.items()},
         "plain_calls_per_faults_run": {
             k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,

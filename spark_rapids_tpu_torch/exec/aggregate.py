@@ -3,11 +3,17 @@
 [REF: sql-plugin/../GpuAggregateExec.scala :: GpuHashAggregateExec,
  AggHelper]
 
-The counterpart of the JAX package's ``exec/aggregate.py`` for the
-ported queries: sum, min, max, count, count(*) and avg, grouped or
+The counterpart of the JAX package's ``exec/aggregate.py``: sum, min,
+max, count, count(*), avg, first and the variance family, grouped or
 global (and a group-by with no aggregate, the dedup below a
 count(DISTINCT)), in complete mode (update per input batch of every
-input partition -> merge the partials -> final projection).
+input partition -> merge the partials -> final projection).  The
+holistic functions (percentile, approx_percentile, and min, max and
+first over strings, whose values cannot ride one buffer limb through
+the merge) take the JAX package's gathered single pass instead
+(``is_holistic_fn``, ``TpuHashAggregateExec._execute_collect``): every
+input batch concatenated, then one stable sort per function on
+(exclusion, keys, contribution, value) and a gather per group.
 
 The group-by keeps the JAX package's layout and protocol: key limbs
 from ``ops/ordering.py``; a group layout from the kernel plane (the
@@ -17,7 +23,9 @@ unchanged capacity, in group order.  What differs is the reduction: the
 JAX package reduces with segmented ``associative_scan``s (scatter is
 serial on a TPU); here every row adds into its group's slot keyed by
 group id (``scatter_reduce_`` for min and max, with the JAX package's
-NaN rules: NaN is the greatest value).  A cumulative-sum difference is
+NaN rules: NaN is the greatest value; ``first`` is the least row
+position of each group, an ``amin`` that no atomic order can change,
+then a gather).  A cumulative-sum difference is
 deliberately not used for float sums — at 2^20 rows the running total
 reaches ~5e9 and the cancellation would ruin small groups.
 
@@ -35,11 +43,13 @@ counts and keys are exact.
 
 ``CpuAggregateExec`` is the JAX package's CPU oracle for the same
 functions: a dict of groups in first-seen order, updated row by row in
-Python, finals as Spark defines them.
+Python (the variance family by Welford's update, as Spark's
+CentralMomentAgg), finals as Spark defines them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,7 +65,8 @@ from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.aggregates import (
-    AggregateFunction, Average, Count, CountStar, Max, Min, Sum)
+    AggregateFunction, ApproxPercentile, Average, Count, CountStar, First,
+    Max, Min, Percentile, Sum, _VarianceBase)
 from spark_rapids_tpu_torch.ops.expressions import BoundReference, Expression
 from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
 from spark_rapids_tpu_torch.parallel.shuffle import split_to_spillables
@@ -77,7 +88,8 @@ def segment_groupby(
     backend: str = "jnp",
 ) -> Tuple[List[DeviceColumn], List[DeviceColumn], torch.Tensor,
            Optional[torch.Tensor]]:
-    """Group rows by keys; reduce values by kind ('sum', 'min', 'max').
+    """Group rows by keys; reduce values by kind ('sum', 'min', 'max',
+    'first').
 
     Returns (out_key_cols, out_value_cols, out_sel, ok) — live groups
     compacted to the front in group order, capacity unchanged.
@@ -116,6 +128,12 @@ def segment_groupby(
     size = batcher.add("add", torch.ones_like(gid), key="size")
     plans = []
     for ci, (c, kind) in enumerate(value_cols):
+        if kind == "first":
+            # the group's first row in input order, a null included
+            plans.append({"c": c, "kind": kind, "n_contrib": nlive,
+                          "agg": batcher.add("first", torch.arange(
+                              b, device=dev), key="position")})
+            continue
         if c.validity is None:
             contrib, ckey = sel, "live"  # shared count for non-null inputs
         else:
@@ -149,6 +167,12 @@ def segment_groupby(
     for e in plans:
         n_contrib = batcher.get(e["n_contrib"])
         agg = batcher.get(e["agg"])
+        if e["kind"] == "first":
+            row = agg[perm2]
+            out_vals.append(DeviceColumn(
+                e["c"].dtype, e["c"].data[row],
+                e["c"].valid_mask()[row] & (n_contrib[perm2] > 0)))
+            continue
         if e["kind"] in ("min", "max"):
             agg = _finish_extreme(batcher, e, agg, n_contrib)
         out_vals.append(DeviceColumn(e["c"].dtype, agg[perm2],
@@ -164,8 +188,8 @@ class _ScanBatcher:
     the same logical input (a q1-shaped aggregate asks for the live-row
     count eight times).  Here a request is one ``index_add_`` (``add``;
     ``segment_reduce`` in group order for float sums) or
-    ``scatter_reduce_`` (``min``, ``max``) of the input into its
-    group's slot; ``add`` enqueues with an optional logical-input key
+    ``scatter_reduce_`` (``min``, ``max``; ``first``, an ``amin`` of row
+    positions) of the input into its group's slot; ``add`` enqueues with an optional logical-input key
     and returns a handle, ``run`` reduces, ``get`` returns the per-group
     result (indexed by group id).  ``perm`` orders the rows by group and
     ``gid`` is the group id of each row in that order.
@@ -191,7 +215,7 @@ class _ScanBatcher:
                                     lengths=self._lengths, initial=0)
 
     def add(self, tag: str, arr, key=None) -> int:
-        if tag not in ("add", "min", "max"):
+        if tag not in ("add", "min", "max", "first"):
             raise NotImplementedError(
                 f"spark_rapids_tpu_torch: '{tag}' reduction is not ported "
                 "yet")
@@ -221,7 +245,7 @@ class _ScanBatcher:
             out = torch.zeros((self.num_slots,), dtype=arr.dtype,
                               device=arr.device)
             req[2] = out.scatter_reduce_(
-                0, self.gid_row, arr, "amin" if tag == "min" else "amax",
+                0, self.gid_row, arr, "amax" if tag == "max" else "amin",
                 include_self=False)
 
     def get(self, i: int):
@@ -239,8 +263,10 @@ def _extreme_input(data: torch.Tensor, dt: T.DataType, contrib, kind):
     reduction and are reinstated by ``_extreme_nan``; other types
     reduce as integers (booleans as 0/1)."""
     if isinstance(dt, (T.StringType, T.BinaryType)):
+        # such values take the gathered pass (``is_holistic_fn``)
         raise NotImplementedError(
-            f"spark_rapids_tpu_torch: {kind} of {dt} is not ported yet")
+            f"spark_rapids_tpu_torch: {kind} of {dt} outside the gathered "
+            "holistic pass")
     if _is_float(dt):
         isn = torch.isnan(data)
         ident = float("inf") if kind == "min" else float("-inf")
@@ -282,8 +308,16 @@ def _reduce_column(data: torch.Tensor, valid: torch.Tensor,
                    dt: T.DataType) -> DeviceColumn:
     """Whole-array masked reduction -> 1-element column, with the same
     semantics as ``segment_groupby`` (sums and extremes of valid live
-    rows, NaN greatest; null when no row contributes)."""
+    rows, NaN greatest; null when no row contributes; 'first' takes the
+    first LIVE row's value, a null included)."""
     contrib = valid & live
+    if kind == "first":
+        has_row = torch.any(live)
+        idx = torch.argmax(live.to(torch.uint8))  # the first live row
+        v = torch.where(has_row, data[idx], torch.zeros(
+            (), dtype=data.dtype, device=data.device))
+        return DeviceColumn(dt, v.reshape(1),
+                            (valid[idx] & has_row).reshape(1))
     if kind == "sum":
         v = torch.where(contrib, data, torch.zeros(
             (), dtype=data.dtype, device=data.device)).sum(dtype=data.dtype)
@@ -320,6 +354,103 @@ def _one_row_batch(schema: T.StructType, cols: List[DeviceColumn],
 
 
 # ---------------------------------------------------------------------------
+# The holistic aggregates: one sort per function over the gathered input
+# ---------------------------------------------------------------------------
+
+def is_holistic_fn(f: AggregateFunction) -> bool:
+    """Functions that need the gathered single pass (no partial/merge
+    split): the percentiles, and min/max/first over strings, whose values
+    cannot ride a single-limb buffer through the merge.  The exec's one
+    routing test, as in the JAX package."""
+    if isinstance(f, Percentile):
+        return True
+    return (isinstance(f, (Min, Max, First)) and f.child is not None
+            and isinstance(f.input_dtype, (T.StringType, T.BinaryType)))
+
+
+def _sorted_groups(key_cols: Sequence[DeviceColumn], sel: torch.Tensor,
+                   contrib: torch.Tensor,
+                   value_col: Optional[DeviceColumn] = None):
+    """The holistic aggregates' skeleton: a stable sort on (exclusion,
+    keys[, contribution flag, value]) with group boundaries over the key
+    limbs only.  Returns (perm, counts, starts): the sort's permutation,
+    and per group, in ``segment_groupby``'s compacted group order of the
+    exact layout, its contributing rows and its first sorted row."""
+    b = int(sel.shape[0])
+    dev = sel.device
+    tail = [] if value_col is None else [ORD._flag_part(~contrib)] + (
+        ORD.column_order_parts(value_col, True, True,
+                               distinguish_neg_zero=False))
+    limbs, key_limbs = ORD.group_sort_limbs(list(key_cols), sel, tail)
+    _, perm = ORD.sort_by_keys(limbs)
+    boundary = torch.zeros((b,), dtype=torch.bool, device=dev)
+    for l in key_limbs:
+        ls = l[perm]
+        boundary[1:] |= ORD.limb_neq(ls[1:], ls[:-1])
+    boundary[0] = True
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    iota = torch.arange(b, device=dev)
+    start = torch.zeros_like(gid).scatter_reduce_(0, gid, iota, "amin",
+                                                  include_self=False)
+    # a slot past the last group holds no row
+    glive = (iota <= gid[-1]) & sel[perm][start]
+    perm2 = torch.argsort((~glive).to(torch.uint8), stable=True)
+    # an integer sum: exact in any order
+    counts = torch.zeros_like(gid).index_add_(0, gid,
+                                              contrib[perm].to(torch.int64))
+    return perm, counts[perm2], start[perm2]
+
+
+def segment_extreme(key_cols: Sequence[DeviceColumn], sel: torch.Tensor,
+                    value_col: DeviceColumn, kind: str) -> DeviceColumn:
+    """min/max/first of ``value_col`` per group for any orderable type
+    (strings included): one stable sort on (exclusion, keys[, null flag,
+    value]) and a row gather per group — min the first contributing
+    row, max the last, first the first LIVE row, a null included.  The
+    output is in ``segment_groupby``'s compacted group order."""
+    b = int(sel.shape[0])
+    if kind == "first":
+        perm, counts_g, starts_g = _sorted_groups(key_cols, sel, sel)
+    else:
+        perm, counts_g, starts_g = _sorted_groups(
+            key_cols, sel, sel & value_col.valid_mask(), value_col)
+    idx = (starts_g + counts_g - 1) if kind == "max" else starts_g
+    rows = perm[idx.clamp(0, b - 1)]
+    out = value_col.gather(rows)
+    if kind == "first":
+        out.validity = value_col.valid_mask()[rows] & (counts_g > 0)
+    else:
+        out.validity = counts_g > 0
+    return out
+
+
+def segment_percentile(key_cols: Sequence[DeviceColumn], sel: torch.Tensor,
+                       value_col: DeviceColumn, pct: float,
+                       interpolate: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """percentile / approx_percentile over value-sorted groups ->
+    (values, validity) in compacted group order.  Exact: Spark's rank
+    p·(n-1) with linear interpolation; approx: the nearest-rank element
+    (ceil(p·n) - 1)."""
+    b = int(sel.shape[0])
+    perm, counts_g, starts_g = _sorted_groups(
+        key_cols, sel, sel & value_col.valid_mask(), value_col)
+    values_sorted = value_col.data[perm]
+    nonempty = counts_g > 0
+    if interpolate:
+        r = pct * torch.clamp_min(counts_g - 1, 0).to(torch.float64)
+        lo = torch.floor(r)
+        vlo = values_sorted[(starts_g + lo.to(torch.int64)).clamp(
+            0, b - 1)].to(torch.float64)
+        vhi = values_sorted[(starts_g + torch.ceil(r).to(torch.int64))
+                            .clamp(0, b - 1)].to(torch.float64)
+        return vlo + (r - lo) * (vhi - vlo), nonempty
+    idx = torch.ceil(pct * counts_g.to(torch.float64)).to(torch.int64) - 1
+    idx = torch.minimum(idx.clamp_min(0), torch.clamp_min(counts_g - 1, 0))
+    return values_sorted[(starts_g + idx).clamp(0, b - 1)], nonempty
+
+
+# ---------------------------------------------------------------------------
 # Partial update / final projection per aggregate function
 # ---------------------------------------------------------------------------
 
@@ -346,6 +477,15 @@ def update_value_cols(fns: Sequence[AggregateFunction], batch: DeviceBatch
                         "sum"))
         elif isinstance(fn, (Min, Max)):
             out.append((c, "min" if isinstance(fn, Min) else "max"))
+        elif isinstance(fn, First):
+            out.append((c, "first"))
+        elif isinstance(fn, _VarianceBase):
+            # the analyzer casts the child to double
+            x = c.data.to(torch.float64)
+            out.append((DeviceColumn(T.DoubleT, x, c.validity), "sum"))
+            out.append((DeviceColumn(T.DoubleT, x * x, c.validity), "sum"))
+            out.append((DeviceColumn(T.LongT, valid.to(torch.int64)),
+                        "sum"))
         else:
             raise NotImplementedError(
                 f"spark_rapids_tpu_torch: aggregate {fn.name} is not "
@@ -379,7 +519,21 @@ def final_project(fns: Sequence[AggregateFunction],
             out.append(DeviceColumn(
                 T.DoubleT, s.data / denom.to(torch.float64),
                 cnt.data > 0))
-        elif isinstance(fn, (Min, Max)):
+        elif isinstance(fn, _VarianceBase):
+            s1, s2, cnt = mine
+            n = cnt.data.to(torch.float64)
+            nsafe = torch.where(cnt.data > 0, n, 1.0)
+            # sum((x - mean)^2) = sum(x^2) - sum(x)^2 / n, clamped at 0
+            # (cancellation); NaN stays NaN, as jnp.maximum keeps it
+            m2 = torch.maximum(s2.data - s1.data * s1.data / nsafe,
+                               torch.zeros_like(n))
+            denom = n - fn.ddof
+            var = torch.where(denom > 0,
+                              m2 / torch.where(denom > 0, denom, 1.0),
+                              float("nan"))  # var_samp of one row
+            v = torch.sqrt(var) if fn.sqrt_final else var
+            out.append(DeviceColumn(T.DoubleT, v, cnt.data > 0))
+        elif isinstance(fn, (Min, Max, First)):
             out.append(mine[0])  # the buffer is the result
         else:
             raise NotImplementedError(
@@ -451,7 +605,9 @@ class TpuHashAggregateExec(TpuExec):
                              "aggregate")
         src, pre = fuse_upstream(self.children[0])
         with self.timer():
-            if not self.grouping:
+            if any(is_holistic_fn(f) for f in self.fns):
+                outs = [self._execute_collect(src, pre)]
+            elif not self.grouping:
                 outs = [self._execute_global(src, pre)]
             else:
                 outs = self._execute_grouped(src, pre)
@@ -671,6 +827,46 @@ class TpuHashAggregateExec(TpuExec):
                 s.close()
         return out
 
+    # -- holistic functions: the gathered single pass -------------------
+
+    def _execute_collect(self, src, pre) -> DeviceBatch:
+        """Every input batch concatenated into one, reserved twice over
+        while it is reduced: the plain functions through
+        ``segment_groupby`` on the exact layout (the holistic helpers
+        sort by the full key encoding, and their columns zip with its
+        groups by position), each holistic function by its own sort.  A
+        global aggregate yields exactly one row, an empty input
+        included."""
+        batches = [compact(b) for b in _pull_all(src)]
+        if not batches:
+            batches = [empty_batch(src.schema, self.device)]
+        merged = concat_device_batches(src.schema, batches)
+        with get_manager().transient(2 * merged.nbytes()):
+            m = pre(merged)
+            keys = [g.eval(m) for g in self.grouping]
+            normal = [f for f in self.fns if not is_holistic_fn(f)]
+            ok, ov, sel, _ = segment_groupby(
+                keys, m.sel, update_value_cols(normal, m), backend="jnp")
+            normal_res = iter(final_project(normal, ov))
+            cols = list(ok)
+            for f in self.fns:
+                if isinstance(f, Percentile):
+                    v, vv = segment_percentile(
+                        keys, m.sel, f.child.eval(m), f.pct,
+                        interpolate=not isinstance(f, ApproxPercentile))
+                    cols.append(DeviceColumn(f.result_dtype, v, vv))
+                elif is_holistic_fn(f):
+                    kind = ("min" if isinstance(f, Min) else
+                            "max" if isinstance(f, Max) else "first")
+                    cols.append(segment_extreme(keys, m.sel,
+                                                f.child.eval(m), kind))
+                else:
+                    cols.append(next(normal_res))
+            if not self.grouping:
+                sel = torch.arange(m.capacity, device=m.device) < 1
+            return DeviceBatch(self.schema, tuple(cols), sel,
+                               compacted=True)
+
     # -- global (keyless) aggregate ------------------------------------
 
     def _execute_global(self, src, pre) -> DeviceBatch:
@@ -809,7 +1005,8 @@ def _norm_key(v, dt):
 
 
 def _new_acc():
-    return {"sum": 0, "count": 0, "min": None, "max": None}
+    return {"sum": 0, "count": 0, "min": None, "max": None, "first": None,
+            "has_first": False, "mean": 0.0, "m2": 0.0, "list": []}
 
 
 def _acc_update(acc, fn, vc, i):
@@ -817,6 +1014,11 @@ def _acc_update(acc, fn, vc, i):
         acc["count"] += 1
         return
     valid = vc.validity is None or bool(vc.validity[i])
+    if isinstance(fn, First):
+        if not acc["has_first"]:
+            acc["first"] = vc.data[i] if valid else None
+            acc["has_first"] = True
+        return
     if not valid:
         return
     v = vc.data[i]
@@ -829,6 +1031,14 @@ def _acc_update(acc, fn, vc, i):
                 acc["sum"] = np.int64(acc["sum"] + np.int64(v))
         else:
             acc["sum"] = float(acc["sum"]) + float(v)
+    elif isinstance(fn, _VarianceBase):
+        # Welford, exactly Spark's CentralMomentAgg update
+        acc["count"] += 1
+        delta = float(v) - acc["mean"]
+        acc["mean"] += delta / acc["count"]
+        acc["m2"] += delta * (float(v) - acc["mean"])
+    elif isinstance(fn, Percentile):
+        acc["list"].append(vc.data[i])
     elif isinstance(fn, Min):
         acc["min"] = v if acc["min"] is None else _spark_min(acc["min"], v, fn)
     elif isinstance(fn, Max):
@@ -865,9 +1075,45 @@ def _acc_final(acc, fn):
         if acc["count"] == 0:
             return None
         return float(acc["sum"]) / acc["count"]
+    if isinstance(fn, _VarianceBase):
+        n = acc["count"]
+        if n == 0:
+            return None
+        denom = n - fn.ddof
+        var = acc["m2"] / denom if denom > 0 else float("nan")
+        if not fn.sqrt_final:
+            return var
+        return math.sqrt(var) if var == var else float("nan")
+    if isinstance(fn, ApproxPercentile):
+        vals = sorted(acc["list"],
+                      key=lambda v: _total_key(v, fn.input_dtype))
+        if not vals:
+            return None
+        idx = min(max(math.ceil(fn.pct * len(vals)) - 1, 0), len(vals) - 1)
+        return _py_scalar(vals[idx], fn.input_dtype)
+    if isinstance(fn, Percentile):
+        vals = sorted((float(v) for v in acc["list"]),
+                      key=lambda x: _total_key(x, T.DoubleT))
+        if not vals:
+            return None
+        r = fn.pct * (len(vals) - 1)
+        lo = math.floor(r)
+        return vals[lo] + (r - lo) * (vals[math.ceil(r)] - vals[lo])
     if isinstance(fn, Min):
         return acc["min"]
     if isinstance(fn, Max):
         return acc["max"]
+    if isinstance(fn, First):
+        return acc["first"]
     raise NotImplementedError(fn.name)
+
+
+def _py_scalar(v, dt):
+    if isinstance(dt, (T.FloatType, T.DoubleType)):
+        return float(v)
+    if isinstance(dt, T.BooleanType):
+        return bool(v)
+    if isinstance(dt, (T.StringType, T.BinaryType)):
+        return v
+    return int(v)
 

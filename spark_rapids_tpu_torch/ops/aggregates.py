@@ -1,15 +1,20 @@
 """Aggregate functions with Spark result-type and null semantics — the
-subset of the ported TPC-H queries (``Sum``, ``Min``, ``Max``,
-``Count``, ``CountStar``, ``Average``, and ``CountDistinct``, which the
-DataFrame API rewrites away before execution).
+port's subset: ``Sum``, ``Min``, ``Max``, ``Count``, ``CountStar``,
+``Average``, ``First``, the variance family (``VarianceSamp``,
+``VariancePop``, ``StddevSamp``, ``StddevPop``), ``Percentile`` and
+``ApproxPercentile``, and ``CountDistinct``, which the DataFrame API
+rewrites away before execution.  ``collect_list``/``collect_set``
+(ROADMAP A.8c) are not here.
 
 [REF: sql-plugin/../aggregate/ :: GpuSum, GpuMin, GpuMax, GpuCount,
- GpuAverage]
+ GpuAverage, GpuFirst, GpuStddev/GpuVariance, GpuPercentileDefault]
 
 The same partial/merge/final split as the JAX package's
 ``ops/aggregates.py``: ``buffer_kinds`` names the reduction of each
 partial buffer column, ``buffer_dtypes`` its type; the final projection
-lives in ``exec/aggregate.py::final_project``.
+lives in ``exec/aggregate.py::final_project``.  The percentiles are
+holistic (``buffer_kinds`` ``["collect"]``): they run only on the
+aggregate's gathered single pass.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ class AggregateFunction:
 
     # class attributes (NOT dataclass fields — subclasses override them)
     name = "agg"
-    # reduction kind per buffer column: "sum", "min" or "max"
+    # reduction kind per buffer column: "sum", "min", "max" or "first"
     buffer_kinds = None
 
     @property
@@ -120,6 +125,96 @@ class Average(AggregateFunction):
 
     def buffer_dtypes(self):
         return [T.DoubleT, T.LongT]
+
+
+class First(AggregateFunction):
+    """first(expr, ignoreNulls=False): the group's first row in input
+    order, a null included (batches keep their input order)."""
+
+    name = "first"
+    buffer_kinds = ["first"]
+
+    @property
+    def result_dtype(self):
+        return self.input_dtype
+
+    def buffer_dtypes(self):
+        return [self.input_dtype]
+
+
+class _VarianceBase(AggregateFunction):
+    """The variance family over the JAX package's buffers (Σx, Σx², n):
+    plain "sum" kinds that ride the partial/merge protocol.  The final
+    is Σx² - (Σx)²/n, clamped at 0, over n - ddof (NaN when that is not
+    positive: var_samp of one row); an empty group is null.  As in the
+    JAX package, data with |mean| >> stddev loses digits to
+    cancellation, unlike Spark's Welford update (the CPU exec's)."""
+
+    buffer_kinds = ["sum", "sum", "sum"]  # Σx, Σx², valid n
+    ddof = 1          # sample by default
+    sqrt_final = False
+
+    @property
+    def result_dtype(self):
+        return T.DoubleT
+
+    def buffer_dtypes(self):
+        return [T.DoubleT, T.DoubleT, T.LongT]
+
+
+class VarianceSamp(_VarianceBase):
+    name = "var_samp"
+    ddof = 1
+
+
+class VariancePop(_VarianceBase):
+    name = "var_pop"
+    ddof = 0
+
+
+class StddevSamp(_VarianceBase):
+    name = "stddev_samp"
+    ddof = 1
+    sqrt_final = True
+
+
+class StddevPop(_VarianceBase):
+    name = "stddev_pop"
+    ddof = 0
+    sqrt_final = True
+
+
+@dataclasses.dataclass
+class Percentile(AggregateFunction):
+    """percentile(x, p): the exact percentile with linear interpolation
+    (rank p·(n-1)), over value-sorted groups on the gathered single
+    pass.  [REF: GpuPercentileDefault]"""
+
+    pct: float = 0.5
+    name = "percentile"
+    buffer_kinds = ["collect"]  # holistic: the gathered single pass
+
+    @property
+    def result_dtype(self):
+        return T.DoubleT
+
+    def buffer_dtypes(self):
+        return [self.result_dtype]
+
+
+@dataclasses.dataclass
+class ApproxPercentile(Percentile):
+    """approx_percentile(x, p[, accuracy]): the nearest-rank element
+    (rank ceil(p·n) - 1), as in the JAX package — no rank error, so
+    within any accuracy, but not Spark's t-digest output; the result
+    type is the input type.  [REF: ApproxPercentileFromTDigest]"""
+
+    accuracy: int = 10000
+    name = "approx_percentile"
+
+    @property
+    def result_dtype(self):
+        return self.input_dtype
 
 
 class CountDistinct(AggregateFunction):

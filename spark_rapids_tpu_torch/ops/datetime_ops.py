@@ -1,9 +1,11 @@
-"""Datetime expressions — the calendar year of a date.
+"""Datetime expressions — the calendar fields of a date (year, month,
+day of month), ``date_add``, ``date_sub`` and ``datediff``.
 
 [REF: sql-plugin/../datetimeExpressions.scala]
 
 The counterpart of the JAX package's ``ops/datetime_ops.py``
-(``civil_from_days``, ``_DateField``, ``Year``): dates are int32 days
+(``civil_from_days``, ``_DateField``, ``Year``, ``Month``,
+``DayOfMonth``, ``DateAdd``, ``DateSub``, ``DateDiff``): dates are int32 days
 since the epoch, timestamps int64 microseconds since the epoch (UTC),
 and the calendar decomposition is the integer-only civil calendar
 algorithm.  Every division is a floor division: a truncating one would
@@ -22,7 +24,8 @@ from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.host import HostCol
 from spark_rapids_tpu_torch.ops import expressions as E
-from spark_rapids_tpu_torch.ops.expressions import Expression
+from spark_rapids_tpu_torch.ops.expressions import (
+    Expression, merge_validity, merge_validity_h)
 
 MICROS_PER_DAY = 86_400_000_000
 
@@ -97,6 +100,89 @@ class Year(_DateField):
     FIELD = 0
 
 
+class Month(_DateField):
+    FIELD = 1
+
+
+class DayOfMonth(_DateField):
+    FIELD = 2
+
+
+@dataclasses.dataclass
+class _DayShift(Expression):
+    """``date ± days`` -> date, in int64 then narrowed to int32 days (an
+    overflow wraps, as in the JAX package)."""
+
+    left: Expression
+    right: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.DateType)
+
+    SIGN = 1
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def eval(self, batch):
+        l = self.left.eval(batch)
+        r = self.right.eval(batch)
+        data = (l.data.to(torch.int64)
+                + self.SIGN * r.data.to(torch.int64)).to(torch.int32)
+        return DeviceColumn(self.dtype, data,
+                            merge_validity(l.validity, r.validity))
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        data = (l.data.astype(np.int64)
+                + self.SIGN * r.data.astype(np.int64)).astype(np.int32)
+        return HostCol(self.dtype, data,
+                       merge_validity_h(l.validity, r.validity))
+
+
+class DateAdd(_DayShift):
+    """date_add(start, days) -> date."""
+
+    SIGN = 1
+
+
+class DateSub(_DayShift):
+    """date_sub(start, days) -> date."""
+
+    SIGN = -1
+
+
+@dataclasses.dataclass
+class DateDiff(Expression):
+    """datediff(end, start) -> int days."""
+
+    left: Expression
+    right: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.IntegerType)
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def eval(self, batch):
+        l = self.left.eval(batch)
+        r = self.right.eval(batch)
+        return DeviceColumn(self.dtype, (l.data - r.data).to(torch.int32),
+                            merge_validity(l.validity, r.validity))
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        return HostCol(self.dtype, (l.data - r.data).astype(np.int32),
+                       merge_validity_h(l.validity, r.validity))
+
+
 # -- TypeSig declarations (the JAX package's, see expressions.py) ----------
-Year.type_sig = E.SIG_INTEGRAL
-Year.input_sig = E.SIG_DATETIME
+for _cls in (Year, Month, DayOfMonth):
+    _cls.type_sig = E.SIG_INTEGRAL
+    _cls.input_sig = E.SIG_DATETIME
+for _cls in (DateAdd, DateSub):
+    _cls.type_sig = E.SIG_DATETIME
+    _cls.input_sig = E.SIG_DATETIME | E.SIG_INTEGRAL
+DateDiff.type_sig = E.SIG_INTEGRAL
+DateDiff.input_sig = E.SIG_DATETIME

@@ -10,7 +10,10 @@ Each node lowers two ways, as there: ``eval(DeviceBatch)`` on tensors,
 and ``eval_cpu(HostBatch)`` in numpy, the CPU fallback and oracle path
 (the JAX package's bodies, copied).  Each class also declares the
 TypeSig the plan rewrite checks (``type_sig``, ``input_sig``; the
-``ansi_sensitive`` flag).  Expressions that
+``ansi_sensitive`` flag).  Where the JAX package's own two branches
+disagree (``Floor``/``Ceil`` of NaN, the infinities and out-of-range
+values; ``Round`` of -0.0), the device branch gives ``eval_tpu``'s bits
+on every device and the host branch ``eval_cpu``'s.  Expressions that
 this slice does not port are not defined here; the analyzer raises
 ``NotImplementedError`` naming them.
 """
@@ -310,6 +313,144 @@ class Divide(Expression):
         return HostCol(self.dtype, data,
                        merge_validity_h(l.validity, r.validity, ~zero))
 
+_I64_MIN = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
+
+
+@dataclasses.dataclass
+class IntegralDivide(Expression):
+    """``div``: long division truncating toward zero; x div 0 -> null.
+
+    ``MIN div -1`` wraps to ``MIN`` (the JAX package's ``lax.div``),
+    computed as a negation: the integer division itself traps on it on
+    the CPU, so no divisor of -1 reaches it."""
+
+    ansi_sensitive = True
+
+    left: Expression
+    right: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.LongType)
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def eval(self, batch):
+        l = self.left.eval(batch)
+        r = self.right.eval(batch)
+        num = l.data.to(torch.int64)
+        den = r.data.to(torch.int64)
+        zero = den == 0
+        neg_one = den == -1
+        safe = torch.where(zero | neg_one, 1, den)
+        data = torch.div(num, safe, rounding_mode="trunc")
+        data = torch.where(neg_one, -num, data)  # -MIN wraps to MIN
+        return DeviceColumn(self.dtype, torch.where(zero, 0, data),
+                            merge_validity(l.validity, r.validity, ~zero))
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        zero = r.data == 0
+        den = np.where(zero, 1, r.data).astype(np.int64)
+        num = l.data.astype(np.int64)
+        with np.errstate(all="ignore"):
+            q = np.abs(num) // np.abs(den)
+            data = np.where((num < 0) != (den < 0), -q, q)
+        return HostCol(self.dtype, np.where(zero, 0, data),
+                       merge_validity_h(l.validity, r.validity, ~zero))
+
+
+@dataclasses.dataclass
+class Remainder(Expression):
+    """``%``: the sign follows the dividend (Java); x % 0 -> null.  An
+    integer divisor of -1 becomes 1 (the remainder is 0 either way), so
+    ``MIN % -1`` never reaches a trapping op."""
+
+    ansi_sensitive = True
+
+    left: Expression
+    right: Expression
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def eval(self, batch):
+        l = self.left.eval(batch)
+        r = self.right.eval(batch)
+        if _is_float(self.dtype):
+            return DeviceColumn(self.dtype, torch.fmod(l.data, r.data),
+                                merge_validity(l.validity, r.validity))
+        zero = r.data == 0
+        den = torch.where(zero | (r.data == -1), 1, r.data)
+        data = torch.fmod(l.data, den)
+        return DeviceColumn(self.dtype, torch.where(zero, 0, data),
+                            merge_validity(l.validity, r.validity, ~zero))
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            if _is_float(self.dtype):
+                return HostCol(self.dtype, np.fmod(l.data, r.data),
+                               merge_validity_h(l.validity, r.validity))
+            zero = r.data == 0
+            den = np.where(zero, 1, r.data)
+            data = np.fmod(l.data, den)
+        return HostCol(self.dtype, np.where(zero, 0, data),
+                       merge_validity_h(l.validity, r.validity, ~zero))
+
+
+@dataclasses.dataclass
+class UnaryMinus(Expression):
+    ansi_sensitive = True
+    child: Expression
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return DeviceColumn(self.dtype, -c.data, c.validity)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            return HostCol(self.dtype, -c.data, c.validity)
+
+
+@dataclasses.dataclass
+class Abs(Expression):
+    ansi_sensitive = True
+    child: Expression
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return DeviceColumn(self.dtype, torch.abs(c.data), c.validity)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            return HostCol(self.dtype, np.abs(c.data), c.validity)
+
 
 # ---------------------------------------------------------------------------
 # comparisons  [REF: predicates.scala]
@@ -420,6 +561,42 @@ class GreaterThanOrEqual(_BinaryComparison):
         return np.where(an, True, np.where(bn, False, a >= b))
 
 
+@dataclasses.dataclass
+class EqualNullSafe(Expression):
+    """``<=>``: never null; null <=> null is true, NaN <=> NaN too."""
+
+    left: Expression
+    right: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.BooleanType)
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def eval(self, batch):
+        l = self.left.eval(batch)
+        r = self.right.eval(batch)
+        lv, rv = l.valid_mask(), r.valid_mask()
+        eq = l.data == r.data
+        if _is_float(self.left.dtype):
+            eq = eq | (torch.isnan(l.data) & torch.isnan(r.data))
+        return DeviceColumn(self.dtype,
+                            torch.where(lv & rv, eq, ~lv & ~rv), None)
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        lv = l.valid_mask()
+        rv = r.valid_mask()
+        with np.errstate(all="ignore"):
+            if _is_float(self.left.dtype):
+                eq = np.where(np.isnan(l.data) & np.isnan(r.data), True,
+                              l.data == r.data)
+            else:
+                eq = l.data == r.data
+        return HostCol(self.dtype, np.where(lv & rv, eq, ~lv & ~rv), None)
+
+
 # ---------------------------------------------------------------------------
 # three-valued logic  [REF: predicates.scala :: GpuAnd, GpuOr, GpuNot]
 # ---------------------------------------------------------------------------
@@ -502,6 +679,65 @@ class Or(Expression):
 
 
 # ---------------------------------------------------------------------------
+# null handling  [REF: nullExpressions.scala]
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class IsNull(Expression):
+    child: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.BooleanType)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return DeviceColumn(self.dtype, ~c.valid_mask(), None)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        return HostCol(self.dtype, ~c.valid_mask(), None)
+
+
+@dataclasses.dataclass
+class IsNotNull(Expression):
+    child: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.BooleanType)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return DeviceColumn(self.dtype, c.valid_mask(), None)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        return HostCol(self.dtype, c.valid_mask(), None)
+
+
+@dataclasses.dataclass
+class IsNaN(Expression):
+    child: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.BooleanType)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return DeviceColumn(self.dtype,
+                            torch.isnan(c.data) & c.valid_mask(), None)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        return HostCol(self.dtype, np.isnan(c.data) & c.valid_mask(), None)
+
+
+# ---------------------------------------------------------------------------
 # conditionals  [REF: conditionalExpressions.scala :: GpuIf, GpuCaseWhen]
 # ---------------------------------------------------------------------------
 
@@ -516,6 +752,41 @@ def device_select(cond: torch.Tensor, a: DeviceColumn, b: DeviceColumn,
         return DeviceColumn(dtype, torch.where(cond[:, None], da, db),
                             None, torch.where(cond, a.lengths, b.lengths))
     return DeviceColumn(dtype, torch.where(cond, a.data, b.data))
+
+
+@dataclasses.dataclass
+class Coalesce(Expression):
+    """The first non-null of ``exprs`` per row (string-aware)."""
+
+    exprs: List[Expression]
+
+    @property
+    def dtype(self):
+        return self.exprs[0].dtype
+
+    @property
+    def children(self):
+        return tuple(self.exprs)
+
+    def eval(self, batch):
+        cols = [e.eval(batch) for e in self.exprs]
+        acc = cols[-1]
+        validity = cols[-1].valid_mask()
+        for c in reversed(cols[:-1]):
+            cv = c.valid_mask()
+            acc = device_select(cv, c, acc, self.dtype)
+            validity = cv | validity
+        return DeviceColumn(self.dtype, acc.data, validity, acc.lengths)
+
+    def eval_cpu(self, batch):
+        cols = [e.eval_cpu(batch) for e in self.exprs]
+        data = cols[-1].data.copy()
+        validity = cols[-1].valid_mask().copy()
+        for c in reversed(cols[:-1]):
+            cv = c.valid_mask()
+            data = np.where(cv, c.data, data)
+            validity = cv | validity
+        return HostCol(self.dtype, data, validity)
 
 
 @dataclasses.dataclass
@@ -608,6 +879,215 @@ class CaseWhen(Expression):
             data = np.where(cond, v.data, data)
             validity = np.where(cond, v.valid_mask(), validity)
         return HostCol(self.dtype, data, validity)
+
+
+# ---------------------------------------------------------------------------
+# math  [REF: mathExpressions.scala]
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _UnaryMath(Expression):
+    child: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.DoubleType)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def _op(self, a):
+        raise NotImplementedError
+
+    def _op_h(self, a):
+        raise NotImplementedError
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return DeviceColumn(self.dtype, self._op(c.data), c.validity)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            return HostCol(self.dtype, self._op_h(c.data), c.validity)
+
+
+def ieee_sqrt(a: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root.  torch's float64 ``sqrt`` on
+    the CPU is not (its sqrt(0.5) is 1 ulp low), so a CPU tensor takes
+    numpy's; CUDA's double ``sqrt`` is correctly rounded."""
+    if a.device.type == "cpu":
+        with np.errstate(invalid="ignore"):
+            return torch.from_numpy(np.sqrt(a.numpy()))
+    return torch.sqrt(a)
+
+
+class Sqrt(_UnaryMath):
+    def _op(self, a):
+        return ieee_sqrt(a)
+
+    def _op_h(self, a):
+        return np.sqrt(a)
+
+
+class Exp(_UnaryMath):
+    def _op(self, a):
+        return torch.exp(a)
+
+    def _op_h(self, a):
+        return np.exp(a)
+
+
+@dataclasses.dataclass
+class Log(Expression):
+    """Spark ``ln``: null for x <= 0."""
+
+    child: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.DoubleType)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        bad = c.data <= 0.0
+        data = torch.log(torch.where(bad, 1.0, c.data))
+        return DeviceColumn(self.dtype, data,
+                            merge_validity(c.validity, ~bad))
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        bad = c.data <= 0.0
+        with np.errstate(all="ignore"):
+            data = np.log(np.where(bad, 1.0, c.data))
+        return HostCol(self.dtype, data, merge_validity_h(c.validity, ~bad))
+
+
+@dataclasses.dataclass
+class Pow(Expression):
+    left: Expression
+    right: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.DoubleType)
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def eval(self, batch):
+        l = self.left.eval(batch)
+        r = self.right.eval(batch)
+        return DeviceColumn(self.dtype, torch.pow(l.data, r.data),
+                            merge_validity(l.validity, r.validity))
+
+    def eval_cpu(self, batch):
+        l = self.left.eval_cpu(batch)
+        r = self.right.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            return HostCol(self.dtype, np.power(l.data, r.data),
+                           merge_validity_h(l.validity, r.validity))
+
+
+def _saturating_long(d: torch.Tensor) -> torch.Tensor:
+    """An integral-valued float tensor -> int64 as the JAX package's
+    device conversion gives it: NaN -> 0, values past the int64 range
+    saturate.  Explicit, because a plain conversion's answer for those
+    inputs depends on the device (torch on the CPU gives ``MIN`` for
+    all of them)."""
+    d = d.to(torch.float64)
+    isn = torch.isnan(d)
+    top = d >= float(_I64_MAX)  # the double 2^63
+    bot = d < float(_I64_MIN)
+    res = torch.where(isn | top | bot, 0.0, d).to(torch.int64)
+    res = torch.where(top, _I64_MAX, res)
+    return torch.where(bot, _I64_MIN, res)
+
+
+@dataclasses.dataclass
+class Floor(Expression):
+    """Spark floor(double) -> long.  The device branch converts as the
+    JAX package's ``eval_tpu`` does (``_saturating_long``); the host
+    branch is its numpy ``eval_cpu``, whose conversion of NaN, the
+    infinities and out-of-range values is numpy's."""
+
+    child: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.LongType)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return DeviceColumn(self.dtype, _saturating_long(torch.floor(c.data)),
+                            c.validity)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            return HostCol(self.dtype, np.floor(c.data).astype(np.int64),
+                           c.validity)
+
+
+@dataclasses.dataclass
+class Ceil(Expression):
+    """Spark ceil(double) -> long, converted as ``Floor`` is."""
+
+    child: Expression
+    dtype: T.DataType = dataclasses.field(default_factory=T.LongType)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return DeviceColumn(self.dtype, _saturating_long(torch.ceil(c.data)),
+                            c.validity)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        with np.errstate(all="ignore"):
+            return HostCol(self.dtype, np.ceil(c.data).astype(np.int64),
+                           c.validity)
+
+
+@dataclasses.dataclass
+class Round(Expression):
+    """Spark ``round``: HALF_UP at the given scale, by hand on both
+    branches.  The device branch's sign keeps a zero's sign, as
+    ``jnp.sign`` does (``round(-0.0)`` is -0.0 there; the host branch's
+    ``np.sign`` gives 0.0)."""
+
+    child: Expression
+    scale: int = 0
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        if not _is_float(self.dtype):
+            return c
+        m = 10.0 ** self.scale
+        x = c.data
+        sign = torch.where(x == 0.0, x, torch.sign(x))
+        data = sign * torch.floor(torch.abs(x) * m + 0.5) / m
+        data = torch.where(torch.isfinite(x), data, x)
+        return DeviceColumn(self.dtype, data, c.validity)
+
+    def eval_cpu(self, batch):
+        c = self.child.eval_cpu(batch)
+        if not _is_float(self.dtype):
+            return c
+        m = 10.0 ** self.scale
+        with np.errstate(all="ignore"):
+            data = np.sign(c.data) * np.floor(np.abs(c.data) * m + 0.5) / m
+            data = np.where(np.isfinite(c.data), data, c.data)
+        return HostCol(self.dtype, data, c.validity)
 
 
 # ---------------------------------------------------------------------------
@@ -826,13 +1306,24 @@ class Cast(Expression):
 # the JAX package's for the classes this port has.
 # ---------------------------------------------------------------------------
 
-for _cls in (Add, Subtract, Multiply, Divide):
+for _cls in (Add, Subtract, Multiply, Divide, IntegralDivide, Remainder,
+             UnaryMinus, Abs, Round):
+    _cls.type_sig = SIG_NUMERIC
+for _cls in (Sqrt, Exp, Log, Pow):
+    _cls.type_sig = SIG_FLOATING
+    _cls.input_sig = SIG_NUMERIC
+for _cls in (Floor, Ceil):
     _cls.type_sig = SIG_NUMERIC
 for _cls in (EqualTo, LessThan, LessThanOrEqual, GreaterThan,
-             GreaterThanOrEqual):
+             GreaterThanOrEqual, EqualNullSafe):
     _cls.type_sig = SIG_BOOLEAN
     _cls.input_sig = SIG_ALL_SCALAR
 for _cls in (Not, And, Or):
     _cls.type_sig = SIG_BOOLEAN
+for _cls in (IsNull, IsNotNull):
+    _cls.type_sig = SIG_BOOLEAN
+    _cls.input_sig = SIG_ALL_SCALAR | frozenset({"array"})
+IsNaN.type_sig = SIG_BOOLEAN
+IsNaN.input_sig = SIG_FLOATING
 # column pass-through carries everything a batch can hold
 BoundReference.type_sig = SIG_ALL

@@ -18,18 +18,34 @@ exchange.py``, ``shuffle/exchange.py``) are ``hash_column`` over the
 key tuple from seed 42, ``int32_from_u32`` and ``partition_ids_from_
 hash``: on the device, and on the host over torch CPU tensors of the
 numpy columns (strings padded by ``host_strings_to_matrix``), as the
-JAX package's numpy path, bit for bit.  The xxhash64 family and the
-``Murmur3Hash`` expression are later slices.
+JAX package's numpy path, bit for bit.
+
+The ``Murmur3Hash`` expression (Spark's ``hash``) mixes its columns
+through ``hash_column`` from seed 42.  Spark's second family, xxhash64
+(``xxh_*_py``, ``_xxh_{int,long,string}_vec``, ``xxhash_column``,
+``XxHash64``; [REF: spark-rapids-jni :: xxhash64.cu]), keeps the same
+column protocol in 64-bit lanes: each u64 value is the bit pattern of
+an int64 tensor (torch lacks uint64 shifts and compares), products and
+sums wrap mod 2^64 as int64 arithmetic does, constants past 2^63 are
+given as their signed values, and every right shift masks the bits the
+sign extended.  The string loop is plain PyTorch over the padded byte
+matrix, every row walking the same W-wide loop with inactive positions
+keeping their state.  Both expressions evaluate their host branch over
+torch CPU tensors of the host columns, with the device branch's code.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.host import HostCol
+from spark_rapids_tpu_torch.ops import expressions as E
 
 C1 = 0xCC9E2D51
 C2 = 0x1B873593
@@ -229,3 +245,287 @@ def make_pid_fn(keys: Sequence, nparts: int,
         return partition_ids_from_hash(int32_from_u32(h), nparts)
 
     return pids
+
+
+# ---------------------------------------------------------------------------
+# xxhash64 [REF: spark-rapids-jni :: src/main/cpp/src/xxhash64.cu; Spark
+# XXH64.java]: the murmur3 column protocol (seed chain, h0 = 42, nulls
+# keep h) in 64-bit lanes
+# ---------------------------------------------------------------------------
+
+XXH_P1 = 0x9E3779B185EBCA87
+XXH_P2 = 0xC2B2AE3D27D4EB4F
+XXH_P3 = 0x165667B19E3779F9
+XXH_P4 = 0x85EBCA77C2B2AE63
+XXH_P5 = 0x27D4EB2F165667C5
+M64 = 0xFFFFFFFFFFFFFFFF
+
+
+def _s64(x: int) -> int:
+    """A u64 value (any Python int, taken mod 2^64) as the int64 with
+    its bits."""
+    x &= M64
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+# -- the scalar Python reference ---------------------------------------------
+
+def _rotl64_py(x, r):
+    return ((x << r) | (x >> (64 - r))) & M64
+
+
+def _fmix64_py(h):
+    h ^= h >> 33
+    h = (h * XXH_P2) & M64
+    h ^= h >> 29
+    h = (h * XXH_P3) & M64
+    h ^= h >> 32
+    return h
+
+
+def xxh_int_py(i: int, seed: int) -> int:
+    h = (seed + XXH_P5 + 4) & M64
+    h ^= ((i & 0xFFFFFFFF) * XXH_P1) & M64
+    h = (_rotl64_py(h, 23) * XXH_P2 + XXH_P3) & M64
+    return _fmix64_py(h)
+
+
+def xxh_long_py(v: int, seed: int) -> int:
+    h = (seed + XXH_P5 + 8) & M64
+    h ^= (_rotl64_py((v * XXH_P2) & M64, 31) * XXH_P1) & M64
+    h = (_rotl64_py(h, 27) * XXH_P1 + XXH_P4) & M64
+    return _fmix64_py(h)
+
+
+def xxh_bytes_py(data: bytes, seed: int) -> int:
+    n = len(data)
+    i = 0
+    if n >= 32:
+        acc = [(seed + XXH_P1 + XXH_P2) & M64, (seed + XXH_P2) & M64,
+               seed & M64, (seed - XXH_P1) & M64]
+        while i + 32 <= n:
+            for k in range(4):
+                x = int.from_bytes(data[i + 8 * k:i + 8 * k + 8], "little")
+                v = (acc[k] + x * XXH_P2) & M64
+                acc[k] = (_rotl64_py(v, 31) * XXH_P1) & M64
+            i += 32
+        h = (_rotl64_py(acc[0], 1) + _rotl64_py(acc[1], 7)
+             + _rotl64_py(acc[2], 12) + _rotl64_py(acc[3], 18)) & M64
+        for v in acc:
+            h ^= (_rotl64_py((v * XXH_P2) & M64, 31) * XXH_P1) & M64
+            h = (h * XXH_P1 + XXH_P4) & M64
+    else:
+        h = (seed + XXH_P5) & M64
+    h = (h + n) & M64
+    while i + 8 <= n:
+        k = int.from_bytes(data[i:i + 8], "little")
+        h ^= (_rotl64_py((k * XXH_P2) & M64, 31) * XXH_P1) & M64
+        h = (_rotl64_py(h, 27) * XXH_P1 + XXH_P4) & M64
+        i += 8
+    if i + 4 <= n:
+        k = int.from_bytes(data[i:i + 4], "little")
+        h ^= (k * XXH_P1) & M64
+        h = (_rotl64_py(h, 23) * XXH_P2 + XXH_P3) & M64
+        i += 4
+    while i < n:
+        h ^= (data[i] * XXH_P5) & M64
+        h = (_rotl64_py(h, 11) * XXH_P1) & M64
+        i += 1
+    return _fmix64_py(h)
+
+
+# -- vectorized over int64 bit patterns --------------------------------------
+
+_P1, _P2, _P3, _P4, _P5 = (_s64(p) for p in (XXH_P1, XXH_P2, XXH_P3,
+                                             XXH_P4, XXH_P5))
+
+
+def _shr64(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Logical right shift of u64 bits held in int64."""
+    return (x >> r) & ((1 << (64 - r)) - 1)
+
+
+def _rotl64(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _shr64(x, 64 - r)
+
+
+def _fmix64(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ _shr64(h, 33)
+    h = h * _P2
+    h = h ^ _shr64(h, 29)
+    h = h * _P3
+    return h ^ _shr64(h, 32)
+
+
+def _xxh_int_vec(vals_u32: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    h = seed + _s64(XXH_P5 + 4)
+    h = h ^ (vals_u32 * _P1)
+    h = _rotl64(h, 23) * _P2 + _P3
+    return _fmix64(h)
+
+
+def _xxh_long_vec(vals: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    h = seed + _s64(XXH_P5 + 8)
+    h = h ^ (_rotl64(vals * _P2, 31) * _P1)
+    h = _rotl64(h, 27) * _P1 + _P4
+    return _fmix64(h)
+
+
+def _xxh_string_vec(mat: torch.Tensor, lengths: torch.Tensor,
+                    seed: torch.Tensor) -> torch.Tensor:
+    """Per-row Spark ``XXH64.hashUnsafeBytes`` over a uint8[B, W]
+    matrix."""
+    w = mat.shape[1]
+    m64 = mat.to(torch.int64)
+    lengths = lengths.to(torch.int64)
+
+    def le_word(base: int, nbytes: int) -> torch.Tensor:
+        k = torch.zeros_like(lengths)
+        for byte in range(min(nbytes, w - base)):
+            k = k | (m64[:, base + byte] << (8 * byte))
+        return k
+
+    stripes = (lengths // 32) * 32
+    acc = [seed + _s64(XXH_P1 + XXH_P2), seed + _P2, seed, seed - _P1]
+    for base in range(0, w - w % 32, 32):
+        active = base < stripes
+        for k in range(4):
+            nv = _rotl64(acc[k] + le_word(base + 8 * k, 8) * _P2, 31) * _P1
+            acc[k] = torch.where(active, nv, acc[k])
+    h_big = (_rotl64(acc[0], 1) + _rotl64(acc[1], 7)
+             + _rotl64(acc[2], 12) + _rotl64(acc[3], 18))
+    for v in acc:
+        h_big = h_big ^ (_rotl64(v * _P2, 31) * _P1)
+        h_big = h_big * _P1 + _P4
+    h = torch.where(lengths >= 32, h_big, seed + _P5) + lengths
+    # trailing 8-byte words after the stripes
+    rem8_end = stripes + ((lengths - stripes) // 8) * 8
+    for base in range(0, w - w % 8, 8):
+        active = (base >= stripes) & (base < rem8_end)
+        nh = h ^ (_rotl64(le_word(base, 8) * _P2, 31) * _P1)
+        nh = _rotl64(nh, 27) * _P1 + _P4
+        h = torch.where(active, nh, h)
+    # one 4-byte word
+    rem4_end = rem8_end + ((lengths - rem8_end) // 4) * 4
+    for base in range(0, w - w % 4, 4):
+        active = (base >= rem8_end) & (base < rem4_end)
+        nh = h ^ (le_word(base, 4) * _P1)
+        nh = _rotl64(nh, 23) * _P2 + _P3
+        h = torch.where(active, nh, h)
+    # tail bytes
+    for pos in range(w):
+        active = (pos >= rem4_end) & (pos < lengths)
+        nh = _rotl64(h ^ (m64[:, pos] * _P5), 11) * _P1
+        h = torch.where(active, nh, h)
+    return _fmix64(h)
+
+
+def xxhash_column(col, dt: T.DataType, h: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Mix one column (``(data, lengths)``) into the running u64 hash
+    ``h`` (int64 bits); rows where ``~valid`` keep ``h``."""
+    data, lengths = col
+    if isinstance(dt, (T.ByteType, T.ShortType, T.IntegerType, T.DateType,
+                       T.BooleanType)):
+        nh = _xxh_int_vec(u32(data.to(torch.int32)), h)
+    elif isinstance(dt, (T.LongType, T.TimestampType)):
+        nh = _xxh_long_vec(data.to(torch.int64), h)
+    elif isinstance(dt, T.FloatType):
+        nh = _xxh_int_vec(_canon_float_bits(data), h)
+    elif isinstance(dt, T.DoubleType):
+        nh = _xxh_long_vec(_canon_double_bits(data), h)
+    elif isinstance(dt, (T.StringType, T.BinaryType)):
+        nh = _xxh_string_vec(data, lengths, h)
+    else:
+        raise NotImplementedError(
+            f"spark_rapids_tpu_torch: xxhash64 of {dt} is not ported yet")
+    return torch.where(valid, nh, h)
+
+
+# ---------------------------------------------------------------------------
+# The hash expressions: one code for both branches
+# ---------------------------------------------------------------------------
+
+def _host_hash_input(c: HostCol, dt: T.DataType):
+    """A host column as the ``((data, lengths), validity)`` tensors the
+    column hashes take (strings padded by ``host_strings_to_matrix``, as
+    the JAX package's host path pads them)."""
+    valid = torch.from_numpy(np.ascontiguousarray(c.valid_mask()))
+    if isinstance(dt, (T.StringType, T.BinaryType)):
+        mat, lengths = host_strings_to_matrix(c.data)
+        return (torch.from_numpy(mat), torch.from_numpy(lengths)), valid
+    return (torch.from_numpy(np.ascontiguousarray(c.data)), None), valid
+
+
+@dataclasses.dataclass
+class _ColumnHash(E.Expression):
+    """Every column mixes into a running per-row hash from the seed; a
+    null leaves it unchanged.  Subclasses give the mix (``_mix``), the
+    seed's bits (``_seed_bits``) and the result (``_out``)."""
+
+    exprs: List[E.Expression]
+
+    @property
+    def children(self):
+        return tuple(self.exprs)
+
+    def _run(self, cols, n: int, dev) -> torch.Tensor:
+        h = torch.full((n,), self._seed_bits(), dtype=torch.int64,
+                       device=dev)
+        for e, (col, valid) in zip(self.exprs, cols):
+            h = self._mix(col, e.dtype, h, valid)
+        return self._out(h)
+
+    def eval(self, batch):
+        cols = []
+        for e in self.exprs:
+            c = e.eval(batch)
+            cols.append(((c.data, c.lengths), c.valid_mask()))
+        return DeviceColumn(self.dtype,
+                            self._run(cols, batch.capacity, batch.device))
+
+    def eval_cpu(self, batch):
+        cols = [_host_hash_input(e.eval_cpu(batch), e.dtype)
+                for e in self.exprs]
+        h = self._run(cols, batch.num_rows, torch.device("cpu"))
+        return HostCol(self.dtype, h.numpy())
+
+
+@dataclasses.dataclass
+class Murmur3Hash(_ColumnHash):
+    """Spark ``hash(cols)``: murmur3 x86_32 from seed 42 -> int."""
+
+    seed: int = SEED
+    dtype: T.DataType = dataclasses.field(default_factory=T.IntegerType)
+
+    def _seed_bits(self) -> int:
+        return self.seed & M32
+
+    def _mix(self, col, dt, h, valid):
+        return hash_column(col, dt, h, valid)
+
+    def _out(self, h):
+        return int32_from_u32(h).to(torch.int32)
+
+
+@dataclasses.dataclass
+class XxHash64(_ColumnHash):
+    """Spark ``xxhash64(cols)``: from seed 42 -> long."""
+
+    seed: int = SEED
+    dtype: T.DataType = dataclasses.field(default_factory=T.LongType)
+
+    def _seed_bits(self) -> int:
+        return _s64(self.seed)
+
+    def _mix(self, col, dt, h, valid):
+        return xxhash_column(col, dt, h, valid)
+
+    def _out(self, h):
+        return h
+
+
+# -- TypeSig declarations (the JAX package's, see expressions.py) ----------
+for _cls in (Murmur3Hash, XxHash64):
+    _cls.type_sig = E.SIG_INTEGRAL
+    _cls.input_sig = E.SIG_ALL_SCALAR

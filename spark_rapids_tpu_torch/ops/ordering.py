@@ -23,7 +23,7 @@ for ``np.lexsort``), which the CPU sort uses.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -206,23 +206,28 @@ def batch_group_parts(cols: List[DeviceColumn]) -> List[Part]:
 GROUP_HASH_LIMB_CAP = 3
 
 
-def group_sort_limbs(cols: List[DeviceColumn], sel: torch.Tensor
+def group_sort_limbs(cols: List[DeviceColumn], sel: torch.Tensor,
+                     tail_parts: Sequence[Part] = ()
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """(sort limbs, key-only limbs) for GROUP BY segmentation.
 
-    Narrow key tuples keep the exact lexicographic encoding.  Wide tuples
+    Narrow key tuples keep the exact lexicographic encoding, with any
+    ``tail_parts`` (a contribution flag, a value's order: the holistic
+    aggregates') fused into the same limb set's spare bits.  Wide tuples
     (more than ``GROUP_HASH_LIMB_CAP`` fused limbs — TPC-H q1's two
     string keys already are: 1 + 64 + 32 + 64 + 32 bits in five limbs)
     sort by a 128-bit hash of the normalized key tuple instead, four
     murmur3 passes with independent seeds, exactly as the JAX package
-    does.  The JAX package's ``tail_parts`` argument has no caller on
-    this slice's path and is not ported.
+    does.  Group boundaries come from the returned key limbs: the tail
+    parts must not split groups.
     """
     from spark_rapids_tpu_torch.ops import hashing as HH
     key_parts = [_flag_part(~sel)] + batch_group_parts(cols)
     exact = fuse_parts(key_parts)
     if len(exact) <= GROUP_HASH_LIMB_CAP:
-        return exact, exact
+        if not tail_parts:
+            return exact, exact
+        return fuse_parts(key_parts + list(tail_parts)), exact
     n = int(sel.shape[0])
 
     def tuple_hash(seed: int) -> torch.Tensor:
@@ -246,7 +251,9 @@ def group_sort_limbs(cols: List[DeviceColumn], sel: torch.Tensor
     h64a = (h[0] << 32) | h[1]
     h64b = (h[2] << 32) | h[3]
     key_limbs = fuse_parts([_flag_part(~sel), (h64a, 64), (h64b, 64)])
-    return key_limbs, key_limbs
+    if not tail_parts:
+        return key_limbs, key_limbs
+    return key_limbs + fuse_parts(list(tail_parts)), key_limbs
 
 
 def sort_by_keys(limbs: List[torch.Tensor]

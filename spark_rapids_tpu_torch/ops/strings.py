@@ -5,8 +5,8 @@ Strings are ``uint8[B, W]`` matrices with int32 lengths
 (``columnar/column.py``), so each expression here is a few vectorised
 tensor operations over the whole batch, as in the JAX package:
 
-- ``StringComparison`` (``==``, ``<``, ``<=``, ``>``, ``>=``; the
-  analyzer routes every comparison of two strings here);
+- ``StringComparison`` (``==``, ``<``, ``<=``, ``>``, ``>=``, ``<=>``;
+  the analyzer routes every comparison of two strings here);
 - ``Length`` (UTF-8 codepoints), ``Upper``/``Lower`` (ASCII only on the
   device: ``incompat``), ``Trim`` (0x20 only);
 - ``Substring`` (1-based, byte-indexed, a negative position counts from
@@ -82,7 +82,7 @@ def _lex_lt_le(a: DeviceColumn, b: DeviceColumn):
 
 @dataclasses.dataclass
 class StringComparison(Expression):
-    op: str  # eq, lt, le, gt, ge
+    op: str  # eq, lt, le, gt, ge, eqns
     left: Expression
     right: Expression
     dtype: T.DataType = dataclasses.field(default_factory=T.BooleanType)
@@ -90,7 +90,8 @@ class StringComparison(Expression):
     @property
     def name(self):
         return {"eq": "EqualTo", "lt": "LessThan", "le": "LessThanOrEqual",
-                "gt": "GreaterThan", "ge": "GreaterThanOrEqual"}[self.op]
+                "gt": "GreaterThan", "ge": "GreaterThanOrEqual",
+                "eqns": "EqualNullSafe"}[self.op]
 
     @property
     def children(self):
@@ -100,11 +101,15 @@ class StringComparison(Expression):
         l = self.left.eval(batch)
         r = self.right.eval(batch)
         validity = merge_validity(l.validity, r.validity)
-        if self.op == "eq":
+        if self.op in ("eq", "eqns"):
             w = max(l.data.shape[1], r.data.shape[1])
             eq = (_pad_to(l, w) == _pad_to(r, w)).all(dim=1) & (
                 l.lengths == r.lengths)
-            return DeviceColumn(self.dtype, eq, validity)
+            if self.op == "eq":
+                return DeviceColumn(self.dtype, eq, validity)
+            lv, rv = l.valid_mask(), r.valid_mask()
+            return DeviceColumn(self.dtype,
+                                torch.where(lv & rv, eq, ~lv & ~rv), None)
         lt, le = _lex_lt_le(l, r)
         data = {"lt": lt, "le": le, "gt": ~le, "ge": ~lt}[self.op]
         return DeviceColumn(self.dtype, data, validity)
@@ -121,6 +126,11 @@ class StringComparison(Expression):
             data = np.array([la[i] == ra[i] for i in range(n)])
             return HostCol(self.dtype, data,
                            merge_validity_h(l.validity, r.validity))
+        if self.op == "eqns":
+            lv, rv = l.valid_mask(), r.valid_mask()
+            eq = np.array([la[i] == ra[i] for i in range(n)])
+            return HostCol(self.dtype, np.where(lv & rv, eq, ~lv & ~rv),
+                           None)
         cmp = {"lt": lambda x, y: x < y, "le": lambda x, y: x <= y,
                "gt": lambda x, y: x > y, "ge": lambda x, y: x >= y}[self.op]
         data = np.array([cmp(la[i], ra[i]) for i in range(n)])

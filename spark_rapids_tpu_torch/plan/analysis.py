@@ -4,15 +4,18 @@ of the port.
 The counterpart of the JAX package's ``plan/analysis.py``: unresolved
 ``sql.column.UExpr`` trees become bound, typed ``ops.expressions``
 nodes against a schema, with Spark's implicit-cast rules (widest
-numeric type for binary ops, comparison operands and CASE branches
-unified, both sides of a division cast to double; literal widenings
-fold into a new literal, a column's widening is a ``Cast``), and the
-string expressions of ``ops/strings.py``: LIKE, substring, the
-predicates, length, the case maps, trim, replace, locate, concat,
-reverse, the pads and the regular expressions (``rlike`` transpiles a
-simple pattern to a comparison or predicate first).  An operator
-outside the port (``split``, ``get_json_object`` among them) raises
-``NotImplementedError`` naming it.
+numeric type for binary ops, comparison operands, CASE branches and
+``coalesce`` arguments unified, both sides of a division cast to
+double, the math functions' inputs too; literal widenings fold into a
+new literal, a column's widening is a ``Cast``), the arithmetic, null,
+math and date expressions, the two hashes, and the string expressions
+of ``ops/strings.py``: LIKE, substring, the predicates, length, the
+case maps, trim, replace, locate, concat, reverse, the pads and the
+regular expressions (``rlike`` transpiles a simple pattern to a
+comparison or predicate first).  An operator outside the port
+(``split``, ``get_json_object``, the time-zone conversions among them)
+raises ``NotImplementedError`` naming it, as ``collect_list`` and
+``collect_set`` do among the aggregates.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.ops import aggregates as A
 from spark_rapids_tpu_torch.ops import datetime_ops as D
 from spark_rapids_tpu_torch.ops import expressions as E
+from spark_rapids_tpu_torch.ops import hashing as HS
 from spark_rapids_tpu_torch.ops import strings as S
 from spark_rapids_tpu_torch.sql.column import UExpr
 
@@ -120,10 +124,19 @@ def _coerce_pair(l: E.Expression, r: E.Expression):
     return cast_to(l, ct), cast_to(r, ct)
 
 
-_BIN_ARITH = {"add": E.Add, "sub": E.Subtract, "mul": E.Multiply}
+_BIN_ARITH = {"add": E.Add, "sub": E.Subtract, "mul": E.Multiply,
+              "mod": E.Remainder}
 _BIN_CMP = {"eq": E.EqualTo, "lt": E.LessThan, "le": E.LessThanOrEqual,
-            "gt": E.GreaterThan, "ge": E.GreaterThanOrEqual}
-_DATE_FIELD = {"year": D.Year}
+            "gt": E.GreaterThan, "ge": E.GreaterThanOrEqual,
+            "eqns": E.EqualNullSafe}
+_UNARY = {"not": E.Not, "neg": E.UnaryMinus, "abs": E.Abs,
+          "isnull": E.IsNull, "isnotnull": E.IsNotNull, "isnan": E.IsNaN}
+_UNARY_MATH = {"sqrt": E.Sqrt, "exp": E.Exp, "log": E.Log,
+               "floor": E.Floor, "ceil": E.Ceil}
+_DATE_FIELD = {"year": D.Year, "month": D.Month, "dayofmonth": D.DayOfMonth}
+_DATE_BINARY = {"date_add": D.DateAdd, "date_sub": D.DateSub,
+                "datediff": D.DateDiff}
+_HASHES = {"hash": HS.Murmur3Hash, "xxhash64": HS.XxHash64}
 _TYPE_NAMES = {"int": T.IntegerT, "integer": T.IntegerT, "long": T.LongT,
                "bigint": T.LongT, "short": T.ShortT, "byte": T.ByteT,
                "float": T.FloatT, "double": T.DoubleT,
@@ -185,8 +198,27 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
                                         f"got {side.dtype}")
         cls = E.And if op == "and" else E.Or
         return cls(cast_to(l, T.BooleanT), cast_to(r, T.BooleanT))
-    if op == "not":
-        return E.Not(resolve(u.children[0], schema))
+    if op in _UNARY:
+        return _UNARY[op](resolve(u.children[0], schema))
+    if op == "coalesce":
+        exprs = [resolve(c, schema) for c in u.children]
+        ct = exprs[0].dtype
+        for e in exprs[1:]:
+            ct = common_type(ct, e.dtype)
+        return E.Coalesce([cast_to(e, ct) for e in exprs])
+    if op in _UNARY_MATH:
+        c = cast_to(resolve(u.children[0], schema), T.DoubleT)
+        return _UNARY_MATH[op](c)
+    if op == "round":
+        return E.Round(resolve(u.children[0], schema), u.payload)
+    if op == "pow":
+        return E.Pow(cast_to(resolve(u.children[0], schema), T.DoubleT),
+                     cast_to(resolve(u.children[1], schema), T.DoubleT))
+    if op in _DATE_BINARY:
+        return _DATE_BINARY[op](resolve(u.children[0], schema),
+                                resolve(u.children[1], schema))
+    if op in _HASHES:
+        return _HASHES[op]([resolve(c, schema) for c in u.children])
     if op == "casewhen":
         kids = [resolve(c, schema) for c in u.children]
         has_else = len(kids) % 2 == 1
@@ -292,7 +324,11 @@ def _rlike(child: E.Expression, pattern: str) -> E.Expression:
 
 
 _AGG_MAP = {"sum": A.Sum, "min": A.Min, "max": A.Max, "count": A.Count,
-            "avg": A.Average, "count_distinct": A.CountDistinct}
+            "avg": A.Average, "first": A.First,
+            "var_samp": A.VarianceSamp, "var_pop": A.VariancePop,
+            "stddev_samp": A.StddevSamp, "stddev_pop": A.StddevPop,
+            "count_distinct": A.CountDistinct}
+_VARIANCE = ("var_samp", "var_pop", "stddev_samp", "stddev_pop")
 
 
 def resolve_aggregate(u: UExpr, schema: T.StructType
@@ -306,19 +342,47 @@ def resolve_aggregate(u: UExpr, schema: T.StructType
         raise AnalysisException(
             f"agg() expects aggregate expressions, got {u}")
     kind = u.payload
+    args = ()
+    if isinstance(kind, tuple):
+        kind, args = kind[0], kind[1:]
+    if kind in ("collect_list", "collect_set"):
+        raise _not_ported(f"aggregate '{kind}' (ROADMAP A.8c)")
     child = resolve(u.children[0], schema)
     if kind == "count_star":
         return A.CountStar(child), alias or "count(1)"
+    if kind in ("percentile", "approx_percentile"):
+        return _percentile(kind, args, child, u, alias)
     cls = _AGG_MAP.get(kind)
     if cls is None:
         raise _not_ported(f"aggregate '{kind}'")
-    if kind in ("sum", "avg") and not T.is_numeric(child.dtype):
+    if kind in ("sum", "avg") + _VARIANCE and not T.is_numeric(
+            child.dtype):
         raise AnalysisException(f"{kind} needs a numeric input, got "
                                 f"{child.dtype}")
-    if kind == "avg" or (kind == "sum"
-                         and isinstance(child.dtype, T.FloatType)):
+    if kind in ("avg",) + _VARIANCE or (
+            kind == "sum" and isinstance(child.dtype, T.FloatType)):
         child = cast_to(child, T.DoubleT)
     fn = cls(child)
     if kind == "count_distinct":
         return fn, alias or f"count(DISTINCT {u.children[0]})"
     return fn, alias or f"{kind}({u.children[0]})"
+
+
+def _percentile(kind: str, args, child: E.Expression, u: UExpr,
+                alias: Optional[str]):
+    """percentile / approx_percentile with the JAX package's argument
+    checks; decimal inputs keep the port's decimal refusal (A.8b)."""
+    if not T.is_numeric(child.dtype):
+        raise AnalysisException(f"{kind} needs a numeric input")
+    if isinstance(child.dtype, T.DecimalType):
+        raise _not_ported(f"{kind} over a decimal input")
+    pct = float(args[0])
+    if not 0.0 <= pct <= 1.0:
+        raise AnalysisException(
+            f"{kind} percentage must be in [0, 1], got {pct}")
+    if kind == "percentile":
+        fn = A.Percentile(child, pct)
+    else:
+        fn = A.ApproxPercentile(child, pct,
+                                int(args[1]) if len(args) > 1 else 10000)
+    return fn, alias or f"{kind}({u.children[0]}, {pct})"

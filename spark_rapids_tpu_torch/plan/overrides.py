@@ -273,15 +273,21 @@ def _tag_aggregate(meta: ExecMeta):
                 "sum under spark.sql.ansi.enabled=true: device sum wraps "
                 "on overflow (non-ANSI) — CPU fallback")
         if not isinstance(fn, (A.Sum, A.Min, A.Max, A.Count, A.CountStar,
-                               A.Average)):
+                               A.Average, A.First, A._VarianceBase,
+                               A.Percentile)):
             meta.will_not_work(
                 f"aggregate function {fn.name} has no TPU implementation")
             continue
         if not isinstance(fn, A.CountStar):
             meta.tag_expressions([fn.child])
+        if isinstance(fn, A._VarianceBase) and not T.is_numeric(
+                fn.input_dtype):
+            meta.will_not_work(f"{fn.name} needs a numeric input")
 
 
 def _convert_aggregate(cpu, ch, conf, device):
+    # holistic functions (the percentiles; min/max/first over strings)
+    # route themselves to the exec's gathered single pass
     return TpuHashAggregateExec(cpu.grouping, cpu.fns, cpu.schema, ch[0],
                                 backend=conf.kernel_backend, device=device,
                                 bucket_rows=conf.get(C.AGG_BUCKET_ROWS),
@@ -315,8 +321,9 @@ def op_names(kind: str) -> frozenset:
     ``tag_expression`` meets (``expression``)."""
     if kind == "exec":
         return frozenset(r.name for r in EXEC_RULES.values())
-    # the modules that define the string and date expressions
-    from spark_rapids_tpu_torch.ops import datetime_ops, strings  # noqa: F401
+    # the modules that define the string, date and hash expressions
+    from spark_rapids_tpu_torch.ops import (  # noqa: F401
+        datetime_ops, hashing, strings)
     names, stack = set(), [Expression]
     while stack:
         for cls in stack.pop().__subclasses__():

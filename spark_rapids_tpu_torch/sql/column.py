@@ -4,10 +4,12 @@ The counterpart of the JAX package's ``sql/column.py``: operator
 overloading builds an unresolved ``UExpr`` tree; the analyzer
 (plan/analysis.py) resolves it against a schema.  The port has the
 arithmetic (division included), comparison (``!=`` included) and
-boolean operators, ``alias``, ``cast``, ``between``, ``isin``, the
-``when(...).otherwise(...)`` chain, sort direction, and the string
-methods ``substr``, ``startswith``, ``endswith``, ``contains``,
-``like`` and ``rlike``; the analyzer raises on anything else.
+boolean operators, ``%``, unary ``-``, ``alias``, ``cast``,
+``between``, ``isin``, ``isNull``, ``isNotNull``, ``isNaN``,
+``eqNullSafe``, the ``when(...).otherwise(...)`` chain, sort direction
+with either null placement, and the string methods ``substr``,
+``startswith``, ``endswith``, ``contains``, ``like`` and ``rlike``; the
+analyzer raises on anything else.
 """
 
 from __future__ import annotations
@@ -74,6 +76,12 @@ class Column:
     def __rtruediv__(self, o):
         return self._bin("div", o, True)
 
+    def __mod__(self, o):
+        return self._bin("mod", o)
+
+    def __neg__(self):
+        return Column(UExpr("neg", None, (self._u,)))
+
     def __eq__(self, o):  # type: ignore[override]
         return self._bin("eq", o)
 
@@ -107,6 +115,19 @@ class Column:
 
     def __invert__(self):
         return Column(UExpr("not", None, (self._u,)))
+
+    def eqNullSafe(self, o) -> "Column":
+        """``<=>``: never null; null <=> null is true."""
+        return self._bin("eqns", o)
+
+    def isNull(self) -> "Column":
+        return Column(UExpr("isnull", None, (self._u,)))
+
+    def isNotNull(self) -> "Column":
+        return Column(UExpr("isnotnull", None, (self._u,)))
+
+    def isNaN(self) -> "Column":
+        return Column(UExpr("isnan", None, (self._u,)))
 
     def alias(self, name: str) -> "Column":
         return Column(UExpr("alias", name, (self._u,)))
@@ -172,6 +193,19 @@ class Column:
 
     def desc(self) -> "Column":
         return Column(UExpr("sortorder", ("desc", "nulls_last"), (self._u,)))
+
+    def asc_nulls_first(self) -> "Column":
+        return self.asc()
+
+    def asc_nulls_last(self) -> "Column":
+        return Column(UExpr("sortorder", ("asc", "nulls_last"), (self._u,)))
+
+    def desc_nulls_first(self) -> "Column":
+        return Column(UExpr("sortorder", ("desc", "nulls_first"),
+                            (self._u,)))
+
+    def desc_nulls_last(self) -> "Column":
+        return self.desc()
 
     def __str__(self):
         return str(self._u)

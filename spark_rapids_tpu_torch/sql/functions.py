@@ -1,7 +1,9 @@
 """pyspark.sql.functions-compatible surface — the subset of the port
-(``col``, ``lit``, ``when``, ``year``, the string functions, ``sum``,
-``avg``, ``min``, ``max``, ``count``, ``countDistinct``), with the JAX
-package's signatures."""
+(``col``, ``lit``, ``when``, ``coalesce``, the math, date, hash and
+string functions, and the aggregates ``sum``, ``avg``/``mean``,
+``min``, ``max``, ``count``, ``first``, the variance family, the
+percentiles, ``countDistinct`` and ``approx_count_distinct``), with the
+JAX package's signatures."""
 
 from __future__ import annotations
 
@@ -27,6 +29,14 @@ sum = _agg("sum")  # noqa: A001
 min = _agg("min")  # noqa: A001
 max = _agg("max")  # noqa: A001
 avg = _agg("avg")
+mean = _agg("avg")
+first = _agg("first")
+var_samp = _agg("var_samp")
+var_pop = _agg("var_pop")
+stddev_samp = _agg("stddev_samp")
+stddev_pop = _agg("stddev_pop")
+variance = var_samp
+stddev = stddev_samp
 
 
 def count(c) -> Column:
@@ -37,6 +47,27 @@ def count(c) -> Column:
 
 def countDistinct(c) -> Column:
     return Column(UExpr("agg", "count_distinct", (_cu(c),)))
+
+
+
+def approx_count_distinct(c, rsd: float = 0.05) -> Column:
+    """Exact, through the count(DISTINCT) rewrite: an exact count is
+    within any ``rsd``.  [REF: GpuApproximateCountDistinct]"""
+    if not (0.0 <= float(rsd) < 1.0):
+        raise ValueError(f"rsd must be in [0, 1), got {rsd}")
+    return countDistinct(c)
+
+
+def percentile(c, pct: float) -> Column:
+    return Column(UExpr("agg", ("percentile", float(pct)), (_cu(c),)))
+
+
+def percentile_approx(c, pct: float, accuracy: int = 10000) -> Column:
+    return Column(UExpr("agg", ("approx_percentile", float(pct),
+                                int(accuracy)), (_cu(c),)))
+
+
+approx_percentile = percentile_approx
 
 
 def when(cond: Column, value) -> Column:
@@ -51,7 +82,23 @@ def _unary(op):
     return fn
 
 
+def _binary(op):
+    def fn(a, b) -> Column:
+        return Column(UExpr(op, None, (_cu(a), _cu(b))))
+    fn.__name__ = op
+    return fn
+
+
+sqrt = _unary("sqrt")
+exp = _unary("exp")
+log = _unary("log")
+abs = _unary("abs")  # noqa: A001
+floor = _unary("floor")
+ceil = _unary("ceil")
+isnan = _unary("isnan")
 year = _unary("year")
+month = _unary("month")
+dayofmonth = _unary("dayofmonth")
 upper = _unary("upper")
 lower = _unary("lower")
 length = _unary("length")
@@ -59,6 +106,30 @@ trim = _unary("trim")
 ltrim = _unary("ltrim")
 rtrim = _unary("rtrim")
 reverse = _unary("reverse")
+
+
+pow = _binary("pow")  # noqa: A001
+date_add = _binary("date_add")
+date_sub = _binary("date_sub")
+datediff = _binary("datediff")
+
+
+def round(c, scale=0) -> Column:  # noqa: A001
+    return Column(UExpr("round", scale, (_cu(c),)))
+
+
+def coalesce(*cols) -> Column:
+    return Column(UExpr("coalesce", None, tuple(_cu(c) for c in cols)))
+
+
+def hash(*cols) -> Column:  # noqa: A001
+    """Spark murmur3 hash (seed 42) -> int."""
+    return Column(UExpr("hash", None, tuple(_cu(c) for c in cols)))
+
+
+def xxhash64(*cols) -> Column:
+    """Spark xxhash64 (seed 42) -> long."""
+    return Column(UExpr("xxhash64", None, tuple(_cu(c) for c in cols)))
 
 
 def substring(c, pos, length) -> Column:

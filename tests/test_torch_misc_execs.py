@@ -94,7 +94,7 @@ CASES = {
     "range_empty": (lambda s, F, col: s.range(10, 10), {}, True),
     "range_feeds_ops": (
         lambda s, F, col: s.range(0, 1000, 1, numPartitions=3)
-        .filter(col("id") > 317).select((col("id") * 2).alias("x")),
+        .filter(col("id") % 5 == 0).select((col("id") * 2).alias("x")),
         {}, True),
     "range_default_parallelism": (lambda s, F, col: s.range(3, 40), P4,
                                   True),

@@ -171,12 +171,22 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.rapids.sql.exec.Sample": False}, None),
     ({"spark.rapids.sql.exec.Expand": False}, None),
     ({"spark.rapids.sql.expression.Upper": False,
-      "spark.rapids.sql.incompatibleOps.enabled": True}, None),
+      "Remainder": lambda s, F: s.createDataFrame(_table()).filter(
+        F.col("a") % 2 == 1).select("a", (F.col("a") % 3).alias("m")),
+    "XxHash64": lambda s, F: s.createDataFrame(_table()).select(
+        F.xxhash64(F.col("a"), F.col("s")).alias("h")),
+    "spark.rapids.sql.incompatibleOps.enabled": True}, None),
     ({"spark.rapids.sql.expression.RLike": False}, None),
     ({"spark.rapids.sql.expression.StringPad": False,
-      "spark.rapids.sql.incompatibleOps.enabled": True}, None),
+      "Remainder": lambda s, F: s.createDataFrame(_table()).filter(
+        F.col("a") % 2 == 1).select("a", (F.col("a") % 3).alias("m")),
+    "XxHash64": lambda s, F: s.createDataFrame(_table()).select(
+        F.xxhash64(F.col("a"), F.col("s")).alias("h")),
+    "spark.rapids.sql.incompatibleOps.enabled": True}, None),
     ({"spark.rapids.sql.incompatibleOps.enabled": True}, None),
     ({"spark.rapids.sql.castStringToFloat.enabled": True}, None),
+    ({"spark.rapids.sql.expression.Remainder": False}, None),
+    ({"spark.rapids.sql.expression.XxHash64": False}, None),
 ])
 def test_conf_is_validated(conf, match):
     """A bad key or value raises (``match``); a kill switch of an exec or
@@ -226,6 +236,10 @@ _KILL_SWITCH_QUERIES = {
         F.col("s").rlike("[a-x]+")),
     "StringPad": lambda s, F: s.createDataFrame(_table()).select(
         F.lpad(F.col("s"), 3, "*").alias("p")),
+    "Remainder": lambda s, F: s.createDataFrame(_table()).filter(
+        F.col("a") % 2 == 1).select("a", (F.col("a") % 3).alias("m")),
+    "XxHash64": lambda s, F: s.createDataFrame(_table()).select(
+        F.xxhash64(F.col("a"), F.col("s")).alias("h")),
     "spark.rapids.sql.incompatibleOps.enabled":
         lambda s, F: s.createDataFrame(_table()).select(
             F.upper(F.col("s")).alias("u"),
@@ -295,10 +309,16 @@ def _table():
 
 @pytest.mark.parametrize("build, what", [
     (lambda df: df.select(col("a").cast(T.DecimalType(10, 2))), "Cast"),
-    (lambda df: df.agg(F._agg("first")("a")), "aggregate 'first'"),
+    # ids kept from the slice that refused first() and isnull
+    pytest.param(lambda df: df.agg(F._agg("collect_list")("a")),
+                 "aggregate 'collect_list'",
+                 id="<lambda>-aggregate 'first'"),
     pytest.param(lambda df: df.limit(2), None, id="limit"),
-    (lambda df: df.select(Column(UExpr("isnull", None, (col("a")._u,)))),
-     "expression 'isnull'"),
+    pytest.param(
+        lambda df: df.select(Column(UExpr("get_json_object", "$.a",
+                                          (col("s")._u,)))),
+        "expression 'get_json_object'",
+        id="<lambda>-expression 'isnull'"),
     (lambda df: df.select(Column(UExpr("split", (",", -1),
                                        (col("s")._u,)))),
      "expression 'split'"),
