@@ -201,13 +201,24 @@ result line is not printed):
    the JAX package's reason and giving the same rows.
    ``python3 chip_smoke.py --breadth`` runs this phase alone (after the
    build and the kernel checks);
-19. the string expressions of the string queries (LIKE, NOT LIKE,
+19. ``[decimal]``: TPC-H q1, q6 and q18 at SF1 over ``decimal(12,2)``
+   money and quantity columns (``tpch.decimal_tables``, spark-sql-perf's
+   schema: decimal128 products and sums, decimal group keys, a keyless
+   decimal sum), each a path of its own under ``test.enabled``, cold and
+   warm, against this script's int64/pyarrow references (decimals and
+   counts exactly, averages within 1e-9); ``from_utc_timestamp`` and
+   ``to_utc_timestamp`` to America/Los_Angeles and Asia/Kolkata over
+   6,000,000 timestamps, every 100th row exactly against ``zoneinfo``;
+   the decimal columns' H2D alone.  ``python3 chip_smoke.py --decimal``
+   runs this phase alone (after the build and the kernel checks), then
+   the kernel bit for bit at every shape the phase launched it with;
+20. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-20. the kernel at every shape the main path (queries, variants,
+21. the kernel at every shape the main path (queries, variants,
    fallback cases, partitions, exchanges, operators, strings, retry,
-   pump, faults and breadth)
+   pump, faults, breadth and decimal)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -217,7 +228,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-21. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+22. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -244,6 +255,8 @@ H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FAULTS_ONLY = "--faults" in sys.argv[1:]
 # ``python3 chip_smoke.py --breadth``: the [breadth] phase alone
 BREADTH_ONLY = "--breadth" in sys.argv[1:]
+# ``python3 chip_smoke.py --decimal``: the [decimal] phase alone
+DECIMAL_ONLY = "--decimal" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -4834,6 +4847,325 @@ def breadth_only(dev, tables, CB, KN) -> int:
     return 0
 
 
+# -- [decimal]: TPC-H over decimal(12,2) columns, and the time zones ------
+
+DECIMAL_ZONES = ("America/Los_Angeles", "Asia/Kolkata")
+TZ_CHECK_EVERY = 100  # rows checked against zoneinfo: every 100th
+INCOMPAT_CONF = {"spark.rapids.sql.incompatibleOps.enabled": True}
+
+
+def _unscaled(arr):
+    """The unscaled int64 values of an Arrow decimal column of precision
+    <= 18: the low words of its 16-byte little-endian values."""
+    import numpy as np
+    if hasattr(arr, "combine_chunks"):
+        arr = arr.combine_chunks()
+    raw = np.frombuffer(arr.buffers()[1], np.int64, 2 * len(arr),
+                        arr.offset * 16)
+    return raw[0::2].copy()
+
+
+def _dec_array(values, precision: int, scale: int):
+    """Unscaled python ints -> an Arrow decimal128 array, exactly (a
+    60-digit context: no rounding at 38 digits)."""
+    import decimal
+    import pyarrow as pa
+    ctx = decimal.Context(prec=60)
+    return pa.array([decimal.Decimal(int(v)).scaleb(-scale, ctx)
+                     for v in values], pa.decimal128(precision, scale))
+
+
+def _group_sums(inv, n_groups: int, columns):
+    """Per-group sums of int64 columns (exact: ``np.add.reduceat`` in
+    int64, every caller's bound below 2^63) and of float64 columns."""
+    import numpy as np
+    order = np.argsort(inv, kind="stable")
+    starts = np.searchsorted(inv[order], np.arange(n_groups))
+    return [np.add.reduceat(c[order], starts) for c in columns]
+
+
+def ref_decimal_q1(li):
+    """q1 over the decimal(12,2) columns, in int64 cents: sum_qty and
+    sum_base at scale 2, sum_disc at scale 4 (a row's value below 1e8),
+    sum_charge at scale 6 (below 1.1e10 a row, 6.6e16 over 6M rows:
+    int64 holds every sum); the averages over the values as doubles, as
+    Spark's avg of a decimal cast to double."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    ship = li["l_shipdate"].combine_chunks().cast(pa.int32()).to_numpy()
+    m = ship <= (datetime.date(1998, 9, 2) - datetime.date(1970, 1, 1)).days
+    q, p, d, tx = (_unscaled(li[c])[m] for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    # the two 1-byte keys as one code: returnflag's byte, linestatus's
+    rf, ls = (pc.dictionary_encode(li[c].combine_chunks().filter(
+        pa.array(m))) for c in ("l_returnflag", "l_linestatus"))
+    code = (np.asarray(rf.dictionary.to_pylist(), "U1").view(np.int32)
+            [rf.indices.to_numpy()] * 256
+            + np.asarray(ls.dictionary.to_pylist(), "U1").view(np.int32)
+            [ls.indices.to_numpy()])
+    uniq, inv = np.unique(code, return_inverse=True)
+    disc = p * (100 - d)
+    charge = disc * (100 + tx)
+    ones = np.ones(len(q), np.int64)
+    sq, sp, sd, sc, n = _group_sums(inv, len(uniq),
+                                    [q, p, disc, charge, ones])
+    aq, ap, ad = _group_sums(inv, len(uniq),
+                             [q / 100.0, p / 100.0, d / 100.0])
+    return pa.table({
+        "l_returnflag": pa.array([chr(int(k) // 256) for k in uniq]),
+        "l_linestatus": pa.array([chr(int(k) % 256) for k in uniq]),
+        "sum_qty": _dec_array(sq, 22, 2),
+        "sum_base": _dec_array(sp, 22, 2),
+        "sum_disc": _dec_array(sd, 35, 4),
+        "sum_charge": _dec_array(sc, 38, 6),
+        "avg_qty": pa.array(aq / n), "avg_price": pa.array(ap / n),
+        "avg_disc": pa.array(ad / n), "cnt": pa.array(n)})
+
+
+def ref_decimal_q6(li):
+    """q6's revenue, exactly: the discount compared as a double (the
+    engine casts the column for the double literals), the quantity in
+    cents against 24 made decimal(12,2)."""
+    import numpy as np
+    import pyarrow as pa
+    ship = li["l_shipdate"].combine_chunks().cast(pa.int32()).to_numpy()
+    lo = (datetime.date(1994, 1, 1) - datetime.date(1970, 1, 1)).days
+    hi = (datetime.date(1995, 1, 1) - datetime.date(1970, 1, 1)).days
+    q, p, d = (_unscaled(li[c]) for c in (
+        "l_quantity", "l_extendedprice", "l_discount"))
+    m = ((ship >= lo) & (ship < hi) & (d / 100.0 >= 0.05)
+         & (d / 100.0 <= 0.07) & (q < 2400))
+    rev = int((p[m] * d[m]).sum())  # below 1.1e8 a row: int64 exact
+    return pa.table({"revenue": _dec_array([rev], 35, 4)})
+
+
+def ref_decimal_q18(t):
+    """q18 over the cents as int64 columns (pyarrow's exact integer
+    sums and joins), its decimals made back from them."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    cents = dict(t)
+    for name, cols in (("lineitem", ("l_quantity",)),
+                       ("orders", ("o_totalprice",))):
+        tbl = cents[name]
+        for c in cols:
+            tbl = tbl.set_column(tbl.schema.get_field_index(c), c,
+                                 pa.array(_unscaled(tbl[c])))
+        cents[name] = tbl
+    li = cents["lineitem"].select(["l_orderkey", "l_quantity"])
+    g = li.group_by("l_orderkey").aggregate([("l_quantity", "sum")])
+    big = g.filter(pc.greater(g["l_quantity_sum"], 30000))["l_orderkey"]
+    o = cents["orders"].select(["o_orderkey", "o_custkey", "o_orderdate",
+                                "o_totalprice"])
+    o = o.filter(pc.is_in(o["o_orderkey"], value_set=big))
+    j = (cents["customer"].select(["c_custkey", "c_name"])
+         .join(o, "c_custkey", "o_custkey", join_type="inner")
+         .join(li, "o_orderkey", "l_orderkey", join_type="inner"))
+    g = j.group_by(["c_name", "c_custkey", "o_orderkey", "o_orderdate",
+                    "o_totalprice"]).aggregate([("l_quantity", "sum")])
+    g = g.sort_by([("o_totalprice", "descending"),
+                   ("o_orderdate", "ascending")]).slice(0, 100)
+    return pa.table([g["c_name"], g["c_custkey"], g["o_orderkey"],
+                     g["o_orderdate"],
+                     _dec_array(g["o_totalprice"].to_pylist(), 12, 2),
+                     _dec_array(g["l_quantity_sum"].to_pylist(), 22, 2)],
+                    names=["c_name", "c_custkey", "o_orderkey",
+                           "o_orderdate", "o_totalprice", "sum_qty"])
+
+
+def zone_table(li):
+    """6,000,000 timestamps: each line's ship date plus a second of the
+    day taken from its order key (microseconds, UTC)."""
+    import numpy as np
+    import pyarrow as pa
+    days = li["l_shipdate"].combine_chunks().cast(pa.int32()).to_numpy()
+    key = li["l_orderkey"].to_numpy()
+    secs = days.astype(np.int64) * 86400 + key % 86400
+    return pa.table({"ts": pa.array(secs * 1_000_000).cast(
+        pa.timestamp("us", tz="UTC"))})
+
+
+def zone_query(s, t):
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    cols = [col("ts")]
+    for tz in DECIMAL_ZONES:
+        tag = tz.split("/")[1].lower()
+        cols += [F.from_utc_timestamp(col("ts"), tz).alias(f"from_{tag}"),
+                 F.to_utc_timestamp(col("ts"), tz).alias(f"to_{tag}")]
+    return s.createDataFrame(t).select(*cols)
+
+
+def check_zones(got) -> int:
+    """Every ``TZ_CHECK_EVERY``-th row against Python's zoneinfo, exactly:
+    ``from_utc`` adds the offset at the instant; ``to_utc`` subtracts
+    the offset at the wall time, and where the wall time is ambiguous or
+    skipped takes the lesser of its two ``fold`` offsets — the JAX
+    package's documented rule (an overlap resolves to the
+    post-transition offset, a gap to the pre-transition one).  Returns
+    the rows checked."""
+    import zoneinfo
+    import pyarrow as pa
+    epoch = datetime.datetime(1970, 1, 1)
+    ts = got["ts"].cast(pa.int64()).to_numpy()[::TZ_CHECK_EVERY]
+    n = 0
+    for tz in DECIMAL_ZONES:
+        zi = zoneinfo.ZoneInfo(tz)
+        tag = tz.split("/")[1].lower()
+        fr, to = (got[f"{d}_{tag}"].cast(pa.int64()).to_numpy()
+                  [::TZ_CHECK_EVERY] for d in ("from", "to"))
+        for v, f, u in zip(ts.tolist(), fr.tolist(), to.tolist()):
+            wall = epoch + datetime.timedelta(microseconds=v)
+            at = wall.replace(tzinfo=datetime.timezone.utc)
+            off = int(at.astimezone(zi).utcoffset().total_seconds())
+            check(f == v + off * 1_000_000,
+                  f"from_utc_timestamp {tz} at {v}: {f}")
+            back = min(int(zi.utcoffset(wall.replace(fold=k))
+                           .total_seconds()) for k in (0, 1))
+            check(u == v - back * 1_000_000,
+                  f"to_utc_timestamp {tz} at {v}: {u}")
+            n += 1
+    return n
+
+
+def decimal_phase(dev, tables, CB, KN, query_shapes) -> dict:
+    """TPC-H over ``decimal(12,2)`` money and quantity columns
+    (``tpch.decimal_tables``: spark-sql-perf's schema) at SF1 under
+    ``SESSION_CONF`` (any fallback raises), each run a path of its own
+    (the scan cache cleared, counts set to 0 before its cold run, read
+    after), then 2 warm runs equal to the cold one:
+
+    1. q1, q6 and q18 through ``utils/tpch.py``'s builders, against this
+       script's int64/pyarrow references: decimal sums, counts and keys
+       exactly, the double averages within 1e-9 relative (q6's keyless
+       decimal sum is the path on which the JAX package's device run
+       fails);
+    2. ``from_utc_timestamp`` and ``to_utc_timestamp`` to
+       America/Los_Angeles and Asia/Kolkata over 6,000,000 timestamps,
+       every 100th row exactly against ``zoneinfo`` (``check_zones``).
+
+    Also the decimal columns' H2D alone.  Returns the counts of the
+    runs."""
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch.columnar.column import host_to_device
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import tpch
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dt = tpch.decimal_tables(tables)
+    set_up_s = time.perf_counter() - t0
+    li = dt["lineitem"]
+    check(li.schema.field("l_tax").type == pa.decimal128(12, 2)
+          and dt["orders"].schema.field("o_totalprice").type
+          == pa.decimal128(12, 2), "the decimal tables' types")
+    t0 = time.perf_counter()
+    refs = {"q1": ref_decimal_q1(li), "q6": ref_decimal_q6(li),
+            "q18": ref_decimal_q18(dt)}
+    ref_s = time.perf_counter() - t0
+    zt = zone_table(li)
+    s = TpuSession(dict(SESSION_CONF), device=dev)
+    sz = TpuSession(dict(SESSION_CONF, **INCOMPAT_CONF), device=dev)
+    counts, lines = {}, {}
+
+    def run(name, build, want=None, hashed=True):
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        clear_scan_cache()
+        df = build()
+        got, cold = timed(df)
+        counts[name] = c = path_counts(df, CB, KN)
+        print(f"[main path] decimal {name} " + json.dumps(c), flush=True)
+        fb = df.fallback_summary()
+        check(fb["fallback_ops"] == 0 and fb["device_ops"] > 0,
+              f"decimal {name}: plan rewrite fell back: {fb}")
+        check(c["collision_fallbacks"] == 0,
+              f"decimal {name}: hash-collision fallbacks")
+        check(not hashed or c["hash_pairs_launches"] > 0,
+              f"decimal {name}: hash_pairs was not launched")
+        if want is not None:
+            check(got.schema == want.schema,
+                  f"decimal {name} schema {got.schema}")
+            check(rows_equal(got, want), f"decimal {name} differs from "
+                  f"its reference:\n{got}\n{want}")
+        warm = []
+        for _ in range(2):
+            out, wall = timed(build())
+            warm.append(wall)
+            check(out.equals(got), f"decimal {name}: a warm run differs")
+        lines[name] = line = {
+            "rows": got.num_rows, "cold_wall_s": cold,
+            "h2d_s": phase_times(df)["h2d_s"],
+            "warm_wall_s": statistics.median(warm), "warm_walls_s": warm,
+            "hash_pairs_launches": c["hash_pairs_launches"],
+            "hash_pairs_shapes": c["shapes"],
+            "new_hash_pairs_shapes": sorted(set(c["shapes"])
+                                            - query_shapes),
+            "fallback_ops": 0, "equal_reference": want is not None}
+        print(f"[decimal] {name} " + json.dumps(line), flush=True)
+        return got
+
+    for q in ("q1", "q6", "q18"):
+        got = run(q, lambda q=q: tpch.build(q, s, dt), refs[q],
+                  hashed=q != "q6")
+        print(f"[decimal {q} result] {got.num_rows} rows\n"
+              f"{got.slice(0, 6).to_pandas().to_string()}", flush=True)
+    zones = run("time zones", lambda: zone_query(sz, zt), hashed=False)
+    n_checked = check_zones(zones)
+    # the decimal columns alone across the bus, as the scans move them
+    cols = {"lineitem": li.select(list(tpch.DECIMAL_COLUMNS["lineitem"])),
+            "orders": dt["orders"].select(["o_totalprice"])}
+    h2d = {}
+    for name, tbl in cols.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = host_to_device(tbl, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nbytes = sum(c.data.numel() * c.data.element_size()
+                     for c in b.columns)
+        h2d[name] = {"columns": tbl.column_names, "rows": tbl.num_rows,
+                     "device_bytes": nbytes, "s": wall,
+                     "gb_per_s": nbytes / wall / 1e9}
+        del b
+    print("[decimal] h2d " + json.dumps(h2d), flush=True)
+    print("[decimal] " + json.dumps({
+        "seconds": time.perf_counter() - t_phase,
+        "set_up_s": set_up_s, "reference_s": ref_s,
+        "zone_rows_checked": n_checked,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()},
+        "cold_wall_s": {k: v["cold_wall_s"] for k, v in lines.items()},
+        "warm_wall_s": {k: v["warm_wall_s"] for k, v in lines.items()},
+        "h2d_s": {k: v["h2d_s"] for k, v in lines.items()}}), flush=True)
+    return counts
+
+
+def decimal_only(dev, tables, CB, KN) -> int:
+    """``--decimal``: the [decimal] phase alone (after the build and the
+    kernel checks), then the kernel bit for bit at every shape it
+    launched."""
+    t0 = time.perf_counter()
+    counts = decimal_phase(dev, tables, CB, KN, set())
+    gen = __import__("torch").Generator(device=dev)
+    gen.manual_seed(20261018)
+    shapes = sorted({k for c in counts.values() for k in c["shapes"]},
+                    key=lambda k: tuple(map(int, k.split("x"))))
+    for key in shapes:
+        n_limbs, n = (int(x) for x in key.split("x"))
+        kernel_line(CB, None, random_limbs(n_limbs, n, gen, dev),
+                    timed=False)
+    print("[decimal only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "shapes_bit_identical": shapes,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()}}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def faults_only(dev, tables, refs, CB, KN) -> int:
     """``--faults``: q1, q3 and q18 cold (their clean runs), ``[spill]``
     (the disk tier's pool), then ``[faults]`` alone."""
@@ -4929,6 +5261,8 @@ def main() -> int:
         + f" in {gen_s:.3f} s", flush=True)
     if BREADTH_ONLY:
         return breadth_only(dev, tables, CB, KN)
+    if DECIMAL_ONLY:
+        return decimal_only(dev, tables, CB, KN)
     check(len(QUERIES) == 22 and set(QUERIES) == set(tpch.QUERIES)
           == {f"q{i}" for i in range(1, 23)},
           f"QUERIES lists {sorted(QUERIES)}, not TPC-H's 22")
@@ -5098,6 +5432,13 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[breadth] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- decimals and time zones: q1, q6, q18 over decimal(12,2) -----------
+    decimal_counts = decimal_phase(dev, tables, CB, KN, query_shapes)
+    for c in decimal_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[decimal] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -5185,7 +5526,8 @@ def main() -> int:
                         + list(retry_counts.values())
                         + list(pump_counts.values())
                         + list(fault_counts.values())
-                        + list(breadth_counts.values())),
+                        + list(breadth_counts.values())
+                        + list(decimal_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -5208,6 +5550,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in fault_counts.items()},
         "launches_per_breadth_run": {
             k: c["hash_pairs_launches"] for k, c in breadth_counts.items()},
+        "launches_per_decimal_run": {
+            k: c["hash_pairs_launches"] for k, c in decimal_counts.items()},
         "plain_calls_per_faults_run": {
             k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,

@@ -8,10 +8,12 @@ The same layout as the JAX package's ``columnar/column.py``:
   compaction happens at deliberate points (host transfer, concat);
 * strings are padded byte matrices ``uint8[B, W]`` plus ``int32``
   lengths;
-* null validity is a separate ``bool[B]`` mask (True = valid).
+* null validity is a separate ``bool[B]`` mask (True = valid);
+* decimals of precision <= 18 are scaled ``int64[B]``; wider ones
+  (decimal128) are ``int64[B, 2]`` (hi, lo) — ``ops/decimal128.py``.
 
-Host representation is a ``pyarrow.Table``.  Decimal, array and nested
-columns are outside this slice of the port and raise.
+Host representation is a ``pyarrow.Table``.  Array and nested columns
+are outside this slice of the port and raise.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.ops.decimal128 import is128
 
 _TORCH_DTYPE = {
     np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
@@ -40,8 +43,7 @@ def torch_dtype(dt: T.DataType) -> torch.dtype:
 
 
 def _check_supported(dt: T.DataType) -> None:
-    if isinstance(dt, (T.DecimalType, T.ArrayType, T.StructType,
-                       T.MapType, T.NullType)):
+    if isinstance(dt, (T.ArrayType, T.StructType, T.MapType, T.NullType)):
         raise NotImplementedError(
             f"spark_rapids_tpu_torch: column type {dt} is not ported yet")
 
@@ -58,7 +60,8 @@ def round_up_pow2(n: int, min_bucket: int = 1024) -> int:
 class DeviceColumn:
     """One SQL column on device.
 
-    data:     tensor [B] (fixed width types) or uint8 [B, W] (string/binary)
+    data:     tensor [B] (fixed width types), uint8 [B, W] (string/binary)
+              or int64 [B, 2] (decimal128: hi, lo)
     validity: bool [B], True = valid; None = all valid
     lengths:  int32 [B] for string/binary; None otherwise
     """
@@ -164,6 +167,9 @@ def empty_batch(schema: T.StructType, device: torch.device,
                                      device=device),
                 None, torch.zeros((bucket,), dtype=torch.int32,
                                   device=device)))
+        elif is128(f.dtype):
+            cols.append(DeviceColumn(f.dtype, torch.zeros(
+                (bucket, 2), dtype=torch.int64, device=device)))
         else:
             cols.append(DeviceColumn(f.dtype, torch.zeros(
                 (bucket,), dtype=torch_dtype(f.dtype), device=device)))
@@ -240,6 +246,59 @@ def _matrix_to_string(mat: np.ndarray, lengths: np.ndarray,
     )
 
 
+def _decimal_words(arr: pa.Array) -> np.ndarray:
+    """An Arrow decimal128 array's 16-byte little-endian two's-complement
+    values as int64 ``[n, 2]`` (low word, high word): a read-only view of
+    the buffer, or a copy with null slots zeroed."""
+    arr = arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                          count=2 * len(arr),
+                          offset=arr.offset * 16).reshape(-1, 2)
+    if arr.null_count:
+        words = np.where(np.asarray(arr.is_null())[:, None], 0, words)
+    return words
+
+
+def decimal_to_int64(arr: pa.Array) -> np.ndarray:
+    """A decimal column of precision <= 18 -> its unscaled int64 values
+    (the JAX package's ``_decimal_to_int64``), a strided view where the
+    buffer allows: the copy to the device reads it in one pass."""
+    words = _decimal_words(arr)
+    low = words[:, 0]
+    # precision <= 18 fits the low word; the high one is its sign
+    if not np.array_equal(words[:, 1], low >> 63):
+        raise OverflowError("decimal value exceeds 18 digits")
+    return low
+
+
+def decimal_to_hilo(arr: pa.Array) -> np.ndarray:
+    """A decimal128 column -> int64[n, 2] (hi, lo bit patterns)."""
+    return _decimal_words(arr)[:, ::-1]
+
+
+def decimal_array(dt: T.DataType, data: np.ndarray,
+                  validity: Optional[np.ndarray]) -> pa.Array:
+    """Unscaled int64[n] or (hi, lo) int64[n, 2] values -> an Arrow
+    decimal128 array, built on its 16-byte buffers (exact at 38 digits,
+    free of ``decimal`` context rounding)."""
+    n = data.shape[0]
+    raw = np.empty(2 * n, dtype=np.int64)
+    if data.ndim == 2:
+        raw[0::2] = data[:, 1]
+        raw[1::2] = data[:, 0]
+    else:
+        low = data.astype(np.int64)
+        raw[0::2] = low
+        raw[1::2] = low >> 63
+    null_buf = None
+    if validity is not None and not validity.all():
+        null_buf = pa.py_buffer(
+            np.packbits(validity, bitorder="little").tobytes())
+    return pa.Array.from_buffers(
+        T.to_arrow(dt), n, [null_buf, pa.py_buffer(raw.tobytes())],
+        null_count=-1 if null_buf is not None else 0)
+
+
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Copy a host array to ``device``.  Arrow hands out read-only
     buffers, so the data is always copied once: into a pinned staging
@@ -287,6 +346,10 @@ def arrow_column_to_device(arr, dt: T.DataType,
         mat, lengths = _string_to_matrix(arr)
         return DeviceColumn(dt, _to_device(mat, device), validity,
                             _to_device(lengths, device))
+    if isinstance(dt, T.DecimalType):
+        data = (decimal_to_hilo(arr) if is128(dt)
+                else decimal_to_int64(arr))
+        return DeviceColumn(dt, _to_device(data, device), validity)
     npdt = T.to_numpy_dtype(dt)
     if isinstance(dt, T.DateType):
         if not pa.types.is_date32(arr.type):
@@ -387,6 +450,9 @@ def _device_to_host_impl(batch: DeviceBatch) -> pa.Table:
                 validity, isinstance(f.dtype, T.BinaryType)))
             continue
         data = c.data[:n].cpu().numpy()
+        if isinstance(f.dtype, T.DecimalType):
+            arrays.append(decimal_array(f.dtype, data, validity))
+            continue
         if isinstance(f.dtype, T.DateType):
             arr = pa.array(data.astype(np.int32), type=pa.int32()).cast(
                 pa.date32())

@@ -4,9 +4,11 @@ The counterpart of the JAX package's ``columnar/host.py``: numpy data
 plus a validity mask (True = valid, None = all valid).  CPU execs
 evaluate expressions over these with ``eval_cpu``; strings are object
 arrays of Python ``str``.  The types are the port's: numbers, booleans,
-strings, binary, dates (int32 days) and timestamps (int64 microseconds,
-UTC); decimal and nested columns raise ``NotImplementedError`` as they
-do on the device.
+strings, binary, dates (int32 days), timestamps (int64 microseconds,
+UTC) and decimals: unscaled int64 for precision <= 18, and for wider
+ones (decimal128) an object array of exact Python ints, as the JAX
+package keeps them; nested columns raise ``NotImplementedError`` as
+they do on the device.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import numpy as np
 import pyarrow as pa
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
+
+_M64 = (1 << 64) - 1
 
 
 @dataclasses.dataclass
@@ -68,10 +72,17 @@ def from_arrow_column(col, dt: T.DataType) -> HostCol:
         col = col.cast(col.type.value_type)
     nulls = np.asarray(col.is_null())
     validity = ~nulls if nulls.any() else None
-    if isinstance(dt, (T.DecimalType, T.ArrayType, T.StructType,
-                       T.MapType)):
+    if isinstance(dt, (T.ArrayType, T.StructType, T.MapType)):
         raise _not_ported(dt)
-    if isinstance(dt, (T.StringType, T.BinaryType)):
+    if isinstance(dt, T.DecimalType):
+        from spark_rapids_tpu_torch.columnar import column as C
+        if dt.precision > T.DecimalType.MAX_LONG_DIGITS:
+            hilo = C.decimal_to_hilo(col)
+            data = np.empty(len(col), dtype=object)
+            data[:] = [(int(h) << 64) | (int(l) & _M64) for h, l in hilo]
+        else:
+            data = np.ascontiguousarray(C.decimal_to_int64(col))
+    elif isinstance(dt, (T.StringType, T.BinaryType)):
         data = np.array(
             ["" if v is None else v for v in col.to_pylist()], dtype=object)
     elif isinstance(dt, T.DateType):
@@ -97,9 +108,15 @@ def to_arrow_column(c: HostCol) -> pa.Array:
     mask = None
     if c.validity is not None:
         mask = ~c.validity
-    if isinstance(c.dtype, (T.DecimalType, T.ArrayType, T.StructType,
-                            T.MapType)):
+    if isinstance(c.dtype, (T.ArrayType, T.StructType, T.MapType)):
         raise _not_ported(c.dtype)
+    if isinstance(c.dtype, T.DecimalType):
+        from spark_rapids_tpu_torch.columnar.column import decimal_array
+        from spark_rapids_tpu_torch.ops.decimal128 import np_pack
+        data = (np_pack(c.data)
+                if c.dtype.precision > T.DecimalType.MAX_LONG_DIGITS
+                else np.asarray(c.data, np.int64))
+        return decimal_array(c.dtype, data, c.validity)
     if isinstance(c.dtype, (T.StringType, T.BinaryType)):
         # the object array converts in one call (a masked slot's value
         # is ignored)

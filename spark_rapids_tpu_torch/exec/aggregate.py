@@ -39,12 +39,21 @@ every run); integer sums and counts stay ``index_add_``, which is exact
 in any order.  (``index_put_(accumulate=True)`` is deterministic too,
 but adds a group's rows one after another: slow where groups are few.)
 Float sums differ in the last ulps from the JAX package's scan order;
-counts and keys are exact.
+counts and keys are exact.  A decimal128 sum (every decimal sum past
+18 digits: ``decimal(p+10, s)``) splits each value's bit pattern into
+four 32-bit limbs held in int64, adds each limb per group with the
+integer ``index_add_`` (exact in any order while a group has fewer
+than 2^31 rows) and propagates the carries once per group, mod 2^128:
+the bits of the JAX package's carry-aware associative scan.  The
+keyless path sums the same limbs (the JAX package's keyless decimal
+sum fails on its device path; ROADMAP C.4), and the final projection
+nulls a sum past its precision.
 
 ``CpuAggregateExec`` is the JAX package's CPU oracle for the same
 functions: a dict of groups in first-seen order, updated row by row in
 Python (the variance family by Welford's update, as Spark's
-CentralMomentAgg), finals as Spark defines them.
+CentralMomentAgg; decimal sums in exact Python ints, wrapped mod 2^128
+and nulled past their precision), finals as Spark defines them.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from spark_rapids_tpu_torch.columnar.column import (
 from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec, fuse_upstream
 from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
+from spark_rapids_tpu_torch.ops import decimal128 as D128
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.aggregates import (
     AggregateFunction, ApproxPercentile, Average, Count, CountStar, First,
@@ -141,7 +151,12 @@ def segment_groupby(
         e = {"c": c, "kind": kind,
              "n_contrib": batcher.add("add", contrib.to(torch.int64),
                                       key=ckey)}
-        if kind == "sum":
+        if kind == "sum" and c.data.dim() == 2:
+            # decimal128: each 32-bit limb of the bit patterns sums on
+            # its own (exact), the carries propagate once per group
+            e["limbs"] = [batcher.add("add", l) for l in D128.limbs32(
+                torch.where(contrib[:, None], c.data, 0))]
+        elif kind == "sum":
             e["agg"] = batcher.add("add", torch.where(
                 contrib, c.data, torch.zeros((), dtype=c.data.dtype,
                                              device=dev)))
@@ -166,7 +181,10 @@ def segment_groupby(
     out_vals = []
     for e in plans:
         n_contrib = batcher.get(e["n_contrib"])
-        agg = batcher.get(e["agg"])
+        if "limbs" in e:
+            agg = D128.from_limb_sums(*(batcher.get(h) for h in e["limbs"]))
+        else:
+            agg = batcher.get(e["agg"])
         if e["kind"] == "first":
             row = agg[perm2]
             out_vals.append(DeviceColumn(
@@ -311,14 +329,19 @@ def _reduce_column(data: torch.Tensor, valid: torch.Tensor,
     rows, NaN greatest; null when no row contributes; 'first' takes the
     first LIVE row's value, a null included)."""
     contrib = valid & live
+    one = (1,) + tuple(data.shape[1:])
     if kind == "first":
         has_row = torch.any(live)
         idx = torch.argmax(live.to(torch.uint8))  # the first live row
         v = torch.where(has_row, data[idx], torch.zeros(
             (), dtype=data.dtype, device=data.device))
-        return DeviceColumn(dt, v.reshape(1),
+        return DeviceColumn(dt, v.reshape(one),
                             (valid[idx] & has_row).reshape(1))
-    if kind == "sum":
+    if kind == "sum" and data.dim() == 2:
+        # decimal128: the grouped path's limb sums over one group
+        limbs = D128.limbs32(torch.where(contrib[:, None], data, 0))
+        v = D128.from_limb_sums(*(l.sum() for l in limbs))
+    elif kind == "sum":
         v = torch.where(contrib, data, torch.zeros(
             (), dtype=data.dtype, device=data.device)).sum(dtype=data.dtype)
     elif kind in ("min", "max"):
@@ -332,7 +355,7 @@ def _reduce_column(data: torch.Tensor, valid: torch.Tensor,
         raise NotImplementedError(
             f"spark_rapids_tpu_torch: '{kind}' reduction is not ported "
             "yet")
-    return DeviceColumn(dt, v.reshape(1), torch.any(contrib).reshape(1))
+    return DeviceColumn(dt, v.reshape(one), torch.any(contrib).reshape(1))
 
 
 def _one_row_batch(schema: T.StructType, cols: List[DeviceColumn],
@@ -340,8 +363,8 @@ def _one_row_batch(schema: T.StructType, cols: List[DeviceColumn],
     """Pad 1-row columns to the minimum bucket; row 0 live."""
     out = []
     for c in cols:
-        data = torch.zeros((bucket,), dtype=c.data.dtype,
-                           device=c.data.device)
+        data = torch.zeros((bucket,) + tuple(c.data.shape[1:]),
+                           dtype=c.data.dtype, device=c.data.device)
         data[:1] = c.data
         validity = None
         if c.validity is not None:
@@ -359,13 +382,14 @@ def _one_row_batch(schema: T.StructType, cols: List[DeviceColumn],
 
 def is_holistic_fn(f: AggregateFunction) -> bool:
     """Functions that need the gathered single pass (no partial/merge
-    split): the percentiles, and min/max/first over strings, whose values
-    cannot ride a single-limb buffer through the merge.  The exec's one
-    routing test, as in the JAX package."""
+    split): the percentiles, and min/max/first over strings and
+    decimal128, whose values cannot ride a single-limb buffer through
+    the merge.  The exec's one routing test, as in the JAX package."""
     if isinstance(f, Percentile):
         return True
     return (isinstance(f, (Min, Max, First)) and f.child is not None
-            and isinstance(f.input_dtype, (T.StringType, T.BinaryType)))
+            and (isinstance(f.input_dtype, (T.StringType, T.BinaryType))
+                 or D128.is128(f.input_dtype)))
 
 
 def _sorted_groups(key_cols: Sequence[DeviceColumn], sel: torch.Tensor,
@@ -471,7 +495,11 @@ def update_value_cols(fns: Sequence[AggregateFunction], batch: DeviceBatch
                         "sum"))
         elif isinstance(fn, (Sum, Average)):
             rdt = fn.buffer_dtypes()[0]
-            data = c.data.to(torch_dtype(rdt))
+            if D128.is128(rdt):
+                data = (c.data if D128.is128(c.dtype)
+                        else D128.from_i64(c.data))
+            else:
+                data = c.data.to(torch_dtype(rdt))
             out.append((DeviceColumn(rdt, data, c.validity), "sum"))
             out.append((DeviceColumn(T.LongT, valid.to(torch.int64)),
                         "sum"))
@@ -512,7 +540,12 @@ def final_project(fns: Sequence[AggregateFunction],
             out.append(DeviceColumn(T.LongT, mine[0].data, None))
         elif isinstance(fn, Sum):
             s, cnt = mine
-            out.append(DeviceColumn(fn.result_dtype, s.data, cnt.data > 0))
+            validity = cnt.data > 0
+            if D128.is128(fn.result_dtype):
+                # Spark nulls a sum past its precision (non-ANSI)
+                validity = validity & D128.fits_precision(
+                    s.data, fn.result_dtype.precision)
+            out.append(DeviceColumn(fn.result_dtype, s.data, validity))
         elif isinstance(fn, Average):
             s, cnt = mine
             denom = torch.where(cnt.data > 0, cnt.data, 1)
@@ -980,6 +1013,9 @@ class CpuAggregateExec(CpuExec):
             if isinstance(f.dtype, (T.StringType, T.BinaryType)):
                 data = np.array([v if v is not None else "" for v in vals],
                                 dtype=object)
+            elif D128.is128(f.dtype):
+                data = np.empty(len(vals), dtype=object)
+                data[:] = [int(v) if v is not None else 0 for v in vals]
             else:
                 npdt = T.to_numpy_dtype(f.dtype)
                 data = np.array([v if v is not None else 0 for v in vals])
@@ -1026,7 +1062,11 @@ def _acc_update(acc, fn, vc, i):
         acc["count"] += 1
     elif isinstance(fn, (Sum, Average)):
         acc["count"] += 1
-        if T.is_integral(fn.child.dtype):
+        if isinstance(fn.child.dtype, T.DecimalType):
+            # exact python ints: a decimal sum widens to p + 10 digits
+            # (a decimal128 buffer on the device)
+            acc["sum"] = int(acc["sum"]) + int(v)
+        elif T.is_integral(fn.child.dtype):
             with np.errstate(over="ignore"):  # Spark non-ANSI sum wraps
                 acc["sum"] = np.int64(acc["sum"] + np.int64(v))
         else:
@@ -1070,6 +1110,10 @@ def _acc_final(acc, fn):
     if isinstance(fn, Sum):
         if acc["count"] == 0:
             return None
+        if isinstance(fn.child.dtype, T.DecimalType):
+            # the 128-bit container's wrap, then overflow to null
+            w = D128.py_wrap128(acc["sum"])
+            return w if D128.py_fits(w, fn.result_dtype.precision) else None
         return acc["sum"]
     if isinstance(fn, Average):
         if acc["count"] == 0:

@@ -588,7 +588,7 @@ def concat_device_batches(schema: T.StructType,
         is_str = parts[0].is_string
         data = torch.zeros(
             (bucket,) + ((max(p.data.shape[1] for p in parts),)
-                         if is_str else ()),
+                         if is_str else tuple(parts[0].data.shape[1:])),
             dtype=parts[0].data.dtype, device=dev)
         any_val = any(p.validity is not None for p in parts)
         validity = (torch.zeros((bucket,), dtype=torch.bool, device=dev)

@@ -35,7 +35,6 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import conf as C
-from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar import host as H
 from spark_rapids_tpu_torch.columnar.column import DeviceBatch
 from spark_rapids_tpu_torch.exec.aqe import TpuAQEShuffleReadExec
@@ -59,17 +58,12 @@ def device_partition_ids(keys: Sequence[Expression], nparts: int,
 def host_partition_ids(keys: Sequence[Expression], nparts: int,
                        batch: H.HostBatch) -> np.ndarray:
     """The same ids for a host batch, through ``hash_column`` over torch
-    CPU tensors of its columns (strings padded to a byte matrix)."""
+    CPU tensors of its columns (``host_hash_input``)."""
     n = batch.num_rows
     h = torch.full((n,), HH.SEED, dtype=torch.int64)
     for e in keys:
         c = e.eval_cpu(batch)
-        if isinstance(c.dtype, (T.StringType, T.BinaryType)):
-            mat, lengths = HH.host_strings_to_matrix(c.data)
-            col = (torch.from_numpy(mat), torch.from_numpy(lengths))
-        else:
-            col = (torch.from_numpy(np.ascontiguousarray(c.data)), None)
-        valid = torch.from_numpy(np.ascontiguousarray(c.valid_mask(n)))
+        col, valid = HH.host_hash_input(c, n)
         h = HH.hash_column(col, c.dtype, h, valid)
     return HH.partition_ids_from_hash(HH.int32_from_u32(h),
                                       nparts).numpy()

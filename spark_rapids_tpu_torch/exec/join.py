@@ -63,6 +63,7 @@ from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec
 from spark_rapids_tpu_torch.exec.basic import (
     concat_device_batches, live_counts)
 from spark_rapids_tpu_torch.exec.sort import _concat_host
+from spark_rapids_tpu_torch.ops import decimal128 as D128
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.expressions import Expression, device_select
 from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
@@ -392,7 +393,11 @@ def _canonical_key_parts(c: DeviceColumn, str_width: int
         return [ORD._flag_part(isn), (val, "f64")]
     if isinstance(dt, T.BooleanType):
         return [(c.data.to(torch.int64), 1)]
-    # integral family, date, timestamp -> 64-bit biased encoding
+    if isinstance(dt, T.DecimalType) and c.data.dim() == 2:
+        # decimal128: the biased hi limb, then the lo limb's bits
+        return [ORD._int_part(c.data[:, 0], 64, True),
+                (c.data[:, 1].contiguous(), 64)]
+    # integral family, date, timestamp, decimal -> 64-bit biased encoding
     return [ORD._int_part(c.data.to(torch.int64), 64, True)]
 
 
@@ -1001,6 +1006,10 @@ def _tag_join(meta):
         else:
             tag_expression(cpu.condition, meta)
     for le, re in zip(cpu.left_keys, cpu.right_keys):
+        if D128.is128(le.dtype) and cpu.join_type in ("right", "full"):
+            meta.will_not_work(
+                "decimal128 join keys on right/full joins not yet on "
+                "device (key-column coalesce lacks a 2-lane select)")
         lf, rf = _join_key_family(le.dtype), _join_key_family(re.dtype)
         if lf != rf:
             meta.will_not_work(

@@ -57,8 +57,7 @@ class Sum(AggregateFunction):
         if T.is_integral(dt):
             return T.LongT
         if isinstance(dt, T.DecimalType):
-            raise NotImplementedError(
-                "spark_rapids_tpu_torch: decimal sum is not ported yet")
+            return T.DecimalType(min(dt.precision + 10, 38), dt.scale)
         return T.DoubleT
 
     def buffer_dtypes(self):

@@ -13,7 +13,11 @@ TypeSig the plan rewrite checks (``type_sig``, ``input_sig``; the
 ``ansi_sensitive`` flag).  Where the JAX package's own two branches
 disagree (``Floor``/``Ceil`` of NaN, the infinities and out-of-range
 values; ``Round`` of -0.0), the device branch gives ``eval_tpu``'s bits
-on every device and the host branch ``eval_cpu``'s.  Expressions that
+on every device and the host branch ``eval_cpu``'s.  Decimals keep the
+JAX package's representation: a scaled int64 up to 18 digits,
+``ops/decimal128.py``'s (hi, lo) pair past it on the device and exact
+Python ints on the host; a decimal128 result of ``+``, ``-`` or ``*``
+is null where it overflows its precision.  Expressions that
 this slice does not port are not defined here; the analyzer raises
 ``NotImplementedError`` naming them.
 """
@@ -30,6 +34,7 @@ from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, torch_dtype)
 from spark_rapids_tpu_torch.columnar.host import HostBatch, HostCol
+from spark_rapids_tpu_torch.ops import decimal128 as D128
 
 
 def merge_validity(*vs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -158,13 +163,20 @@ class Literal(Expression):
                 f"spark_rapids_tpu_torch: {self.dtype} literal is not "
                 "ported yet")
         tdt = torch_dtype(self.dtype)
+        shape = (b, 2) if D128.is128(self.dtype) else (b,)
         if self.value is None:
             return DeviceColumn(self.dtype,
-                                torch.zeros((b,), dtype=tdt, device=dev),
+                                torch.zeros(shape, dtype=tdt, device=dev),
                                 torch.zeros((b,), dtype=torch.bool,
                                             device=dev))
+        v = self.value
+        if isinstance(self.dtype, T.DecimalType):
+            v = _unscaled_literal(v, self.dtype)
+            if D128.is128(self.dtype):
+                pair = torch.from_numpy(D128.np_pack([v])).to(dev)
+                return DeviceColumn(self.dtype, pair.expand(b, 2))
         return DeviceColumn(self.dtype, torch.full(
-            (b,), self.value, dtype=tdt, device=dev))
+            (b,), v, dtype=tdt, device=dev))
 
     def _eval_string(self, b: int, dev) -> DeviceColumn:
         """A string constant as a broadcast ``uint8[B, W]`` matrix (W =
@@ -193,11 +205,24 @@ class Literal(Expression):
             return HostCol(self.dtype, np.zeros(n, npdt), np.zeros(n, bool))
         if isinstance(self.dtype, T.StringType):
             return HostCol(self.dtype, np.array([self.value] * n, object))
+        v = self.value
+        if isinstance(self.dtype, T.DecimalType):
+            v = _unscaled_literal(v, self.dtype)
+            if D128.is128(self.dtype):
+                out = np.empty(n, dtype=object)
+                out[:] = v
+                return HostCol(self.dtype, out)
         return HostCol(self.dtype,
-                       np.full(n, self.value, T.to_numpy_dtype(self.dtype)))
+                       np.full(n, v, T.to_numpy_dtype(self.dtype)))
 
     def __str__(self):
         return repr(self.value)
+
+
+def _unscaled_literal(v, dt: T.DecimalType) -> int:
+    """A decimal literal's unscaled value at its type's scale."""
+    import decimal
+    return D128.py_unscaled(decimal.Decimal(str(v)), dt.scale)
 
 
 @dataclasses.dataclass
@@ -235,10 +260,18 @@ class _BinaryArith(Expression):
     ansi_sensitive = True
     left: Expression
     right: Expression
+    # a decimal result type (the analyzer's precision and scale
+    # bookkeeping); None = the left operand's type passes through
+    forced_dtype: Optional[T.DataType] = None
+
+    # the decimal128 lowering: ``ops/decimal128.py``'s checked limb
+    # arithmetic (values wrap mod 2^128, the ok flag says whether the
+    # exact result fitted)
+    _d128_op = None
 
     @property
     def dtype(self):
-        return self.left.dtype
+        return self.forced_dtype or self.left.dtype
 
     @property
     def children(self):
@@ -250,6 +283,17 @@ class _BinaryArith(Expression):
     def eval(self, batch):
         l = self.left.eval(batch)
         r = self.right.eval(batch)
+        if D128.is128(self.dtype):
+            op = type(self)._d128_op
+            if op is None:
+                raise NotImplementedError(
+                    f"decimal128 {type(self).__name__}")
+            data, ok = op(_as128(l.data, l.dtype), _as128(r.data, r.dtype))
+            # Spark non-ANSI: overflow past the result's precision (or
+            # the 128-bit container) nulls the row
+            fits = ok & D128.fits_precision(data, self.dtype.precision)
+            return DeviceColumn(self.dtype, data, merge_validity(
+                l.validity, r.validity, fits))
         # integer overflow wraps (non-ANSI Spark), as torch's int ops do
         return DeviceColumn(self.dtype, self._op(l.data, r.data),
                             merge_validity(l.validity, r.validity))
@@ -257,6 +301,19 @@ class _BinaryArith(Expression):
     def eval_cpu(self, batch):
         l = self.left.eval_cpu(batch)
         r = self.right.eval_cpu(batch)
+        if D128.is128(self.dtype):
+            la = np.array([int(v) for v in l.data], dtype=object)
+            ra = np.array([int(v) for v in r.data], dtype=object)
+            data = self._op(la, ra)
+            # the exact python-int result; overflow past the declared
+            # precision nulls the row (its value stored as 0)
+            fits = np.array([D128.py_fits(v, self.dtype.precision)
+                             for v in data], dtype=bool)
+            out = np.empty(len(data), dtype=object)
+            for i, v in enumerate(data):
+                out[i] = int(v) if fits[i] else 0
+            return HostCol(self.dtype, out, merge_validity_h(
+                l.validity, r.validity, fits))
         with np.errstate(all="ignore"):
             data = self._op(l.data, r.data)
         return HostCol(self.dtype, data,
@@ -264,16 +321,22 @@ class _BinaryArith(Expression):
 
 
 class Add(_BinaryArith):
+    _d128_op = staticmethod(D128.add_checked)
+
     def _op(self, a, b):
         return a + b
 
 
 class Subtract(_BinaryArith):
+    _d128_op = staticmethod(D128.sub_checked)
+
     def _op(self, a, b):
         return a - b
 
 
 class Multiply(_BinaryArith):
+    _d128_op = staticmethod(D128.mul_checked)
+
     def _op(self, a, b):
         return a * b
 
@@ -421,6 +484,8 @@ class UnaryMinus(Expression):
 
     def eval(self, batch):
         c = self.child.eval(batch)
+        if D128.is128(self.dtype):
+            return DeviceColumn(self.dtype, D128.neg(c.data), c.validity)
         return DeviceColumn(self.dtype, -c.data, c.validity)
 
     def eval_cpu(self, batch):
@@ -444,6 +509,9 @@ class Abs(Expression):
 
     def eval(self, batch):
         c = self.child.eval(batch)
+        if D128.is128(self.dtype):
+            return DeviceColumn(self.dtype, D128.abs128(c.data)[0],
+                                c.validity)
         return DeviceColumn(self.dtype, torch.abs(c.data), c.validity)
 
     def eval_cpu(self, batch):
@@ -474,6 +542,9 @@ class _BinaryComparison(Expression):
         equal to itself."""
         raise NotImplementedError
 
+    def _is128(self) -> bool:
+        return D128.is128(self.left.dtype) or D128.is128(self.right.dtype)
+
     def eval(self, batch):
         if isinstance(self.left.dtype, (T.StringType, T.BinaryType)):
             raise NotImplementedError(
@@ -481,7 +552,12 @@ class _BinaryComparison(Expression):
                 "yet (string comparisons are ops/strings.py's)")
         l = self.left.eval(batch)
         r = self.right.eval(batch)
-        if _is_float(self.left.dtype):
+        if self._is128():
+            # in terms of the limb-pair primitives
+            data = _D128_CMPS[type(self).__name__](
+                D128.cmp_lt, D128.cmp_eq, _as128(l.data, self.left.dtype),
+                _as128(r.data, self.right.dtype))
+        elif _is_float(self.left.dtype):
             data = self._cmp_nan(l.data, r.data, torch.isnan(l.data),
                                  torch.isnan(r.data))
         else:
@@ -496,7 +572,14 @@ class _BinaryComparison(Expression):
         l = self.left.eval_cpu(batch)
         r = self.right.eval_cpu(batch)
         with np.errstate(all="ignore"):
-            if _is_float(self.left.dtype):
+            if self._is128():
+                # exact python ints
+                la = np.array([int(v) for v in l.data], dtype=object)
+                ra = np.array([int(v) for v in r.data], dtype=object)
+                data = _D128_CMPS[type(self).__name__](
+                    lambda a, b: a < b, lambda a, b: a == b,
+                    la, ra).astype(bool)
+            elif _is_float(self.left.dtype):
                 data = self._cmp_h(l.data, r.data, np.isnan(l.data),
                                    np.isnan(r.data))
             else:
@@ -504,6 +587,21 @@ class _BinaryComparison(Expression):
                 data = self._cmp_h(l.data, r.data, zeros, zeros)
         return HostCol(self.dtype, data,
                        merge_validity_h(l.validity, r.validity))
+
+
+def _as128(data: torch.Tensor, dt: T.DataType) -> torch.Tensor:
+    return data if D128.is128(dt) else D128.from_i64(data)
+
+
+# the decimal128 comparisons, in terms of (less than, equal)
+_D128_CMPS = {
+    "EqualTo": lambda lt, eq, a, b: eq(a, b),
+    "EqualNullSafe": lambda lt, eq, a, b: eq(a, b),
+    "LessThan": lambda lt, eq, a, b: lt(a, b),
+    "LessThanOrEqual": lambda lt, eq, a, b: ~lt(b, a),
+    "GreaterThan": lambda lt, eq, a, b: lt(b, a),
+    "GreaterThanOrEqual": lambda lt, eq, a, b: ~lt(a, b),
+}
 
 
 class EqualTo(_BinaryComparison):
@@ -577,7 +675,11 @@ class EqualNullSafe(Expression):
         l = self.left.eval(batch)
         r = self.right.eval(batch)
         lv, rv = l.valid_mask(), r.valid_mask()
-        eq = l.data == r.data
+        if D128.is128(self.left.dtype) or D128.is128(self.right.dtype):
+            eq = D128.cmp_eq(_as128(l.data, self.left.dtype),
+                             _as128(r.data, self.right.dtype))
+        else:
+            eq = l.data == r.data
         if _is_float(self.left.dtype):
             eq = eq | (torch.isnan(l.data) & torch.isnan(r.data))
         return DeviceColumn(self.dtype,
@@ -593,7 +695,7 @@ class EqualNullSafe(Expression):
                 eq = np.where(np.isnan(l.data) & np.isnan(r.data), True,
                               l.data == r.data)
             else:
-                eq = l.data == r.data
+                eq = np.asarray(l.data == r.data, dtype=bool)
         return HostCol(self.dtype, np.where(lv & rv, eq, ~lv & ~rv), None)
 
 
@@ -751,6 +853,9 @@ def device_select(cond: torch.Tensor, a: DeviceColumn, b: DeviceColumn,
         db = torch.nn.functional.pad(b.data, (0, w - b.data.shape[1]))
         return DeviceColumn(dtype, torch.where(cond[:, None], da, db),
                             None, torch.where(cond, a.lengths, b.lengths))
+    if a.data.dim() == 2:  # decimal128 (hi, lo) lanes
+        return DeviceColumn(dtype, torch.where(cond[:, None], a.data,
+                                               b.data))
     return DeviceColumn(dtype, torch.where(cond, a.data, b.data))
 
 
@@ -1110,7 +1215,15 @@ def _castable(dt: T.DataType) -> bool:
 def _string_castable(dt: T.DataType) -> bool:
     """The other side of a cast from or to a string that the port has."""
     return _castable(dt) or isinstance(
-        dt, (T.StringType, T.DateType, T.TimestampType))
+        dt, (T.StringType, T.DateType, T.TimestampType, T.DecimalType))
+
+
+def _decimal_castable(src: T.DataType, dst: T.DataType) -> bool:
+    """The casts with a decimal side that the port has: decimal or
+    integral to decimal, and decimal to double."""
+    if isinstance(dst, T.DecimalType):
+        return isinstance(src, T.DecimalType) or T.is_integral(src)
+    return isinstance(src, T.DecimalType) and isinstance(dst, T.DoubleType)
 
 
 @dataclasses.dataclass
@@ -1122,9 +1235,12 @@ class Cast(Expression):
     ``device_support_reason`` allows (integral and boolean both ways,
     string to floating under ``castStringToFloat``) through
     ``ops/strings.py``'s device casts, and on the host otherwise, with
-    the JAX package's host semantics.  Casts from or to decimals, and
-    between dates or timestamps and numbers, are not ported and raise
-    when built."""
+    the JAX package's host semantics.  A decimal or an integral casts to
+    a decimal through the 128-bit container (HALF_UP rescale, overflow
+    to null) and a decimal to a double on the device; strings cast to
+    and from decimals on the host.  Other casts with a decimal side, and
+    those between dates or timestamps and numbers, are not ported and
+    raise when built."""
 
     ansi_sensitive = True
     child: Expression
@@ -1134,7 +1250,8 @@ class Cast(Expression):
         src, dst = self.child.dtype, self.dtype
         stringy = isinstance(src, T.StringType) or isinstance(
             dst, T.StringType)
-        if not ((_castable(src) and _castable(dst)) or (
+        if not ((_castable(src) and _castable(dst))
+                or _decimal_castable(src, dst) or (
                 stringy and _string_castable(src)
                 and _string_castable(dst))):
             raise NotImplementedError(
@@ -1148,9 +1265,25 @@ class Cast(Expression):
 
     def device_support_reason(self, conf):
         """Per-combination device support (the tagging hook); None = ok.
-        The JAX package's reasons, less its decimal branches."""
+        The JAX package's reasons, word for word."""
         from spark_rapids_tpu_torch import conf as C
         src, dst = self.child.dtype, self.dtype
+        if self._decimal_combo() is not None:
+            if isinstance(dst, T.DecimalType):
+                down = (src.scale - dst.scale
+                        if isinstance(src, T.DecimalType) else -1)
+                if down > 9:
+                    return ("decimal scale-down beyond 10^9 not on "
+                            "device (single-step rounded division cap)")
+                if (isinstance(src, T.DecimalType)
+                        or T.is_integral(src)):
+                    return None
+                return (f"cast {src.simple_name}→{dst.simple_name} "
+                        "not yet on device")
+            if isinstance(dst, T.DoubleType):
+                return None
+            return (f"cast {src.simple_name}→{dst.simple_name} not "
+                    "yet on device")
         src_s = isinstance(src, T.StringType)
         dst_s = isinstance(dst, T.StringType)
         if not (src_s or dst_s):
@@ -1171,10 +1304,73 @@ class Cast(Expression):
         return (f"cast {src.simple_name}→{dst.simple_name} not yet on "
                 "device")
 
+    def _decimal_combo(self):
+        """A non-string cast with a decimal side, else None (string <->
+        decimal takes the string paths)."""
+        src, dst = self.child.dtype, self.dtype
+        if isinstance(src, T.StringType) or isinstance(dst, T.StringType):
+            return None
+        if not (isinstance(src, T.DecimalType)
+                or isinstance(dst, T.DecimalType)):
+            return None
+        return (src, dst)
+
+    def _cast_decimal(self, c: DeviceColumn) -> DeviceColumn:
+        src, dst = self.child.dtype, self.dtype
+        if isinstance(dst, T.DecimalType):
+            # EVERY cast to a decimal runs through the 128-bit container:
+            # the rescale cannot wrap int64, and the overflow-to-null
+            # check applies uniformly (Spark non-ANSI)
+            if isinstance(src, T.DecimalType):
+                k = dst.scale - src.scale
+                d = _as128(c.data, src)
+                if k >= 0:
+                    # checked: overflow decided BEFORE the multiply
+                    d, fits = D128.scale_up_checked(d, k, dst.precision)
+                else:
+                    d = D128.scale_down_round(d, -k)
+                    fits = D128.fits_precision(d, dst.precision)
+            else:
+                d, fits = D128.scale_up_checked(
+                    D128.from_i64(c.data), dst.scale, dst.precision)
+            if not D128.is128(dst):
+                d = D128.lo(d)
+            return DeviceColumn(dst, d, merge_validity(c.validity, fits))
+        # a decimal to a double
+        if D128.is128(src):
+            return DeviceColumn(dst, D128.to_double(c.data, src.scale),
+                                c.validity)
+        return DeviceColumn(dst, c.data.to(torch.float64)
+                            / (10.0 ** src.scale), c.validity)
+
+    def _cast_decimal_cpu(self, c: HostCol) -> HostCol:
+        """The JAX package's host decimal casts: exact python ints."""
+        src, dst = self.child.dtype, self.dtype
+        n = len(c.data)
+        if isinstance(dst, T.DecimalType):
+            k = (dst.scale - src.scale
+                 if isinstance(src, T.DecimalType) else dst.scale)
+            out = np.empty(n, dtype=object)
+            for i in range(n):
+                out[i] = D128.py_rescale_half_up(int(c.data[i]), k)
+            bound = 10 ** dst.precision
+            fits = np.array([abs(int(v)) < bound for v in out], bool)
+            # overflowed rows are null: zero their payload so that the
+            # int64 narrowing (or the 16-byte Arrow value) cannot raise
+            out[~fits] = 0
+            if not D128.is128(dst):
+                out = out.astype(np.int64)
+            return HostCol(dst, out, merge_validity_h(c.validity, fits))
+        out = np.array([int(v) / (10.0 ** src.scale) for v in c.data],
+                       dtype=np.float64)
+        return HostCol(dst, out, c.validity)
+
     def eval(self, batch):
         from spark_rapids_tpu_torch.ops import strings as S
         c = self.child.eval(batch)
         src, dst = self.child.dtype, self.dtype
+        if self._decimal_combo() is not None:
+            return self._cast_decimal(c)
         if isinstance(dst, T.StringType):
             if isinstance(src, T.BooleanType):
                 return S.cast_bool_to_string_device(c)
@@ -1193,6 +1389,8 @@ class Cast(Expression):
 
     def eval_cpu(self, batch):
         c = self.child.eval_cpu(batch)
+        if self._decimal_combo() is not None:
+            return self._cast_decimal_cpu(c)
         if isinstance(self.child.dtype, T.StringType) or isinstance(
                 self.dtype, T.StringType):
             return self._cast_string_cpu(c)
@@ -1214,9 +1412,21 @@ class Cast(Expression):
                     out[i] = "true" if v else "false"
                 elif isinstance(src, (T.FloatType, T.DoubleType)):
                     out[i] = repr(float(v))
+                elif isinstance(src, T.DecimalType):
+                    u = int(v)
+                    sc = src.scale
+                    sign = "-" if u < 0 else ""
+                    m = str(abs(u))
+                    if sc == 0:
+                        out[i] = sign + m
+                    else:
+                        m = m.rjust(sc + 1, "0")
+                        out[i] = sign + m[:-sc] + "." + m[-sc:]
                 else:
                     out[i] = str(v)
             return HostCol(dst, out, c.validity)
+        if isinstance(dst, T.DecimalType):
+            return self._parse_decimal_cpu(c)
         # string -> numeric: invalid -> null (non-ANSI).  Integral casts
         # accept decimal strings truncated toward zero ('3.7' -> 3) and
         # null out-of-range values, matching Spark (and the device casts
@@ -1263,6 +1473,31 @@ class Cast(Expression):
             except (ValueError, OverflowError):
                 validity[i] = False
         return HostCol(dst, data, validity)
+
+    def _parse_decimal_cpu(self, c: HostCol) -> HostCol:
+        """string -> decimal: an exact parse, HALF_UP to the target
+        scale, overflow and invalid input to null (non-ANSI)."""
+        import decimal
+        dst = self.dtype
+        n = len(c.data)
+        big = D128.is128(dst)
+        out = np.empty(n, object) if big else np.zeros(n, np.int64)
+        validity = c.valid_mask().copy()
+        for i in range(n):
+            u = 0
+            if validity[i]:
+                try:
+                    dec = decimal.Decimal(str(c.data[i]).strip())
+                    if not dec.is_finite():
+                        raise decimal.InvalidOperation
+                    u = D128.py_unscaled(dec, dst.scale)
+                    if not D128.py_fits(u, dst.precision):
+                        validity[i] = False
+                        u = 0
+                except decimal.InvalidOperation:
+                    validity[i] = False
+            out[i] = u
+        return HostCol(dst, out, validity)
 
     def _cast_h(self, data: np.ndarray) -> np.ndarray:
         """The JAX package's numpy ``_cast``."""

@@ -17,8 +17,11 @@ of those names, bit for bit.  The exchanges' partition ids (``exec/
 exchange.py``, ``shuffle/exchange.py``) are ``hash_column`` over the
 key tuple from seed 42, ``int32_from_u32`` and ``partition_ids_from_
 hash``: on the device, and on the host over torch CPU tensors of the
-numpy columns (strings padded by ``host_strings_to_matrix``), as the
-JAX package's numpy path, bit for bit.
+numpy columns (``host_hash_input``: strings padded by
+``host_strings_to_matrix``, decimal128 packed to (hi, lo)), as the JAX
+package's numpy path, bit for bit.  A decimal of up to 18 digits hashes
+as its unscaled long; a decimal128 mixes its lo then its hi lane (the
+JAX package's internal-consistency hash, not Spark's byte-array one).
 
 The ``Murmur3Hash`` expression (Spark's ``hash``) mixes its columns
 through ``hash_column`` from seed 42.  Spark's second family, xxhash64
@@ -45,6 +48,7 @@ import torch
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.host import HostCol
+from spark_rapids_tpu_torch.ops import decimal128 as D128
 from spark_rapids_tpu_torch.ops import expressions as E
 
 C1 = 0xCC9E2D51
@@ -162,6 +166,14 @@ def hash_column(col, dt: T.DataType, h, valid):
         nh = _hash_long_vec(_canon_double_bits(data), h)
     elif isinstance(dt, (T.StringType, T.BinaryType)):
         nh = _hash_string_vec(data, lengths, h)
+    elif isinstance(dt, T.DecimalType) and data.dim() == 2:
+        # decimal128 (hi, lo): both lanes mix, lo first (the JAX
+        # package's internal-consistency hash, not Spark's byte-array
+        # hash of a wide decimal)
+        nh = _hash_long_vec(data[:, 1], h)
+        nh = _hash_long_vec(data[:, 0], nh)
+    elif isinstance(dt, T.DecimalType):
+        nh = _hash_long_vec(data.to(torch.int64), h)  # the unscaled long
     else:
         raise NotImplementedError(
             f"spark_rapids_tpu_torch: hash of {dt} is not ported yet")
@@ -436,6 +448,12 @@ def xxhash_column(col, dt: T.DataType, h: torch.Tensor,
         nh = _xxh_long_vec(_canon_double_bits(data), h)
     elif isinstance(dt, (T.StringType, T.BinaryType)):
         nh = _xxh_string_vec(data, lengths, h)
+    elif isinstance(dt, T.DecimalType) and data.dim() == 2:
+        # decimal128 (hi, lo): both lanes, lo first, as murmur3 does
+        nh = _xxh_long_vec(data[:, 1], h)
+        nh = _xxh_long_vec(data[:, 0], nh)
+    elif isinstance(dt, T.DecimalType):
+        nh = _xxh_long_vec(data.to(torch.int64), h)
     else:
         raise NotImplementedError(
             f"spark_rapids_tpu_torch: xxhash64 of {dt} is not ported yet")
@@ -446,14 +464,17 @@ def xxhash_column(col, dt: T.DataType, h: torch.Tensor,
 # The hash expressions: one code for both branches
 # ---------------------------------------------------------------------------
 
-def _host_hash_input(c: HostCol, dt: T.DataType):
+def host_hash_input(c: HostCol, n: Optional[int] = None):
     """A host column as the ``((data, lengths), validity)`` tensors the
     column hashes take (strings padded by ``host_strings_to_matrix``, as
-    the JAX package's host path pads them)."""
-    valid = torch.from_numpy(np.ascontiguousarray(c.valid_mask()))
-    if isinstance(dt, (T.StringType, T.BinaryType)):
+    the JAX package's host path pads them; decimal128's python ints
+    packed to (hi, lo))."""
+    valid = torch.from_numpy(np.ascontiguousarray(c.valid_mask(n)))
+    if isinstance(c.dtype, (T.StringType, T.BinaryType)):
         mat, lengths = host_strings_to_matrix(c.data)
         return (torch.from_numpy(mat), torch.from_numpy(lengths)), valid
+    if D128.is128(c.dtype):
+        return (torch.from_numpy(D128.np_pack(c.data)), None), valid
     return (torch.from_numpy(np.ascontiguousarray(c.data)), None), valid
 
 
@@ -485,8 +506,7 @@ class _ColumnHash(E.Expression):
                             self._run(cols, batch.capacity, batch.device))
 
     def eval_cpu(self, batch):
-        cols = [_host_hash_input(e.eval_cpu(batch), e.dtype)
-                for e in self.exprs]
+        cols = [host_hash_input(e.eval_cpu(batch)) for e in self.exprs]
         h = self._run(cols, batch.num_rows, torch.device("cpu"))
         return HostCol(self.dtype, h.numpy())
 

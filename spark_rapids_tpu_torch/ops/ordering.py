@@ -10,6 +10,8 @@ The counterpart of the JAX package's ``ops/ordering.py``, limb for limb:
   equal the reference's
 * strings: big-endian packing of the padded byte matrix into 64-bit
   limbs plus a 32-bit length part
+* decimals: the unscaled int64 as a signed int; decimal128 ``[B, 2]``
+  as its signed hi limb, then its lo limb's unsigned bits
 * nulls: an extra leading 1-bit part
 
 Unsigned values are carried as int64 BIT PATTERNS (torch has no usable
@@ -170,6 +172,14 @@ def column_order_parts(col: DeviceColumn, ascending: bool = True,
                   if ascending else (~col.data).to(torch.int64), 1)]
     elif type(dt) in _INT_WIDTH:
         parts = [_int_part(col.data, _INT_WIDTH[type(dt)], ascending)]
+    elif isinstance(dt, T.DecimalType) and col.data.dim() == 2:
+        # decimal128 [B, 2]: the signed-biased hi limb, then the lo
+        # limb's raw (unsigned-ordered) bit pattern
+        lu = col.data[:, 1].contiguous()  # limbs are whole tensors
+        parts = [_int_part(col.data[:, 0], 64, ascending),
+                 (lu if ascending else ~lu, 64)]
+    elif isinstance(dt, T.DecimalType):
+        parts = [_int_part(col.data, 64, ascending)]
     else:
         raise NotImplementedError(
             f"spark_rapids_tpu_torch: ordering of {dt} is not ported yet")
@@ -316,6 +326,12 @@ def np_order_keys(data: np.ndarray, validity: Optional[np.ndarray],
         limbs = [np.where(neg, ~bits, bits | np.uint64(1 << 63))]
     elif isinstance(dt, T.BooleanType):
         limbs = [data.astype(np.uint64)]
+    elif isinstance(dt, T.DecimalType) and data.dtype == object:
+        # decimal128 host values are python ints: a biased hi, then lo
+        hi = np.array([int(v) >> 64 for v in data], dtype=np.int64)
+        lo = np.array([int(v) & 0xFFFFFFFFFFFFFFFF for v in data],
+                      dtype=np.uint64)
+        limbs = [hi.view(np.uint64) ^ np.uint64(1 << 63), lo]
     else:
         limbs = [(data.astype(np.int64).view(np.uint64))
                  ^ np.uint64(1 << 63)]

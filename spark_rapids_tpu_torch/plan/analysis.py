@@ -8,19 +8,25 @@ numeric type for binary ops, comparison operands, CASE branches and
 ``coalesce`` arguments unified, both sides of a division cast to
 double, the math functions' inputs too; literal widenings fold into a
 new literal, a column's widening is a ``Cast``), the arithmetic, null,
-math and date expressions, the two hashes, and the string expressions
-of ``ops/strings.py``: LIKE, substring, the predicates, length, the
-case maps, trim, replace, locate, concat, reverse, the pads and the
-regular expressions (``rlike`` transpiles a simple pattern to a
-comparison or predicate first).  An operator outside the port
-(``split``, ``get_json_object``, the time-zone conversions among them)
-raises ``NotImplementedError`` naming it, as ``collect_list`` and
+math and date expressions, the two hashes, the time-zone conversions
+(``ops/timezone.py``), and the string expressions of ``ops/strings.py``:
+LIKE, substring, the predicates, length, the case maps, trim, replace,
+locate, concat, reverse, the pads and the regular expressions
+(``rlike`` transpiles a simple pattern to a comparison or predicate
+first).  Decimals follow Spark's result types (non-ANSI; a result past
+precision 38 is refused rather than scale-adjusted): add and subtract
+widen to the common type plus one digit, multiply to p1 + p2 + 1 digits
+at scale s1 + s2; other decimal arithmetic is refused.  An operator
+outside the port (``split``, ``get_json_object`` among them) raises
+``NotImplementedError`` naming it, as ``collect_list`` and
 ``collect_set`` do among the aggregates.
 """
 
 from __future__ import annotations
 
 import datetime
+import decimal
+import re
 from typing import Optional, Tuple
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
@@ -52,6 +58,10 @@ def infer_literal_type(v) -> T.DataType:
         return T.DoubleT
     if isinstance(v, str):
         return T.StringT
+    if isinstance(v, decimal.Decimal):
+        sign, digits, exp = v.as_tuple()
+        scale = -exp if exp < 0 else 0
+        return T.DecimalType(max(len(digits), scale), scale)
     if isinstance(v, datetime.datetime):
         return T.TimestampT
     if isinstance(v, datetime.date):
@@ -81,8 +91,6 @@ def common_type(a: T.DataType, b: T.DataType) -> T.DataType:
         return b
     if isinstance(b, T.NullType):
         return a
-    if isinstance(a, T.DecimalType) or isinstance(b, T.DecimalType):
-        raise _not_ported("decimal arithmetic")
     if isinstance(a, T.DoubleType) or isinstance(b, T.DoubleType):
         if T.is_numeric(a) and T.is_numeric(b):
             return T.DoubleT
@@ -92,6 +100,15 @@ def common_type(a: T.DataType, b: T.DataType) -> T.DataType:
     if T.is_integral(a) and T.is_integral(b):
         ia, ib = _INT_ORDER.index(type(a)), _INT_ORDER.index(type(b))
         return a if ia >= ib else b
+    if isinstance(a, T.DecimalType) and T.is_integral(b):
+        return a
+    if T.is_integral(a) and isinstance(b, T.DecimalType):
+        return b
+    if isinstance(a, T.DecimalType) and isinstance(b, T.DecimalType):
+        # widest: keep every integer digit and every fraction digit
+        scale = max(a.scale, b.scale)
+        intd = max(a.precision - a.scale, b.precision - b.scale)
+        return T.DecimalType(min(intd + scale, 38), scale)
     if isinstance(a, T.DateType) and isinstance(b, T.TimestampType):
         return b
     if isinstance(a, T.TimestampType) and isinstance(b, T.DateType):
@@ -102,8 +119,8 @@ def common_type(a: T.DataType, b: T.DataType) -> T.DataType:
 def cast_to(e: E.Expression, dt: T.DataType) -> E.Expression:
     """Literal widenings fold into a new literal (as the JAX analyzer
     does); anything else becomes a ``Cast``, which raises for the casts
-    the port lacks (decimals; dates and timestamps to and from
-    numbers)."""
+    the port lacks (dates and timestamps to and from numbers, a
+    floating value to a decimal)."""
     if e.dtype == dt:
         return e
     if isinstance(e, E.Literal):
@@ -148,6 +165,12 @@ def _parse_type(s) -> T.DataType:
     if isinstance(s, T.DataType):
         return s
     key = str(s).strip().lower()
+    dm = re.fullmatch(r"decimal\s*\(\s*(\d+)\s*,\s*(\d+)\s*\)", key)
+    if dm:
+        p, sc = int(dm.group(1)), int(dm.group(2))
+        if not (0 < p <= 38 and 0 <= sc <= p):
+            raise AnalysisException(f"invalid decimal type {s!r}")
+        return T.DecimalType(p, sc)
     if key not in _TYPE_NAMES:
         raise _not_ported(f"cast to type {s!r}")
     return _TYPE_NAMES[key]
@@ -176,6 +199,9 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
             if not T.is_numeric(side.dtype):
                 raise AnalysisException(f"'{op}' needs numeric operands, "
                                         f"got {side.dtype}")
+        if (isinstance(l.dtype, T.DecimalType)
+                and isinstance(r.dtype, T.DecimalType)):
+            return _decimal_arith(op, l, r)
         l, r = _coerce_pair(l, r)
         return _BIN_ARITH[op](l, r)
     if op == "div":
@@ -291,7 +317,37 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
                                   resolve(u.children[1], schema))
     if op == "concat":
         return S.Concat([resolve(c, schema) for c in u.children])
+    if op in ("from_utc_timestamp", "to_utc_timestamp"):
+        from spark_rapids_tpu_torch.ops import timezone as TZ
+        child = resolve(u.children[0], schema)
+        if not isinstance(child.dtype, T.TimestampType):
+            child = cast_to(child, T.TimestampT)
+        tz = str(u.payload)
+        TZ.TZ_CACHE.host(tz)  # validates the zone eagerly
+        cls = (TZ.FromUTCTimestamp if op == "from_utc_timestamp"
+               else TZ.ToUTCTimestamp)
+        return cls(child, tz)
     raise _not_ported(f"expression '{op}'")
+
+
+def _decimal_arith(op: str, l: E.Expression, r: E.Expression
+                   ) -> E.Expression:
+    """Spark's decimal result types (non-ANSI; past precision 38 is
+    refused rather than scale-adjusted)."""
+    p1, s1 = l.dtype.precision, l.dtype.scale
+    p2, s2 = r.dtype.precision, r.dtype.scale
+    if op == "mul":
+        rt = T.DecimalType(min(p1 + p2 + 1, 38), s1 + s2)
+        if rt.scale > rt.precision:
+            raise AnalysisException(
+                f"decimal multiply result scale {rt.scale} exceeds "
+                "precision 38")
+        return E.Multiply(l, r, rt)
+    if op in ("add", "sub"):
+        ct = common_type(l.dtype, r.dtype)
+        rt = T.DecimalType(min(ct.precision + 1, 38), ct.scale)
+        return _BIN_ARITH[op](cast_to(l, ct), cast_to(r, ct), rt)
+    raise AnalysisException(f"decimal '{op}' not supported")
 
 
 def _rlike(child: E.Expression, pattern: str) -> E.Expression:
@@ -371,11 +427,18 @@ def resolve_aggregate(u: UExpr, schema: T.StructType
 def _percentile(kind: str, args, child: E.Expression, u: UExpr,
                 alias: Optional[str]):
     """percentile / approx_percentile with the JAX package's argument
-    checks; decimal inputs keep the port's decimal refusal (A.8b)."""
+    checks: a decimal input's percentile is over its doubles, and its
+    approx_percentile is refused."""
     if not T.is_numeric(child.dtype):
         raise AnalysisException(f"{kind} needs a numeric input")
     if isinstance(child.dtype, T.DecimalType):
-        raise _not_ported(f"{kind} over a decimal input")
+        if kind == "approx_percentile":
+            # the result type is the input type; the unscaled-int64
+            # representation cannot round-trip through the kernel
+            raise AnalysisException(
+                "approx_percentile over decimal input is not supported "
+                "(use percentile, which returns double)")
+        child = cast_to(child, T.DoubleT)
     pct = float(args[0])
     if not 0.0 <= pct <= 1.0:
         raise AnalysisException(

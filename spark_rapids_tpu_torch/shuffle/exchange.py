@@ -130,7 +130,7 @@ def _views_to_device(schema: T.StructType, cols: List[HostColView], n: int,
             lens[:n] = c.lengths[:n]
             lengths = _to_device(lens, device)
         else:
-            buf = np.zeros(cap, c.data.dtype)
+            buf = np.zeros((cap,) + c.data.shape[1:], c.data.dtype)
             buf[:n] = c.data[:n]
             data = _to_device(buf, device)
         validity = None

@@ -35,7 +35,8 @@ _MAGIC = 0x30445554  # "TUD0"
 class HostColView:
     """One column of a host-side batch, C-layout, ready to serialize.
 
-    ``data``: fixed width -> 1-D array; string -> 2-D uint8 matrix.
+    ``data``: fixed width -> 1-D array; string -> 2-D uint8 matrix;
+    decimal128 -> int64[n, 2] (hi, lo).
     """
 
     __slots__ = ("dtype", "data", "validity", "lengths")
@@ -254,6 +255,16 @@ def deserialize(buf, schema: T.StructType
                       - np.repeat(np.cumsum(lengths) - lengths, lengths))
                 mat[ii, jj] = packed
             data, lens = mat, lengths
+        elif (isinstance(f.dtype, T.DecimalType)
+              and f.dtype.precision > T.DecimalType.MAX_LONG_DIGITS):
+            # decimal128 rides as 16-byte (hi, lo) rows
+            if isz != 16:
+                raise ValueError(f"column {f.name!r}: {isz}-byte rows "
+                                 "for decimal128")
+            data = np.frombuffer(buf, np.int64, nrows * 2,
+                                 off).reshape(nrows, 2)
+            off += nrows * 16
+            lens = None
         else:
             npdt = np.dtype(T.to_numpy_dtype(f.dtype))
             if npdt.itemsize != isz:

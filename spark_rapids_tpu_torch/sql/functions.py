@@ -1,6 +1,6 @@
 """pyspark.sql.functions-compatible surface — the subset of the port
-(``col``, ``lit``, ``when``, ``coalesce``, the math, date, hash and
-string functions, and the aggregates ``sum``, ``avg``/``mean``,
+(``col``, ``lit``, ``when``, ``coalesce``, the math, date, time-zone,
+hash and string functions, and the aggregates ``sum``, ``avg``/``mean``,
 ``min``, ``max``, ``count``, ``first``, the variance family, the
 percentiles, ``countDistinct`` and ``approx_count_distinct``), with the
 JAX package's signatures."""
@@ -80,6 +80,14 @@ def _unary(op):
         return Column(UExpr(op, None, (_cu(c),)))
     fn.__name__ = op
     return fn
+
+
+def from_utc_timestamp(c, tz: str) -> Column:
+    return Column(UExpr("from_utc_timestamp", tz, (_cu(c),)))
+
+
+def to_utc_timestamp(c, tz: str) -> Column:
+    return Column(UExpr("to_utc_timestamp", tz, (_cu(c),)))
 
 
 def _binary(op):

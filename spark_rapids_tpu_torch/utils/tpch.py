@@ -17,6 +17,11 @@ rewrites of five of them that run the right join, the full join and the
 residual join conditions (``q13_cond`` the one the plan rewrite keeps on
 the CPU).
 
+``decimal_tables`` gives the money and quantity columns the type that
+Spark users load TPC-H with (databricks/spark-sql-perf's ``TPCH.scala``
+declares them ``decimal(12,2)``): the same builders then run over
+decimal columns.
+
 ``TPCH_SF1_CONF`` is ``bench.TPCH_SF1_CONF`` less the keys of planes the
 port has not got (``UNPORTED_SF1_KEYS``, each with its ROADMAP item; the
 port refuses them), and ``oracle_check`` is bench's CPU-oracle loop: each
@@ -838,6 +843,31 @@ UNPORTED_SF1_KEYS = {
     "spark.rapids.tpu.cache.enabled": "A.9",
     "spark.rapids.tpu.cache.minRuntimeMs": "A.9",
 }
+
+# spark-sql-perf's TPCH.scala: the decimal(12,2) columns this port
+# generates as doubles
+DECIMAL_COLUMNS = {"lineitem": ("l_quantity", "l_extendedprice",
+                                "l_discount", "l_tax"),
+                   "orders": ("o_totalprice",)}
+
+
+def decimal_tables(t: Dict[str, pa.Table]) -> Dict[str, pa.Table]:
+    """``t`` with ``DECIMAL_COLUMNS`` rounded to 2 places (half to even,
+    on the value times 100) and made Arrow ``decimal128(12, 2)``, built
+    on its buffers from the int64 cents; other tables are unchanged."""
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.column import decimal_array
+    dt = T.DecimalType(12, 2)
+    out = dict(t)
+    for name, cols in DECIMAL_COLUMNS.items():
+        tbl = t[name]
+        for c in cols:
+            cents = np.rint(tbl[c].to_numpy() * 100.0).astype(np.int64)
+            tbl = tbl.set_column(tbl.schema.get_field_index(c), c,
+                                 decimal_array(dt, cents, None))
+        out[name] = tbl
+    return out
+
 
 TPCH_SF1_CONF = {"spark.rapids.sql.enabled": True,
                  "spark.rapids.tpu.batchRows": 1 << 16,

@@ -308,7 +308,7 @@ def _table():
 
 
 @pytest.mark.parametrize("build, what", [
-    (lambda df: df.select(col("a").cast(T.DecimalType(10, 2))), "Cast"),
+    (lambda df: df.select(col("a").cast(T.ArrayType(T.IntegerT))), "Cast"),
     # ids kept from the slice that refused first() and isnull
     pytest.param(lambda df: df.agg(F._agg("collect_list")("a")),
                  "aggregate 'collect_list'",

@@ -171,8 +171,8 @@ def test_analyzer_string_errors():
                            T.StructField("i", T.IntegerT)))
     with pytest.raises(AN.AnalysisException, match="like needs a string"):
         AN.resolve(col("i").like("1%")._u, schema)
-    for op in ("split", "get_json_object", "from_utc_timestamp",
-               "to_utc_timestamp", "initcap", "translate"):
+    for op in ("split", "get_json_object", "input_file_name",
+               "sha2", "initcap", "translate"):
         with pytest.raises(NotImplementedError, match=f"'{op}'"):
             AN.resolve(UExpr(op, "x", (UExpr("attr", "s"),)), schema)
     assert isinstance(AN.resolve((col("s") != "a")._u, schema), E.Not)
