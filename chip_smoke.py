@@ -212,13 +212,31 @@ result line is not printed):
    the decimal columns' H2D alone.  ``python3 chip_smoke.py --decimal``
    runs this phase alone (after the build and the kernel checks), then
    the kernel bit for bit at every shape the phase launched it with;
-20. the string expressions of the string queries (LIKE, NOT LIKE,
+20. ``[nested]``: nested and array columns at SF1
+   (``tpch.nested_tables``), each run a path of its own under
+   ``test.enabled`` (only the JAX package's host operators, the
+   Generate over ``split`` and the Project of ``get_json_object``, on
+   the CPU), cold and warm, against this script's numpy, pyarrow and
+   Python references: order baskets by ``collect_list`` (lineitem
+   order) and ``collect_set`` (ascending) over 6,000,000 lines, exactly;
+   the baskets ``posexplode``d back to part keys with ``count`` and
+   ``sum(pos)``, equal to lineitem's per-part counts; a list column of
+   each order's quantities (1% null elements, 1% null lists, empty
+   lists) round-tripped unchanged and ``explode_outer``ed into grouped
+   sums; q1 keyed by a struct, row for row q1; a filter on a struct
+   field and a top-100 by the struct; a word count by ``split`` and
+   ``explode`` over the part names; ``get_json_object`` of three paths
+   over 150,000 JSON documents; the list column's H2D and D2H alone.
+   ``python3 chip_smoke.py --nested`` runs this phase alone (after the
+   build and the kernel checks), then the kernel bit for bit at every
+   shape the phase launched it with;
+21. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-21. the kernel at every shape the main path (queries, variants,
+22. the kernel at every shape the main path (queries, variants,
    fallback cases, partitions, exchanges, operators, strings, retry,
-   pump, faults, breadth and decimal)
+   pump, faults, breadth, decimal and nested)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -228,7 +246,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-22. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+23. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -257,6 +275,8 @@ FAULTS_ONLY = "--faults" in sys.argv[1:]
 BREADTH_ONLY = "--breadth" in sys.argv[1:]
 # ``python3 chip_smoke.py --decimal``: the [decimal] phase alone
 DECIMAL_ONLY = "--decimal" in sys.argv[1:]
+# ``python3 chip_smoke.py --nested``: the [nested] phase alone
+NESTED_ONLY = "--nested" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -5143,6 +5163,405 @@ def decimal_phase(dev, tables, CB, KN, query_shapes) -> dict:
     return counts
 
 
+# -- [nested]: structs, arrays, explode, collect, split, get_json_object ------
+
+NESTED_WARM_RUNS = 2
+# the operators the JAX package runs on the host for these queries
+NESTED_FALLBACKS = {"name words": {"CpuGenerateExec"},
+                    "customer json": {"CpuProjectExec"}}
+# the runs that group with a hash: the kernel must launch in them
+NESTED_HASHED = {"basket parts", "quantity totals", "q1 struct",
+                 "name words"}
+
+
+def _list_parts(col):
+    """A list column (any chunking) -> (int64 lengths with a null list
+    as -1, its flattened values as a pyarrow array)."""
+    import pyarrow.compute as pc
+    arr = col.combine_chunks() if hasattr(col, "combine_chunks") else col
+    lens = pc.list_value_length(arr).fill_null(-1).to_numpy()
+    return lens.astype("int64"), pc.list_flatten(arr)
+
+
+def _group_runs(keys):
+    """(the stable order of ``keys``, the distinct keys ascending, each
+    one's first position in that order and its count)."""
+    import numpy as np
+    order = np.argsort(keys, kind="stable")
+    uniq, start, count = np.unique(keys[order], return_index=True,
+                                   return_counts=True)
+    return order, uniq, start, count
+
+
+def check_baskets(got, li) -> dict:
+    """``order baskets`` against numpy: per order present in lineitem,
+    its part keys in lineitem order, its distinct supplier keys
+    ascending, its line count."""
+    import numpy as np
+    import pyarrow.compute as pc
+    ok = li["l_orderkey"].to_numpy()
+    order, uniq, start, count = _group_runs(ok)
+    got = got.take(pc.sort_indices(got, [("l_orderkey", "ascending")]))
+    check(np.array_equal(got["l_orderkey"].to_numpy(), uniq),
+          "order baskets: the orders differ from lineitem's")
+    check(np.array_equal(got["n"].to_numpy(), count),
+          "order baskets: the line counts differ")
+    lens, parts = _list_parts(got["parts"])
+    check(np.array_equal(lens, count), "order baskets: list lengths")
+    check(np.array_equal(parts.to_numpy(),
+                         li["l_partkey"].to_numpy()[order]),
+          "order baskets: the parts lists differ from lineitem order")
+    # sets: each order's distinct suppliers, ascending
+    sk = li["l_suppkey"].to_numpy()
+    o2 = np.lexsort((sk, ok))
+    ks, vs = ok[o2], sk[o2]
+    first = np.ones(len(ks), bool)
+    first[1:] = (ks[1:] != ks[:-1]) | (vs[1:] != vs[:-1])
+    slens, supps = _list_parts(got["supps"])
+    check(np.array_equal(slens, np.bincount(ks[first], minlength=len(
+        np.bincount(ok)))[uniq]), "order baskets: set sizes")
+    check(np.array_equal(supps.to_numpy(), vs[first]),
+          "order baskets: the supplier sets differ")
+    return {"orders": int(len(uniq)), "largest_basket": int(count.max()),
+            "distinct_suppliers": int(first.sum())}
+
+
+def ref_basket_parts(li):
+    """Per part key: its lines, and the sum of each line's position in
+    its order's basket (lineitem order)."""
+    import numpy as np
+    import pyarrow as pa
+    ok, pk = li["l_orderkey"].to_numpy(), li["l_partkey"].to_numpy()
+    order, _, start, count = _group_runs(ok)
+    pos = np.arange(len(ok)) - np.repeat(start, count)
+    pks = pk[order]
+    n = np.bincount(pks)
+    sp = np.bincount(pks, weights=pos)
+    keep = n > 0
+    return pa.table({"l_partkey": np.nonzero(keep)[0].astype(np.int64),
+                     "n": n[keep].astype(np.int64),
+                     "sum_pos": sp[keep].astype(np.int64)})
+
+
+def ref_quantity_totals(q):
+    """explode_outer of each quantity list summed back per order: the
+    non-null quantities' sum (null when none) and count, and the rows
+    (an empty or null list keeps one)."""
+    import numpy as np
+    import pyarrow as pa
+    lens, vals = _list_parts(q["qty"])
+    n_ord = len(lens)
+    real = np.maximum(lens, 0)
+    owner = np.repeat(np.arange(n_ord), real)
+    valid = ~np.asarray(vals.is_null())
+    x = np.where(valid, vals.fill_null(0.0).to_numpy(), 0.0)
+    total = np.bincount(owner, weights=x, minlength=n_ord)
+    n = np.bincount(owner, weights=valid, minlength=n_ord).astype(np.int64)
+    return pa.table({"o_orderkey": q["o_orderkey"],
+                     "total": pa.array(total, mask=n == 0),
+                     "n": n, "rows": np.maximum(real, 1).astype(np.int64)})
+
+
+def same_sorted(got, want, key, tol=1e-9) -> bool:
+    """Equal row for row after sorting both by ``key``: integers exactly,
+    doubles within ``tol`` relative (absolute below 1), nulls alike."""
+    import numpy as np
+    import pyarrow.compute as pc
+    if got.num_rows != want.num_rows or got.schema != want.schema:
+        return False
+    g = got.take(pc.sort_indices(got, [(key, "ascending")]))
+    w = want.take(pc.sort_indices(want, [(key, "ascending")]))
+    for name in want.column_names:
+        a, b = g[name].combine_chunks(), w[name].combine_chunks()
+        if not np.array_equal(np.asarray(a.is_null()),
+                              np.asarray(b.is_null())):
+            return False
+        av = a.fill_null(0).to_numpy(zero_copy_only=False)
+        bv = b.fill_null(0).to_numpy(zero_copy_only=False)
+        if av.dtype.kind == "f":
+            if not np.all(np.abs(av - bv) <= tol * np.maximum(
+                    1.0, np.maximum(np.abs(av), np.abs(bv)))):
+                return False
+        elif not np.array_equal(av, bv):
+            return False
+    return True
+
+
+def ref_orders_by_info(oi):
+    """The first 100 orders of ship priority 1 by (priority, ship
+    priority, clerk, key), as the port's struct order gives them."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    info = oi["o_info"].combine_chunks()
+    t = pa.table({"o_orderkey": oi["o_orderkey"],
+                  "p": pc.struct_field(info, "o_orderpriority"),
+                  "s": pc.struct_field(info, "o_shippriority"),
+                  "c": pc.struct_field(info, "o_clerk"),
+                  "info": info})
+    t = t.filter(pc.equal(t["s"], 1))
+    t = t.sort_by([("p", "ascending"), ("s", "ascending"),
+                   ("c", "ascending"), ("o_orderkey", "ascending")])
+    t = t.slice(0, 100)
+    return pa.table({"o_orderkey": t["o_orderkey"], "o_info": t["info"]})
+
+
+def ref_name_words(part):
+    """Each word of the part names (Python's ``str.split``) and its
+    count."""
+    import collections
+    return collections.Counter(
+        w for name in part["p_name"].to_pylist() for w in name.split(" "))
+
+
+def ref_customer_json(cj):
+    """``$.nation``, ``$.acct.bal`` and ``$.missing`` by Python's
+    ``json``: a number serialized, a missing path null."""
+    import pyarrow as pa
+    nation, bal = [], []
+    for doc in cj["c_json"].to_pylist():
+        d = json.loads(doc)
+        nation.append(json.dumps(d["nation"]))
+        bal.append(json.dumps(d["acct"]["bal"]))
+    return pa.table({"c_custkey": cj["c_custkey"],
+                     "nation": pa.array(nation),
+                     "bal": pa.array(bal),
+                     "missing": pa.array([None] * cj.num_rows,
+                                         pa.string())})
+
+
+def fallback_ops(df) -> set:
+    """The class names of the operators the plan rewrite left on the
+    CPU."""
+    return {r.split(":")[0] for r in
+            df.fallback_summary()["fallback_reasons"]}
+
+
+def nested_phase(dev, tables, CB, KN, query_shapes) -> dict:
+    """Structs, arrays, explode, collect, split and get_json_object at SF1
+    (``tpch.nested_tables``: a list of each order's quantities, a struct
+    on orders, customers' JSON documents), each run a path of its own
+    under ``SESSION_CONF`` (only ``NESTED_FALLBACKS``' operators may run
+    on the CPU, as in the JAX package), cold then 2 warm runs equal to
+    it, against this script's numpy, pyarrow and Python references:
+
+    1. ``order baskets``: lineitem by order, ``collect_list`` of its part
+       keys (lineitem order), ``collect_set`` of its supplier keys
+       (ascending) and ``count``;
+    2. ``basket parts``: the baskets ``posexplode``d back to part keys,
+       grouped with ``count`` and ``sum(pos)``: the counts equal
+       lineitem's per part key;
+    3. the quantity lists (1% null elements, 1% null lists, empty lists)
+       through ``createDataFrame`` -> ``toArrow`` unchanged, and
+       ``quantity totals`` (``explode_outer`` then a grouped sum and
+       counts);
+    4. ``q1 struct``: q1 keyed by ``struct(l_returnflag,
+       l_linestatus)``, row for row q1's reference with the struct
+       reassembled; ``orders by info``: a filter on a struct field and
+       a top-100 by the struct over orders;
+    5. ``name words`` (``split`` + ``explode`` + ``count`` over 200,000
+       part names, the Generate on the host) and ``customer json``
+       (``get_json_object`` of three paths over 150,000 documents, the
+       Project on the host).
+
+    Also the list column's H2D and D2H alone.  Returns the counts of the
+    runs."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import torch
+    from spark_rapids_tpu_torch.columnar.column import (
+        device_to_host, host_to_device)
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import tpch
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    nt = tpch.nested_tables(tables)
+    set_up_s = time.perf_counter() - t0
+    li, q = nt["lineitem"], nt["order_quantities"]
+    t0 = time.perf_counter()
+    refs = {"basket parts": ref_basket_parts(li),
+            "quantity totals": ref_quantity_totals(q),
+            "orders by info": ref_orders_by_info(nt["orders_info"]),
+            "name words": ref_name_words(nt["part"]),
+            "customer json": ref_customer_json(nt["customer_json"])}
+    q1_ref = ref_q1(li)
+    ref_s = time.perf_counter() - t0
+    counts, lines, facts = {}, {}, {}
+
+    def session(name):
+        allowed = tpch.NESTED_ALLOWED.get(name)
+        conf = dict(SESSION_CONF)
+        if allowed:
+            conf["spark.rapids.sql.test.allowedNonGpu"] = allowed
+        return TpuSession(conf, device=dev)
+
+    def run(name, build, verify):
+        s = session(name)
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        clear_scan_cache()
+        df = build(s)
+        got, cold = timed(df)
+        counts[name] = c = path_counts(df, CB, KN)
+        print(f"[main path] nested {name} " + json.dumps(c), flush=True)
+        fb = fallback_ops(df)
+        check(fb == NESTED_FALLBACKS.get(name, set()),
+              f"nested {name}: operators on the CPU {sorted(fb)}")
+        check(c["collision_fallbacks"] == 0,
+              f"nested {name}: hash-collision fallbacks")
+        check(name not in NESTED_HASHED or c["hash_pairs_launches"] > 0,
+              f"nested {name}: hash_pairs was not launched")
+        facts[name] = verify(got)
+        warm = []
+        for _ in range(NESTED_WARM_RUNS):
+            out, wall = timed(build(s))
+            warm.append(wall)
+            check(out.equals(got), f"nested {name}: a warm run differs")
+        lines[name] = line = {
+            "rows": got.num_rows, "cold_wall_s": cold,
+            "h2d_s": phase_times(df)["h2d_s"],
+            "d2h_s": phase_times(df)["d2h_s"],
+            "warm_wall_s": statistics.median(warm), "warm_walls_s": warm,
+            "hash_pairs_launches": c["hash_pairs_launches"],
+            "hash_pairs_shapes": c["shapes"],
+            "new_hash_pairs_shapes": sorted(set(c["shapes"])
+                                            - query_shapes),
+            "fallback_ops": sorted(fb), "equal_reference": True}
+        print(f"[nested] {name} " + json.dumps(line), flush=True)
+        return got
+
+    def query(name):
+        return lambda s: tpch.NESTED_QUERIES[name](s, nt)
+
+    # 1-2. baskets, and exploded back to parts
+    run("order baskets", query("order baskets"),
+        lambda got: check_baskets(got, li))
+
+    def parts(got):
+        check(same_sorted(got, refs["basket parts"], "l_partkey"),
+              "basket parts differ from lineitem's per-part counts")
+        return {"part_keys": got.num_rows}
+
+    run("basket parts", query("basket parts"), parts)
+
+    # 3. the quantity lists: the round trip, and explode_outer
+    def round_trip(got):
+        check(got.equals(q), "the quantity lists' round trip differs")
+        lens, vals = _list_parts(q["qty"])
+        return {"orders": q.num_rows,
+                "null_lists": int((lens < 0).sum()),
+                "empty_lists": int((lens == 0).sum()),
+                "elements": len(vals), "null_elements": vals.null_count}
+
+    run("quantity lists", lambda s: s.createDataFrame(q), round_trip)
+
+    def totals(got):
+        check(same_sorted(got, refs["quantity totals"], "o_orderkey"),
+              "quantity totals differ from numpy")
+        return {"orders": got.num_rows}
+
+    run("quantity totals", query("quantity totals"), totals)
+
+    # 4. structs
+    def q1s(got):
+        check(pa.types.is_struct(got.schema.field("flags").type),
+              "q1 struct: flags is not a struct")
+        flags = got["flags"].combine_chunks()
+        flat = pa.table(
+            [pc.struct_field(flags, "l_returnflag"),
+             pc.struct_field(flags, "l_linestatus")]
+            + [got[n] for n in got.column_names[1:]],
+            names=q1_ref.column_names)
+        check(rows_equal_ordered(flat, q1_ref.sort_by(
+            [("l_returnflag", "ascending"), ("l_linestatus",
+                                             "ascending")])),
+              f"q1 struct differs from q1:\n{flat}\n{q1_ref}")
+        return {"groups": got.num_rows}
+
+    run("q1 struct", query("q1 struct"), q1s)
+
+    def by_info(got):
+        want = refs["orders by info"]
+        check(got.schema == want.schema
+              and got.to_pylist() == want.to_pylist(),
+              f"orders by info differs from pyarrow:\n{got}\n{want}")
+        return {"rows": got.num_rows}
+
+    run("orders by info", query("orders by info"), by_info)
+
+    # 5. the host-only operators
+    def words(got):
+        want = refs["name words"]
+        have = dict(zip(got["word"].to_pylist(), got["count"].to_pylist()))
+        check(have == dict(want), "name words differ from str.split")
+        return {"words": sum(want.values()), "distinct": len(want)}
+
+    run("name words", query("name words"), words)
+
+    def docs(got):
+        want = refs["customer json"]
+        check(got.schema == want.schema
+              and got.to_pylist() == want.to_pylist(),
+              "customer json differs from Python's json")
+        return {"documents": got.num_rows}
+
+    run("customer json", query("customer json"), docs)
+
+    # the list column alone across the bus, both ways
+    lists = q.select(["qty"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = host_to_device(lists, dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    c = b.columns[0]
+    nbytes = sum(x.numel() * x.element_size() for x in
+                 (c.data, c.validity, c.lengths, c.evalid)
+                 if x is not None)
+    t0 = time.perf_counter()
+    back = device_to_host(b)
+    d2h_s = time.perf_counter() - t0
+    check(back.equals(lists), "the list column's D2H differs")
+    transfer = {"rows": lists.num_rows, "width": int(c.data.shape[1]),
+                "device_bytes": nbytes, "h2d_s": h2d_s, "d2h_s": d2h_s,
+                "h2d_gb_per_s": nbytes / h2d_s / 1e9,
+                "d2h_gb_per_s": nbytes / d2h_s / 1e9}
+    del b, c
+    print("[nested] list transfer " + json.dumps(transfer), flush=True)
+    print("[nested] " + json.dumps({
+        "seconds": time.perf_counter() - t_phase,
+        "set_up_s": set_up_s, "reference_s": ref_s, "facts": facts,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()},
+        "cold_wall_s": {k: v["cold_wall_s"] for k, v in lines.items()},
+        "warm_wall_s": {k: v["warm_wall_s"] for k, v in lines.items()},
+        "d2h_s": {k: v["d2h_s"] for k, v in lines.items()}}), flush=True)
+    return counts
+
+
+def nested_only(dev, tables, CB, KN) -> int:
+    """``--nested``: the [nested] phase alone (after the build and the
+    kernel checks), then the kernel bit for bit at every shape it
+    launched."""
+    t0 = time.perf_counter()
+    counts = nested_phase(dev, tables, CB, KN, set())
+    gen = __import__("torch").Generator(device=dev)
+    gen.manual_seed(20261018)
+    shapes = sorted({k for c in counts.values() for k in c["shapes"]},
+                    key=lambda k: tuple(map(int, k.split("x"))))
+    for key in shapes:
+        n_limbs, n = (int(x) for x in key.split("x"))
+        kernel_line(CB, None, random_limbs(n_limbs, n, gen, dev),
+                    timed=False)
+    print("[nested only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "shapes_bit_identical": shapes,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()}}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def decimal_only(dev, tables, CB, KN) -> int:
     """``--decimal``: the [decimal] phase alone (after the build and the
     kernel checks), then the kernel bit for bit at every shape it
@@ -5263,6 +5682,8 @@ def main() -> int:
         return breadth_only(dev, tables, CB, KN)
     if DECIMAL_ONLY:
         return decimal_only(dev, tables, CB, KN)
+    if NESTED_ONLY:
+        return nested_only(dev, tables, CB, KN)
     check(len(QUERIES) == 22 and set(QUERIES) == set(tpch.QUERIES)
           == {f"q{i}" for i in range(1, 23)},
           f"QUERIES lists {sorted(QUERIES)}, not TPC-H's 22")
@@ -5439,6 +5860,13 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[decimal] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- nested and array columns: structs, explode, collect, split, JSON --
+    nested_counts = nested_phase(dev, tables, CB, KN, query_shapes)
+    for c in nested_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[nested] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -5527,7 +5955,8 @@ def main() -> int:
                         + list(pump_counts.values())
                         + list(fault_counts.values())
                         + list(breadth_counts.values())
-                        + list(decimal_counts.values())),
+                        + list(decimal_counts.values())
+                        + list(nested_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -5552,6 +5981,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in breadth_counts.items()},
         "launches_per_decimal_run": {
             k: c["hash_pairs_launches"] for k, c in decimal_counts.items()},
+        "launches_per_nested_run": {
+            k: c["hash_pairs_launches"] for k, c in nested_counts.items()},
         "plain_calls_per_faults_run": {
             k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,

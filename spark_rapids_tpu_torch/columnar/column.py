@@ -10,10 +10,19 @@ The same layout as the JAX package's ``columnar/column.py``:
   lengths;
 * null validity is a separate ``bool[B]`` mask (True = valid);
 * decimals of precision <= 18 are scaled ``int64[B]``; wider ones
-  (decimal128) are ``int64[B, 2]`` (hi, lo) — ``ops/decimal128.py``.
+  (decimal128) are ``int64[B, 2]`` (hi, lo) — ``ops/decimal128.py``;
+* an ``array<primitive>`` column is a padded element matrix
+  ``elem[B, W]`` (W the next power of two of its longest list) plus
+  ``int32`` lengths, and an optional ``bool[B, W]`` ``evalid`` plane
+  when elements may be null — the layout ``collect_list`` produces and
+  ``explode`` consumes.
 
-Host representation is a ``pyarrow.Table``.  Array and nested columns
-are outside this slice of the port and raise.
+What a column is (string, array, fixed width) is decided by its dtype,
+never by which buffers it carries: strings and arrays both carry
+lengths.  Host representation is a ``pyarrow.Table``.  Arrays of
+strings, binaries, decimals or nested types, maps and nulls have no
+device layout and raise; struct columns never reach a batch (the
+session splits them into one column per field, ``sql/session.py``).
 """
 
 from __future__ import annotations
@@ -37,15 +46,30 @@ _TORCH_DTYPE = {
 
 
 def torch_dtype(dt: T.DataType) -> torch.dtype:
-    """Physical tensor dtype of a SQL type's data buffer."""
+    """Physical tensor dtype of a SQL type's data buffer (an array's:
+    its element's)."""
     _check_supported(dt)
+    if isinstance(dt, T.ArrayType):
+        dt = dt.element_type
     return _TORCH_DTYPE[np.dtype(T.to_numpy_dtype(dt))]
 
 
+def is_primitive_element(dt: T.DataType) -> bool:
+    """An array element type with a device layout: a number (not a
+    decimal), a boolean, a date or a timestamp."""
+    return isinstance(dt, (T.BooleanType, T.ByteType, T.ShortType,
+                           T.IntegerType, T.LongType, T.FloatType,
+                           T.DoubleType, T.DateType, T.TimestampType))
+
+
 def _check_supported(dt: T.DataType) -> None:
+    if isinstance(dt, T.ArrayType) and is_primitive_element(
+            dt.element_type):
+        return
     if isinstance(dt, (T.ArrayType, T.StructType, T.MapType, T.NullType)):
         raise NotImplementedError(
-            f"spark_rapids_tpu_torch: column type {dt} is not ported yet")
+            f"spark_rapids_tpu_torch: column type {dt} has no device "
+            "layout")
 
 
 def round_up_pow2(n: int, min_bucket: int = 1024) -> int:
@@ -60,16 +84,20 @@ def round_up_pow2(n: int, min_bucket: int = 1024) -> int:
 class DeviceColumn:
     """One SQL column on device.
 
-    data:     tensor [B] (fixed width types), uint8 [B, W] (string/binary)
-              or int64 [B, 2] (decimal128: hi, lo)
+    data:     tensor [B] (fixed width types), uint8 [B, W] (string/binary),
+              int64 [B, 2] (decimal128: hi, lo) or elem [B, W]
+              (array<primitive>)
     validity: bool [B], True = valid; None = all valid
-    lengths:  int32 [B] for string/binary; None otherwise
+    lengths:  int32 [B] for string/binary/array; None otherwise
+    evalid:   bool [B, W] element validity of an array column whose
+              elements may be null; None = every element valid
     """
 
     dtype: T.DataType
     data: torch.Tensor
     validity: Optional[torch.Tensor] = None
     lengths: Optional[torch.Tensor] = None
+    evalid: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -77,7 +105,11 @@ class DeviceColumn:
 
     @property
     def is_string(self) -> bool:
-        return self.lengths is not None
+        return isinstance(self.dtype, (T.StringType, T.BinaryType))
+
+    @property
+    def is_array(self) -> bool:
+        return isinstance(self.dtype, T.ArrayType)
 
     def valid_mask(self) -> torch.Tensor:
         if self.validity is None:
@@ -91,14 +123,22 @@ class DeviceColumn:
             n += self.validity.numel()
         if self.lengths is not None:
             n += self.lengths.numel() * 4
+        if self.evalid is not None:
+            n += self.evalid.numel()
         return n
 
     def gather(self, idx: torch.Tensor) -> "DeviceColumn":
         """Row gather (compaction, sort, group layout)."""
+        return self.map_rows(lambda x: x[idx])
+
+    def map_rows(self, fn) -> "DeviceColumn":
+        """The column with ``fn`` applied to each of its row-indexed
+        tensors (data, validity, lengths, evalid): a gather, a slice."""
         return DeviceColumn(
-            self.dtype, self.data[idx],
-            None if self.validity is None else self.validity[idx],
-            None if self.lengths is None else self.lengths[idx])
+            self.dtype, fn(self.data),
+            None if self.validity is None else fn(self.validity),
+            None if self.lengths is None else fn(self.lengths),
+            None if self.evalid is None else fn(self.evalid))
 
 
 @dataclasses.dataclass
@@ -167,6 +207,13 @@ def empty_batch(schema: T.StructType, device: torch.device,
                                      device=device),
                 None, torch.zeros((bucket,), dtype=torch.int32,
                                   device=device)))
+        elif isinstance(f.dtype, T.ArrayType):
+            cols.append(DeviceColumn(
+                f.dtype, torch.zeros((bucket, 1),
+                                     dtype=torch_dtype(f.dtype),
+                                     device=device),
+                None, torch.zeros((bucket,), dtype=torch.int32,
+                                  device=device)))
         elif is128(f.dtype):
             cols.append(DeviceColumn(f.dtype, torch.zeros(
                 (bucket, 2), dtype=torch.int64, device=device)))
@@ -188,11 +235,7 @@ def slice_batch(batch: DeviceBatch, lo: int, cap: int) -> DeviceBatch:
     def cut(x):
         return x[lo:lo + cap]
 
-    cols = tuple(
-        DeviceColumn(c.dtype, cut(c.data),
-                     None if c.validity is None else cut(c.validity),
-                     None if c.lengths is None else cut(c.lengths))
-        for c in batch.columns)
+    cols = tuple(c.map_rows(cut) for c in batch.columns)
     return DeviceBatch(batch.schema, cols, cut(batch.sel),
                        compacted=batch.compacted)
 
@@ -244,6 +287,90 @@ def _matrix_to_string(mat: np.ndarray, lengths: np.ndarray,
         [null_buf, pa.py_buffer(offsets.tobytes()), pa.py_buffer(flat.tobytes())],
         null_count=-1 if null_buf is not None else 0,
     )
+
+
+def _list_to_matrix(arr: pa.Array, elem_dt: T.DataType):
+    """Arrow list array -> (elem[B, W] padded matrix, int32 lengths,
+    optional bool[B, W] element validity): W is the next power of two
+    of the longest list (1 at least); a null list has length 0; the
+    element validity is given only when some element is null."""
+    arr = arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
+    if pa.types.is_large_list(arr.type):
+        arr = arr.cast(pa.list_(arr.type.value_type))
+    n = len(arr)
+    offs = np.asarray(arr.offsets)
+    lengths = (offs[1:] - offs[:-1]).astype(np.int32)
+    lengths = np.where(np.asarray(arr.is_null()), 0, lengths).astype(
+        np.int32)
+    npdt = T.to_numpy_dtype(elem_dt)
+    values = _primitive_values(arr.values, elem_dt).astype(npdt,
+                                                           copy=False)
+    evalues = None
+    if arr.values.null_count:
+        evalues = ~np.asarray(arr.values.is_null())
+    w = round_up_pow2(int(lengths.max()) if n else 1, 1)
+    mat = np.zeros((n, w), dtype=npdt)
+    emask = None if evalues is None else np.ones((n, w), dtype=bool)
+    total = int(lengths.sum())
+    if total:
+        row_idx = np.repeat(np.arange(n), lengths)
+        col_idx = (np.arange(total)
+                   - np.repeat(np.cumsum(lengths) - lengths, lengths))
+        src = np.repeat(offs[:-1].astype(np.int64), lengths) + col_idx
+        mat[row_idx, col_idx] = values[src]
+        if emask is not None:
+            emask[row_idx, col_idx] = evalues[src]
+    return mat, lengths, emask
+
+
+def _matrix_to_list(mat: np.ndarray, lengths: np.ndarray,
+                    evalid: Optional[np.ndarray],
+                    validity: Optional[np.ndarray],
+                    dt: T.DataType) -> pa.Array:
+    """The inverse of ``_list_to_matrix``: a padded element matrix, its
+    lengths, element validity and row validity -> an Arrow list array
+    (a null row is a null list)."""
+    n = mat.shape[0]
+    lengths = lengths.astype(np.int64)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    keep = np.arange(mat.shape[1])[None, :] < lengths[:, None]
+    values = mat[keep]
+    emask = None if evalid is None else ~evalid[keep]
+    elem = _primitive_array(values, dt.element_type, emask)
+    mask = (None if validity is None or validity.all()
+            else pa.array(~validity))
+    return pa.ListArray.from_arrays(pa.array(offsets), elem, mask=mask)
+
+
+def _primitive_values(arr: pa.Array, dt: T.DataType) -> np.ndarray:
+    """A fixed-width Arrow array's values as numpy, nulls as 0: dates as
+    int32 days, timestamps as int64 microseconds (UTC)."""
+    if isinstance(dt, T.DateType):
+        if not pa.types.is_date32(arr.type):
+            arr = arr.cast(pa.date32())
+        arr = arr.cast(pa.int32())
+    elif isinstance(dt, T.TimestampType):
+        # any unit/tz to the device rep: micros since epoch UTC
+        if arr.type.unit != "us":
+            arr = arr.cast(pa.timestamp("us", tz=arr.type.tz))
+        arr = arr.cast(pa.int64())
+    elif isinstance(dt, T.BooleanType):
+        return np.asarray(arr.cast(pa.int8()).fill_null(0)).astype(np.bool_)
+    return np.asarray(arr.fill_null(0))
+
+
+def _primitive_array(data: np.ndarray, dt: T.DataType,
+                     null_mask: Optional[np.ndarray]) -> pa.Array:
+    """Numpy values of a fixed-width type -> an Arrow array (the inverse
+    of ``_primitive_values``); ``null_mask`` True marks a null."""
+    if isinstance(dt, T.DateType):
+        return pa.array(data.astype(np.int32), type=pa.int32(),
+                        mask=null_mask).cast(pa.date32())
+    if isinstance(dt, T.TimestampType):
+        return pa.array(data.astype(np.int64), type=pa.int64(),
+                        mask=null_mask).cast(pa.timestamp("us", tz="UTC"))
+    return pa.array(data, type=T.to_arrow(dt), mask=null_mask)
 
 
 def _decimal_words(arr: pa.Array) -> np.ndarray:
@@ -346,28 +473,18 @@ def arrow_column_to_device(arr, dt: T.DataType,
         mat, lengths = _string_to_matrix(arr)
         return DeviceColumn(dt, _to_device(mat, device), validity,
                             _to_device(lengths, device))
+    if isinstance(dt, T.ArrayType):
+        mat, lengths, emask = _list_to_matrix(arr, dt.element_type)
+        return DeviceColumn(
+            dt, _to_device(mat, device), validity,
+            _to_device(lengths, device),
+            None if emask is None else _to_device(emask, device))
     if isinstance(dt, T.DecimalType):
         data = (decimal_to_hilo(arr) if is128(dt)
                 else decimal_to_int64(arr))
         return DeviceColumn(dt, _to_device(data, device), validity)
-    npdt = T.to_numpy_dtype(dt)
-    if isinstance(dt, T.DateType):
-        if not pa.types.is_date32(arr.type):
-            arr = arr.cast(pa.date32())
-        casted = arr.cast(pa.int32())
-    elif isinstance(dt, T.TimestampType):
-        # any unit/tz to the device rep: micros since epoch UTC
-        if arr.type.unit != "us":
-            arr = arr.cast(pa.timestamp("us", tz=arr.type.tz))
-        casted = arr.cast(pa.int64())
-    elif isinstance(dt, T.BooleanType):
-        casted = arr.cast(pa.int8())
-    else:
-        casted = arr
-    data = np.asarray(casted.fill_null(0))
-    if isinstance(dt, T.BooleanType):
-        data = data.astype(np.bool_)
-    data = data.astype(npdt, copy=False)
+    data = _primitive_values(arr, dt).astype(T.to_numpy_dtype(dt),
+                                             copy=False)
     return DeviceColumn(dt, _to_device(data, device), validity)
 
 
@@ -383,9 +500,16 @@ def _pad_col(c: DeviceColumn, bucket: int) -> DeviceColumn:
         out[:n] = x
         return out
 
+    evalid = None
+    if c.evalid is not None:
+        # padding elements read as valid, as in the JAX package
+        evalid = torch.ones((bucket,) + tuple(c.evalid.shape[1:]),
+                            dtype=torch.bool, device=c.evalid.device)
+        evalid[:n] = c.evalid
     return DeviceColumn(c.dtype, grow(c.data),
                         None if c.validity is None else grow(c.validity),
-                        None if c.lengths is None else grow(c.lengths))
+                        None if c.lengths is None else grow(c.lengths),
+                        evalid)
 
 
 def pad_batch(batch: DeviceBatch, capacity: int) -> DeviceBatch:
@@ -444,6 +568,12 @@ def _device_to_host_impl(batch: DeviceBatch) -> pa.Table:
         names.append(f.name)
         validity = (None if c.validity is None
                     else c.validity[:n].cpu().numpy())
+        if c.is_array:
+            arrays.append(_matrix_to_list(
+                c.data[:n].cpu().numpy(), c.lengths[:n].cpu().numpy(),
+                None if c.evalid is None else c.evalid[:n].cpu().numpy(),
+                validity, f.dtype))
+            continue
         if c.is_string:
             arrays.append(_matrix_to_string(
                 c.data[:n].cpu().numpy(), c.lengths[:n].cpu().numpy(),
@@ -453,14 +583,7 @@ def _device_to_host_impl(batch: DeviceBatch) -> pa.Table:
         if isinstance(f.dtype, T.DecimalType):
             arrays.append(decimal_array(f.dtype, data, validity))
             continue
-        if isinstance(f.dtype, T.DateType):
-            arr = pa.array(data.astype(np.int32), type=pa.int32()).cast(
-                pa.date32())
-        elif isinstance(f.dtype, T.TimestampType):
-            arr = pa.array(data.astype(np.int64), type=pa.int64()).cast(
-                pa.timestamp("us", tz="UTC"))
-        else:
-            arr = pa.array(data, type=T.to_arrow(f.dtype))
+        arr = _primitive_array(data, f.dtype, None)
         if validity is not None and not validity.all():
             arr = pa.Array.from_buffers(
                 arr.type, n,

@@ -5,15 +5,21 @@ plus a validity mask (True = valid, None = all valid).  CPU execs
 evaluate expressions over these with ``eval_cpu``; strings are object
 arrays of Python ``str``.  The types are the port's: numbers, booleans,
 strings, binary, dates (int32 days), timestamps (int64 microseconds,
-UTC) and decimals: unscaled int64 for precision <= 18, and for wider
-ones (decimal128) an object array of exact Python ints, as the JAX
-package keeps them; nested columns raise ``NotImplementedError`` as
-they do on the device.
+UTC), decimals (unscaled int64 for precision <= 18, and for wider
+ones, decimal128, an object array of exact Python ints) and arrays of
+any element type (an object array of Python lists, a null list held as
+``[]`` under a False validity), as the JAX package keeps them; date and
+timestamp elements are int32 days and int64 microseconds there, as
+scalars are (the JAX package keeps ``datetime`` objects, which its CPU
+explode cannot read: ROADMAP C.7).  Struct
+and map columns raise ``NotImplementedError``: the session splits a
+struct into one column per field before any exec sees it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import List, Optional
 
 import numpy as np
@@ -72,7 +78,9 @@ def from_arrow_column(col, dt: T.DataType) -> HostCol:
         col = col.cast(col.type.value_type)
     nulls = np.asarray(col.is_null())
     validity = ~nulls if nulls.any() else None
-    if isinstance(dt, (T.ArrayType, T.StructType, T.MapType)):
+    if isinstance(dt, T.ArrayType):
+        return HostCol(dt, _python_lists(col, dt.element_type), validity)
+    if isinstance(dt, (T.StructType, T.MapType)):
         raise _not_ported(dt)
     if isinstance(dt, T.DecimalType):
         from spark_rapids_tpu_torch.columnar import column as C
@@ -99,6 +107,42 @@ def from_arrow_column(col, dt: T.DataType) -> HostCol:
     return HostCol(dt, data, validity)
 
 
+def _python_lists(col: pa.Array, et: T.DataType) -> np.ndarray:
+    """An Arrow list column -> an object array of Python lists (a null
+    list as ``[]``).  Fixed-width elements come from the values buffer
+    in one ``tolist`` and are sliced per row (dates as int32 days,
+    timestamps as int64 microseconds, the scalars' host rep, which the
+    oracles' collects also produce): ``to_pylist`` boxes each element
+    through an Arrow scalar, which made it most of a list column's
+    pull.  Other elements take ``to_pylist``."""
+    from spark_rapids_tpu_torch.columnar import column as C
+    n = len(col)
+    data = np.empty(n, dtype=object)
+    if not C.is_primitive_element(et):
+        for i, v in enumerate(col.to_pylist()):
+            data[i] = [] if v is None else v
+        return data
+    if pa.types.is_large_list(col.type):
+        col = col.cast(pa.list_(col.type.value_type))
+    offs = np.asarray(col.offsets)
+    ends = np.where(np.asarray(col.is_null()), offs[:-1], offs[1:])
+    values = C._primitive_values(col.values, et).tolist()
+    if col.values.null_count:
+        for k in np.nonzero(np.asarray(col.values.is_null()))[0].tolist():
+            values[k] = None
+    # millions of new lists: the cyclic collector would rescan them all
+    # at every generation threshold, and none of them can form a cycle
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for i, (a, b) in enumerate(zip(offs[:-1].tolist(), ends.tolist())):
+            data[i] = values[a:b]
+    finally:
+        if enabled:
+            gc.enable()
+    return data
+
+
 def to_arrow_table(batch: HostBatch) -> pa.Table:
     arrays = [to_arrow_column(c) for c in batch.columns]
     return pa.table(arrays, names=[f.name for f in batch.schema.fields])
@@ -108,7 +152,12 @@ def to_arrow_column(c: HostCol) -> pa.Array:
     mask = None
     if c.validity is not None:
         mask = ~c.validity
-    if isinstance(c.dtype, (T.ArrayType, T.StructType, T.MapType)):
+    if isinstance(c.dtype, T.ArrayType):
+        vals = list(c.data)
+        if mask is not None:
+            vals = [None if m else v for v, m in zip(vals, mask)]
+        return pa.array(vals, type=T.to_arrow(c.dtype))
+    if isinstance(c.dtype, (T.StructType, T.MapType)):
         raise _not_ported(c.dtype)
     if isinstance(c.dtype, T.DecimalType):
         from spark_rapids_tpu_torch.columnar.column import decimal_array

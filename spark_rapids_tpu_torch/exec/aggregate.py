@@ -15,6 +15,12 @@ the merge) take the JAX package's gathered single pass instead
 input batch concatenated, then one stable sort per function on
 (exclusion, keys, contribution, value) and a gather per group.
 
+``collect_list`` and ``collect_set`` take that pass too: one sort on
+(exclusion, keys, contribution[, value]) makes each group's values
+contiguous, and a shifted gather per group fills a padded ``[G, cap]``
+element matrix, ``cap`` the power of two of the largest group
+(``segment_max_group_count``, one host read), as the JAX package does.
+
 The group-by keeps the JAX package's layout and protocol: key limbs
 from ``ops/ordering.py``; a group layout from the kernel plane (the
 hash-grouped layout whose row hash is the CUDA kernel, or the exact
@@ -75,8 +81,8 @@ from spark_rapids_tpu_torch.exec.basic import (
 from spark_rapids_tpu_torch.ops import decimal128 as D128
 from spark_rapids_tpu_torch.ops import ordering as ORD
 from spark_rapids_tpu_torch.ops.aggregates import (
-    AggregateFunction, ApproxPercentile, Average, Count, CountStar, First,
-    Max, Min, Percentile, Sum, _VarianceBase)
+    AggregateFunction, ApproxPercentile, Average, CollectList, CollectSet,
+    Count, CountStar, First, Max, Min, Percentile, Sum, _VarianceBase)
 from spark_rapids_tpu_torch.ops.expressions import BoundReference, Expression
 from spark_rapids_tpu_torch.ops.hashing import make_pid_fn
 from spark_rapids_tpu_torch.parallel.shuffle import split_to_spillables
@@ -382,14 +388,27 @@ def _one_row_batch(schema: T.StructType, cols: List[DeviceColumn],
 
 def is_holistic_fn(f: AggregateFunction) -> bool:
     """Functions that need the gathered single pass (no partial/merge
-    split): the percentiles, and min/max/first over strings and
-    decimal128, whose values cannot ride a single-limb buffer through
-    the merge.  The exec's one routing test, as in the JAX package."""
-    if isinstance(f, Percentile):
+    split): the collects, the percentiles, and min/max/first over
+    strings and decimal128, whose values cannot ride a single-limb
+    buffer through the merge.  The exec's one routing test, as in the
+    JAX package."""
+    if isinstance(f, (CollectList, Percentile)):
         return True
     return (isinstance(f, (Min, Max, First)) and f.child is not None
             and (isinstance(f.input_dtype, (T.StringType, T.BinaryType))
                  or D128.is128(f.input_dtype)))
+
+
+def _boundaries(key_limbs: Sequence[torch.Tensor], perm: torch.Tensor,
+                b: int) -> torch.Tensor:
+    """Group starts of the rows in ``perm`` order: a row differs from
+    the one before it in some key limb (the first row always starts)."""
+    boundary = torch.zeros((b,), dtype=torch.bool, device=perm.device)
+    for l in key_limbs:
+        ls = l[perm]
+        boundary[1:] |= ORD.limb_neq(ls[1:], ls[:-1])
+    boundary[0] = True
+    return boundary
 
 
 def _sorted_groups(key_cols: Sequence[DeviceColumn], sel: torch.Tensor,
@@ -401,28 +420,98 @@ def _sorted_groups(key_cols: Sequence[DeviceColumn], sel: torch.Tensor,
     and per group, in ``segment_groupby``'s compacted group order of the
     exact layout, its contributing rows and its first sorted row."""
     b = int(sel.shape[0])
-    dev = sel.device
     tail = [] if value_col is None else [ORD._flag_part(~contrib)] + (
         ORD.column_order_parts(value_col, True, True,
                                distinguish_neg_zero=False))
     limbs, key_limbs = ORD.group_sort_limbs(list(key_cols), sel, tail)
     _, perm = ORD.sort_by_keys(limbs)
-    boundary = torch.zeros((b,), dtype=torch.bool, device=dev)
-    for l in key_limbs:
-        ls = l[perm]
-        boundary[1:] |= ORD.limb_neq(ls[1:], ls[:-1])
-    boundary[0] = True
-    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
-    iota = torch.arange(b, device=dev)
-    start = torch.zeros_like(gid).scatter_reduce_(0, gid, iota, "amin",
-                                                  include_self=False)
-    # a slot past the last group holds no row
-    glive = (iota <= gid[-1]) & sel[perm][start]
-    perm2 = torch.argsort((~glive).to(torch.uint8), stable=True)
+    gid = torch.cumsum(_boundaries(key_limbs, perm, b).to(torch.int64),
+                       0) - 1
+    start, _, perm2 = _group_slots(gid, sel[perm])
     # an integer sum: exact in any order
     counts = torch.zeros_like(gid).index_add_(0, gid,
                                               contrib[perm].to(torch.int64))
     return perm, counts[perm2], start[perm2]
+
+
+def _group_slots(gid: torch.Tensor, live_sorted: torch.Tensor):
+    """Per group id of the sorted rows: (its first sorted row, whether
+    the group is live, and the permutation that puts the live groups
+    first in group order — ``segment_groupby``'s compacted order)."""
+    iota = torch.arange(gid.shape[0], device=gid.device)
+    start = torch.zeros_like(gid).scatter_reduce_(0, gid, iota, "amin",
+                                                  include_self=False)
+    # a slot past the last group holds no row
+    glive = (iota <= gid[-1]) & live_sorted[start]
+    return start, glive, torch.argsort((~glive).to(torch.uint8),
+                                       stable=True)
+
+
+def segment_max_group_count(key_cols: Sequence[DeviceColumn],
+                            sel: torch.Tensor,
+                            contribs: Sequence[torch.Tensor]
+                            ) -> torch.Tensor:
+    """The largest number of contributing rows of any group, over every
+    mask of ``contribs`` (a 0-d tensor): the collect matrix's width
+    probe, read on the host by the caller."""
+    b = int(sel.shape[0])
+    _, key_limbs = ORD.group_sort_limbs(list(key_cols), sel)
+    _, perm = ORD.sort_by_keys(key_limbs)
+    gid = torch.cumsum(_boundaries(key_limbs, perm, b).to(torch.int64),
+                       0) - 1
+    out = torch.zeros((), dtype=torch.int64, device=sel.device)
+    for contrib in contribs:
+        n = torch.zeros((b,), dtype=torch.int64, device=sel.device)
+        n.index_add_(0, gid, (contrib & sel)[perm].to(torch.int64))
+        out = torch.maximum(out, n.max())
+    return out
+
+
+def segment_collect(key_cols: Sequence[DeviceColumn], sel: torch.Tensor,
+                    value_col: DeviceColumn, cap: int,
+                    distinct: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """collect_list / collect_set per group -> (matrix ``[B, cap]``,
+    int32 lengths ``[B]``) in ``segment_groupby``'s compacted group
+    order of the exact layout (rows past the last group are empty).
+
+    A stable sort on (exclusion, keys, value invalid) puts each group's
+    non-null values first in its block, in input order, so a group's
+    list is one gather from its start.  ``distinct`` sorts by the value
+    too, keeps the first row of each run of equal values (-0.0 and 0.0
+    one value, every NaN one) and moves the kept rows to the front of
+    their block with one more stable sort: the set's order is the value
+    order."""
+    b = int(sel.shape[0])
+    dev = sel.device
+    contrib = sel & value_col.valid_mask()
+    tail = [ORD._flag_part(~contrib)]
+    if distinct:
+        tail += ORD.column_order_parts(value_col, True, True,
+                                       distinguish_neg_zero=False)
+    limbs, key_limbs = ORD.group_sort_limbs(list(key_cols), sel, tail)
+    _, perm = ORD.sort_by_keys(limbs)
+    gid = torch.cumsum(_boundaries(key_limbs, perm, b).to(torch.int64),
+                       0) - 1
+    values = value_col.data[perm]
+    keep = contrib[perm]
+    if distinct:
+        # the first row of each run of equal (keys, flag, value)
+        keep = keep & _boundaries(limbs, perm, b)
+        # the kept rows to the front of their group's block (the blocks
+        # keep their places: the group is the primary key)
+        perm3 = torch.argsort(gid * 2 + (~keep).to(torch.int64),
+                              stable=True)
+        values, keep = values[perm3], keep[perm3]
+    counts = torch.zeros_like(gid).index_add_(0, gid, keep.to(torch.int64))
+    start, glive, perm2 = _group_slots(gid, sel[perm])
+    starts_g = start[perm2]
+    counts_g = torch.where(glive[perm2], counts[perm2], 0)
+    j = torch.arange(cap, device=dev)
+    idx = (starts_g[:, None] + j[None, :]).clamp(0, b - 1)
+    mat = torch.where(j[None, :] < counts_g[:, None], values[idx],
+                      torch.zeros((), dtype=values.dtype, device=dev))
+    return mat, counts_g.to(torch.int32)
 
 
 def segment_extreme(key_cols: Sequence[DeviceColumn], sel: torch.Tensor,
@@ -874,16 +963,37 @@ class TpuHashAggregateExec(TpuExec):
         if not batches:
             batches = [empty_batch(src.schema, self.device)]
         merged = concat_device_batches(src.schema, batches)
-        with get_manager().transient(2 * merged.nbytes()):
+        mgr = get_manager()
+        with mgr.transient(2 * merged.nbytes()):
             m = pre(merged)
             keys = [g.eval(m) for g in self.grouping]
+            lists = [f for f in self.fns if isinstance(f, CollectList)]
+            cap = 1
+            if lists:
+                # the matrix width: the largest group's non-null values,
+                # one host read, to a power of two
+                most = int(segment_max_group_count(
+                    keys, m.sel, [f.child.eval(m).valid_mask()
+                                  for f in lists]))
+                cap = 1 << (most - 1).bit_length() if most > 1 else 1
             normal = [f for f in self.fns if not is_holistic_fn(f)]
             ok, ov, sel, _ = segment_groupby(
                 keys, m.sel, update_value_cols(normal, m), backend="jnp")
             normal_res = iter(final_project(normal, ov))
             cols = list(ok)
             for f in self.fns:
-                if isinstance(f, Percentile):
+                if isinstance(f, CollectList):
+                    v = f.child.eval(m)
+                    # the [B, cap] matrix and its lengths, reserved
+                    # before they are made
+                    with mgr.transient(m.capacity * (
+                            cap * v.data.element_size() + 4)):
+                        mat, lens = segment_collect(
+                            keys, m.sel, v, cap,
+                            distinct=isinstance(f, CollectSet))
+                    cols.append(DeviceColumn(f.result_dtype, mat, None,
+                                             lens))
+                elif isinstance(f, Percentile):
                     v, vv = segment_percentile(
                         keys, m.sel, f.child.eval(m), f.pct,
                         interpolate=not isinstance(f, ApproxPercentile))
@@ -1010,7 +1120,11 @@ class CpuAggregateExec(CpuExec):
         for vals, f in zip(cols, self.schema.fields):
             vals = list(vals)
             validity = np.array([v is not None for v in vals], bool)
-            if isinstance(f.dtype, (T.StringType, T.BinaryType)):
+            if isinstance(f.dtype, T.ArrayType):
+                data = np.empty(len(vals), dtype=object)
+                for i, v in enumerate(vals):
+                    data[i] = v if v is not None else []
+            elif isinstance(f.dtype, (T.StringType, T.BinaryType)):
                 data = np.array([v if v is not None else "" for v in vals],
                                 dtype=object)
             elif D128.is128(f.dtype):
@@ -1077,7 +1191,7 @@ def _acc_update(acc, fn, vc, i):
         delta = float(v) - acc["mean"]
         acc["mean"] += delta / acc["count"]
         acc["m2"] += delta * (float(v) - acc["mean"])
-    elif isinstance(fn, Percentile):
+    elif isinstance(fn, (CollectList, Percentile)):
         acc["list"].append(vc.data[i])
     elif isinstance(fn, Min):
         acc["min"] = v if acc["min"] is None else _spark_min(acc["min"], v, fn)
@@ -1128,6 +1242,14 @@ def _acc_final(acc, fn):
         if not fn.sqrt_final:
             return var
         return math.sqrt(var) if var == var else float("nan")
+    if isinstance(fn, CollectSet):
+        dt = fn.input_dtype
+        uniq = {}
+        for v in acc["list"]:
+            uniq.setdefault(_total_key(v, dt), v)
+        return [_py_scalar(uniq[k], dt) for k in sorted(uniq)]
+    if isinstance(fn, CollectList):
+        return [_py_scalar(v, fn.input_dtype) for v in acc["list"]]
     if isinstance(fn, ApproxPercentile):
         vals = sorted(acc["list"],
                       key=lambda v: _total_key(v, fn.input_dtype))

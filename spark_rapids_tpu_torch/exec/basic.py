@@ -585,27 +585,36 @@ def concat_device_batches(schema: T.StructType,
     cols = []
     for ci, f in enumerate(schema.fields):
         parts = [b.columns[ci] for b in batches]
-        is_str = parts[0].is_string
+        # strings and arrays are [B, W] matrices with lengths: the
+        # batches' widths may differ, so pad to the widest
+        ragged = parts[0].is_string or parts[0].is_array
+        width = max(p.data.shape[1] for p in parts) if ragged else 0
         data = torch.zeros(
-            (bucket,) + ((max(p.data.shape[1] for p in parts),)
-                         if is_str else tuple(parts[0].data.shape[1:])),
+            (bucket,) + ((width,) if ragged
+                         else tuple(parts[0].data.shape[1:])),
             dtype=parts[0].data.dtype, device=dev)
         any_val = any(p.validity is not None for p in parts)
         validity = (torch.zeros((bucket,), dtype=torch.bool, device=dev)
                     if any_val else None)
         lengths = (torch.zeros((bucket,), dtype=torch.int32, device=dev)
-                   if is_str else None)
+                   if ragged else None)
+        # an array's element validity, padding elements valid (the JAX
+        # package's padding)
+        evalid = (torch.ones((bucket, width), dtype=torch.bool, device=dev)
+                  if any(p.evalid is not None for p in parts) else None)
         at = 0
         for p, n in zip(parts, counts):
-            if is_str:
+            if ragged:
                 data[at:at + n, :p.data.shape[1]] = p.data[:n]
                 lengths[at:at + n] = p.lengths[:n]
+                if evalid is not None and p.evalid is not None:
+                    evalid[at:at + n, :p.evalid.shape[1]] = p.evalid[:n]
             else:
                 data[at:at + n] = p.data[:n]
             if any_val:
                 validity[at:at + n] = (p.validity[:n] if p.validity
                                        is not None else True)
             at += n
-        cols.append(DeviceColumn(f.dtype, data, validity, lengths))
+        cols.append(DeviceColumn(f.dtype, data, validity, lengths, evalid))
     sel = torch.arange(bucket, device=dev) < total
     return DeviceBatch(schema, tuple(cols), sel, compacted=True)

@@ -432,7 +432,7 @@ def _gather_col(c: DeviceColumn, idx: torch.Tensor,
                 valid_out: torch.Tensor) -> DeviceColumn:
     g = c.gather(idx.clamp(0, c.capacity - 1))
     return DeviceColumn(c.dtype, g.data, g.valid_mask() & valid_out,
-                        g.lengths)
+                        g.lengths, g.evalid)
 
 
 # ---------------------------------------------------------------------------

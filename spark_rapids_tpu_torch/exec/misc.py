@@ -1,8 +1,9 @@
-"""Other operators: Range, Sample, Expand and the top-N
-(TakeOrderedAndProject).
+"""Other operators: Range, Sample, Expand, Generate (explode) and the
+top-N (TakeOrderedAndProject).
 
 [REF: sql-plugin/../basicPhysicalOperators.scala :: GpuRangeExec,
- GpuSampleExec; GpuExpandExec.scala; GpuTopN.scala :: GpuTopN]
+ GpuSampleExec; GpuExpandExec.scala; GpuGenerateExec.scala;
+ GpuTopN.scala :: GpuTopN]
 
 The counterparts of the JAX package's ``exec/misc.py`` operators of the
 same names, in one process:
@@ -19,6 +20,14 @@ same names, in one process:
   uint32 arithmetic), so the compare is unsigned.
 * ``TpuExpandExec`` (grouping sets: rollup and cube) emits one batch per
   projection per input batch, each sharing the input's ``sel``.
+* ``TpuGenerateExec`` explodes an array column over its padded element
+  matrix ``[B, W]``: the (row, element) pairs below each live row's
+  length, counted with one host read, become the output's rows in row
+  order (a compacted gather of every input column and of the
+  elements); the ``outer`` forms keep one row, with a null element and
+  position, for a null or empty list.  The output's bytes are reserved
+  from the memory arbiter first, so that pool pressure spills other
+  holders.
 * ``TpuTopNExec``: each child partition reduces to at most ``n`` live
   rows (one stable sort of the batch, ``exec/sort.py::sort_batch``), and
   one more sort of the winners gives the answer.  The planner plans
@@ -26,8 +35,7 @@ same names, in one process:
   ``Limit(Sort)`` and ``Limit(Project(Sort))``, as Spark's
   TakeOrderedAndProject.
 
-The JAX package's multi-executor top-N merge is ROADMAP A.10 and its
-Generate (explode) A.8.
+The JAX package's multi-executor top-N merge is ROADMAP A.10.
 """
 
 from __future__ import annotations
@@ -222,6 +230,164 @@ class TpuSampleExec(TpuExec):
 
 
 # ---------------------------------------------------------------------------
+# Generate (explode / posexplode over array columns)
+# ---------------------------------------------------------------------------
+
+class CpuGenerateExec(CpuExec):
+    """[REF: GpuGenerateExec.scala :: GpuExplodeBase] (the CPU oracle):
+    row by row, a list's elements in order, each with its position."""
+
+    def __init__(self, generator: Expression, with_pos: bool, outer: bool,
+                 schema: T.StructType, child: CpuExec):
+        super().__init__(schema, child)
+        self.generator = generator
+        self.with_pos = with_pos
+        self.outer = outer
+
+    def node_string(self):
+        k = "posexplode" if self.with_pos else "explode"
+        return f"Generate [{k}{'_outer' if self.outer else ''}]"
+
+    def execute(self, partition: int) -> Iterator[H.HostBatch]:
+        elem_dt = self.generator.dtype.element_type
+        is_str = isinstance(elem_dt, (T.StringType, T.BinaryType))
+        npdt = object if is_str else T.to_numpy_dtype(elem_dt)
+        fill = "" if is_str else 0
+        for b in self.children[0].execute(partition):
+            with self.timer():
+                arr = self.generator.eval_cpu(b)
+                valid = arr.valid_mask(b.num_rows)
+                rows: List[int] = []
+                poss: List[int] = []
+                vals: list = []
+                elem_null: List[bool] = []
+                pos_null: List[bool] = []  # only outer empty-list rows
+                for i in range(b.num_rows):
+                    lst = arr.data[i] if valid[i] else []
+                    if not lst:
+                        if self.outer:
+                            rows.append(i)
+                            poss.append(0)
+                            vals.append(fill)
+                            elem_null.append(True)
+                            pos_null.append(True)
+                        continue
+                    for j, v in enumerate(lst):
+                        rows.append(i)
+                        poss.append(j)
+                        vals.append(v if v is not None else fill)
+                        elem_null.append(v is None)
+                        pos_null.append(False)
+                idx = np.asarray(rows, dtype=np.int64)
+                cols = [H.HostCol(c.dtype, c.data[idx],
+                                  None if c.validity is None
+                                  else c.validity[idx])
+                        for c in b.columns]
+                enulls = np.asarray(elem_null, dtype=bool)
+                pnulls = np.asarray(pos_null, dtype=bool)
+                if self.with_pos:
+                    cols.append(H.HostCol(
+                        T.IntegerT, np.asarray(poss, np.int32),
+                        ~pnulls if pnulls.any() else None))
+                cols.append(H.HostCol(elem_dt, np.asarray(vals, npdt),
+                                      ~enulls if enulls.any() else None))
+                out = H.HostBatch(self.schema, cols)
+            self.metric("numOutputRows").add(out.num_rows)
+            self.metric("numOutputBatches").add(1)
+            yield out
+
+
+class TpuGenerateExec(TpuExec):
+    """Explode over the padded element matrix.  [REF:
+    GpuGenerateExec.scala] — cuDF explodes by offsets and a gather; the
+    JAX package reshapes ``[B, W]`` into ``B * W`` rows with liveness
+    (``j < length``) folded into ``sel``.  Here the output holds only
+    its live rows (one host read of their count per batch, then a
+    compacted gather): a ``[B, W]`` column repeated ``W`` times would
+    otherwise make ``B * W * W`` elements, most of them dead."""
+
+    def __init__(self, generator: Expression, with_pos: bool, outer: bool,
+                 schema: T.StructType, child: TpuExec):
+        super().__init__(schema, child)
+        self.generator = generator
+        self.with_pos = with_pos
+        self.outer = outer
+
+    def node_string(self):
+        k = "posexplode" if self.with_pos else "explode"
+        return f"TpuGenerate [{k}{'_outer' if self.outer else ''}]"
+
+    def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        from spark_rapids_tpu_torch.runtime.memory import get_manager
+        mgr = get_manager()
+        for b in self.children[0].execute(partition):
+            with self.timer():
+                arr = self.generator.eval(b)
+                keep = generate_mask(b, arr, self.outer)
+                n = int(keep.sum())
+                cap = round_up_pow2(max(n, 1))
+                # the output's working set, reserved before it is made:
+                # each input row's bytes once per output row, the
+                # element and position columns beside them
+                row_bytes = b.nbytes() // b.capacity
+                out_bytes = cap * (row_bytes + arr.data.element_size() + 6)
+                with mgr.transient(out_bytes):
+                    out = generate_batch(b, arr, keep, cap, self.with_pos,
+                                         self.outer, self.schema)
+            self.metric("numOutputRows").add(n)
+            self.metric("numOutputBatches").add(1)
+            yield out
+
+
+def generate_mask(batch: DeviceBatch, arr: DeviceColumn,
+                  outer: bool) -> torch.Tensor:
+    """bool ``[B, W]``: which (row, element) pairs an explode emits — a
+    live row's elements below its length; under ``outer`` also the first
+    slot of a live row whose list is null or empty."""
+    w = max(int(arr.data.shape[1]), 1)
+    j = torch.arange(w, device=arr.data.device)[None, :]
+    lens = torch.where(arr.valid_mask(), arr.lengths, 0)[:, None]
+    keep = j < lens
+    if outer:
+        keep = keep | ((lens == 0) & (j == 0))
+    return keep & batch.sel[:, None]
+
+
+def generate_batch(batch: DeviceBatch, arr: DeviceColumn,
+                   keep: torch.Tensor, cap: int, with_pos: bool,
+                   outer: bool, schema: T.StructType) -> DeviceBatch:
+    """The exploded batch of ``cap`` rows: the pairs of ``keep`` in row
+    order, then dead padding.  Output row k is element ``j`` of input row
+    ``i`` (every input column gathered at ``i``), with position ``j``;
+    an outer row for a null or empty list has a null position and
+    element.  An element's null rides the ``evalid`` plane."""
+    dev = keep.device
+    b, w = keep.shape
+    flat = keep.reshape(-1).nonzero().flatten()
+    n = flat.numel()
+    idx = torch.zeros((cap,), dtype=torch.int64, device=dev)
+    idx[:n] = flat
+    i, j = idx // w, idx % w
+    sel = torch.arange(cap, device=dev) < n
+    mat = arr.data
+    if mat.shape[1] == 0:
+        mat = torch.zeros((b, 1), dtype=mat.dtype, device=dev)
+    # False on an outer row (a null list's length may be anything)
+    real = j < torch.where(arr.valid_mask(), arr.lengths, 0)[i]
+    evalid = None
+    if outer or arr.evalid is not None:
+        evalid = real
+        if arr.evalid is not None:
+            evalid = evalid & arr.evalid[i, j]
+    cols = [c.gather(i) for c in batch.columns]
+    if with_pos:
+        cols.append(DeviceColumn(T.IntegerT, j.to(torch.int32),
+                                 real if outer else None))
+    cols.append(DeviceColumn(arr.dtype.element_type, mat[i, j], evalid))
+    return DeviceBatch(schema, tuple(cols), sel, compacted=True)
+
+
+# ---------------------------------------------------------------------------
 # Expand (grouping sets: rollup, cube)
 # ---------------------------------------------------------------------------
 
@@ -367,3 +533,23 @@ def _tag_topn(meta):
 
 def _convert_topn(cpu, ch, conf, device):
     return TpuTopNExec(cpu.orders, cpu.n, ch[0])
+
+
+def _tag_generate(meta):
+    from spark_rapids_tpu_torch.ops.expressions import BoundReference
+    gen = meta.cpu.generator
+    if not isinstance(gen, BoundReference):
+        meta.will_not_work(
+            "generator input must be a direct array-column reference")
+        return
+    et = gen.dtype.element_type
+    if not T.is_numeric(et) and not isinstance(
+            et, (T.BooleanType, T.DateType, T.TimestampType)):
+        meta.will_not_work(
+            f"explode over array<{et.simple_name}> not supported on "
+            "device (element matrix is numeric-only)")
+
+
+def _convert_generate(cpu, ch, conf, device):
+    return TpuGenerateExec(cpu.generator, cpu.with_pos, cpu.outer,
+                           cpu.schema, ch[0])

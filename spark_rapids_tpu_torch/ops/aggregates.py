@@ -1,20 +1,21 @@
 """Aggregate functions with Spark result-type and null semantics — the
 port's subset: ``Sum``, ``Min``, ``Max``, ``Count``, ``CountStar``,
 ``Average``, ``First``, the variance family (``VarianceSamp``,
-``VariancePop``, ``StddevSamp``, ``StddevPop``), ``Percentile`` and
-``ApproxPercentile``, and ``CountDistinct``, which the DataFrame API
-rewrites away before execution.  ``collect_list``/``collect_set``
-(ROADMAP A.8c) are not here.
+``VariancePop``, ``StddevSamp``, ``StddevPop``), ``CollectList`` and
+``CollectSet``, ``Percentile`` and ``ApproxPercentile``, and
+``CountDistinct``, which the DataFrame API rewrites away before
+execution.
 
 [REF: sql-plugin/../aggregate/ :: GpuSum, GpuMin, GpuMax, GpuCount,
- GpuAverage, GpuFirst, GpuStddev/GpuVariance, GpuPercentileDefault]
+ GpuAverage, GpuFirst, GpuStddev/GpuVariance, GpuCollectList,
+ GpuCollectSet, GpuPercentileDefault]
 
 The same partial/merge/final split as the JAX package's
 ``ops/aggregates.py``: ``buffer_kinds`` names the reduction of each
 partial buffer column, ``buffer_dtypes`` its type; the final projection
-lives in ``exec/aggregate.py::final_project``.  The percentiles are
-holistic (``buffer_kinds`` ``["collect"]``): they run only on the
-aggregate's gathered single pass.
+lives in ``exec/aggregate.py::final_project``.  The collects and the
+percentiles are holistic (``buffer_kinds`` ``["collect"]``): they run
+only on the aggregate's gathered single pass.
 """
 
 from __future__ import annotations
@@ -181,6 +182,35 @@ class StddevPop(_VarianceBase):
     name = "stddev_pop"
     ddof = 0
     sqrt_final = True
+
+
+class CollectList(AggregateFunction):
+    """collect_list(x) -> array<x>: each group's non-null values in
+    input order.  On the device the result is a padded element matrix
+    ``[G, cap]`` plus lengths (``columnar/column.py``'s array layout),
+    gathered from the stable group sort (each group's rows are
+    contiguous there) on the aggregate's gathered single pass; ``cap``
+    is the power of two of the largest group, probed with one host
+    read.  [REF: GpuCollectList]"""
+
+    name = "collect_list"
+    buffer_kinds = ["collect"]  # holistic: the gathered single pass
+
+    @property
+    def result_dtype(self):
+        return T.ArrayType(self.input_dtype)
+
+    def buffer_dtypes(self):
+        return [self.result_dtype]
+
+
+class CollectSet(CollectList):
+    """collect_set(x) -> array<x>: each group's distinct non-null values.
+    Spark leaves the order undefined; both the device and the CPU oracle
+    emit ascending value order, as the JAX package does (-0.0 and 0.0
+    are one value, every NaN one).  [REF: GpuCollectSet]"""
+
+    name = "collect_set"
 
 
 @dataclasses.dataclass

@@ -847,7 +847,7 @@ def device_select(cond: torch.Tensor, a: DeviceColumn, b: DeviceColumn,
                   dtype: T.DataType) -> DeviceColumn:
     """Row-wise ``a`` where ``cond`` else ``b`` (string-aware: byte
     matrices pad to the wider of the two).  Validity is the caller's."""
-    if a.lengths is not None or b.lengths is not None:
+    if a.is_string or b.is_string:
         w = max(int(a.data.shape[1]), int(b.data.shape[1]))
         da = torch.nn.functional.pad(a.data, (0, w - a.data.shape[1]))
         db = torch.nn.functional.pad(b.data, (0, w - b.data.shape[1]))
@@ -956,8 +956,8 @@ class CaseWhen(Expression):
             first = self.branches[0][1].eval(batch)
             acc = DeviceColumn(
                 self.dtype, torch.zeros_like(first.data), None,
-                None if first.lengths is None
-                else torch.zeros_like(first.lengths))
+                torch.zeros_like(first.lengths) if first.is_string
+                else None)
             validity = torch.zeros((batch.capacity,), dtype=torch.bool,
                                    device=batch.device)
         for pred, val in reversed(self.branches):

@@ -31,8 +31,9 @@ match selection, the casts' digit parsers) is one Python loop over W of
 package's, exactly.  Each class also has the JAX package's ``eval_cpu``
 over host strings (codepoint-indexed Python ``str`` operations, a regex
 for LIKE, the same DFA for an eligible regex), the CPU fallback and
-oracle path, and its TypeSig.  ``split`` and ``get_json_object`` are
-not ported: the analyzer raises ``NotImplementedError`` naming them.
+oracle path, and its TypeSig.  ``Split`` (``array<string>``, which has
+no device layout) is evaluated on the host only, as in the JAX package:
+the plan rewrite reports its operator as a fallback.
 """
 
 from __future__ import annotations
@@ -1265,6 +1266,44 @@ class RegexpReplace(Expression):
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
+class Split(Expression):
+    """split(str, regex, limit) -> array<string>, on the host only (an
+    array of strings has no device layout).  Java's ``limit``: above 0,
+    at most ``limit`` parts, the last one holding the rest; 0, every
+    part with the trailing empty ones dropped; below 0, every part."""
+
+    child: Expression
+    pattern: str
+    limit: int = -1
+
+    @property
+    def dtype(self):
+        return T.ArrayType(T.StringT)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def eval_cpu(self, batch):
+        import re as _re
+        rx = _re.compile(self.pattern)
+        c = self.child.eval_cpu(batch)
+        out = np.empty(len(c.data), object)
+        for i, v in enumerate(c.data):
+            s = str(v)
+            if self.limit > 0:
+                out[i] = rx.split(s, maxsplit=self.limit - 1)
+            else:
+                parts = rx.split(s)
+                if self.limit == 0:
+                    # Java's Pattern.split(limit=0) drops trailing empties
+                    while parts and parts[-1] == "":
+                        parts.pop()
+                out[i] = parts
+        return HostCol(self.dtype, out, c.validity)
+
+
+@dataclasses.dataclass
 class StringReverse(Expression):
     """Byte-wise reverse (Spark's for ASCII; a multi-byte UTF-8 sequence
     reverses bytewise on the device, while the CPU path is
@@ -1376,3 +1415,5 @@ for _cls in (Substring, StringPad):
     _cls.input_sig = _STR_INT
 StringLocate.type_sig = E.SIG_INTEGRAL
 StringLocate.input_sig = _STR_INT
+Split.type_sig = frozenset({"array"})
+Split.input_sig = E.SIG_STRINGY

@@ -13,13 +13,15 @@ math and date expressions, the two hashes, the time-zone conversions
 LIKE, substring, the predicates, length, the case maps, trim, replace,
 locate, concat, reverse, the pads and the regular expressions
 (``rlike`` transpiles a simple pattern to a comparison or predicate
-first).  Decimals follow Spark's result types (non-ANSI; a result past
-precision 38 is refused rather than scale-adjusted): add and subtract
-widen to the common type plus one digit, multiply to p1 + p2 + 1 digits
-at scale s1 + s2; other decimal arithmetic is refused.  An operator
-outside the port (``split``, ``get_json_object`` among them) raises
-``NotImplementedError`` naming it, as ``collect_list`` and
-``collect_set`` do among the aggregates.
+first), ``split`` and ``get_json_object`` (``ops/json_ops.py``), both
+host-only as in the JAX package.  Decimals follow Spark's result types
+(non-ANSI; a result past precision 38 is refused rather than
+scale-adjusted): add and subtract widen to the common type plus one
+digit, multiply to p1 + p2 + 1 digits at scale s1 + s2; other decimal
+arithmetic is refused.  Struct field access (``getField``), ``struct``
+and the generators are the DataFrame layer's: the analyzer meets them
+only outside a select, and refuses them as the JAX package's does.  An
+operator outside the port raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -301,6 +303,21 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
         S.check_regex_supported(pattern)
         return S.RegexpReplace(resolve(u.children[0], schema), pattern,
                                repl)
+    if op == "split":
+        pattern, limit = u.payload
+        S.check_regex_supported(pattern)
+        return S.Split(resolve(u.children[0], schema), pattern, limit)
+    if op == "get_json_object":
+        from spark_rapids_tpu_torch.ops.json_ops import GetJsonObject
+        child = resolve(u.children[0], schema)
+        if not isinstance(child.dtype, (T.StringType, T.BinaryType)):
+            raise AnalysisException(
+                "get_json_object needs a string operand, got "
+                f"{child.dtype.simple_name}")
+        return GetJsonObject(child, str(u.payload))
+    if op in ("getfield", "make_struct", "generate"):
+        # the DataFrame layer rewrites these where it allows them
+        raise AnalysisException(f"unknown expression op '{op}'")
     if op == "reverse":
         child = resolve(u.children[0], schema)
         if not isinstance(child.dtype, T.StringType):
@@ -383,7 +400,8 @@ _AGG_MAP = {"sum": A.Sum, "min": A.Min, "max": A.Max, "count": A.Count,
             "avg": A.Average, "first": A.First,
             "var_samp": A.VarianceSamp, "var_pop": A.VariancePop,
             "stddev_samp": A.StddevSamp, "stddev_pop": A.StddevPop,
-            "count_distinct": A.CountDistinct}
+            "count_distinct": A.CountDistinct,
+            "collect_list": A.CollectList, "collect_set": A.CollectSet}
 _VARIANCE = ("var_samp", "var_pop", "stddev_samp", "stddev_pop")
 
 
@@ -401,8 +419,6 @@ def resolve_aggregate(u: UExpr, schema: T.StructType
     args = ()
     if isinstance(kind, tuple):
         kind, args = kind[0], kind[1:]
-    if kind in ("collect_list", "collect_set"):
-        raise _not_ported(f"aggregate '{kind}' (ROADMAP A.8c)")
     child = resolve(u.children[0], schema)
     if kind == "count_star":
         return A.CountStar(child), alias or "count(1)"

@@ -1,5 +1,6 @@
 """Logical plan nodes — the subset the TPC-H queries, ``repartition``,
-``union``, ``session.range``, ``sample`` and rollup/cube use.
+``union``, ``session.range``, ``sample``, rollup/cube and the
+generators (explode) use.
 
 The counterparts of the JAX package's ``plan/logical.py`` nodes of the
 same names.  The DataFrame API resolves names and coerces types eagerly,
@@ -167,6 +168,23 @@ class Expand(LogicalPlan):
 
     child: LogicalPlan
     projections: List[List[Expression]]
+    schema: T.StructType
+
+    @property
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class Generate(LogicalPlan):
+    """explode/posexplode of an array column, appending the position
+    (posexplode) and element columns to the child's output [REF: Spark
+    Generate]."""
+
+    child: LogicalPlan
+    generator: Expression  # array-valued
+    with_pos: bool
+    outer: bool
     schema: T.StructType
 
     @property

@@ -7,8 +7,8 @@ columns it references before the host-to-device transfer (memoized per
 table and column set, so that the scan cache keeps hitting) (the analog of
 Spark's ColumnPruning), so that q1 and q6 move 7 and 4 of lineitem's 16
 columns to the device.  The rule reaches through both sides of a join,
-below a limit, a repartition, a sample or an expand, and into each
-input of a union.  The JAX package's other rules (parquet pushdown,
+below a limit, a repartition, a sample, an expand or a generate, and
+into each input of a union.  The JAX package's other rules (parquet pushdown,
 dynamic partition pruning) are later slices.
 """
 
@@ -130,7 +130,8 @@ def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
         return dataclasses.replace(plan, left=optimize(plan.left),
                                    right=optimize(plan.right))
     if isinstance(plan, (L.Project, L.Filter, L.Aggregate, L.Sort,
-                         L.Limit, L.Repartition, L.Sample, L.Expand)):
+                         L.Limit, L.Repartition, L.Sample, L.Expand,
+                         L.Generate)):
         plan = dataclasses.replace(plan, child=optimize(plan.child))
     if isinstance(plan, (L.Project, L.Aggregate)):
         pruned = _prune_head(plan)

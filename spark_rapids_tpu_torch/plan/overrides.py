@@ -274,7 +274,7 @@ def _tag_aggregate(meta: ExecMeta):
                 "on overflow (non-ANSI) — CPU fallback")
         if not isinstance(fn, (A.Sum, A.Min, A.Max, A.Count, A.CountStar,
                                A.Average, A.First, A._VarianceBase,
-                               A.Percentile)):
+                               A.CollectList, A.Percentile)):
             meta.will_not_work(
                 f"aggregate function {fn.name} has no TPU implementation")
             continue
@@ -283,18 +283,25 @@ def _tag_aggregate(meta: ExecMeta):
         if isinstance(fn, A._VarianceBase) and not T.is_numeric(
                 fn.input_dtype):
             meta.will_not_work(f"{fn.name} needs a numeric input")
+        if isinstance(fn, A.CollectList):
+            if isinstance(fn.input_dtype,
+                          (T.StringType, T.BinaryType, T.DecimalType,
+                           T.ArrayType)):
+                meta.will_not_work(
+                    f"collect_list over {fn.input_dtype.simple_name} not "
+                    "on device yet (element matrix is numeric-only)")
 
 
 def _convert_aggregate(cpu, ch, conf, device):
-    # holistic functions (the percentiles; min/max/first over strings)
-    # route themselves to the exec's gathered single pass
+    # holistic functions (the collects, the percentiles; min/max/first
+    # over strings) route themselves to the exec's gathered single pass
     return TpuHashAggregateExec(cpu.grouping, cpu.fns, cpu.schema, ch[0],
                                 backend=conf.kernel_backend, device=device,
                                 bucket_rows=conf.get(C.AGG_BUCKET_ROWS),
                                 skip_ratio=conf.get(C.AGG_SKIP_RATIO))
 
 
-# the JAX package registers the next eight lazily
+# the JAX package registers the next nine lazily
 # (``_register_lazy_rules``); the port's exec modules import this module
 # only inside functions, so their rules register here, at import
 EXEC_RULES[CpuAggregateExec] = ExecRule(
@@ -313,6 +320,8 @@ EXEC_RULES[M.CpuSampleExec] = ExecRule(
     "Sample", lambda m: None, M._convert_sample)
 EXEC_RULES[M.CpuExpandExec] = ExecRule(
     "Expand", M._tag_expand, M._convert_expand)
+EXEC_RULES[M.CpuGenerateExec] = ExecRule(
+    "Generate", M._tag_generate, M._convert_generate)
 
 
 def op_names(kind: str) -> frozenset:
@@ -321,9 +330,10 @@ def op_names(kind: str) -> frozenset:
     ``tag_expression`` meets (``expression``)."""
     if kind == "exec":
         return frozenset(r.name for r in EXEC_RULES.values())
-    # the modules that define the string, date and hash expressions
+    # the modules that define the string, date, hash and JSON
+    # expressions
     from spark_rapids_tpu_torch.ops import (  # noqa: F401
-        datetime_ops, hashing, strings)
+        datetime_ops, hashing, json_ops, strings)
     names, stack = set(), [Expression]
     while stack:
         for cls in stack.pop().__subclasses__():

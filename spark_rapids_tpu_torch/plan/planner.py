@@ -21,7 +21,8 @@ from spark_rapids_tpu_torch.exec.base import CpuExec
 from spark_rapids_tpu_torch.exec.exchange import CpuShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.join import CpuJoinExec
 from spark_rapids_tpu_torch.exec.misc import (
-    CpuExpandExec, CpuRangeExec, CpuSampleExec, CpuTopNExec)
+    CpuExpandExec, CpuGenerateExec, CpuRangeExec, CpuSampleExec,
+    CpuTopNExec)
 from spark_rapids_tpu_torch.exec.sort import CpuSortExec
 from spark_rapids_tpu_torch.plan import logical as L
 
@@ -61,6 +62,10 @@ def plan_physical(node: L.LogicalPlan, conf: RapidsConf) -> CpuExec:
     if isinstance(node, L.Expand):
         return CpuExpandExec(node.projections, node.schema,
                              plan_physical(node.child, conf))
+    if isinstance(node, L.Generate):
+        return CpuGenerateExec(node.generator, node.with_pos, node.outer,
+                               node.schema,
+                               plan_physical(node.child, conf))
     if isinstance(node, L.Union):
         return B.CpuUnionExec([plan_physical(c, conf) for c in node.inputs])
     if isinstance(node, L.Aggregate):

@@ -59,10 +59,10 @@ class SplitAndRetryOOM(RetryOOM):
 
 def _leaves(batch: DeviceBatch) -> List[Optional[torch.Tensor]]:
     """Every tensor of a batch, in a fixed order (None where a column
-    has no validity or lengths), ``sel`` last."""
+    has no validity, lengths or element validity), ``sel`` last."""
     out: List[Optional[torch.Tensor]] = []
     for c in batch.columns:
-        out += [c.data, c.validity, c.lengths]
+        out += [c.data, c.validity, c.lengths, c.evalid]
     out.append(batch.sel)
     return out
 
@@ -70,8 +70,7 @@ def _leaves(batch: DeviceBatch) -> List[Optional[torch.Tensor]]:
 def _rebuild(like: "SpillableBatch", leaves) -> DeviceBatch:
     cols = []
     for i, f in enumerate(like.schema.fields):
-        data, validity, lengths = leaves[3 * i:3 * i + 3]
-        cols.append(DeviceColumn(f.dtype, data, validity, lengths))
+        cols.append(DeviceColumn(f.dtype, *leaves[4 * i:4 * i + 4]))
     return DeviceBatch(like.schema, tuple(cols), leaves[-1],
                        compacted=like.compacted)
 

@@ -44,6 +44,11 @@ class HostColView:
     def __init__(self, dtype: T.DataType, data: np.ndarray,
                  validity: Optional[np.ndarray],
                  lengths: Optional[np.ndarray]):
+        if isinstance(dtype, T.ArrayType):
+            # the wire format has string and fixed-width sections only
+            raise NotImplementedError(
+                f"spark_rapids_tpu_torch: a {dtype.simple_name} column "
+                "cannot cross the host shuffle (tudo has no list section)")
         self.dtype = dtype
         self.data = np.ascontiguousarray(data)
         self.validity = (None if validity is None
@@ -55,7 +60,7 @@ class HostColView:
 
     @property
     def is_string(self) -> bool:
-        return self.lengths is not None
+        return isinstance(self.dtype, (T.StringType, T.BinaryType))
 
 
 class _ColDesc(ctypes.Structure):

@@ -7,9 +7,10 @@ arithmetic (division included), comparison (``!=`` included) and
 boolean operators, ``%``, unary ``-``, ``alias``, ``cast``,
 ``between``, ``isin``, ``isNull``, ``isNotNull``, ``isNaN``,
 ``eqNullSafe``, the ``when(...).otherwise(...)`` chain, sort direction
-with either null placement, and the string methods ``substr``,
-``startswith``, ``endswith``, ``contains``, ``like`` and ``rlike``; the
-analyzer raises on anything else.
+with either null placement, the string methods ``substr``,
+``startswith``, ``endswith``, ``contains``, ``like`` and ``rlike``, and
+struct field access ``getField`` (``col("s.a")`` names the same field);
+the analyzer raises on anything else.
 """
 
 from __future__ import annotations
@@ -134,6 +135,11 @@ class Column:
 
     def cast(self, dtype) -> "Column":
         return Column(UExpr("cast", dtype, (self._u,)))
+
+    def getField(self, name: str) -> "Column":
+        """Struct field access: the DataFrame layer rewrites it to the
+        field's own column (structs are stored one column per field)."""
+        return Column(UExpr("getfield", name, (self._u,)))
 
     def between(self, low, high) -> "Column":
         return (self >= low) & (self <= high)

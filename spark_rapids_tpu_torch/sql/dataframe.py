@@ -7,13 +7,23 @@ and ``GroupedData``'s ``count/sum/min/max/avg``, ``rollup`` and
 ``cube`` (grouping sets through ``Expand``), ``agg``, ``orderBy``,
 ``limit``, ``union``, ``sample``, ``distinct``, ``repartition``,
 ``join`` (USING joins on column names and expression joins on a
-``Column`` condition), ``crossJoin``, the actions ``toArrow``,
+``Column`` condition), ``crossJoin``, the generators in ``select``
+(one ``explode``/``posexplode`` per select, through a ``Generate``
+node), the actions ``toArrow``,
 ``collect``, ``count``, ``toPandas`` and ``show``, and ``explain`` and
 ``fallback_summary``.
 Transformations build the logical plan eagerly (pyspark-style errors at
 the call site); actions optimize, plan a CPU exec tree, let the plan
 rewrite (``plan/overrides.py``) move what it can onto the session's
 device, and pump the result.
+
+Struct columns are a view of this layer, as in the JAX package: the
+session stores a struct as one physical column per field (``s.a``,
+``s.b``, and ``s#null`` when the struct has nulls) and each DataFrame
+keeps a ``StructSpec`` per logical struct column.  Selecting, grouping
+or ordering by a struct means its physical columns; ``getField`` and
+``col("s.a")`` name a field's column; ``F.struct`` makes one column per
+field; ``toArrow`` reassembles the Arrow struct.  No exec sees a struct.
 
 Each execution (``toArrow``) is a query: it gets an id, opens the
 resilience scope and the cancel scope (``runtime/resilience.py``,
@@ -92,13 +102,55 @@ def _output_name(u: UExpr, e) -> str:
     return str(e)
 
 
+def _is_star(c) -> bool:
+    return isinstance(c, str) and c == "*"
+
+
+def _generate_u(c) -> Optional[UExpr]:
+    """The explode/posexplode UExpr under an optional alias, or None."""
+    if isinstance(c, str):
+        return None
+    u = _to_column(c)._u
+    core = u.children[0] if u.op == "alias" else u
+    return core if core.op == "generate" else None
+
+
+class StructSpec:
+    """One logical STRUCT column, stored as one physical column per field
+    (struct-of-arrays).  ``fields``: [(field name, physical column
+    name)]; ``null_col``: the physical bool column that marks a null
+    struct (absent when the struct has no null).
+    [REF: complexTypeCreator.scala / cuDF struct columns — here structs
+    are a view of the DataFrame layer; every exec sees plain columns]"""
+
+    __slots__ = ("fields", "null_col")
+
+    def __init__(self, fields, null_col=None):
+        self.fields = list(fields)
+        self.null_col = null_col
+
+    @property
+    def phys_cols(self) -> List[str]:
+        out = [p for _, p in self.fields]
+        if self.null_col:
+            out.append(self.null_col)
+        return out
+
+    def renamed(self, new_name: str) -> "StructSpec":
+        return StructSpec(
+            [(f, f"{new_name}.{f}") for f, _ in self.fields],
+            f"{new_name}#null" if self.null_col else None)
+
+
 _QUERY_IDS = itertools.count(1)
 
 
 class DataFrame:
-    def __init__(self, session, plan: L.LogicalPlan):
+    def __init__(self, session, plan: L.LogicalPlan, structs=None):
         self.session = session
         self._plan = plan
+        # the logical struct columns over the physical schema
+        self._structs: dict = dict(structs or {})
         self._last_plan = None
         self._last_override = None
         # host milliseconds of the last plan rewrite: _execute_plan
@@ -113,44 +165,215 @@ class DataFrame:
     def columns(self) -> List[str]:
         return self.schema.field_names()
 
-    def _derive(self, plan: L.LogicalPlan) -> "DataFrame":
-        return DataFrame(self.session, plan)
+    def _derive(self, plan: L.LogicalPlan,
+                structs="inherit") -> "DataFrame":
+        """A new frame over ``plan``: the struct views whose physical
+        columns all survive carry over, unless ``structs`` is given."""
+        if structs == "inherit":
+            names = set(plan.schema.field_names())
+            structs = {k: v for k, v in self._structs.items()
+                       if all(p in names for p in v.phys_cols)}
+        return DataFrame(self.session, plan, structs)
+
+    def _adopt_structs(self, out: "DataFrame",
+                       other: "DataFrame") -> "DataFrame":
+        """Add the right join side's struct views to the result (those
+        whose physical columns all survived)."""
+        names = set(out.schema.field_names())
+        for k, v in other._structs.items():
+            if k not in out._structs and all(p in names
+                                             for p in v.phys_cols):
+                out._structs[k] = v
+        return out
+
+    def _struct_name_of(self, c) -> Optional[str]:
+        """The struct column ``c`` names (a bare string or a plain
+        ``col('s')``), else None."""
+        if isinstance(c, str):
+            return c if c in self._structs else None
+        if isinstance(c, Column) and c._u.op == "attr" \
+                and c._u.payload in self._structs:
+            return c._u.payload
+        return None
+
+    def _expand_struct_names(self, cols) -> list:
+        """Bare struct names or references replaced by their physical
+        columns (the null flag included: null structs group and sort as
+        one value)."""
+        out = []
+        for c in cols:
+            sname = self._struct_name_of(c)
+            if sname is not None:
+                out.extend(self._structs[sname].phys_cols)
+            else:
+                out.append(c)
+        return out
+
+    def _rewrite_struct_ref(self, u: UExpr) -> UExpr:
+        """``getField`` chains to the field's physical column
+        (``col('s').getField('a')`` -> ``col('s.a')``)."""
+        if u.op == "getfield":
+            child = self._rewrite_struct_ref(u.children[0])
+            if child.op == "attr":
+                return UExpr("attr", f"{child.payload}.{u.payload}")
+            raise AN.AnalysisException(
+                "getField is only supported on (nested) column "
+                "references")
+        if not u.children:
+            return u
+        kids = tuple(self._rewrite_struct_ref(c) for c in u.children)
+        if all(a is b for a, b in zip(kids, u.children)):
+            return u
+        return UExpr(u.op, u.payload, kids)
+
+    def _logical_columns(self) -> List[str]:
+        """Column names as the user sees them: a struct's physical
+        columns collapse to its name, at its first field's place."""
+        phys_to_struct = {p: sname for sname, spec in self._structs.items()
+                          for p in spec.phys_cols}
+        out, seen = [], set()
+        for n in self.columns:
+            sname = phys_to_struct.get(n)
+            if sname is None:
+                out.append(n)
+            elif sname not in seen:
+                seen.add(sname)
+                out.append(sname)
+        return out
 
     # -- transformations ------------------------------------------------
     def select(self, *cols) -> "DataFrame":
+        if any(_generate_u(c) is not None for c in cols):
+            return self._select_with_generate(cols)
         exprs = []
         fields = []
+        new_structs = {}
+
+        def add_ref(i, name=None):
+            f = self.schema.fields[i]
+            exprs.append(BoundReference(i, f.dtype, f.nullable))
+            fields.append(f if name is None
+                          else T.StructField(name, f.dtype, f.nullable))
+
         for c in cols:
-            if isinstance(c, str) and c == "*":
-                for i, f in enumerate(self.schema.fields):
+            if _is_star(c):
+                for i in range(len(self.schema)):
+                    add_ref(i)
+                continue
+            sname = self._struct_name_of(c)
+            if sname is not None:
+                # a struct column is its physical columns; the view
+                # rides along
+                spec = self._structs[sname]
+                for p in spec.phys_cols:
+                    add_ref(self.schema.field_index(p))
+                new_structs[sname] = spec
+                continue
+            u = _to_column(c)._u
+            if (u.op == "alias" and u.children[0].op == "attr"
+                    and u.children[0].payload in self._structs):
+                # a struct renamed: its physical columns under the new
+                # name's layout
+                spec = self._structs[u.children[0].payload]
+                new = spec.renamed(u.payload)
+                for old_p, new_p in zip(spec.phys_cols, new.phys_cols):
+                    add_ref(self.schema.field_index(old_p), new_p)
+                new_structs[u.payload] = new
+                continue
+            mk = u.children[0] if u.op == "alias" else u
+            if mk.op == "make_struct":
+                # F.struct(...): one physical column per field
+                # [REF: complexTypeCreator CreateStruct]
+                sname = (u.payload if u.op == "alias"
+                         else f"struct_{len(new_structs)}")
+                sfields = []
+                for fname, fu in zip(mk.payload, mk.children):
+                    e = AN.resolve(self._rewrite_struct_ref(fu),
+                                   self.schema)
+                    pname = f"{sname}.{fname}"
+                    exprs.append(e)
+                    fields.append(T.StructField(pname, e.dtype))
+                    sfields.append((fname, pname))
+                new_structs[sname] = StructSpec(sfields, None)
+                continue
+            e = AN.resolve(self._rewrite_struct_ref(u), self.schema)
+            exprs.append(e)
+            fields.append(T.StructField(_output_name(u, e), e.dtype))
+        out = self._derive(L.Project(self._plan, exprs,
+                                     T.StructType(tuple(fields))))
+        out._structs.update(new_structs)
+        return out
+
+    def _select_with_generate(self, cols) -> "DataFrame":
+        """Spark's ExtractGenerator: one Generate node appends the
+        position (posexplode: ``pos``, nullable under ``outer``) and the
+        element (the alias, else ``col``; nullable) to the child's
+        columns, and a Project picks the requested output.  One
+        generator per select."""
+        gens = [c for c in cols if _generate_u(c) is not None]
+        if len(gens) > 1:
+            raise AN.AnalysisException(
+                "only one generator (explode/posexplode) is allowed per "
+                "select")
+        base = self.schema
+        gu = _generate_u(gens[0])
+        with_pos, outer = gu.payload
+        gen = AN.resolve(self._rewrite_struct_ref(gu.children[0]), base)
+        if not isinstance(gen.dtype, T.ArrayType):
+            raise AN.AnalysisException(
+                f"explode needs an array column, got "
+                f"{gen.dtype.simple_name}")
+        alias_u = _to_column(gens[0])._u
+        elem_name = alias_u.payload if alias_u.op == "alias" else "col"
+        elem_dt = gen.dtype.element_type
+        nc = len(base)
+        ext = list(base.fields)
+        if with_pos:
+            ext.append(T.StructField("pos", T.IntegerT, outer))
+        ext.append(T.StructField(elem_name, elem_dt, True))
+        ext_schema = T.StructType(tuple(ext))
+        plan = L.Generate(self._plan, gen, with_pos, outer, ext_schema)
+        exprs, fields = [], []
+        for c in cols:
+            if _is_star(c):
+                for i, f in enumerate(base.fields):
+                    exprs.append(BoundReference(i, f.dtype, f.nullable))
+                    fields.append(f)
+                continue
+            if _generate_u(c) is not None:
+                for i in range(nc, len(ext)):
+                    f = ext[i]
                     exprs.append(BoundReference(i, f.dtype, f.nullable))
                     fields.append(f)
                 continue
             u = _to_column(c)._u
-            e = AN.resolve(u, self.schema)
+            e = AN.resolve(self._rewrite_struct_ref(u), ext_schema)
             exprs.append(e)
             fields.append(T.StructField(_output_name(u, e), e.dtype))
-        return self._derive(L.Project(self._plan, exprs,
+        return self._derive(L.Project(plan, exprs,
                                       T.StructType(tuple(fields))))
 
     def withColumn(self, name: str, c: Column) -> "DataFrame":
         """Add a column, or replace one of the same name in place."""
-        if name in self.columns:
+        cols = self._logical_columns()
+        if name in cols:
             return self.select(*[(c.alias(name) if n == name else n)
-                                 for n in self.columns])
-        return self.select(*self.columns, c.alias(name))
+                                 for n in cols])
+        return self.select(*cols, c.alias(name))
 
     def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
         return self.select(*[(col(n).alias(new) if n == old else n)
-                             for n in self.columns])
+                             for n in self._logical_columns()])
 
     def drop(self, *names) -> "DataFrame":
-        return self.select(*[n for n in self.columns if n not in names])
+        return self.select(*[n for n in self._logical_columns()
+                             if n not in names])
 
     def filter(self, condition: Column) -> "DataFrame":
         if isinstance(condition, str):
             raise NotImplementedError("SQL-string filters not yet supported")
-        cond = AN.resolve(condition._u, self.schema)
+        cond = AN.resolve(self._rewrite_struct_ref(condition._u),
+                          self.schema)
         if not isinstance(cond.dtype, (T.BooleanType, T.NullType)):
             raise AN.AnalysisException(
                 f"filter condition must be boolean, got {cond.dtype}")
@@ -159,8 +382,8 @@ class DataFrame:
     def groupBy(self, *cols) -> "GroupedData":
         exprs = []
         names = []
-        for c in cols:
-            u = _to_column(c)._u
+        for c in self._expand_struct_names(cols):
+            u = self._rewrite_struct_ref(_to_column(c)._u)
             e = AN.resolve(u, self.schema)
             exprs.append(e)
             names.append(_output_name(u, e))
@@ -186,18 +409,30 @@ class DataFrame:
         return GroupedData(self, [], []).agg(*aggs)
 
     def orderBy(self, *cols, ascending=None) -> "DataFrame":
-        orders = []
+        # ``ascending`` follows the caller's arguments; a struct expands
+        # after, each field taking its struct's direction (Spark orders
+        # structs field by field)
+        pairs = []
         for i, c in enumerate(cols):
-            u = _to_column(c)._u
+            a = (None if ascending is None
+                 else (ascending[i] if isinstance(ascending, (list, tuple))
+                       else bool(ascending)))
+            sname = self._struct_name_of(c)
+            if sname is not None:
+                pairs.extend((p, a) for p in self._structs[sname].phys_cols)
+            else:
+                pairs.append((c, a))
+        orders = []
+        for c, a in pairs:
+            u = self._rewrite_struct_ref(_to_column(c)._u)
             asc, nulls_first = True, True
             if u.op == "sortorder":
                 direction, nulls = u.payload
                 asc = direction == "asc"
                 nulls_first = nulls == "nulls_first"
                 u = u.children[0]
-            if ascending is not None:
-                asc = (ascending[i] if isinstance(ascending, (list, tuple))
-                       else bool(ascending))
+            if a is not None:
+                asc = a
                 nulls_first = asc
             orders.append(L.SortOrder(AN.resolve(u, self.schema), asc,
                                       nulls_first))
@@ -283,9 +518,9 @@ class DataFrame:
                     fields.append(T.StructField(
                         f.name, f.dtype,
                         f.nullable or how in ("left", "full")))
-        return self._derive(L.Join(
+        return self._adopt_structs(self._derive(L.Join(
             self._plan, other._plan, how, left_keys, right_keys, None,
-            T.StructType(tuple(fields))))
+            T.StructType(tuple(fields)))), other)
 
     def crossJoin(self, other: "DataFrame") -> "DataFrame":
         return self.join(other, on=[], how="cross")
@@ -342,9 +577,9 @@ class DataFrame:
             fields += [T.StructField(f.name, f.dtype,
                                      f.nullable or how in ("left", "full"))
                        for f in other.schema.fields]
-        return self._derive(L.Join(
+        return self._adopt_structs(self._derive(L.Join(
             self._plan, other._plan, how, left_keys, right_keys, residual,
-            T.StructType(tuple(fields)), using=False))
+            T.StructType(tuple(fields)), using=False)), other)
 
     # -- actions ----------------------------------------------------------
     def _rewrite(self) -> OverrideResult:
@@ -406,6 +641,7 @@ class DataFrame:
                                names=self.columns)
             else:
                 out = pa.concat_tables(tables)
+            out = self._reassemble_structs(out)
         except cancel.QueryCancelled as e:
             cancelled = e
             error = f"{type(e).__name__}: {e}"
@@ -426,6 +662,37 @@ class DataFrame:
             if rwin is not None:  # nested executions record nothing
                 self._record_query(qid, error, res, cancelled, cwin)
         return out
+
+    def _reassemble_structs(self, t: pa.Table) -> pa.Table:
+        """The physical field columns -> the logical Arrow struct
+        columns, each at its first field's place (the inverse of the
+        session's ``_decompose_structs``)."""
+        for sname, spec in self._structs.items():
+            names = t.column_names
+            if not all(p in names for _, p in spec.fields):
+                continue
+
+            def one_chunk(c):
+                return (pa.array([], type=c.type) if c.num_chunks == 0
+                        else pa.concat_arrays(c.chunks))
+
+            mask = None
+            if spec.null_col and spec.null_col in names:
+                mask = one_chunk(t.column(spec.null_col))
+            sa = pa.StructArray.from_arrays(
+                [one_chunk(t.column(p)) for _, p in spec.fields],
+                names=[f for f, _ in spec.fields], mask=mask)
+            drop = set(spec.phys_cols)
+            arrays, out_names = [], []
+            for n in names:
+                if n == spec.fields[0][1]:
+                    arrays.append(sa)
+                    out_names.append(sname)
+                if n not in drop:
+                    arrays.append(t.column(n))
+                    out_names.append(n)
+            t = pa.table(dict(zip(out_names, arrays)))
+        return t
 
     def _record_query(self, qid, error, res, cancelled, ctoken) -> None:
         """One entry per execution in the session's ``query_history``:

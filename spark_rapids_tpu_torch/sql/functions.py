@@ -1,9 +1,11 @@
 """pyspark.sql.functions-compatible surface — the subset of the port
 (``col``, ``lit``, ``when``, ``coalesce``, the math, date, time-zone,
-hash and string functions, and the aggregates ``sum``, ``avg``/``mean``,
-``min``, ``max``, ``count``, ``first``, the variance family, the
-percentiles, ``countDistinct`` and ``approx_count_distinct``), with the
-JAX package's signatures."""
+hash and string functions, ``split``, ``get_json_object``, ``struct``,
+the generators ``explode``, ``explode_outer``, ``posexplode`` and
+``posexplode_outer``, and the aggregates ``sum``, ``avg``/``mean``,
+``min``, ``max``, ``count``, ``first``, the variance family,
+``collect_list``, ``collect_set``, the percentiles, ``countDistinct``
+and ``approx_count_distinct``), with the JAX package's signatures."""
 
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ stddev_samp = _agg("stddev_samp")
 stddev_pop = _agg("stddev_pop")
 variance = var_samp
 stddev = stddev_samp
+collect_list = _agg("collect_list")
+collect_set = _agg("collect_set")
 
 
 def count(c) -> Column:
@@ -182,3 +186,53 @@ def instr(c, substr: str) -> Column:
 
 def locate(substr: str, c, pos: int = 1) -> Column:
     return Column(UExpr("locate", pos, (UExpr("lit", substr), _cu(c))))
+
+
+def split(c, pattern: str, limit: int = -1) -> Column:
+    return Column(UExpr("split", (pattern, limit), (_cu(c),)))
+
+
+def get_json_object(c, path: str) -> Column:
+    """Extract a JSON path from a JSON string column (evaluated on the
+    host, as in the JAX package)."""
+    return Column(UExpr("get_json_object", path, (_cu(c),)))
+
+
+def struct(*cols) -> Column:
+    """A STRUCT column [REF: complexTypeCreator CreateStruct]: the
+    DataFrame layer stores it as one column per field (the field names
+    from an alias, a column's last dotted part, else ``col<i>``)."""
+    names = []
+    kids = []
+    for i, c in enumerate(cols):
+        if isinstance(c, str):
+            names.append(c.split(".")[-1])
+            kids.append(UExpr("attr", c))
+            continue
+        u = _cu(c)
+        if u.op == "alias":
+            names.append(u.payload)
+        elif u.op == "attr":
+            names.append(str(u.payload).split(".")[-1])
+        else:
+            names.append(f"col{i + 1}")
+        kids.append(u.children[0] if u.op == "alias" else u)
+    return Column(UExpr("make_struct", tuple(names), tuple(kids)))
+
+
+# generators: payload (with_pos, outer)
+
+def explode(c) -> Column:
+    return Column(UExpr("generate", (False, False), (_cu(c),)))
+
+
+def explode_outer(c) -> Column:
+    return Column(UExpr("generate", (False, True), (_cu(c),)))
+
+
+def posexplode(c) -> Column:
+    return Column(UExpr("generate", (True, False), (_cu(c),)))
+
+
+def posexplode_outer(c) -> Column:
+    return Column(UExpr("generate", (True, True), (_cu(c),)))

@@ -3,7 +3,8 @@
 The counterpart of the JAX package's ``sql/session.py``:
 ``TpuSession(conf)`` validates the ``spark.rapids.*`` conf once and
 ``createDataFrame(pa.Table)`` returns a DataFrame over an in-memory
-relation of ``spark.default.parallelism`` partitions, and
+relation of ``spark.default.parallelism`` partitions (a struct column
+split into one column per field, ``_decompose_structs``), and
 ``range(start, end, step, numPartitions)`` a DataFrame of generated ids
 (made on the device, no host data).  The port's
 session also carries the device its queries run
@@ -27,6 +28,7 @@ stats profile in those entries come with ROADMAP A.9.
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Any, Dict, Iterable, List, Optional
 
 import pyarrow as pa
@@ -34,6 +36,65 @@ import pyarrow as pa
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.conf import RapidsConf
 from spark_rapids_tpu_torch.runtime.device import resolve_device
+
+
+# Decomposed-table memo: a table with struct columns becomes a new
+# table at every createDataFrame, and the device scan cache keys on table
+# identity, so the split is kept per source table (entries die with it)
+# and repeated queries over one table hit the cache.
+_decomposed: dict = {}
+
+
+def _decompose_structs(table: pa.Table):
+    """Split Arrow STRUCT columns into one physical column per field
+    (``s.a``, ``s.b``, plus ``s#null`` when the struct has nulls) — the
+    struct-of-arrays data model of the JAX package's
+    ``_decompose_structs``: every exec sees plain columns, the DataFrame
+    layer keeps the logical view (``StructSpec``) and ``toArrow``
+    reassembles.  One level of nesting only.  Returns (table, {struct
+    name: StructSpec})."""
+    if not any(pa.types.is_struct(f.type) for f in table.schema):
+        return table, {}
+    hit = _decomposed.get(id(table))
+    if hit is not None:
+        return hit
+    from spark_rapids_tpu_torch.sql.dataframe import StructSpec
+    arrays, names = [], []
+    structs: Dict[str, object] = {}
+    for name in table.column_names:
+        col = table.column(name)
+        t = col.type
+        if not pa.types.is_struct(t):
+            arrays.append(col)
+            names.append(name)
+            continue
+        if any(pa.types.is_struct(t.field(i).type)
+               or pa.types.is_map(t.field(i).type)
+               for i in range(t.num_fields)):
+            raise NotImplementedError(
+                f"struct column {name!r}: nested struct/map fields are "
+                "not supported yet (one level of struct nesting)")
+        arr = col.combine_chunks()
+        null_col = None
+        if arr.null_count > 0:
+            null_col = f"{name}#null"
+            arrays.append(pa.chunked_array([arr.is_null()]))
+            names.append(null_col)
+        flat = arr.flatten()  # the parent's nulls applied to the fields
+        fields = []
+        for i in range(t.num_fields):
+            pname = f"{name}.{t.field(i).name}"
+            arrays.append(flat[i])
+            names.append(pname)
+            fields.append((t.field(i).name, pname))
+        structs[name] = StructSpec(fields, null_col)
+    out = (pa.table(dict(zip(names, arrays))), structs)
+    try:
+        weakref.finalize(table, _decomposed.pop, id(table), None)
+    except TypeError:
+        return out
+    _decomposed[id(table)] = out
+    return out
 
 
 class TpuSession:
@@ -106,13 +167,15 @@ class TpuSession:
             raise NotImplementedError(
                 "spark_rapids_tpu_torch: createDataFrame takes a "
                 "pyarrow.Table")
+        data, structs = _decompose_structs(data)
         st = T.StructType(tuple(
             T.StructField(n, T.from_arrow(data.schema.field(n).type))
             for n in data.column_names))
         # in-memory tables slice into spark.default.parallelism scan
         # partitions (a raw key, as in the JAX package)
         return DataFrame(self, InMemoryRelation(data, st,
-                                                self._parallelism()))
+                                                self._parallelism()),
+                         structs)
 
     def _parallelism(self) -> int:
         # spark.default.parallelism is a raw key, as in the JAX package

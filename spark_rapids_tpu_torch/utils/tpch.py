@@ -22,6 +22,17 @@ Spark users load TPC-H with (databricks/spark-sql-perf's ``TPCH.scala``
 declares them ``decimal(12,2)``): the same builders then run over
 decimal columns.
 
+``nested_tables`` derives nested and array inputs from the generated
+tables and a seed (a ``list<double>`` of each order's quantities, a
+struct column on orders, JSON documents of customers), and
+``NESTED_QUERIES`` are the builders that run over them: order baskets by
+``collect_list``/``collect_set``, their ``posexplode`` back to parts,
+``explode_outer`` of the quantity lists, q1 keyed by a struct, a filter
+and top-N over the orders' struct, a word count by ``split`` and
+``explode``, and ``get_json_object``.  Each builder takes the functions
+module (``F``) as an argument, so that the same query can be built on
+another implementation of the API.
+
 ``TPCH_SF1_CONF`` is ``bench.TPCH_SF1_CONF`` less the keys of planes the
 port has not got (``UNPORTED_SF1_KEYS``, each with its ROADMAP item; the
 port refuses them), and ``oracle_check`` is bench's CPU-oracle loop: each
@@ -33,6 +44,7 @@ copy of ``bench._rows_equal(tol=1e-6)``.
 from __future__ import annotations
 
 import datetime
+import json
 from typing import Callable, Dict
 
 import numpy as np
@@ -867,6 +879,151 @@ def decimal_tables(t: Dict[str, pa.Table]) -> Dict[str, pa.Table]:
                                  decimal_array(dt, cents, None))
         out[name] = tbl
     return out
+
+
+# ---------------------------------------------------------------------------
+# Nested and array inputs, and the queries over them
+# ---------------------------------------------------------------------------
+
+NESTED_NULL_SHARE = 0.01  # null quantities, null lists, null structs
+
+
+def nested_tables(t: Dict[str, pa.Table],
+                  seed: int = 7) -> Dict[str, pa.Table]:
+    """Nested inputs made from ``t`` (``gen_tpch``'s tables) and ``seed``:
+
+    * ``lineitem`` and ``part``, as they are;
+    * ``order_quantities``: ``o_orderkey`` and ``qty``, a
+      ``list<double>`` of the order's ``l_quantity`` values in lineitem
+      order, with ``NESTED_NULL_SHARE`` of the elements null and as many
+      of the lists null; an order without lines has an empty list (the
+      generator draws ``l_orderkey`` uniformly: about e^-4 = 1.8% of the
+      orders);
+    * ``orders_info``: ``o_orderkey`` and ``o_info``, a struct of
+      ``o_orderpriority``, ``o_shippriority`` and ``o_clerk``, with
+      ``NESTED_NULL_SHARE`` of the structs null;
+    * ``customer_json``: ``c_custkey`` and ``c_json``, a JSON document
+      ``{"name": c_name, "nation": c_nationkey, "acct": {"bal":
+      c_acctbal}}`` per customer."""
+    rng = np.random.default_rng([seed, 16])
+    li, orders, cust = t["lineitem"], t["orders"], t["customer"]
+    n_ord = orders.num_rows
+    okey = li["l_orderkey"].to_numpy()
+    by_order = np.argsort(okey, kind="stable")
+    offsets = np.zeros(n_ord + 1, np.int32)
+    np.cumsum(np.bincount(okey, minlength=n_ord), out=offsets[1:])
+    qty = li["l_quantity"].to_numpy()[by_order]
+    values = pa.array(qty, mask=rng.random(len(qty)) < NESTED_NULL_SHARE)
+    lists = pa.ListArray.from_arrays(
+        pa.array(offsets), values,
+        mask=pa.array(rng.random(n_ord) < NESTED_NULL_SHARE))
+    info = pa.StructArray.from_arrays(
+        [_plain(orders["o_orderpriority"].combine_chunks()),
+         orders["o_shippriority"].combine_chunks(),
+         _plain(orders["o_clerk"].combine_chunks())],
+        names=["o_orderpriority", "o_shippriority", "o_clerk"],
+        mask=pa.array(rng.random(n_ord) < NESTED_NULL_SHARE))
+    docs = [json.dumps({"name": n, "nation": k, "acct": {"bal": b}})
+            for n, k, b in zip(cust["c_name"].to_pylist(),
+                               cust["c_nationkey"].to_pylist(),
+                               cust["c_acctbal"].to_pylist())]
+    return {
+        "lineitem": li, "part": t["part"],
+        "order_quantities": pa.table({"o_orderkey": orders["o_orderkey"],
+                                      "qty": lists}),
+        "orders_info": pa.table({"o_orderkey": orders["o_orderkey"],
+                                 "o_info": info}),
+        "customer_json": pa.table({"c_custkey": cust["c_custkey"],
+                                   "c_json": pa.array(docs)}),
+    }
+
+
+def order_baskets(session, t, F=F):
+    """Each order's parts in lineitem order, its distinct suppliers in
+    ascending order, and its line count."""
+    return (session.createDataFrame(t["lineitem"]).groupBy("l_orderkey")
+            .agg(F.collect_list("l_partkey").alias("parts"),
+                 F.collect_set("l_suppkey").alias("supps"),
+                 F.count("*").alias("n")))
+
+
+def basket_parts(session, t, F=F):
+    """The baskets exploded back to parts: per part key, its lines and
+    the sum of its positions in the baskets."""
+    return (order_baskets(session, t, F).select("l_orderkey", "parts")
+            .select("l_orderkey", F.posexplode("parts").alias("l_partkey"))
+            .groupBy("l_partkey")
+            .agg(F.count("*").alias("n"), F.sum("pos").alias("sum_pos")))
+
+
+def quantity_totals(session, t, F=F):
+    """``explode_outer`` of each order's quantity list, summed back per
+    order: the non-null quantities' sum and count, and the rows (an
+    empty or null list keeps one)."""
+    return (session.createDataFrame(t["order_quantities"])
+            .select("o_orderkey", F.explode_outer("qty").alias("q"))
+            .groupBy("o_orderkey")
+            .agg(F.sum("q").alias("total"), F.count("q").alias("n"),
+                 F.count("*").alias("rows")))
+
+
+def q1_struct(session, t, F=F):
+    """TPC-H q1 with its two keys as one struct, ``flags``."""
+    c = F.col
+    return (session.createDataFrame(t["lineitem"])
+            .select(F.struct("l_returnflag", "l_linestatus").alias("flags"),
+                    "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                    "l_shipdate")
+            .filter(c("l_shipdate") <= _D(1998, 9, 2))
+            .groupBy("flags")
+            .agg(F.sum("l_quantity").alias("sum_qty"),
+                 F.sum("l_extendedprice").alias("sum_base"),
+                 F.sum(c("l_extendedprice")
+                       * (1 - c("l_discount"))).alias("sum_disc"),
+                 F.sum(c("l_extendedprice") * (1 - c("l_discount"))
+                       * (1 + c("l_tax"))).alias("sum_charge"),
+                 F.avg("l_quantity").alias("avg_qty"),
+                 F.avg("l_extendedprice").alias("avg_price"),
+                 F.avg("l_discount").alias("avg_disc"),
+                 F.count("*").alias("cnt"))
+            .orderBy("flags"))
+
+
+def orders_by_info(session, t, F=F):
+    """The first 100 orders of ship priority 1 in the order of their
+    struct (priority, ship priority, clerk), then of their key."""
+    return (session.createDataFrame(t["orders_info"])
+            .filter(F.col("o_info").getField("o_shippriority") == 1)
+            .orderBy("o_info", "o_orderkey").limit(100))
+
+
+def name_words(session, t, F=F):
+    """A word count over the part names (``split`` and ``explode``)."""
+    return (session.createDataFrame(t["part"]).select("p_name")
+            .select(F.explode(F.split("p_name", " ")).alias("word"))
+            .groupBy("word").count())
+
+
+def customer_json_fields(session, t, F=F):
+    """Three paths out of each customer's JSON document (one missing)."""
+    return session.createDataFrame(t["customer_json"]).select(
+        "c_custkey",
+        F.get_json_object("c_json", "$.nation").alias("nation"),
+        F.get_json_object("c_json", "$.acct.bal").alias("bal"),
+        F.get_json_object("c_json", "$.missing").alias("missing"))
+
+
+NESTED_QUERIES = {"order baskets": order_baskets,
+                  "basket parts": basket_parts,
+                  "quantity totals": quantity_totals,
+                  "q1 struct": q1_struct,
+                  "orders by info": orders_by_info,
+                  "name words": name_words,
+                  "customer json": customer_json_fields}
+# the operators each query runs on the CPU, as the JAX package does
+# (``split``'s array<string> and ``get_json_object`` have no device
+# lowering there)
+NESTED_ALLOWED = {"name words": "Generate", "customer json": "Project"}
 
 
 TPCH_SF1_CONF = {"spark.rapids.sql.enabled": True,

@@ -325,6 +325,15 @@ PCT = pa.table({
                   type=pa.decimal128(10, 2))})
 KEYLESS = _small_decimal_table()
 LIT = decimal.Decimal("123456789012345678901234.5678")
+# ROADMAP C.6: unary minus, abs and <=> over a decimal(38,2) column whose
+# third value is 2^64 / 100 (a carry across the low word)
+C6 = pa.table({
+    "d": pa.array([decimal.Decimal("1.00"), decimal.Decimal("-3.50"),
+                   decimal.Decimal(1 << 64).scaleb(-2), None],
+                  type=pa.decimal128(38, 2)),
+    "e": pa.array([decimal.Decimal("1.00"), None,
+                   decimal.Decimal(1 << 64).scaleb(-2), None],
+                  type=pa.decimal128(38, 2))})
 ALLOW_PROJECT = {"spark.rapids.sql.test.allowedNonGpu":
                  "Project,InMemoryScan"}
 TEST = {"spark.rapids.sql.test.enabled": True}
@@ -420,6 +429,15 @@ CASES = {
     "variance_decimal128_grouped": (
         lambda s, F, c: s.createDataFrame(_d128_table()).groupBy("k").agg(
             F.stddev_samp(F.col("d")).alias("sd")), TEST, {"sd": VAR_REL}),
+    "unary_minus_decimal_38_2": (
+        lambda s, F, c: s.createDataFrame(C6).select(
+            (-c("d")).alias("n")), TEST, {}),
+    "abs_decimal_38_2": (
+        lambda s, F, c: s.createDataFrame(C6).select(
+            F.abs(c("d")).alias("a")), TEST, {}),
+    "eq_null_safe_decimal_38_2": (
+        lambda s, F, c: s.createDataFrame(C6).select(
+            c("d").eqNullSafe(c("e")).alias("q")), TEST, {}),
 }
 
 # the keyless sum and average: the JAX package's device run of a keyless
@@ -437,6 +455,12 @@ KEYLESS_CASES = {
             F.count("*").alias("n")), TEST, {"a": AVG_REL}),
 }
 ALL = dict(CASES, **KEYLESS_CASES)
+# the JAX package's device branch is wrong or fails on the C.6 cases
+# (ROADMAP C.5): they are held to its CPU session, as the keyless sums
+# are
+CPU_HELD = set(KEYLESS_CASES) | {"unary_minus_decimal_38_2",
+                                 "abs_decimal_38_2",
+                                 "eq_null_safe_decimal_38_2"}
 
 
 @pytest.fixture(scope="module")
@@ -451,7 +475,7 @@ def jax_run():
             if host:
                 memo[(name, host)] = (build(JaxSession(dict(
                     conf, **HOST)), JF, jcol).toArrow(), None, None)
-            elif name in KEYLESS_CASES:
+            elif name in CPU_HELD:
                 df = build(JaxSession(dict(conf)), JF, jcol)
                 plan = df._execute_plan()  # planned, not run
                 memo[(name, host)] = (
@@ -501,6 +525,8 @@ def same_rows(got, want, tol, ordered=False):
 
 
 ORDERED = {"sort_desc", "sort_asc", "roundtrip_and_projection",
+           "unary_minus_decimal_38_2", "abs_decimal_38_2",
+           "eq_null_safe_decimal_38_2",
            "add_sub_mul_bit_exact", "mul_overflow_nulls",
            "cast_rescale_and_double", "decimal_roundtrip_values",
            "large_precision_values_unrounded"}
@@ -524,6 +550,22 @@ def test_host_equals_jax(jax_run, name):
                 col).toArrow()
     same_rows(got, jax_run(name, host=True)[0], {},
               ordered=name in ORDERED)
+
+
+def test_decimal128_sign_functions_values(jax_run):
+    """ROADMAP C.6: -d, abs(d) and d <=> e over decimal(38,2) give the
+    right values (the JAX package's CPU session's) on the port's device
+    branch."""
+    big = decimal.Decimal(1 << 64).scaleb(-2)
+    one, m35 = decimal.Decimal("1.00"), decimal.Decimal("-3.50")
+    want = {"unary_minus_decimal_38_2": [-one, -m35, -big, None],
+            "abs_decimal_38_2": [one, -m35, big, None],
+            "eq_null_safe_decimal_38_2": [True, False, True, True]}
+    for name, values in want.items():
+        build, conf, _ = ALL[name]
+        got = build(TpuSession(dict(conf), device="cpu"), F, col).toArrow()
+        assert got.column(0).to_pylist() == values, name
+        assert jax_run(name)[0].column(0).to_pylist() == values, name
 
 
 def test_outcomes_the_jax_tests_pin():

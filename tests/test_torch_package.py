@@ -114,6 +114,14 @@ def test_import_check_covers_the_strings_slice():
         assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
+def test_import_check_covers_the_nested_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("ops/json_ops.py", "ops/aggregates.py", "exec/misc.py",
+                "exec/aggregate.py", "sql/session.py", "sql/dataframe.py",
+                "columnar/column.py", "plan/logical.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
+
+
 def test_import_check_covers_the_operators_slice():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("parallel/__init__.py", "parallel/shuffle.py",
@@ -148,9 +156,12 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.sql.ansi.enabled": "perhaps"}, "cannot parse boolean"),
     ({"spark.rapids.sql.exec.SortExec": False}, "unknown spark.rapids"),
     ({"spark.rapids.sql.exec.CpuSortExec": False}, "unknown spark.rapids"),
-    ({"spark.rapids.sql.expression.GetJsonObject": False},
+    # expressions of the JAX package that the port has not got (its
+    # GetJsonObject and Split became kill switches of the nested slice)
+    ({"spark.rapids.sql.expression.InputFileName": False},
      "unknown spark.rapids"),
-    ({"spark.rapids.sql.expression.Split": True}, "unknown spark.rapids"),
+    ({"spark.rapids.sql.expression.DeviceUDF": True},
+     "unknown spark.rapids"),
     ({"spark.rapids.shuffle.mode": "UCX"}, "invalid value"),
     ({"spark.rapids.tpu.exchange.mode": "sometimes"}, "invalid value"),
     ({"spark.rapids.shuffle.multiThreaded.writer.threads": "four"},
@@ -309,19 +320,24 @@ def _table():
 
 @pytest.mark.parametrize("build, what", [
     (lambda df: df.select(col("a").cast(T.ArrayType(T.IntegerT))), "Cast"),
-    # ids kept from the slice that refused first() and isnull
-    pytest.param(lambda df: df.agg(F._agg("collect_list")("a")),
-                 "aggregate 'collect_list'",
+    # ids kept from the slices that refused first(), isnull and split:
+    # a window function, a python UDF and input_file_name() are still
+    # outside the port (the JAX package's F.row_number(), F.udf(...)
+    # and F.input_file_name() build these trees)
+    pytest.param(lambda df: df.select(Column(UExpr("winfn",
+                                                   ("row_number",)))),
+                 "expression 'winfn'",
                  id="<lambda>-aggregate 'first'"),
     pytest.param(lambda df: df.limit(2), None, id="limit"),
     pytest.param(
-        lambda df: df.select(Column(UExpr("get_json_object", "$.a",
-                                          (col("s")._u,)))),
-        "expression 'get_json_object'",
+        lambda df: df.select(Column(UExpr(
+            "pyudf", (abs, T.IntegerT, False, "abs"), (col("a")._u,)))),
+        "expression 'pyudf'",
         id="<lambda>-expression 'isnull'"),
-    (lambda df: df.select(Column(UExpr("split", (",", -1),
-                                       (col("s")._u,)))),
-     "expression 'split'"),
+    pytest.param(lambda df: df.select(Column(UExpr("input_file_name",
+                                                   None))),
+                 "expression 'input_file_name'",
+                 id="<lambda>-expression 'split'"),
 ])
 def test_outside_the_slice_raises(build, what):
     """What the slice does not port raises naming itself; a bare limit

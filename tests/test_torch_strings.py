@@ -171,10 +171,16 @@ def test_analyzer_string_errors():
                            T.StructField("i", T.IntegerT)))
     with pytest.raises(AN.AnalysisException, match="like needs a string"):
         AN.resolve(col("i").like("1%")._u, schema)
-    for op in ("split", "get_json_object", "input_file_name",
+    # split and get_json_object resolve since the nested slice (host
+    # only); a window function and a python UDF are still outside it
+    for op in ("winfn", "pyudf", "input_file_name",
                "sha2", "initcap", "translate"):
         with pytest.raises(NotImplementedError, match=f"'{op}'"):
             AN.resolve(UExpr(op, "x", (UExpr("attr", "s"),)), schema)
+    assert type(AN.resolve(UExpr("split", (",", -1), (
+        UExpr("attr", "s"),)), schema)).__name__ == "Split"
+    assert type(AN.resolve(UExpr("get_json_object", "$.a", (
+        UExpr("attr", "s"),)), schema)).__name__ == "GetJsonObject"
     assert isinstance(AN.resolve((col("s") != "a")._u, schema), E.Not)
 
 
