@@ -78,8 +78,8 @@ result line is not printed):
    TargetSize coalesce into the device joins) and ``q13_cond`` (its left
    join with a residual condition on the CPU between device scans and
    device aggregates); each against its pyarrow reference and its
-   all-device run, with its fallback summary, its cold and warm walls
-   and its transitions' ``transferTime``;
+   all-device run, with its fallback summary, its cold wall and one
+   warm run's, and its transitions' ``transferTime``;
 10. ``[oracle]``: ``utils/tpch.py::oracle_check`` on the card — bench's
    CPU-oracle loop, the 22 builders at its small scales under
    ``TPCH_SF1_CONF`` against the port's CPU session
@@ -153,8 +153,9 @@ result line is not printed):
    ``concurrentGpuTasks`` 1, 2 and 4 (and the first at ``pumpDepth``
    1), each against pyarrow and row for row against the run at one
    permit, the semaphore's high-water mark within the permits, its wait
-   time, the cold and warm walls; q1 and q18 under 8 partitions (one
-   task, inline) against ``[partitions]``; q3 and q18 under bucketing
+   time, the cold wall and one warm wall; q1 and q18 under 8 partitions
+   (one task, inline) against ``[partitions]``, cold and one warm run;
+   q3 and q18 under bucketing
    off, pow2 and a forced ladder, bit for bit, with the shape plane's
    hits, misses and pad rows and bytes; and the kernel build cache: two
    processes warming q1 up into one fresh ``kernel.cacheDir`` (the
@@ -216,9 +217,10 @@ result line is not printed):
    (``tpch.nested_tables``), each run a path of its own under
    ``test.enabled`` (only the JAX package's host operators, the
    Generate over ``split`` and the Project of ``get_json_object``, on
-   the CPU), cold and warm, against this script's numpy, pyarrow and
-   Python references: order baskets by ``collect_list`` (lineitem
-   order) and ``collect_set`` (ascending) over 6,000,000 lines, exactly;
+   the CPU), cold and one warm run, against this script's numpy,
+   pyarrow and Python references: order baskets by ``collect_list``
+   (lineitem order) and ``collect_set`` (ascending) over 6,000,000
+   lines, exactly;
    the baskets ``posexplode``d back to part keys with ``count`` and
    ``sum(pos)``, equal to lineitem's per-part counts; a list column of
    each order's quantities (1% null elements, 1% null lists, empty
@@ -230,13 +232,33 @@ result line is not printed):
    ``python3 chip_smoke.py --nested`` runs this phase alone (after the
    build and the kernel checks), then the kernel bit for bit at every
    shape the phase launched it with;
-21. the string expressions of the string queries (LIKE, NOT LIKE,
+21. ``[window]``: window functions at SF1 (``tpch.window_tables``:
+   lineitem with each line's number in its order), each run a path of
+   its own under ``test.enabled`` with 0 operators on the CPU, cold and
+   3 warm runs equal to it, against this script's numpy references
+   (a stable ``np.lexsort``, segment starts, shifted reads, running
+   values, ``bincount`` and ``searchsorted``): supplier ranks
+   (``rank``, ``dense_rank``, ``row_number`` of revenue per supplier in
+   its nation, after a join and an aggregate, top 3), revenue share (a
+   whole-partition sum per part type), order gaps over 1,500,000 orders
+   (``lag``/``lead`` of a date, a double and a string, ``lag`` IGNORE
+   NULLS), line running totals over 6,000,000 lines (a ROWS and the
+   default RANGE frame), customer trailing spend (a 90-day RANGE frame,
+   ROWS frames of 5 and 4 rows), customer quartiles (``ntile``,
+   ``percent_rank``, ``cume_dist``) and the top 100 orders (no
+   partition); each run's walls, rows, launches, the windows'
+   ``opTime`` and reservations and the arbiter's peak, and three runs'
+   Window nodes alone and their sorts alone, by CUDA events.
+   ``python3 chip_smoke.py --window`` runs this phase alone (after the
+   build and the kernel checks), then the kernel bit for bit at every
+   shape the phase launched it with;
+22. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-22. the kernel at every shape the main path (queries, variants,
+23. the kernel at every shape the main path (queries, variants,
    fallback cases, partitions, exchanges, operators, strings, retry,
-   pump, faults, breadth, decimal and nested)
+   pump, faults, breadth, decimal, nested and window)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -246,7 +268,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-23. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+24. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -277,6 +299,8 @@ BREADTH_ONLY = "--breadth" in sys.argv[1:]
 DECIMAL_ONLY = "--decimal" in sys.argv[1:]
 # ``python3 chip_smoke.py --nested``: the [nested] phase alone
 NESTED_ONLY = "--nested" in sys.argv[1:]
+# ``python3 chip_smoke.py --window``: the [window] phase alone
+WINDOW_ONLY = "--window" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -2901,7 +2925,10 @@ PUMP_BRAND = "Brand#23"
 PUMP_LINEITEM = ["l_orderkey", "l_partkey", "l_extendedprice", "l_discount"]
 PUMP_JOINED = ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
                "l_discount", "p_container"]
-PUMP_WARM_RUNS = 3
+# one warm run per setting (and per [partitions] query): it still reads
+# every scan from the cache, equals the run at one permit and keeps the
+# semaphore within the permits
+PUMP_WARM_RUNS = 1
 SHAPE_CONFS = {
     "off": {"spark.rapids.tpu.kernel.bucketing": "off"},
     "pow2": {"spark.rapids.tpu.kernel.bucketing": "pow2"},
@@ -3084,7 +3111,8 @@ def pump_phase(dev, tables, refs, part_runs, CB, KN) -> dict:
               f"pump {q}: {df._last_plan.num_partitions()} tasks")
         check(rows_equal(got, part_runs[q]["rows"], tol=0.0),
               f"pump {q} differs from its [partitions] run")
-        warm = [timed(build_on(q, session, tables))[1] for _ in range(2)]
+        warm = [timed(build_on(q, session, tables))[1]
+                for _ in range(PUMP_WARM_RUNS)]
         line = {"tasks": 1, "cold_wall_s": cold,
                 "wall_s_median": statistics.median(warm), "wall_s": warm,
                 "partitions_cold_wall_s": part_runs[q]["cold_wall_s"],
@@ -3668,12 +3696,18 @@ def transition_times(df) -> list:
     return out
 
 
+# one warm run a case (q13_cond's host join takes ~11 s a run): it still
+# equals the reference
+FALLBACK_WARM_RUNS = 1
+
+
 def fallback_phase(case, dev, tables, refs, first, CB, KN) -> dict:
     """One plan with an operator on the CPU, as a path of its own: the
     cache cleared and the counts set to 0 before its cold run, read
     after; under test.enabled with allowedNonGpu naming exactly the exec
     that must fall, so any other fallback raises.  Against its pyarrow
-    reference and its all-device run; then 3 warm runs."""
+    reference and its all-device run; then ``FALLBACK_WARM_RUNS`` warm
+    runs."""
     from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
     from spark_rapids_tpu_torch.sql.session import TpuSession
     name, q, conf, cpu_exec, n_fallen, base = case
@@ -3706,7 +3740,7 @@ def fallback_phase(case, dev, tables, refs, first, CB, KN) -> dict:
         check("TpuCoalesceBatches [target=" in df._last_plan.tree_string(),
               f"{name}: no TargetSize coalesce above HostToDeviceExec")
     warm, warm_tr = [], []
-    for _ in range(3):
+    for _ in range(FALLBACK_WARM_RUNS):
         wdf = build_on(q, session, tables)
         out, wall = timed(wdf)
         warm.append(wall)
@@ -5165,7 +5199,7 @@ def decimal_phase(dev, tables, CB, KN, query_shapes) -> dict:
 
 # -- [nested]: structs, arrays, explode, collect, split, get_json_object ------
 
-NESTED_WARM_RUNS = 2
+NESTED_WARM_RUNS = 1
 # the operators the JAX package runs on the host for these queries
 NESTED_FALLBACKS = {"name words": {"CpuGenerateExec"},
                     "customer json": {"CpuProjectExec"}}
@@ -5341,8 +5375,9 @@ def nested_phase(dev, tables, CB, KN, query_shapes) -> dict:
     (``tpch.nested_tables``: a list of each order's quantities, a struct
     on orders, customers' JSON documents), each run a path of its own
     under ``SESSION_CONF`` (only ``NESTED_FALLBACKS``' operators may run
-    on the CPU, as in the JAX package), cold then 2 warm runs equal to
-    it, against this script's numpy, pyarrow and Python references:
+    on the CPU, as in the JAX package), cold then ``NESTED_WARM_RUNS``
+    warm run equal to it, against this script's numpy, pyarrow and
+    Python references:
 
     1. ``order baskets``: lineitem by order, ``collect_list`` of its part
        keys (lineitem order), ``collect_set`` of its supplier keys
@@ -5562,6 +5597,503 @@ def nested_only(dev, tables, CB, KN) -> int:
     return 0
 
 
+# -- [window]: window functions at SF1 ---------------------------------------
+
+WINDOW_WARM_RUNS = 3
+# the runs whose Window nodes are also timed alone on their cached input
+WINDOW_ALONE = ("order gaps", "line running totals",
+                "customer trailing spend")
+# the runs that join and aggregate before their window: the kernel must
+# launch in them
+WINDOW_HASHED = {"supplier ranks", "revenue share"}
+
+
+def _sorted_rows(*keys):
+    """Stable row order by ``keys``, the first the most significant."""
+    import numpy as np
+    return np.lexsort(list(reversed(keys)))
+
+
+def _run_starts(first):
+    """Each row's segment start, from the segment-start mask."""
+    import numpy as np
+    idx = np.arange(len(first))
+    return np.maximum.accumulate(np.where(first, idx, 0))
+
+
+def _starts_of(*keys):
+    """Segment-start mask of rows sorted by ``keys`` (row 0 starts)."""
+    import numpy as np
+    n = len(keys[0])
+    first = np.zeros(n, bool)
+    first[:1] = True
+    for k in keys:
+        first[1:] |= k[1:] != k[:-1]
+    return first
+
+
+def _np(col, fill=0):
+    """An Arrow column as numpy, nulls as ``fill``."""
+    import pyarrow.compute as pc
+    return pc.fill_null(col, fill).to_numpy()
+
+
+def _nulls(col):
+    import numpy as np
+    return np.asarray(col.is_null().to_numpy(), dtype=bool)
+
+
+def _close(a, b, tol=1e-9) -> bool:
+    import numpy as np
+    return bool(np.allclose(a, b, rtol=tol, atol=0.0))
+
+
+def ref_supplier_ranks(wt) -> dict:
+    """Revenue per supplier by ``bincount`` (supplier keys are
+    ``arange``), ranked in each nation by revenue, descending."""
+    import numpy as np
+    li, su = wt["lineitem"], wt["supplier"]
+    n_supp = su.num_rows
+    sk = li["l_suppkey"].to_numpy()
+    rev = np.bincount(sk, weights=li["l_extendedprice"].to_numpy()
+                      * (1 - li["l_discount"].to_numpy()),
+                      minlength=n_supp)
+    keys = su["s_suppkey"].to_numpy()
+    keys = keys[np.bincount(sk, minlength=n_supp)[keys] > 0]
+    nat = su["s_nationkey"].to_numpy()[keys]
+    order = _sorted_rows(nat, -rev[keys])
+    nat, keys, r = nat[order], keys[order], rev[keys][order]
+    start = _run_starts(_starts_of(nat))
+    peer_first = _starts_of(nat, r)
+    rn = np.arange(len(nat)) - start + 1
+    rk = _run_starts(peer_first) - start + 1
+    # dense rank: the peer groups since the partition's start
+    groups = np.cumsum(peer_first)
+    drk = groups - groups[start] + 1
+    keep = rk <= 3
+    return {"s_nationkey": nat[keep], "s_suppkey": keys[keep],
+            "revenue": r[keep], "rk": rk[keep], "drk": drk[keep],
+            "rn": rn[keep]}
+
+
+def check_supplier_ranks(got, want) -> dict:
+    for k in ("s_nationkey", "s_suppkey", "rk", "drk", "rn"):
+        check(np_equal(_np(got[k]), want[k]), f"supplier ranks: {k} differs")
+    check(_close(_np(got["revenue"]), want["revenue"]),
+          "supplier ranks: revenue differs")
+    return {"nations": int(len(set(want["s_nationkey"].tolist()))),
+            "rows": int(len(want["rk"]))}
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def ref_revenue_share(wt) -> dict:
+    """Revenue per (type, brand) by ``bincount`` over dictionary codes
+    (part keys are ``arange``), and each type's total."""
+    import numpy as np
+    li, part = wt["lineitem"], wt["part"]
+    pk = li["l_partkey"].to_numpy()
+    types = part["p_type"].dictionary_encode().combine_chunks()
+    brands = part["p_brand"].dictionary_encode().combine_chunks()
+    tc, bc = types.indices.to_numpy(), brands.indices.to_numpy()
+    nb = len(brands.dictionary)
+    g = tc[pk] * nb + bc[pk]
+    rev = np.bincount(g, weights=li["l_extendedprice"].to_numpy()
+                      * (1 - li["l_discount"].to_numpy()),
+                      minlength=len(types.dictionary) * nb)
+    has = np.bincount(g, minlength=len(rev)) > 0
+    total = np.bincount(np.arange(len(rev)) // nb, weights=rev)
+    tnames = types.dictionary.to_pylist()
+    bnames = brands.dictionary.to_pylist()
+    return {(tnames[i // nb], bnames[i % nb]):
+            (rev[i], total[i // nb], rev[i] * 100 / total[i // nb])
+            for i in np.flatnonzero(has)}
+
+
+def check_revenue_share(got, want) -> dict:
+    rows = got.to_pylist()
+    check(len(rows) == len(want), f"revenue share: {len(rows)} rows, "
+          f"{len(want)} expected")
+    for r in rows:
+        w = want.get((r["p_type"], r["p_brand"]))
+        check(w is not None and math.isclose(r["rev"], w[0], rel_tol=1e-9)
+              and math.isclose(r["share"], w[2], rel_tol=1e-9),
+              f"revenue share differs at {r}: {w}")
+    return {"groups": len(rows)}
+
+
+def ref_order_gaps(wt) -> dict:
+    """Each customer's orders by (date, key): previous date, next price,
+    the priority two back, the number, and the previous fulfilled
+    price (a running max of fulfilled row indices)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    o = wt["orders"]
+    ck, ok = o["o_custkey"].to_numpy(), o["o_orderkey"].to_numpy()
+    od = o["o_orderdate"].cast(pa.int32()).to_numpy()
+    order = _sorted_rows(ck, od, ok)
+    ck, ok, od = ck[order], ok[order], od[order]
+    tp = o["o_totalprice"].to_numpy()[order]
+    n = len(ck)
+    idx = np.arange(n)
+    start = _run_starts(_starts_of(ck))
+    num = idx - start + 1
+    nxt = np.r_[idx[1:], 0]
+    has_next = np.r_[ck[1:] == ck[:-1], False]
+    filled = np.asarray(pc.equal(o["o_orderstatus"], "F").to_numpy(),
+                        dtype=bool)[order]
+    last = np.maximum.accumulate(np.where(filled, idx, -1))
+    prev = np.r_[-1, last[:-1]]
+    prev_ok = prev >= start
+    back2 = np.where(num > 2, idx - 2, -1)
+    prio = o["o_orderpriority"].take(pa.array(order))
+    return {"o_custkey": ck, "o_orderkey": ok, "o_orderdate": od,
+            "n": num, "prev_date": od[np.maximum(idx - 1, 0)],
+            "prev_date_null": num == 1,
+            "next_price": tp[nxt], "next_price_null": ~has_next,
+            "prio_2_back": prio.take(pa.array(back2, mask=back2 < 0)),
+            "prev_filled": tp[np.maximum(prev, 0)],
+            "prev_filled_null": ~prev_ok}
+
+
+def check_order_gaps(got, want) -> dict:
+    import pyarrow as pa
+    for k in ("o_custkey", "o_orderkey", "n"):
+        check(np_equal(_np(got[k]), want[k]), f"order gaps: {k} differs")
+    check(np_equal(_np(got["o_orderdate"].cast(pa.int32())),
+                   want["o_orderdate"]), "order gaps: o_orderdate differs")
+    for k, cast in (("prev_date", pa.int32()), ("next_price", None),
+                    ("prev_filled", None)):
+        c = got[k] if cast is None else got[k].cast(cast)
+        nul = _nulls(c)
+        check(np_equal(nul, want[k + "_null"]),
+              f"order gaps: {k}'s nulls differ")
+        check(np_equal(_np(c)[~nul], want[k][~nul]),
+              f"order gaps: {k} differs")
+    check(got["prio_2_back"].cast(pa.string()).combine_chunks().equals(
+        want["prio_2_back"].cast(pa.string()).combine_chunks()),
+        "order gaps: prio_2_back differs")
+    return {"orders": got.num_rows,
+            "first_orders": int(want["prev_date_null"].sum()),
+            "no_prior_fulfilled": int(want["prev_filled_null"].sum())}
+
+
+def _by_position(pos, fn, init):
+    """A running value within segments, row by row in order: row i at
+    position p > 0 takes ``fn(out[i - 1], init[i])``, one position at a
+    time (each a vectorized step over the rows at that position)."""
+    import numpy as np
+    out = init.copy()
+    for p in range(1, int(pos.max()) + 1 if len(pos) else 0):
+        i = np.flatnonzero(pos == p)
+        out[i] = fn(out[i - 1], init[i])
+    return out
+
+
+def ref_line_running_totals(wt) -> dict:
+    import numpy as np
+    li = wt["lineitem"]
+    ok, ln = li["l_orderkey"].to_numpy(), li["l_linenumber"].to_numpy()
+    # one stable sort of a combined key (line numbers are below 32)
+    check(int(ln.max()) < 32, "an order has 32 lines or more")
+    order = np.argsort(ok * 32 + ln, kind="stable")
+    ok, ln = ok[order], ln[order]
+    start = _run_starts(_starts_of(ok))
+    pos = np.arange(len(ok)) - start
+    q = li["l_quantity"].to_numpy()[order]
+    price = li["l_extendedprice"].to_numpy()[order]
+    disc = li["l_discount"].to_numpy()[order]
+    return {"l_orderkey": ok, "l_linenumber": ln,
+            "run_qty": _by_position(pos, np.add, q),
+            "n": pos + 1,
+            "run_avg_price": _by_position(pos, np.add, price) / (pos + 1),
+            "first_part": li["l_partkey"].to_numpy()[order][start],
+            "max_disc": _by_position(pos, np.maximum, disc)}
+
+
+def check_line_running_totals(got, want) -> dict:
+    for k in ("l_orderkey", "l_linenumber", "n", "first_part", "max_disc"):
+        check(np_equal(_np(got[k]), want[k]),
+              f"line running totals: {k} differs")
+    for k in ("run_qty", "run_avg_price"):
+        check(_close(_np(got[k]), want[k]),
+              f"line running totals: {k} differs")
+    return {"lines": got.num_rows, "longest_order": int(want["n"].max())}
+
+
+def ref_trailing_spend(wt) -> dict:
+    """Per customer by date (stable): the 90-day RANGE sum by a search
+    over (customer, date) keys and a long-double prefix difference, the
+    five-row average and four-row max by shifted reads."""
+    import numpy as np
+    import pyarrow as pa
+    o = wt["orders"]
+    ck = o["o_custkey"].to_numpy()
+    od = o["o_orderdate"].cast(pa.int32()).to_numpy().astype(np.int64)
+    order = _sorted_rows(ck, od)
+    ck, od = ck[order], od[order]
+    tp = o["o_totalprice"].to_numpy()[order]
+    key = ck * (1 << 15) + od
+    lo = np.searchsorted(key, key - 90, "left")
+    hi = np.searchsorted(key, key, "right")
+    cs = np.r_[0, np.cumsum(tp.astype(np.longdouble))]
+    spend = (cs[hi] - cs[lo]).astype(np.float64)
+    n = len(ck)
+    idx = np.arange(n)
+    s5 = np.zeros(n)
+    c5 = np.zeros(n)
+    m4 = tp.copy()
+    for off in (-2, -1, 0, 1, 2, -3):
+        j = idx + off
+        inside = (j >= 0) & (j < n)
+        inside[inside] &= ck[j[inside]] == ck[inside]
+        if off >= -2:
+            s5[inside] += tp[j[inside]]
+            c5 += inside
+        if off <= 0:
+            m4[inside] = np.maximum(m4[inside], tp[j[inside]])
+    return {"o_custkey": ck, "o_orderkey": o["o_orderkey"].to_numpy()[order],
+            "o_orderdate": od, "spend_90d": spend, "avg_5": s5 / c5,
+            "max_4": m4}
+
+
+def check_trailing_spend(got, want) -> dict:
+    import pyarrow as pa
+    for k in ("o_custkey", "o_orderkey", "max_4"):
+        check(np_equal(_np(got[k]), want[k]),
+              f"customer trailing spend: {k} differs")
+    check(np_equal(_np(got["o_orderdate"].cast(pa.int32())).astype(
+        "int64"), want["o_orderdate"]),
+        "customer trailing spend: o_orderdate differs")
+    for k in ("spend_90d", "avg_5"):
+        check(_close(_np(got[k]), want[k]),
+              f"customer trailing spend: {k} differs")
+    return {"orders": got.num_rows}
+
+
+def ref_customer_quartiles(wt) -> dict:
+    import numpy as np
+    c = wt["customer"]
+    seg = c["c_mktsegment"].dictionary_encode().combine_chunks()
+    names = np.array(seg.dictionary.to_pylist(), dtype=object)
+    rank_of = np.argsort(np.argsort(names))  # codes in string order
+    code = rank_of[seg.indices.to_numpy()]
+    names = np.sort(names)
+    bal = c["c_acctbal"].to_numpy()
+    order = _sorted_rows(code, bal)
+    code, bal = code[order], bal[order]
+    n = len(code)
+    idx = np.arange(n)
+    first = _starts_of(code)
+    start = _run_starts(first)
+    ends = np.r_[np.flatnonzero(first)[1:], n]
+    plen = (ends[np.cumsum(first) - 1] - start)
+    pstart = _run_starts(_starts_of(code, bal))
+    pfirst = _starts_of(code, bal)
+    pend = np.r_[np.flatnonzero(pfirst)[1:], n][np.cumsum(pfirst) - 1] - 1
+    rank = pstart - start + 1
+    rn0 = idx - start
+    q, r = plen // 4, plen % 4
+    cut = r * (q + 1)
+    quart = np.where(rn0 < cut, rn0 // np.maximum(q + 1, 1),
+                     r + (rn0 - cut) // np.maximum(q, 1)) + 1
+    pct = np.where(plen > 1, (rank - 1) / np.maximum(plen - 1, 1), 0.0)
+    return {"c_custkey": c["c_custkey"].to_numpy()[order],
+            "c_mktsegment": names[code],
+            "c_acctbal": bal, "quartile": quart, "pct_rank": pct,
+            "cume": (pend - start + 1) / plen}
+
+
+def check_customer_quartiles(got, want) -> dict:
+    import numpy as np
+    for k in ("c_custkey", "c_acctbal", "quartile", "pct_rank", "cume"):
+        check(np_equal(_np(got[k]), want[k]),
+              f"customer quartiles: {k} differs")
+    check(np.array_equal(np.array(got["c_mktsegment"].to_pylist(),
+                                  dtype=object), want["c_mktsegment"]),
+          "customer quartiles: c_mktsegment differs")
+    return {"customers": got.num_rows,
+            "segments": int(len(set(want["c_mktsegment"].tolist())))}
+
+
+def ref_top_orders(wt) -> dict:
+    import numpy as np
+    o = wt["orders"]
+    tp = o["o_totalprice"].to_numpy()
+    order = np.argsort(-tp, kind="stable")[:100]
+    return {"o_orderkey": o["o_orderkey"].to_numpy()[order],
+            "o_custkey": o["o_custkey"].to_numpy()[order],
+            "o_totalprice": tp[order], "rn": np.arange(1, 101)}
+
+
+def check_top_orders(got, want) -> dict:
+    for k in want:
+        check(np_equal(_np(got[k]), want[k]), f"top orders: {k} differs")
+    return {"orders": got.num_rows}
+
+
+WINDOW_RUNS = (
+    ("supplier ranks", ref_supplier_ranks, check_supplier_ranks),
+    ("revenue share", ref_revenue_share, check_revenue_share),
+    ("order gaps", ref_order_gaps, check_order_gaps),
+    ("line running totals", ref_line_running_totals,
+     check_line_running_totals),
+    ("customer trailing spend", ref_trailing_spend, check_trailing_spend),
+    ("customer quartiles", ref_customer_quartiles,
+     check_customer_quartiles),
+    ("top orders", ref_top_orders, check_top_orders))
+
+
+def window_alone(wins) -> list:
+    """Each Window node of a plan alone on its input (its child run
+    again, every scan from the cache), by CUDA events, median of 5
+    after 2: the whole node (``_window_impl``) and its one sort
+    (``window_sort``: the chained stable argsorts over its limbs)."""
+    from spark_rapids_tpu_torch.exec import window as W
+    from spark_rapids_tpu_torch.exec.basic import concat_device_batches
+    out = []
+    for w in wins:
+        child = w.children[0]
+        batch = concat_device_batches(child.schema, [
+            b for p in range(child.num_partitions())
+            for b in child.execute(p)])
+        limbs, _, n_lp = W.window_sort(batch, w.partition_by, w.order_by)
+        out.append({
+            "node": w.node_string(), "rows": batch.capacity,
+            "limbs": len(limbs), "partition_limbs": n_lp,
+            "sort_ms": cuda_ms(lambda: W.window_sort(
+                batch, w.partition_by, w.order_by), 5),
+            "node_ms": cuda_ms(lambda: W._window_impl(
+                batch, w.partition_by, w.order_by, w.fns, w.schema), 5)})
+        del batch, limbs
+    return out
+
+
+def window_phase(dev, tables, CB, KN, query_shapes) -> dict:
+    """Window functions at SF1 (``tpch.window_tables``: lineitem with each
+    line's number in its order), every run of ``tpch.WINDOW_QUERIES`` a
+    path of its own under ``SESSION_CONF`` (nothing on the CPU), cold
+    then ``WINDOW_WARM_RUNS`` warm runs from the scan cache, each equal
+    to the cold run, against this script's numpy references (a stable
+    ``np.lexsort``, then segment starts, shifted reads, running values
+    position by position, ``bincount`` and ``searchsorted``): supplier
+    ranks and revenue share (a join and an aggregate before the window:
+    the kernel launches), order gaps, line running totals (6,000,000
+    lines, one 2^23-row batch), customer trailing spend (a RANGE frame
+    on the date and two ROWS frames), customer quartiles and the top
+    orders (no partition).  Keys, ranks, counts, dates, strings and
+    copied or compared doubles exactly; sums and averages within 1e-9
+    relative.  Prints each run's walls, rows, launches, the windows'
+    ``opTime`` and reservations and the arbiter's peak, and for
+    ``WINDOW_ALONE``'s runs each Window node alone and its sort alone
+    by CUDA events (``window_alone``).  Returns the counts of the
+    runs."""
+    import torch
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import memory as MM
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import tpch
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    wt = tpch.window_tables(tables)
+    set_up_s = time.perf_counter() - t0
+    counts, lines, facts, ref_s = {}, {}, {}, {}
+    for name, ref, verify in WINDOW_RUNS:
+        t0 = time.perf_counter()
+        want = ref(wt)
+        ref_s[name] = time.perf_counter() - t0
+        s = TpuSession(dict(SESSION_CONF), device=dev)
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        clear_scan_cache()
+        mgr = MM.get_manager()
+        mgr.metrics["peakReserved"] = 0  # this run's peak, from here
+        torch.cuda.reset_peak_memory_stats(dev)
+        df = tpch.WINDOW_QUERIES[name](s, wt)
+        got, cold = timed(df)
+        counts[name] = c = path_counts(df, CB, KN)
+        print(f"[main path] window {name} " + json.dumps(c), flush=True)
+        fb = df.fallback_summary()
+        check(fb["fallback_ops"] == 0 and fb["device_ops"] > 0,
+              f"window {name}: operators on the CPU {fb}")
+        check(c["collision_fallbacks"] == 0,
+              f"window {name}: hash-collision fallbacks")
+        check(name not in WINDOW_HASHED or c["hash_pairs_launches"] > 0,
+              f"window {name}: hash_pairs was not launched")
+        wins = find_nodes(df._last_plan, "TpuWindowExec")
+        check(wins and all(w.metric("numOutputBatches").value == 1
+                           for w in wins),
+              f"window {name}: no TpuWindowExec ran")
+        facts[name] = verify(got, want)
+        peak = mgr.metrics["peakReserved"]
+        alloc = torch.cuda.max_memory_allocated(dev)
+        warm = []
+        for _ in range(WINDOW_WARM_RUNS):
+            wdf = tpch.WINDOW_QUERIES[name](s, wt)
+            out, wall = timed(wdf)
+            warm.append(wall)
+            check(out.equals(got), f"window {name}: a warm run differs")
+            check(all(t == 0 for t in scan_transfer_times(wdf)),
+                  f"window {name}: a warm scan missed the cache")
+        lines[name] = line = {
+            "rows": got.num_rows, "cold_wall_s": cold,
+            "h2d_s": phase_times(df)["h2d_s"],
+            "d2h_s": phase_times(df)["d2h_s"],
+            "warm_wall_s": statistics.median(warm), "warm_walls_s": warm,
+            "windows": len(wins),
+            "window_op_time_s": [w.metric("opTime").value for w in wins],
+            "window_reserved_bytes": [w.metric("reservedBytes").value
+                                      for w in wins],
+            "peak_reserved_bytes": peak, "max_memory_allocated": alloc,
+            "hash_pairs_launches": c["hash_pairs_launches"],
+            "hash_pairs_shapes": c["shapes"],
+            "new_hash_pairs_shapes": sorted(set(c["shapes"])
+                                            - query_shapes),
+            "fallback_ops": fb["fallback_ops"], "equal_reference": True,
+            "facts": facts[name], "reference_s": ref_s[name]}
+        if name in WINDOW_ALONE:
+            line["alone"] = window_alone(wins)
+        print(f"[window] {name} " + json.dumps(line), flush=True)
+        del got, df, want
+    print("[window] " + json.dumps({
+        "seconds": time.perf_counter() - t_phase, "set_up_s": set_up_s,
+        "reference_s": sum(ref_s.values()),
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()},
+        "cold_wall_s": {k: v["cold_wall_s"] for k, v in lines.items()},
+        "warm_wall_s": {k: v["warm_wall_s"] for k, v in lines.items()},
+        "window_op_time_s": {k: v["window_op_time_s"]
+                             for k, v in lines.items()}}), flush=True)
+    return counts
+
+
+def window_only(dev, tables, CB, KN) -> int:
+    """``--window``: the [window] phase alone (after the build and the
+    kernel checks), then the kernel bit for bit at every shape it
+    launched."""
+    t0 = time.perf_counter()
+    counts = window_phase(dev, tables, CB, KN, set())
+    gen = __import__("torch").Generator(device=dev)
+    gen.manual_seed(20261018)
+    shapes = sorted({k for c in counts.values() for k in c["shapes"]},
+                    key=lambda k: tuple(map(int, k.split("x"))))
+    for key in shapes:
+        n_limbs, n = (int(x) for x in key.split("x"))
+        kernel_line(CB, None, random_limbs(n_limbs, n, gen, dev),
+                    timed=False)
+    print("[window only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "shapes_bit_identical": shapes,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()}}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def decimal_only(dev, tables, CB, KN) -> int:
     """``--decimal``: the [decimal] phase alone (after the build and the
     kernel checks), then the kernel bit for bit at every shape it
@@ -5684,6 +6216,8 @@ def main() -> int:
         return decimal_only(dev, tables, CB, KN)
     if NESTED_ONLY:
         return nested_only(dev, tables, CB, KN)
+    if WINDOW_ONLY:
+        return window_only(dev, tables, CB, KN)
     check(len(QUERIES) == 22 and set(QUERIES) == set(tpch.QUERIES)
           == {f"q{i}" for i in range(1, 23)},
           f"QUERIES lists {sorted(QUERIES)}, not TPC-H's 22")
@@ -5867,6 +6401,13 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[nested] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- window functions: ranks, offsets, running and bounded frames ------
+    window_counts = window_phase(dev, tables, CB, KN, query_shapes)
+    for c in window_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[window] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -5956,7 +6497,8 @@ def main() -> int:
                         + list(fault_counts.values())
                         + list(breadth_counts.values())
                         + list(decimal_counts.values())
-                        + list(nested_counts.values())),
+                        + list(nested_counts.values())
+                        + list(window_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -5983,6 +6525,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in decimal_counts.items()},
         "launches_per_nested_run": {
             k: c["hash_pairs_launches"] for k, c in nested_counts.items()},
+        "launches_per_window_run": {
+            k: c["hash_pairs_launches"] for k, c in window_counts.items()},
         "plain_calls_per_faults_run": {
             k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,

@@ -205,6 +205,51 @@ def segment_groupby(
     return out_keys, out_vals, out_sel, okf
 
 
+def segmented_scan(op: str, values: torch.Tensor,
+                   boundary: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented scan: row i gets the ``op`` reduction of its
+    segment's rows from the segment's start (``boundary`` marks starts)
+    to i — the JAX package's ``segmented_scan``, an ``associative_scan``
+    there.
+
+    ``op`` is ``"add"``, ``"min"``, ``"max"``, ``"first"`` (each row gets
+    its segment's first value) or ``"max_index"`` (a running max of row
+    indices, -1 where a row has none).  Integer sums are a cumulative-sum
+    difference (``kernels/hash_layout.py::seg_scan``: exact, wrapping as
+    the JAX package's int64 scan does); a running max of indices is one
+    ``cummax``, held back to -1 before the segment's start.  Float sums,
+    and min and max, take a doubling scan that restarts at every
+    boundary: log2(n) steps, each combining row i with row i - 2^k when
+    both lie in one segment — one fixed order of combination on every
+    run, no atomics, and no cancellation across segments (a float
+    cumulative-sum difference would subtract the totals of every earlier
+    segment).
+    """
+    from spark_rapids_tpu_torch.kernels import hash_layout as HL
+    if op == "first":
+        return HL.seg_scan(values, boundary, "first")
+    if op == "add" and not values.dtype.is_floating_point:
+        return HL.seg_scan(values, boundary, "add")
+    start = HL._run_starts(boundary)
+    if op == "max_index":
+        run = torch.cummax(values, 0).values
+        return torch.where(run >= start, run, -1)
+    fn = {"add": torch.add, "min": torch.minimum,
+          "max": torch.maximum}.get(op)
+    if fn is None:
+        raise ValueError(f"unknown segmented_scan op {op!r}")
+    n = int(values.shape[0])
+    idx = torch.arange(n, device=values.device)
+    v = values
+    d = 1
+    while d < n:
+        inside = (idx[d:] - d) >= start[d:]
+        v = torch.cat([v[:d], torch.where(inside, fn(v[:-d], v[d:]),
+                                          v[d:])])
+        d *= 2
+    return v
+
+
 class _ScanBatcher:
     """Deduplicates segmented reductions over identical inputs.
 

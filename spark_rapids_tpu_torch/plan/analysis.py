@@ -20,7 +20,9 @@ scale-adjusted): add and subtract widen to the common type plus one
 digit, multiply to p1 + p2 + 1 digits at scale s1 + s2; other decimal
 arithmetic is refused.  Struct field access (``getField``), ``struct``
 and the generators are the DataFrame layer's: the analyzer meets them
-only outside a select, and refuses them as the JAX package's does.  An
+only outside a select, and refuses them as the JAX package's does; so
+is a window function, which ``resolve_window`` resolves with its spec
+and frame when it stands under ``.over`` at a select's top level.  An
 operator outside the port raises ``NotImplementedError`` naming it.
 """
 
@@ -315,8 +317,9 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
                 "get_json_object needs a string operand, got "
                 f"{child.dtype.simple_name}")
         return GetJsonObject(child, str(u.payload))
-    if op in ("getfield", "make_struct", "generate"):
-        # the DataFrame layer rewrites these where it allows them
+    if op in ("getfield", "make_struct", "generate", "window", "winfn"):
+        # the DataFrame layer rewrites these where it allows them (a
+        # window function only under ``.over`` at a select's top level)
         raise AnalysisException(f"unknown expression op '{op}'")
     if op == "reverse":
         child = resolve(u.children[0], schema)
@@ -465,3 +468,138 @@ def _percentile(kind: str, args, child: E.Expression, u: UExpr,
         fn = A.ApproxPercentile(child, pct,
                                 int(args[1]) if len(args) > 1 else 10000)
     return fn, alias or f"{kind}({u.children[0]}, {pct})"
+
+
+_WINDOW_AGGS = ("sum", "min", "max", "count", "avg", "first")
+
+
+def resolve_window(u: UExpr, schema: T.StructType):
+    """Resolve a ``col.over(WindowSpec)`` expression, as the JAX
+    package's ``resolve_window`` does.
+
+    Returns (partition_by, order_by SortOrders, WindowFunctionSpec,
+    default name).  [REF: GpuWindowExpression tagging]
+    """
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.sql.window import Window
+
+    spec = u.payload
+    fu = u.children[0]
+    pby = [resolve(p, schema) for p in spec.partition_by]
+    orders = []
+    for o in spec.order_by:
+        asc, nf = True, True
+        if o.op == "sortorder":
+            d, n = o.payload
+            asc, nf = d == "asc", n == "nulls_first"
+            o = o.children[0]
+        orders.append(L.SortOrder(resolve(o, schema), asc, nf))
+    frame, frame_lo, frame_hi = _window_frame(spec.frame, orders, Window)
+
+    if fu.op == "winfn":
+        wf, name = _window_fn(fu, schema, orders, frame, L)
+    elif fu.op == "agg":
+        kind = fu.payload
+        if kind == "count_star":
+            child = resolve(UExpr("lit", 1), schema)
+            kind = "count"
+        else:
+            child = resolve(fu.children[0], schema)
+        if kind not in _WINDOW_AGGS:
+            raise AnalysisException(
+                f"unsupported window aggregate '{kind}'")
+        if kind in ("sum", "avg") and not T.is_numeric(child.dtype):
+            raise AnalysisException(
+                f"{kind}() over window needs a numeric input, got "
+                f"{child.dtype.simple_name}")
+        if kind == "avg" or (kind == "sum"
+                             and isinstance(child.dtype, T.FloatType)):
+            child = cast_to(child, T.DoubleT)
+        if kind == "count":
+            dtype = T.LongT
+        elif kind == "avg":
+            dtype = T.DoubleT
+        elif kind == "sum":
+            dtype = A.Sum(child).result_dtype
+        else:
+            dtype = child.dtype
+        wf = L.WindowFunctionSpec(kind, child, dtype, frame=frame,
+                                  frame_lo=frame_lo, frame_hi=frame_hi)
+        name = f"{kind}({fu.children[0] if fu.children else '1'})"
+    else:
+        raise AnalysisException(
+            f"only window functions and aggregates may be used with "
+            f".over(), got {fu}")
+    return pby, orders, wf, f"{name} OVER (...)"
+
+
+def _window_frame(spec_frame, orders, Window):
+    """(frame kind, lo, hi) of a spec's frame: the JAX package's frames
+    and refusals."""
+    if spec_frame is None:
+        return ("range_current" if orders else "partition"), 0, 0
+    kind, lo, hi = spec_frame
+    unb_lo = lo == Window.unboundedPreceding
+    unb_hi = hi == Window.unboundedFollowing
+    if kind == "rows" and unb_lo and hi == 0:
+        return "rows_current", 0, 0
+    if unb_lo and unb_hi:
+        return "partition", 0, 0
+    if kind == "rows" and lo <= hi:
+        # a sliding frame (an unbounded end clamps to the partition's
+        # edge in the exec); offsets capped past any batch, int32-safe
+        cap = 1 << 30
+        return "rows_bounded", max(int(lo), -cap), min(int(hi), cap)
+    if kind == "range" and unb_lo and hi == 0:
+        return "range_current", 0, 0
+    if kind == "range" and lo <= hi:
+        if not orders or len(orders) != 1:
+            raise AnalysisException(
+                "RANGE frame with offsets requires exactly one ORDER BY "
+                "expression")
+        okey = orders[0]
+        if not (T.is_integral(okey.expr.dtype)
+                or isinstance(okey.expr.dtype, T.DateType)):
+            raise AnalysisException(
+                "RANGE frame offsets need an integral or date ORDER BY "
+                f"key, got {okey.expr.dtype.simple_name}")
+        return ("range_bounded", None if unb_lo else int(lo),
+                None if unb_hi else int(hi))
+    raise AnalysisException(
+        f"unsupported window frame {spec_frame} (supported: ROWS "
+        "unboundedPreceding..currentRow, unbounded..unbounded, bounded "
+        "rowsBetween(a, b), and rangeBetween over one integral/date "
+        "ORDER BY key)")
+
+
+def _window_fn(fu: UExpr, schema: T.StructType, orders, frame: str, L):
+    """(WindowFunctionSpec, default name) of a ranking or offset
+    function."""
+    kind = fu.payload[0]
+    if not orders:
+        raise AnalysisException(f"{kind}() requires an ORDER BY spec")
+    if kind in ("row_number", "rank", "dense_rank"):
+        return (L.WindowFunctionSpec(kind, None, T.IntegerT, frame=frame),
+                f"{kind}()")
+    if kind in ("percent_rank", "cume_dist"):
+        return (L.WindowFunctionSpec(kind, None, T.DoubleT, frame=frame),
+                f"{kind}()")
+    if kind == "ntile":
+        n = int(fu.payload[1])
+        if n <= 0:
+            raise AnalysisException("ntile() needs a positive bucket count")
+        return (L.WindowFunctionSpec(kind, None, T.IntegerT, offset=n,
+                                     frame=frame), f"ntile({n})")
+    # lag / lead
+    child = resolve(fu.children[0], schema)
+    offset = int(fu.payload[1])
+    ignore_nulls = bool(fu.payload[2]) if len(fu.payload) > 2 else False
+    # Spark's default name keeps the user's spelling, even when a
+    # negative offset turns lag into lead below
+    name = f"{kind}({fu.children[0]}, {fu.payload[1]})"
+    if offset < 0:  # Spark: lag(-k) == lead(k) and the other way round
+        kind = "lead" if kind == "lag" else "lag"
+        offset = -offset
+    return (L.WindowFunctionSpec(kind, child, child.dtype, offset=offset,
+                                 frame=frame, ignore_nulls=ignore_nulls),
+            name)

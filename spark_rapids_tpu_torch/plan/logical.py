@@ -1,6 +1,6 @@
 """Logical plan nodes — the subset the TPC-H queries, ``repartition``,
-``union``, ``session.range``, ``sample``, rollup/cube and the
-generators (explode) use.
+``union``, ``session.range``, ``sample``, rollup/cube, the
+generators (explode) and the window functions use.
 
 The counterparts of the JAX package's ``plan/logical.py`` nodes of the
 same names.  The DataFrame API resolves names and coerces types eagerly,
@@ -186,6 +186,49 @@ class Generate(LogicalPlan):
     with_pos: bool
     outer: bool
     schema: T.StructType
+
+    @property
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class WindowFunctionSpec:
+    """One bound window expression [REF: GpuWindowExpression].
+
+    kind: row_number | rank | dense_rank | ntile | percent_rank |
+          cume_dist | lag | lead | sum | min | max | count | avg | first
+    frame: 'range_current' (Spark's default with ORDER BY: RANGE
+           unbounded preceding to the current row, peers included),
+           'rows_current' (ROWS unbounded preceding to the current
+           row), 'partition' (the whole partition: the default without
+           ORDER BY), 'rows_bounded' or 'range_bounded'.
+    """
+
+    kind: str
+    child: Optional[Expression]
+    dtype: T.DataType
+    offset: int = 1          # lag/lead offset; ntile's bucket count
+    frame: str = "partition"
+    # a rows_bounded frame's offsets from the current row (negative =
+    # preceding), e.g. rowsBetween(-2, 0) -> lo=-2, hi=0; a
+    # range_bounded frame's ORDER-value offsets, None = unbounded
+    frame_lo: Optional[int] = 0
+    frame_hi: Optional[int] = 0
+    # lead/lag IGNORE NULLS: step over null values
+    ignore_nulls: bool = False
+
+
+@dataclasses.dataclass
+class Window(LogicalPlan):
+    """Appends one result column per window function to the child's
+    output."""
+
+    child: LogicalPlan
+    partition_by: List[Expression]
+    order_by: List[SortOrder]
+    functions: List[WindowFunctionSpec]
+    schema: T.StructType  # the child's fields, then one per function
 
     @property
     def children(self):

@@ -7,9 +7,9 @@ columns it references before the host-to-device transfer (memoized per
 table and column set, so that the scan cache keeps hitting) (the analog of
 Spark's ColumnPruning), so that q1 and q6 move 7 and 4 of lineitem's 16
 columns to the device.  The rule reaches through both sides of a join,
-below a limit, a repartition, a sample, an expand or a generate, and
-into each input of a union.  The JAX package's other rules (parquet pushdown,
-dynamic partition pruning) are later slices.
+below a limit, a repartition, a sample, an expand, a generate or a
+window, and into each input of a union.  The JAX package's other rules
+(parquet pushdown, dynamic partition pruning) are later slices.
 """
 
 from __future__ import annotations
@@ -131,7 +131,7 @@ def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
                                    right=optimize(plan.right))
     if isinstance(plan, (L.Project, L.Filter, L.Aggregate, L.Sort,
                          L.Limit, L.Repartition, L.Sample, L.Expand,
-                         L.Generate)):
+                         L.Generate, L.Window)):
         plan = dataclasses.replace(plan, child=optimize(plan.child))
     if isinstance(plan, (L.Project, L.Aggregate)):
         pruned = _prune_head(plan)

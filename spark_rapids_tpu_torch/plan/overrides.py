@@ -15,7 +15,8 @@ mechanics and the same reason texts:
 * subtrees tagged ok convert to device execs, and transitions
   (``HostToDeviceExec`` / ``DeviceToHostExec``) go in at every boundary;
 * the coalesce pass adds a TargetSize coalesce above every host-to-device
-  transition and a RequireSingleBatch coalesce under the global sort;
+  transition and a RequireSingleBatch coalesce under the global sort and
+  the window;
 * ``spark.rapids.sql.explain=NOT_ON_TPU|ALL`` prints the rewrite, and
   ``spark.rapids.sql.test.enabled`` turns an unexpected fallback into an
   ``AssertionError``.
@@ -27,7 +28,7 @@ arms the fault injector and refreshes the retry policy from the conf
 lacks are left out of it: whole-stage fusion (``fuse_plan``, ROADMAP
 A.9), the multi-executor validation ``_validate_multiproc`` (A.10), the
 LORE dump taps ``install_lore_taps`` (A.12) and the ICI exchange
-branches of the aggregate, sort and join conversions (A.10): under
+branches of the aggregate, sort, join and window conversions (A.10): under
 ``spark.rapids.shuffle.mode=ICI`` the rewrite raises.  A
 repartition converts by ``spark.rapids.shuffle.mode``
 (``exec/exchange.py::_convert_exchange``); the coalesce pass asks a
@@ -54,6 +55,7 @@ from spark_rapids_tpu_torch.exec.exchange import (
 from spark_rapids_tpu_torch.exec.join import (
     CpuJoinExec, TpuBroadcastExchangeExec, _convert_join, _tag_join)
 from spark_rapids_tpu_torch.exec import misc as M
+from spark_rapids_tpu_torch.exec import window as W
 from spark_rapids_tpu_torch.exec.sort import (
     CpuSortExec, TpuSortExec, _convert_sort, _tag_sort)
 from spark_rapids_tpu_torch.exec.transitions import (
@@ -301,7 +303,7 @@ def _convert_aggregate(cpu, ch, conf, device):
                                 skip_ratio=conf.get(C.AGG_SKIP_RATIO))
 
 
-# the JAX package registers the next nine lazily
+# the JAX package registers the next ten lazily
 # (``_register_lazy_rules``); the port's exec modules import this module
 # only inside functions, so their rules register here, at import
 EXEC_RULES[CpuAggregateExec] = ExecRule(
@@ -322,6 +324,8 @@ EXEC_RULES[M.CpuExpandExec] = ExecRule(
     "Expand", M._tag_expand, M._convert_expand)
 EXEC_RULES[M.CpuGenerateExec] = ExecRule(
     "Generate", M._tag_generate, M._convert_generate)
+EXEC_RULES[W.CpuWindowExec] = ExecRule(
+    "Window", W._tag_window, W._convert_window)
 
 
 def op_names(kind: str) -> frozenset:
@@ -439,8 +443,9 @@ def insert_coalesce(node: ExecNode, conf: RapidsConf) -> ExecNode:
       sources emit small batches; merge them up to
       ``spark.rapids.sql.batchSizeBytes``, row-capped at
       ``spark.rapids.tpu.batchRows``, before device operators), and
-    * a RequireSingleBatch coalesce under the global sort (a
-      single-partition child), the batching contract as a plan node.
+    * a RequireSingleBatch coalesce under the global sort and the
+      window (a single-partition child), the batching contract as a
+      plan node.
       Joins deliberately get none: a pre-concatenated side would bypass
       the join's row-capped streaming and sub-partitioning.
     """
@@ -452,7 +457,7 @@ def insert_coalesce(node: ExecNode, conf: RapidsConf) -> ExecNode:
                      conf.min_bucket_rows)
         target = min(target, conf.batch_rows)
         return B.TpuCoalesceBatchesExec(node, target_rows=target)
-    if isinstance(node, TpuSortExec):
+    if isinstance(node, (TpuSortExec, W.TpuWindowExec)):
         node._children = tuple(
             B.TpuCoalesceBatchesExec(c, require_single=True)
             if isinstance(c, TpuExec) and c.num_partitions() == 1

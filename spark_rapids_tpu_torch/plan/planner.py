@@ -66,6 +66,11 @@ def plan_physical(node: L.LogicalPlan, conf: RapidsConf) -> CpuExec:
         return CpuGenerateExec(node.generator, node.with_pos, node.outer,
                                node.schema,
                                plan_physical(node.child, conf))
+    if isinstance(node, L.Window):
+        from spark_rapids_tpu_torch.exec.window import CpuWindowExec
+        return CpuWindowExec(node.partition_by, node.order_by,
+                             node.functions, node.schema,
+                             plan_physical(node.child, conf))
     if isinstance(node, L.Union):
         return B.CpuUnionExec([plan_physical(c, conf) for c in node.inputs])
     if isinstance(node, L.Aggregate):

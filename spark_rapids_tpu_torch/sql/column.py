@@ -8,9 +8,10 @@ boolean operators, ``%``, unary ``-``, ``alias``, ``cast``,
 ``between``, ``isin``, ``isNull``, ``isNotNull``, ``isNaN``,
 ``eqNullSafe``, the ``when(...).otherwise(...)`` chain, sort direction
 with either null placement, the string methods ``substr``,
-``startswith``, ``endswith``, ``contains``, ``like`` and ``rlike``, and
-struct field access ``getField`` (``col("s.a")`` names the same field);
-the analyzer raises on anything else.
+``startswith``, ``endswith``, ``contains``, ``like`` and ``rlike``,
+struct field access ``getField`` (``col("s.a")`` names the same field)
+and ``over`` (a window spec, ``sql/window.py``); the analyzer raises on
+anything else.
 """
 
 from __future__ import annotations
@@ -193,6 +194,10 @@ class Column:
                             "appear once")
         return Column(UExpr("casewhen", "closed",
                             u.children + (_to_uexpr(value),)))
+
+    def over(self, window) -> "Column":
+        """Attach a WindowSpec: F.row_number().over(w), F.sum(c).over(w)."""
+        return Column(UExpr("window", window, (self._u,)))
 
     def asc(self) -> "Column":
         return Column(UExpr("sortorder", ("asc", "nulls_first"), (self._u,)))

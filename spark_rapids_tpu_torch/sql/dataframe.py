@@ -9,7 +9,8 @@ and ``GroupedData``'s ``count/sum/min/max/avg``, ``rollup`` and
 ``join`` (USING joins on column names and expression joins on a
 ``Column`` condition), ``crossJoin``, the generators in ``select``
 (one ``explode``/``posexplode`` per select, through a ``Generate``
-node), the actions ``toArrow``,
+node), window functions in ``select`` and ``withColumn`` (one
+``Window`` node per distinct spec), the actions ``toArrow``,
 ``collect``, ``count``, ``toPandas`` and ``show``, and ``explain`` and
 ``fallback_summary``.
 Transformations build the logical plan eagerly (pyspark-style errors at
@@ -113,6 +114,15 @@ def _generate_u(c) -> Optional[UExpr]:
     u = _to_column(c)._u
     core = u.children[0] if u.op == "alias" else u
     return core if core.op == "generate" else None
+
+
+def _window_u(c) -> Optional[UExpr]:
+    """The ``.over(spec)`` UExpr under an optional alias, or None."""
+    if isinstance(c, str):
+        return None
+    u = _to_column(c)._u
+    core = u.children[0] if u.op == "alias" else u
+    return core if core.op == "window" else None
 
 
 class StructSpec:
@@ -245,6 +255,8 @@ class DataFrame:
     def select(self, *cols) -> "DataFrame":
         if any(_generate_u(c) is not None for c in cols):
             return self._select_with_generate(cols)
+        if any(_window_u(c) is not None for c in cols):
+            return self._select_with_windows(cols)
         exprs = []
         fields = []
         new_structs = {}
@@ -343,6 +355,59 @@ class DataFrame:
             if _generate_u(c) is not None:
                 for i in range(nc, len(ext)):
                     f = ext[i]
+                    exprs.append(BoundReference(i, f.dtype, f.nullable))
+                    fields.append(f)
+                continue
+            u = _to_column(c)._u
+            e = AN.resolve(self._rewrite_struct_ref(u), ext_schema)
+            exprs.append(e)
+            fields.append(T.StructField(_output_name(u, e), e.dtype))
+        return self._derive(L.Project(plan, exprs,
+                                      T.StructType(tuple(fields))))
+
+    def _select_with_windows(self, cols) -> "DataFrame":
+        """Spark's ExtractWindowExpressions, as the JAX package does it:
+        one ``Window`` node per distinct spec (in the order the specs
+        first appear) appends its functions' columns (``_w0``,
+        ``_w1``, ...), then a Project picks the requested output."""
+        base = self.schema
+        plan = self._plan
+        groups = {}     # spec key -> (pby, orders, [fns])
+        out_specs = []  # ("plain", c) | ("win", (key, j), name, dtype)
+        for c in cols:
+            wu = _window_u(c)
+            if wu is None:
+                out_specs.append(("plain", c))
+                continue
+            u = _to_column(c)._u
+            pby, orders, wf, default_name = AN.resolve_window(wu, base)
+            alias = u.payload if u.op == "alias" else None
+            key = repr((wu.payload.partition_by, wu.payload.order_by,
+                        wu.payload.frame))
+            g = groups.setdefault(key, (pby, orders, []))
+            g[2].append(wf)
+            out_specs.append(("win", (key, len(g[2]) - 1),
+                              alias or default_name, wf.dtype))
+        offsets = {}
+        ext = list(base.fields)
+        for key, (pby, orders, fns) in groups.items():
+            offsets[key] = len(ext)
+            nw = len(ext) - len(base)
+            ext.extend(T.StructField(f"_w{nw + i}", fn.dtype)
+                       for i, fn in enumerate(fns))
+            plan = L.Window(plan, pby, orders, fns,
+                            T.StructType(tuple(ext)))
+        ext_schema = T.StructType(tuple(ext))
+        exprs, fields = [], []
+        for spec in out_specs:
+            if spec[0] == "win":
+                (key, j), name, dtype = spec[1], spec[2], spec[3]
+                exprs.append(BoundReference(offsets[key] + j, dtype, True))
+                fields.append(T.StructField(name, dtype))
+                continue
+            c = spec[1]
+            if _is_star(c):
+                for i, f in enumerate(base.fields):
                     exprs.append(BoundReference(i, f.dtype, f.nullable))
                     fields.append(f)
                 continue

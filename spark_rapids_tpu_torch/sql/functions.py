@@ -2,10 +2,12 @@
 (``col``, ``lit``, ``when``, ``coalesce``, the math, date, time-zone,
 hash and string functions, ``split``, ``get_json_object``, ``struct``,
 the generators ``explode``, ``explode_outer``, ``posexplode`` and
-``posexplode_outer``, and the aggregates ``sum``, ``avg``/``mean``,
+``posexplode_outer``, the aggregates ``sum``, ``avg``/``mean``,
 ``min``, ``max``, ``count``, ``first``, the variance family,
 ``collect_list``, ``collect_set``, the percentiles, ``countDistinct``
-and ``approx_count_distinct``), with the JAX package's signatures."""
+and ``approx_count_distinct``, and the window functions ``row_number``,
+``rank``, ``dense_rank``, ``ntile``, ``percent_rank``, ``cume_dist``,
+``lag`` and ``lead``), with the JAX package's signatures."""
 
 from __future__ import annotations
 
@@ -236,3 +238,43 @@ def posexplode(c) -> Column:
 
 def posexplode_outer(c) -> Column:
     return Column(UExpr("generate", (True, True), (_cu(c),)))
+
+
+# window functions (``.over(spec)``) --------------------------------------
+
+def row_number() -> Column:
+    return Column(UExpr("winfn", ("row_number",)))
+
+
+def rank() -> Column:
+    return Column(UExpr("winfn", ("rank",)))
+
+
+def dense_rank() -> Column:
+    return Column(UExpr("winfn", ("dense_rank",)))
+
+
+def lag(c, offset: int = 1, default=None,
+        ignorenulls: bool = False) -> Column:
+    if default is not None:
+        raise NotImplementedError("lag default value not supported")
+    return Column(UExpr("winfn", ("lag", offset, ignorenulls), (_cu(c),)))
+
+
+def lead(c, offset: int = 1, default=None,
+         ignorenulls: bool = False) -> Column:
+    if default is not None:
+        raise NotImplementedError("lead default value not supported")
+    return Column(UExpr("winfn", ("lead", offset, ignorenulls), (_cu(c),)))
+
+
+def ntile(n: int) -> Column:
+    return Column(UExpr("winfn", ("ntile", int(n))))
+
+
+def percent_rank() -> Column:
+    return Column(UExpr("winfn", ("percent_rank",)))
+
+
+def cume_dist() -> Column:
+    return Column(UExpr("winfn", ("cume_dist",)))

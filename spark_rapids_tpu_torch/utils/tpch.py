@@ -33,6 +33,13 @@ and top-N over the orders' struct, a word count by ``split`` and
 module (``F``) as an argument, so that the same query can be built on
 another implementation of the API.
 
+``window_tables`` adds each line's number within its order to lineitem,
+and ``WINDOW_QUERIES`` are window queries of the kinds TPC-DS runs
+(rank within a partition, revenue share, lag and lead, running
+totals, bounded ROWS and RANGE frames, quartiles, a window with no
+partition); each takes ``F`` and ``W`` (the ``Window`` class) as
+arguments.
+
 ``TPCH_SF1_CONF`` is ``bench.TPCH_SF1_CONF`` less the keys of planes the
 port has not got (``UNPORTED_SF1_KEYS``, each with its ROADMAP item; the
 port refuses them), and ``oracle_check`` is bench's CPU-oracle loop: each
@@ -1024,6 +1031,172 @@ NESTED_QUERIES = {"order baskets": order_baskets,
 # (``split``'s array<string> and ``get_json_object`` have no device
 # lowering there)
 NESTED_ALLOWED = {"name words": "Generate", "customer json": "Project"}
+
+
+def window_tables(t: Dict[str, pa.Table]) -> Dict[str, pa.Table]:
+    """The generated tables with what the window queries need:
+    lineitem gets ``l_linenumber`` (the generator has none), each line's
+    1-based position among its order's lines in generator order, as
+    dbgen numbers an order's lines."""
+    li = t["lineitem"]
+    key = li["l_orderkey"].to_numpy()
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    first = np.ones(len(ks), bool)
+    first[1:] = ks[1:] != ks[:-1]
+    pos = np.arange(len(ks)) - np.maximum.accumulate(
+        np.where(first, np.arange(len(ks)), 0))
+    linenumber = np.empty(len(ks), np.int32)
+    linenumber[order] = pos + 1
+    out = dict(t)
+    out["lineitem"] = li.append_column("l_linenumber",
+                                       pa.array(linenumber))
+    return out
+
+
+def supplier_ranks(session, t, F=F, W=None):
+    """TPC-DS q67/q70's rank within a partition: revenue per (nation,
+    supplier) from lineitem joined with supplier, ranked within each
+    nation by revenue, descending, and kept to the top three."""
+    W = W or _window()
+    c = F.col
+    li = session.createDataFrame(t["lineitem"]).select(
+        "l_suppkey", "l_extendedprice", "l_discount")
+    su = session.createDataFrame(t["supplier"]).select("s_suppkey",
+                                                       "s_nationkey")
+    rev = (li.join(su, c("l_suppkey") == c("s_suppkey"))
+           .groupBy("s_nationkey", "s_suppkey")
+           .agg(F.sum(c("l_extendedprice") * (1 - c("l_discount")))
+                .alias("revenue")))
+    w = W.partitionBy("s_nationkey").orderBy(c("revenue").desc())
+    return (rev.select("s_nationkey", "s_suppkey", "revenue",
+                       F.rank().over(w).alias("rk"),
+                       F.dense_rank().over(w).alias("drk"),
+                       F.row_number().over(w).alias("rn"))
+            .filter(c("rk") <= 3))
+
+
+def revenue_share(session, t, F=F, W=None):
+    """TPC-DS q98/q12's revenue share: revenue per (type, brand) from
+    lineitem joined with part, as a percentage of its type's total (a
+    sum over the whole partition)."""
+    W = W or _window()
+    c = F.col
+    li = session.createDataFrame(t["lineitem"]).select(
+        "l_partkey", "l_extendedprice", "l_discount")
+    pt = session.createDataFrame(t["part"]).select("p_partkey", "p_type",
+                                                   "p_brand")
+    rev = (li.join(pt, c("l_partkey") == c("p_partkey"))
+           .groupBy("p_type", "p_brand")
+           .agg(F.sum(c("l_extendedprice") * (1 - c("l_discount")))
+                .alias("rev")))
+    return (rev.select("p_type", "p_brand", "rev",
+                       F.sum("rev").over(W.partitionBy("p_type"))
+                       .alias("total"))
+            .select("p_type", "p_brand", "rev",
+                    (c("rev") * 100 / c("total")).alias("share")))
+
+
+def order_gaps(session, t, F=F, W=None):
+    """TPC-DS q47/q57's lag and lead: each customer's orders in date
+    order with the previous order's date, the next order's price, the
+    priority two orders back (a string), the order's number, and the
+    last fulfilled (status F) order's price before it (IGNORE NULLS)."""
+    W = W or _window()
+    c = F.col
+    w = W.partitionBy("o_custkey").orderBy("o_orderdate", "o_orderkey")
+    filled = F.when(c("o_orderstatus") == "F", c("o_totalprice"))
+    return _columns(session, t["orders"], "o_custkey", "o_orderkey",
+                    "o_orderdate", "o_totalprice", "o_orderpriority",
+                    "o_orderstatus").select(
+        "o_custkey", "o_orderkey", "o_orderdate",
+        F.row_number().over(w).alias("n"),
+        F.lag("o_orderdate").over(w).alias("prev_date"),
+        F.lead("o_totalprice").over(w).alias("next_price"),
+        F.lag("o_orderpriority", 2).over(w).alias("prio_2_back"),
+        F.lag(filled, 1, ignorenulls=True).over(w).alias("prev_filled"))
+
+
+def line_running_totals(session, t, F=F, W=None):
+    """Running totals over each order's lines in line-number order: the
+    quantity in a ROWS frame, then the lines, the average price, the
+    first part and the largest discount so far in the default RANGE
+    frame."""
+    W = W or _window()
+    w = W.partitionBy("l_orderkey").orderBy("l_linenumber")
+    rows = w.rowsBetween(W.unboundedPreceding, W.currentRow)
+    return _columns(session, t["lineitem"], "l_orderkey", "l_linenumber",
+                    "l_partkey", "l_quantity", "l_extendedprice",
+                    "l_discount").select(
+        "l_orderkey", "l_linenumber",
+        F.sum("l_quantity").over(rows).alias("run_qty"),
+        F.count("l_extendedprice").over(w).alias("n"),
+        F.avg("l_extendedprice").over(w).alias("run_avg_price"),
+        F.first("l_partkey").over(w).alias("first_part"),
+        F.max("l_discount").over(w).alias("max_disc"))
+
+
+def trailing_spend(session, t, F=F, W=None):
+    """Each customer's trailing spend over bounded frames: the 90 days
+    up to an order's date (a RANGE frame on the date), the average of
+    the five orders around it and the largest of the four up to it
+    (ROWS frames)."""
+    W = W or _window()
+    w = W.partitionBy("o_custkey").orderBy("o_orderdate")
+    return _columns(session, t["orders"], "o_custkey", "o_orderkey",
+                    "o_orderdate", "o_totalprice").select(
+        "o_custkey", "o_orderkey", "o_orderdate",
+        F.sum("o_totalprice").over(w.rangeBetween(-90, 0))
+        .alias("spend_90d"),
+        F.avg("o_totalprice").over(w.rowsBetween(-2, 2)).alias("avg_5"),
+        F.max("o_totalprice").over(w.rowsBetween(-3, 0)).alias("max_4"))
+
+
+def customer_quartiles(session, t, F=F, W=None):
+    """Each customer's balance quartile, percent rank and cumulative
+    distribution within its market segment."""
+    W = W or _window()
+    w = W.partitionBy("c_mktsegment").orderBy("c_acctbal")
+    return _columns(session, t["customer"], "c_custkey", "c_mktsegment",
+                    "c_acctbal").select(
+        "c_custkey", "c_mktsegment", "c_acctbal",
+        F.ntile(4).over(w).alias("quartile"),
+        F.percent_rank().over(w).alias("pct_rank"),
+        F.cume_dist().over(w).alias("cume"))
+
+
+def top_orders(session, t, F=F, W=None):
+    """A window with no partition: every order numbered by price,
+    descending, kept to the first 100."""
+    W = W or _window()
+    c = F.col
+    return (_columns(session, t["orders"], "o_orderkey", "o_custkey",
+                     "o_totalprice")
+            .select("o_orderkey", "o_custkey", "o_totalprice",
+                    F.row_number().over(W.orderBy(c("o_totalprice").desc()))
+                    .alias("rn"))
+            .filter(c("rn") <= 100))
+
+
+def _window():
+    from spark_rapids_tpu_torch.sql.window import Window
+    return Window
+
+
+def _columns(session, table, *names):
+    """The table's named columns: a Window keeps every column of its
+    child (the optimizer prunes no scan below it), so the queries select
+    theirs first, as a subquery would."""
+    return session.createDataFrame(table).select(*names)
+
+
+WINDOW_QUERIES = {"supplier ranks": supplier_ranks,
+                  "revenue share": revenue_share,
+                  "order gaps": order_gaps,
+                  "line running totals": line_running_totals,
+                  "customer trailing spend": trailing_spend,
+                  "customer quartiles": customer_quartiles,
+                  "top orders": top_orders}
 
 
 TPCH_SF1_CONF = {"spark.rapids.sql.enabled": True,

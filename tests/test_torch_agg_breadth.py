@@ -348,17 +348,19 @@ def test_holistic_functions_take_the_gathered_pass():
 
 
 def test_collect_and_decimal_inputs_stay_refused():
-    """What the aggregate path still refuses: a window function and a
-    python UDF inside ``agg`` (outside the port: the analyzer names
-    them), and the JAX package's own argument errors."""
+    """What the aggregate path still refuses: a window function inside
+    ``agg`` (the analyzer refuses it as the JAX package's does), a
+    python UDF there (outside the port: the analyzer names it), and the
+    JAX package's own argument errors."""
     from spark_rapids_tpu_torch.sql.column import Column, UExpr
     df = TpuSession(device="cpu").createDataFrame(T_)
-    for op, payload in (("winfn", ("row_number",)),
-                        ("pyudf", (abs, T_.schema.field("v").type, False,
-                                   "abs"))):
+    for op, payload, exc, what in (
+            ("winfn", ("row_number",), AnalysisException,
+             "unknown expression op 'winfn'"),
+            ("pyudf", (abs, T_.schema.field("v").type, False, "abs"),
+             NotImplementedError, "expression 'pyudf'")):
         agg = Column(UExpr("agg", "sum", (UExpr(op, payload, ()),)))
-        with pytest.raises(NotImplementedError,
-                           match=f"expression '{op}'"):
+        with pytest.raises(exc, match=what):
             df.groupBy("k").agg(agg)
     with pytest.raises(AnalysisException, match=r"must be in \[0, 1\]"):
         df.agg(F.percentile("v", 1.5))

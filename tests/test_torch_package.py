@@ -11,8 +11,8 @@
   what the slice does not port raises ``NotImplementedError`` instead of
   running elsewhere; a bare limit runs on the device, with the JAX
   package's result and its empty fallback report.  The kill switches of
-  the limits, union, range, sample and expand are valid names, and each
-  turned off falls back with the JAX package's reason.
+  the limits, union, range, sample, expand and window are valid names,
+  and each turned off falls back with the JAX package's reason.
 """
 
 import ast
@@ -129,6 +129,13 @@ def test_import_check_covers_the_operators_slice():
         assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
+def test_import_check_covers_the_window_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("sql/window.py", "exec/window.py", "exec/aggregate.py",
+                "plan/analysis.py", "plan/overrides.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
+
+
 def test_session_without_cpu_raises_when_cuda_is_unavailable(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
@@ -181,6 +188,7 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.rapids.sql.exec.Range": False}, None),
     ({"spark.rapids.sql.exec.Sample": False}, None),
     ({"spark.rapids.sql.exec.Expand": False}, None),
+    ({"spark.rapids.sql.exec.Window": False}, None),
     ({"spark.rapids.sql.expression.Upper": False,
       "Remainder": lambda s, F: s.createDataFrame(_table()).filter(
         F.col("a") % 2 == 1).select("a", (F.col("a") % 3).alias("m")),
@@ -241,6 +249,8 @@ _KILL_SWITCH_QUERIES = {
     "Sample": lambda s, F: s.createDataFrame(_table()).sample(0.5, 3),
     "Expand": lambda s, F: s.createDataFrame(_table()).rollup("s").agg(
         F.count("*").alias("c")).orderBy("s", "c"),
+    "Window": lambda s, F: s.createDataFrame(_table()).select(
+        "a", F.rank().over(_window_of(F).orderBy("s")).alias("r")),
     "Upper": lambda s, F: s.createDataFrame(_table()).select(
         F.upper(F.col("s")).alias("u")),
     "RLike": lambda s, F: s.createDataFrame(_table()).filter(
@@ -259,6 +269,13 @@ _KILL_SWITCH_QUERIES = {
         lambda s, F: s.createDataFrame(_table()).select(
             F.col("s").cast("double").alias("d")),
 }
+
+
+def _window_of(F):
+    """The ``Window`` of the package whose functions module is ``F``."""
+    import importlib
+    return importlib.import_module(
+        F.__name__.rsplit(".", 1)[0] + ".window").Window
 
 
 def test_exchange_confs_read_as_the_jax_package_reads_them():
@@ -321,12 +338,13 @@ def _table():
 @pytest.mark.parametrize("build, what", [
     (lambda df: df.select(col("a").cast(T.ArrayType(T.IntegerT))), "Cast"),
     # ids kept from the slices that refused first(), isnull and split:
-    # a window function, a python UDF and input_file_name() are still
-    # outside the port (the JAX package's F.row_number(), F.udf(...)
-    # and F.input_file_name() build these trees)
+    # a python UDF and input_file_name() are still outside the port (the
+    # JAX package's F.udf(...) and F.input_file_name() build these
+    # trees); a window function outside ``.over`` is refused by both
+    # packages' analyzers alike (``AnalysisException``)
     pytest.param(lambda df: df.select(Column(UExpr("winfn",
                                                    ("row_number",)))),
-                 "expression 'winfn'",
+                 ("AnalysisException", "unknown expression op 'winfn'"),
                  id="<lambda>-aggregate 'first'"),
     pytest.param(lambda df: df.limit(2), None, id="limit"),
     pytest.param(
@@ -342,13 +360,23 @@ def _table():
 def test_outside_the_slice_raises(build, what):
     """What the slice does not port raises naming itself; a bare limit
     (``what`` None) runs on the device, with the JAX package's result
-    and its empty fallback report."""
+    and its empty fallback report; a bare window function (``what`` a
+    pair) raises the JAX package's ``AnalysisException``."""
     df = TpuSession(device="cpu").createDataFrame(_table())
+    from spark_rapids_tpu.sql.session import TpuSession as JaxSession
+    if isinstance(what, tuple):
+        # refused by the analyzer, with the JAX package's message
+        from spark_rapids_tpu.plan.analysis import AnalysisException as JAE
+        from spark_rapids_tpu_torch.plan.analysis import AnalysisException
+        with pytest.raises(AnalysisException, match=what[1]):
+            build(df).toArrow()
+        with pytest.raises(JAE, match=what[1]):
+            build(JaxSession().createDataFrame(_table())).toArrow()
+        return
     if what is not None:
         with pytest.raises(NotImplementedError, match=what):
             build(df).toArrow()
         return
-    from spark_rapids_tpu.sql.session import TpuSession as JaxSession
     out = build(df)
     got = out.toArrow()
     jout = build(JaxSession().createDataFrame(_table()))

@@ -172,11 +172,16 @@ def test_analyzer_string_errors():
     with pytest.raises(AN.AnalysisException, match="like needs a string"):
         AN.resolve(col("i").like("1%")._u, schema)
     # split and get_json_object resolve since the nested slice (host
-    # only); a window function and a python UDF are still outside it
-    for op in ("winfn", "pyudf", "input_file_name",
+    # only); a python UDF is still outside it, and a window function
+    # resolves only under ``.over`` at a select's top level (elsewhere
+    # the JAX package's analyzer refuses it too)
+    for op in ("pyudf", "input_file_name",
                "sha2", "initcap", "translate"):
         with pytest.raises(NotImplementedError, match=f"'{op}'"):
             AN.resolve(UExpr(op, "x", (UExpr("attr", "s"),)), schema)
+    with pytest.raises(AN.AnalysisException,
+                       match="unknown expression op 'winfn'"):
+        AN.resolve(UExpr("winfn", ("row_number",)), schema)
     assert type(AN.resolve(UExpr("split", (",", -1), (
         UExpr("attr", "s"),)), schema)).__name__ == "Split"
     assert type(AN.resolve(UExpr("get_json_object", "$.a", (
