@@ -235,7 +235,7 @@ result line is not printed):
 21. ``[window]``: window functions at SF1 (``tpch.window_tables``:
    lineitem with each line's number in its order), each run a path of
    its own under ``test.enabled`` with 0 operators on the CPU, cold and
-   3 warm runs equal to it, against this script's numpy references
+   1 warm run equal to it, against this script's numpy references
    (a stable ``np.lexsort``, segment starts, shifted reads, running
    values, ``bincount`` and ``searchsorted``): supplier ranks
    (``rank``, ``dense_rank``, ``row_number`` of revenue per supplier in
@@ -252,13 +252,43 @@ result line is not printed):
    ``python3 chip_smoke.py --window`` runs this phase alone (after the
    build and the kernel checks), then the kernel bit for bit at every
    shape the phase launched it with;
-22. the string expressions of the string queries (LIKE, NOT LIKE,
+22. ``[udf]``: python UDFs at SF1, each run a path of its own under
+   ``test.enabled`` with 0 operators on the CPU, cold and 1 warm run
+   equal to it, against this script's numpy references: a row
+   ``F.udf`` (``o_custkey % 97``) over 1,500,000 orders through the
+   arrow bridge, then compiled by the UDF compiler (no bridge node, the
+   bridge run's rows); a ``pandas_udf`` over 6,000,000 lines
+   (``l_extendedprice * (1 - l_discount)``) summed by the two flags,
+   equal to the built-in expression and to a device UDF over torch
+   tensors (no bridge node); ``mapInPandas`` over orders;
+   ``applyInPandas`` over 150,000 customers by nation under
+   ``spark.sql.shuffle.partitions=8``; a grouped-aggregate pandas UDF
+   (the median order price per priority); each run's walls, the path
+   it took (read from the plan tree) and its bridge nodes'
+   ``transferTime`` and ``udfTime``.  ``python3 chip_smoke.py --udf``
+   runs this phase alone (after the build and the kernel checks), then
+   the kernel bit for bit at every shape the phase launched it with;
+23. ``[io]``: parquet at SF1 through ``session.read`` and
+   ``DataFrame.write`` (lineitem in key order as 8 files, orders as 4,
+   row groups of 2^17 rows, written by pyarrow into a temporary
+   directory removed at the end), each run cold under ``test.enabled``
+   with 0 operators on the CPU: q1 and q6 equal to their in-memory runs
+   and pyarrow (q1's launches counted), an ``l_orderkey < 600000``
+   count that prunes row groups and reads two columns,
+   ``input_file_name()`` grouped over the orders files (each file's row
+   count), q12 with the device dictionary decode on and off (equal),
+   and orders written from the card partitioned by priority and read
+   back (5 partitions, counts and sums against numpy and the in-memory
+   grouping); each run's wall and its scans' ``scanTime``,
+   ``transferTime``, ``dictDecodedColumns`` and ``prunedRowGroups``.
+   ``python3 chip_smoke.py --io`` runs this phase alone, as ``--udf``;
+24. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-23. the kernel at every shape the main path (queries, variants,
+25. the kernel at every shape the main path (queries, variants,
    fallback cases, partitions, exchanges, operators, strings, retry,
-   pump, faults, breadth, decimal, nested and window)
+   pump, faults, breadth, decimal, nested, window, udf and io)
    launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
@@ -268,7 +298,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-24. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+26. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -301,6 +331,9 @@ DECIMAL_ONLY = "--decimal" in sys.argv[1:]
 NESTED_ONLY = "--nested" in sys.argv[1:]
 # ``python3 chip_smoke.py --window``: the [window] phase alone
 WINDOW_ONLY = "--window" in sys.argv[1:]
+# ``python3 chip_smoke.py --udf`` / ``--io``: the [udf] / [io] phase alone
+UDF_ONLY = "--udf" in sys.argv[1:]
+IO_ONLY = "--io" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -5599,7 +5632,7 @@ def nested_only(dev, tables, CB, KN) -> int:
 
 # -- [window]: window functions at SF1 ---------------------------------------
 
-WINDOW_WARM_RUNS = 3
+WINDOW_WARM_RUNS = 1  # 3 before the UDF and file-scan phases came
 # the runs whose Window nodes are also timed alone on their cached input
 WINDOW_ALONE = ("order gaps", "line running totals",
                 "customer trailing spend")
@@ -6146,6 +6179,538 @@ def faults_only(dev, tables, refs, CB, KN) -> int:
     return 0
 
 
+UDF_WARM_RUNS = 1
+UDF_MOD = 97  # CUST_MOD's divisor, for the reference
+UDF_PARTITIONS = 8  # applyInPandas's spark.sql.shuffle.partitions
+# the row UDF: a Python % expression (Python's sign rule), alone on its
+# source line so that the UDF compiler can read it (no free variable)
+CUST_MOD = lambda k: k % 97  # noqa: E731
+UDF_COMPILER = {"spark.rapids.sql.udfCompiler.enabled": True}
+BRIDGE_NODES = ("TpuArrowEvalPythonExec", "TpuMapInPandasExec",
+                "TpuFlatMapGroupsInPandasExec")
+
+
+def net_price(p, d):
+    """l_extendedprice * (1 - l_discount): a pandas UDF over Series and
+    a device UDF over tensors alike."""
+    return p * (1 - d)
+
+
+def big_orders(frames):
+    """mapInPandas: the orders above 250,000, their price doubled."""
+    for df in frames:
+        out = df[df["o_totalprice"] > 250_000.0][
+            ["o_orderkey", "o_totalprice"]].copy()
+        out["o_totalprice"] = out["o_totalprice"] * 2.0
+        yield out
+
+
+def centered_balance(g):
+    """applyInPandas: each customer's balance less its nation's mean."""
+    out = g[["c_custkey", "c_nationkey"]].copy()
+    out["centered"] = g["c_acctbal"] - g["c_acctbal"].mean()
+    return out
+
+
+def median_price(v):
+    """A grouped-aggregate pandas UDF: the median of a group."""
+    return float(v.median())
+
+
+def _udf_schema(T, *fields):
+    return T.StructType(tuple(T.StructField(n, getattr(T, t))
+                              for n, t in fields))
+
+
+def udf_runs(F, T, col):
+    """name -> (build(session, tables), extra conf, bridged): the runs of
+    ``[udf]``; ``bridged`` says whether the plan must hold a bridge node
+    (a compiled or device UDF must not)."""
+    def rev_by_flags(value):
+        def build(s, t):
+            return (s.createDataFrame(t["lineitem"])
+                    .select("l_returnflag", "l_linestatus",
+                            value(col("l_extendedprice"),
+                                  col("l_discount")).alias("rev"))
+                    .groupBy("l_returnflag", "l_linestatus")
+                    .agg(F.sum("rev").alias("rev"),
+                         F.count("*").alias("n"))
+                    .orderBy("l_returnflag", "l_linestatus"))
+        return build
+
+    def row_udf(s, t):
+        return s.createDataFrame(t["orders"]).select(
+            "o_orderkey", F.udf(CUST_MOD, "long")(
+                col("o_custkey")).alias("m"))
+
+    return {
+        "row udf bridge": (row_udf, {}, True),
+        "row udf compiled": (row_udf, UDF_COMPILER, False),
+        "pandas udf revenue": (rev_by_flags(
+            F.pandas_udf(net_price, "double")), {}, True),
+        "builtin revenue": (rev_by_flags(net_price), {}, False),
+        "device udf revenue": (rev_by_flags(
+            F.device_udf(net_price, "double")), {}, False),
+        "map in pandas": (
+            lambda s, t: s.createDataFrame(t["orders"]).select(
+                "o_orderkey", "o_totalprice").mapInPandas(
+                big_orders, _udf_schema(T, ("o_orderkey", "LongT"),
+                                        ("o_totalprice", "DoubleT"))),
+            {}, True),
+        "apply in pandas": (
+            lambda s, t: s.createDataFrame(t["customer"]).select(
+                "c_custkey", "c_nationkey", "c_acctbal")
+            .groupBy("c_nationkey").applyInPandas(
+                centered_balance, _udf_schema(
+                    T, ("c_custkey", "LongT"), ("c_nationkey", "LongT"),
+                    ("centered", "DoubleT"))),
+            {"spark.sql.shuffle.partitions": UDF_PARTITIONS}, True),
+        "grouped agg median": (
+            lambda s, t: s.createDataFrame(t["orders"]).select(
+                "o_orderpriority", "o_totalprice")
+            .groupBy("o_orderpriority").agg(
+                F.pandas_udf(median_price, "double")(
+                    col("o_totalprice")).alias("median")), {}, True),
+    }
+
+
+def ref_udf(name, t):
+    """This script's numpy reference of a ``[udf]`` run, as an Arrow
+    table in the run's row order (sorted where the run has none)."""
+    import numpy as np
+    import pyarrow as pa
+    if name.startswith("row udf"):
+        o = t["orders"]
+        return pa.table({"o_orderkey": o["o_orderkey"],
+                         "m": pa.array(o["o_custkey"].to_numpy() % UDF_MOD)})
+    if name.endswith("revenue"):
+        li = t["lineitem"]
+        keys = np.char.add(li["l_returnflag"].to_numpy(
+            zero_copy_only=False).astype("U1"), li["l_linestatus"].to_numpy(
+            zero_copy_only=False).astype("U1"))
+        uk, inv = np.unique(keys, return_inverse=True)
+        rev = (li["l_extendedprice"].to_numpy()
+               * (1 - li["l_discount"].to_numpy()))
+        return pa.table({
+            "l_returnflag": pa.array([k[0] for k in uk]),
+            "l_linestatus": pa.array([k[1] for k in uk]),
+            "rev": pa.array(np.bincount(inv, weights=rev)),
+            "n": pa.array(np.bincount(inv).astype(np.int64))})
+    if name == "map in pandas":
+        o = t["orders"]
+        price = o["o_totalprice"].to_numpy()
+        keep = price > 250_000.0
+        return pa.table({"o_orderkey": pa.array(
+            o["o_orderkey"].to_numpy()[keep]),
+            "o_totalprice": pa.array(price[keep] * 2.0)})
+    if name == "apply in pandas":
+        c = t["customer"]
+        nat = c["c_nationkey"].to_numpy()
+        bal = c["c_acctbal"].to_numpy()
+        mean = np.bincount(nat, weights=bal) / np.bincount(nat)
+        return pa.table({"c_custkey": c["c_custkey"],
+                         "c_nationkey": c["c_nationkey"],
+                         "centered": pa.array(bal - mean[nat])})
+    o = t["orders"]
+    pri = o["o_orderpriority"].to_numpy(zero_copy_only=False)
+    price = o["o_totalprice"].to_numpy()
+    names = sorted(set(pri.tolist()))
+    return pa.table({"o_orderpriority": pa.array(names),
+                     "median": pa.array([float(np.median(price[pri == p]))
+                                         for p in names])})
+
+
+def bridge_metrics(df) -> dict:
+    """The bridge nodes' ``transferTime`` and ``udfTime`` of the last run
+    (seconds, summed over nodes)."""
+    out = {"bridge_nodes": 0, "transferTime": 0.0, "udfTime": 0.0}
+    for name, m in df.metrics():
+        if name in BRIDGE_NODES:
+            out["bridge_nodes"] += 1
+            out["transferTime"] += m.get("transferTime", 0.0)
+            out["udfTime"] += m.get("udfTime", 0.0)
+    return out
+
+
+def udf_phase(dev, tables, CB, KN, query_shapes) -> dict:
+    """Python UDFs at SF1, each run a path of its own under
+    ``SESSION_CONF`` (0 operators on the CPU), cold then
+    ``UDF_WARM_RUNS`` warm runs from the scan cache, each equal to the
+    cold run and to this script's numpy reference (keys and counts
+    exactly, doubles within 1e-9 relative): a row ``F.udf`` over
+    1,500,000 orders through ``TpuArrowEvalPython``, then with
+    ``spark.rapids.sql.udfCompiler.enabled`` compiled (no bridge node,
+    the bridge run's rows); a ``pandas_udf`` over 6,000,000 lines summed
+    by the two flags, the built-in expression's sums and a device UDF on
+    torch tensors (no bridge node) alike; ``mapInPandas`` over orders;
+    ``applyInPandas`` over 150,000 customers by nation under
+    ``spark.sql.shuffle.partitions=8``; a grouped-aggregate pandas UDF
+    (the median order price per priority).  Prints each run's walls,
+    rows, launches, which path it took (read from the plan tree) and
+    its bridge nodes' ``transferTime`` and ``udfTime``.  Returns the
+    counts of the runs."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t_phase = time.perf_counter()
+    counts, lines, outs, ref_s, refs = {}, {}, {}, 0.0, {}
+    for name, (build, conf, bridged) in udf_runs(F, T, col).items():
+        t0 = time.perf_counter()
+        # the revenue runs share one reference, the row UDF runs another
+        kind = name.split(" ")[-1] if name.endswith("revenue") else name[:7]
+        if kind not in refs:
+            refs[kind] = ref_udf(name, tables)
+        want = refs[kind]
+        ref_s += time.perf_counter() - t0
+        s = TpuSession(dict(SESSION_CONF, **conf), device=dev)
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        clear_scan_cache()
+        df = build(s, tables)
+        got, cold = timed(df)
+        counts[name] = c = path_counts(df, CB, KN)
+        print(f"[main path] udf {name} " + json.dumps(c), flush=True)
+        fb = df.fallback_summary()
+        check(fb["fallback_ops"] == 0 and fb["device_ops"] > 0,
+              f"udf {name}: operators on the CPU {fb}")
+        check(c["collision_fallbacks"] == 0,
+              f"udf {name}: hash-collision fallbacks")
+        tree = df._last_plan.tree_string()
+        bm = bridge_metrics(df)
+        check((bm["bridge_nodes"] > 0) is bridged,
+              f"udf {name}: bridge nodes {bm['bridge_nodes']}:\n{tree}")
+        check(("ArrowEvalPython" in tree) is (name == "row udf bridge"
+                                             or name.startswith("pandas")),
+              f"udf {name}: the plan's ArrowEvalPython:\n{tree}")
+        ordered = name.endswith("revenue") or name.startswith("row udf")
+        if name == "grouped agg median":
+            got = got.sort_by("o_orderpriority")
+        elif name == "map in pandas":
+            got = got.sort_by("o_orderkey")
+        elif name == "apply in pandas":
+            got = got.sort_by("c_custkey")
+        check(got.column_names == want.column_names
+              and (rows_equal_ordered(got, want) if ordered
+                   else rows_equal(got, want)),
+              f"udf {name} differs from the reference:\n{got}\n{want}")
+        outs[name] = got
+        warm = []
+        for _ in range(UDF_WARM_RUNS):
+            wdf = build(s, tables)
+            out, wall = timed(wdf)
+            warm.append(wall)
+            if name == "grouped agg median":
+                out = out.sort_by("o_orderpriority")
+            elif name == "map in pandas":
+                out = out.sort_by("o_orderkey")
+            elif name == "apply in pandas":
+                out = out.sort_by("c_custkey")
+            check(out.equals(got), f"udf {name}: a warm run differs")
+            check(all(w == 0 for w in scan_transfer_times(wdf)),
+                  f"udf {name}: a warm scan missed the cache")
+        lines[name] = {
+            "rows": got.num_rows, "cold_wall_s": cold,
+            "warm_wall_s": statistics.median(warm), "warm_walls_s": warm,
+            "h2d_s": phase_times(df)["h2d_s"],
+            "d2h_s": phase_times(df)["d2h_s"],
+            "path": ("bridge" if bridged else
+                     "compiled" if name == "row udf compiled" else
+                     "device udf" if name.startswith("device") else
+                     "built-in"),
+            **bm,
+            "hash_pairs_launches": c["hash_pairs_launches"],
+            "new_hash_pairs_shapes": sorted(set(c["shapes"])
+                                            - query_shapes),
+            "fallback_ops": fb["fallback_ops"], "equal_reference": True}
+        print(f"[udf] {name} " + json.dumps(lines[name]), flush=True)
+        del df
+    check(outs["row udf compiled"].equals(outs["row udf bridge"]),
+          "udf: the compiled row UDF differs from the bridge run")
+    for name in ("pandas udf revenue", "device udf revenue"):
+        check(rows_equal_ordered(outs[name], outs["builtin revenue"]),
+              f"udf {name} differs from the built-in expression")
+    check(counts["pandas udf revenue"]["hash_pairs_launches"] > 0,
+          "udf: hash_pairs was not launched by the grouped revenue")
+    print("[udf] " + json.dumps({
+        "seconds": time.perf_counter() - t_phase, "reference_s": ref_s,
+        "cold_wall_s": {k: v["cold_wall_s"] for k, v in lines.items()},
+        "warm_wall_s": {k: v["warm_wall_s"] for k, v in lines.items()},
+        "transferTime": {k: v["transferTime"] for k, v in lines.items()},
+        "udfTime": {k: v["udfTime"] for k, v in lines.items()},
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()}}), flush=True)
+    torch.cuda.synchronize()
+    return counts
+
+
+IO_LINEITEM_FILES = 8
+IO_ORDERS_FILES = 4
+IO_ROW_GROUP = 1 << 17
+IO_PRUNE_KEY = 600_000  # l_orderkey < this: the first 40% of the orders
+
+
+def write_io_files(root, tables) -> dict:
+    """lineitem as ``IO_LINEITEM_FILES`` parquet files and orders as
+    ``IO_ORDERS_FILES``, row groups of ``IO_ROW_GROUP`` rows; lineitem
+    in ``l_orderkey`` order, as TPC-H's dbgen writes it (orders already
+    is), so that row groups cover key ranges."""
+    import pyarrow.parquet as pq
+    out = {}
+    for name, t, n_files in (
+            ("lineitem", tables["lineitem"].sort_by("l_orderkey"),
+             IO_LINEITEM_FILES),
+            ("orders", tables["orders"], IO_ORDERS_FILES)):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        step = -(-t.num_rows // n_files)
+        rows = []
+        for i in range(n_files):
+            part = t.slice(i * step, step)
+            pq.write_table(part, os.path.join(d, f"part-{i:05d}.parquet"),
+                           row_group_size=IO_ROW_GROUP)
+            rows.append(part.num_rows)
+        out[name] = d
+        out[name + "_rows"] = rows
+    return out
+
+
+def scan_metrics(df) -> dict:
+    """The file scans' metrics of the last run, summed over scans."""
+    out = {"scans": 0, "scanTime": 0.0, "transferTime": 0.0,
+           "dictDecodedColumns": 0, "prunedRowGroups": 0,
+           "numOutputBatches": 0}
+    for name, m in df.metrics():
+        if name == "TpuParquetScanExec":
+            out["scans"] += 1
+            for k in list(out)[1:]:
+                out[k] += m.get(k, 0)
+    return out
+
+
+def io_phase(dev, tables, CB, KN, query_shapes) -> dict:
+    """Parquet scans and writes at SF1 through ``session.read`` and
+    ``DataFrame.write``, each run a path of its own under
+    ``SESSION_CONF`` (0 operators on the CPU), cold (a file scan has no
+    cache).  Set-up, untimed: pyarrow writes lineitem (in key order) as
+    8 files and orders as 4 into a temporary directory, removed at the
+    end.  q1 and q6 over the lineitem files equal to the in-memory run
+    and to pyarrow (q1's ``hash_pairs`` launches counted); an
+    ``l_orderkey < 600000`` count and sum, which must prune row groups
+    and read only its two columns; ``input_file_name()`` grouped over
+    the orders files (4 rows, each file's row count); q12 over both
+    file sets with the device dictionary decode on and off (equal, both
+    H2D times printed); orders written from the card partitioned by
+    ``o_orderpriority`` and read back (5 partitions; count and
+    ``sum(o_totalprice)`` per priority equal to the in-memory grouping).
+    Prints each run's wall, rows, launches and its scans' ``scanTime``,
+    ``transferTime``, ``dictDecodedColumns`` and ``prunedRowGroups``.
+    Returns the counts of the runs."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.plan.optimizer import optimize
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import tpch
+    t_phase = time.perf_counter()
+    li, orders = tables["lineitem"], tables["orders"]
+    root = tempfile.mkdtemp(prefix="tpuq-io-")
+    try:
+        t0 = time.perf_counter()
+        files = write_io_files(root, tables)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        keys = li["l_orderkey"].to_numpy()
+        pruned_keep = keys < IO_PRUNE_KEY
+        refs = {"q1": ref_q1(li), "q6": ref_q6(li), "q12": ref_q12(tables),
+                "prune": (int(pruned_keep.sum()), float(
+                    li["l_quantity"].to_numpy()[pruned_keep].sum()))}
+        ref_s = time.perf_counter() - t0
+        s = TpuSession(dict(SESSION_CONF), device=dev)
+        nodict = TpuSession(dict(SESSION_CONF, **{
+            "spark.rapids.tpu.parquet.deviceDictDecode": False}), device=dev)
+        part_dir = os.path.join(root, "orders_by_priority")
+
+        def prune_run(ss):
+            return ss.read.parquet(files["lineitem"]).filter(
+                col("l_orderkey") < IO_PRUNE_KEY).agg(
+                F.count("*").alias("n"), F.sum("l_quantity").alias("qty"))
+
+        runs = {
+            "q1": lambda: tpch.q1_over(s.read.parquet(files["lineitem"])),
+            "q6": lambda: tpch.q6_over(s.read.parquet(files["lineitem"])),
+            "pruned count": lambda: prune_run(s),
+            "file names": lambda: s.read.parquet(files["orders"]).select(
+                F.input_file_name().alias("f")).groupBy("f").count(),
+            "q12 dict decode": lambda: tpch.q12_over(
+                s.read.parquet(files["lineitem"]),
+                s.read.parquet(files["orders"])),
+            "q12 plain decode": lambda: tpch.q12_over(
+                nodict.read.parquet(files["lineitem"]),
+                nodict.read.parquet(files["orders"])),
+            "partitioned write": None,
+            "partitioned read": lambda: s.read.parquet(part_dir).groupBy(
+                "o_orderpriority").agg(
+                F.count("*").alias("n"),
+                F.sum("o_totalprice").alias("total")),
+        }
+        counts, lines, outs = {}, {}, {}
+        for name, build in runs.items():
+            CB.reset_counts()
+            KN.COUNTERS.reset()
+            clear_scan_cache()
+            if build is None:
+                # from the card: the scan and D2H of orders' three
+                # columns, then the hive-layout write
+                df = s.createDataFrame(orders).select(
+                    "o_orderkey", "o_totalprice", "o_orderpriority")
+                __import__("torch").cuda.synchronize()
+                t0 = time.perf_counter()
+                df.write.partitionBy("o_orderpriority").parquet(part_dir)
+                wall = time.perf_counter() - t0
+                dirs = sorted(os.listdir(part_dir))
+                got = None
+            else:
+                df = build()
+                got, wall = timed(df)
+            counts[name] = c = path_counts(df, CB, KN)
+            print(f"[main path] io {name} " + json.dumps(c), flush=True)
+            fb = df.fallback_summary()
+            check(fb["fallback_ops"] == 0 and fb["device_ops"] > 0,
+                  f"io {name}: operators on the CPU {fb}")
+            check(c["collision_fallbacks"] == 0,
+                  f"io {name}: hash-collision fallbacks")
+            sm = scan_metrics(df)
+            check(build is None or sm["scans"] > 0,
+                  f"io {name}: no TpuParquetScanExec ran")
+            outs[name] = got
+            lines[name] = line = {
+                "rows": None if got is None else got.num_rows,
+                "cold_wall_s": wall, **sm,
+                "d2h_s": phase_times(df)["d2h_s"],
+                "hash_pairs_launches": c["hash_pairs_launches"],
+                "new_hash_pairs_shapes": sorted(set(c["shapes"])
+                                                - query_shapes),
+                "fallback_ops": fb["fallback_ops"]}
+            if build is None:
+                line["partition_dirs"] = dirs
+            print(f"[io] {name} " + json.dumps(line), flush=True)
+            del df
+        # -- the checks ---------------------------------------------------
+        memory = {"q1": tpch.q1(s, li).toArrow(),
+                  "q6": tpch.q6(s, li).toArrow(),
+                  "q12": tpch.q12(s, tables).toArrow()}
+        for q in ("q1", "q6"):
+            check_result(f"io {q}", outs[q], refs[q])
+            check(rows_equal_ordered(outs[q], memory[q]),
+                  f"io {q} differs from its in-memory run")
+        check(counts["q1"]["hash_pairs_launches"] > 0,
+              "io q1: hash_pairs was not launched")
+        n = outs["pruned count"]["n"][0].as_py()
+        qty = outs["pruned count"]["qty"][0].as_py()
+        check(n == refs["prune"][0]
+              and abs(qty - refs["prune"][1]) <= 1e-9 * refs["prune"][1],
+              f"io pruned count {n} {qty} against {refs['prune']}")
+        check(lines["pruned count"]["prunedRowGroups"] > 0,
+              "io: the l_orderkey filter pruned no row group")
+        rel = [r for r in _logical_nodes(optimize(prune_run(s)._plan))
+               if isinstance(r, L.ParquetRelation)]
+        check(len(rel) == 1 and rel[0].columns == ["l_orderkey",
+                                                   "l_quantity"]
+              and rel[0].filters == [("l_orderkey", "lt", IO_PRUNE_KEY)],
+              f"io: the pruned scan reads {rel and rel[0].columns}")
+        fn = outs["file names"].sort_by("f")
+        want_paths = sorted(os.path.join(files["orders"], f)
+                            for f in os.listdir(files["orders"]))
+        check(fn.column("f").to_pylist() == want_paths
+              and fn.column("count").to_pylist() == files["orders_rows"],
+              f"io: input_file_name counts {fn.to_pylist()}")
+        for name in ("q12 dict decode", "q12 plain decode"):
+            check_result(f"io {name}", outs[name], refs["q12"])
+            check(rows_equal_ordered(outs[name], memory["q12"]),
+                  f"io {name} differs from its in-memory run")
+        check(outs["q12 dict decode"].equals(outs["q12 plain decode"]),
+              "io: q12 differs between the dictionary and plain decodes")
+        check(lines["q12 dict decode"]["dictDecodedColumns"] > 0
+              and lines["q12 plain decode"]["dictDecodedColumns"] == 0,
+              "io: dictDecodedColumns "
+              f"{lines['q12 dict decode']['dictDecodedColumns']} / "
+              f"{lines['q12 plain decode']['dictDecodedColumns']}")
+        check(lines["partitioned write"]["partition_dirs"] == sorted(
+            f"o_orderpriority={p}" for p in set(
+                orders["o_orderpriority"].to_pylist())),
+              "io: partition directories "
+              f"{lines['partitioned write']['partition_dirs']}")
+        grouped = s.createDataFrame(orders).groupBy("o_orderpriority").agg(
+            F.count("*").alias("n"),
+            F.sum("o_totalprice").alias("total")).toArrow()
+        back = outs["partitioned read"]
+        check(back.num_rows == 5 and rows_equal(back, grouped),
+              f"io: the partitioned read back differs:\n{back}\n{grouped}")
+        pri = orders["o_orderpriority"].to_numpy(zero_copy_only=False)
+        price = orders["o_totalprice"].to_numpy()
+        for r in back.to_pylist():
+            m = pri == r["o_orderpriority"]
+            check(r["n"] == int(m.sum()) and abs(
+                r["total"] - float(price[m].sum())) <= 1e-9 * r["total"],
+                  f"io: priority {r['o_orderpriority']} against numpy")
+        print(f"[io q1 result] {outs['q1'].num_rows} rows\n"
+              f"{outs['q1'].to_pandas().to_string()}", flush=True)
+        print("[io] " + json.dumps({
+            "seconds": time.perf_counter() - t_phase, "write_s": write_s,
+            "reference_s": ref_s,
+            "cold_wall_s": {k: v["cold_wall_s"] for k, v in lines.items()},
+            "scanTime": {k: v["scanTime"] for k, v in lines.items()},
+            "transferTime": {k: v["transferTime"]
+                             for k, v in lines.items()},
+            "dictDecodedColumns": {k: v["dictDecodedColumns"]
+                                   for k, v in lines.items()},
+            "prunedRowGroups": lines["pruned count"]["prunedRowGroups"],
+            "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                    for k, c in counts.items()}}),
+            flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def _logical_nodes(plan) -> list:
+    out = [plan]
+    for c in plan.children:
+        out.extend(_logical_nodes(c))
+    return out
+
+
+def udf_io_only(dev, tables, CB, KN, which: str) -> int:
+    """``--udf`` / ``--io``: that phase alone (after the build and the
+    kernel checks), then the kernel bit for bit at every shape it
+    launched."""
+    t0 = time.perf_counter()
+    phase = udf_phase if which == "udf" else io_phase
+    counts = phase(dev, tables, CB, KN, set())
+    gen = __import__("torch").Generator(device=dev)
+    gen.manual_seed(20261018)
+    shapes = sorted({k for c in counts.values() for k in c["shapes"]},
+                    key=lambda k: tuple(map(int, k.split("x"))))
+    for key in shapes:
+        n_limbs, n = (int(x) for x in key.split("x"))
+        kernel_line(CB, None, random_limbs(n_limbs, n, gen, dev),
+                    timed=False)
+    print(f"[{which} only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "shapes_bit_identical": shapes,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()}}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import pyarrow as pa
@@ -6218,6 +6783,8 @@ def main() -> int:
         return nested_only(dev, tables, CB, KN)
     if WINDOW_ONLY:
         return window_only(dev, tables, CB, KN)
+    if UDF_ONLY or IO_ONLY:
+        return udf_io_only(dev, tables, CB, KN, "udf" if UDF_ONLY else "io")
     check(len(QUERIES) == 22 and set(QUERIES) == set(tpch.QUERIES)
           == {f"q{i}" for i in range(1, 23)},
           f"QUERIES lists {sorted(QUERIES)}, not TPC-H's 22")
@@ -6408,6 +6975,20 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[window] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- python UDFs: the arrow bridge, the compiler, device UDFs ----------
+    udf_counts = udf_phase(dev, tables, CB, KN, query_shapes)
+    for c in udf_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[udf] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    # -- parquet scans and writes: pushdown, input_file_name, dict decode ---
+    io_counts = io_phase(dev, tables, CB, KN, query_shapes)
+    for c in io_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[io] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -6498,7 +7079,9 @@ def main() -> int:
                         + list(breadth_counts.values())
                         + list(decimal_counts.values())
                         + list(nested_counts.values())
-                        + list(window_counts.values())),
+                        + list(window_counts.values())
+                        + list(udf_counts.values())
+                        + list(io_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -6527,6 +7110,10 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in nested_counts.items()},
         "launches_per_window_run": {
             k: c["hash_pairs_launches"] for k, c in window_counts.items()},
+        "launches_per_udf_run": {
+            k: c["hash_pairs_launches"] for k, c in udf_counts.items()},
+        "launches_per_io_run": {
+            k: c["hash_pairs_launches"] for k, c in io_counts.items()},
         "plain_calls_per_faults_run": {
             k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,

@@ -6,8 +6,9 @@ the entries the slices ported so far use (the plan rewrite's switches,
 the TPC-H queries, the join strategies, the memory arbiter with its
 spill tiers and OOM retry, the aggregate's passes, the exchange plane,
 the string expressions' gates, the device semaphore, the prefetching
-pump, the shape plane, the kernel build cache and the failure domains:
-retry policy, deadlines, fault injection and lockdep).
+pump, the shape plane, the kernel build cache, the failure domains:
+retry policy, deadlines, fault injection and lockdep, and the UDF
+compiler and the file scan).
 Values are validated the same way: an unknown
 ``spark.rapids.*`` key raises, and so does a value the entry's checker
 rejects.  The per-operator kill switches ``spark.rapids.sql.exec.<Name>``
@@ -17,7 +18,8 @@ must be a rule of the plan rewrite or an expression class of the port,
 else the key raises as an unknown one.  Keys outside
 the ``spark.rapids.`` namespace are kept raw, except the Spark core keys
 registered here (``spark.sql.ansi.enabled``,
-``spark.sql.autoBroadcastJoinThreshold``, ``spark.sql.adaptive.*``);
+``spark.sql.autoBroadcastJoinThreshold``, ``spark.sql.adaptive.*``,
+``spark.sql.shuffle.partitions``);
 ``spark.default.parallelism`` stays raw, as in the JAX package.
 """
 
@@ -641,6 +643,49 @@ SHUFFLE_THREADS = (
     .create_with_default(4)
 )
 
+SHUFFLE_PARTITIONS = (
+    conf("spark.sql.shuffle.partitions")
+    .doc("Default shuffle partition count (Spark core key, honored "
+         "here): the partitions of applyInPandas's exchange and the "
+         "upper bound of a file scan's partitions. The exchange plane "
+         "and the AQE read keep their own partition counts; the adaptive "
+         "plane's use of this key is not ported.")
+    .integer()
+    .create_with_default(16)
+)
+
+MULTITHREADED_READ_THREADS = (
+    conf("spark.rapids.sql.multiThreadedRead.numThreads")
+    .doc("Thread pool size for the MULTITHREADED parquet reader "
+         "(concurrent host decode per scan partition; the host-to-device "
+         "copies stay on the consuming task's thread and stream).")
+    .integer()
+    .check(lambda v: v >= 1, ">= 1")
+    .create_with_default(4)
+)
+
+PARQUET_DEVICE_DICT = (
+    conf("spark.rapids.tpu.parquet.deviceDictDecode")
+    .doc("Read parquet string columns dictionary-encoded and expand "
+         "them on the device (indices and a small dictionary ride the "
+         "host-to-device copy instead of full byte matrices; the "
+         "expansion is a device gather). Decompression stays on the "
+         "host.")
+    .boolean()
+    .create_with_default(True)
+)
+
+UDF_COMPILER_ENABLED = (
+    conf("spark.rapids.sql.udfCompiler.enabled")
+    .doc("Compile simple python UDFs (arithmetic, comparisons, "
+         "conditionals, basic string methods) into device expressions "
+         "via AST lowering: the compiled UDF runs with the surrounding "
+         "expressions instead of crossing the arrow bridge. UDFs outside "
+         "the subset silently fall back to the bridge.")
+    .boolean()
+    .create_with_default(False)
+)
+
 ADAPTIVE_ENABLED = (
     conf("spark.sql.adaptive.enabled")
     .doc("Adaptive query execution: shuffle-read coalescing of small "
@@ -737,6 +782,10 @@ class RapidsConf:
     @property
     def min_bucket_rows(self) -> int:
         return self.get(MIN_BUCKET_ROWS)
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return self.get(SHUFFLE_PARTITIONS)
 
     @property
     def shuffle_mode(self) -> str:

@@ -1536,6 +1536,73 @@ class Cast(Expression):
         return f"cast({self.child} as {self.dtype.simple_name})"
 
 
+@dataclasses.dataclass
+class InputFileName(Expression):
+    """Marker for input_file_name(): the optimizer rewrites it to a
+    BoundReference over the file scan's appended file-name column
+    [REF: GpuFileSourceScanExec.scala :: InputFileName handling]."""
+
+    dtype: T.DataType = dataclasses.field(
+        default_factory=lambda: T.StringT)
+
+    def eval(self, batch):
+        raise RuntimeError(
+            "input_file_name() was not bound to a file scan — it is only "
+            "valid directly above a file source")
+
+    eval_cpu = eval
+
+    def __str__(self):
+        return "input_file_name()"
+
+
+@dataclasses.dataclass
+class DeviceUDF(Expression):
+    """A user function over the argument columns' raw tensors, run on the
+    batch's device with the surrounding expressions [REF: spark-rapids
+    RapidsUDF — there a JNI hook handing the user cuDF columns].
+
+    Contract: ``fn(*tensors) -> tensor`` is pure and shape-preserving
+    torch; the result goes through ``torch.as_tensor(...).to(dtype)``;
+    nulls propagate as the intersection of the inputs' validities
+    (Spark's null-safe semantics); numeric, boolean and datetime
+    columns only (strings ride byte matrices whose layout is not a
+    stable public surface).  ``eval_cpu`` runs the same ``fn`` on CPU
+    tensors made from the host arrays: the oracle of the device run."""
+
+    fn: object
+    args: Tuple[Expression, ...]
+    dtype: T.DataType
+    fname: str = "device_udf"
+
+    type_sig = SIG_ALL_SCALAR - SIG_STRINGY | frozenset({"null"})
+    input_sig = SIG_ALL_SCALAR - SIG_STRINGY | frozenset({"null"})
+
+    @property
+    def children(self):
+        return tuple(self.args)
+
+    def eval(self, batch: DeviceBatch) -> DeviceColumn:
+        cols = [a.eval(batch) for a in self.args]
+        out = self.fn(*[c.data for c in cols])
+        out = torch.as_tensor(out, device=batch.device).to(
+            torch_dtype(self.dtype))
+        return DeviceColumn(self.dtype, out,
+                            merge_validity(*[c.validity for c in cols]))
+
+    def eval_cpu(self, batch: HostBatch) -> HostCol:
+        cols = [a.eval_cpu(batch) for a in self.args]
+        # owned copies: the host arrays may be read-only Arrow buffers
+        out = self.fn(*[torch.from_numpy(np.array(c.data)) for c in cols])
+        out = torch.as_tensor(out).to(torch_dtype(self.dtype))
+        return HostCol(self.dtype, out.numpy(),
+                       merge_validity_h(*[c.validity for c in cols]))
+
+    def __str__(self):
+        args = ", ".join(str(a) for a in self.args)
+        return f"{self.fname}({args})"
+
+
 # ---------------------------------------------------------------------------
 # TypeSig declarations [REF: TypeChecks.scala — per-op type signatures],
 # the JAX package's for the classes this port has.

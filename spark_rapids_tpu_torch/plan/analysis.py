@@ -22,7 +22,12 @@ arithmetic is refused.  Struct field access (``getField``), ``struct``
 and the generators are the DataFrame layer's: the analyzer meets them
 only outside a select, and refuses them as the JAX package's does; so
 is a window function, which ``resolve_window`` resolves with its spec
-and frame when it stands under ``.over`` at a select's top level.  An
+and frame when it stands under ``.over`` at a select's top level, and
+so is a python UDF, which the DataFrame layer lifts into a
+``PythonEval`` node when it is a top-level select expression.
+``input_file_name()`` resolves to a marker the optimizer binds to a
+file scan's file-name column, and ``device_udf`` to a ``DeviceUDF``
+over numeric, boolean and datetime arguments.  An
 operator outside the port raises ``NotImplementedError`` naming it.
 """
 
@@ -317,6 +322,24 @@ def resolve(u: UExpr, schema: T.StructType) -> E.Expression:
                 "get_json_object needs a string operand, got "
                 f"{child.dtype.simple_name}")
         return GetJsonObject(child, str(u.payload))
+    if op == "input_file_name":
+        return E.InputFileName()
+    if op == "device_udf":
+        fn, dt, name = u.payload
+        args = tuple(resolve(c, schema) for c in u.children)
+        for a in args:
+            if isinstance(a.dtype, (T.StringType, T.BinaryType)):
+                raise AnalysisException(
+                    "device_udf arguments must be numeric/boolean/"
+                    f"datetime columns, got {a.dtype.simple_name} "
+                    "(string byte-matrix layout is not a stable UDF "
+                    "surface)")
+        return E.DeviceUDF(fn, args, dt, name)
+    if op == "pyudf":
+        # the DataFrame layer extracts top-level UDFs into a PythonEval
+        raise AnalysisException(
+            "python UDFs are only supported as top-level select "
+            "expressions (optionally aliased)")
     if op in ("getfield", "make_struct", "generate", "window", "winfn"):
         # the DataFrame layer rewrites these where it allows them (a
         # window function only under ``.over`` at a select's top level)

@@ -1,6 +1,8 @@
 """Logical plan nodes — the subset the TPC-H queries, ``repartition``,
 ``union``, ``session.range``, ``sample``, rollup/cube, the
-generators (explode) and the window functions use.
+generators (explode), the window functions, the python UDF bridge
+(``PythonEval``, ``MapInPandas``, ``FlatMapGroupsInPandas``) and the
+file scan (``ParquetRelation``) use.
 
 The counterparts of the JAX package's ``plan/logical.py`` nodes of the
 same names.  The DataFrame API resolves names and coerces types eagerly,
@@ -49,6 +51,31 @@ class InMemoryRelation(LogicalPlan):
     @property
     def name(self):
         return "InMemoryRelation"
+
+
+@dataclasses.dataclass
+class ParquetRelation(LogicalPlan):
+    """File-source relation (parquet or orc — ``format`` selects).
+
+    ``columns``: pruned data-column names (projection pushdown);
+    ``filters``: (name, op, literal) conjuncts for row-group pruning;
+    ``partition_values``: hive-style partition values per file (aligned
+    with ``paths``); ``partition_fields``: their columns, after the data
+    columns; ``file_name_col``: append the input_file_name() column.
+    Pushdown fields are filled by plan/optimizer.py, not by users.  The
+    JAX package's ``dpp`` (dynamic partition pruning) and ``deletes``
+    (row-level deletes) fields are not ported: the scan refuses a
+    relation that carries either.
+    """
+
+    paths: List[str]
+    schema: T.StructType
+    format: str = "parquet"
+    columns: Optional[List[str]] = None
+    filters: Optional[List[tuple]] = None
+    partition_values: Optional[List[dict]] = None
+    partition_fields: Tuple = ()
+    file_name_col: bool = False
 
 
 @dataclasses.dataclass
@@ -229,6 +256,45 @@ class Window(LogicalPlan):
     order_by: List[SortOrder]
     functions: List[WindowFunctionSpec]
     schema: T.StructType  # the child's fields, then one per function
+
+    @property
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class PythonEval(LogicalPlan):
+    """Appends python-UDF result columns [REF: Spark BatchEvalPython /
+    ArrowEvalPython]."""
+
+    child: LogicalPlan
+    udfs: List  # List[exec.python_udf.PyUDFSpec]
+    schema: T.StructType
+
+    @property
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class MapInPandas(LogicalPlan):
+    child: LogicalPlan
+    fn: object
+    schema: T.StructType
+
+    @property
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class FlatMapGroupsInPandas(LogicalPlan):
+    """Grouped map — the child must be co-partitioned on key_indices."""
+
+    child: LogicalPlan
+    key_indices: List[int]
+    fn: object
+    schema: T.StructType
 
     @property
     def children(self):

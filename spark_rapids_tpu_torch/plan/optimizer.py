@@ -1,22 +1,37 @@
-"""Logical optimizer — only the in-memory column-pruning rule so far.
+"""Logical optimizer: column pruning and file-scan pushdown.
 
-The counterpart of ``_inmemory_prune_head`` in the JAX package's
-``plan/optimizer.py``: a Project or Aggregate head over a chain of
-Filters over an in-memory relation narrows the arrow table to the
-columns it references before the host-to-device transfer (memoized per
-table and column set, so that the scan cache keeps hitting) (the analog of
-Spark's ColumnPruning), so that q1 and q6 move 7 and 4 of lineitem's 16
-columns to the device.  The rule reaches through both sides of a join,
-below a limit, a repartition, a sample, an expand, a generate or a
-window, and into each input of a union.  The JAX package's other rules
-(parquet pushdown, dynamic partition pruning) are later slices.
+The counterpart of the JAX package's ``plan/optimizer.py`` [REF: the
+reference relies on Spark's own optimizer for column pruning and filter
+pushdown and implements the scan side in GpuParquetScan.scala and
+GpuFileSourceScanExec.scala].  Rules (bottom-up, one pass; they reach
+through both sides of a join, below every one-child node and into each
+input of a union):
+
+* **In-memory column pruning** (``_prune_head``): a Project or Aggregate
+  head over a chain of Filters over an in-memory relation narrows the
+  arrow table to the columns it references before the host-to-device
+  transfer (memoized per table and column set, so that the scan cache
+  keeps hitting): q1 and q6 move 7 and 4 of lineitem's 16 columns;
+* **Filter pushdown**: ``Filter* -> ParquetRelation`` chains attach
+  their simple conjuncts ``(col, cmp, literal)`` to the relation for
+  row-group statistics pruning.  The Filter stays in the plan: pruning
+  is conservative, exactness comes from the Filter itself;
+* **File column pruning** (``_prune_file_head``): a ``Project |
+  Aggregate -> Filter* -> ParquetRelation`` chain narrows the relation
+  to the referenced columns and remaps every bound reference in the
+  chain;
+* **input_file_name() binding**: markers in a head projection turn on
+  the relation's file-name column and rebind to it (an Aggregate head's
+  marker stays unbound and raises at execution, as in the JAX package).
+
+The JAX package's dynamic partition pruning waits for a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Set, Tuple
+from typing import List, Set, Tuple
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.ops import expressions as E
@@ -80,40 +95,110 @@ def _narrow_table(table, names: Tuple[str, ...]):
     return out
 
 
-def _prune_head(plan):
+def _has_file_name_marker(exprs) -> bool:
+    found = [False]
+
+    def look(e):
+        if isinstance(e, E.InputFileName):
+            found[0] = True
+        for c in e.children:
+            look(c)
+
+    for e in exprs:
+        look(e)
+    return found[0]
+
+
+_CMP_OPS = {E.EqualTo: "eq", E.LessThan: "lt", E.LessThanOrEqual: "le",
+            E.GreaterThan: "gt", E.GreaterThanOrEqual: "ge"}
+_FLIP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq"}
+_PUSHABLE_LIT = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                 T.FloatType, T.DoubleType, T.StringType, T.BooleanType)
+
+
+def _n_data(rel: L.ParquetRelation) -> int:
+    """The relation's data columns (before its partition and file-name
+    columns)."""
+    return (len(rel.schema.fields) - len(rel.partition_fields)
+            - (1 if rel.file_name_col else 0))
+
+
+def _extract_filters(cond: E.Expression, rel: L.ParquetRelation
+                     ) -> List[tuple]:
+    """Simple (col-name, op, literal) conjuncts for row-group pruning."""
+    n_data = _n_data(rel)
+    out = []
+
+    def visit(e):
+        if isinstance(e, E.And):
+            visit(e.left)
+            visit(e.right)
+            return
+        op = _CMP_OPS.get(type(e))
+        if op is None:
+            return
+        ref, lit, flip = None, None, False
+        if (isinstance(e.left, E.BoundReference)
+                and isinstance(e.right, E.Literal)):
+            ref, lit = e.left, e.right
+        elif (isinstance(e.right, E.BoundReference)
+              and isinstance(e.left, E.Literal)):
+            ref, lit, flip = e.right, e.left, True
+        if ref is None or lit.value is None or ref.index >= n_data:
+            return
+        if not isinstance(lit.dtype, _PUSHABLE_LIT):
+            return
+        v = lit.value
+        if isinstance(v, float) and v != v:  # NaN never prunes
+            return
+        out.append((rel.schema.fields[ref.index].name,
+                    _FLIP[op] if flip else op, v))
+
+    visit(cond)
+    return out
+
+
+def _filter_chain(node) -> Tuple[List[L.Filter], L.LogicalPlan]:
+    """(the chain of Filter nodes from the top, the node below it)."""
     filters = []
-    node = plan.child
     while isinstance(node, L.Filter):
         filters.append(node)
         node = node.child
-    if not isinstance(node, L.InMemoryRelation):
-        return None
+    return filters, node
+
+
+def _rebuild_chain(filters: List[L.Filter], leaf, remap=None):
+    """Re-stack Filter nodes (innermost last) over a new leaf, remapping
+    their conditions when the leaf schema changed."""
+    node = leaf
+    for f in reversed(filters):
+        cond = f.condition
+        if remap is not None:
+            cond = transform_expr(cond, remap)
+        node = L.Filter(node, cond)
+    return node
+
+
+def _head_required_refs(plan, filters) -> Tuple[List, Set[int]]:
+    """(head exprs, referenced column indexes) of a Project|Aggregate
+    head over a Filter* chain — shared by the file and in-memory
+    pruning rules so the two can never disagree on required columns."""
     if isinstance(plan, L.Project):
-        head = list(plan.exprs)
+        head_exprs = list(plan.exprs)
     else:
-        head = list(plan.grouping) + [f.child for f in plan.aggregates]
+        head_exprs = list(plan.grouping) + [f.child
+                                            for f in plan.aggregates]
     required: Set[int] = set()
-    for e in head:
+    for e in head_exprs:
         collect_refs(e, required)
     for f in filters:
         collect_refs(f.condition, required)
-    fields = node.schema.fields
-    if len(required) >= len(fields):
-        return None
-    keep = sorted(required) or [0]
-    index_map = {old: new for new, old in enumerate(keep)}
+    return head_exprs, required
 
-    def remap(e):
-        if isinstance(e, E.BoundReference):
-            return E.BoundReference(index_map[e.index], e.dtype,
-                                    e.nullable)
-        return None
 
-    child = L.InMemoryRelation(
-        _narrow_table(node.table, tuple(fields[i].name for i in keep)),
-        T.StructType(tuple(fields[i] for i in keep)), node.num_partitions)
-    for f in reversed(filters):
-        child = L.Filter(child, transform_expr(f.condition, remap))
+def _rebuild_head(plan, child, remap):
+    """The Project|Aggregate head over ``child``, its references
+    remapped."""
     if isinstance(plan, L.Project):
         return L.Project(child, [transform_expr(e, remap)
                                  for e in plan.exprs], plan.schema)
@@ -123,18 +208,121 @@ def _prune_head(plan):
          for a in plan.aggregates], plan.schema)
 
 
+def _make_remap(index_map, fn_idx):
+    def remap(e):
+        if isinstance(e, E.BoundReference):
+            return E.BoundReference(index_map[e.index], e.dtype,
+                                    e.nullable)
+        if isinstance(e, E.InputFileName):
+            if fn_idx is None:
+                return None
+            return E.BoundReference(fn_idx, T.StringT, False)
+        return None
+    return remap
+
+
+def _prune_head(plan):
+    """Project|Aggregate -> Filter* -> InMemoryRelation: narrow the arrow
+    table to the referenced columns before the H2D transfer."""
+    filters, node = _filter_chain(plan.child)
+    if not isinstance(node, L.InMemoryRelation):
+        return None
+    head, required = _head_required_refs(plan, filters)
+    fields = node.schema.fields
+    if len(required) >= len(fields) or _has_file_name_marker(head):
+        return None
+    keep = sorted(required) or [0]
+    remap = _make_remap({old: new for new, old in enumerate(keep)}, None)
+    child = L.InMemoryRelation(
+        _narrow_table(node.table, tuple(fields[i].name for i in keep)),
+        T.StructType(tuple(fields[i] for i in keep)), node.num_partitions)
+    return _rebuild_head(plan, _rebuild_chain(filters, child, remap),
+                         remap)
+
+
+def _prune_relation(rel: L.ParquetRelation, required: Set[int],
+                    need_file_name: bool):
+    """Narrowed file relation + old->new index map + the file-name
+    column's new index (None without one)."""
+    fields = rel.schema.fields
+    n_data = _n_data(rel)
+    if n_data and not any(i < n_data for i in required):
+        # partition-only / count(*) shapes: always read >= 1 data column
+        # — ORC's reader loses the row count on a zero-column read
+        required = set(required) | {0}
+    keep = sorted(required)
+    index_map = {old: new for new, old in enumerate(keep)}
+    new_fields = [fields[i] for i in keep]
+    columns = [fields[i].name for i in keep if i < n_data]
+    part_fields = tuple(fields[i] for i in keep
+                        if n_data <= i < n_data + len(rel.partition_fields))
+    file_name_col = rel.file_name_col or need_file_name
+    if file_name_col:
+        new_fields.append(T.StructField("input_file_name()", T.StringT,
+                                        False))
+        fn_idx = len(new_fields) - 1
+    else:
+        fn_idx = None
+    new_rel = dataclasses.replace(
+        rel, schema=T.StructType(tuple(new_fields)), columns=columns,
+        partition_fields=part_fields, file_name_col=file_name_col)
+    return new_rel, index_map, fn_idx
+
+
+def _prune_file_head(plan):
+    """Project|Aggregate -> Filter* -> ParquetRelation: read only the
+    referenced columns, push the filters' simple conjuncts, bind a
+    Project head's input_file_name() markers."""
+    filters, rel = _filter_chain(plan.child)
+    # the inner Filter rule may already have attached row-group filters
+    # (bottom-up order): pruning only needs columns unset
+    if not isinstance(rel, L.ParquetRelation) or rel.columns is not None:
+        return None
+    head, required = _head_required_refs(plan, filters)
+    need_fn = isinstance(plan, L.Project) and _has_file_name_marker(head)
+    pushed = rel.filters
+    if pushed is None:
+        pushed = []
+        for f in filters:
+            pushed.extend(_extract_filters(f.condition, rel))
+    new_rel, index_map, fn_idx = _prune_relation(rel, required, need_fn)
+    if pushed:
+        new_rel = dataclasses.replace(new_rel, filters=pushed)
+    remap = _make_remap(index_map, fn_idx)
+    return _rebuild_head(plan, _rebuild_chain(filters, new_rel, remap),
+                         remap)
+
+
+def _push_filters(plan: L.Filter):
+    """Filter* -> ParquetRelation: attach the chain's simple conjuncts to
+    the relation (None when there is nothing to push)."""
+    filters, rel = _filter_chain(plan)
+    if not isinstance(rel, L.ParquetRelation) or rel.filters is not None:
+        return None
+    pushed = []
+    for f in filters:
+        pushed.extend(_extract_filters(f.condition, rel))
+    if not pushed:
+        return None
+    return _rebuild_chain(filters, dataclasses.replace(rel, filters=pushed))
+
+
 def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
     if isinstance(plan, L.Union):
         return L.Union([optimize(c) for c in plan.inputs])
     if isinstance(plan, L.Join):
         return dataclasses.replace(plan, left=optimize(plan.left),
                                    right=optimize(plan.right))
-    if isinstance(plan, (L.Project, L.Filter, L.Aggregate, L.Sort,
-                         L.Limit, L.Repartition, L.Sample, L.Expand,
-                         L.Generate, L.Window)):
+    if hasattr(plan, "child"):
         plan = dataclasses.replace(plan, child=optimize(plan.child))
     if isinstance(plan, (L.Project, L.Aggregate)):
         pruned = _prune_head(plan)
+        if pruned is None:
+            pruned = _prune_file_head(plan)
         if pruned is not None:
             return pruned
+    if isinstance(plan, L.Filter):
+        pushed = _push_filters(plan)
+        if pushed is not None:
+            return pushed
     return plan

@@ -55,11 +55,13 @@ from spark_rapids_tpu_torch.exec.exchange import (
 from spark_rapids_tpu_torch.exec.join import (
     CpuJoinExec, TpuBroadcastExchangeExec, _convert_join, _tag_join)
 from spark_rapids_tpu_torch.exec import misc as M
+from spark_rapids_tpu_torch.exec import python_udf as PU
 from spark_rapids_tpu_torch.exec import window as W
 from spark_rapids_tpu_torch.exec.sort import (
     CpuSortExec, TpuSortExec, _convert_sort, _tag_sort)
 from spark_rapids_tpu_torch.exec.transitions import (
     DeviceToHostExec, HostToDeviceExec)
+from spark_rapids_tpu_torch.io import parquet as PQ
 from spark_rapids_tpu_torch.ops import aggregates as A
 from spark_rapids_tpu_torch.ops.expressions import (
     BoundReference, Expression, sig_tag)
@@ -303,7 +305,7 @@ def _convert_aggregate(cpu, ch, conf, device):
                                 skip_ratio=conf.get(C.AGG_SKIP_RATIO))
 
 
-# the JAX package registers the next ten lazily
+# the JAX package registers the next fourteen lazily
 # (``_register_lazy_rules``); the port's exec modules import this module
 # only inside functions, so their rules register here, at import
 EXEC_RULES[CpuAggregateExec] = ExecRule(
@@ -326,6 +328,14 @@ EXEC_RULES[M.CpuGenerateExec] = ExecRule(
     "Generate", M._tag_generate, M._convert_generate)
 EXEC_RULES[W.CpuWindowExec] = ExecRule(
     "Window", W._tag_window, W._convert_window)
+EXEC_RULES[PQ.CpuParquetScanExec] = ExecRule(
+    "ParquetScan", lambda m: None, PQ._convert_parquet)
+EXEC_RULES[PU.CpuArrowEvalPythonExec] = ExecRule(
+    "ArrowEvalPython", PU._tag_python_eval, PU._convert_python_eval)
+EXEC_RULES[PU.CpuMapInPandasExec] = ExecRule(
+    "MapInPandas", lambda m: None, PU._convert_map_in_pandas)
+EXEC_RULES[PU.CpuFlatMapGroupsInPandasExec] = ExecRule(
+    "FlatMapGroupsInPandas", lambda m: None, PU._convert_flat_map_groups)
 
 
 def op_names(kind: str) -> frozenset:

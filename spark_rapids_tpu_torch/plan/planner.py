@@ -9,7 +9,9 @@ ColumnarOverrideRules].  A limit over a sort (``Limit(Sort)``,
 plans ``GlobalLimit(LocalLimit(...))``.  A repartition plans a
 ``CpuShuffleExchangeExec``, which the rewrite converts by
 ``spark.rapids.shuffle.mode``.  A range plans ``CpuRangeExec`` with
-``spark.rapids.tpu.batchRows`` ids a batch.
+``spark.rapids.tpu.batchRows`` ids a batch.  A file relation plans
+``io/parquet.py::CpuParquetScanExec``; the python-UDF nodes plan the
+``exec/python_udf.py`` execs.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from spark_rapids_tpu_torch.exec.aggregate import CpuAggregateExec
 from spark_rapids_tpu_torch.exec.base import CpuExec
 from spark_rapids_tpu_torch.exec.exchange import CpuShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.join import CpuJoinExec
+from spark_rapids_tpu_torch.exec import python_udf as PU
 from spark_rapids_tpu_torch.exec.misc import (
     CpuExpandExec, CpuGenerateExec, CpuRangeExec, CpuSampleExec,
     CpuTopNExec)
@@ -31,6 +34,9 @@ def plan_physical(node: L.LogicalPlan, conf: RapidsConf) -> CpuExec:
     if isinstance(node, L.InMemoryRelation):
         return B.CpuScanExec(node.table, node.schema, node.num_partitions,
                              conf.batch_rows)
+    if isinstance(node, L.ParquetRelation):
+        from spark_rapids_tpu_torch.io.parquet import CpuParquetScanExec
+        return CpuParquetScanExec(node, conf)
     if isinstance(node, L.Project):
         return B.CpuProjectExec(node.exprs, node.schema,
                                 plan_physical(node.child, conf))
@@ -71,6 +77,16 @@ def plan_physical(node: L.LogicalPlan, conf: RapidsConf) -> CpuExec:
         return CpuWindowExec(node.partition_by, node.order_by,
                              node.functions, node.schema,
                              plan_physical(node.child, conf))
+    if isinstance(node, L.PythonEval):
+        return PU.CpuArrowEvalPythonExec(node.udfs, node.schema,
+                                         plan_physical(node.child, conf))
+    if isinstance(node, L.MapInPandas):
+        return PU.CpuMapInPandasExec(node.fn, node.schema,
+                                     plan_physical(node.child, conf))
+    if isinstance(node, L.FlatMapGroupsInPandas):
+        return PU.CpuFlatMapGroupsInPandasExec(
+            node.key_indices, node.fn, node.schema,
+            plan_physical(node.child, conf))
     if isinstance(node, L.Union):
         return B.CpuUnionExec([plan_physical(c, conf) for c in node.inputs])
     if isinstance(node, L.Aggregate):

@@ -10,9 +10,13 @@ and ``GroupedData``'s ``count/sum/min/max/avg``, ``rollup`` and
 ``Column`` condition), ``crossJoin``, the generators in ``select``
 (one ``explode``/``posexplode`` per select, through a ``Generate``
 node), window functions in ``select`` and ``withColumn`` (one
-``Window`` node per distinct spec), the actions ``toArrow``,
-``collect``, ``count``, ``toPandas`` and ``show``, and ``explain`` and
-``fallback_summary``.
+``Window`` node per distinct spec), python UDFs in ``select``
+(one ``PythonEval`` node, or expressions where the UDF compiler lowers
+them), ``mapInPandas``, ``GroupedData.applyInPandas`` and
+grouped-aggregate pandas UDFs (a grouped map over a hash exchange on
+the keys), the actions ``toArrow``, ``collect``, ``count``,
+``toPandas`` and ``show``, ``write`` (``io/readers.py``), and
+``explain`` and ``fallback_summary``.
 Transformations build the logical plan eagerly (pyspark-style errors at
 the call site); actions optimize, plan a CPU exec tree, let the plan
 rewrite (``plan/overrides.py``) move what it can onto the session's
@@ -114,6 +118,15 @@ def _generate_u(c) -> Optional[UExpr]:
     u = _to_column(c)._u
     core = u.children[0] if u.op == "alias" else u
     return core if core.op == "generate" else None
+
+
+def _pyudf_u(c) -> Optional[UExpr]:
+    """The python-UDF UExpr under an optional alias, or None."""
+    if isinstance(c, str):
+        return None
+    u = _to_column(c)._u
+    core = u.children[0] if u.op == "alias" else u
+    return core if core.op == "pyudf" else None
 
 
 def _window_u(c) -> Optional[UExpr]:
@@ -255,6 +268,13 @@ class DataFrame:
     def select(self, *cols) -> "DataFrame":
         if any(_generate_u(c) is not None for c in cols):
             return self._select_with_generate(cols)
+        if any(_pyudf_u(c) is not None for c in cols):
+            if any(_window_u(c) is not None for c in cols):
+                raise AN.AnalysisException(
+                    "cannot mix python UDFs and window functions in one "
+                    "select — materialize one of them first "
+                    "(e.g. withColumn)")
+            return self._select_with_pyudfs(cols)
         if any(_window_u(c) is not None for c in cols):
             return self._select_with_windows(cols)
         exprs = []
@@ -364,6 +384,84 @@ class DataFrame:
             fields.append(T.StructField(_output_name(u, e), e.dtype))
         return self._derive(L.Project(plan, exprs,
                                       T.StructType(tuple(fields))))
+
+    def _select_with_pyudfs(self, cols) -> "DataFrame":
+        """Spark's ExtractPythonUDFs: one PythonEval node appends every
+        UDF result column (``_udf0``, ``_udf1``, ...), then a Project
+        picks the output.
+
+        With ``spark.rapids.sql.udfCompiler.enabled`` the AST compiler
+        first tries to lower each UDF onto the expression tree
+        [REF: udf-compiler/ :: CatalystExpressionBuilder]; a compiled UDF
+        becomes a plain device expression and skips the bridge."""
+        from spark_rapids_tpu_torch import conf as C
+        from spark_rapids_tpu_torch.exec.python_udf import PyUDFSpec
+        compile_enabled = bool(self.session.rapids_conf().get(
+            C.UDF_COMPILER_ENABLED))
+        base = self.schema
+        nc = len(base)
+        udfs = []
+        out_specs = []  # ("plain", c) | ("compiled", e, name, dt) |
+        #                 ("udf", index, name, dt)
+        for c in cols:
+            uu = _pyudf_u(c)
+            if uu is None:
+                out_specs.append(("plain", c))
+                continue
+            fn, dt, vectorized, fname = uu.payload
+            args = [AN.resolve(self._rewrite_struct_ref(a), base)
+                    for a in uu.children]
+            u = _to_column(c)._u
+            alias = u.payload if u.op == "alias" else None
+            name = alias or f"{fname}({', '.join(map(str, args))})"
+            if compile_enabled:
+                from spark_rapids_tpu_torch.sql.udf_compiler import (
+                    UdfCompileError, compile_udf)
+                try:
+                    expr = compile_udf(fn, args, dt)
+                    out_specs.append(("compiled", expr, name, dt))
+                    continue
+                except (UdfCompileError, AN.AnalysisException):
+                    pass  # outside the subset: the arrow bridge
+            udfs.append(PyUDFSpec(fn, args, dt, vectorized, name))
+            out_specs.append(("udf", len(udfs) - 1, name, dt))
+        ext_schema = T.StructType(tuple(
+            list(base.fields) + [T.StructField(f"_udf{i}", u.dtype, True)
+                                 for i, u in enumerate(udfs)]))
+        plan = (L.PythonEval(self._plan, udfs, ext_schema) if udfs
+                else self._plan)
+        exprs, fields = [], []
+        for spec in out_specs:
+            if spec[0] == "compiled":
+                _, e, name, dt = spec
+                exprs.append(e)
+                fields.append(T.StructField(name, dt, True))
+                continue
+            if spec[0] == "udf":
+                _, i, name, dt = spec
+                exprs.append(BoundReference(nc + i, dt, True))
+                fields.append(T.StructField(name, dt, True))
+                continue
+            c = spec[1]
+            if _is_star(c):
+                for i, f in enumerate(base.fields):
+                    exprs.append(BoundReference(i, f.dtype, f.nullable))
+                    fields.append(f)
+                continue
+            u = _to_column(c)._u
+            e = AN.resolve(self._rewrite_struct_ref(u), ext_schema)
+            exprs.append(e)
+            fields.append(T.StructField(_output_name(u, e), e.dtype))
+        return self._derive(L.Project(plan, exprs,
+                                      T.StructType(tuple(fields))))
+
+    def mapInPandas(self, fn, schema) -> "DataFrame":
+        """fn(iterator[pandas.DataFrame]) -> iterator[pandas.DataFrame]
+        with the declared output schema [REF: GpuMapInPandasExec]."""
+        if not isinstance(schema, T.StructType):
+            raise AN.AnalysisException(
+                "mapInPandas needs a StructType output schema")
+        return self._derive(L.MapInPandas(self._plan, fn, schema))
 
     def _select_with_windows(self, cols) -> "DataFrame":
         """Spark's ExtractWindowExpressions, as the JAX package does it:
@@ -863,6 +961,11 @@ class DataFrame:
     def show(self, n: int = 20, truncate: bool = True):
         print(self.limit(n).toArrow().to_pandas().to_string())
 
+    @property
+    def write(self):
+        from spark_rapids_tpu_torch.io.readers import DataFrameWriter
+        return DataFrameWriter(self)
+
 
 
 class GroupedData:
@@ -872,7 +975,19 @@ class GroupedData:
         self.names = names
         self.sets = None  # grouping sets (rollup/cube); None = plain
 
+    @staticmethod
+    def _pandas_agg_u(a):
+        """(the UExpr, its vectorized pyudf core) of a grouped-aggregate
+        pandas UDF under an optional alias, or None."""
+        u = _to_column(a)._u
+        core = u.children[0] if u.op == "alias" else u
+        if core.op == "pyudf" and core.payload[2]:  # vectorized
+            return u, core
+        return None
+
     def agg(self, *aggs) -> DataFrame:
+        if any(self._pandas_agg_u(a) is not None for a in aggs):
+            return self._agg_in_pandas(aggs)
         fns = []
         names = []
         for a in aggs:
@@ -894,6 +1009,85 @@ class GroupedData:
                    for n, f in zip(names, fns)]
         return self.df._derive(L.Aggregate(
             self.df._plan, self.grouping, fns, T.StructType(tuple(fields))))
+
+    def _agg_in_pandas(self, aggs) -> DataFrame:
+        """Grouped-aggregate pandas UDFs [REF: GpuAggregateInPandasExec],
+        lowered onto the grouped-map bridge: each agg fn(*series) ->
+        scalar runs per group inside one applyInPandas wrapper (device
+        co-partitioning and the arrow bridge come with it)."""
+        import pandas as pd
+        if self.sets is not None:
+            raise AN.AnalysisException(
+                "pandas-UDF aggregates under rollup/cube are not "
+                "supported")
+        if not self.names:
+            # a global pandas-UDF aggregate: one row — group on a
+            # constant key, then drop it
+            from spark_rapids_tpu_torch.sql.functions import lit
+            return (self.df.withColumn("__g", lit(0))
+                    .groupBy("__g").agg(*aggs).drop("__g"))
+        child_names = set(self.df.schema.field_names())
+        for n in self.names:
+            if n not in child_names:
+                raise AN.AnalysisException(
+                    "pandas-UDF aggregates need plain column grouping "
+                    f"keys (got expression {n!r})")
+        specs = []
+        for i, a in enumerate(aggs):
+            got = self._pandas_agg_u(a)
+            if got is None:
+                raise AN.AnalysisException(
+                    "cannot mix pandas-UDF aggregates with built-in "
+                    "aggregate functions in one agg() — split into two "
+                    "aggregations and join")
+            u, core = got
+            fn, dt, _vec, fname = core.payload
+            out_name = u.payload if u.op == "alias" else f"{fname}_{i}"
+            arg_names = []
+            for cu in core.children:
+                if cu.op != "attr" or cu.payload not in child_names:
+                    raise AN.AnalysisException(
+                        "pandas-UDF aggregate arguments must be plain "
+                        "columns (pre-compute expressions with "
+                        "withColumn)")
+                arg_names.append(cu.payload)
+            specs.append((fn, dt, out_name, arg_names))
+        key_names = list(self.names)
+        by_name = {f.name: f for f in self.df.schema.fields}
+        fields = [T.StructField(n, by_name[n].dtype) for n in key_names]
+        fields += [T.StructField(n, dt) for _, dt, n, _ in specs]
+        schema = T.StructType(tuple(fields))
+
+        def wrapper(pdf):
+            row = {k: [pdf[k].iloc[0]] for k in key_names}
+            for fn, _dt, name, arg_names in specs:
+                row[name] = [fn(*[pdf[an] for an in arg_names])]
+            return pd.DataFrame(row)
+
+        return self.applyInPandas(wrapper, schema)
+
+    def applyInPandas(self, fn, schema) -> DataFrame:
+        """Grouped-map pandas UDF: fn(pandas.DataFrame) -> DataFrame per
+        group.  Rides a hash exchange on the keys into
+        ``spark.sql.shuffle.partitions`` partitions, so that one group
+        never splits [REF: GpuFlatMapGroupsInPandasExec]."""
+        if not isinstance(schema, T.StructType):
+            raise AN.AnalysisException(
+                "applyInPandas needs a StructType output schema")
+        if self.sets is not None:
+            raise AN.AnalysisException(
+                "applyInPandas is not supported under rollup/cube")
+        key_indices = []
+        for g in self.grouping:
+            if not isinstance(g, BoundReference):
+                raise AN.AnalysisException(
+                    "applyInPandas grouping keys must be plain columns")
+            key_indices.append(g.index)
+        nparts = self.df.session.rapids_conf().shuffle_partitions
+        shuffled = L.Repartition(self.df._plan, nparts,
+                                 list(self.grouping))
+        return DataFrame(self.df.session, L.FlatMapGroupsInPandas(
+            shuffled, key_indices, fn, schema))
 
     def _agg_grouping_sets(self, fns, names) -> DataFrame:
         """rollup/cube: Spark's ResolveGroupingAnalytics shape — an

@@ -7,7 +7,9 @@ the generators ``explode``, ``explode_outer``, ``posexplode`` and
 ``collect_list``, ``collect_set``, the percentiles, ``countDistinct``
 and ``approx_count_distinct``, and the window functions ``row_number``,
 ``rank``, ``dense_rank``, ``ntile``, ``percent_rank``, ``cume_dist``,
-``lag`` and ``lead``), with the JAX package's signatures."""
+``lag`` and ``lead``), the python UDFs ``udf``, ``pandas_udf`` and
+``device_udf``, and ``input_file_name``, with the JAX package's
+signatures."""
 
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ def count(c) -> Column:
 def countDistinct(c) -> Column:
     return Column(UExpr("agg", "count_distinct", (_cu(c),)))
 
+
+count_distinct = countDistinct
 
 
 def approx_count_distinct(c, rsd: float = 0.05) -> Column:
@@ -278,3 +282,69 @@ def percent_rank() -> Column:
 
 def cume_dist() -> Column:
     return Column(UExpr("winfn", ("cume_dist",)))
+
+
+# python UDFs ---------------------------------------------------------------
+
+def _make_udf(f, returnType, vectorized: bool):
+    from spark_rapids_tpu_torch.plan.analysis import _parse_type
+    dt = _parse_type(returnType)
+
+    def call(*cols) -> Column:
+        name = getattr(f, "__name__", "udf")
+        return Column(UExpr("pyudf", (f, dt, vectorized, name),
+                            tuple(_cu(c) for c in cols)))
+
+    call.__name__ = getattr(f, "__name__", "udf")
+    return call
+
+
+def device_udf(f=None, returnType="double"):
+    """Columnar device UDF [REF: spark-rapids RapidsUDF]: ``f`` receives
+    the argument columns' raw tensors on the batch's device and returns
+    the result tensor; it runs with the surrounding expressions (no host
+    round trip).  Also usable as ``@device_udf(returnType=...)``.
+    Numeric, boolean and datetime columns; nulls propagate as the
+    intersection of the inputs' validities."""
+    from spark_rapids_tpu_torch.plan.analysis import _parse_type
+
+    def make(fn):
+        dt = _parse_type(returnType)
+
+        def call(*cols) -> Column:
+            name = getattr(fn, "__name__", "device_udf")
+            return Column(UExpr("device_udf", (fn, dt, name),
+                                tuple(_cu(c) for c in cols)))
+
+        call.__name__ = getattr(fn, "__name__", "device_udf")
+        return call
+
+    if f is None or not callable(f):
+        if f is not None:
+            returnType = f
+        return make
+    return make(f)
+
+
+def udf(f=None, returnType="string"):
+    """Row-at-a-time python UDF (also usable as ``@udf(returnType=...)``):
+    runs on the host over the arrow bridge, its arguments computed on
+    the device [REF: GpuRowBasedScalaUDF analog]."""
+    if f is None or not callable(f):
+        rt = returnType if f is None else f
+        return lambda fn: _make_udf(fn, rt, False)
+    return _make_udf(f, returnType, False)
+
+
+def pandas_udf(f=None, returnType="double"):
+    """Vectorized pandas UDF (Series -> Series; a scalar per group under
+    ``groupBy(...).agg``)."""
+    if f is None or not callable(f):
+        rt = returnType if f is None else f
+        return lambda fn: _make_udf(fn, rt, True)
+    return _make_udf(f, returnType, True)
+
+
+def input_file_name() -> Column:
+    """File path of the current row's source file (file scans only)."""
+    return Column(UExpr("input_file_name", None))

@@ -6,7 +6,8 @@ The counterpart of the JAX package's ``sql/session.py``:
 relation of ``spark.default.parallelism`` partitions (a struct column
 split into one column per field, ``_decompose_structs``), and
 ``range(start, end, step, numPartitions)`` a DataFrame of generated ids
-(made on the device, no host data).  The port's
+(made on the device, no host data); ``read`` returns the
+DataFrameReader of ``io/readers.py``.  The port's
 session also carries the device its queries run
 on: the CUDA card unless the caller asks for ``device="cpu"``; a
 missing card raises here, at creation.  Creation installs the shape
@@ -195,6 +196,13 @@ class TpuSession:
         return DataFrame(self, Range(int(start), int(end), int(step),
                                      schema,
                                      numPartitions or self._parallelism()))
+
+    @property
+    def read(self):
+        """The DataFrameReader: parquet and orc files as a file relation,
+        text, csv and json read on the host (``io/readers.py``)."""
+        from spark_rapids_tpu_torch.io.readers import DataFrameReader
+        return DataFrameReader(self)
 
     def warmup(self, plans: Iterable[Any]) -> Dict[str, Any]:
         """Build the kernels a set of plans will need.

@@ -296,7 +296,13 @@ def _t(session, t: Dict[str, pa.Table], name: str, *cols):
 
 def q6(session, li: pa.Table):
     """TPC-H q6 (``bench.q6``): forecasting revenue change."""
-    return (session.createDataFrame(li).filter(
+    return q6_over(session.createDataFrame(li))
+
+
+def q6_over(df):
+    """q6's filter and sum over a DataFrame of lineitem rows (a file
+    scan)."""
+    return (df.filter(
         (col("l_shipdate") >= _D(1994, 1, 1))
         & (col("l_shipdate") < _D(1995, 1, 1))
         & (col("l_discount") >= 0.05) & (col("l_discount") <= 0.07)
@@ -585,14 +591,20 @@ def q11(session, t: Dict[str, pa.Table]):
 def q12(session, t: Dict[str, pa.Table]):
     """TPC-H q12 (``bench.q12``): shipping modes and order priority —
     one join, conditional counts."""
-    li = _t(session, t, "lineitem", "l_orderkey", "l_shipmode",
-            "l_shipdate", "l_commitdate", "l_receiptdate").filter(
+    return q12_over(session.createDataFrame(t["lineitem"]),
+                    session.createDataFrame(t["orders"]))
+
+
+def q12_over(lineitem, orders):
+    """q12 over DataFrames of lineitem and orders rows (file scans)."""
+    li = lineitem.select("l_orderkey", "l_shipmode", "l_shipdate",
+                         "l_commitdate", "l_receiptdate").filter(
         col("l_shipmode").isin("MAIL", "SHIP")
         & (col("l_receiptdate") >= _D(1994, 1, 1))
         & (col("l_receiptdate") < _D(1995, 1, 1))
         & (col("l_commitdate") < col("l_receiptdate"))
         & (col("l_shipdate") < col("l_commitdate")))
-    orders = _t(session, t, "orders", "o_orderkey", "o_orderpriority")
+    orders = orders.select("o_orderkey", "o_orderpriority")
     high = (F.when(col("o_orderpriority").isin("1-URGENT", "2-HIGH"), 1)
             .otherwise(0))
     return (li.join(orders, col("l_orderkey") == col("o_orderkey"))

@@ -349,16 +349,16 @@ def test_holistic_functions_take_the_gathered_pass():
 
 def test_collect_and_decimal_inputs_stay_refused():
     """What the aggregate path still refuses: a window function inside
-    ``agg`` (the analyzer refuses it as the JAX package's does), a
-    python UDF there (outside the port: the analyzer names it), and the
-    JAX package's own argument errors."""
+    ``agg`` and a row python UDF there (the analyzer refuses both as the
+    JAX package's does), and the JAX package's own argument errors."""
     from spark_rapids_tpu_torch.sql.column import Column, UExpr
     df = TpuSession(device="cpu").createDataFrame(T_)
     for op, payload, exc, what in (
             ("winfn", ("row_number",), AnalysisException,
              "unknown expression op 'winfn'"),
             ("pyudf", (abs, T_.schema.field("v").type, False, "abs"),
-             NotImplementedError, "expression 'pyudf'")):
+             AnalysisException,
+             "python UDFs are only supported as top-level select")):
         agg = Column(UExpr("agg", "sum", (UExpr(op, payload, ()),)))
         with pytest.raises(exc, match=what):
             df.groupBy("k").agg(agg)

@@ -11,8 +11,9 @@
   what the slice does not port raises ``NotImplementedError`` instead of
   running elsewhere; a bare limit runs on the device, with the JAX
   package's result and its empty fallback report.  The kill switches of
-  the limits, union, range, sample, expand and window are valid names,
-  and each turned off falls back with the JAX package's reason.
+  the limits, union, range, sample, expand and window, and of the
+  ``InputFileName`` and ``DeviceUDF`` expressions, are valid names, and
+  each turned off falls back with the JAX package's reason.
 """
 
 import ast
@@ -163,12 +164,12 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.sql.ansi.enabled": "perhaps"}, "cannot parse boolean"),
     ({"spark.rapids.sql.exec.SortExec": False}, "unknown spark.rapids"),
     ({"spark.rapids.sql.exec.CpuSortExec": False}, "unknown spark.rapids"),
-    # expressions of the JAX package that the port has not got (its
-    # GetJsonObject and Split became kill switches of the nested slice)
-    ({"spark.rapids.sql.expression.InputFileName": False},
-     "unknown spark.rapids"),
-    ({"spark.rapids.sql.expression.DeviceUDF": True},
-     "unknown spark.rapids"),
+    # ids kept from the slices that had no InputFileName and DeviceUDF:
+    # both are kill switches of the UDF and file-scan slice
+    pytest.param({"spark.rapids.sql.expression.InputFileName": False},
+                 None, id="conf12-unknown spark.rapids"),
+    pytest.param({"spark.rapids.sql.expression.DeviceUDF": False},
+                 None, id="conf13-unknown spark.rapids"),
     ({"spark.rapids.shuffle.mode": "UCX"}, "invalid value"),
     ({"spark.rapids.tpu.exchange.mode": "sometimes"}, "invalid value"),
     ({"spark.rapids.shuffle.multiThreaded.writer.threads": "four"},
@@ -225,8 +226,18 @@ def test_conf_is_validated(conf, match):
     gate = key.endswith(".enabled")
     build = _KILL_SWITCH_QUERIES[key if gate else key.rsplit(".", 1)[1]]
     df = build(TpuSession(dict(conf), device="cpu"), F)
-    got = df.toArrow()
     jdf = build(JaxSession(dict(conf)), JF)
+    if key.endswith("InputFileName"):
+        # away from a file scan the marker falls back with the switch's
+        # reason, then raises at execution in both packages
+        for d in (df, jdf):
+            with pytest.raises(RuntimeError, match="not bound"):
+                d.toArrow()
+        report = df._last_override.fallback_report()
+        assert report == jdf._last_override.fallback_report()
+        assert report and all(f"{key}=false" in line for line in report)
+        return
+    got = df.toArrow()
     want = jdf.toArrow()
     report = df._last_override.fallback_report()
     assert report == jdf._last_override.fallback_report()
@@ -241,6 +252,10 @@ def test_conf_is_validated(conf, match):
 
 
 _KILL_SWITCH_QUERIES = {
+    "InputFileName": lambda s, F: s.createDataFrame(_table()).select(
+        "a", F.input_file_name().alias("f")),
+    "DeviceUDF": lambda s, F: s.createDataFrame(_table()).select(
+        F.device_udf(_plus_one, "int")(F.col("a")).alias("b")),
     "LocalLimit": lambda s, F: s.createDataFrame(_table()).limit(2),
     "GlobalLimit": lambda s, F: s.createDataFrame(_table()).limit(2),
     "Union": lambda s, F: s.createDataFrame(_table()).union(
@@ -329,6 +344,18 @@ def test_parallelism_is_a_raw_key():
     assert df.toArrow().equals(_table())
 
 
+def _plus_one(x):
+    """A device UDF valid on jax arrays and torch tensors alike."""
+    return x + 1
+
+
+def _functions(df):
+    """The ``sql.functions`` module of the package ``df`` belongs to."""
+    import importlib
+    pkg = type(df).__module__.split(".")[0]
+    return importlib.import_module(f"{pkg}.sql.functions")
+
+
 def _table():
     return pa.table({"a": pa.array([1, 2, 3], type=pa.int32()),
                      "s": pa.array(["x", "y", None]),
@@ -337,33 +364,46 @@ def _table():
 
 @pytest.mark.parametrize("build, what", [
     (lambda df: df.select(col("a").cast(T.ArrayType(T.IntegerT))), "Cast"),
-    # ids kept from the slices that refused first(), isnull and split:
-    # a python UDF and input_file_name() are still outside the port (the
-    # JAX package's F.udf(...) and F.input_file_name() build these
-    # trees); a window function outside ``.over`` is refused by both
-    # packages' analyzers alike (``AnalysisException``)
+    # id kept from the slice that refused first(): a window function
+    # outside ``.over`` is refused by both packages' analyzers alike
+    # (``AnalysisException``)
     pytest.param(lambda df: df.select(Column(UExpr("winfn",
                                                    ("row_number",)))),
                  ("AnalysisException", "unknown expression op 'winfn'"),
                  id="<lambda>-aggregate 'first'"),
     pytest.param(lambda df: df.limit(2), None, id="limit"),
+    # ids kept from the slices that refused a python UDF and
+    # input_file_name(): a top-level UDF select now runs with the JAX
+    # package's rows, and input_file_name() over an in-memory table
+    # raises the JAX package's RuntimeError
     pytest.param(
-        lambda df: df.select(Column(UExpr(
-            "pyudf", (abs, T.IntegerT, False, "abs"), (col("a")._u,)))),
-        "expression 'pyudf'",
-        id="<lambda>-expression 'isnull'"),
-    pytest.param(lambda df: df.select(Column(UExpr("input_file_name",
-                                                   None))),
-                 "expression 'input_file_name'",
-                 id="<lambda>-expression 'split'"),
+        lambda df: df.select(_functions(df).udf(abs, "int")("a")
+                             .alias("abs")),
+        "rows", id="<lambda>-expression 'isnull'"),
+    pytest.param(lambda df: df.select(_functions(df).input_file_name()),
+                 RuntimeError, id="<lambda>-expression 'split'"),
 ])
 def test_outside_the_slice_raises(build, what):
     """What the slice does not port raises naming itself; a bare limit
     (``what`` None) runs on the device, with the JAX package's result
     and its empty fallback report; a bare window function (``what`` a
-    pair) raises the JAX package's ``AnalysisException``."""
+    pair) raises the JAX package's ``AnalysisException``; a python UDF
+    (``"rows"``) gives the JAX package's rows; ``input_file_name()``
+    away from a file scan raises the JAX package's RuntimeError."""
     df = TpuSession(device="cpu").createDataFrame(_table())
     from spark_rapids_tpu.sql.session import TpuSession as JaxSession
+    if what is RuntimeError:
+        for d in (df, JaxSession().createDataFrame(_table())):
+            with pytest.raises(RuntimeError,
+                               match="not bound to a file scan"):
+                build(d).toArrow()
+        return
+    if what == "rows":
+        got = build(df).toArrow()
+        assert got.equals(build(JaxSession().createDataFrame(
+            _table())).toArrow())
+        assert got.column("abs").to_pylist() == [1, 2, 3]
+        return
     if isinstance(what, tuple):
         # refused by the analyzer, with the JAX package's message
         from spark_rapids_tpu.plan.analysis import AnalysisException as JAE

@@ -172,13 +172,18 @@ def test_analyzer_string_errors():
     with pytest.raises(AN.AnalysisException, match="like needs a string"):
         AN.resolve(col("i").like("1%")._u, schema)
     # split and get_json_object resolve since the nested slice (host
-    # only); a python UDF is still outside it, and a window function
-    # resolves only under ``.over`` at a select's top level (elsewhere
-    # the JAX package's analyzer refuses it too)
-    for op in ("pyudf", "input_file_name",
-               "sha2", "initcap", "translate"):
+    # only); a python UDF resolves only as a top-level select expression
+    # and a window function only under ``.over`` at a select's top level
+    # (elsewhere the JAX package's analyzer refuses them too);
+    # input_file_name() is a marker the optimizer binds to a file scan
+    for op in ("sha2", "initcap", "translate"):
         with pytest.raises(NotImplementedError, match=f"'{op}'"):
             AN.resolve(UExpr(op, "x", (UExpr("attr", "s"),)), schema)
+    with pytest.raises(AN.AnalysisException,
+                       match="only supported as top-level select"):
+        AN.resolve(UExpr("pyudf", "x", (UExpr("attr", "s"),)), schema)
+    assert isinstance(AN.resolve(UExpr("input_file_name", None), schema),
+                      E.InputFileName)
     with pytest.raises(AN.AnalysisException,
                        match="unknown expression op 'winfn'"):
         AN.resolve(UExpr("winfn", ("row_number",)), schema)
