@@ -703,6 +703,16 @@ ADVISORY_PARTITION_SIZE = (
     .create_with_default(64 << 20)
 )
 
+DPP_ENABLED = (
+    conf("spark.sql.optimizer.dynamicPartitionPruning.enabled")
+    .doc("Dynamic partition pruning: joins on a hive-partition column "
+         "evaluate the build side's distinct keys first and skip "
+         "non-matching files of the probe-side scan (Spark core key, "
+         "honored here).")
+    .boolean()
+    .create_with_default(True)
+)
+
 ADAPTIVE_PLANE_ENABLED = (
     conf("spark.rapids.tpu.adaptive.enabled")
     .doc("Master switch of the JAX package's adaptive execution plane "

@@ -23,13 +23,18 @@ the host (pyarrow's C++ readers) and the scan lands device batches:
 * column pruning: the optimizer narrows the read set to the referenced
   columns (plan/optimizer.py);
 * hive-style partition values and input_file_name() are appended as
-  constant columns per file before the copy.
+  constant columns per file before the copy;
+* dynamic partition pruning (``relation.dpp``): the build side's
+  subquery is planned and drained once, on the host, before the scan's
+  first file; files whose partition value it does not hold are skipped
+  (``dppPrunedFiles``);
+* row-level deletes (``relation.deletes``: Delta deletion vectors,
+  Iceberg position deletes) apply as a row mask during the host decode
+  (``deletedRows``).  Their positions are file-absolute, so after
+  row-group pruning they are matched against the kept groups' rows.
 
 A scan partition is a set of files (``_partition_files``): a scan has
-``min(files, spark.sql.shuffle.partitions)`` partitions.  The JAX
-package's dynamic partition pruning (``dpp``) and row-level deletes
-(``deletes``) are not ported: the scan refuses a relation carrying
-either.
+``min(files, spark.sql.shuffle.partitions)`` partitions.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ from __future__ import annotations
 import concurrent.futures as cf
 import os
 import shutil
-from typing import Iterator, List, Optional, Sequence
+import threading
+from typing import Iterator, List, Optional, Sequence, Set
 
+import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import torch
@@ -106,17 +113,44 @@ class CpuParquetScanExec(CpuExec):
 
     def __init__(self, relation, conf: RapidsConf):
         super().__init__(relation.schema)
-        for name in ("dpp", "deletes"):
-            if getattr(relation, name, None) is not None:
-                raise NotImplementedError(
-                    f"spark_rapids_tpu_torch: a file relation's {name!r} "
-                    "is not ported yet")
         self.relation = relation
         self.paths = list(relation.paths)
         self.conf = conf
         self.columns = relation.columns
         self._num_partitions = max(1, min(len(self.paths),
                                           conf.shuffle_partitions))
+        self._dpp_keep_cache: Optional[Set[int]] = None
+        self._dpp_lock = threading.Lock()
+
+    def _dpp_keep(self) -> Optional[Set[int]]:
+        """File indices surviving dynamic partition pruning (None = all).
+
+        Plans the build side's subquery and drains it ONCE, on the host,
+        before the scan's first file [REF: GpuSubqueryBroadcastExec —
+        the reference reuses the broadcast; the build sides DPP takes
+        are broadcast-sized, so a host evaluation is the in-process
+        analog].  Its operators stay on the CPU, as in the JAX
+        package."""
+        if self.relation.dpp is None:
+            return None
+        with self._dpp_lock:
+            if self._dpp_keep_cache is not None:
+                return self._dpp_keep_cache
+            sub_plan, col_name = self.relation.dpp
+            from spark_rapids_tpu_torch.plan.planner import plan_physical
+            sub = plan_physical(sub_plan, self.conf)
+            values = set()
+            for p in range(sub.num_partitions()):
+                for b in sub.execute(p):
+                    values.update(
+                        v for v in H.to_arrow_column(b.columns[0]).to_pylist()
+                        if v is not None)
+            keep = {fi for fi, pv in
+                    enumerate(self.relation.partition_values)
+                    if pv.get(col_name) in values}
+            self.metric("dppPrunedFiles").add(len(self.paths) - len(keep))
+            self._dpp_keep_cache = keep
+            return keep
 
     def node_string(self):
         extra = ""
@@ -146,6 +180,9 @@ class CpuParquetScanExec(CpuExec):
         path = self.paths[fi]
         cols = self._data_columns()
         by_name = {f.name: f for f in self.schema.fields}
+        dels = (self.relation.deletes[fi]
+                if self.relation.deletes is not None else None)
+        positions = None  # file-absolute row positions of the read rows
         if self.relation.format == "orc":
             import pyarrow.orc as po
             orc = po.ORCFile(path)
@@ -174,8 +211,29 @@ class CpuParquetScanExec(CpuExec):
                        if keep
                        else pf.schema_arrow.empty_table().select(
                            read_cols))
+                if dels is not None and len(dels) and keep:
+                    # delete positions are FILE-absolute; row-group
+                    # pruning shifted the local indexes, so rebuild them
+                    rg_rows = [pf.metadata.row_group(i).num_rows
+                               for i in range(pf.metadata.num_row_groups)]
+                    starts = np.concatenate(
+                        [[0], np.cumsum(rg_rows)[:-1]])
+                    positions = np.concatenate(
+                        [np.arange(starts[rg], starts[rg] + rg_rows[rg],
+                                   dtype=np.int64) for rg in keep])
             else:
                 tbl = pf.read(columns=read_cols)  # reuse the open file
+        if dels is not None and len(dels) and tbl.num_rows:
+            # the row mask: a sorted searchsorted membership test (both
+            # the deletes and the positions can be large)
+            if positions is None:
+                positions = np.arange(tbl.num_rows, dtype=np.int64)
+            ix = np.searchsorted(dels, positions)
+            hit = np.zeros(len(positions), bool)
+            in_rng = ix < len(dels)
+            hit[in_rng] = dels[ix[in_rng]] == positions[in_rng]
+            self.metric("deletedRows").add(int(hit.sum()))
+            tbl = tbl.filter(pa.array(~hit))
         if len(read_cols) < len(cols):
             for c in cols:
                 if c not in present:
@@ -201,6 +259,9 @@ class CpuParquetScanExec(CpuExec):
     def execute(self, partition: int) -> Iterator[H.HostBatch]:
         idxs = _partition_files(len(self.paths),
                                 self._num_partitions)[partition]
+        keep = self._dpp_keep()
+        if keep is not None:
+            idxs = [fi for fi in idxs if fi in keep]
         for fi in idxs:
             with self.timer():
                 tbl = self._read_file(fi)
@@ -238,6 +299,11 @@ class TpuParquetScanExec(TpuExec):
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
         idxs = _partition_files(len(self.paths),
                                 self._num_partitions)[partition]
+        keep = self._cpu._dpp_keep()
+        if keep is not None:
+            idxs = [fi for fi in idxs if fi in keep]
+            self.metric("dppPrunedFiles").value = \
+                self._cpu.metric("dppPrunedFiles").value
         if not idxs:
             return
         with cf.ThreadPoolExecutor(max_workers=self.num_threads) as pool:
@@ -257,10 +323,11 @@ class TpuParquetScanExec(TpuExec):
                 self.metric("numOutputRows").add(tbl.num_rows)
                 self.metric("numOutputBatches").add(1)
                 yield b
-        # the pruning metric accrues on the shared CPU reader
-        pruned = self._cpu.metrics.get("prunedRowGroups")
-        if pruned is not None:
-            self.metric("prunedRowGroups").value = pruned.value
+        # the pruning and delete metrics accrue on the shared CPU reader
+        for name in ("prunedRowGroups", "deletedRows"):
+            m = self._cpu.metrics.get(name)
+            if m is not None:
+                self.metric(name).value = m.value
 
 
 def _convert_parquet(cpu: CpuParquetScanExec, ch, conf, device):

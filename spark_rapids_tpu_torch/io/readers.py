@@ -7,10 +7,11 @@
 
 The counterpart of the JAX package's ``io/readers.py``: parquet and orc
 read as a file relation (column pruning, row-group pruning, hive
-partition columns, ``input_file_name()``); text, csv and json read on
-the host into an in-memory relation.  The JAX package's avro, delta
-and iceberg readers are not ported: they raise ``NotImplementedError``
-naming themselves.
+partition columns, ``input_file_name()``, dynamic partition pruning);
+Delta (``io/delta.py``: log replay, deletion vectors) and Iceberg
+(``io/iceberg.py``: snapshots, v2 position deletes) tables read as the
+same file relation with per-file deletes; avro (``io/avro.py``), text,
+csv and json read on the host into an in-memory relation.
 """
 
 from __future__ import annotations
@@ -28,11 +29,6 @@ import pyarrow.json as pajson
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.io.parquet import (
     HIVE_NULL, orc_schema, parquet_schema, write_parquet)
-
-
-def _next_slice(fmt: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"spark_rapids_tpu_torch: the {fmt} reader is not ported yet")
 
 
 def _expand(path) -> List[str]:
@@ -144,17 +140,38 @@ class DataFrameReader:
         return self._file_relation(path, "parquet")
 
     def delta(self, path):
-        raise _next_slice("delta")
+        """Delta Lake table read via transaction-log replay
+        [REF: GpuDeltaLog / GpuDeltaParquetFileFormat]."""
+        from spark_rapids_tpu_torch.io.delta import delta_relation
+        from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+        return DataFrame(self.session, delta_relation(path))
 
     def orc(self, path):
         """[REF: GpuOrcScan.scala] — host pyarrow.orc decode + H2D."""
         return self._file_relation(path, "orc")
 
     def avro(self, path):
-        raise _next_slice("avro")
+        """Flat-record avro via the built-in container codec
+        [REF: GpuAvroScan.scala — host-parsed there too]; several files
+        concatenate with permissive type promotion."""
+        from spark_rapids_tpu_torch.io.avro import avro_to_arrow
+        paths = _expand(path)
+        tbl = pa.concat_tables([avro_to_arrow(p) for p in paths],
+                               promote_options="permissive")
+        if self._schema is not None:
+            # a user schema casts the columns onto the declared types,
+            # in the declared order, as for the other formats
+            tbl = tbl.select(self._schema.field_names()).cast(pa.schema(
+                [(f.name, T.to_arrow(f.dtype))
+                 for f in self._schema.fields]))
+        return self.session.createDataFrame(tbl)
 
     def iceberg(self, path):
-        raise _next_slice("iceberg")
+        """Iceberg table read via metadata and manifest replay
+        [REF: GpuIcebergParquetReader]."""
+        from spark_rapids_tpu_torch.io.iceberg import iceberg_relation
+        from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+        return DataFrame(self.session, iceberg_relation(path))
 
     def text(self, path):
         """Each line as one 'value' string column (spark.read.text)."""

@@ -62,10 +62,9 @@ class ParquetRelation(LogicalPlan):
     ``partition_values``: hive-style partition values per file (aligned
     with ``paths``); ``partition_fields``: their columns, after the data
     columns; ``file_name_col``: append the input_file_name() column.
-    Pushdown fields are filled by plan/optimizer.py, not by users.  The
-    JAX package's ``dpp`` (dynamic partition pruning) and ``deletes``
-    (row-level deletes) fields are not ported: the scan refuses a
-    relation that carries either.
+    Pushdown fields are filled by plan/optimizer.py, not by users;
+    ``deletes`` by the Delta and Iceberg loaders (``io/delta.py``,
+    ``io/iceberg.py``).
     """
 
     paths: List[str]
@@ -76,6 +75,13 @@ class ParquetRelation(LogicalPlan):
     partition_values: Optional[List[dict]] = None
     partition_fields: Tuple = ()
     file_name_col: bool = False
+    # dynamic partition pruning: (build-side Project plan yielding the
+    # join key column, partition column name) — filled by the optimizer
+    dpp: Optional[tuple] = None
+    # row-level deletes, aligned with ``paths``: per file a SORTED int64
+    # array of deleted FILE-absolute row positions (or None), applied as
+    # a row mask at scan time
+    deletes: Optional[List] = None
 
 
 @dataclasses.dataclass

@@ -22,17 +22,23 @@ input of a union):
   chain;
 * **input_file_name() binding**: markers in a head projection turn on
   the relation's file-name column and rebind to it (an Aggregate head's
-  marker stays unbound and raises at execution, as in the JAX package).
-
-The JAX package's dynamic partition pruning waits for a later slice.
+  marker stays unbound and raises at execution, as in the JAX package);
+* **Dynamic partition pruning** (``_dynamic_partition_pruning``, under
+  ``spark.sql.optimizer.dynamicPartitionPruning.enabled``): a join whose
+  probe side is a hive-partitioned file relation keyed on a partition
+  column attaches the build side's key projection to the relation
+  (``dpp``); the scan drains it on the host once and skips the files
+  whose partition value it does not hold.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import weakref
-from typing import List, Set, Tuple
+from typing import List, Optional, Set, Tuple
 
+from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.plan import logical as L
@@ -307,14 +313,8 @@ def _push_filters(plan: L.Filter):
     return _rebuild_chain(filters, dataclasses.replace(rel, filters=pushed))
 
 
-def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
-    if isinstance(plan, L.Union):
-        return L.Union([optimize(c) for c in plan.inputs])
-    if isinstance(plan, L.Join):
-        return dataclasses.replace(plan, left=optimize(plan.left),
-                                   right=optimize(plan.right))
-    if hasattr(plan, "child"):
-        plan = dataclasses.replace(plan, child=optimize(plan.child))
+def optimize(plan: L.LogicalPlan, conf=None) -> L.LogicalPlan:
+    plan = _rewrite_children(plan, conf)
     if isinstance(plan, (L.Project, L.Aggregate)):
         pruned = _prune_head(plan)
         if pruned is None:
@@ -325,4 +325,98 @@ def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
         pushed = _push_filters(plan)
         if pushed is not None:
             return pushed
+    if isinstance(plan, L.Join) and (conf is None
+                                     or conf.get(C.DPP_ENABLED)):
+        threshold = (conf.get(C.BROADCAST_THRESHOLD) if conf is not None
+                     else 10 << 20)
+        plan = _dynamic_partition_pruning(plan, threshold)
     return plan
+
+
+def _rewrite_children(plan: L.LogicalPlan, conf=None) -> L.LogicalPlan:
+    if isinstance(plan, L.Union):
+        return L.Union([optimize(c, conf) for c in plan.inputs])
+    if isinstance(plan, L.Join):
+        return dataclasses.replace(plan, left=optimize(plan.left, conf),
+                                   right=optimize(plan.right, conf))
+    if hasattr(plan, "child"):
+        return dataclasses.replace(plan, child=optimize(plan.child, conf))
+    return plan
+
+
+def _estimated_plan_bytes(plan) -> Optional[int]:
+    """Rough output-size upper bound of a logical plan (None=unknown)."""
+    if isinstance(plan, L.InMemoryRelation):
+        return plan.table.nbytes
+    if isinstance(plan, L.ParquetRelation):
+        try:
+            return sum(os.path.getsize(p) for p in plan.paths) * 4
+        except OSError:
+            return None
+    if isinstance(plan, (L.Filter, L.Project, L.Sample, L.Limit,
+                         L.Sort)):
+        return _estimated_plan_bytes(plan.children[0])
+    return None
+
+
+def _dynamic_partition_pruning(join: L.Join, threshold: int) -> L.Join:
+    """Attach a DPP subquery to a partitioned probe-side scan.
+
+    [REF: GpuSubqueryBroadcastExec / DPP integration] When one join side
+    is a hive-partitioned file relation whose join key IS a partition
+    column, the other side's distinct keys (computed once, on the host,
+    before the scan's first file) prune entire files.  Valid for the
+    join types that drop probe rows without a match: inner, left-semi
+    and right joins prune the left side; inner and left joins the
+    right."""
+    candidates = []
+    if join.join_type in ("inner", "left_semi", "right"):
+        candidates.append(("left", join.left, join.left_keys,
+                           join.right, join.right_keys))
+    if join.join_type in ("inner", "left"):
+        candidates.append(("right", join.right, join.right_keys,
+                           join.left, join.left_keys))
+    for side, probe, probe_keys, build, build_keys in candidates:
+        # column pruning may have left a Project head over the (already
+        # narrowed) relation: peel it and map the key indices through
+        # its exprs (_prune_relation keeps the [data..., partition...,
+        # file name] layout, so the index math below still holds)
+        proj = None
+        inner = probe
+        if isinstance(inner, L.Project):
+            proj = inner
+            inner = inner.child
+        filters, rel = _filter_chain(inner)
+        if (not isinstance(rel, L.ParquetRelation)
+                or not rel.partition_values or rel.dpp is not None):
+            continue
+        # the subquery runs on the host before the scan: only worth it
+        # (and only safe) for broadcast-sized build sides, the gate Spark
+        # uses for DPP without broadcast reuse
+        est = _estimated_plan_bytes(build)
+        if threshold <= 0 or est is None or est > threshold:
+            continue
+        n_data = _n_data(rel)
+        for ki, key in enumerate(probe_keys):
+            if not isinstance(key, E.BoundReference):
+                continue
+            if proj is not None:
+                key = proj.exprs[key.index]
+                if not isinstance(key, E.BoundReference):
+                    continue
+            if not (n_data <= key.index
+                    < n_data + len(rel.partition_fields)):
+                continue
+            col_name = rel.schema.fields[key.index].name
+            bkey = build_keys[ki]
+            sub = L.Project(
+                build, [bkey],
+                T.StructType((T.StructField("_dpp_key", bkey.dtype),)))
+            new_probe = _rebuild_chain(
+                filters, dataclasses.replace(rel, dpp=(sub, col_name)))
+            if proj is not None:
+                new_probe = dataclasses.replace(proj, child=new_probe)
+            if side == "left":
+                return dataclasses.replace(join, left=new_probe)
+            return dataclasses.replace(join, right=new_probe)
+    return join

@@ -542,6 +542,8 @@ class DataFrame:
                 f"filter condition must be boolean, got {cond.dtype}")
         return self._derive(L.Filter(self._plan, cond))
 
+    where = filter
+
     def groupBy(self, *cols) -> "GroupedData":
         exprs = []
         names = []
@@ -551,6 +553,8 @@ class DataFrame:
             exprs.append(e)
             names.append(_output_name(u, e))
         return GroupedData(self, exprs, names)
+
+    groupby = groupBy
 
     def rollup(self, *cols) -> "GroupedData":
         """Hierarchical grouping sets: (a, b), (a), () for rollup(a, b).
@@ -600,6 +604,8 @@ class DataFrame:
             orders.append(L.SortOrder(AN.resolve(u, self.schema), asc,
                                       nulls_first))
         return self._derive(L.Sort(self._plan, orders))
+
+    sort = orderBy
 
     def limit(self, n: int) -> "DataFrame":
         return self._derive(L.Limit(self._plan, n))
@@ -747,7 +753,7 @@ class DataFrame:
     # -- actions ----------------------------------------------------------
     def _rewrite(self) -> OverrideResult:
         conf = self.session.rapids_conf()
-        cpu = plan_physical(optimize(self._plan), conf)
+        cpu = plan_physical(optimize(self._plan, conf), conf)
         return apply_overrides(cpu, conf, self.session.device)
 
     def _execute_plan(self) -> ExecNode:

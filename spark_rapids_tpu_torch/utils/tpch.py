@@ -393,12 +393,19 @@ def q3(session, t: Dict[str, pa.Table]):
 def q4(session, t: Dict[str, pa.Table]):
     """TPC-H q4 (``bench.q4``): order priority checking — a left semi
     join, a grouped count and an order-by."""
-    orders = _t(session, t, "orders", "o_orderkey", "o_orderdate",
-                "o_orderpriority").filter(
+    return q4_over(session.createDataFrame(t["orders"]),
+                   session.createDataFrame(t["lineitem"]))
+
+
+def q4_over(orders, lineitem):
+    """q4 over DataFrames of orders and lineitem rows (a table format's
+    scan)."""
+    orders = orders.select("o_orderkey", "o_orderdate",
+                           "o_orderpriority").filter(
         (col("o_orderdate") >= _D(1993, 7, 1))
         & (col("o_orderdate") < _D(1993, 10, 1)))
-    li = _t(session, t, "lineitem", "l_orderkey", "l_commitdate",
-            "l_receiptdate").filter(
+    li = lineitem.select("l_orderkey", "l_commitdate",
+                         "l_receiptdate").filter(
         col("l_commitdate") < col("l_receiptdate"))
     return (orders.join(li, col("o_orderkey") == col("l_orderkey"),
                         "left_semi")
@@ -543,16 +550,21 @@ def q9(session, t: Dict[str, pa.Table]):
 def q10(session, t: Dict[str, pa.Table]):
     """TPC-H q10 (``bench.q10``): returned item reporting — three joins,
     a grouped sum over a double and a string key, a top 20."""
-    cust = _t(session, t, "customer", "c_custkey", "c_nationkey",
-              "c_name", "c_acctbal")
-    orders = _t(session, t, "orders", "o_orderkey", "o_custkey",
-                "o_orderdate").filter(
+    return q10_over(*(session.createDataFrame(t[name]) for name in (
+        "customer", "orders", "lineitem", "nation")))
+
+
+def q10_over(customer, orders, lineitem, nation):
+    """q10 over DataFrames of the four tables' rows (avro reads)."""
+    cust = customer.select("c_custkey", "c_nationkey", "c_name",
+                           "c_acctbal")
+    orders = orders.select("o_orderkey", "o_custkey", "o_orderdate").filter(
         (col("o_orderdate") >= _D(1993, 10, 1))
         & (col("o_orderdate") < _D(1994, 1, 1)))
-    li = _t(session, t, "lineitem", "l_orderkey", "l_extendedprice",
-            "l_discount", "l_returnflag").filter(
+    li = lineitem.select("l_orderkey", "l_extendedprice", "l_discount",
+                         "l_returnflag").filter(
         col("l_returnflag") == "R")
-    nation = _t(session, t, "nation", "n_nationkey", "n_name")
+    nation = nation.select("n_nationkey", "n_name")
     return (cust.join(orders, col("c_custkey") == col("o_custkey"),
                       "inner")
             .join(li, col("o_orderkey") == col("l_orderkey"), "inner")

@@ -16,10 +16,12 @@ decimal128 as int64 ``[B, 2]`` (hi, lo) — against the JAX package.
   DataFrame API on the port (``device="cpu"``) and the JAX package
   under the same conf: rows, tree strings and fallback reports equal,
   on the accelerated session and on the plain CPU one.
-* TPC-H q1, q6 and q18 over ``tpch.decimal_tables`` at the oracle
-  scale (sf 0.002) equal the JAX package's CPU session, with the JAX
-  session's plan made without running it (its device runs compile for
-  20-26 s each, and fail on q6).
+* TPC-H q1, q6, q18 and the eleven other builders that read a decimal
+  column (q3, q5, q7, q8, q9, q10, q14, q15, q17, q19, q20) over
+  ``tpch.decimal_tables`` at the oracle scale (sf 0.002) equal the JAX
+  package's CPU session, with the JAX session's plan made without
+  running it (its device runs compile for 20-26 s each, and fail on
+  q6); so do the join variants ``q17_cond`` and ``q3_full``.
 
 Tolerances: integers, decimals, validity, strings and plan strings are
 exact.  A double average is within ``AVG_REL`` = 1e-12 relative of the
@@ -665,7 +667,14 @@ def decimal_tpch():
     return tpch.decimal_tables(tpch.gen_tpch(tpch.ORACLE_DEFAULT_SF))
 
 
-@pytest.mark.parametrize("q", ["q1", "q6", "q18"])
+# q1, q6 and q18, then the eleven other builders that read a decimal
+# column
+DECIMAL_QUERIES = ["q1", "q6", "q18", "q3", "q5", "q7", "q8", "q9", "q10",
+                   "q14", "q15", "q17", "q19", "q20"]
+DECIMAL_ROWS = {"q1": 6, "q6": 1, "q18": 10}
+
+
+@pytest.mark.parametrize("q", DECIMAL_QUERIES)
 def test_tpch_over_decimals_equals_jax(decimal_tpch, q):
     t = decimal_tpch
     assert t["lineitem"].schema.field("l_tax").type == pa.decimal128(12, 2)
@@ -683,4 +692,34 @@ def test_tpch_over_decimals_equals_jax(decimal_tpch, q):
     assert df._last_plan.tree_string() == jplan.tree_string()
     host = tpch.build(q, TpuSession(dict(HOST), device="cpu"), t).toArrow()
     same_rows(host, want, {}, ordered=True)
-    assert want.num_rows == {"q1": 6, "q6": 1, "q18": 10}[q]
+    assert want.num_rows == DECIMAL_ROWS.get(q, got.num_rows)
+
+
+@pytest.mark.parametrize("variant", ["q17_cond", "q3_full"])
+def test_join_variants_over_decimals_equal_jax(decimal_tpch, variant):
+    """``q17_cond`` (a residual condition over a decimal quantity and a
+    double average) and ``q3_full`` (a full join summing a decimal
+    price) over the decimal tables, held as
+    ``tests/test_torch_tpch_join_variants.py`` holds them over doubles:
+    the JAX package's rows (its CPU session: its device run of a keyless
+    decimal sum fails, ROADMAP C.4), fallback report and plan (made
+    without running), and ``q17_cond`` equal to q17."""
+    from tests.test_torch_tpch_join_variants import (  # noqa: E402
+        jax_q3_full, jax_q17_cond)
+    jbuild = {"q17_cond": jax_q17_cond, "q3_full": jax_q3_full}[variant]
+    t = decimal_tpch
+    want = jbuild(JaxSession(dict(HOST)), t).toArrow()
+    jdf = jbuild(JaxSession(dict(TEST)), t)
+    jplan = jdf._execute_plan()  # planned, not run
+    df = tpch.build(variant, TpuSession(dict(TEST), device="cpu"), t)
+    got = df.toArrow()
+    same_rows(got, want, {}, ordered=True)
+    assert df._last_override.fallback_report() == \
+        jdf._last_override.fallback_report() == []
+    assert df._last_plan.tree_string() == jplan.tree_string()
+    if variant == "q17_cond":
+        base = tpch.build("q17", TpuSession(dict(TEST), device="cpu"), t)
+        assert got.equals(base.toArrow())
+    else:
+        assert got.num_rows == 1 and got.column("n")[0].as_py() > 0
+        assert got.schema.field("total_price").type == pa.decimal128(22, 2)

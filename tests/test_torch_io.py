@@ -277,13 +277,19 @@ def test_json_reader_honors_schema(tmp_path):
 
 
 def test_formats_of_the_next_slice_raise():
-    """avro, delta and iceberg raise naming themselves; ``load`` routes
-    to them as to the others."""
+    """avro, delta and iceberg, once refused, now read as in the JAX
+    package (``tests/test_torch_{avro_iceberg,delta}.py``): ``load``
+    routes to them as to the others, and a missing path raises the JAX
+    package's ``FileNotFoundError`` with its message."""
     r = TpuSession({}, device="cpu").read
+    jr = JaxSession({}).read
     for fmt in ("avro", "delta", "iceberg"):
-        with pytest.raises(NotImplementedError, match=fmt):
-            getattr(r, fmt)("x")
-        with pytest.raises(NotImplementedError, match=fmt):
-            r.format(fmt).load("x")
+        msgs = []
+        for read in (getattr(r, fmt), r.format(fmt).load,
+                     getattr(jr, fmt), jr.format(fmt).load):
+            with pytest.raises(FileNotFoundError) as e:
+                read("x")
+            msgs.append(str(e.value))
+        assert len(set(msgs)) == 1, msgs
     with pytest.raises(ValueError, match="unknown read format"):
         r.format("xml").load("x")

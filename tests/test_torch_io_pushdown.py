@@ -2,8 +2,8 @@
 pruning, row-group statistics pruning, hive partitions,
 ``input_file_name()``, partitioned writes, ORC and text.
 
-Every case of ``tests/test_io_pushdown.py`` but the avro one (the avro
-reader is a later slice) runs through the port's session
+Every case of ``tests/test_io_pushdown.py`` but the avro one (held in
+``tests/test_torch_avro_iceberg.py``) runs through the port's session
 (``device="cpu"``, under ``spark.rapids.sql.test.enabled``) and the JAX
 package's over the same files, written by pyarrow from the same seeded
 tables: rows, tree strings and fallback reports are equal, the CPU
@@ -319,15 +319,48 @@ def test_input_file_name_outside_a_file_scan_raises():
                 F_.input_file_name().alias("f")).toArrow()
 
 
-def test_relation_fields_of_a_later_slice_raise():
-    """The JAX package's ``dpp`` and ``deletes`` relation fields are not
-    ported: a relation carrying either is refused by name."""
+def test_relation_fields_of_a_later_slice_raise(tmp_path):
+    """The JAX package's ``dpp`` and ``deletes`` relation fields, once
+    refused, now run in the file scan as in the JAX package: ``deletes``
+    masks file-absolute positions (``deletedRows``) and ``dpp`` drains
+    its subquery once and skips the files whose partition value it does
+    not hold (``dppPrunedFiles``)."""
+    from spark_rapids_tpu.columnar import dtypes as JT
+    from spark_rapids_tpu.conf import RapidsConf as JConf
+    from spark_rapids_tpu.io.parquet import CpuParquetScanExec as JScan
+    from spark_rapids_tpu.ops import expressions as JE
     from spark_rapids_tpu_torch.columnar import dtypes as T
     from spark_rapids_tpu_torch.conf import RapidsConf
     from spark_rapids_tpu_torch.io.parquet import CpuParquetScanExec
-    schema = T.StructType((T.StructField("a", T.LongT),))
-    for name in ("dpp", "deletes"):
-        rel = L.ParquetRelation(["x.parquet"], schema)
-        setattr(rel, name, [None])
-        with pytest.raises(NotImplementedError, match=name):
-            CpuParquetScanExec(rel, RapidsConf({}))
+    from spark_rapids_tpu_torch.ops import expressions as E
+    paths = []
+    for k in range(3):
+        paths.append(str(tmp_path / f"p{k}.parquet"))
+        pq.write_table(pa.table({"a": pa.array(np.arange(5) + 10 * k)}),
+                       paths[-1])
+    dels = [np.array([0, 3], np.int64), None, np.array([4], np.int64)]
+    pv = [{"k": k} for k in range(3)]
+    dim = pa.table({"k": pa.array([0, 2], pa.int64())})
+    got = []
+    for LL, TT, EE, Scan, Conf in (
+            (L, T, E, CpuParquetScanExec, RapidsConf),
+            (JL, JT, JE, JScan, JConf)):
+        schema = TT.StructType((TT.StructField("a", TT.LongT),
+                                TT.StructField("k", TT.LongT)))
+        ks = TT.StructType((TT.StructField("k", TT.LongT),))
+        sub = LL.Project(
+            LL.InMemoryRelation(dim, ks),
+            [EE.BoundReference(0, TT.LongT, True)],
+            TT.StructType((TT.StructField("_dpp_key", TT.LongT),)))
+        rel = LL.ParquetRelation(paths, schema, partition_values=pv,
+                                 partition_fields=(schema.fields[1],),
+                                 deletes=dels, dpp=(sub, "k"))
+        scan = Scan(rel, Conf({}))
+        rows = [r for p in range(scan.num_partitions())
+                for b in scan.execute(p)
+                for r in zip(*(c.data.tolist() for c in b.columns))]
+        got.append((sorted(rows), scan.metrics["deletedRows"].value,
+                     scan.metrics["dppPrunedFiles"].value))
+    assert got[0] == got[1]
+    assert got[0] == ([(1, 0), (2, 0), (4, 0), (20, 2), (21, 2), (22, 2),
+                       (23, 2)], 3, 1)

@@ -137,6 +137,40 @@ def test_import_check_covers_the_window_slice():
         assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
+def test_import_check_covers_the_lakehouse_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("io/avro.py", "io/deletion_vectors.py", "io/delta.py",
+                "io/iceberg.py", "io/parquet.py", "plan/optimizer.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
+
+
+@pytest.mark.parametrize("alias, build", [
+    ("where", lambda df, c: df.where(c("a") > 1).select("a", "s")),
+    ("groupby", lambda df, c: df.groupby("s").count()),
+    ("sort", lambda df, c: df.sort(c("f").desc(), "a")),
+])
+def test_dataframe_aliases_equal_jax(alias, build):
+    """``where``, ``groupby`` and ``sort`` are ``filter``, ``groupBy``
+    and ``orderBy``, as in the JAX package: the same rows and plan."""
+    from spark_rapids_tpu.sql.column import col as jcol
+    from spark_rapids_tpu.sql.session import TpuSession as JaxSession
+    test = {"spark.rapids.sql.test.enabled": True}
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    name = {"where": "filter", "groupby": "groupBy", "sort": "orderBy"}
+    assert getattr(DataFrame, alias) is getattr(DataFrame, name[alias])
+    df = build(TpuSession(dict(test), device="cpu").createDataFrame(
+        _table()), col)
+    jdf = build(JaxSession(dict(test)).createDataFrame(_table()), jcol)
+    got, want = df.toArrow(), jdf.toArrow()
+    assert got.schema == want.schema
+    rows = [repr(r) for r in got.to_pylist()]
+    jrows = [repr(r) for r in want.to_pylist()]
+    if alias == "groupby":
+        rows, jrows = sorted(rows), sorted(jrows)
+    assert rows == jrows and got.num_rows > 0
+    assert df._last_plan.tree_string() == jdf._last_plan.tree_string()
+
+
 def test_session_without_cpu_raises_when_cuda_is_unavailable(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):

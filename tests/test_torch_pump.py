@@ -596,8 +596,9 @@ def test_the_six_keys_equal_jax(name):
 
 def test_thirty_five_keys_and_unregistered_keys_still_raise():
     # 35 keys through the pump slice; the failure domains add 36, the
-    # UDF and file-scan slice 4
-    assert len(C.REGISTRY) == 75
+    # UDF and file-scan slice 4, the lakehouse slice 1 (dynamic
+    # partition pruning)
+    assert len(C.REGISTRY) == 76
     with pytest.raises(ValueError, match="unknown"):
         C.RapidsConf({"spark.rapids.tpu.kernel.warmupOnStart": True})
 
