@@ -51,6 +51,14 @@ result line is not printed):
    so that all 22 queries' tables are resident together; the memory
    arbiter's budget, ``peakReserved``, the cached bytes and entries and
    ``torch.cuda.max_memory_allocated`` — nothing may spill;
+   then ``[attribution cost]``: attribution (the ledger and the flight
+   recorder) is on by default, so every phase runs under the tracer; the
+   22 queries once warm with ``spark.rapids.tpu.attribution.enabled=
+   false`` (every scan from the cache, each equal to its reference),
+   their sum beside the main phase's warm sum, and q1 and q3 three times
+   each, on and off in turns, the minimum of each against the JAX
+   package's bound ``on <= off x 1.05 + 0.025 s`` (printed, not failed
+   on: a timing);
 6. ``[spill]``: q3 twice in a fresh arbiter whose pool holds about 1.5
    of the 2^20-row lineitem batches q3 caches (at least q3's largest
    single reservation): the first run's registrations and joins spill
@@ -67,7 +75,7 @@ result line is not printed):
    cold run, read after): against pyarrow's right and full outer joins
    (``ref_*``), their base queries (the same rows in the same order),
    the exact rung and their strategies (``VARIANT_STRATEGIES``; q3_full
-   sub-partitions into k = 3); then 3 warm runs;
+   sub-partitions into k = 3); then ``VARIANT_WARM_RUNS`` warm runs;
 9. ``[fallback]``: three plans with an operator on the CPU at SF1, each
    a path of its own (cache cleared, counts to 0 before its cold run,
    read after) under ``test.enabled`` with ``allowedNonGpu`` naming
@@ -304,14 +312,36 @@ result line is not printed):
    partition pruning skips the other 20 nations' files, equal to
    pyarrow and to the run with it off, and the left-outer form prunes
    none.  ``python3 chip_smoke.py --lakehouse`` runs this phase alone;
-25. the string expressions of the string queries (LIKE, NOT LIKE,
+25. ``[observe]``: the observability plane at SF1 under one
+   ``tpuq-observe-*`` temporary directory (removed): q1, q3, q5 and q18
+   cold (cache cleared, counts to 0 before, read after) then warm under
+   tracing, the stats plane at ``FULL``, the query log, the profile
+   store and the telemetry sampler (100 ms, both sinks); each run's
+   ledger closes (``unaccounted_s`` <= ``closeTolerance`` x e2e), its
+   buckets sum to at most e2e, the stats record's root rows equal the
+   result's, the Chrome trace parses with a ``pump`` span for every
+   node that pumps (fused ones do not) and the query log, the trace file
+   and the profile store carry one id per run; prints each run's walls,
+   buckets, verdict, launches and rows per node, and
+   ``explain("analyze")`` of q3.  Then q1 under
+   ``spark.rapids.profile.enabled`` (its ``torch.profiler`` trace must
+   name the ``hash_pairs`` kernel among its device events), q18 cut by
+   a deadline (``QueryCancelled(reason="deadline")``, a black box naming
+   its dominant bucket, rendered by ``python -m
+   spark_rapids_tpu_torch.utils.profile why``), and the registry:
+   ``metrics_report()``, the Prometheus file parses, q1's
+   ``tpuq_kernel_dispatch_total{backend="cuda"}`` delta equals the
+   kernel plane's count, the sampler wrote JSONL lines.  ``python3
+   chip_smoke.py --observe`` runs this phase and ``[attribution cost]``
+   alone;
+26. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-26. the kernel at every shape the main path (queries, variants,
+27. the kernel at every shape the main path (queries, variants,
    fallback cases, partitions, exchanges, operators, strings, retry,
-   pump, faults, breadth, decimal, nested, window, udf, io and
-   lakehouse) launched it with, bit for bit against its plain version, timed as
+   pump, faults, breadth, decimal, nested, window, udf, io, lakehouse
+   and observe) launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
    ``torch.profiler`` after an L2-evicting write (``traced_ms``) and
@@ -320,7 +350,8 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-27. a JSON line of every kernel's numbers, the ``nvidia-smi`` line again,
+28. the seconds of each phase, a JSON line of every kernel's numbers,
+   the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -358,6 +389,8 @@ WINDOW_ONLY = "--window" in sys.argv[1:]
 UDF_ONLY = "--udf" in sys.argv[1:]
 IO_ONLY = "--io" in sys.argv[1:]
 LAKEHOUSE_ONLY = "--lakehouse" in sys.argv[1:]
+# ``python3 chip_smoke.py --observe``: [attribution cost] and [observe]
+OBSERVE_ONLY = "--observe" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -371,6 +404,9 @@ ODD_NS = (1, 3, 4095, (1 << 20) + 1)
 # the main path's session conf: test mode, so that any operator the plan
 # rewrite would leave on the CPU raises
 SESSION_CONF = {"spark.rapids.sql.test.enabled": True}
+# every session's black boxes go to a directory of this run's own, made
+# and removed by ``run``
+BLACKBOX_KEY = "spark.rapids.tpu.attribution.blackboxPath"
 # join sides hashed in one launch: q3's (build, probe) and q4's
 JOIN_PAIRS = (((1, 1 << 18), (1, 1 << 18)), ((1, 1 << 18), (1, 1 << 16)))
 QUERIES = ("q1", "q6", "q3", "q4", "q5", "q7", "q8", "q10", "q11", "q12",
@@ -730,6 +766,8 @@ def operators_phase(dev, tables, refs, CB, KN, range_end=RANGE_END
     return counts
 
 
+STRINGS_WARM_RUNS = 1
+EXPR_TIMING_ITERS = 5
 STRINGS_CONF = {"spark.rapids.sql.incompatibleOps.enabled": True,
                 "spark.rapids.sql.castStringToFloat.enabled": True}
 PHONE_PATTERN = "^(1[3-9]|2[0-9])-[0-9]{3}-[0-9]{4}$"
@@ -1031,7 +1069,8 @@ def new_string_expr_times(tables, session) -> list:
         outs = [expr.eval(b) for b in batches]
         in_bytes = sum(_col_bytes(c) for b in batches for c in b.columns)
         out_bytes = sum(_col_bytes(o) for o in outs)
-        ms = cuda_ms(lambda: [expr.eval(b) for b in batches], iters=10)
+        ms = cuda_ms(lambda: [expr.eval(b) for b in batches],
+                     iters=EXPR_TIMING_ITERS)
         bound = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
         line = {"expression": name, "table": table, "columns": columns,
                 "rows": tbl.num_rows,
@@ -1054,7 +1093,7 @@ def strings_phase(dev, tables, CB, KN, query_shapes) -> dict:
     with ``STRINGS_CONF`` (any fallback raises), each run a path of its
     own (counts set to 0 before its cold run, read after; the scan cache
     cleared once, at the start), each against this script's pyarrow
-    reference, then 2 warm runs:
+    reference, then ``STRINGS_WARM_RUNS`` warm runs:
 
     1. the phone-code report over customer: ``c_phone`` against a
        pattern outside the simple transpile (the DFA runs on the card),
@@ -1098,7 +1137,8 @@ def strings_phase(dev, tables, CB, KN, query_shapes) -> dict:
 
     def run(name, build, want, ordered=False, hashed=True):
         """A run's path: counts to 0, the cold run, read; against
-        ``want``; 2 warm runs equal to the cold one."""
+        ``want``; ``STRINGS_WARM_RUNS`` warm runs equal to the cold
+        one."""
         CB.reset_counts()
         KN.COUNTERS.reset()
         df = build()
@@ -1125,7 +1165,7 @@ def strings_phase(dev, tables, CB, KN, query_shapes) -> dict:
             check(rows_equal(got, want), f"strings {name} differs from "
                   f"its pyarrow reference:\n{got}\n{want}")
         warm = []
-        for _ in range(2):
+        for _ in range(STRINGS_WARM_RUNS):
             out, wall = timed(build())
             warm.append(wall)
             check(rows_equal(out, got, 0.0),
@@ -1209,7 +1249,8 @@ def strings_phase(dev, tables, CB, KN, query_shapes) -> dict:
         print(f"[strings] cast {name} " + json.dumps(line), flush=True)
 
     # -- 5. the same without test mode and without incompatibleOps
-    plain = TpuSession(device=dev)
+    plain = TpuSession({BLACKBOX_KEY: SESSION_CONF[BLACKBOX_KEY]},
+                       device=dev)
     df = catalogue_query(plain, part)
     got, wall = timed(df)
     report = df._last_override.fallback_report()
@@ -2515,7 +2556,8 @@ def string_expr_times(tables, session) -> list:
                         for o in outs)
         in_bytes = sum(b.columns[0].data.numel() + 4 * b.capacity
                        for b in batches)
-        ms = cuda_ms(lambda: [expr.eval(b) for b in batches], iters=10)
+        ms = cuda_ms(lambda: [expr.eval(b) for b in batches],
+                     iters=EXPR_TIMING_ITERS)
         rows.append({
             "query": q, "column": column, "expression": f"{kind} {arg!r}",
             "rows": tbl.num_rows,
@@ -3718,11 +3760,15 @@ def dict_phase(session, tables, refs, first, summary) -> list:
     return rows
 
 
+VARIANT_WARM_RUNS = 1
+
+
 def variant_phase(v, session, exact, tables, first, CB, KN) -> dict:
     """One join variant as a query of its own: its cold run (counts set
     to 0 just before, read just after) against the pyarrow reference,
     its base query (the same rows in the same order), the exact rung
-    and its strategy; then 3 warm runs.  Returns the counts."""
+    and its strategy; then ``VARIANT_WARM_RUNS`` warm runs.  Returns the
+    counts."""
     from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
     from spark_rapids_tpu_torch.utils import tpch
     base = tpch.JOIN_VARIANTS[v]
@@ -3747,7 +3793,7 @@ def variant_phase(v, session, exact, tables, first, CB, KN) -> dict:
     check(rows_equal(build_on(v, exact, tables).toArrow(), got),
           f"{v}: cuda rung != jnp rung")
     warm = []
-    for _ in range(3):
+    for _ in range(VARIANT_WARM_RUNS):
         out, wall = timed(build_on(v, session, tables))
         warm.append(wall)
         check(rows_equal(out, want), f"{v} warm run differs")
@@ -3810,7 +3856,8 @@ def fallback_phase(case, dev, tables, refs, first, CB, KN) -> dict:
     name, q, conf, cpu_exec, n_fallen, base = case
     session = TpuSession(dict(conf, **{
         "spark.rapids.sql.test.enabled": True,
-        "spark.rapids.sql.test.allowedNonGpu": cpu_exec}), device=dev)
+        "spark.rapids.sql.test.allowedNonGpu": cpu_exec,
+        BLACKBOX_KEY: SESSION_CONF[BLACKBOX_KEY]}), device=dev)
     clear_scan_cache()
     CB.reset_counts()
     KN.COUNTERS.reset()
@@ -4833,7 +4880,8 @@ def xxhash_alone(tables, session) -> dict:
           "xxhash64(l_comment) alone differs from the numpy reference")
     in_bytes = sum(_col_bytes(c) for b in batches for c in b.columns)
     out_bytes = sum(_col_bytes(o) for o in outs)
-    ms = cuda_ms(lambda: [expr.eval(b) for b in batches], iters=10)
+    ms = cuda_ms(lambda: [expr.eval(b) for b in batches],
+                 iters=EXPR_TIMING_ITERS)
     bound = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
     return {"expression": "xxhash64(l_comment)", "rows": tbl.num_rows,
             "batches": [list(b.columns[0].data.shape) for b in batches],
@@ -4942,7 +4990,9 @@ def breadth_phase(dev, tables, CB, KN, query_shapes) -> dict:
     alone = xxhash_alone(tables, s)
     print("[breadth] alone " + json.dumps(alone), flush=True)
     # -- 5. the kill switch: the report falls back, the same rows
-    plain = TpuSession({BREADTH_KILL: False}, device=dev)
+    plain = TpuSession({BREADTH_KILL: False,
+                        BLACKBOX_KEY: SESSION_CONF[BLACKBOX_KEY]},
+                       device=dev)
     clear_scan_cache()
     df = date_report(plain, li)
     got, wall = timed(df)
@@ -7346,6 +7396,324 @@ def lakehouse_phase(dev, tables, CB, KN, query_shapes) -> dict:
     return counts
 
 
+# -- the observability plane ---------------------------------------------------
+
+OBSERVE_QUERIES = ("q1", "q3", "q5", "q18")
+OBSERVE_DEADLINE_MS = 1000  # q18's warm wall is 3.3-3.8 s (PERF.md)
+OVERHEAD_QUERIES = ("q1", "q3")
+OVERHEAD_TURNS = 3
+ATTRIBUTION_OFF = {"spark.rapids.tpu.attribution.enabled": False}
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? '
+    r'(-?\d+(\.\d+)?([eE][+-]?\d+)?|\+Inf|-Inf|NaN)$')
+
+
+def attribution_cost(dev, tables, refs, main_warm) -> dict:
+    """The default's cost: the 22 queries once warm with attribution off
+    (every scan from the cache), their sum beside ``main_warm`` (the
+    main phase's warm walls, attribution on), and q1 and q3 on and off
+    in turns, the minimum of each against the JAX package's bound."""
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t0 = time.perf_counter()
+    on = TpuSession(dict(SESSION_CONF), device=dev)
+    off = TpuSession(dict(SESSION_CONF, **ATTRIBUTION_OFF), device=dev)
+    off_walls = {}
+    for q in QUERIES:
+        df = build_on(q, off, tables)
+        got, off_walls[q] = timed(df)
+        check(rows_equal(got, refs[q]), f"{q} differs with attribution off")
+        check(all(t == 0 for t in scan_transfer_times(df)),
+              f"{q}: a scan missed the cache with attribution off")
+        check("attribution" not in df._last_query_entry,
+              f"{q}: an attribution ledger with attribution off")
+    turns = {}
+    for q in OVERHEAD_QUERIES:
+        ons, offs = [], []
+        for _ in range(OVERHEAD_TURNS):
+            ons.append(timed(build_on(q, on, tables))[1])
+            offs.append(timed(build_on(q, off, tables))[1])
+        bound = min(offs) * 1.05 + 0.025
+        turns[q] = {"on_s": ons, "off_s": offs, "on_min_s": min(ons),
+                    "off_min_s": min(offs),
+                    "ratio": min(ons) / min(offs),
+                    "bound_s": bound, "within_bound": min(ons) <= bound}
+    out = {"off_warm_sum_s": sum(off_walls.values()),
+           "on_warm_sum_s": sum(main_warm.values()),
+           "off_warm_s": off_walls, "on_warm_s": main_warm,
+           "interleaved": turns, "seconds": time.perf_counter() - t0,
+           "card": nvidia_smi_line()}
+    print("[attribution cost] " + json.dumps(out), flush=True)
+    return out
+
+
+def _pumping_nodes(node) -> list:
+    """Nodes whose ``execute`` runs: fused operators are pulled through
+    by their consumer and never pump."""
+    out = []
+    fused = node.metrics.get("fusedIntoConsumer")
+    if fused is None or not fused.value:
+        out.append(node.name)
+    for c in node.children:
+        out.extend(_pumping_nodes(c))
+    return out
+
+
+def observe_run(tag, q, s, tables, ref, CB, KN, paths) -> tuple:
+    """One run under the plane, its kernel counts set to 0 just before
+    and read just after; the checks of ``[observe]``."""
+    from spark_rapids_tpu_torch.runtime import stats
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    df = build_on(q, s, tables)
+    got, wall = timed(df)
+    counts = path_counts(df, CB, KN)
+    counts["cuda_dispatch_delta"] = df._last_query_entry["telemetry"].get(
+        'tpuq_kernel_dispatch_total{backend="cuda"}', 0)
+    check(rows_equal(got, ref), f"observe {tag} differs from its reference")
+    entry = df._last_query_entry
+    qid = entry["query_id"]
+    att = entry["attribution"]
+    check(att["closed"]
+          and att["unaccounted_s"] <= att["tolerance"] * att["e2e_s"],
+          f"observe {tag}: the ledger does not close: {att}")
+    charged = sum(v for b, v in att["buckets"].items() if b != "unaccounted")
+    check(charged <= att["e2e_s"] + 1e-6,
+          f"observe {tag}: buckets {charged} s over e2e {att['e2e_s']} s")
+    prof = s.last_query_profile()
+    check(prof["query_id"] == qid and prof["ops"][0]["rows_out"]
+          == got.num_rows, f"observe {tag}: stats root rows "
+          f"{prof['ops'][0]['rows_out']} for {got.num_rows}")
+    with open(entry["trace_file"]) as f:
+        doc = json.load(f)
+    check(doc["otherData"]["query_id"] == qid
+          and os.path.basename(entry["trace_file"])
+          == f"query-{qid:06d}.trace.json",
+          f"observe {tag}: the trace file names another query")
+    pumped = {e["name"][:-len(":pump")] for e in doc["traceEvents"]
+              if e["ph"] == "X" and e["name"].endswith(":pump")}
+    missing = sorted(set(_pumping_nodes(df._last_plan)) - pumped)
+    check(not missing, f"observe {tag}: no pump span for {missing}")
+    paths["runs"] += 1
+    with open(paths["qlog"]) as f:
+        logged = [json.loads(ln) for ln in f.read().splitlines()]
+    check(len(logged) == paths["runs"] and logged[-1]["query_id"] == qid,
+          f"observe {tag}: {len(logged)} query log lines for "
+          f"{paths['runs']} runs")
+    check(stats.load_profiles(paths["store"])[-1]["query_id"] == qid,
+          f"observe {tag}: the profile store's last record is not {qid}")
+    line = {"wall_s": wall, "query_id": qid, "e2e_s": att["e2e_s"],
+            "buckets": {b: v for b, v in att["buckets"].items() if v},
+            "unaccounted_s": att["unaccounted_s"],
+            "verdict": att["verdict"],
+            "hash_pairs_launches": counts["hash_pairs_launches"],
+            "cuda_dispatches": counts["cuda_rung_dispatches"],
+            "rows_per_node": [(r["op"], r["rows_out"])
+                              for r in prof["ops"]],
+            "spans": len([e for e in doc["traceEvents"] if e["ph"] == "X"]),
+            # where the kernel_dispatch bucket goes, by operator and stage
+            "top_self_s": [
+                (op, r["self_s"], {k: v for k, v in r["stages"].items()
+                                   if v >= 0.01 * att["e2e_s"]})
+                for op, r in sorted(entry["op_rollup"].items(),
+                                    key=lambda kv: -kv[1]["self_s"])[:4]]}
+    print(f"[observe] {tag} " + json.dumps(line), flush=True)
+    return df, counts, line
+
+
+def observe_phase(dev, tables, refs, CB, KN, query_shapes) -> dict:
+    """``[observe]``: the plane at SF1 (see the module's docstring)."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import attribution, telemetry
+    from spark_rapids_tpu_torch.runtime.cancel import QueryCancelled
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tpuq-observe-")
+    counts, lines = {}, {}
+    try:
+        paths = {"qlog": f"{root}/qlog.jsonl",
+                 "store": f"{root}/profiles.jsonl", "runs": 0}
+        sink = f"{root}/telemetry/metrics.jsonl"
+        prom = f"{root}/telemetry/metrics.prom"
+        conf = dict(SESSION_CONF, **{
+            "spark.rapids.sql.trace.enabled": True,
+            "spark.rapids.sql.trace.path": f"{root}/trace",
+            "spark.rapids.tpu.stats.enabled": True,
+            "spark.rapids.tpu.stats.level": "FULL",
+            "spark.rapids.sql.queryLog.path": paths["qlog"],
+            "spark.rapids.tpu.stats.storePath": paths["store"],
+            BLACKBOX_KEY: f"{root}/blackbox",
+            "spark.rapids.tpu.telemetry.enabled": True,
+            "spark.rapids.tpu.telemetry.samplePeriodMs": 100,
+            "spark.rapids.tpu.telemetry.sinkPath": sink,
+            "spark.rapids.tpu.telemetry.promPath": prom})
+        s = TpuSession(conf, device=dev)
+        for q in OBSERVE_QUERIES:
+            clear_scan_cache()
+            df, counts[q], lines[f"{q} cold"] = observe_run(
+                f"{q} cold", q, s, tables, refs[q], CB, KN, paths)
+            check(counts[q]["collision_fallbacks"] == 0,
+                  f"observe {q}: hash-collision fallbacks")
+            check(counts[q]["hash_pairs_launches"] > 0,
+                  f"observe {q}: hash_pairs was not launched")
+            df, _, lines[f"{q} warm"] = observe_run(
+                f"{q} warm", q, s, tables, refs[q], CB, KN, paths)
+            if q == "q3":
+                buf = io.StringIO()
+                with redirect_stdout(buf):
+                    df.explain("analyze")
+                print("[observe] q3 explain(\"analyze\")\n"
+                      + buf.getvalue(), end="", flush=True)
+        q1 = counts["q1"]
+        check(q1["cuda_dispatch_delta"] > 0 and q1["cuda_dispatch_delta"]
+              == q1["cuda_rung_dispatches"],
+              f"observe q1: dispatch counter delta "
+              f"{q1['cuda_dispatch_delta']} against the kernel plane's "
+              f"{q1['cuda_rung_dispatches']}")
+
+        # -- q1 under torch.profiler: the capture names the kernel
+        prof_s = TpuSession(dict(SESSION_CONF, **{
+            "spark.rapids.profile.enabled": True,
+            "spark.rapids.profile.path": f"{root}/profile"}), device=dev)
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        df = build_on("q1", prof_s, tables)
+        got, prof_wall = timed(df)
+        counts["q1 profiled"] = path_counts(df, CB, KN)
+        check(rows_equal(got, refs["q1"]), "observe: profiled q1 differs")
+        entry = df._last_query_entry
+        pdir = entry["profile_dir"]
+        check(os.path.basename(pdir) == f"query-{entry['query_id']:06d}",
+              f"observe: profile directory {pdir}")
+        with open(os.path.join(pdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernel_events = [e for e in events if e.get("cat") == "kernel"]
+        hp = [e for e in kernel_events if "hash_pairs" in e.get("name", "")]
+        check(hp, "observe: the profile names no hash_pairs kernel among "
+              f"its {len(kernel_events)} device kernel events")
+        lines["q1 profiled"] = {
+            "wall_s": prof_wall, "trace_events": len(events),
+            "device_kernel_events": len(kernel_events),
+            "hash_pairs_events": len(hp),
+            "hash_pairs_launches": CB.launches,
+            "hash_pairs_device_us": sum(e.get("dur", 0) for e in hp),
+            "kernel_name": hp[0]["name"] if hp else None}
+        print("[observe] q1 profiled " + json.dumps(lines["q1 profiled"]),
+              flush=True)
+
+        # -- q18 cut by a deadline: the black box and `profile why`
+        box_s = TpuSession(dict(SESSION_CONF, **{
+            BLACKBOX_KEY: f"{root}/blackbox"}), device=dev)
+        df = build_on("q18", box_s, tables)
+        t1 = time.perf_counter()
+        try:
+            df.toArrow(timeout_ms=OBSERVE_DEADLINE_MS)
+            raise RuntimeError("chip_smoke: q18 ran to its end under a "
+                               f"{OBSERVE_DEADLINE_MS} ms deadline")
+        except QueryCancelled as e:
+            check(e.reason == "deadline", f"observe: q18 cancelled by "
+                  f"{e.reason!r}, not its deadline")
+        cut_s = time.perf_counter() - t1
+        entry = df._last_query_entry
+        box_path = entry.get("blackbox")
+        check(box_path is not None and os.path.exists(box_path),
+              f"observe: q18 left no black box: {entry.get('status')}")
+        with open(box_path) as f:
+            box = json.load(f)
+        check(box["trigger"] == "timeout"
+              and box["attribution"]["dominant"] in attribution.BUCKETS,
+              f"observe: the black box {box.get('trigger')} names "
+              f"{box.get('attribution', {}).get('dominant')}")
+        why = subprocess.run(
+            [sys.executable, "-m", "spark_rapids_tpu_torch.utils.profile",
+             "why", box_path], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(why.returncode == 0 and box["verdict"] in why.stdout,
+              f"observe: profile why exited {why.returncode}: "
+              f"{why.stdout}{why.stderr}")
+        lines["q18 deadline"] = {
+            "deadline_ms": OBSERVE_DEADLINE_MS, "raised_after_s": cut_s,
+            "cancel_latency_s": entry["cancel"].get("latency_s"),
+            "verdict": box["verdict"], "trigger": box["trigger"],
+            "ring_spans": len(box["flight_recorder"]["recent_spans"]),
+            "ring_events": [ev["kind"] for ev
+                            in box["flight_recorder"]["events"]]}
+        print("[observe] q18 deadline " + json.dumps(lines["q18 deadline"])
+              + "\n[observe] profile why:\n" + why.stdout, end="",
+              flush=True)
+
+        # -- the registry, the prom dump, the sampler's JSONL
+        report = s.metrics_report()
+        check(report["metrics"]["tpuq_queries_total"] >= paths["runs"],
+              "observe: metrics_report counts fewer queries than ran")
+        telemetry.stop_sampler()
+        with open(prom) as f:
+            prom_lines = f.read().splitlines()
+        bad = [ln for ln in prom_lines if not ln.startswith("#")
+               and not PROM_SAMPLE.match(ln)]
+        check(prom_lines and not bad, f"observe: prom lines {bad[:3]}")
+        with open(sink) as f:
+            samples = [json.loads(ln) for ln in f.read().splitlines()]
+        check(len(samples) >= 1, "observe: the sampler wrote no line")
+        lines["telemetry"] = {
+            "metrics": len(report["metrics"]),
+            "prom_lines": len(prom_lines), "jsonl_samples": len(samples),
+            "q1_cuda_dispatch_delta": q1["cuda_dispatch_delta"],
+            "q1_kernel_plane_dispatches": q1["cuda_rung_dispatches"],
+            "health": report["health"][-3:]}
+        print("[observe] telemetry " + json.dumps(lines["telemetry"]),
+              flush=True)
+    finally:
+        telemetry.stop_sampler()
+        shutil.rmtree(root, ignore_errors=True)
+    summary = {"seconds": time.perf_counter() - t0,
+               "card": nvidia_smi_line(),
+               "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                       for k, c in counts.items()},
+               "new_hash_pairs_shapes": sorted(
+                   {k for c in counts.values() for k in c["shapes"]}
+                   - query_shapes)}
+    print("[observe] " + json.dumps(summary), flush=True)
+    return counts
+
+
+def observe_only(dev, tables, refs, CB, KN) -> int:
+    """``--observe``: the 22 queries once to fill the scan cache, once
+    more warm (the default, attribution on), ``[attribution cost]`` and
+    ``[observe]``, then the kernel bit for bit at every shape it
+    launched."""
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    t0 = time.perf_counter()
+    session = TpuSession(dict(SESSION_CONF), device=dev)
+    warm = {}
+    for q in QUERIES:
+        check(rows_equal(build_on(q, session, tables).toArrow(), refs[q]),
+              f"{q} differs from its reference")
+    for q in QUERIES:
+        got, warm[q] = timed(build_on(q, session, tables))
+        check(rows_equal(got, refs[q]), f"{q} warm run differs")
+    attribution_cost(dev, tables, refs, warm)
+    counts = observe_phase(dev, tables, refs, CB, KN, set())
+    gen = __import__("torch").Generator(device=dev)
+    gen.manual_seed(20261018)
+    shapes = sorted({k for c in counts.values() for k in c["shapes"]},
+                    key=lambda k: tuple(map(int, k.split("x"))))
+    for key in shapes:
+        n_limbs, n = (int(x) for x in key.split("x"))
+        kernel_line(CB, None, random_limbs(n_limbs, n, gen, dev),
+                    timed=False)
+    print("[observe only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "shapes_bit_identical": shapes}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def _logical_nodes(plan) -> list:
     out = [plan]
     for c in plan.children:
@@ -7388,6 +7756,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    laps, lap_t = {}, [t_start]
+
+    def lap(name):
+        """Seconds since the previous lap, printed at the end."""
+        now = time.perf_counter()
+        laps[name] = round(now - lap_t[0], 3)
+        lap_t[0] = now
+
     here = os.path.dirname(os.path.abspath(__file__))
     if here not in sys.path:
         sys.path.insert(0, here)
@@ -7395,7 +7771,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.kernels import cuda_backend as CB
     from spark_rapids_tpu_torch.kernels import hash_layout as HL
     from spark_rapids_tpu_torch.sql.session import TpuSession
-    from spark_rapids_tpu_torch.utils import profile as PR
+    from spark_rapids_tpu_torch.utils import device_profile as PR
     from spark_rapids_tpu_torch.utils import tpch
 
     dev = torch.device("cuda", 0)
@@ -7442,6 +7818,7 @@ def main() -> int:
     print(f"[generate] SF{SF:g}: " + ", ".join(
         f"{k} {v.num_rows} rows" for k, v in tables.items())
         + f" in {gen_s:.3f} s", flush=True)
+    lap("build, kernels, generate")
     if BREADTH_ONLY:
         return breadth_only(dev, tables, CB, KN)
     if DECIMAL_ONLY:
@@ -7481,6 +7858,8 @@ def main() -> int:
 
     if FAULTS_ONLY:
         return faults_only(dev, tables, refs, CB, KN)
+    if OBSERVE_ONLY:
+        return observe_only(dev, tables, refs, CB, KN)
 
     # test mode: any CPU fallback in the main path raises
     session = TpuSession(dict(SESSION_CONF), device=dev)
@@ -7520,13 +7899,20 @@ def main() -> int:
               f"{first[q].slice(0, 6).to_pandas().to_string()}",
               flush=True)
 
+    lap("22 queries")
     # -- the scan cache with all 22 queries' tables resident ---------------
     resident_phase(session, tables, refs, dev)
+    lap("scan cache")
+    # -- attribution is on by default: its cost over the warm 22 -------------
+    attribution_cost(dev, tables, refs,
+                     {q: summary[q]["wall_s_median"] for q in QUERIES})
+    lap("attribution cost")
     # -- spill: q3 under a pool of ~1.5 of lineitem's cached batches --------
     spill = spill_phase(session, SESSION_CONF, tables, refs["q3"],
                         first["q3"], n_batches, dev)
     # -- device dictionary decode: q1, q12, q19 cold -----------------------
     dict_phase(session, tables, refs, first, summary)
+    lap("spill, dict decode")
     # -- the join variants: right, residual, cross condition, full ---------
     var_counts = {}
     fallback_names = {c[1] for c in FALLBACK_CASES}
@@ -7540,6 +7926,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + c
     print("[join variant] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("join variant")
 
     # -- plans with an operator on the CPU ----------------------------------
     refs["q13_cond"] = ref_q13_cond(tables)
@@ -7554,6 +7941,7 @@ def main() -> int:
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
     # -- bench's CPU-oracle loop on the card --------------------------------
     oracle_phase(dev)
+    lap("fallback, oracle")
 
     # -- multi-partition execution: six queries under 8 partitions ----------
     part_counts, part_runs = {}, {}
@@ -7573,6 +7961,7 @@ def main() -> int:
     print("[partitions/exchange] hash_pairs shapes the 22 queries did not "
           "launch: " + json.dumps(sorted(set(main_shapes) - query_shapes)),
           flush=True)
+    lap("partitions, exchange")
     # -- limits, union, range, sample, rollup/cube, out-of-core sort --------
     op_counts = operators_phase(dev, tables, refs, CB, KN)
     for c in op_counts.values():
@@ -7580,6 +7969,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[operators] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("operators")
     # -- the string expressions, the regex engine and the string casts -------
     str_counts = strings_phase(dev, tables, CB, KN, query_shapes)
     check(str_counts["phone report"]["hash_pairs_launches"] > 0
@@ -7590,6 +7980,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[strings] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("strings")
     # -- the memory runtime: disk tier, OOM retry, the aggregate's passes ----
     refs["q3_full"] = ref_q3_full(tables)
     retry_counts = retry_phase(session, tables, refs, first, summary, spill,
@@ -7599,6 +7990,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[retry] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("retry")
     # -- the pump's concurrency: the task pool, prefetch, shapes, cache -------
     pump_counts = pump_phase(dev, tables, refs, part_runs, CB, KN)
     for c in pump_counts.values():
@@ -7606,6 +7998,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[pump] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("pump")
     # -- the failure domains: faults, retries, breakers, cancel, lockdep -----
     from spark_rapids_tpu_torch.runtime import resilience as RES
     fault_counts = faults_phase(dev, tables, refs, first, spill, CB, KN)
@@ -7615,6 +8008,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[faults] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("faults")
     # -- the scalar and aggregate breadth: expressions, hashes, aggregates --
     breadth_counts = breadth_phase(dev, tables, CB, KN, query_shapes)
     for c in breadth_counts.values():
@@ -7622,6 +8016,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[breadth] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("breadth")
     # -- decimals and time zones: q1, q6, q18 over decimal(12,2) -----------
     decimal_counts = decimal_phase(dev, tables, CB, KN, query_shapes)
     for c in decimal_counts.values():
@@ -7629,6 +8024,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[decimal] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("decimal")
     # -- nested and array columns: structs, explode, collect, split, JSON --
     nested_counts = nested_phase(dev, tables, CB, KN, query_shapes)
     for c in nested_counts.values():
@@ -7636,6 +8032,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[nested] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("nested")
     # -- window functions: ranks, offsets, running and bounded frames ------
     window_counts = window_phase(dev, tables, CB, KN, query_shapes)
     for c in window_counts.values():
@@ -7643,6 +8040,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[window] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("window")
     # -- python UDFs: the arrow bridge, the compiler, device UDFs ----------
     udf_counts = udf_phase(dev, tables, CB, KN, query_shapes)
     for c in udf_counts.values():
@@ -7650,6 +8048,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[udf] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("udf")
     # -- parquet scans and writes: pushdown, input_file_name, dict decode ---
     io_counts = io_phase(dev, tables, CB, KN, query_shapes)
     for c in io_counts.values():
@@ -7657,6 +8056,7 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[io] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("io")
     # -- table formats: Delta, Iceberg, avro, dynamic partition pruning ------
     lake_counts = lakehouse_phase(dev, tables, CB, KN, query_shapes)
     for c in lake_counts.values():
@@ -7664,11 +8064,21 @@ def main() -> int:
             main_shapes[key] = main_shapes.get(key, 0) + n
     print("[lakehouse] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("lakehouse")
+    # -- the observability plane: ledger, profile capture, black box ---------
+    obs_counts = observe_phase(dev, tables, refs, CB, KN, query_shapes)
+    for c in obs_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[observe] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("observe")
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
     for line in string_rows:
         print("[string expression] " + json.dumps(line), flush=True)
+    lap("string expression")
 
     # -- the kernel at the main path's shapes ---------------------------------
     shape_rows, kernel_row = [], None
@@ -7738,6 +8148,7 @@ def main() -> int:
                                   for k, f in calls.items()}
         del limbs, listed
     print("[host us per call] " + json.dumps(host), flush=True)
+    lap("kernel at the main path's shapes")
 
     kernels = [{
         "name": "hash_pairs", "route": "cuda",
@@ -7757,7 +8168,8 @@ def main() -> int:
                         + list(window_counts.values())
                         + list(udf_counts.values())
                         + list(io_counts.values())
-                        + list(lake_counts.values())),
+                        + list(lake_counts.values())
+                        + list(obs_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -7792,6 +8204,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in io_counts.items()},
         "launches_per_lakehouse_run": {
             k: c["hash_pairs_launches"] for k, c in lake_counts.items()},
+        "launches_per_observe_run": {
+            k: c["hash_pairs_launches"] for k, c in obs_counts.items()},
         "plain_calls_per_faults_run": {
             k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,
@@ -7812,6 +8226,7 @@ def main() -> int:
     end = RES.counters_snapshot()
     check(end == after_faults,
           f"failure-domain counters moved after [faults]: {end}")
+    print("[phase seconds] " + json.dumps(laps), flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -7821,5 +8236,18 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """``main`` with ``SESSION_CONF``'s black-box directory made before
+    and removed after."""
+    import shutil
+    import tempfile
+    box = SESSION_CONF[BLACKBOX_KEY] = tempfile.mkdtemp(
+        prefix="tpuq-blackbox-")
+    try:
+        return main()
+    finally:
+        shutil.rmtree(box, ignore_errors=True)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -13,7 +13,7 @@ TPC-H q1, q3 and q4 give the kernel at SF1 (``chip_smoke.py``'s
 ``[main path]`` lines), both kernels are held against the plain version
 bit for bit, then timed in turns (earlier, this, this, earlier) by
 ``chip_smoke.py``'s methods: ``ms`` (cold CUDA events), ``ms_ring``,
-``traced_ms`` and ``traced_clean_ms`` (``utils/profile.py::
+``traced_ms`` and ``traced_clean_ms`` (``utils/device_profile.py::
 trace_kernel``), and ``from_list_ms`` (separate limbs, as the main path
 holds them: this kernel reads them where they lie, the earlier one takes
 ``torch.stack`` first).  Then the join's two sides (this kernel in one

@@ -7,8 +7,11 @@ the TPC-H queries, the join strategies, the memory arbiter with its
 spill tiers and OOM retry, the aggregate's passes, the exchange plane,
 the string expressions' gates, the device semaphore, the prefetching
 pump, the shape plane, the kernel build cache, the failure domains:
-retry policy, deadlines, fault injection and lockdep, and the UDF
-compiler and the file scan).
+retry policy, deadlines, fault injection and lockdep, the UDF
+compiler and the file scan, and the observability plane: tracing, the
+query log, profile capture, the stats plane, attribution and
+telemetry).  Each entry carries the JAX package's category (``sql``
+unless set).
 Values are validated the same way: an unknown
 ``spark.rapids.*`` key raises, and so does a value the entry's checker
 rejects.  The per-operator kill switches ``spark.rapids.sql.exec.<Name>``
@@ -26,8 +29,18 @@ registered here (``spark.sql.ansi.enabled``,
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
+import tempfile
 from typing import Any, Callable, Dict, List, Optional
+
+
+def _under_tmp(*parts: str) -> str:
+    """A default path under the process's temporary directory (TMPDIR),
+    where the JAX package names a fixed ``/tmp/...``: two checkouts with
+    TMPDIRs of their own keep their artifacts apart."""
+    return os.path.join(tempfile.gettempdir(), *parts)
+
 
 _SIZE_RE = re.compile(r"^(\d+)([kKmMgGtT]?)[bB]?$")
 _SIZE_MULT = {"": 1, "k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
@@ -63,6 +76,7 @@ class ConfEntry:
     converter: Callable[[Any], Any]
     checker: Optional[Callable[[Any], bool]] = None
     check_msg: str = ""
+    category: str = "sql"
 
     def convert(self, raw):
         v = self.converter(raw)
@@ -84,9 +98,14 @@ class ConfBuilder:
         self._converter: Callable = str
         self._checker = None
         self._check_msg = ""
+        self._category = "sql"
 
     def doc(self, d: str) -> "ConfBuilder":
         self._doc = d
+        return self
+
+    def category(self, c: str) -> "ConfBuilder":
+        self._category = c
         return self
 
     def boolean(self) -> "ConfBuilder":
@@ -118,7 +137,7 @@ class ConfBuilder:
         if self._key in REGISTRY:
             raise ValueError(f"duplicate conf key {self._key}")
         e = ConfEntry(self._key, self._doc, default, self._converter,
-                      self._checker, self._check_msg)
+                      self._checker, self._check_msg, self._category)
         REGISTRY[e.key] = e
         return e
 
@@ -148,6 +167,7 @@ EXPLAIN = (
 
 TEST_ENABLED = (
     conf("spark.rapids.sql.test.enabled")
+    .category("test")
     .doc("Test mode: raise instead of silently falling back to CPU for any "
          "operator not in the allow-list (see test.allowedNonGpu).")
     .boolean()
@@ -156,6 +176,7 @@ TEST_ENABLED = (
 
 TEST_ALLOWED_NON_GPU = (
     conf("spark.rapids.sql.test.allowedNonGpu")
+    .category("test")
     .doc("Comma-separated operator class names permitted to fall back to "
          "CPU when test.enabled is on.")
     .string()
@@ -255,6 +276,7 @@ KERNEL_BACKENDS = ("auto", "cuda", "jnp")
 
 KERNEL_BACKEND = (
     conf("spark.rapids.tpu.kernel.backend")
+    .category("kernel")
     .doc("Group-layout rung of the grouped aggregate: 'cuda' sorts one "
          "64-bit row hash computed by the hand-written CUDA kernel "
          "(kernels/csrc/hash_pairs.cu; its plain PyTorch version on CPU "
@@ -270,6 +292,7 @@ KERNEL_BACKEND = (
 
 CONCURRENT_TASKS = (
     conf("spark.rapids.sql.concurrentGpuTasks")
+    .category("memory")
     .doc("Number of tasks that may hold the device semaphore concurrently "
          "[REF: GpuSemaphore.scala].")
     .integer()
@@ -278,6 +301,7 @@ CONCURRENT_TASKS = (
 
 EXEC_PUMP_DEPTH = (
     conf("spark.rapids.tpu.exec.pumpDepth")
+    .category("kernel")
     .doc("Batches kept in flight by the double-buffered exec pump: each "
          "operator's output iterator is pre-pulled up to this depth so "
          "JAX async dispatch overlaps the producer's H2D/compute with "
@@ -305,6 +329,7 @@ def _valid_ladder(v) -> bool:
 
 KERNEL_CACHE_DIR = (
     conf("spark.rapids.tpu.kernel.cacheDir")
+    .category("kernel")
     .doc("Directory where the built kernel libraries (the nvcc-built "
          "CUDA kernels and the g++-built native shuffle library) are "
          "kept across processes, under a subdirectory named after the "
@@ -319,6 +344,7 @@ KERNEL_CACHE_DIR = (
 
 KERNEL_BUCKETING = (
     conf("spark.rapids.tpu.kernel.bucketing")
+    .category("kernel")
     .doc("Batch-shape bucketing policy of the shape plane: 'pow2' pads "
          "device batch capacities up to power-of-two row buckets, "
          "'ladder' pads up to the explicit rung list in "
@@ -333,6 +359,7 @@ KERNEL_BUCKETING = (
 
 KERNEL_BUCKET_LADDER = (
     conf("spark.rapids.tpu.kernel.bucketLadder")
+    .category("kernel")
     .doc("Comma-separated strictly-increasing row-count rungs for "
          "kernel.bucketing=ladder, e.g. '1024,8192,65536,1048576'. "
          "Capacities above the top rung fall back to pow2 rounding. "
@@ -345,6 +372,7 @@ KERNEL_BUCKET_LADDER = (
 
 KERNEL_MAX_PAD_FRACTION = (
     conf("spark.rapids.tpu.kernel.maxPadFraction")
+    .category("kernel")
     .doc("Upper bound on the padding a bucket may introduce, as "
          "(bucket - capacity) / bucket. A rung that would exceed it is "
          "rejected in favor of the batch's pow2 bucket, trading a "
@@ -379,6 +407,7 @@ JOIN_TARGET_ROWS = (
 
 MEMORY_FRACTION = (
     conf("spark.rapids.memory.gpu.allocFraction")
+    .category("memory")
     .doc("Fraction of device HBM the budget arbiter may hand out before "
          "synchronous spill kicks in.")
     .double()
@@ -388,6 +417,7 @@ MEMORY_FRACTION = (
 
 POOL_SIZE = (
     conf("spark.rapids.tpu.memory.poolSize")
+    .category("memory")
     .doc("Explicit device memory budget in bytes; 0 means derive from "
          "allocFraction of detected HBM.")
     .bytes()
@@ -396,6 +426,7 @@ POOL_SIZE = (
 
 HOST_SPILL_STORAGE = (
     conf("spark.rapids.memory.host.spillStorageSize")
+    .category("memory")
     .doc("Host memory limit for spilled device buffers before they go to "
          "disk.")
     .bytes()
@@ -404,6 +435,7 @@ HOST_SPILL_STORAGE = (
 
 SPILL_PATH = (
     conf("spark.rapids.tpu.spillPath")
+    .category("memory")
     .doc("Directory for disk-tier spill files.")
     .string()
     .create_with_default("/tmp/tpuq-spill")
@@ -411,6 +443,7 @@ SPILL_PATH = (
 
 RETRY_MAX = (
     conf("spark.rapids.tpu.retry.maxAttempts")
+    .category("memory")
     .doc("Max retry attempts per device/IO step before the engine gives "
          "up (OOM retries in the memory arbiter and every resilience "
          "failure domain share this one policy) "
@@ -422,6 +455,7 @@ RETRY_MAX = (
 
 RETRY_BACKOFF_BASE_MS = (
     conf("spark.rapids.tpu.retry.backoffBaseMs")
+    .category("memory")
     .doc("Base delay for the retry policy's exponential backoff: attempt "
          "n sleeps ~base*2^(n-1) ms (capped by retry.backoffMaxMs, "
          "scaled by deterministic seeded jitter). 0 disables sleeping.")
@@ -432,6 +466,7 @@ RETRY_BACKOFF_BASE_MS = (
 
 RETRY_BACKOFF_MAX_MS = (
     conf("spark.rapids.tpu.retry.backoffMaxMs")
+    .category("memory")
     .doc("Upper bound on a single retry backoff sleep in milliseconds.")
     .double()
     .check(lambda v: v >= 0.0, "non-negative")
@@ -440,6 +475,7 @@ RETRY_BACKOFF_MAX_MS = (
 
 RETRY_JITTER_SEED = (
     conf("spark.rapids.tpu.retry.jitterSeed")
+    .category("memory")
     .doc("Seed for the retry policy's backoff jitter. Jitter is a pure "
          "function of (seed, domain, attempt), so a run is exactly "
          "reproducible under the same seed.")
@@ -449,6 +485,7 @@ RETRY_JITTER_SEED = (
 
 RETRY_BUDGET_PER_QUERY = (
     conf("spark.rapids.tpu.retry.budgetPerQuery")
+    .category("memory")
     .doc("Total retries one query may spend across every failure domain "
          "before further faults are treated as exhausted (degrade or "
          "fail instead of retry-storming). 0 disables the budget.")
@@ -459,6 +496,7 @@ RETRY_BUDGET_PER_QUERY = (
 
 RETRY_HOST_DEGRADE = (
     conf("spark.rapids.tpu.retry.hostDegrade.enabled")
+    .category("memory")
     .doc("When an injected fault exhausts its retries in a degradable "
          "failure domain (execute, transfer, compile, spill_write), trip "
          "the per-op circuit breaker and re-run the step on its plain "
@@ -473,6 +511,7 @@ RETRY_HOST_DEGRADE = (
 
 QUERY_TIMEOUT_MS = (
     conf("spark.rapids.tpu.query.timeoutMs")
+    .category("lifecycle")
     .doc("Per-query deadline in milliseconds, enforced in-process by "
          "the cooperative cancellation layer (runtime/cancel.py): when "
          "a query exceeds it, every blocking boundary raises "
@@ -486,6 +525,7 @@ QUERY_TIMEOUT_MS = (
 
 CANCEL_POLL_MS = (
     conf("spark.rapids.tpu.query.cancelPollMs")
+    .category("lifecycle")
     .doc("Upper bound on how long any blocking wait (semaphore, retry "
          "backoff, spill IO, shuffle) may park before re-polling the "
          "query's CancelToken. Cancels and deadline expiries surface "
@@ -498,6 +538,7 @@ CANCEL_POLL_MS = (
 
 INJECT_EXECUTE_AT = (
     conf("spark.rapids.tpu.test.injectExecuteErrorAt")
+    .category("test")
     .doc("Raise an injected device error at the Nth hash_pairs dispatch "
          "(resilience test hook, the faultinj analog). -1 disables.")
     .integer()
@@ -506,6 +547,7 @@ INJECT_EXECUTE_AT = (
 
 INJECT_TRANSFER_AT = (
     conf("spark.rapids.tpu.test.injectTransferErrorAt")
+    .category("test")
     .doc("Raise an injected device error at the Nth device→host "
          "transfer. -1 disables.")
     .integer()
@@ -514,6 +556,7 @@ INJECT_TRANSFER_AT = (
 
 INJECT_TRANSIENT_COUNT = (
     conf("spark.rapids.tpu.test.injectTransientCount")
+    .category("test")
     .doc("How many injected device errors are transient (recoverable by "
          "the retry policy) before they turn terminal. Legacy alias for "
          "the execute/transfer domains' inject.<domain>.transientCount.")
@@ -550,6 +593,7 @@ INJECT_DOMAIN_TRANSIENT: Dict[str, ConfEntry] = {}
 for _dom in FAILURE_DOMAINS:
     INJECT_DOMAIN_AT[_dom] = (
         conf(f"spark.rapids.tpu.test.inject.{_dom}.at")
+        .category("test")
         .doc(f"Arm the '{_dom}' failure domain: raise an injected fault "
              "from its Nth call on (resilience test hook, the faultinj "
              "analog). -1 disables.")
@@ -558,6 +602,7 @@ for _dom in FAILURE_DOMAINS:
     )
     INJECT_DOMAIN_TRANSIENT[_dom] = (
         conf(f"spark.rapids.tpu.test.inject.{_dom}.transientCount")
+        .category("test")
         .doc(f"How many '{_dom}' injected faults are transient before "
              "they turn terminal (0 = the first fire is terminal).")
         .integer()
@@ -566,6 +611,7 @@ for _dom in FAILURE_DOMAINS:
 for _dom in REFUSED_FAILURE_DOMAINS:
     for _suffix, _default in (("at", -1), ("transientCount", 0)):
         (conf(f"spark.rapids.tpu.test.inject.{_dom}.{_suffix}")
+         .category("test")
          .doc(f"Refused: {refused_domain_message(_dom)}. Only its "
               f"default ({_default}) is accepted.")
          .integer()
@@ -575,6 +621,7 @@ del _dom, _suffix, _default
 
 LOCKDEP_ENABLED = (
     conf("spark.rapids.tpu.lockdep.enabled")
+    .category("telemetry")
     .doc("Lockdep-style runtime watchdog: records the acquisition order "
          "of the engine's tracked locks in one process-wide graph and "
          "reports any edge that closes a cycle (a latent deadlock) from "
@@ -586,6 +633,7 @@ LOCKDEP_ENABLED = (
 
 LOCKDEP_RAISE_ON_CYCLE = (
     conf("spark.rapids.tpu.lockdep.raiseOnCycle")
+    .category("telemetry")
     .doc("With lockdep enabled, raise LockOrderViolation at the "
          "acquisition that closes a cycle instead of only recording it "
          "for the violations report.")
@@ -595,6 +643,7 @@ LOCKDEP_RAISE_ON_CYCLE = (
 
 MEMORY_DEBUG = (
     conf("spark.rapids.memory.gpu.debug")
+    .category("memory")
     .doc("NONE or STDOUT: track every spillable registration with its "
          "creation stack and report LEAK DETECTED for batches never "
          "closed [REF: cudf MemoryCleaner refcount debugging].")
@@ -605,6 +654,7 @@ MEMORY_DEBUG = (
 
 FAULT_INJECT = (
     conf("spark.rapids.tpu.test.injectOomAtAlloc")
+    .category("test")
     .doc("Force an OOM at the Nth device allocation (test hook, mirrors "
          "RmmSpark.forceRetryOOM). -1 disables.")
     .integer()
@@ -613,6 +663,7 @@ FAULT_INJECT = (
 
 SHUFFLE_MODE = (
     conf("spark.rapids.shuffle.mode")
+    .category("shuffle")
     .doc("Shuffle transport: MULTITHREADED (host-path serialization "
          "through shuffle files, works everywhere), ICI (collective "
          "all_to_all across the devices — not ported: planning raises "
@@ -626,6 +677,7 @@ SHUFFLE_MODE = (
 
 EXCHANGE_MODE = (
     conf("spark.rapids.tpu.exchange.mode")
+    .category("shuffle")
     .doc("ICI exchange transport: compiled, host or auto. Only consulted "
          "when spark.rapids.shuffle.mode=ICI, which the port does not "
          "have: the JAX package reads it nowhere else, so outside ICI "
@@ -638,6 +690,7 @@ EXCHANGE_MODE = (
 
 SHUFFLE_THREADS = (
     conf("spark.rapids.shuffle.multiThreaded.writer.threads")
+    .category("shuffle")
     .doc("Serializer thread pool size for MULTITHREADED shuffle.")
     .integer()
     .create_with_default(4)
@@ -645,6 +698,7 @@ SHUFFLE_THREADS = (
 
 SHUFFLE_PARTITIONS = (
     conf("spark.sql.shuffle.partitions")
+    .category("shuffle")
     .doc("Default shuffle partition count (Spark core key, honored "
          "here): the partitions of applyInPandas's exchange and the "
          "upper bound of a file scan's partitions. The exchange plane "
@@ -656,6 +710,7 @@ SHUFFLE_PARTITIONS = (
 
 MULTITHREADED_READ_THREADS = (
     conf("spark.rapids.sql.multiThreadedRead.numThreads")
+    .category("io")
     .doc("Thread pool size for the MULTITHREADED parquet reader "
          "(concurrent host decode per scan partition; the host-to-device "
          "copies stay on the consuming task's thread and stream).")
@@ -666,6 +721,7 @@ MULTITHREADED_READ_THREADS = (
 
 PARQUET_DEVICE_DICT = (
     conf("spark.rapids.tpu.parquet.deviceDictDecode")
+    .category("io")
     .doc("Read parquet string columns dictionary-encoded and expand "
          "them on the device (indices and a small dictionary ride the "
          "host-to-device copy instead of full byte matrices; the "
@@ -688,6 +744,7 @@ UDF_COMPILER_ENABLED = (
 
 ADAPTIVE_ENABLED = (
     conf("spark.sql.adaptive.enabled")
+    .category("aqe")
     .doc("Adaptive query execution: shuffle-read coalescing of small "
          "partitions and splitting of skewed ones, planned from measured "
          "partition sizes (Spark core key, honored here).")
@@ -697,6 +754,7 @@ ADAPTIVE_ENABLED = (
 
 ADVISORY_PARTITION_SIZE = (
     conf("spark.sql.adaptive.advisoryPartitionSizeInBytes")
+    .category("aqe")
     .doc("Target bytes per shuffle-read partition after AQE coalescing/"
          "skew-splitting (Spark core key, honored here).")
     .bytes()
@@ -705,6 +763,7 @@ ADVISORY_PARTITION_SIZE = (
 
 DPP_ENABLED = (
     conf("spark.sql.optimizer.dynamicPartitionPruning.enabled")
+    .category("aqe")
     .doc("Dynamic partition pruning: joins on a hive-partition column "
          "evaluate the build side's distinct keys first and skip "
          "non-matching files of the probe-side scan (Spark core key, "
@@ -715,11 +774,264 @@ DPP_ENABLED = (
 
 ADAPTIVE_PLANE_ENABLED = (
     conf("spark.rapids.tpu.adaptive.enabled")
+    .category("aqe")
     .doc("Master switch of the JAX package's adaptive execution plane "
          "(runtime broadcast-vs-shuffled join choice, skew splitting). "
          "Not ported: true raises NotImplementedError at planning.")
     .boolean()
     .create_with_default(False)
+)
+
+
+# -- the observability plane (runtime/{trace,telemetry,stats,attribution}.py)
+
+METRICS_LEVEL = (
+    conf("spark.rapids.sql.metrics.level")
+    .doc("Metric verbosity: ESSENTIAL, MODERATE, DEBUG.")
+    .string()
+    .check(lambda v: v.upper() in ("ESSENTIAL", "MODERATE", "DEBUG"),
+           "one of ESSENTIAL, MODERATE, DEBUG")
+    .create_with_default("MODERATE")
+)
+
+PROFILE_ENABLED = (
+    conf("spark.rapids.profile.enabled")
+    .doc("Capture a per-query device profile (a torch.profiler trace "
+         "with the CUDA activity on the card, viewable in Perfetto or "
+         "TensorBoard) [REF: spark-rapids-jni profiler].")
+    .boolean()
+    .create_with_default(False)
+)
+
+PROFILE_PATH = (
+    conf("spark.rapids.profile.path")
+    .doc("Directory for profile captures.")
+    .string()
+    .create_with_default(_under_tmp("tpuq-profile"))
+)
+
+TRACE_ENABLED = (
+    conf("spark.rapids.sql.trace.enabled")
+    .doc("Per-query span tracing (the NVTX-range analog): every exec's "
+         "partition pump and internal stages (build, transfer, compute, "
+         "shuffle) record spans, exported as Chrome-trace JSON "
+         "(chrome://tracing / Perfetto) plus a per-operator self-time vs "
+         "total-time rollup.")
+    .boolean()
+    .create_with_default(False)
+)
+
+TRACE_PATH = (
+    conf("spark.rapids.sql.trace.path")
+    .doc("Directory for Chrome-trace exports "
+         "(query-<id>.trace.json per traced query).")
+    .string()
+    .create_with_default(_under_tmp("tpuq-trace"))
+)
+
+QUERY_LOG_PATH = (
+    conf("spark.rapids.sql.queryLog.path")
+    .doc("JSONL file appended with one entry per executed query: plan "
+         "tree, device/fallback report, all metrics at their levels, span "
+         "rollup, and cross-links to trace/profile artifacts. Empty "
+         "disables the file (session.query_history() still records).")
+    .string()
+    .create_with_default("")
+)
+
+QUERY_LOG_MAX_EVENTS = (
+    conf("spark.rapids.sql.queryLog.maxEvents")
+    .doc("Span cap per traced query; spans beyond the cap are counted as "
+         "dropped rather than recorded (bounds tracer memory on "
+         "pathological plans).")
+    .integer()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(100000)
+)
+
+STATS_ENABLED = (
+    conf("spark.rapids.tpu.stats.enabled")
+    .doc("Per-operator runtime statistics (the stats plane): every exec "
+         "pump boundary records observed rows/batches/bytes and batch-"
+         "shape histograms, exchanges record per-partition sizes with a "
+         "skew factor, and df.explain('analyze') / "
+         "session.last_query_profile() surface the result. Off by "
+         "default — each pumped device batch pays one host read of its "
+         "live-row count; df.explain('analyze') enables it for its "
+         "own execution regardless.")
+    .category("observability")
+    .boolean()
+    .create_with_default(False)
+)
+
+STATS_LEVEL = (
+    conf("spark.rapids.tpu.stats.level")
+    .doc("BASIC records rows/batches/bytes and batch-shape histograms; "
+         "FULL adds per-column observed null ratios (one more host read "
+         "per batch for all its nullable columns).")
+    .category("observability")
+    .string()
+    .check(lambda v: v.upper() in ("BASIC", "FULL"), "BASIC or FULL")
+    .create_with_default("BASIC")
+)
+
+STATS_STORE_PATH = (
+    conf("spark.rapids.tpu.stats.storePath")
+    .doc("JSONL profile store appended with one record per executed "
+         "query: per-operator observed stats keyed by a stable plan-"
+         "node signature, plus exchange skew summaries. Read by "
+         "python -m spark_rapids_tpu_torch.utils.profile (top/skew/diff) "
+         "and consultable by future planners across runs. Empty "
+         "disables.")
+    .category("observability")
+    .string()
+    .create_with_default("")
+)
+
+STATS_SKEW_THRESHOLD = (
+    conf("spark.rapids.tpu.stats.skewThreshold")
+    .doc("An exchange partition-size skew factor (max/mean) above this "
+         "is reported as skewed in profiles, explain('analyze') and "
+         "the profiler CLI skew report.")
+    .category("observability")
+    .double()
+    .check(lambda v: v > 1.0, "> 1.0")
+    .create_with_default(2.0)
+)
+
+ATTRIBUTION_ENABLED = (
+    conf("spark.rapids.tpu.attribution.enabled")
+    .doc("Per-query wall-clock attribution (the time books): fold trace "
+         "spans, telemetry counter deltas and op/exchange stats into "
+         "exclusive buckets (queue wait, semaphore wait, compile, kernel "
+         "dispatch, exchange collectives, host shuffle, spill/restore "
+         "I/O, cache, pump idle, host fallback) that sum to the query's "
+         "end-to-end wall time within closeTolerance, with any gap "
+         "reported explicitly as unaccounted. Also arms the flight "
+         "recorder: a bounded ring of recent spans/health/retry/cancel "
+         "events dumped atomically as query-<id>.blackbox.json when a "
+         "query dies (timeout, cancel, error) or health degrades. On by "
+         "default — reuses the existing span/counter instrumentation, "
+         "no new timers on the pump hot path.")
+    .category("observability")
+    .boolean()
+    .create_with_default(True)
+)
+
+ATTRIBUTION_RING_SIZE = (
+    conf("spark.rapids.tpu.attribution.ringSize")
+    .doc("Flight-recorder ring capacity: the last N closed spans and the "
+         "last N health/retry/cancel events are retained per query "
+         "(oldest evicted first) and shipped in the black box.")
+    .category("observability")
+    .integer()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(256)
+)
+
+ATTRIBUTION_CLOSE_TOLERANCE = (
+    conf("spark.rapids.tpu.attribution.closeTolerance")
+    .doc("Fraction of end-to-end wall time the unaccounted remainder may "
+         "reach before the attribution is reported as NOT CLOSED (the "
+         "gap is always reported either way, never absorbed into "
+         "another bucket).")
+    .category("observability")
+    .double()
+    .check(lambda v: 0.0 < v <= 1.0, "in (0, 1]")
+    .create_with_default(0.10)
+)
+
+ATTRIBUTION_BLACKBOX_PATH = (
+    conf("spark.rapids.tpu.attribution.blackboxPath")
+    .doc("Directory for flight-recorder dumps "
+         "(query-<id>.blackbox.json, written atomically via "
+         "tmp+rename). Empty disables dumping.")
+    .category("observability")
+    .string()
+    .create_with_default(_under_tmp("tpuq-blackbox"))
+)
+
+ATTRIBUTION_BLACKBOX_MAX = (
+    conf("spark.rapids.tpu.attribution.blackboxMaxDumps")
+    .doc("Cap on black-box files kept in blackboxPath; when a new dump "
+         "would exceed it the oldest files are evicted first.")
+    .category("observability")
+    .integer()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(64)
+)
+
+TELEMETRY_ENABLED = (
+    conf("spark.rapids.tpu.telemetry.enabled")
+    .doc("Continuous process telemetry: a background sampler snapshots "
+         "the metrics registry (memory arbiter, spill tiers, device "
+         "semaphore, kernel build cache, shuffle) into a JSONL time "
+         "series and a Prometheus text-format dump. The registry itself "
+         "always updates; this only gates the sampler/sinks.")
+    .category("telemetry")
+    .boolean()
+    .create_with_default(False)
+)
+
+TELEMETRY_PERIOD_MS = (
+    conf("spark.rapids.tpu.telemetry.samplePeriodMs")
+    .doc("Sampler period in milliseconds.")
+    .category("telemetry")
+    .integer()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(1000)
+)
+
+TELEMETRY_SINK_PATH = (
+    conf("spark.rapids.tpu.telemetry.sinkPath")
+    .doc("JSONL time-series sink: one line per sample with every "
+         "counter/gauge value and histogram summary. Empty disables "
+         "the JSONL sink.")
+    .category("telemetry")
+    .string()
+    .create_with_default(_under_tmp("tpuq-telemetry", "metrics.jsonl"))
+)
+
+TELEMETRY_PROM_PATH = (
+    conf("spark.rapids.tpu.telemetry.promPath")
+    .doc("Prometheus text exposition dump, atomically rewritten every "
+         "sample — scrape it with node_exporter's textfile collector "
+         "or serve the file. Empty disables the dump.")
+    .category("telemetry")
+    .string()
+    .create_with_default(_under_tmp("tpuq-telemetry", "metrics.prom"))
+)
+
+HEALTH_SPILL_RATIO = (
+    conf("spark.rapids.tpu.telemetry.health.spillRatio")
+    .doc("WARN when one query's spilled bytes exceed this fraction of "
+         "the bytes it reserved (the working set does not fit the HBM "
+         "budget).")
+    .category("telemetry")
+    .double()
+    .check(lambda v: v >= 0.0, "non-negative")
+    .create_with_default(0.5)
+)
+
+HEALTH_SEM_WAIT_RATIO = (
+    conf("spark.rapids.tpu.telemetry.health.semaphoreWaitRatio")
+    .doc("WARN when one query's cumulative device-admission wait "
+         "exceeds this fraction of its wall time (semaphore "
+         "saturation: concurrentGpuTasks is the bottleneck).")
+    .category("telemetry")
+    .double()
+    .check(lambda v: v >= 0.0, "non-negative")
+    .create_with_default(0.5)
+)
+
+HEALTH_COMPILE_STORM = (
+    conf("spark.rapids.tpu.telemetry.health.compileStorm")
+    .doc("WARN when one query triggers more than this many kernel "
+         "library builds (the build cache is not being reused).")
+    .category("telemetry")
+    .integer()
+    .check(lambda v: v >= 0, "non-negative")
+    .create_with_default(64)
 )
 
 
@@ -755,6 +1067,14 @@ class RapidsConf:
 
     def get(self, entry: ConfEntry):
         return self._values.get(entry.key, entry.default)
+
+    def with_values(self, overrides: Dict[str, Any]) -> "RapidsConf":
+        """A copy with registered keys set (validated like the rest)."""
+        out = RapidsConf()
+        out._values = dict(self._values)
+        for k, v in overrides.items():
+            out._values[k] = REGISTRY[k].convert(v)
+        return out
 
     def get_raw(self, key: str, default=None):
         return self._values.get(key, default)

@@ -796,7 +796,8 @@ class TpuHashAggregateExec(TpuExec):
         """Run ``fn_of_backend(backend) -> (batch, ok)`` down the kernel
         plane's ladder."""
         return KN.dispatch("agg", self.backend,
-                           lambda be: (lambda: fn_of_backend(be)))
+                           lambda be: (lambda: fn_of_backend(be)),
+                           node=self)
 
     def _partial(self, batch: DeviceBatch, pre) -> DeviceBatch:
         b = pre(batch)

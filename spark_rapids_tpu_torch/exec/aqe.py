@@ -17,6 +17,10 @@ at planning (by the coalesce pass) it runs the map stage there:
   rank-interleaved slices (a hash exchange never splits: its consumers
   rely on every key staying in one partition).
 
+Counts the stats plane already recorded for the exchange (an earlier
+materialization) are read first, and the exchange is asked only when
+there are none.
+
 The JAX package's row-target retargeting from the adaptive plane's
 observations (``retarget``) waits for that plane (ROADMAP A.9); the
 plan rewrite refuses ``spark.rapids.tpu.adaptive.enabled`` here.
@@ -31,6 +35,7 @@ import numpy as np
 
 from spark_rapids_tpu_torch.columnar.column import DeviceBatch
 from spark_rapids_tpu_torch.exec.base import TpuExec
+from spark_rapids_tpu_torch.runtime import stats
 
 
 class TpuAQEShuffleReadExec(TpuExec):
@@ -64,7 +69,15 @@ class TpuAQEShuffleReadExec(TpuExec):
         with self._lock:
             if self._specs is not None:
                 return self._specs
-            unit, sizes = self.children[0].aqe_partition_stats()
+            st = stats.current()
+            recorded = (st.partition_counts(self.children[0])
+                        if st is not None else None)
+            if recorded is not None:
+                # the stats plane already measured this exchange: prefer
+                # it over paying for a fresh device count
+                unit, sizes = recorded
+            else:
+                unit, sizes = self.children[0].aqe_partition_stats()
             counts = [int(c) for c in sizes]
             target = (max(self.target_bytes // self.row_bytes, 1)
                       if unit == "rows" else self.target_bytes)

@@ -19,9 +19,20 @@ plane's bucket (``_shape_pump``, ``runtime/shapes.py``).  A limit's
 subtree is not prefetched (``no_prefetch``): the limit stops pulling
 once it has its rows.  Inside a query, every operator's output (device
 or host) polls the query's cancel token before each batch
-(``_cancellable_pump``, outermost), so that every operator boundary is
-a cancellation point.  The JAX package's stats and trace pumps (A.9)
-are not ported yet.
+(``_cancellable_pump``), so that every operator boundary is a
+cancellation point.  With a stats collector active
+(``spark.rapids.tpu.stats.enabled``), every yielded batch is observed
+(``_stats_pump``, ``runtime/stats.py``); with a tracer active (tracing
+or attribution, which is on by default), each ``next()`` becomes one
+``<op>:pump`` span (``_traced_pump``, outermost), and every
+``MetricTimer`` opens a span named after its operator and metric.  The
+order is the JAX package's: shape, prefetch, cancel, stats, trace.
+With no tracer the trace pump is left out (one attribute read).
+
+Spans time the host: a kernel launch returns before the kernel runs,
+so device time lands in the span that waits for it (a device-to-host
+copy, an ``.item()``, the root's Arrow conversion).  No span
+synchronizes the device.
 """
 
 from __future__ import annotations
@@ -34,7 +45,22 @@ from typing import Dict, Iterator, Tuple
 
 from spark_rapids_tpu_torch import kernels
 from spark_rapids_tpu_torch.columnar import dtypes as T
-from spark_rapids_tpu_torch.runtime import cancel, shapes
+from spark_rapids_tpu_torch.runtime import cancel, shapes, stats, trace
+
+# Metric verbosity levels [REF: GpuMetrics.scala :: MetricsLevel]:
+# ESSENTIAL always collected, MODERATE the default, DEBUG opt-in.
+METRIC_LEVELS = ("ESSENTIAL", "MODERATE", "DEBUG")
+_DEFAULT_METRIC_LEVEL = {
+    "numOutputRows": "ESSENTIAL",
+    "numOutputBatches": "ESSENTIAL",
+    "opTime": "MODERATE",
+    "transferTime": "MODERATE",
+    "partitionTime": "MODERATE",
+    "collectiveTime": "MODERATE",
+    "semaphoreWaitTime": "MODERATE",
+    "concatTime": "DEBUG",
+    "fusedIntoConsumer": "DEBUG",
+}
 
 
 class Metric:
@@ -43,11 +69,12 @@ class Metric:
     [REF: sql-plugin/../GpuMetrics.scala :: GpuMetric]
     """
 
-    __slots__ = ("name", "value", "_lock")
+    __slots__ = ("name", "value", "level", "_lock")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, level: str = None):
         self.name = name
         self.value = 0
+        self.level = level or _DEFAULT_METRIC_LEVEL.get(name, "MODERATE")
         self._lock = threading.Lock()
 
     def add(self, v):
@@ -56,30 +83,87 @@ class Metric:
 
 
 class MetricTimer:
-    """Adds the host wall time of its ``with`` block to a Metric.  Device
-    work is asynchronous: a block that enqueues kernels without waiting
-    times the enqueue."""
+    """Adds the host wall time of its ``with`` block to a Metric and,
+    when a query tracer is active, opens a span (op = the owning exec,
+    stage = the metric's name), so that every timer site is a trace
+    range.  Device work is asynchronous: a block that enqueues kernels
+    without waiting times the enqueue."""
 
-    __slots__ = ("metric", "_t0")
+    __slots__ = ("metric", "op", "_t0", "_tr", "_span")
 
-    def __init__(self, metric: Metric):
+    def __init__(self, metric: Metric, op: str = None):
         self.metric = metric
+        self.op = op
+        self._tr = None
+        self._span = None
 
     def __enter__(self):
+        if self.op is not None:
+            tr = trace.current()
+            if tr is not None:
+                self._tr = tr
+                self._span = tr.begin(self.op, self.metric.name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.metric.add(time.perf_counter() - self._t0)
+        if self._span is not None:
+            self._tr.end(self._span)
+            self._tr = self._span = None
         return False
 
 
-def _shape_pump(it: Iterator) -> Iterator:
-    """Pin every pumped DeviceBatch to the shape plane's canonical
-    bucket (runtime/shapes.py).  Pad rows are dead (sel False)."""
+def _traced_pump(node: "ExecNode", partition: int, it: Iterator) -> Iterator:
+    """Each ``next()`` on a pump iterator becomes one span, so that
+    operator time nests through the iterator chain: a child's pump span
+    opens inside its consumer's on the same thread and its duration
+    subtracts from the consumer's self time."""
+    op = node.name
+    try:
+        while True:
+            tr = trace.current()
+            if tr is None:  # tracer closed mid-pump (a leaked iterator)
+                yield from it
+                return
+            sp = tr.begin(op, "pump", {"partition": partition})
+            try:
+                batch = next(it)
+            except StopIteration:
+                tr.end(sp)
+                return
+            except BaseException:
+                tr.end(sp)
+                raise
+            tr.end(sp)
+            yield batch
+    finally:
+        _close(it)
+
+
+def _stats_pump(st, node: "ExecNode", it: Iterator) -> Iterator:
+    """Record every yielded batch on the query's OpStatsCollector: rows,
+    batches and bytes out per node (``runtime/stats.py``)."""
     try:
         for batch in it:
-            yield shapes.bucket_batch(batch)[0]
+            st.observe(node, batch)
+            yield batch
+    finally:
+        _close(it)
+
+
+def _shape_pump(node: "ExecNode", it: Iterator) -> Iterator:
+    """Pin every pumped DeviceBatch to the shape plane's canonical
+    bucket (runtime/shapes.py).  Pad rows are dead (sel False) and are
+    recorded per node in the stats plane as ``padded_rows``."""
+    try:
+        for batch in it:
+            batch, pad = shapes.bucket_batch(batch)
+            if pad:
+                st = stats.current()
+                if st is not None:
+                    st.node_stats(node).add_padded(pad)
+            yield batch
     finally:
         _close(it)
 
@@ -153,11 +237,19 @@ def _wrap_execute(fn):
                 it = _prefetch_pump(it, depth)
             if shapes.current_policy().enabled:
                 # downstream pumps and consumers see the bucketed batch
-                it = _shape_pump(it)
+                it = _shape_pump(self, it)
         tok = cancel.current()
         if tok is not None:
             it = _cancellable_pump(tok, it)
-        return it
+        st = stats.current()
+        if st is not None:
+            # registered up front: a pump that yields nothing still
+            # leaves a (zeroed) stats record
+            st.node_stats(self)
+            it = _stats_pump(st, self, it)
+        if trace.current() is None:  # tracing off: no trace pump
+            return it
+        return _traced_pump(self, partition, it)
 
     execute._wrapped = True
     return execute
@@ -201,7 +293,7 @@ class ExecNode:
         return m
 
     def timer(self, name: str = "opTime") -> MetricTimer:
-        return MetricTimer(self.metric(name))
+        return MetricTimer(self.metric(name), op=self.name)
 
     def num_partitions(self) -> int:
         if self._children:
@@ -233,13 +325,17 @@ class ExecNode:
     def is_tpu(self) -> bool:
         return isinstance(self, TpuExec)
 
-    def collect_metrics(self, out=None):
-        """(node name, {metric: value}) for this node and its subtree."""
+    def collect_metrics(self, out=None, level: str = "DEBUG"):
+        """(node name, {metric: value}) for this node and its subtree,
+        filtered by verbosity level (``spark.rapids.sql.metrics.level``):
+        ESSENTIAL ⊂ MODERATE ⊂ DEBUG."""
         out = out if out is not None else []
+        rank = METRIC_LEVELS.index(level.upper())
         out.append((self.name,
-                    {k: m.value for k, m in self.metrics.items()}))
+                    {k: m.value for k, m in self.metrics.items()
+                     if METRIC_LEVELS.index(m.level) <= rank}))
         for c in self._children:
-            c.collect_metrics(out)
+            c.collect_metrics(out, level)
         return out
 
 

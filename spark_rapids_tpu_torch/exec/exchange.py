@@ -21,9 +21,10 @@ the plan rewrite converts ``CpuShuffleExchangeExec``
   rewrite raises.
 
 Under ``spark.sql.adaptive.enabled`` (the default) the exchange is read
-through ``exec/aqe.py::TpuAQEShuffleReadExec``.  The JAX package's
-result-cache subplan probe (``cache/``, ROADMAP A.9) and stats records
-are left out.
+through ``exec/aqe.py::TpuAQEShuffleReadExec``.  Each exchange records
+its per-partition row counts in the stats plane (``runtime/stats.py``)
+when a collector is active.  The JAX package's result-cache subplan
+probe (``cache/``, ROADMAP A.9) is left out.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from spark_rapids_tpu_torch.exec.aqe import TpuAQEShuffleReadExec
 from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec
 from spark_rapids_tpu_torch.ops import hashing as HH
 from spark_rapids_tpu_torch.ops.expressions import Expression
+from spark_rapids_tpu_torch.runtime import stats
 
 
 def device_partition_ids(keys: Sequence[Expression], nparts: int,
@@ -111,6 +113,11 @@ class CpuShuffleExchangeExec(CpuExec):
                             for c in b.columns]
                         out[p_out].append(H.HostBatch(b.schema, cols))
             self._materialized = out
+            st = stats.current()
+            if st is not None:
+                st.record_partitions(
+                    self, [sum(b.num_rows for b in bl) for bl in out],
+                    unit="rows")
             return out
 
     def execute(self, partition: int) -> Iterator[H.HostBatch]:
@@ -195,7 +202,13 @@ class TpuShuffleExchangeExec(TpuExec):
             self._batch_counts = per_batch.cpu().numpy()
         else:
             self._batch_counts = np.zeros((0, nparts), np.int64)
-        return self._batch_counts.sum(axis=0)
+        counts = self._batch_counts.sum(axis=0)
+        st = stats.current()
+        if st is not None:
+            # the map-output statistics AQE plans from double as the
+            # stats plane's per-partition record of this exchange
+            st.record_partitions(self, counts, unit="rows")
+        return counts
 
     def execute_pid_range(self, lo: int, hi: int
                           ) -> Iterator[DeviceBatch]:

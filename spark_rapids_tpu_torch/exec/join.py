@@ -881,7 +881,7 @@ class TpuSortMergeJoinExec(TpuExec):
             return (m, lo, perm, l_null), None
 
         return KN.dispatch("join", self.backend,
-                           lambda be: (lambda: run(be)))
+                           lambda be: (lambda: run(be)), node=self)
 
     def _merge_join(self, lb: DeviceBatch, rb: DeviceBatch, jt: str
                     ) -> Iterator[DeviceBatch]:

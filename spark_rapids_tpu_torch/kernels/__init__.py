@@ -23,6 +23,14 @@ The module also holds the kernel plane's policy, as the JAX package's
 does: the session installs ``KernelPolicy`` once (``configure``) and the
 exec pump reads its ``pump_depth`` (``spark.rapids.tpu.exec.pumpDepth``).
 The rung itself stays a per-session conf read at planning.
+
+Every accepted dispatch counts in the registry's
+``tpuq_kernel_dispatch_total`` and every descent in
+``tpuq_kernel_fallback_total`` (``count``), and names its rung on the
+operator's stats record (``kernel_backend``).  Kept deviation: the
+dispatch counter's label values are the port's rungs, ``cuda`` and
+``jnp``, where the JAX package's are ``pallas``, ``fused`` and ``jnp``.
+``COUNTERS`` reads the same counters from its last ``reset``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import dataclasses
 from typing import Callable, Dict
 
 from spark_rapids_tpu_torch.runtime import lockdep
+from spark_rapids_tpu_torch.runtime import telemetry as TM
 
 _KERNELS = ("agg", "join")
 
@@ -38,6 +47,16 @@ _LADDERS = {
     "cuda": ("cuda", "jnp"),
     "jnp": ("jnp",),
 }
+
+_TM_DISPATCH = TM.REGISTRY.labeled_counter(
+    "tpuq_kernel_dispatch_total",
+    "kernel-plane dispatches by the backend that produced the result",
+    label="backend")
+_TM_FALLBACK = TM.REGISTRY.labeled_counter(
+    "tpuq_kernel_fallback_total",
+    "kernel dispatches that descended the backend ladder (hash "
+    "collision, unhashable keys, or a failed rung)",
+    label="kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,30 +87,34 @@ def current_policy() -> KernelPolicy:
     return _POLICY
 
 
-@dataclasses.dataclass
 class KernelCounters:
-    """Dispatches by the rung that produced the result, and descents.
-    Partitions pump on a task pool, so updates take the lock."""
+    """Dispatches by the rung that produced the result, and descents,
+    since the last ``reset``: a view of the registry's counters."""
 
-    dispatches: Dict[str, int] = dataclasses.field(
-        default_factory=lambda: {"cuda": 0, "jnp": 0})
-    fallbacks: int = 0
-    _lock: object = dataclasses.field(
-        default_factory=lambda: lockdep.tracked_lock("kernels.KernelCounters"),
-        repr=False, compare=False)
+    def __init__(self):
+        self._base = (self._dispatch_totals(), _TM_FALLBACK.value)
 
-    def note_dispatch(self, rung: str) -> None:
-        with self._lock:
-            self.dispatches[rung] += 1
+    @staticmethod
+    def _dispatch_totals() -> Dict[str, int]:
+        return {rung: _TM_DISPATCH.labels(rung).value
+                for rung in ("cuda", "jnp")}
 
-    def note_fallback(self) -> None:
-        with self._lock:
-            self.fallbacks += 1
+    @property
+    def dispatches(self) -> Dict[str, int]:
+        base = self._base[0]
+        return {rung: n - base[rung]
+                for rung, n in self._dispatch_totals().items()}
+
+    @property
+    def fallbacks(self) -> int:
+        return _TM_FALLBACK.value - self._base[1]
+
+    @staticmethod
+    def note_fallback(kernel: str) -> None:
+        _TM_FALLBACK.inc(kernel)
 
     def reset(self) -> None:
-        with self._lock:
-            self.dispatches = {"cuda": 0, "jnp": 0}
-            self.fallbacks = 0
+        self._base = (self._dispatch_totals(), _TM_FALLBACK.value)
 
 
 COUNTERS = KernelCounters()
@@ -109,8 +132,18 @@ def resolve(kernel: str, backend: str) -> str:
     return be
 
 
+def count(kernel: str, backend: str, node=None) -> None:
+    """Record one accepted dispatch: telemetry and the op's stats row."""
+    _TM_DISPATCH.inc(backend)
+    if node is not None:
+        from spark_rapids_tpu_torch.runtime import stats
+        st = stats.current()
+        if st is not None:
+            st.node_stats(node).set_kernel_backend(backend)
+
+
 def dispatch(kernel: str, backend: str,
-             runner: Callable[[str], Callable]):
+             runner: Callable[[str], Callable], node=None):
     """Run one kernel down the ladder; returns its payload.
 
     ``runner(be)`` returns a zero-argument callable producing
@@ -122,11 +155,11 @@ def dispatch(kernel: str, backend: str,
     for be in _LADDERS[backend]:
         payload, okf = runner(be)()
         if be == "jnp" or okf is None:
-            COUNTERS.note_dispatch("jnp")
+            count(kernel, "jnp", node)
             return payload
         if not bool(okf):
-            COUNTERS.note_fallback()
+            COUNTERS.note_fallback(kernel)
             continue
-        COUNTERS.note_dispatch(be)
+        count(kernel, be, node)
         return payload
     raise AssertionError(f"kernel ladder for {backend!r} has no floor")

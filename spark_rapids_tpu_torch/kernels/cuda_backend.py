@@ -30,7 +30,9 @@ Only injected faults retry there; a failed ``nvcc`` or launch raises as
 it would without them.  When an injected fault exhausts its retries
 with ``retry.hostDegrade.enabled``, the dispatch runs the plain version
 on the same device instead, counted in ``plain_calls`` and recorded as
-the query's degraded op.
+the query's degraded op.  Each dispatch opens a ``Kernel:kernel`` span
+and each build a ``Kernel:compile`` span for the attribution ledger; a
+span times the host's enqueue, not the kernel.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import torch
 from spark_rapids_tpu_torch.runtime import kernel_cache as KC
 from spark_rapids_tpu_torch.runtime import lockdep
 from spark_rapids_tpu_torch.runtime import resilience as R
+from spark_rapids_tpu_torch.runtime import trace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -98,7 +101,9 @@ def build(verbose: bool = False) -> Optional[Path]:
                           ).hexdigest()[:16]
     out = BUILD_DIR / f"hash_pairs_{digest}.so"
     if out.exists() and not verbose:
+        KC.note_lookup(hit=True)
         return out
+    KC.note_lookup(hit=False)
     if not R.active():
         return _build(src, out, verbose)
 
@@ -116,7 +121,8 @@ def _build(src: Path, out: Path, verbose: bool) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
     cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with KC.build_span():
+        res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError("nvcc failed building hash_pairs.cu:\n"
                            + " ".join(cmd) + "\n" + res.stdout + res.stderr)
@@ -155,6 +161,7 @@ def _library():
             fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
+            KC.note_loaded("hash_pairs")
         return _lib
 
 
@@ -240,15 +247,18 @@ def hash_pairs_multi(limb_sets: Sequence[LimbSet]) -> List[torch.Tensor]:
         if d != device:
             raise ValueError("hash_pairs_multi: row sets on different "
                              "devices")
-    if not R.active():
-        return _dispatch(limb_sets, sets, device)
+    # a Kernel:kernel span, as the JAX package's jitted dispatches open:
+    # the launch's host time in the kernel_dispatch bucket
+    with trace.span("Kernel", "kernel"):
+        if not R.active():
+            return _dispatch(limb_sets, sets, device)
 
-    def attempt():
-        R.INJECTOR.on("execute")
-        return _dispatch(limb_sets, sets, device)
+        def attempt():
+            R.INJECTOR.on("execute")
+            return _dispatch(limb_sets, sets, device)
 
-    return R.run_guarded("execute", attempt, op="hash_pairs",
-                         degrade=lambda: _plain_in_place(limb_sets))
+        return R.run_guarded("execute", attempt, op="hash_pairs",
+                             degrade=lambda: _plain_in_place(limb_sets))
 
 
 def _plain_in_place(limb_sets: Sequence[LimbSet]) -> List[torch.Tensor]:

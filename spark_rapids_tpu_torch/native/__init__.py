@@ -54,12 +54,15 @@ def build(name: str) -> Path:
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists():
         build_seconds.setdefault(name, 0.0)
+        KC.note_lookup(hit=True)
         return out
+    KC.note_lookup(hit=False)
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
     cmd = [_gxx(), *GXX_FLAGS, str(src), "-o", str(tmp)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with KC.build_span():
+        res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed building {name}.cpp:\n"
                            + " ".join(cmd) + "\n" + res.stdout + res.stderr)
@@ -75,4 +78,5 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            KC.note_loaded(name)
         return lib

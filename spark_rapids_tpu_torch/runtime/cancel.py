@@ -21,9 +21,11 @@ cancel surfaces as ``QueryCancelled`` within about twice
 ``spark.rapids.tpu.query.cancelPollMs``.
 
 Not ported: the preemption half (``request_suspend``, ``resume``,
-``preempt_point``, the suspend providers) comes with ROADMAP A.11; the
-telemetry registry with A.9, so the cancel counters here are plain
-counts read through ``counters_snapshot``.
+``preempt_point``, the suspend providers) comes with ROADMAP A.11.
+The cancel counters are the registry's ``tpuq_query_cancelled_total``
+and ``tpuq_cancel_latency_seconds`` (``counters_snapshot`` reads them),
+and the first observation of a fired token sends a ``cancel`` event to
+the query's flight recorder, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,22 +36,25 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from spark_rapids_tpu_torch.runtime import lockdep
+from spark_rapids_tpu_torch.runtime import telemetry as TM
 
 DEFAULT_POLL_S = 0.05
 
-# queries cancelled by reason, and every first observation's latency
-# (request or deadline instant to the raise), process-cumulative
-_COUNTS_LOCK = threading.Lock()
-_CANCELLED: Dict[str, int] = {}
-_LATENCIES: List[float] = []
+_TM_CANCELLED = TM.REGISTRY.labeled_counter(
+    "tpuq_query_cancelled_total",
+    "queries cancelled, by reason (user | deadline)", label="reason")
+_TM_LATENCY = TM.REGISTRY.histogram(
+    "tpuq_cancel_latency_seconds",
+    "cancel-request (or deadline-expiry) to QueryCancelled-raised "
+    "latency")
 
 
 def counters_snapshot() -> dict:
-    """``{"cancelled": {reason: n}, "latencies_s": [...]}`` so far in
-    this process."""
-    with _COUNTS_LOCK:
-        return {"cancelled": dict(_CANCELLED),
-                "latencies_s": list(_LATENCIES)}
+    """``{"cancelled": {reason: n}, "latency": {count, sum, ...}}`` so
+    far in this process (the registry's cancel counter and latency
+    histogram)."""
+    return {"cancelled": _TM_CANCELLED.child_values(),
+            "latency": _TM_LATENCY.snapshot()}
 
 
 class QueryCancelled(RuntimeError):
@@ -154,10 +159,17 @@ class CancelToken:
                     0.0, time.monotonic() - (self._effective_at
                                              or time.monotonic()))
         if first:
-            with _COUNTS_LOCK:
-                r = self.reason or "user"
-                _CANCELLED[r] = _CANCELLED.get(r, 0) + 1
-                _LATENCIES.append(self.latency_s)
+            _TM_CANCELLED.inc(self.reason or "user")
+            _TM_LATENCY.observe(self.latency_s)
+            # flight recorder: the first observation of the fired token
+            # is the moment the cancel took effect for the query
+            from spark_rapids_tpu_torch.runtime import attribution
+            attribution.record_event("cancel", {
+                "reason": self.reason or "user",
+                "query_id": self.query_id,
+                "detail": self.detail,
+                "latency_s": round(self.latency_s or 0.0, 6),
+            })
         raise QueryCancelled(self.reason or "user", self.query_id,
                              self.detail)
 

@@ -14,10 +14,18 @@ carries a manifest of the versions that built it (``_cache_versions``);
 a mismatch clears every entry (``_sync_manifest``).  A build that fails
 there raises; it never falls back to ``build/``.
 
-Both build sites count every build here (``note_build``);
-``compile_snapshot`` returns (builds, build seconds), which
-``session.warmup`` diffs.  The JAX package's in-process fingerprint
-cache of jitted kernels has no counterpart: eager torch keeps none.
+Both build sites count every lookup (``note_lookup``: a library found
+built is a hit, one that must be built a miss) and every build
+(``note_build``), and run the build inside a ``Kernel:compile`` span
+(``build_span``), so that the attribution ledger charges it to the
+``compile`` bucket.  The counters are the JAX package's
+``tpuq_kernel_cache_*`` and ``tpuq_kernel_compile_*`` names; kept
+deviation: here they count library lookups and builds, where the JAX
+package counts jit-wrapper lookups and XLA compiles, so that the
+compile-storm health check sees builds.  ``compile_snapshot`` returns
+(builds, build seconds), which ``session.warmup`` diffs.  The JAX
+package's in-process fingerprint cache of jitted kernels has no
+counterpart: eager torch keeps none.
 """
 
 from __future__ import annotations
@@ -32,26 +40,59 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 from spark_rapids_tpu_torch.runtime import lockdep
+from spark_rapids_tpu_torch.runtime import telemetry as TM
+from spark_rapids_tpu_torch.runtime import trace
 
 MANIFEST_NAME = "tpuq_cache_manifest.json"
 _PERSISTENT_DIR: Optional[str] = None
 
 _LOCK = lockdep.tracked_lock("runtime.kernel_cache._LOCK")
-_BUILDS = [0, 0.0]  # library builds, seconds spent in them
+
+_TM_HITS = TM.REGISTRY.counter(
+    "tpuq_kernel_cache_hits_total",
+    "kernel library lookups served by an already built library")
+_TM_MISSES = TM.REGISTRY.counter(
+    "tpuq_kernel_cache_misses_total",
+    "kernel library lookups that had to build the library")
+_TM_COMPILES = TM.REGISTRY.counter(
+    "tpuq_kernel_compile_total", "kernel library builds (nvcc, g++)")
+_TM_COMPILE_S = TM.REGISTRY.counter(
+    "tpuq_kernel_compile_seconds_total",
+    "seconds spent building kernel libraries")
+
+
+# the names of the libraries the build sites loaded (``note_loaded``)
+_LOADED: set = set()
+TM.REGISTRY.gauge(
+    "tpuq_kernel_cache_size", "kernel libraries loaded in this process",
+    fn=lambda: len(_LOADED))
+
+
+def note_lookup(hit: bool) -> None:
+    """Count one library lookup at a build site."""
+    (_TM_HITS if hit else _TM_MISSES).inc()
+
+
+def build_span():
+    """The span a build runs in (a no-op when no query traces)."""
+    return trace.span("Kernel", "compile")
 
 
 def note_build(seconds: float) -> None:
     """Count one library build (called by both build sites)."""
-    with _LOCK:
-        _BUILDS[0] += 1
-        _BUILDS[1] += float(seconds)
+    _TM_COMPILES.inc()
+    _TM_COMPILE_S.inc(float(seconds))
+
+
+def note_loaded(name: str) -> None:
+    """Count one library a build site loaded (until ``clear``)."""
+    _LOADED.add(name)
 
 
 def compile_snapshot() -> Tuple[int, float]:
     """(library builds, build seconds) so far in this process — the
     before/after pair ``session.warmup`` diffs."""
-    with _LOCK:
-        return int(_BUILDS[0]), float(_BUILDS[1])
+    return int(_TM_COMPILES.value), float(_TM_COMPILE_S.value)
 
 
 def _tool_version(cmd, pattern: str) -> str:
@@ -179,3 +220,4 @@ def clear() -> None:
     with native._lock:
         native._libs.clear()
     serializer._lib = None
+    _LOADED.clear()

@@ -27,8 +27,9 @@ only while lockdep is enabled (one attribute read when it is not).
 Conf (read by ``TpuSession.__init__`` through ``configure``):
 ``spark.rapids.tpu.lockdep.enabled`` turns recording on;
 ``spark.rapids.tpu.lockdep.raiseOnCycle`` raises at the acquisition
-that closes a cycle.  The JAX package's telemetry gauges (A.9) are the
-plain counts of ``counters_snapshot``.
+that closes a cycle.  The registry carries the JAX package's
+``tpuq_lockdep_*`` gauges and violation counter; ``counters_snapshot``
+reads the same state.
 """
 
 from __future__ import annotations
@@ -84,6 +85,22 @@ def _held() -> list:
     if h is None:
         h = _tls.held = []
     return h
+
+
+# -- telemetry (leaf tier; registered at import like every producer) -----
+from spark_rapids_tpu_torch.runtime import telemetry as TM  # noqa: E402
+
+TM.REGISTRY.gauge(
+    "tpuq_lockdep_locks_tracked",
+    "distinct lock creation sites under lockdep tracking",
+    fn=lambda: float(len(_S.sites)))
+TM.REGISTRY.gauge(
+    "tpuq_lockdep_edges_observed",
+    "distinct held->acquired edges in the runtime lock-order graph",
+    fn=lambda: float(len(_S.edge_sites)))
+_TM_VIOLATIONS = TM.REGISTRY.counter(
+    "tpuq_lockdep_violations_total",
+    "lock-order cycles observed by the lockdep watchdog")
 
 
 def counters_snapshot() -> dict:
@@ -176,6 +193,7 @@ def _add_edge(a: str, b: str) -> Optional[Violation]:
         v = Violation(edge=(a, b), cycle=tuple(back), site=site,
                       thread=threading.current_thread().name)
         _S.violations.append(v)
+    _TM_VIOLATIONS.inc()
     return v
 
 

@@ -47,6 +47,25 @@ from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, slice_batch)
 from spark_rapids_tpu_torch.runtime import cancel, lockdep
 from spark_rapids_tpu_torch.runtime import resilience as R
+from spark_rapids_tpu_torch.runtime import telemetry as TM
+from spark_rapids_tpu_torch.runtime import trace
+
+# process-cumulative counters (per-manager views live in mgr.metrics);
+# gauges pull the current manager's state at snapshot time
+_TM_RESERVE = TM.REGISTRY.counter(
+    "tpuq_hbm_reserve_bytes_total",
+    "bytes reserved against the HBM budget (cumulative)")
+_TM_SPILL_HOST = TM.REGISTRY.counter(
+    "tpuq_spill_host_bytes_total", "device→host spill bytes")
+_TM_SPILL_DISK = TM.REGISTRY.counter(
+    "tpuq_spill_disk_bytes_total", "host→disk spill bytes")
+_TM_RESTORE = TM.REGISTRY.counter(
+    "tpuq_restore_bytes_total",
+    "bytes restored to device from the host/disk spill tiers")
+_TM_RETRY_OOM = TM.REGISTRY.counter(
+    "tpuq_retry_oom_total", "RetryOOM raises (incl. injected)")
+_TM_SPLIT_RETRY = TM.REGISTRY.counter(
+    "tpuq_split_retry_total", "SplitAndRetryOOM batch halvings")
 
 
 class RetryOOM(RuntimeError):
@@ -212,6 +231,10 @@ class SpillableBatch:
         """Device -> host.  Returns bytes freed on the device."""
         if self._batch is None:
             return 0
+        with trace.span("Spill", "spillTime"):
+            return self._spill_to_host()
+
+    def _spill_to_host(self) -> int:
         self._host = [None if x is None else _to_host(x)
                       for x in _leaves(self._batch)]
         self._batch = None
@@ -228,6 +251,10 @@ class SpillableBatch:
         it, and no partial file is left)."""
         if self._host is None:
             return 0
+        with trace.span("Spill", "spillTime"):
+            return self._spill_to_disk()
+
+    def _spill_to_disk(self) -> int:
         leaves = self._host
         path = os.path.join(self._mgr.spill_path,
                             f"spill-{uuid.uuid4().hex}.npz")
@@ -289,6 +316,10 @@ class SpillableBatch:
         """Restore (if needed) and return the device batch."""
         if self._batch is not None:
             return self._batch
+        with trace.span("Spill", "restoreTime"):
+            return self._restore()
+
+    def _restore(self) -> DeviceBatch:
         from_host = self._host is not None
         if not from_host:
             if self._disk_path is None:
@@ -308,6 +339,7 @@ class SpillableBatch:
             for x in leaves])
         self._host = None
         self._mgr.metrics["restoredBytes"] += self.nbytes
+        _TM_RESTORE.inc(self.nbytes)
         if from_host and self._host_accounted:
             self._host_accounted = False
             self._mgr._on_restore(self)
@@ -378,6 +410,7 @@ class DeviceMemoryManager:
     # -- accounting ---------------------------------------------------------
     def _oom(self, cls, msg: str):
         self.metrics["retryOOMs"] += 1
+        _TM_RETRY_OOM.inc()
         return cls(msg)
 
     def reserve(self, nbytes: int, _restoring=None) -> None:
@@ -408,6 +441,7 @@ class DeviceMemoryManager:
                         f"cannot reserve {nbytes} B: {self._reserved} of "
                         f"{self.budget} B reserved, nothing left to spill")
             self._reserved += nbytes
+            _TM_RESERVE.inc(nbytes)
             self.metrics["peakReserved"] = max(
                 self.metrics["peakReserved"], self._reserved)
 
@@ -501,6 +535,7 @@ class DeviceMemoryManager:
                 self.release(nbytes)
             self._host_used += nbytes
             self.metrics["spillToHostBytes"] += nbytes
+            _TM_SPILL_HOST.inc(nbytes)
             while self._host_used > self.host_limit:
                 victim = next(
                     (v for v in self._spillables.values()
@@ -512,6 +547,7 @@ class DeviceMemoryManager:
 
     def _on_disk_spill(self, s: SpillableBatch, nbytes: int) -> None:
         self.metrics["spillToDiskBytes"] += nbytes
+        _TM_SPILL_DISK.inc(nbytes)
 
     def _on_restore(self, s: SpillableBatch) -> None:
         with self._lock:
@@ -581,6 +617,26 @@ def reset_manager() -> None:
         _manager = None
 
 
+# pull-based gauges over the current manager (0 before the first query
+# builds one): producers pay nothing, the sampler reads at snapshot time
+TM.REGISTRY.gauge(
+    "tpuq_hbm_reserved_bytes", "bytes currently reserved in HBM",
+    fn=lambda: _manager._reserved if _manager is not None else 0)
+TM.REGISTRY.gauge(
+    "tpuq_hbm_watermark_bytes", "peak reserved bytes (this manager)",
+    fn=lambda: (_manager.metrics["peakReserved"]
+                if _manager is not None else 0))
+TM.REGISTRY.gauge(
+    "tpuq_hbm_budget_bytes", "HBM budget the arbiter hands out",
+    fn=lambda: _manager.budget if _manager is not None else 0)
+TM.REGISTRY.gauge(
+    "tpuq_host_spill_used_bytes", "host spill tier bytes in use",
+    fn=lambda: _manager._host_used if _manager is not None else 0)
+TM.REGISTRY.gauge(
+    "tpuq_spillable_batches", "live registered spillable batches",
+    fn=lambda: len(_manager._spillables) if _manager is not None else 0)
+
+
 # ---------------------------------------------------------------------------
 # the retry framework [REF: RmmRapidsRetryIterator.scala :: withRetry]
 # ---------------------------------------------------------------------------
@@ -637,6 +693,7 @@ def with_retry(
             if not allow_split:
                 raise
             mgr.metrics["splitRetries"] += 1
+            _TM_SPLIT_RETRY.inc()
             R.note_retry("alloc")
             halves = split_batch_in_half(batch)
             work = [(h, attempts + 1) for h in halves] + work
@@ -657,6 +714,7 @@ def with_retry(
                         break
             if attempts >= 1 and allow_split and batch.capacity > 1:
                 mgr.metrics["splitRetries"] += 1
+                _TM_SPLIT_RETRY.inc()
                 halves = split_batch_in_half(batch)
                 work = [(h, attempts + 1) for h in halves] + work
             else:

@@ -49,8 +49,10 @@ Per-query state (budget, breakers, records) belongs to the query whose
 cancel token the calling thread carries (``runtime/cancel.py``: the
 query thread and every pump task it binds), so concurrent queries never
 share it; a call outside any query uses the process-level ``_STATE``.
-The JAX package's telemetry counters (A.9) are plain counts read
-through ``counters_snapshot``.
+The process-cumulative counts are the JAX package's registry counters
+(``tpuq_retry_total`` and the rest; ``counters_snapshot`` reads them);
+retries and tripped breakers also land in the flight recorder and the
+health ring, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.runtime import cancel, lockdep
+from spark_rapids_tpu_torch.runtime import telemetry as TM
 
 DOMAINS: Tuple[str, ...] = C.FAILURE_DOMAINS
 
@@ -71,17 +74,22 @@ _IO_RETRYABLE = (OSError, EOFError, zipfile.BadZipFile)
 _IO_DOMAINS = frozenset(
     {"spill_write", "spill_read", "shuffle_ser", "shuffle_exchange"})
 
-# process-cumulative counts
-_COUNTS_LOCK = lockdep.tracked_lock("runtime.resilience._COUNTS_LOCK")
-_RETRIES: Dict[str, int] = {}
-_INJECTED: Dict[str, int] = {}
-_TOTALS = {"retry_exhausted": 0, "breaker_trips": 0,
-           "host_degraded_ops": 0}
-
-
-def _count(table: Dict[str, int], key: str) -> None:
-    with _COUNTS_LOCK:
-        table[key] = table.get(key, 0) + 1
+_TM_RETRY = TM.REGISTRY.labeled_counter(
+    "tpuq_retry_total",
+    "retries performed by the unified retry policy, per failure domain")
+_TM_INJECTED = TM.REGISTRY.labeled_counter(
+    "tpuq_faults_injected_total",
+    "fault-injector fires, per failure domain")
+_TM_EXHAUSTED = TM.REGISTRY.counter(
+    "tpuq_retry_exhausted_total",
+    "device/IO steps whose retries were exhausted (incl. terminal "
+    "faults, which exhaust immediately)")
+_TM_BREAKER = TM.REGISTRY.counter(
+    "tpuq_breaker_trips_total",
+    "per-op circuit breakers tripped by retry exhaustion")
+_TM_DEGRADED = TM.REGISTRY.counter(
+    "tpuq_host_degraded_ops_total",
+    "op executions served by the host degradation path")
 
 
 class InjectedDeviceError(RuntimeError):
@@ -203,7 +211,7 @@ class FaultInjector:
                 s.at = -1  # terminal
             self._recompute_armed()
             n = s.count
-        _count(_INJECTED, domain)
+        _TM_INJECTED.inc(domain)
         raise InjectedDeviceError(domain, n, transient)
 
 
@@ -377,7 +385,7 @@ class RetryPolicy:
         a domain-tagged ``TerminalDeviceError``."""
         op_key = (domain, op or domain)
         if degrade is not None and breaker_open(op_key):
-            _note_degraded()
+            _TM_DEGRADED.inc()
             return degrade()
         attempt = 0
         while True:
@@ -399,7 +407,7 @@ class RetryPolicy:
                 note_exhausted()
                 if degrade is not None and self.host_degrade:
                     _trip_breaker(op_key, domain, op, e)
-                    _note_degraded()
+                    _TM_DEGRADED.inc()
                     return degrade()
                 raise TerminalDeviceError(domain, e, attempt) from e
 
@@ -441,7 +449,11 @@ def note_retry(domain: str) -> None:
     """Count one retry, process-wide and against the query's budget;
     also what ``with_retry`` (the OOM rollback) calls, so every retry in
     the engine lands here."""
-    _count(_RETRIES, domain)
+    _TM_RETRY.inc(domain)
+    # flight recorder: a retry burst right before a timeout is the
+    # evidence the black box exists to keep
+    from spark_rapids_tpu_torch.runtime import attribution
+    attribution.record_event("retry", {"domain": domain})
     st = _state()
     with st.lock:
         st.retries_used += 1
@@ -450,16 +462,10 @@ def note_retry(domain: str) -> None:
 
 
 def note_exhausted() -> None:
-    with _COUNTS_LOCK:
-        _TOTALS["retry_exhausted"] += 1
+    _TM_EXHAUSTED.inc()
     st = _state()
     with st.lock:
         st.exhausted += 1
-
-
-def _note_degraded() -> None:
-    with _COUNTS_LOCK:
-        _TOTALS["host_degraded_ops"] += 1
 
 
 def breaker_open(op_key: tuple) -> bool:
@@ -479,8 +485,12 @@ def _trip_breaker(op_key: tuple, domain: str, op: Optional[str],
             st.breakers.add(op_key)
         st.degraded_ops.append(rec)
     if fresh:
-        with _COUNTS_LOCK:
-            _TOTALS["breaker_trips"] += 1
+        _TM_BREAKER.inc()
+    TM.REGISTRY.record_health({
+        "severity": "WARN", "check": "host_degraded", "value": 1,
+        "threshold": 0, "query_id": st.query_id,
+        "detail": (f"{domain} op {rec['op']!r} degraded to the host "
+                   f"path after retry exhaustion ({rec['cause']})")})
 
 
 def run_guarded(domain: str, fn: Callable, *, op: Optional[str] = None,
@@ -490,11 +500,14 @@ def run_guarded(domain: str, fn: Callable, *, op: Optional[str] = None,
 
 
 def counters_snapshot() -> dict:
-    """Process-cumulative resilience counts."""
-    with _COUNTS_LOCK:
-        return {"retries": dict(_RETRIES),
-                "faults_injected": dict(_INJECTED),
-                **_TOTALS}
+    """Process-cumulative resilience counters."""
+    return {
+        "retries": _TM_RETRY.child_values(),
+        "faults_injected": _TM_INJECTED.child_values(),
+        "retry_exhausted": _TM_EXHAUSTED.value,
+        "breaker_trips": _TM_BREAKER.value,
+        "host_degraded_ops": _TM_DEGRADED.value,
+    }
 
 
 def retry_device_call(fn, *args, max_attempts: Optional[int] = None,

@@ -22,9 +22,13 @@ interval, and raises ``QueryCancelled`` without being admitted.
 Without a token every wait parks at most 0.1 s and re-checks, as the
 JAX package's does.
 
+The registry's ``tpuq_semaphore_*`` counters, histogram and gauges are
+the JAX package's; a blocked acquire (and only a blocked one) opens a
+``DeviceSemaphore:semaphoreWait`` span, so that the wait lands in the
+``semaphore_wait`` bucket of the attribution ledger.
+
 Not ported yet: the preempt path (``preempt_pending``, the per-thread
-permit stack the suspend provider walks) comes with ROADMAP A.11, and
-the registry gauges and counters (``tpuq_semaphore_*``) with A.9.
+permit stack the suspend provider walks) comes with ROADMAP A.11.
 """
 
 from __future__ import annotations
@@ -35,6 +39,15 @@ from collections import OrderedDict
 from typing import Optional
 
 from spark_rapids_tpu_torch.runtime import cancel, lockdep
+from spark_rapids_tpu_torch.runtime import telemetry as TM
+from spark_rapids_tpu_torch.runtime import trace
+
+_TM_WAIT = TM.REGISTRY.counter(
+    "tpuq_semaphore_wait_seconds_total",
+    "seconds tasks spent blocked on device admission (cumulative)")
+_TM_ACQUIRE = TM.REGISTRY.histogram(
+    "tpuq_semaphore_acquire_seconds",
+    "per-acquire device-admission wait")
 
 
 class DeviceSemaphore:
@@ -84,6 +97,7 @@ class DeviceSemaphore:
         waited = 0.0
         blocked = False
         registered = False
+        wait_tr = wait_span = None
         try:
             with self._cv:
                 try:
@@ -91,6 +105,12 @@ class DeviceSemaphore:
                         if not blocked:
                             blocked = True
                             self.waiting += 1
+                            # the blocked path (and only it) opens a span,
+                            # so that the wait lands in semaphore_wait
+                            wait_tr = trace.current()
+                            if wait_tr is not None:
+                                wait_span = wait_tr.begin(
+                                    "DeviceSemaphore", "semaphoreWait")
                         if tok is not None:
                             tok.check()
                             if not registered:
@@ -105,6 +125,8 @@ class DeviceSemaphore:
                 finally:
                     if blocked:
                         self.waiting -= 1
+                    if wait_span is not None:
+                        wait_tr.end(wait_span)
                 self.holders += 1
                 self.max_holders = max(self.max_holders, self.holders)
                 self.peak_holders = max(self.peak_holders, self.holders)
@@ -119,6 +141,9 @@ class DeviceSemaphore:
         finally:
             if registered:
                 tok.remove_waiter(self._cv)
+            if waited:
+                _TM_WAIT.inc(waited)
+            _TM_ACQUIRE.observe(waited)
         return waited
 
     def release(self) -> None:
@@ -199,3 +224,20 @@ def reset_semaphore() -> None:
     global _semaphore
     with _sem_lock:
         _semaphore = None
+
+
+TM.REGISTRY.gauge(
+    "tpuq_semaphore_holders", "tasks currently holding a permit",
+    fn=lambda: _semaphore.holders if _semaphore is not None else 0)
+TM.REGISTRY.gauge(
+    "tpuq_semaphore_waiting",
+    "tasks currently blocked waiting for a permit (the admission "
+    "controller's saturation signal)",
+    fn=lambda: _semaphore.waiting if _semaphore is not None else 0)
+TM.REGISTRY.gauge(
+    "tpuq_semaphore_holders_peak",
+    "process-lifetime peak concurrent holders",
+    fn=lambda: _semaphore.peak_holders if _semaphore is not None else 0)
+TM.REGISTRY.gauge(
+    "tpuq_semaphore_permits", "configured concurrent-task permits",
+    fn=lambda: _semaphore.permits if _semaphore is not None else 0)

@@ -26,9 +26,9 @@ Policies (``spark.rapids.tpu.kernel.bucketing``):
   pow2;
 * ``off``    — pass batches through untouched.
 
-Hits, misses, pad rows and pad bytes are module counters
-(``snapshot``); the JAX package's telemetry registry and the stats
-plane's per-operator ``padded_rows`` wait for ROADMAP A.9.
+Hits, misses, pad rows and pad bytes are the registry's
+``tpuq_shape_*`` counters (``snapshot`` reads them); the pump records
+each operator's pad rows in the stats plane as ``padded_rows``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,21 @@ from typing import Optional, Tuple
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, _pad_col, round_up_pow2)
 from spark_rapids_tpu_torch.runtime import lockdep
+from spark_rapids_tpu_torch.runtime import telemetry as TM
+
+_TM_HITS = TM.REGISTRY.counter(
+    "tpuq_shape_bucket_hits_total",
+    "pumped device batches whose capacity already sat on the bucket "
+    "ladder (no padding)")
+_TM_MISSES = TM.REGISTRY.counter(
+    "tpuq_shape_bucket_misses_total",
+    "pumped device batches padded up to a canonical bucket")
+_TM_PAD_ROWS = TM.REGISTRY.counter(
+    "tpuq_shape_pad_rows_total",
+    "dead rows appended by shape-plane bucketing")
+_TM_PAD_BYTES = TM.REGISTRY.counter(
+    "tpuq_shape_pad_bytes_total",
+    "physical bytes of shape-plane padding (pad-waste)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +88,6 @@ class ShapePolicy:
 # boundary reads one attribute.
 _POLICY = ShapePolicy()
 _LOCK = lockdep.tracked_lock("runtime.shapes._LOCK")
-# hits, misses, pad rows, pad bytes
-_COUNTS = [0, 0, 0, 0]
 
 
 def configure(conf) -> ShapePolicy:
@@ -98,11 +111,6 @@ def current_policy() -> ShapePolicy:
     return _POLICY
 
 
-def _count(i: int, v: int = 1) -> None:
-    with _LOCK:
-        _COUNTS[i] += v
-
-
 def bucket_batch(batch, policy: Optional[ShapePolicy] = None):
     """(bucketed batch, padded row count) for one pumped DeviceBatch.
 
@@ -115,9 +123,9 @@ def bucket_batch(batch, policy: Optional[ShapePolicy] = None):
     cap = batch.capacity
     bucket = pol.bucket_for(cap)
     if bucket <= cap:
-        _count(0)
+        _TM_HITS.inc()
         return batch, 0
-    _count(1)
+    _TM_MISSES.inc()
     pad = bucket - cap
     cols = tuple(_pad_col(c, bucket) for c in batch.columns)
     sel = batch.sel.new_zeros((bucket,))
@@ -125,9 +133,8 @@ def bucket_batch(batch, policy: Optional[ShapePolicy] = None):
     # the dead tail keeps live rows at the front: the compacted promise
     # survives
     out = DeviceBatch(batch.schema, cols, sel, compacted=batch.compacted)
-    with _LOCK:
-        _COUNTS[2] += pad
-        _COUNTS[3] += max(out.nbytes() - batch.nbytes(), 0)
+    _TM_PAD_ROWS.inc(pad)
+    _TM_PAD_BYTES.inc(max(out.nbytes() - batch.nbytes(), 0))
     return out, pad
 
 
@@ -142,6 +149,7 @@ def retarget_bucket(rows: int) -> int:
 
 
 def snapshot() -> Tuple[int, int, int, int]:
-    """(hits, misses, pad_rows, pad_bytes) — deltas of a run."""
-    with _LOCK:
-        return tuple(_COUNTS)
+    """(hits, misses, pad_rows, pad_bytes) so far — a run's are the
+    difference of two snapshots."""
+    return (_TM_HITS.value, _TM_MISSES.value,
+            _TM_PAD_ROWS.value, _TM_PAD_BYTES.value)

@@ -21,13 +21,16 @@ Metrics: ``writeTime`` (the whole map stage), ``partitionTime`` (the
 ids on the device, synchronized; inside ``writeTime``; the JAX
 package's exec has no such timer), ``bytesWritten``, ``readTime``,
 ``transferTime`` (the host-to-device copies of the reads),
-``numOutputRows``.
+``numOutputRows``; the registry's ``tpuq_shuffle_*`` counters sum them
+over the process, and the map stage's byte sizes per reduce partition
+go to the stats plane (``aqe_partition_stats``).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 import weakref
 from typing import Iterator, List, Optional, Sequence
 
@@ -42,9 +45,24 @@ from spark_rapids_tpu_torch.exec.exchange import device_partition_ids
 from spark_rapids_tpu_torch.ops.expressions import Expression
 from spark_rapids_tpu_torch.runtime import cancel
 from spark_rapids_tpu_torch.runtime import resilience as R
+from spark_rapids_tpu_torch.runtime import stats
+from spark_rapids_tpu_torch.runtime import telemetry as TM
 from spark_rapids_tpu_torch.shuffle.manager import (
     ShuffleEnv, ShuffleReader, ShuffleWriter)
 from spark_rapids_tpu_torch.shuffle.serializer import HostColView
+
+_TM_EXCHANGES = TM.REGISTRY.counter(
+    "tpuq_shuffle_exchanges_total",
+    "host-shuffle exchanges materialized")
+_TM_PARTITIONS = TM.REGISTRY.counter(
+    "tpuq_shuffle_partitions_total",
+    "reduce partitions produced by materialized exchanges")
+_TM_WRITE_S = TM.REGISTRY.counter(
+    "tpuq_shuffle_write_seconds_total",
+    "host-shuffle map-side write/serialize seconds")
+_TM_READ_S = TM.REGISTRY.counter(
+    "tpuq_shuffle_read_seconds_total",
+    "host-shuffle reduce-side read/deserialize seconds")
 
 
 def _sync(device: torch.device) -> None:
@@ -184,6 +202,7 @@ class TpuHostShuffleExchangeExec(TpuExec):
             weakref.finalize(self, env.remove_shuffle, sid)
             child = self.children[0]
             row_base = 0
+            t0 = time.perf_counter()
             with self.timer("writeTime"):
                 for m in range(child.num_partitions()):
                     cancel.check()
@@ -207,6 +226,9 @@ class TpuHostShuffleExchangeExec(TpuExec):
                     finally:
                         writer.close()
                     self._map_parts.append(m)
+            _TM_WRITE_S.inc(time.perf_counter() - t0)
+            _TM_EXCHANGES.inc()
+            _TM_PARTITIONS.inc(self.nparts)
             self._shuffle_id = sid
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
@@ -229,6 +251,9 @@ class TpuHostShuffleExchangeExec(TpuExec):
                     rec = np.frombuffer(tbl, np.int64)
                     sizes += rec
                     f.seek(int(rec.sum()), os.SEEK_CUR)
+        st = stats.current()
+        if st is not None:
+            st.record_partitions(self, sizes, unit="bytes")
         return "bytes", sizes
 
     def _read_concat(self, parts) -> tuple:
@@ -249,10 +274,13 @@ class TpuHostShuffleExchangeExec(TpuExec):
                 records.extend(reader.read_partition(p))
             return records
 
+        t0 = time.perf_counter()
         with self.timer("readTime"):
             records = R.run_guarded("shuffle_exchange", attempt,
                                     op="shuffle_read")
-            return _concat_views(self.schema, records)
+            out = _concat_views(self.schema, records)
+        _TM_READ_S.inc(time.perf_counter() - t0)
+        return out
 
     def _emit(self, cols, n) -> DeviceBatch:
         with self.timer("transferTime"):

@@ -16,8 +16,9 @@ IndexShuffleBlockResolver index.  Serialization rides the native tudo
 library, threaded by ``spark.rapids.shuffle.multiThreaded.writer.threads``.
 Shuffle files live in a temporary directory of the process, removed at
 exit.  Serialization passes the ``shuffle_ser`` failure domain
-(``runtime/resilience.py``), as in the JAX package; its telemetry
-counters (A.9) are left out.
+(``runtime/resilience.py``), as in the JAX package, and the process
+totals of the environment's byte counts are the registry's
+``tpuq_shuffle_bytes_{written,read}_total``.
 """
 
 from __future__ import annotations
@@ -34,10 +35,21 @@ import numpy as np
 
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.runtime import resilience as R
+from spark_rapids_tpu_torch.runtime import telemetry as TM
 from spark_rapids_tpu_torch.shuffle.serializer import (
     HostColView, deserialize, serialize_partitions)
 
 _FILE_MAGIC = struct.pack("<I", 0x46445554)  # "TUDF"
+
+# process-cumulative mirrors of the per-env metrics dict
+_TM_SHUFFLE = {
+    "bytesWritten": TM.REGISTRY.counter(
+        "tpuq_shuffle_bytes_written_total",
+        "host-shuffle bytes serialized to map files"),
+    "bytesRead": TM.REGISTRY.counter(
+        "tpuq_shuffle_bytes_read_total",
+        "host-shuffle bytes fetched by reduce reads"),
+}
 
 
 class ShuffleEnv:
@@ -56,6 +68,9 @@ class ShuffleEnv:
     def add_metric(self, name: str, v: int) -> None:
         with self._metrics_lock:
             self.metrics[name] += v
+        tm = _TM_SHUFFLE.get(name)
+        if tm is not None:
+            tm.inc(v)
 
     @classmethod
     def get(cls) -> "ShuffleEnv":

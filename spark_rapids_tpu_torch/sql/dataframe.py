@@ -43,7 +43,9 @@ time.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import os
 import random
 import time
 from typing import List, Optional, Union
@@ -138,6 +140,30 @@ def _window_u(c) -> Optional[UExpr]:
     return core if core.op == "window" else None
 
 
+@contextlib.contextmanager
+def profile_capture(device: torch.device, profile_dir: str = None):
+    """``torch.profiler`` over the block, yielding the profiler; with
+    ``profile_dir``, exported there as ``trace.json`` (a Chrome trace).
+    On the card it records the CUDA activity and refuses to run without
+    it: a capture of the host alone would hide the device.
+    [REF: spark-rapids-jni profiler]"""
+    from torch.profiler import ProfilerActivity, profile, \
+        supported_activities
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError(
+                "spark.rapids.profile.enabled: torch.profiler cannot "
+                "record the CUDA activity on this machine")
+        acts.append(ProfilerActivity.CUDA)
+    if profile_dir is not None:
+        os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    if profile_dir is not None:
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
 class StructSpec:
     """One logical STRUCT column, stored as one physical column per field
     (struct-of-arrays).  ``fields``: [(field name, physical column
@@ -165,9 +191,6 @@ class StructSpec:
             f"{new_name}#null" if self.null_col else None)
 
 
-_QUERY_IDS = itertools.count(1)
-
-
 class DataFrame:
     def __init__(self, session, plan: L.LogicalPlan, structs=None):
         self.session = session
@@ -176,6 +199,9 @@ class DataFrame:
         self._structs: dict = dict(structs or {})
         self._last_plan = None
         self._last_override = None
+        # the last execution's trace rollup and stats profile
+        self._last_rollup = None
+        self._last_profile = None
         # host milliseconds of the last plan rewrite: _execute_plan
         # called to the plan returned
         self.plan_ms = None
@@ -772,18 +798,110 @@ class DataFrame:
         return self._last_override.fallback_summary()
 
     def explain(self, extended: bool = False) -> None:
-        """Print the physical plan (device nodes starred); ``True`` adds
-        the fallback report.  The JAX package's ``"metrics"`` and
-        ``"analyze"`` modes belong to the tracing plane, not ported."""
-        if isinstance(extended, str):
-            raise NotImplementedError(
-                f"spark_rapids_tpu_torch: explain({extended!r}) is not "
-                "ported yet")
+        """``explain()`` prints the physical plan (device nodes starred);
+        ``explain(True)`` adds the fallback report;
+        ``explain("metrics")`` prints the last execution's per-node
+        metrics (at the configured level) and, when tracing was on, the
+        per-operator self/total-time rollup; ``explain("analyze")``
+        executes the query if needed and prints the plan tree annotated
+        with the observed per-operator stats (rows/batches/bytes,
+        exchange skew) and traced self times."""
+        if isinstance(extended, str) and extended.lower() == "metrics":
+            return self._explain_metrics()
+        if isinstance(extended, str) and extended.lower() == "analyze":
+            return self._explain_analyze()
         result = self._rewrite()
         print(result.plan.tree_string())
         if extended:
             for line in result.fallback_report():
                 print(line)
+
+    def _explain_metrics(self) -> None:
+        plan = self._last_plan
+        if plan is None:
+            print("<no execution yet — run collect()/toArrow() first>")
+            return
+        print(plan.tree_string())
+        for op, vals in self.metrics():
+            shown = {k: (round(v, 6) if isinstance(v, float) else v)
+                     for k, v in vals.items()}
+            print(f"  {op}: {shown}")
+        rollup = self._last_rollup
+        if rollup:
+            print("-- per-op time attribution (traced) --")
+            for op, r in sorted(rollup.items(),
+                                key=lambda kv: -kv[1]["self_s"]):
+                print(f"  {op}: self={r['self_s']:.6f}s "
+                      f"total={r['total_s']:.6f}s spans={r['spans']}")
+
+    @staticmethod
+    def _fmt_bytes(n) -> str:
+        n = float(n)
+        for unit in ("B", "KiB", "MiB", "GiB"):
+            if n < 1024 or unit == "GiB":
+                return (f"{int(n)}{unit}" if unit == "B"
+                        else f"{n:.1f}{unit}")
+            n /= 1024
+        return f"{n:.1f}GiB"
+
+    def _explain_analyze(self) -> None:
+        """EXPLAIN ANALYZE: run the query (with stats and tracing on for
+        this execution when it has not run with stats yet), then print
+        the plan tree with each operator's observed statistics."""
+        from spark_rapids_tpu_torch import conf as C
+        profile = self._last_profile
+        if profile is None:
+            sess = self.session
+            saved = sess._conf
+            sess._conf = saved.with_values({C.STATS_ENABLED.key: True,
+                                            C.TRACE_ENABLED.key: True})
+            try:
+                self.toArrow()
+            finally:
+                sess._conf = saved
+            profile = self._last_profile
+        if profile is None:
+            # a concurrent query owns the collector (nested execution)
+            print("<stats unavailable — another query owns the stats "
+                  "plane; re-run when it finishes>")
+            return
+        by_path = {r["path"]: r for r in profile["ops"]
+                   if "fused_region" not in r}
+        lines = []
+
+        def walk(node, path, depth):
+            rec = by_path.get(path, {})
+            ann = (f"rows={rec.get('rows_out', 0)} "
+                   f"batches={rec.get('batches_out', 0)} "
+                   f"bytes={self._fmt_bytes(rec.get('bytes_out', 0))}")
+            if rec.get("self_s") is not None:
+                ann += (f" self={rec['self_s']:.6f}s"
+                        f" total={rec['total_s']:.6f}s")
+            parts = rec.get("partition_rows",
+                            rec.get("partition_bytes"))
+            if parts is not None:
+                ann += (f" partitions={len(parts)}"
+                        f" skew={rec.get('skew_factor', 1.0):.2f}")
+                if rec.get("skewed"):
+                    ann += " SKEWED"
+                if rec.get("executors", 1) > 1:
+                    ann += f" executors={rec['executors']}"
+            if rec.get("fused"):
+                ann += " fused"
+            if rec.get("kernel_backend"):
+                ann += f" kernel={rec['kernel_backend']}"
+            lines.append("  " * depth
+                         + ("*" if node.is_tpu else "")
+                         + node.node_string() + f"  [{ann}]")
+            for i, c in enumerate(node.children):
+                walk(c, f"{path}.{i}", depth + 1)
+
+        walk(self._last_plan, "0", 0)
+        print("\n".join(lines))
+        if profile.get("wall_s") is not None:
+            print(f"-- wall {profile['wall_s']:.6f}s "
+                  f"(query {profile['query_id']}, "
+                  f"stats level {profile['level']}) --")
 
     def toArrow(self, timeout_ms: Optional[float] = None) -> pa.Table:
         """Execute and return the result as an Arrow table.
@@ -792,25 +910,70 @@ class DataFrame:
         (overriding ``spark.rapids.tpu.query.timeoutMs``): when it
         expires, every blocking boundary raises
         ``QueryCancelled(reason="deadline")``, and the query's resources
-        are reclaimed before the exception reaches the caller."""
+        are reclaimed before the exception reaches the caller.
+
+        The execution runs inside the JAX package's query window: a
+        telemetry window (counter deltas and health verdicts), a tracer
+        (with ``spark.rapids.sql.trace.enabled`` or attribution, which is
+        on by default), the flight recorder, the stats collector (with
+        ``spark.rapids.tpu.stats.enabled``) and, with
+        ``spark.rapids.profile.enabled``, a ``torch.profiler`` capture
+        into ``<profile.path>/query-<id>``."""
+        from spark_rapids_tpu_torch import conf as C
+        from spark_rapids_tpu_torch.runtime import attribution as attr_mod
         from spark_rapids_tpu_torch.runtime import cancel
         from spark_rapids_tpu_torch.runtime import resilience
+        from spark_rapids_tpu_torch.runtime import stats as stats_mod
+        from spark_rapids_tpu_torch.runtime import telemetry, trace
         conf = self.session.rapids_conf()
         plan = self._execute_plan()
         self._last_plan = plan
-        qid = next(_QUERY_IDS)
+        qid = trace.next_query_id()
+        qwin = telemetry.begin_query(qid)
         rwin = resilience.begin_query(qid)
         cwin = cancel.begin_query(qid, conf, timeout_ms=timeout_ms)
+        # the attribution plane rides the tracer: with attribution on
+        # (the default) the tracer runs even with tracing off, and
+        # _record_query emits the rollup and the trace file only when
+        # tracing was asked for
+        attr_on = bool(conf.get(C.ATTRIBUTION_ENABLED))
+        tracer = None
+        if conf.get(C.TRACE_ENABLED) or attr_on:
+            tracer = trace.start_query(
+                qid, max_events=int(conf.get(C.QUERY_LOG_MAX_EVENTS)))
+        arec = None
+        if attr_on:
+            arec = attr_mod.start_query(
+                qid, ring_size=int(conf.get(C.ATTRIBUTION_RING_SIZE)))
+            if tracer is not None and arec is not None:
+                tracer.recorder = arec
+        collector = None
+        if conf.get(C.STATS_ENABLED):
+            collector = stats_mod.start_query(
+                qid, level=str(conf.get(C.STATS_LEVEL)),
+                skew_threshold=float(conf.get(C.STATS_SKEW_THRESHOLD)))
+        profile = contextlib.nullcontext()
+        profile_dir = None
+        if conf.get(C.PROFILE_ENABLED):
+            profile_dir = os.path.join(str(conf.get(C.PROFILE_PATH)),
+                                       f"query-{qid:06d}")
+            profile = profile_capture(self.session.device, profile_dir)
+        root = (tracer.span("Query", "execute")
+                if tracer is not None else contextlib.nullcontext())
         error = cancelled = None
         try:
-            tables = self._pump_partitions(plan, conf, self.session.device)
-            if not tables:
-                out = pa.table([pa.array([], type=T.to_arrow(f.dtype))
-                                for f in self.schema.fields],
-                               names=self.columns)
-            else:
-                out = pa.concat_tables(tables)
-            out = self._reassemble_structs(out)
+            with profile, root:
+                tables = self._pump_partitions(plan, conf,
+                                               self.session.device)
+                with trace.span("Result", "concatTime"):
+                    if not tables:
+                        out = pa.table(
+                            [pa.array([], type=T.to_arrow(f.dtype))
+                             for f in self.schema.fields],
+                            names=self.columns)
+                    else:
+                        out = pa.concat_tables(tables)
+                    out = self._reassemble_structs(out)
         except cancel.QueryCancelled as e:
             cancelled = e
             error = f"{type(e).__name__}: {e}"
@@ -826,10 +989,16 @@ class DataFrame:
             error = f"{type(e).__name__}: {e}"
             raise
         finally:
+            trace.end_query(tracer)
+            stats_mod.end_query(collector)
+            attr_mod.end_query(arec)
             res = resilience.finish_query(rwin)
             cancel.finish_query(cwin)
             if rwin is not None:  # nested executions record nothing
-                self._record_query(qid, error, res, cancelled, cwin)
+                self._record_query(qid, conf, error, res, cancelled, cwin,
+                                   tracer=tracer, qwin=qwin,
+                                   collector=collector, recorder=arec,
+                                   profile_dir=profile_dir)
         return out
 
     def _reassemble_structs(self, t: pa.Table) -> pa.Table:
@@ -863,12 +1032,30 @@ class DataFrame:
             t = pa.table(dict(zip(out_names, arrays)))
         return t
 
-    def _record_query(self, qid, error, res, cancelled, ctoken) -> None:
-        """One entry per execution in the session's ``query_history``:
-        what this port records of the JAX package's event-log entry."""
-        entry = {"query_id": qid,
-                 "status": ("cancelled" if cancelled is not None
-                            else "error" if error else "ok")}
+    def _record_query(self, qid, conf, error, res, cancelled, ctoken,
+                      tracer=None, qwin=None, collector=None,
+                      recorder=None, profile_dir=None) -> None:
+        """One event-log entry per execution, the JAX package's: plan
+        tree, fallback report, every metric at its level, the span
+        rollup, the attribution ledger, the telemetry deltas and health
+        verdicts, the semaphore window, the resilience rollup, the stats
+        profile and the links to the trace, profile and black box.
+        Kept in ``query_history`` and appended to
+        ``spark.rapids.sql.queryLog.path``."""
+        from spark_rapids_tpu_torch import conf as C
+        from spark_rapids_tpu_torch.runtime import attribution as attr_mod
+        from spark_rapids_tpu_torch.runtime import stats as stats_mod
+        from spark_rapids_tpu_torch.runtime import telemetry, trace
+        from spark_rapids_tpu_torch.runtime.semaphore import peek_semaphore
+        plan = self._last_plan
+        entry = {
+            "query_id": qid,
+            "ts": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
+            "status": ("cancelled" if cancelled is not None
+                       else "error" if error else "ok"),
+            "plan": plan.tree_string(),
+            "metrics": trace.plan_metrics(plan),
+        }
         if error:
             entry["error"] = error
         if cancelled is not None:
@@ -881,7 +1068,43 @@ class DataFrame:
             entry["cancel"] = cinfo
         override = self._last_override
         if override is not None:
+            entry["fallback"] = override.fallback_summary()
             entry["fallback_report"] = override.fallback_report()
+        if tracer is not None and conf.get(C.TRACE_ENABLED):
+            # trace artifacts only when tracing was asked for: an
+            # attribution-only tracer feeds the ledger below
+            entry["wall_s"] = round(tracer.wall_s, 6)
+            rollup = tracer.rollup()
+            entry["op_rollup"] = rollup
+            entry["dropped_spans"] = tracer.dropped
+            self._last_rollup = rollup
+            tf = trace.write_chrome_trace(str(conf.get(C.TRACE_PATH)),
+                                          tracer)
+            if tf:
+                entry["trace_file"] = tf
+        attribution = None
+        if tracer is not None and conf.get(C.ATTRIBUTION_ENABLED):
+            attribution = attr_mod.attribute(
+                tracer, tolerance=float(
+                    conf.get(C.ATTRIBUTION_CLOSE_TOLERANCE)))
+            entry["attribution"] = attribution
+            attr_mod.note_unaccounted(attribution["unaccounted_s"])
+        if profile_dir:
+            entry["profile_dir"] = profile_dir
+        if qwin is not None:
+            deltas, elapsed = qwin.finish()
+            entry["telemetry"] = deltas
+            health = telemetry.evaluate_health(deltas, elapsed, conf,
+                                               query_id=qid)
+            if health:
+                entry["health"] = health
+        sem = peek_semaphore()
+        if sem is not None:
+            sw = sem.end_query_stats(qid)
+            if sw is not None:
+                entry["semaphore"] = {
+                    "max_holders": sw["max_holders"],
+                    "wait_s": round(sw["wait_time"], 6)}
         if res is not None:
             entry["resilience"] = res
             # runtime degradations join the plan-time fallback report
@@ -889,8 +1112,49 @@ class DataFrame:
                 f"!{d['op']} degraded to the host path at runtime "
                 f"[{d['domain']}] because {d['cause']}"
                 for d in res["degraded_ops"])
+        if collector is not None:
+            profile = collector.report(
+                plan, rollup=entry.get("op_rollup"),
+                wall_s=entry.get("wall_s"))
+            profile["ts"] = entry["ts"]
+            profile["status"] = entry["status"]
+            if attribution is not None:
+                profile["attribution"] = attribution
+            entry["op_stats"] = profile["ops"]
+            if profile["exchanges"]:
+                entry["exchange_stats"] = profile["exchanges"]
+            self._last_profile = profile
+            self.session._last_profile = profile
+            store = str(conf.get(C.STATS_STORE_PATH))
+            if store:
+                stats_mod.append_profile(store, profile)
+        if recorder is not None:
+            # a bad exit leaves the black box: a deadline, a cancel, an
+            # error, or a health WARN on an otherwise good run
+            trigger = None
+            if cancelled is not None:
+                trigger = ("timeout" if cancelled.reason == "deadline"
+                           else "cancel")
+            elif error:
+                trigger = "error"
+            elif entry.get("health"):
+                trigger = "health"
+            bb_dir = str(conf.get(C.ATTRIBUTION_BLACKBOX_PATH))
+            if trigger is not None and bb_dir:
+                extra = {k: entry[k] for k in
+                         ("status", "error", "cancel", "health")
+                         if entry.get(k)}
+                path = attr_mod.dump_blackbox(
+                    bb_dir, qid, trigger, attribution=attribution,
+                    recorder=recorder, extra=extra,
+                    max_dumps=int(conf.get(C.ATTRIBUTION_BLACKBOX_MAX)))
+                if path:
+                    entry["blackbox"] = path
         self._last_query_entry = entry
         self.session._record_query(entry)
+        log_path = str(conf.get(C.QUERY_LOG_PATH))
+        if log_path:
+            trace.append_query_log(log_path, entry)
 
     @staticmethod
     def _pump_partitions(plan, conf, device) -> List[pa.Table]:
@@ -911,14 +1175,18 @@ class DataFrame:
         from spark_rapids_tpu_torch import conf as C
         from spark_rapids_tpu_torch.exec.base import TpuExec
         from spark_rapids_tpu_torch.parallel.executor import run_pump_tasks
-        from spark_rapids_tpu_torch.runtime import cancel, scheduler
+        from spark_rapids_tpu_torch.runtime import cancel, scheduler, trace
 
         def has_device_work(node) -> bool:
             return isinstance(node, TpuExec) or any(
                 has_device_work(c) for c in node.children)
 
         def pump(p: int) -> List[pa.Table]:
-            return [H.to_arrow_table(b) for b in plan.execute(p)]
+            # per-partition envelope span: iterator plumbing and the
+            # root's Arrow conversion (the time between instrumented
+            # stages) go to the pump_idle bucket
+            with trace.span("PumpTask", "pumpTask", {"partition": p}):
+                return [H.to_arrow_table(b) for b in plan.execute(p)]
 
         parts = list(range(plan.num_partitions()))
         if not has_device_work(plan):
@@ -944,11 +1212,15 @@ class DataFrame:
         plan.metric("semaphoreWaitTime").add(sum(waits))
         return [t for chunk in chunks for t in chunk]
 
-    def metrics(self):
-        """Operator metrics of the last execution, root first."""
+    def metrics(self, level: Optional[str] = None):
+        """Operator metrics of the last execution, root first, filtered
+        by ``spark.rapids.sql.metrics.level`` (or an explicit level)."""
         if self._last_plan is None:
             raise RuntimeError("no execution yet — run collect()/toArrow()")
-        return self._last_plan.collect_metrics()
+        if level is None:
+            from spark_rapids_tpu_torch import conf as C
+            level = self.session.rapids_conf().get(C.METRICS_LEVEL)
+        return self._last_plan.collect_metrics(level=str(level))
 
     def collect(self, timeout_ms: Optional[float] = None) -> List[Row]:
         """Collect rows; ``timeout_ms`` deadlines the execution

@@ -20,10 +20,15 @@ later processes).  Creation also turns on the lock-order watchdog when
 
 The query lifecycle: ``cancel(query_id)`` stops an in-flight query
 (``runtime/cancel.py``), ``active_queries()`` lists them, and
-``query_history(n)`` / ``last_query_profile()`` return the entries the
-executions left: id, status, error, the resilience rollup and the
-degraded ops.  The JAX package's telemetry, health verdicts, traces and
-stats profile in those entries come with ROADMAP A.9.
+``query_history(n)`` returns the event-log entries the executions left
+(the JAX package's: plan, metrics, fallback report, attribution,
+telemetry deltas and health verdicts, semaphore window, resilience
+rollup, stats, artifact links).  ``last_query_profile()`` is the stats
+plane's record of the latest query run with
+``spark.rapids.tpu.stats.enabled`` (None before one), and
+``metrics_report()`` the process registry's snapshot with the recent
+health events.  Creation starts the telemetry sampler when
+``spark.rapids.tpu.telemetry.enabled`` asks for it.
 """
 
 from __future__ import annotations
@@ -106,6 +111,12 @@ class TpuSession:
         self._conf = RapidsConf(conf)
         self.device = resolve_device(device)
         self._query_history: List[Dict[str, Any]] = []
+        # the stats plane's record of the latest stats-enabled query
+        self._last_profile: Optional[Dict[str, Any]] = None
+        # continuous telemetry: the background sampler when
+        # spark.rapids.tpu.telemetry.enabled (the registry always updates)
+        from spark_rapids_tpu_torch.runtime import telemetry
+        telemetry.configure_sampler(self._conf)
         # conf-gated lock-order watchdog (spark.rapids.tpu.lockdep.*)
         from spark_rapids_tpu_torch.runtime import lockdep
         lockdep.configure(self._conf)
@@ -137,8 +148,24 @@ class TpuSession:
         return list(h[-n:] if n else h)
 
     def last_query_profile(self) -> Optional[Dict[str, Any]]:
-        """The entry of the most recent query (None before the first)."""
-        return self._query_history[-1] if self._query_history else None
+        """The stats plane's profile of the most recent query run with
+        ``spark.rapids.tpu.stats.enabled``: the record
+        ``df.explain("analyze")`` renders and the profile store keeps —
+        per-operator rows/batches/bytes, batch-shape histograms,
+        per-partition exchange counts with skew factors, and traced
+        self/total time when tracing was on.  None until a query has
+        run with stats collection."""
+        return self._last_profile
+
+    def metrics_report(self) -> Dict[str, Any]:
+        """Point-in-time process telemetry: every registry counter and
+        gauge value and histogram summary (what the JSONL sink and the
+        Prometheus dump export), plus the recent health WARN events."""
+        from spark_rapids_tpu_torch.runtime import telemetry
+        telemetry.ensure_producers()
+        return {"ts": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
+                "metrics": telemetry.REGISTRY.snapshot(),
+                "health": telemetry.REGISTRY.recent_health()}
 
     # -- query lifecycle ----------------------------------------------------
     def active_queries(self) -> List[int]:

@@ -144,6 +144,14 @@ def test_import_check_covers_the_lakehouse_slice():
         assert "spark_rapids_tpu_torch/" + mod in names, mod
 
 
+def test_import_check_covers_the_observability_slice():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("runtime/trace.py", "runtime/telemetry.py",
+                "runtime/stats.py", "runtime/attribution.py",
+                "utils/profile.py", "utils/device_profile.py"):
+        assert "spark_rapids_tpu_torch/" + mod in names, mod
+
+
 @pytest.mark.parametrize("alias, build", [
     ("where", lambda df, c: df.where(c("a") > 1).select("a", "s")),
     ("groupby", lambda df, c: df.groupby("s").count()),

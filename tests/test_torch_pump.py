@@ -541,8 +541,8 @@ def _hammer(fn, threads=16, n=2000):
 
 def test_kernel_plane_counters_are_exact_under_threads():
     KN.COUNTERS.reset()
-    n = _hammer(lambda: KN.COUNTERS.note_dispatch("cuda"))
-    m = _hammer(KN.COUNTERS.note_fallback)
+    n = _hammer(lambda: KN.count("agg", "cuda"))
+    m = _hammer(lambda: KN.COUNTERS.note_fallback("agg"))
     assert KN.COUNTERS.dispatches == {"cuda": n, "jnp": 0}
     assert KN.COUNTERS.fallbacks == m
     KN.COUNTERS.reset()
@@ -597,8 +597,8 @@ def test_the_six_keys_equal_jax(name):
 def test_thirty_five_keys_and_unregistered_keys_still_raise():
     # 35 keys through the pump slice; the failure domains add 36, the
     # UDF and file-scan slice 4, the lakehouse slice 1 (dynamic
-    # partition pruning)
-    assert len(C.REGISTRY) == 76
+    # partition pruning), the observability plane 23
+    assert len(C.REGISTRY) == 99
     with pytest.raises(ValueError, match="unknown"):
         C.RapidsConf({"spark.rapids.tpu.kernel.warmupOnStart": True})
 

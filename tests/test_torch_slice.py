@@ -105,7 +105,7 @@ def test_collect_rows(tables, jax_results):
 
 def test_profile_query_runs_and_unions_intervals(tables):
     from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
-    from spark_rapids_tpu_torch.utils import profile as PR
+    from spark_rapids_tpu_torch.utils import device_profile as PR
     clear_scan_cache()  # the first run stages its scans
     out = PR.profile_query(TpuSession(device="cpu"), "q1", tables)
     assert out["rows"] == tables["lineitem"].num_rows
@@ -119,7 +119,7 @@ def test_profile_query_runs_and_unions_intervals(tables):
 
 
 def test_profile_kernel_sees_no_kernel_on_the_cpu():
-    from spark_rapids_tpu_torch.utils import profile as PR
+    from spark_rapids_tpu_torch.utils import device_profile as PR
     out = PR.profile_kernel(3, 1024, torch.device("cpu"), iters=2)
     # a CPU tensor takes the plain version: no kernel, nothing measured
     assert out["cold_launches"] == out["warm_launches"] == 0
