@@ -39,7 +39,8 @@ result line is not printed):
    and counts exactly, floats within 1e-9 relative) and against the
    exact ``jnp`` rung on the card; every join must take the strategy of
    the JAX package's plan at SF1 (``check_strategies``, read from the
-   joins' metrics).  3 warm runs follow, each of which must read every
+   joins' metrics).  ``MAIN_WARM_RUNS`` warm run(s) follow, each of
+   which must read every
    scan from the cache (``transferTime`` 0) and match the reference;
    prints the cold wall and its H2D share, the median warm wall and the
    kernel's launches, and for the seven string queries the ``opTime``
@@ -334,14 +335,42 @@ result line is not printed):
    kernel plane's count, the sampler wrote JSONL lines.  ``python3
    chip_smoke.py --observe`` runs this phase and ``[attribution cost]``
    alone;
-26. the string expressions of the string queries (LIKE, NOT LIKE,
+26. ``[planes]``: the engine planes at SF1.  The 22 queries under the
+   whole of ``tpch.TPCH_SF1_CONF`` (the adaptive plane, whole-stage
+   fusion and the result cache, whose ``minRuntimeMs`` keeps every run
+   a miss) with ``test.enabled``, each cold (cache cleared, counts to 0
+   before, read after) then warm (not after a cold run over
+   ``PLANES_WARM_MAX_COLD_S``): 0 operators on the CPU, equal to its
+   ``ref_q*``, every run probed by the cache; prints per query the
+   regions built and fallen open, the graphs captured and replayed,
+   the adaptive decisions by kind, the cache probes, the ``hash_pairs``
+   launches and the cold and warm walls.  At the main path's conf: q1,
+   q3 and q6 with fusion on and off (q6, whose only map is one filter,
+   under ``fusion.mode=aggressive``): warm walls interleaved, and one
+   warm run of each under ``torch.profiler``
+   (``utils/device_profile.py``): device kernel events, ``cudaLaunch*``
+   and ``cudaGraphLaunch`` calls; none of the three may fall open; the
+   bytes the graphs hold outside the memory arbiter.  The cache at SF1:
+   q1 twice with ``minRuntimeMs`` 0, the second a hit (equal rows, 0 ``hash_pairs``
+   launches, no CUDA event in its ``torch.profiler`` trace),
+   ``invalidate_cache`` making the next run a miss, and two queries over
+   one shared in-process exchange (``cache.subplan.enabled``), the
+   second served the stage.  The adaptive plane: the join variants with
+   the decisions recorded (``adaptive.historyPath`` under a temporary
+   directory, so each variant's second run decides from history), each
+   the strategy ``cost_model.choose_join_strategy`` gives for its build
+   bytes and threshold; and lineitem with a seeded quarter of its rows
+   moved to one order key, joined to orders with broadcasts off: the
+   hot partition splits, equal to pyarrow's join.  ``python3
+   chip_smoke.py --planes`` runs this phase alone;
+27. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-27. the kernel at every shape the main path (queries, variants,
+28. the kernel at every shape the main path (queries, variants,
    fallback cases, partitions, exchanges, operators, strings, retry,
-   pump, faults, breadth, decimal, nested, window, udf, io, lakehouse
-   and observe) launched it with, bit for bit against its plain version, timed as
+   pump, faults, breadth, decimal, nested, window, udf, io, lakehouse,
+   observe and planes) launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
    ``torch.profiler`` after an L2-evicting write (``traced_ms``) and
@@ -350,7 +379,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-28. the seconds of each phase, a JSON line of every kernel's numbers,
+29. the seconds of each phase, a JSON line of every kernel's numbers,
    the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -391,6 +420,8 @@ IO_ONLY = "--io" in sys.argv[1:]
 LAKEHOUSE_ONLY = "--lakehouse" in sys.argv[1:]
 # ``python3 chip_smoke.py --observe``: [attribution cost] and [observe]
 OBSERVE_ONLY = "--observe" in sys.argv[1:]
+# ``python3 chip_smoke.py --planes``: the [planes] phase alone
+PLANES_ONLY = "--planes" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -2608,10 +2639,16 @@ def check_result(name: str, got, want) -> None:
                   f"{name} has non-finite values")
 
 
+# warm runs of each of the 22 at the main path's conf: one, since
+# [planes]' 22 under bench's conf take ~150 s of the script's time
+MAIN_WARM_RUNS = 1
+
+
 def query_phase(q, session, exact, tables, ref, CB, KN):
     """One TPC-H query: the scan cache cleared, its cold run (the main
     path: the kernel's counts set to 0 just before it and read just
-    after), 3 warm runs that must read every scan from the cache, and
+    after), ``MAIN_WARM_RUNS`` warm runs that must read every scan from
+    the cache, and
     the exact rung.  Returns (cold result, counts, summary)."""
     from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
     clear_scan_cache()
@@ -2630,7 +2667,7 @@ def query_phase(q, session, exact, tables, ref, CB, KN):
           f"{q}: plan rewrite fell back: {fallback}")
     cold_ph = phase_times(cold_df)
     walls, phases, metrics, plan_ms = [], [], [], []
-    for _ in range(3):
+    for _ in range(MAIN_WARM_RUNS):
         df = build_on(q, session, tables)
         out, wall = timed(df)
         walls.append(wall)
@@ -7746,6 +7783,418 @@ def phase_only(dev, tables, CB, KN, which: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# [planes]: whole-stage fusion, the result cache and the adaptive plane
+# ---------------------------------------------------------------------------
+
+# warm runs of each query under the SF1 conf, skipped for a query whose
+# cold run took over PLANES_WARM_MAX_COLD_S: the conf's 2^16-row batches
+# make q1, q5, q10, q18 and q21 take 4-58 s a run on the H100 (their warm
+# walls 62-105% of their cold ones), and the script must end within its
+# time limit
+PLANES_WARM_RUNS = 1
+PLANES_WARM_MAX_COLD_S = 4.0
+FUSION_QUERIES = ("q1", "q3", "q6")
+FUSION_WARM_RUNS = 2  # warm runs each with fusion on and off, interleaved
+# q6's only map operator is one filter (its product is inside the
+# aggregate): under the default mode it forms no region in either package
+FUSION_MODE = {"q6": "aggressive"}
+SKEW_SHARE = 0.3  # lineitem rows moved to the hot key of [planes]' skew join
+SKEW_SEED = 20261018
+DECISION_KINDS = ("broadcast", "shuffled", "skew-split", "batch-retarget")
+
+
+def plane_counters() -> dict:
+    """The engine planes' process counters (deltas read a run)."""
+    from spark_rapids_tpu_torch import cache as cache_mod
+    from spark_rapids_tpu_torch import fusion as FU
+    from spark_rapids_tpu_torch.exec import fused as FX
+    from spark_rapids_tpu_torch.runtime import telemetry as TM
+    snap = TM.REGISTRY.snapshot()
+    prog = FX.program_stats()
+    out = {"regions_built": FU.REGIONS_BUILT.value,
+           "regions_fell_open": FU.FALLBACKS.value,
+           "capture_s": FU.COMPILE_SECONDS.value,
+           "captures": prog["captures"], "replays": prog["replays"],
+           "capture_failures": prog["capture_failures"],
+           "cache_hits": cache_mod.HITS.value,
+           "cache_misses": cache_mod.MISSES.value}
+    for k in DECISION_KINDS:
+        out[k] = snap.get(f'tpuq_adaptive_decisions_total{{kind="{k}"}}',
+                          0)
+    return out
+
+
+def plane_delta(before: dict) -> dict:
+    after = plane_counters()
+    return {k: after[k] - before[k] for k in after}
+
+
+def planes_run(name, q, session, tables, ref, CB, KN, cold=True):
+    """One run of ``q``: counts to 0 before and read after, the result
+    against its reference, no operator on the CPU, the cache probed
+    where the session enables it."""
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    if cold:
+        clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    before = plane_counters()
+    df = build_on(q, session, tables)
+    got, wall = timed(df)
+    counts = path_counts(df, CB, KN)
+    delta = plane_delta(before)
+    check_result(name, got, ref)
+    fb = df.fallback_summary()
+    check(fb["fallback_ops"] == 0, f"planes {name}: {fb}")
+    entry = df._last_query_entry
+    from spark_rapids_tpu_torch import conf as C
+    check("cache" in entry
+          or not session.rapids_conf().get(C.CACHE_ENABLED),
+          f"planes {name}: the result cache did not probe (an unkeyable "
+          "input)")
+    check(counts["collision_fallbacks"] == 0,
+          f"planes {name}: hash-collision fallbacks")
+    return df, got, wall, counts, delta, entry.get("cache")
+
+
+def planes_phase(dev, tables, refs, CB, KN, query_shapes) -> dict:
+    """``[planes]``: the engine planes at SF1 (see the module's
+    docstring)."""
+    import shutil
+    import tempfile
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import numpy as np
+
+    from spark_rapids_tpu_torch.adaptive import cost_model
+    from spark_rapids_tpu_torch.exec import fused as FX
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.column import col
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import device_profile as PR
+    from spark_rapids_tpu_torch.utils import tpch
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    counts, lines = {}, {}
+    sf1 = dict(SESSION_CONF, **tpch.TPCH_SF1_CONF)
+    root = tempfile.mkdtemp(prefix="tpuq-planes-")
+    try:
+        # -- the 22 under the whole SF1 conf -------------------------------
+        s = TpuSession(dict(sf1), device=dev)
+        kinds = {k: 0 for k in DECISION_KINDS}
+        for q in QUERIES:
+            _, _, cold_s, c, d, cache = planes_run(
+                q, q, s, tables, refs[q], CB, KN)
+            counts[q] = c
+            check(d["regions_fell_open"] == 0 or q not in FUSION_QUERIES,
+                  f"planes {q}: a fused region fell open")
+            check(cache["status"] == "uncached"
+                  and cache["reason"] == "below_min_runtime",
+                  f"planes {q}: cache {cache}")
+            warm = []
+            for _ in range(PLANES_WARM_RUNS
+                           if cold_s <= PLANES_WARM_MAX_COLD_S else 0):
+                _, _, w, _, wd, _ = planes_run(q, q, s, tables, refs[q],
+                                               CB, KN, cold=False)
+                warm.append(w)
+                d["warm_replays"] = d.get("warm_replays", 0) \
+                    + wd["replays"]
+                d["warm_captures"] = d.get("warm_captures", 0) \
+                    + wd["captures"]
+            for k in DECISION_KINDS:
+                kinds[k] += d[k]
+            lines[q] = {
+                "cold_s": cold_s,
+                "warm_median_s": statistics.median(warm) if warm else None,
+                "warm_s": warm,
+                "hash_pairs_launches": c["hash_pairs_launches"],
+                "regions_built": d["regions_built"],
+                "regions_fell_open": d["regions_fell_open"],
+                "graph_captures": d["captures"],
+                "capture_s": round(d["capture_s"], 6),
+                "graph_replays": d["replays"],
+                "warm_graph_replays": d.get("warm_replays", 0),
+                "warm_graph_captures": d.get("warm_captures", 0),
+                "decisions": {k: d[k] for k in DECISION_KINDS if d[k]},
+                "cache_probes": d["cache_hits"] + d["cache_misses"],
+                "cache": cache["status"]}
+            print(f"[planes] {q} SF{SF:g} " + json.dumps(lines[q]),
+                  flush=True)
+        lines["22"] = {
+            "cold_sum_s": sum(lines[q]["cold_s"] for q in QUERIES),
+            "warm_sum_s": sum(lines[q]["warm_median_s"] for q in QUERIES
+                              if lines[q]["warm_s"]),
+            "warm_skipped": [q for q in QUERIES if not lines[q]["warm_s"]],
+            "decisions": kinds,
+            "regions_built": sum(lines[q]["regions_built"]
+                                 for q in QUERIES),
+            "regions_fell_open": {q: lines[q]["regions_fell_open"]
+                                  for q in QUERIES
+                                  if lines[q]["regions_fell_open"]}}
+        print("[planes] the 22 under TPCH_SF1_CONF " + json.dumps(
+            lines["22"]), flush=True)
+        for q in FUSION_QUERIES:
+            check(lines[q]["regions_built"] > 0 or q in FUSION_MODE,
+                  f"planes {q}: no fused region under the SF1 conf")
+
+        # -- fusion on and off: q1, q3, q6 at the main path's conf ----------
+        off = TpuSession(dict(SESSION_CONF), device=dev)
+        for q in FUSION_QUERIES:
+            on = TpuSession(dict(SESSION_CONF, **{
+                "spark.rapids.tpu.fusion.enabled": True,
+                "spark.rapids.tpu.fusion.mode": FUSION_MODE.get(q, "auto")}),
+                device=dev)
+            walls = {"on": [], "off": []}
+            for name, sess in (("on", on), ("off", off)):
+                planes_run(f"{q} fusion {name}", q, sess, tables, refs[q],
+                           CB, KN)  # fills the scan cache, captures
+            fell = []
+            for _ in range(FUSION_WARM_RUNS):
+                for name, sess in (("on", on), ("off", off)):
+                    df, _, w, _, d, _ = planes_run(
+                        f"{q} fusion {name}", q, sess, tables, refs[q],
+                        CB, KN, cold=False)
+                    walls[name].append(w)
+                    if name == "on":
+                        fell.append(d["regions_fell_open"])
+                        check(d["regions_built"] > 0,
+                              f"planes {q}: fusion on built no region")
+                        check(d["captures"] == 0 and d["replays"] > 0,
+                              f"planes {q}: a warm run captured "
+                              f"{d['captures']}, replayed {d['replays']}")
+            check(not any(fell), f"planes {q}: a fused region fell open")
+            prof = {name: PR.profile_query(sess, q, tables)
+                    for name, sess in (("on", on), ("off", off))}
+            lines[f"{q} fusion"] = {
+                "mode": FUSION_MODE.get(q, "auto"),
+                "warm_on_s": walls["on"], "warm_off_s": walls["off"],
+                "median_on_s": statistics.median(walls["on"]),
+                "median_off_s": statistics.median(walls["off"]),
+                **{f"{k}_{name}": prof[name].get(k)
+                   for name in ("on", "off")
+                   for k in ("device_events", "kernel_launches",
+                             "graph_launches", "traced_wall_s",
+                             "device_busy_s")}}
+            check(prof["on"]["graph_launches"] > 0
+                  and prof["off"]["graph_launches"] == 0,
+                  f"planes {q}: graph launches on/off "
+                  f"{prof['on']['graph_launches']}/"
+                  f"{prof['off']['graph_launches']}")
+            print(f"[planes] {q} fusion on/off " + json.dumps(
+                lines[f"{q} fusion"]), flush=True)
+        lines["graph pools"] = FX.graph_pool_bytes()
+        print("[planes] graph pools (outside the memory arbiter) "
+              + json.dumps(lines["graph pools"]), flush=True)
+
+        # -- the result cache at SF1, at the main path's conf ---------------
+        cs = TpuSession(dict(SESSION_CONF, **{
+            "spark.rapids.tpu.cache.enabled": True}), device=dev)
+        cs.invalidate_cache()
+        _, first, miss_s, _, d1, c1 = planes_run(
+            "q1 cache", "q1", cs, tables, refs["q1"], CB, KN)
+        d1["miss_s"] = miss_s
+        check(c1["status"] == "stored", f"planes: q1 cache {c1}")
+        CB.reset_counts()
+        df = build_on("q1", cs, tables)
+        import torch
+        torch.cuda.synchronize()
+        from spark_rapids_tpu_torch.sql.dataframe import profile_capture
+        from torch.autograd import DeviceType
+        t1 = time.perf_counter()
+        with profile_capture(dev) as prof:
+            hit = df.toArrow()
+            torch.cuda.synchronize()
+        hit_s = time.perf_counter() - t1
+        cuda_events = [e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+        entry = df._last_query_entry
+        check(entry["cache"]["status"] == "hit",
+              f"planes: second q1 {entry['cache']}")
+        check(hit.equals(first), "planes: the hit differs from q1")
+        check(CB.launches == 0, f"planes: the hit launched hash_pairs "
+              f"{CB.launches} times")
+        check(not cuda_events, f"planes: the hit ran {len(cuda_events)} "
+              "CUDA events")
+        h2d = sum(scan_transfer_times(df))
+        check(h2d == 0, f"planes: the hit moved {h2d} s host to device")
+        dropped = cs.invalidate_cache()
+        _, _, miss_s, _, _, c3 = planes_run("q1 after invalidate", "q1",
+                                            cs, tables, refs["q1"], CB, KN,
+                                            cold=False)
+        check(dropped >= 1 and c3["status"] == "stored",
+              f"planes: after invalidate_cache ({dropped}) {c3}")
+        # a subplan hit: two queries over one shared in-process exchange
+        ss = TpuSession(dict(SESSION_CONF, **{
+            "spark.rapids.tpu.cache.enabled": True,
+            "spark.rapids.tpu.cache.subplan.enabled": True,
+            "spark.rapids.shuffle.mode": "CACHE_ONLY"}), device=dev)
+        ss.invalidate_cache()
+        li = tables["lineitem"].select(
+            ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount"])
+
+        def shared():
+            return ss.createDataFrame(li).repartition(16, "l_orderkey")
+
+        sub = []
+        for lo, hi in ((0.0, 10.0), (40.0, 51.0)):
+            stats0 = ss.cache_stats()
+            df = (shared().filter((col("l_quantity") >= lo)
+                                  & (col("l_quantity") < hi))
+                  .agg(F.sum("l_extendedprice").alias("rev"),
+                       F.count("*").alias("n")))
+            got, w = timed(df)
+            m = pc.and_(pc.greater_equal(li["l_quantity"], lo),
+                        pc.less(li["l_quantity"], hi))
+            want = pa.table({"rev": [pc.sum(pc.filter(
+                li["l_extendedprice"], m)).as_py()],
+                "n": [pc.sum(m.cast(pa.int64())).as_py()]})
+            check(rows_equal(got, want), f"planes: subplan query {lo}-{hi}"
+                  f"\n{got}\n{want}")
+            st = ss.cache_stats()
+            sub.append({"wall_s": w,
+                        "sub_hits": st["sub_hits"] - stats0["sub_hits"],
+                        "sub_stored": st["sub_stored"]
+                        - stats0["sub_stored"]})
+        check(sub[0]["sub_stored"] >= 1 and sub[1]["sub_hits"] >= 1,
+              f"planes: subplan {sub}")
+        lines["cache"] = {"q1_miss_s": d1["miss_s"],
+                          "q1_hit_s": hit_s, "hit_cuda_events": 0,
+                          "hit_hash_pairs_launches": 0,
+                          "hit_bytes": entry["cache"]["bytes"],
+                          "invalidated": dropped,
+                          "q1_after_invalidate_s": miss_s,
+                          "subplan": sub,
+                          "stats": {k: v for k, v in cs.cache_stats().items()
+                                    if k != "by_signature"}}
+        print("[planes] cache " + json.dumps(lines["cache"]), flush=True)
+        ss.invalidate_cache()
+        cs.invalidate_cache()
+
+        # -- the adaptive plane: the join variants and a skewed join -------
+        hist = os.path.join(root, "history.jsonl")
+        ad = TpuSession(dict(sf1, **{
+            "spark.rapids.tpu.stats.enabled": True,
+            "spark.rapids.tpu.stats.storePath": hist,
+            "spark.rapids.tpu.adaptive.historyPath": hist}), device=dev)
+        seen = {k: 0 for k in DECISION_KINDS}
+        for v, base in tpch.JOIN_VARIANTS.items():
+            if v in {c[1] for c in FALLBACK_CASES}:
+                continue  # a CPU join by design
+            want = globals()["ref_" + v](tables)
+            for run in ("cold", "history"):
+                df, got, w, c, d, _ = planes_run(
+                    f"{v} adaptive {run}", v, ad, tables, want, CB, KN,
+                    cold=run == "cold")
+                if run == "cold":
+                    counts[f"{v} adaptive"] = c
+                decs = df.session.last_query_profile().get(
+                    "adaptive_decisions", [])
+                for dec in decs:
+                    seen[dec["kind"]] += 1
+                    if "build_bytes" in dec:
+                        check(dec["kind"] == cost_model.choose_join_strategy(
+                            dec["build_bytes"], dec["threshold"]),
+                            f"planes {v}: decision {dec}")
+                lines[f"{v} adaptive {run}"] = {
+                    "wall_s": w, "hash_pairs_launches":
+                    c["hash_pairs_launches"],
+                    "decisions": [{k: dec.get(k) for k in (
+                        "kind", "source", "build_bytes", "threshold",
+                        "splits", "partitions", "target_rows")
+                        if dec.get(k) is not None} for dec in decs]}
+                print(f"[planes] {v} adaptive {run} " + json.dumps(
+                    lines[f"{v} adaptive {run}"]), flush=True)
+        # skew: a seeded SKEW_SHARE of lineitem's rows on one order key
+        li = tables["lineitem"].select(["l_orderkey", "l_extendedprice"])
+        rng = np.random.default_rng(SKEW_SEED)
+        keys = li["l_orderkey"].to_numpy().copy()
+        hot = int(keys[rng.integers(0, len(keys))])
+        keys[rng.random(len(keys)) < SKEW_SHARE] = hot
+        li = li.set_column(0, "l_orderkey", pa.array(keys))
+        orders = tables["orders"].select(["o_orderkey", "o_totalprice"])
+        check(int(pc.sum(pc.equal(li["l_orderkey"], hot)).as_py())
+              >= li.num_rows // 4, "planes: the hot key holds under a "
+              "quarter of the rows")
+        sk = TpuSession(dict(sf1, **{
+            "spark.rapids.tpu.stats.enabled": True,
+            "spark.sql.autoBroadcastJoinThreshold": 0}), device=dev)
+        CB.reset_counts()
+        KN.COUNTERS.reset()
+        before = plane_counters()
+        df = (sk.createDataFrame(li)
+              .join(sk.createDataFrame(orders),
+                    col("l_orderkey") == col("o_orderkey"))
+              .agg(F.count("*").alias("n"),
+                   F.sum("l_extendedprice").alias("price"),
+                   F.sum("o_totalprice").alias("total")))
+        got, skew_s = timed(df)
+        d = plane_delta(before)
+        counts["skewed join"] = path_counts(df, CB, KN)
+        j = li.join(orders, "l_orderkey", right_keys="o_orderkey")
+        want = pa.table({"n": [j.num_rows],
+                         "price": [pc.sum(j["l_extendedprice"]).as_py()],
+                         "total": [pc.sum(j["o_totalprice"]).as_py()]})
+        check(rows_equal(got, want), f"planes: the skewed join\n{got}\n"
+              f"{want}")
+        split = [dec for dec in df.session.last_query_profile().get(
+            "adaptive_decisions", []) if dec["kind"] == "skew-split"]
+        check(split and sum(split[0]["splits"]) > 0,
+              f"planes: the skewed join split nothing: {split}")
+        seen["skew-split"] += len(split)
+        lines["skewed join"] = {
+            "hot_key_rows": int(pc.sum(pc.equal(li["l_orderkey"],
+                                                hot)).as_py()),
+            "rows": li.num_rows, "wall_s": skew_s,
+            "split": {k: split[0][k] for k in (
+                "partitions", "splits", "rows", "skew_factor",
+                "threshold")} if split else None,
+            "decisions": {k: d[k] for k in DECISION_KINDS if d[k]},
+            "hash_pairs_launches": CB.launches}
+        print("[planes] skewed join " + json.dumps(lines["skewed join"]),
+              flush=True)
+        total = {k: kinds[k] + seen[k] for k in DECISION_KINDS}
+        check(total["broadcast"] > 0 and total["skew-split"] > 0,
+              f"planes: decisions {total}")
+        lines["decisions"] = total
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        clear_scan_cache()
+    summary = {"seconds": time.perf_counter() - t0, "card": card,
+               "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                       for k, c in counts.items()},
+               "decisions": lines["decisions"],
+               "new_hash_pairs_shapes": sorted(
+                   {k for c in counts.values() for k in c["shapes"]}
+                   - query_shapes)}
+    print("[planes] " + json.dumps(summary), flush=True)
+    return counts
+
+
+def planes_only(dev, tables, refs, CB, KN) -> int:
+    """``--planes``: [planes] alone, then the kernel bit for bit at every
+    shape it launched."""
+    t0 = time.perf_counter()
+    counts = planes_phase(dev, tables, refs, CB, KN, set())
+    gen = __import__("torch").Generator(device=dev)
+    gen.manual_seed(20261018)
+    shapes = sorted({k for c in counts.values() for k in c["shapes"]},
+                    key=lambda k: tuple(map(int, k.split("x"))))
+    for key in shapes:
+        n_limbs, n = (int(x) for x in key.split("x"))
+        kernel_line(CB, None, random_limbs(n_limbs, n, gen, dev),
+                    timed=False)
+    print("[planes only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "shapes_bit_identical": shapes,
+        "hash_pairs_launches": sum(c["hash_pairs_launches"]
+                                   for c in counts.values())}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import pyarrow as pa
@@ -7860,6 +8309,8 @@ def main() -> int:
         return faults_only(dev, tables, refs, CB, KN)
     if OBSERVE_ONLY:
         return observe_only(dev, tables, refs, CB, KN)
+    if PLANES_ONLY:
+        return planes_only(dev, tables, refs, CB, KN)
 
     # test mode: any CPU fallback in the main path raises
     session = TpuSession(dict(SESSION_CONF), device=dev)
@@ -7868,7 +8319,7 @@ def main() -> int:
         "spark.rapids.tpu.kernel.backend": "jnp"}), device=dev)
 
     # each query: the scan cache cleared, then its cold run (the main
-    # path: counts to 0 just before, read just after), 3 warm runs that
+    # path: counts to 0 just before, read just after), warm runs that
     # must find every scan in the cache, and the exact rung
     first, counts, summary = {}, {}, {}
     for q in QUERIES:
@@ -8073,6 +8524,14 @@ def main() -> int:
     print("[observe] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
     lap("observe")
+    # -- the engine planes: the 22 under the SF1 conf, fusion, cache, AQE ----
+    plane_counts = planes_phase(dev, tables, refs, CB, KN, query_shapes)
+    for c in plane_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[planes] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("planes")
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -8169,7 +8628,8 @@ def main() -> int:
                         + list(udf_counts.values())
                         + list(io_counts.values())
                         + list(lake_counts.values())
-                        + list(obs_counts.values())),
+                        + list(obs_counts.values())
+                        + list(plane_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -8206,6 +8666,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in lake_counts.items()},
         "launches_per_observe_run": {
             k: c["hash_pairs_launches"] for k, c in obs_counts.items()},
+        "launches_per_planes_run": {
+            k: c["hash_pairs_launches"] for k, c in plane_counts.items()},
         "plain_calls_per_faults_run": {
             k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,
@@ -8238,7 +8700,8 @@ def main() -> int:
 
 def run() -> int:
     """``main`` with ``SESSION_CONF``'s black-box directory made before
-    and removed after."""
+    and removed after, and the cached region graphs dropped before the
+    interpreter tears the device down."""
     import shutil
     import tempfile
     box = SESSION_CONF[BLACKBOX_KEY] = tempfile.mkdtemp(
@@ -8247,6 +8710,8 @@ def run() -> int:
         return main()
     finally:
         shutil.rmtree(box, ignore_errors=True)
+        if "spark_rapids_tpu_torch.exec.fused" in sys.modules:
+            sys.modules["spark_rapids_tpu_torch.exec.fused"].clear_graphs()
 
 
 if __name__ == "__main__":

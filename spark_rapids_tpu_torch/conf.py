@@ -8,9 +8,10 @@ spill tiers and OOM retry, the aggregate's passes, the exchange plane,
 the string expressions' gates, the device semaphore, the prefetching
 pump, the shape plane, the kernel build cache, the failure domains:
 retry policy, deadlines, fault injection and lockdep, the UDF
-compiler and the file scan, and the observability plane: tracing, the
+compiler and the file scan, the observability plane: tracing, the
 query log, profile capture, the stats plane, attribution and
-telemetry).  Each entry carries the JAX package's category (``sql``
+telemetry, and the engine planes: whole-stage fusion, the result cache
+and the adaptive plane).  Each entry carries the JAX package's category (``sql``
 unless set).
 Values are validated the same way: an unknown
 ``spark.rapids.*`` key raises, and so does a value the entry's checker
@@ -703,7 +704,7 @@ SHUFFLE_PARTITIONS = (
          "here): the partitions of applyInPandas's exchange and the "
          "upper bound of a file scan's partitions. The exchange plane "
          "and the AQE read keep their own partition counts; the adaptive "
-         "plane's use of this key is not ported.")
+         "join's hash exchanges take this many partitions.")
     .integer()
     .create_with_default(16)
 )
@@ -775,9 +776,196 @@ DPP_ENABLED = (
 ADAPTIVE_PLANE_ENABLED = (
     conf("spark.rapids.tpu.adaptive.enabled")
     .category("aqe")
-    .doc("Master switch of the JAX package's adaptive execution plane "
-         "(runtime broadcast-vs-shuffled join choice, skew splitting). "
-         "Not ported: true raises NotImplementedError at planning.")
+    .doc("Master switch for the adaptive execution plane "
+         "(spark_rapids_tpu_torch/adaptive/): a cost model + replanner "
+         "that spends the stats plane's recorded rows/bytes/partition "
+         "sizes to rewrite the physical plan at stage boundaries — "
+         "broadcast vs shuffled join strategy, skewed-partition "
+         "splitting, and dynamic batch retargeting.  Each decision has "
+         "its own sub-gate below; every decision taken is counted in "
+         "tpuq_adaptive_decisions_total{kind} and rendered in EXPLAIN "
+         "ANALYZE as adaptive=...")
+    .boolean()
+    .create_with_default(False)
+)
+
+ADAPTIVE_JOIN_STRATEGY = (
+    conf("spark.rapids.tpu.adaptive.joinStrategy.enabled")
+    .category("aqe")
+    .doc("Adaptive join strategy selection: pick broadcast vs "
+         "shuffled-hash per join from OBSERVED build-side cardinality — "
+         "profile-store history for warm queries (adaptive.historyPath), "
+         "upstream pump counts for cold ones — instead of the static "
+         "planner estimate.  A build side that fits "
+         "spark.sql.autoBroadcastJoinThreshold eliminates the exchange "
+         "entirely.  Requires adaptive.enabled.")
+    .boolean()
+    .create_with_default(True)
+)
+
+ADAPTIVE_SKEW_SPLIT = (
+    conf("spark.rapids.tpu.adaptive.skewSplit.enabled")
+    .category("aqe")
+    .doc("Adaptive skew splitting: when a shuffle exchange's recorded "
+         "partition sizes show a skew factor above "
+         "adaptive.skewThreshold, split the hot stream-side "
+         "partition(s) into rank-interleaved sub-partitions and "
+         "replicate the build side's matching partition, so one "
+         "straggler stops serializing the stage.  Unlike hash "
+         "sub-partitioning this spreads a SINGLE hot key.  Requires "
+         "adaptive.enabled; inner/left/left_semi/left_anti joins only.")
+    .boolean()
+    .create_with_default(True)
+)
+
+ADAPTIVE_SKEW_THRESHOLD = (
+    conf("spark.rapids.tpu.adaptive.skewThreshold")
+    .category("aqe")
+    .doc("Skew factor (hottest partition / mean) above which adaptive "
+         "skew splitting triggers.  0 inherits "
+         "spark.rapids.tpu.stats.skewThreshold so the replanner splits "
+         "exactly the partitions the stats plane flags as SKEWED.")
+    .double()
+    .check(lambda v: v >= 0, "non-negative")
+    .create_with_default(0.0)
+)
+
+ADAPTIVE_MAX_SPLITS = (
+    conf("spark.rapids.tpu.adaptive.maxSplitsPerPartition")
+    .category("aqe")
+    .doc("Upper bound on the number of rank-interleaved sub-partitions "
+         "one hot partition may be split into — caps task fan-out (and "
+         "build-side replication cost) no matter how hot the key is.")
+    .integer()
+    .check(lambda v: v >= 2, "at least 2")
+    .create_with_default(8)
+)
+
+ADAPTIVE_BATCH_RETARGET = (
+    conf("spark.rapids.tpu.adaptive.batchRetarget.enabled")
+    .category("aqe")
+    .doc("Dynamic batch retargeting: the AQE shuffle read plans its "
+         "coalesce/split row target from the OBSERVED bytes/row of the "
+         "exchange input (stats plane) instead of the static schema "
+         "estimate, then snaps it to the shape plane's bucket ladder — "
+         "variable-width columns stop under/over-filling read batches "
+         "mid-query.  Requires adaptive.enabled.")
+    .boolean()
+    .create_with_default(True)
+)
+
+ADAPTIVE_HISTORY_PATH = (
+    conf("spark.rapids.tpu.adaptive.historyPath")
+    .category("aqe")
+    .doc("JSONL profile store consulted for warm-query join decisions: "
+         "the most recent recorded build-side bytes for a join's stable "
+         "plan signature decides broadcast vs shuffled WITHOUT "
+         "re-measuring.  Empty inherits spark.rapids.tpu.stats.storePath "
+         "(decisions recorded there feed the next run automatically).")
+    .string()
+    .create_with_default("")
+)
+
+
+# -- whole-stage fusion plane (spark_rapids_tpu_torch/fusion/) --------------
+
+FUSION_ENABLED = (
+    conf("spark.rapids.tpu.fusion.enabled")
+    .category("fusion")
+    .doc("Master switch for the whole-stage fusion plane "
+         "(spark_rapids_tpu_torch/fusion/): after plan conversion, "
+         "maximal chains of fusable per-batch map operators (project / "
+         "filter chains) are stitched into FusedStageExec regions, each "
+         "run as ONE cached callable per input shape — a CUDA graph "
+         "replay on the card, the plain composed chain on the CPU — so "
+         "the pump / pad-mask / shape-bucket boundary is paid once per "
+         "region instead of once per operator.  A region whose first "
+         "capture fails falls open to the unfused pump chain (counted "
+         "in tpuq_fusion_fallback_total); answers are bit-identical "
+         "either way.")
+    .boolean()
+    .create_with_default(False)
+)
+
+FUSION_MAX_OPS = (
+    conf("spark.rapids.tpu.fusion.maxOpsPerRegion")
+    .category("fusion")
+    .doc("Upper bound on the member operators stitched into one fused "
+         "region.  A chain longer than this splits into consecutive "
+         "regions.")
+    .integer()
+    .check(lambda v: 2 <= int(v) <= 64, "in [2, 64]")
+    .create_with_default(16)
+)
+
+FUSION_MODE = (
+    conf("spark.rapids.tpu.fusion.mode")
+    .category("fusion")
+    .doc("Region-selection policy: 'auto' fuses only chains of 2+ "
+         "fusable operators, 'aggressive' also wraps singleton fusable "
+         "ops, 'off' disables region selection even when "
+         "fusion.enabled is true.")
+    .string()
+    .check(lambda v: str(v).lower() in ("auto", "off", "aggressive"),
+           "one of auto, off, aggressive")
+    .create_with_default("auto")
+)
+
+
+# -- result-cache plane (spark_rapids_tpu_torch/cache/) ---------------------
+
+CACHE_ENABLED = (
+    conf("spark.rapids.tpu.cache.enabled")
+    .category("cache")
+    .doc("Serve repeated queries from the host-resident result cache. "
+         "A hit is keyed by sha1(physical-plan fingerprint + "
+         "result-affecting confs + input fingerprints), runs no pump "
+         "and touches no device; the query log still records the query "
+         "with entry['cache'].status='hit'.")
+    .boolean()
+    .create_with_default(False)
+)
+
+CACHE_MAX_BYTES = (
+    conf("spark.rapids.tpu.cache.maxBytes")
+    .category("cache")
+    .doc("Byte budget for resident cached results (Arrow bytes). "
+         "Least-recently-used entries are evicted to stay under it; a "
+         "single result larger than the budget is never cached.")
+    .bytes()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(256 * 1024 * 1024)
+)
+
+CACHE_TTL_MS = (
+    conf("spark.rapids.tpu.cache.ttlMs")
+    .category("cache")
+    .doc("Time-to-live for cached results in milliseconds; an entry "
+         "older than this counts as an eviction at lookup. 0 disables "
+         "TTL (entries live until evicted or invalidated).")
+    .integer()
+    .check(lambda v: v >= 0, "non-negative")
+    .create_with_default(600_000)
+)
+
+CACHE_MIN_RUNTIME_MS = (
+    conf("spark.rapids.tpu.cache.minRuntimeMs")
+    .category("cache")
+    .doc("Only cache results whose cold execution took at least this "
+         "many milliseconds — sub-millisecond queries churn the byte "
+         "budget for no device savings.")
+    .integer()
+    .check(lambda v: v >= 0, "non-negative")
+    .create_with_default(0)
+)
+
+CACHE_SUBPLAN_ENABLED = (
+    conf("spark.rapids.tpu.cache.subplan.enabled")
+    .category("cache")
+    .doc("Also cache materialized shuffle-exchange outputs under "
+         "subtree signatures, so partially-overlapping queries reuse "
+         "shared stages even when their full result keys differ. "
+         "Entries share the cache.maxBytes budget.")
     .boolean()
     .create_with_default(False)
 )
@@ -1078,6 +1266,12 @@ class RapidsConf:
 
     def get_raw(self, key: str, default=None):
         return self._values.get(key, default)
+
+    def raw_prefix(self, prefix: str) -> Dict[str, Any]:
+        """All raw keys under a prefix — result-key derivation folds
+        them in (the JAX package's per-tenant scheduler overrides)."""
+        return {k: v for k, v in self._values.items()
+                if k.startswith(prefix)}
 
     def is_op_enabled(self, kind: str, name: str,
                       default: bool = True) -> bool:

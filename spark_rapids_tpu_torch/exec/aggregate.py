@@ -770,7 +770,7 @@ class TpuHashAggregateExec(TpuExec):
         if partition != 0:
             raise IndexError(f"partition {partition} of a complete "
                              "aggregate")
-        src, pre = fuse_upstream(self.children[0])
+        src, pre, _ = fuse_upstream(self.children[0])
         with self.timer():
             if any(is_holistic_fn(f) for f in self.fns):
                 outs = [self._execute_collect(src, pre)]

@@ -19,11 +19,11 @@ at planning (by the coalesce pass) it runs the map stage there:
 
 Counts the stats plane already recorded for the exchange (an earlier
 materialization) are read first, and the exchange is asked only when
-there are none.
-
-The JAX package's row-target retargeting from the adaptive plane's
-observations (``retarget``) waits for that plane (ROADMAP A.9); the
-plan rewrite refuses ``spark.rapids.tpu.adaptive.enabled`` here.
+there are none.  Under the adaptive plane (``retarget``, an
+``AdaptivePolicy``) a read over row counts replans its row target from
+the bytes per row the stats plane observed leaving the exchange's input
+(``adaptive/replanner.py::retarget_read_rows``), when the static schema
+estimate was off.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ class TpuAQEShuffleReadExec(TpuExec):
     """
 
     def __init__(self, child: TpuExec, target_bytes: int, row_bytes: int,
-                 allow_split: bool = False):
+                 allow_split: bool = False, retarget=None):
         super().__init__(child.schema, child)
         self.target_bytes = max(int(target_bytes), 1)
         self.row_bytes = max(int(row_bytes), 1)
@@ -57,6 +57,9 @@ class TpuAQEShuffleReadExec(TpuExec):
         # valid when no consumer relies on key co-partitioning (a
         # round-robin repartition)
         self.allow_split = allow_split
+        # AdaptivePolicy (or None): replan the row target from the
+        # OBSERVED bytes/row of the exchange input
+        self.retarget = retarget
         self._specs: Optional[List[tuple]] = None
         self._lock = threading.Lock()
 
@@ -81,6 +84,24 @@ class TpuAQEShuffleReadExec(TpuExec):
             counts = [int(c) for c in sizes]
             target = (max(self.target_bytes // self.row_bytes, 1)
                       if unit == "rows" else self.target_bytes)
+            if self.retarget is not None and unit == "rows":
+                # by the time counts exist the exchange input has fully
+                # pumped, so the stats plane holds its observed rows and
+                # bytes: replan the target from them
+                obs = (st.observed(self.children[0].children[0])
+                       if st is not None and self.children[0].children
+                       else None)
+                if obs is not None:
+                    from spark_rapids_tpu_torch import adaptive as AD
+                    from spark_rapids_tpu_torch.adaptive import replanner
+                    planned = replanner.retarget_read_rows(
+                        self.retarget, self.target_bytes,
+                        self.row_bytes, obs[0], obs[1])
+                    if planned is not None:
+                        target, detail = planned
+                        self.metric("retargetedReads").add(1)
+                        AD.record_decision(self, "batch-retarget",
+                                           **detail)
             specs: List[tuple] = []
             i, n = 0, len(counts)
             while i < n:

@@ -350,33 +350,42 @@ class TpuExec(ExecNode):
     """
 
     def fusion(self):
-        """A pure batch -> batch fn when this operator is a per-batch map
-        that a downstream consumer may apply itself (filter/project),
-        else None."""
+        """(pure batch -> batch fn, cache key) when this operator is a
+        per-batch map that a downstream consumer may apply itself
+        (filter/project, a fused region), else None.  The key carries
+        everything the function computes from (the member's expressions
+        and schema), so equal keys name equal functions."""
         return None
 
 
 def fuse_upstream(node: "TpuExec"):
     """Walk down through fusible map operators.
 
-    Returns (source_exec, composed_fn): pull batches from
-    ``source_exec`` and apply ``composed_fn`` inside the consumer.
-    Fused operators get a ``fusedIntoConsumer`` metric, which says why
-    their own row/time metrics stay zero.
+    Returns (source_exec, composed_fn, cache_key): pull batches from
+    ``source_exec`` and apply ``composed_fn`` inside the consumer; the
+    key is the tuple of the absorbed operators' keys, top-down.  Fused
+    operators get a ``fusedIntoConsumer`` metric, which says why their
+    own row/time metrics stay zero.
     """
     fns = []
+    keys = []
     while isinstance(node, TpuExec):
-        fn = node.fusion()
-        if fn is None:
+        f = node.fusion()
+        if f is None:
             break
+        fn, key = f
         fns.append(fn)
+        keys.append(key)
         node.metric("fusedIntoConsumer").value = 1
         node = node.children[0]
     fns.reverse()
+
+    if not fns:
+        return node, (lambda b: b), ()
 
     def composed(batch):
         for f in fns:
             batch = f(batch)
         return batch
 
-    return node, composed
+    return node, composed, tuple(reversed(keys))

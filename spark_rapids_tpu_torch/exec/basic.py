@@ -271,16 +271,17 @@ class TpuProjectExec(TpuExec):
         return f"TpuProject [{', '.join(str(e) for e in self.exprs)}]"
 
     def fusion(self):
+        from spark_rapids_tpu_torch.runtime.kernel_cache import fingerprint
         exprs, schema = self.exprs, self.schema
 
         def run(batch):
             return DeviceBatch(schema, tuple(e.eval(batch) for e in exprs),
                                batch.sel, compacted=batch.compacted)
 
-        return run
+        return run, ("project", fingerprint(exprs), fingerprint(schema))
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
-        run = self.fusion()
+        run, _ = self.fusion()
         for b in self.children[0].execute(partition):
             with self.timer():
                 out = run(b)
@@ -327,6 +328,7 @@ class TpuFilterExec(TpuExec):
         return f"TpuFilter [{self.condition}]"
 
     def fusion(self):
+        from spark_rapids_tpu_torch.runtime.kernel_cache import fingerprint
         cond = self.condition
 
         def run(batch):
@@ -336,10 +338,10 @@ class TpuFilterExec(TpuExec):
                 keep = keep & c.validity
             return batch.with_sel(batch.sel & keep)
 
-        return run
+        return run, ("filter", fingerprint(cond))
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
-        run = self.fusion()
+        run, _ = self.fusion()
         for b in self.children[0].execute(partition):
             with self.timer():
                 out = run(b)

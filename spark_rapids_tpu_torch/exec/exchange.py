@@ -21,15 +21,22 @@ the plan rewrite converts ``CpuShuffleExchangeExec``
   rewrite raises.
 
 Under ``spark.sql.adaptive.enabled`` (the default) the exchange is read
-through ``exec/aqe.py::TpuAQEShuffleReadExec``.  Each exchange records
-its per-partition row counts in the stats plane (``runtime/stats.py``)
-when a collector is active.  The JAX package's result-cache subplan
-probe (``cache/``, ROADMAP A.9) is left out.
+through ``exec/aqe.py::TpuAQEShuffleReadExec``, which under the
+adaptive plane (``spark.rapids.tpu.adaptive.enabled``) re-targets its
+row budget from observed bytes per row.  Each exchange records its
+per-partition row counts in the stats plane (``runtime/stats.py``) when
+a collector is active.  With ``spark.rapids.tpu.cache.subplan.enabled``
+the CPU and the in-process device exchanges probe the result cache for
+their materialized output under a subtree key (``_subplan_probe``): a
+hit rehydrates it (host batches, or new device batches uploaded from
+the stored host tables; nothing writes into a stored entry), a miss
+stores it dehydrated to the host.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -43,6 +50,52 @@ from spark_rapids_tpu_torch.exec.base import CpuExec, TpuExec
 from spark_rapids_tpu_torch.ops import hashing as HH
 from spark_rapids_tpu_torch.ops.expressions import Expression
 from spark_rapids_tpu_torch.runtime import stats
+
+
+def _subplan_probe(exec_node):
+    """(store, subtree ResultKey) when the result cache's subplan mode
+    applies to this exchange, else (None, None).  Keyed by the detailed
+    subtree fingerprint, the configured session's conf fingerprint and
+    the physical leaves' input fingerprints, so partially-overlapping
+    queries reuse a shared stage."""
+    from spark_rapids_tpu_torch import cache as cache_mod
+    store = cache_mod.subplan_store()
+    if store is None:
+        return None, None
+    try:
+        return store, cache_mod.subplan_key(exec_node,
+                                            store.subplan_conf_fp)
+    except Exception:
+        return None, None
+
+
+def _dehydrate_pairs(pairs):
+    """(DeviceBatch, pid) pairs -> host-resident payload.  Rows are
+    compacted on the pull, so the stored pids are those of the live
+    rows, aligned with the rehydrated batch's live rows."""
+    from spark_rapids_tpu_torch.columnar.column import device_to_host
+    payload = []
+    nbytes = 0
+    for b, pid in pairs:
+        tbl = device_to_host(b)
+        pids = pid[b.sel].cpu().numpy().astype(np.int32)
+        payload.append((tbl, pids))
+        nbytes += tbl.nbytes + pids.nbytes
+    return payload, nbytes
+
+
+def _rehydrate_pairs(payload, device):
+    """Host payload -> new (DeviceBatch, pid) pairs: each batch padded
+    to its power-of-two capacity, its pids padded with -1 (dead rows
+    match no partition)."""
+    from spark_rapids_tpu_torch.columnar.column import host_to_device
+    pairs = []
+    for tbl, pids in payload:
+        batch = host_to_device(tbl, device)
+        pid = np.full(batch.capacity, -1, np.int32)
+        pid[:len(pids)] = pids
+        pairs.append((batch, torch.from_numpy(pid).to(device)))
+    return pairs
 
 
 def device_partition_ids(keys: Sequence[Expression], nparts: int,
@@ -91,6 +144,15 @@ class CpuShuffleExchangeExec(CpuExec):
         with self._mat_lock:
             if self._materialized is not None:
                 return self._materialized
+            store, skey = _subplan_probe(self)
+            if store is not None and skey is not None:
+                ent = store.lookup(skey.key)
+                if ent is not None:
+                    self._materialized = [
+                        [H.from_arrow_table(t) for t in part]
+                        for part in ent.value]
+                    return self._materialized
+            t0 = time.perf_counter()
             child = self.children[0]
             out: List[List[H.HostBatch]] = [[] for _ in range(self.nparts)]
             row_counter = 0
@@ -118,6 +180,13 @@ class CpuShuffleExchangeExec(CpuExec):
                 st.record_partitions(
                     self, [sum(b.num_rows for b in bl) for bl in out],
                     unit="rows")
+            if store is not None and skey is not None:
+                store.note_miss(sub=True)
+                payload = [[H.to_arrow_table(b) for b in part]
+                           for part in out]
+                nbytes = sum(t.nbytes for part in payload for t in part)
+                store.put(skey, payload, nbytes,
+                          time.perf_counter() - t0, kind="subplan")
             return out
 
     def execute(self, partition: int) -> Iterator[H.HostBatch]:
@@ -137,10 +206,14 @@ class TpuShuffleExchangeExec(TpuExec):
     row rank)."""
 
     def __init__(self, child: TpuExec, num_partitions: int,
-                 keys: Optional[Sequence[Expression]] = None):
+                 keys: Optional[Sequence[Expression]] = None,
+                 device: Optional[torch.device] = None):
         super().__init__(child.schema, child)
         self.nparts = num_partitions
         self.keys = list(keys) if keys else None
+        # where a subplan-cache hit uploads its batches (no probe
+        # without it)
+        self.device = device
         self._materialized = None
         self._batch_counts: Optional[np.ndarray] = None
         self._mat_lock = threading.Lock()
@@ -162,6 +235,15 @@ class TpuShuffleExchangeExec(TpuExec):
         with self._mat_lock:
             if self._materialized is not None:
                 return self._materialized
+            store, skey = (_subplan_probe(self) if self.device is not None
+                           else (None, None))
+            if store is not None and skey is not None:
+                ent = store.lookup(skey.key)
+                if ent is not None:
+                    self._materialized = _rehydrate_pairs(ent.value,
+                                                          self.device)
+                    return self._materialized
+            t0 = time.perf_counter()
             child = self.children[0]
             pairs = []  # (batch, partition ids)
             row_base = 0
@@ -174,6 +256,11 @@ class TpuShuffleExchangeExec(TpuExec):
                             # count (a device read)
                             row_base += int(b.sel.sum())
             self._materialized = pairs
+            if store is not None and skey is not None:
+                store.note_miss(sub=True)
+                payload, nbytes = _dehydrate_pairs(pairs)
+                store.put(skey, payload, nbytes,
+                          time.perf_counter() - t0, kind="subplan")
             return pairs
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
@@ -239,7 +326,6 @@ def _convert_exchange(cpu, ch, conf, device):
     """The transport by ``spark.rapids.shuffle.mode``, under the AQE
     read when ``spark.sql.adaptive.enabled``.  ICI never reaches here:
     ``apply_overrides`` refuses it first."""
-    from spark_rapids_tpu_torch.plan.analysis import _not_ported
     from spark_rapids_tpu_torch.plan.overrides import _estimated_row_bytes
     if conf.shuffle_mode == "MULTITHREADED":
         from spark_rapids_tpu_torch.shuffle.exchange import (
@@ -250,14 +336,13 @@ def _convert_exchange(cpu, ch, conf, device):
             min_bucket=conf.min_bucket_rows)
     else:
         # CACHE_ONLY: in-process device-resident exchange
-        exchange = TpuShuffleExchangeExec(ch[0], cpu.nparts, cpu.keys)
+        exchange = TpuShuffleExchangeExec(ch[0], cpu.nparts, cpu.keys,
+                                          device=device)
     if not conf.get(C.ADAPTIVE_ENABLED):
         return exchange
-    if conf.get(C.ADAPTIVE_PLANE_ENABLED):
-        # the JAX package's read then re-targets its row budget from the
-        # adaptive plane's observations
-        raise _not_ported("AQE read batch retargeting "
-                          "(spark.rapids.tpu.adaptive.enabled)")
+    from spark_rapids_tpu_torch import adaptive as AD
+    pol = AD.policy_from_conf(conf)
     return TpuAQEShuffleReadExec(
         exchange, conf.get(C.ADVISORY_PARTITION_SIZE),
-        _estimated_row_bytes(cpu.schema), allow_split=cpu.keys is None)
+        _estimated_row_bytes(cpu.schema), allow_split=cpu.keys is None,
+        retarget=pol if pol.wants_retarget else None)

@@ -472,7 +472,11 @@ class TpuSortMergeJoinExec(TpuExec):
     set]
 
     ``broadcast`` names the side ("left"/"right") that is a
-    ``TpuBroadcastExchangeExec``; ``sub_partition_rows``
+    ``TpuBroadcastExchangeExec``; ``partitioned`` says both sides are
+    hash exchanges on the join keys (the adaptive join's shuffled plan),
+    joined partition by partition, and ``skew_split`` (an
+    ``AdaptivePolicy`` or None) then splits the stream side's hot
+    partitions (``_skew_specs``); ``sub_partition_rows``
     (``spark.rapids.tpu.join.targetRows``) caps the rows of one in-core
     join; join outputs re-batch to ``out_batch_rows``
     (``spark.rapids.tpu.batchRows``).  ``backend`` is the kernel plane's
@@ -494,7 +498,8 @@ class TpuSortMergeJoinExec(TpuExec):
                  broadcast: Optional[str] = None,
                  sub_partition_rows: int = 1 << 18,
                  out_batch_rows: Optional[int] = None,
-                 backend: str = "auto"):
+                 backend: str = "auto", partitioned: bool = False,
+                 skew_split=None):
         super().__init__(schema, left, right)
         self.join_type = join_type
         self.left_keys = list(left_keys)
@@ -505,31 +510,116 @@ class TpuSortMergeJoinExec(TpuExec):
         self.sub_partition_rows = sub_partition_rows
         self.out_batch_rows = out_batch_rows
         self.backend = KN.resolve("join", backend)
+        self.partitioned = partitioned
+        self.skew_split = skew_split
+        self._split_lock = threading.Lock()
+        self._split_specs: Optional[List[Tuple[int, int, int]]] = None
+        self._split_planned = False
+        # a build partition replicated across a hot partition's slices
+        # is gathered once and shared
+        self._split_build_cache: dict = {}
 
     def node_string(self):
+        part = " partitioned" if self.partitioned else ""
         bc = f" broadcast={self.broadcast}" if self.broadcast else ""
         cond = f" cond={self.condition}" if self.condition else ""
-        return f"TpuSortMergeJoin [{self.join_type}{bc}{cond}]"
+        return f"TpuSortMergeJoin [{self.join_type}{part}{bc}{cond}]"
 
     def num_partitions(self) -> int:
         # a broadcast join streams partition by partition of the other
-        # side; any other join gathers both sides into one partition
+        # side, a partitioned one pairs the exchanges' partitions (or the
+        # skew plan's slices); any other join gathers both sides into one
+        # partition
         if self.broadcast == "right":
             return self.children[0].num_partitions()
         if self.broadcast == "left":
             return self.children[1].num_partitions()
+        if self.partitioned:
+            specs = self._skew_specs()
+            if specs is not None:
+                return len(specs)
+            return self.children[0].num_partitions()
         return 1
+
+    def _skew_specs(self) -> Optional[List[Tuple[int, int, int]]]:
+        """The adaptive skew-healing read plan of a partitioned join, or
+        None for the 1:1 partition mapping.
+
+        One ``(p, j, k)`` per output partition: slice j of k of the
+        stream side's exchange partition p (k == 1 reads it whole).
+        Hot partitions — by the exchange's recorded partition counts
+        and the policy's skew threshold — split into rank-interleaved
+        slices (``execute_split``), each joined against the build
+        side's whole matching partition, so every stream row still sees
+        all of its key's build rows: this spreads a SINGLE hot key, which
+        the hash split (``_sub_partition_join``) cannot."""
+        pol = self.skew_split
+        if pol is None or not self.partitioned:
+            return None
+        lex = self.children[0]
+        if not (hasattr(lex, "execute_split")
+                and hasattr(lex, "aqe_partition_stats")):
+            return None
+        with self._split_lock:
+            if self._split_planned:
+                return self._split_specs
+            self._split_planned = True
+            from spark_rapids_tpu_torch import adaptive as AD
+            from spark_rapids_tpu_torch.adaptive import replanner
+            from spark_rapids_tpu_torch.runtime import stats as stats_mod
+            st = stats_mod.current()
+            rec = st.partition_counts(lex) if st is not None else None
+            unit, counts = (rec if rec is not None
+                            else lex.aqe_partition_stats())
+            if unit != "rows":
+                return None
+            planned = replanner.plan_skew_reads(pol, self.join_type,
+                                                counts)
+            if planned is None:
+                return None
+            specs, detail = planned
+            self.metric("skewSplitJoins").add(len(detail["partitions"]))
+            AD.record_decision(self, "skew-split", **detail)
+            self._split_specs = specs
+            return specs
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
         jt = self.join_type
         if jt == "right":
             yield from self._execute_swapped(partition)
             return
-        lpart = partition if self.broadcast == "right" else None
-        rpart = partition if self.broadcast == "left" else None
-        with self.timer("gatherTime"):
-            l_list = _gather_list(self.children[0], lpart)
-            r_list = _gather_list(self.children[1], rpart)
+        l_list = r_list = None
+        if self.broadcast == "right":
+            lpart, rpart = partition, None
+        elif self.broadcast == "left":
+            lpart, rpart = None, partition
+        elif self.partitioned:
+            lpart = rpart = partition
+            specs = self._skew_specs()
+            if specs is not None:
+                p, j, k = specs[partition]
+                lpart = rpart = p
+                if k > 1:
+                    # a hot partition: a rank-interleaved stream slice
+                    # joined against the replicated build partition
+                    with self.timer("gatherTime"):
+                        l_list = [compact(b) for b in
+                                  self.children[0].execute_split(p, j, k)]
+                        with self._split_lock:
+                            r_cached = self._split_build_cache.get(p)
+                            if r_cached is None:
+                                r_cached = _gather_list(
+                                    self.children[1], rpart)
+                                self._split_build_cache[p] = r_cached
+                        # a copy: the sub-partition path drains its
+                        # input lists in place
+                        r_list = list(r_cached)
+        else:
+            lpart = rpart = None
+        if l_list is None:
+            with self.timer("gatherTime"):
+                l_list = _gather_list(self.children[0], lpart)
+                r_list = _gather_list(self.children[1], rpart)
         # a streamed partition may hold no batch (an AQE read of a host
         # shuffle yields none for an empty range): its empty stand-in
         # goes on the other side's device
@@ -613,7 +703,8 @@ class TpuSortMergeJoinExec(TpuExec):
             "left", self.right_keys, self.left_keys, self.condition,
             self._swapped_schema(), self.children[1], self.children[0],
             using=self.using, sub_partition_rows=self.sub_partition_rows,
-            out_batch_rows=self.out_batch_rows, backend=self.backend)
+            out_batch_rows=self.out_batch_rows, backend=self.backend,
+            partitioned=self.partitioned)
         n_lc = len(self.children[0].schema)
         n_rc = len(self.children[1].schema)
         if not self.using:
@@ -994,6 +1085,157 @@ class TpuSortMergeJoinExec(TpuExec):
 # The plan rewrite's rule for joins
 # ---------------------------------------------------------------------------
 
+class _ReplayExec(TpuExec):
+    """Serves already-materialized device batches (the stage-result
+    handoff: a measured side re-enters the next plan step without
+    re-executing its subtree)."""
+
+    def __init__(self, schema, batches: List[DeviceBatch]):
+        super().__init__(schema)
+        self._batches = batches
+
+    def node_string(self):
+        return f"Replay[{len(self._batches)} batches]"
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        yield from self._batches
+
+
+class TpuAdaptiveLocalJoinExec(TpuExec):
+    """Single-process adaptive join — the adaptive plane's join strategy
+    and skew-split decisions applied at a stage boundary (the JAX
+    package's ``TpuAdaptiveLocalJoinExec``).
+
+    The planner could not prove the build side small (the static
+    broadcast in ``_convert_join`` would have fired), so the strategy
+    defers to run time:
+
+    * **warm** — the profile store already holds a measured build-side
+      size for this join's subtree signature (``adaptive.historyPath``):
+      decide from history, execute nothing early;
+    * **cold** — materialize the build side once off its own pump,
+      decide from its measured LIVE bytes, and replay the batches into
+      whichever plan wins (nothing executes twice).
+
+    Broadcast drops the exchange entirely; shuffled co-partitions both
+    sides through in-process hash exchanges and hands the policy to the
+    partitioned join, so recorded partition skew splits hot stream
+    partitions (``TpuSortMergeJoinExec._skew_specs``)."""
+
+    def __init__(self, join_type: str, left_keys, right_keys, condition,
+                 schema, left: TpuExec, right: TpuExec, policy,
+                 nparts: int, hash_ok: bool, using: bool,
+                 sub_partition_rows: int, out_batch_rows, backend: str,
+                 device):
+        super().__init__(schema, left, right)
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.condition = condition
+        self.policy = policy
+        self.nparts = int(nparts)
+        # mixed-width int key pairs hash differently per side through
+        # the plain hash exchange: those plans may flip to broadcast but
+        # never to shuffled
+        self.hash_ok = bool(hash_ok)
+        self.using = using
+        self.sub_partition_rows = sub_partition_rows
+        self.out_batch_rows = out_batch_rows
+        self.backend = backend
+        self.device = device
+        self._lock = threading.Lock()
+        self._inner: Optional[TpuSortMergeJoinExec] = None
+        self._mode: Optional[str] = None
+
+    def node_string(self):
+        mode = self._mode or "undecided"
+        return (f"TpuAdaptiveLocalJoin [{self.join_type} runtime={mode} "
+                f"thresh={self.policy.broadcast_threshold}]")
+
+    def num_partitions(self) -> int:
+        self._decide()
+        return self._inner.num_partitions()
+
+    def _decide(self):
+        with self._lock:
+            if self._inner is not None:
+                return
+            from spark_rapids_tpu_torch import adaptive as AD
+            from spark_rapids_tpu_torch.adaptive import cost_model
+            from spark_rapids_tpu_torch.adaptive import replanner
+            from spark_rapids_tpu_torch.exec.exchange import (
+                TpuShuffleExchangeExec)
+            pol = self.policy
+            sig = cost_model.subtree_signature(self.children[1])
+            r_list = None
+            decided = replanner.decide_join_from_history(pol, sig)
+            if (decided is None and pol.wants_join
+                    and pol.broadcast_threshold > 0):
+                # cold query: measure the build side off its own pump.
+                # LIVE bytes, not bucket capacity (a filtered side keeps
+                # its scan bucket but holds few live rows)
+                with self.timer("measureTime"):
+                    r_list = _gather_list(self.children[1])
+                    counts = live_counts(r_list)
+                rbytes = sum(
+                    n * max(1, b.nbytes() // max(b.capacity, 1))
+                    for n, b in zip(counts, r_list))
+                decided = replanner.decide_join_from_measurement(
+                    pol, sig, rbytes)
+            if decided is None:
+                # join strategy gated off: keep the shuffled plan shape
+                # (skew splitting is the remaining decision)
+                decided = ("shuffled",
+                           {"threshold": pol.broadcast_threshold,
+                            "build_sig": sig, "source": "conf"})
+            strategy, detail = decided
+            build = (_ReplayExec(self.children[1].schema, r_list)
+                     if r_list is not None else self.children[1])
+            common = dict(using=self.using,
+                          sub_partition_rows=self.sub_partition_rows,
+                          out_batch_rows=self.out_batch_rows,
+                          backend=self.backend)
+            if strategy == "broadcast":
+                self.metric("adaptiveBroadcastJoins").add(1)
+                inner = TpuSortMergeJoinExec(
+                    self.join_type, self.left_keys, self.right_keys,
+                    self.condition, self.schema, self.children[0],
+                    TpuBroadcastExchangeExec(build), broadcast="right",
+                    **common)
+            elif self.hash_ok:
+                self.metric("adaptiveShuffledJoins").add(1)
+                lex = TpuShuffleExchangeExec(self.children[0],
+                                             self.nparts, self.left_keys,
+                                             device=self.device)
+                rex = TpuShuffleExchangeExec(build, self.nparts,
+                                             self.right_keys,
+                                             device=self.device)
+                inner = TpuSortMergeJoinExec(
+                    self.join_type, self.left_keys, self.right_keys,
+                    self.condition, self.schema, lex, rex,
+                    partitioned=True,
+                    skew_split=pol if pol.wants_skew else None, **common)
+            else:
+                self.metric("adaptiveShuffledJoins").add(1)
+                inner = TpuSortMergeJoinExec(
+                    self.join_type, self.left_keys, self.right_keys,
+                    self.condition, self.schema, self.children[0],
+                    build, **common)
+            # the subtree built here is invisible to the plan walk:
+            # decisions made inside it surface on this node
+            inner._decision_owner = self
+            self._mode = strategy
+            self._inner = inner
+            AD.record_decision(self, strategy, **detail)
+
+    def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        self._decide()
+        yield from self._inner.execute(partition)
+
+
 def _tag_join(meta):
     """The JAX package's ``_tag_join``: what keeps a join on the CPU."""
     from spark_rapids_tpu_torch.plan.overrides import tag_expression
@@ -1030,11 +1272,13 @@ def _tag_join(meta):
 
 def _convert_join(cpu, ch, conf, device):
     """The JAX package's single-process ``_convert_join``: broadcast the
-    small side when its estimate fits ``autoBroadcastJoinThreshold``,
-    else a sort-merge join that picks its strategy from live row counts
-    at run time.  The ICI-exchanged (co-partitioned) plan belongs to the
-    exchange plane, which is not ported (ROADMAP A.4 / A.10)."""
-    from spark_rapids_tpu_torch.plan.analysis import _not_ported
+    small side when its estimate fits ``autoBroadcastJoinThreshold``;
+    under the adaptive plane an equi-join it may stream defers the
+    strategy to run time (``TpuAdaptiveLocalJoinExec``); else a
+    sort-merge join that picks its strategy from live row counts at run
+    time.  The ICI-exchanged (co-partitioned) plan and its adaptive join
+    belong to the collective exchange plane, which is not ported
+    (ROADMAP A.10)."""
     jt = cpu.join_type
     common = dict(using=cpu.using,
                   sub_partition_rows=conf.get(C.JOIN_TARGET_ROWS),
@@ -1056,10 +1300,22 @@ def _convert_join(cpu, ch, conf, device):
                 jt, cpu.left_keys, cpu.right_keys, cpu.condition,
                 cpu.schema, TpuBroadcastExchangeExec(ch[0]), ch[1],
                 broadcast="left", **common)
-    if (conf.get(C.ADAPTIVE_PLANE_ENABLED) and cpu.left_keys
+    if (cpu.left_keys
             and jt in ("inner", "left", "left_semi", "left_anti")):
-        raise _not_ported("adaptive join (TpuAdaptiveLocalJoinExec, "
-                          "spark.rapids.tpu.adaptive.enabled)")
+        # single-process adaptive plane: defer broadcast-vs-shuffled to
+        # the observed build cardinality and heal recorded partition skew
+        from spark_rapids_tpu_torch import adaptive as AD
+        pol = AD.policy_from_conf(conf)
+        if pol.enabled and (pol.wants_join or pol.wants_skew):
+            hash_ok = all(
+                type(le.dtype) is type(re.dtype)
+                for le, re in zip(cpu.left_keys, cpu.right_keys))
+            return TpuAdaptiveLocalJoinExec(
+                jt, cpu.left_keys, cpu.right_keys, cpu.condition,
+                cpu.schema, ch[0], ch[1], pol,
+                conf.get(C.SHUFFLE_PARTITIONS), hash_ok, cpu.using,
+                common["sub_partition_rows"], common["out_batch_rows"],
+                common["backend"], device)
     return TpuSortMergeJoinExec(
         jt, cpu.left_keys, cpu.right_keys, cpu.condition, cpu.schema,
         ch[0], ch[1], **common)

@@ -291,7 +291,10 @@ def mul_checked(a: torch.Tensor, b: torch.Tensor
 def fits_precision(a: torch.Tensor, precision: int) -> torch.Tensor:
     """|a| < 10^precision: Spark nulls a decimal result that overflows
     its declared precision (non-ANSI)."""
-    bound = torch.from_numpy(np_pack([10 ** precision])[0]).to(a.device)
+    from spark_rapids_tpu_torch.runtime.device import device_constant
+    bound = device_constant(
+        ("decimal128.bound", precision), a.device,
+        lambda: torch.from_numpy(np_pack([10 ** precision])[0]))
     mag, _ = abs128(a)
     return cmp_lt(mag, bound.expand_as(mag))
 

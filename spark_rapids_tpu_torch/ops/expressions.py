@@ -35,6 +35,7 @@ from spark_rapids_tpu_torch.columnar.column import (
     DeviceBatch, DeviceColumn, torch_dtype)
 from spark_rapids_tpu_torch.columnar.host import HostBatch, HostCol
 from spark_rapids_tpu_torch.ops import decimal128 as D128
+from spark_rapids_tpu_torch.runtime.device import device_constant
 
 
 def merge_validity(*vs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -173,7 +174,9 @@ class Literal(Expression):
         if isinstance(self.dtype, T.DecimalType):
             v = _unscaled_literal(v, self.dtype)
             if D128.is128(self.dtype):
-                pair = torch.from_numpy(D128.np_pack([v])).to(dev)
+                pair = device_constant(
+                    ("literal.decimal128", v), dev,
+                    lambda: torch.from_numpy(D128.np_pack([v])))
                 return DeviceColumn(self.dtype, pair.expand(b, 2))
         return DeviceColumn(self.dtype, torch.full(
             (b,), v, dtype=tdt, device=dev))
@@ -188,8 +191,10 @@ class Literal(Expression):
                 torch.zeros((b,), dtype=torch.bool, device=dev),
                 torch.zeros((b,), dtype=torch.int32, device=dev))
         bs = str(self.value).encode()
-        row = torch.tensor(list(bs.ljust(max(len(bs), 1), b"\0")),
-                           dtype=torch.uint8, device=dev)
+        padded = bs.ljust(max(len(bs), 1), b"\0")
+        row = device_constant(
+            ("literal.string", padded), dev,
+            lambda: torch.tensor(list(padded), dtype=torch.uint8))
         return DeviceColumn(self.dtype, row.expand(b, -1), None,
                             torch.full((b,), len(bs), dtype=torch.int32,
                                        device=dev))

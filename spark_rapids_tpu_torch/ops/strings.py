@@ -50,6 +50,7 @@ from spark_rapids_tpu_torch.columnar.column import (
 from spark_rapids_tpu_torch.columnar.host import HostCol
 from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops import regex_device as RX
+from spark_rapids_tpu_torch.runtime.device import device_constant
 from spark_rapids_tpu_torch.ops.expressions import (
     Expression, Literal, merge_validity, merge_validity_h)
 
@@ -144,10 +145,11 @@ def string_comparison(op: str, l: Expression, r: Expression) -> Expression:
 
 
 def _pattern_tensor(pat: bytes, dev) -> torch.Tensor:
-    """The pattern's bytes on ``dev``, copied without waiting for the
-    device (the host buffer is staged at once)."""
-    return torch.tensor(list(pat), dtype=torch.uint8).to(dev,
-                                                         non_blocking=True)
+    """The pattern's bytes on ``dev``, uploaded once per pattern and
+    device (``device_constant``)."""
+    return device_constant(
+        ("strings.pattern", bytes(pat)), dev,
+        lambda: torch.tensor(list(pat), dtype=torch.uint8))
 
 
 def _window_match(c: DeviceColumn, pat: bytes,
@@ -959,7 +961,8 @@ def cast_string_to_float_device(c: DeviceColumn, dst: T.DataType
     # powers come from a table of correctly rounded doubles, since
     # torch.pow(10.0, k) is 1 ulp off at k = 23, 45, 165, 210, 250, 304
     ae = torch.clamp(exp.abs(), 0, 350).long()
-    pow10 = torch.from_numpy(_POW10).to(dev, non_blocking=True)
+    pow10 = device_constant("strings.pow10", dev,
+                            lambda: torch.from_numpy(_POW10))
     p1 = pow10[torch.clamp(ae, max=22)]
     p2 = pow10[torch.clamp(ae - 22, min=0)]
     val = torch.where(exp >= 0, mant * p1 * p2, mant / p1 / p2)

@@ -47,6 +47,11 @@ class InMemoryRelation(LogicalPlan):
     table: pa.Table
     schema: T.StructType
     num_partitions: int = 1
+    # result-cache input identity: the content fingerprint (assigned only
+    # by cache/fingerprints.py and the session catalog) and the catalog
+    # name the relation was registered under, if any
+    fingerprint: Optional[str] = None
+    source: Optional[str] = None
 
     @property
     def name(self):

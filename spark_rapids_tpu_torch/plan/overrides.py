@@ -24,11 +24,12 @@ mechanics and the same reason texts:
 The port's rules convert onto the session's device, so ``convert``
 takes it beside the conf.  As in the JAX package, ``apply_overrides``
 arms the fault injector and refreshes the retry policy from the conf
-(``runtime/resilience.py::configure_from_conf``).  Planes the port
-lacks are left out of it: whole-stage fusion (``fuse_plan``, ROADMAP
-A.9), the multi-executor validation ``_validate_multiproc`` (A.10), the
-LORE dump taps ``install_lore_taps`` (A.12) and the ICI exchange
-branches of the aggregate, sort, join and window conversions (A.10): under
+(``runtime/resilience.py::configure_from_conf``), and runs the
+whole-stage fusion pass last (``fusion/regions.py::fuse_plan``).
+Planes the port lacks are left out of it: the multi-executor
+validation ``_validate_multiproc`` (A.10), the LORE dump taps
+``install_lore_taps`` (A.12) and the ICI exchange branches of the
+aggregate, sort, join and window conversions (A.10): under
 ``spark.rapids.shuffle.mode=ICI`` the rewrite raises.  A
 repartition converts by ``spark.rapids.shuffle.mode``
 (``exec/exchange.py::_convert_exchange``); the coalesce pass asks a
@@ -506,6 +507,11 @@ def apply_overrides(cpu_plan: CpuExec, conf: RapidsConf,
     if isinstance(plan, TpuExec):
         plan = DeviceToHostExec(plan)
     plan = insert_coalesce(plan, conf)
+    # whole-stage fusion last: it needs the final converted tree (so the
+    # member signatures it records match what an unfused run of this
+    # exact plan would execute — see fusion/regions.py)
+    from spark_rapids_tpu_torch.fusion import fuse_plan
+    plan, _ = fuse_plan(plan, conf)
     result = OverrideResult(plan, metas)
 
     explain = conf.explain

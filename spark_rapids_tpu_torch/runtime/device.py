@@ -10,6 +10,9 @@ process-wide precision switch exists or is needed.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 
@@ -44,3 +47,54 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# Device copies of small host constants (string and pattern bytes,
+# decimal bounds, power tables), one per (key, device).  Expressions
+# upload them at their first evaluation and read the same tensor ever
+# after: a fused region's CUDA graph capture may not copy from pageable
+# host memory, and the eager run before its capture fills this memo.
+# Consumers never write into a constant.  The memo is bounded and drops
+# every entry at its cap, so a captured graph, which reads the
+# addresses it was captured with, owns the constants it reads
+# (``hold_constants``) instead of relying on the memo.
+_CONSTANTS: dict = {}
+_CONSTANTS_CAP = 4096
+_HELD = threading.local()
+
+
+@contextlib.contextmanager
+def hold_constants():
+    """Collect every constant this thread reads inside the block into
+    the dict it yields, and serve a constant read earlier in the block
+    from that dict even after the memo has dropped it: an eager run and
+    the capture that follows it then read the same tensors, and the
+    dict keeps them alive for the graph.  A nested block shares the
+    outer block's dict."""
+    outer = getattr(_HELD, "held", None)
+    held = _HELD.held = {} if outer is None else outer
+    try:
+        yield held
+    finally:
+        _HELD.held = outer
+
+
+def device_constant(key, device: torch.device, make) -> torch.Tensor:
+    """The device copy of the CPU tensor ``make()`` under ``key``,
+    uploaded once per device."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return make()
+    k = (key, device)
+    held = getattr(_HELD, "held", None)
+    got = None if held is None else held.get(k)
+    if got is None:
+        got = _CONSTANTS.get(k)
+        if got is None:
+            if len(_CONSTANTS) >= _CONSTANTS_CAP:
+                _CONSTANTS.clear()
+            got = _CONSTANTS.setdefault(
+                k, make().to(device, non_blocking=True))
+        if held is not None:
+            held[k] = got
+    return got

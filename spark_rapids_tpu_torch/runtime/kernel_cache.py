@@ -68,6 +68,24 @@ TM.REGISTRY.gauge(
     fn=lambda: len(_LOADED))
 
 
+def fingerprint(v) -> object:
+    """Structural, hashable key of an expression or schema tree (the
+    JAX package's ``kernel_cache.fingerprint``): a fusion hook's key."""
+    import dataclasses
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        if isinstance(v, T.DataType):
+            return v.simple_name
+        return (type(v).__name__,) + tuple(
+            fingerprint(getattr(v, f.name)) for f in dataclasses.fields(v))
+    if isinstance(v, (list, tuple)):
+        return tuple(fingerprint(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, fingerprint(x)) for k, x in v.items()))
+    return repr(v)
+
+
 def note_lookup(hit: bool) -> None:
     """Count one library lookup at a build site."""
     (_TM_HITS if hit else _TM_MISSES).inc()

@@ -36,8 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 # The stats-field catalog: every key a profile record's per-op entry (or
 # exchange summary) may carry — the JAX package's keys, so that records
-# of both packages read alike.  Its fused-region and adaptive-decision
-# fields come with those planes (ROADMAP A.9).
+# of both packages read alike.
 STATS_FIELDS = {
     "op": "exec class name",
     "sig": "stable plan-node signature (op + tree path + schema)",
@@ -60,9 +59,19 @@ STATS_FIELDS = {
     "self_s": "operator self-time from the trace rollup (traced runs)",
     "total_s": "operator total time from the trace rollup (traced runs)",
     "fused": "operator was fused into its consumer's kernel (stays zero)",
+    "fused_region": "signature of the enclosing FusedStageExec on the "
+                    "synthetic per-member records a fused region emits "
+                    "(the member keeps its pre-fusion sig/path, so "
+                    "profile diff lines it up with unfused history)",
+    "region_ops": "member operators in this fused region's one cached "
+                  "callable (FusedStageExec records only)",
+    "region_compile_s": "seconds of this fused region's CUDA graph "
+                        "captures (regionCompileTime)",
     "kernel_backend": "kernel-plane backend that produced this "
                       "operator's results (cuda/jnp; 'mixed' "
                       "when dispatches disagreed across batches)",
+    "adaptive": "adaptive-plane decisions applied at this operator "
+                "(kind + triggering stat + chosen action)",
 }
 
 _HIST_CAP = 1 << 30
@@ -114,7 +123,7 @@ class NodeStats:
 
     __slots__ = ("rows", "batches", "bytes", "hist", "nulls", "observed",
                  "partitions", "partition_unit", "executors", "padded",
-                 "kernel_backend", "_lock")
+                 "kernel_backend", "decisions", "_lock")
 
     def __init__(self):
         self.rows = 0
@@ -129,6 +138,8 @@ class NodeStats:
         self.partitions: Optional[List[int]] = None
         self.partition_unit = "rows"
         self.executors = 1
+        # adaptive-plane decisions applied at this node, in order
+        self.decisions: List[Dict[str, Any]] = []
         self._lock = threading.Lock()
 
     def add_batch(self, n: int, nbytes: int,
@@ -157,6 +168,10 @@ class NodeStats:
             elif self.kernel_backend != backend:
                 # per-batch fallbacks can land different rungs on one op
                 self.kernel_backend = "mixed"
+
+    def add_decision(self, kind: str, detail: Dict[str, Any]) -> None:
+        with self._lock:
+            self.decisions.append({"kind": kind, **detail})
 
     def set_partitions(self, counts: Sequence[int], unit: str,
                        executors: int = 1) -> None:
@@ -259,6 +274,14 @@ class OpStatsCollector:
         cluster-merged when ``executors`` > 1)."""
         self.node_stats(node).set_partitions(counts, unit, executors)
 
+    def record_decision(self, node, kind: str,
+                        detail: Dict[str, Any]) -> None:
+        """One adaptive-plane decision applied at ``node`` (the
+        adaptive plane calls this through
+        ``adaptive.record_decision``, which also bumps the telemetry
+        counter)."""
+        self.node_stats(node).add_decision(kind, detail)
+
     # -- AQE read side ------------------------------------------------------
     def partition_counts(self, node
                          ) -> Optional[Tuple[str, List[int]]]:
@@ -269,6 +292,16 @@ class OpStatsCollector:
         if ns is None or ns.partitions is None:
             return None
         return ns.partition_unit, list(ns.partitions)
+
+    def observed(self, node) -> Optional[Tuple[int, int]]:
+        """``(rows, bytes)`` observed leaving ``node`` so far, or None
+        when the node never pumped — the batch-retargeting input (the
+        adaptive read replans from recorded observations, never a
+        fresh device read)."""
+        ns = self._nodes.get(id(node))
+        if ns is None:
+            return None
+        return ns.rows, ns.bytes
 
     # -- reporting ----------------------------------------------------------
     def report(self, plan, rollup: Optional[dict] = None,
@@ -333,12 +366,38 @@ class OpStatsCollector:
                     "skewed": rec["skewed"],
                     "executors": ns.executors,
                 })
+            if ns.decisions:
+                rec["adaptive"] = [dict(d) for d in ns.decisions]
             if rollup:
                 r = rollup.get(node.name)
                 if r is not None:
                     rec["self_s"] = r.get("self_s")
                     rec["total_s"] = r.get("total_s")
             ops.append(rec)
+            members = getattr(node, "fusion_members", None)
+            if members:
+                rec["region_ops"] = len(members)
+                ct = getattr(node, "metrics", {}).get("regionCompileTime")
+                if ct is not None and ct.value:
+                    rec["region_compile_s"] = round(float(ct.value), 6)
+                # synthetic per-member records: each member keeps the
+                # signature/path it would have carried unfused, so
+                # `profile diff` compares fused runs against unfused
+                # history; region time splits evenly over the members
+                share = (rec["self_s"] / len(members)
+                         if rec.get("self_s") is not None else None)
+                for m in members:
+                    mrec: Dict[str, Any] = {
+                        "op": m["op"], "sig": m["sig"], "path": m["path"],
+                        "fused": True, "fused_region": rec["sig"],
+                        "rows_out": 0, "batches_out": 0, "bytes_out": 0,
+                        "rows_in": 0, "bytes_in": 0, "batches_in": 0,
+                        "batch_rows_hist": {},
+                    }
+                    if share is not None:
+                        mrec["self_s"] = share
+                        mrec["total_s"] = share
+                    ops.append(mrec)
             for i, c in enumerate(node.children):
                 walk(c, f"{path}.{i}")
 
@@ -352,6 +411,11 @@ class OpStatsCollector:
             "ops": ops,
             "exchanges": exchanges,
         }
+        decisions = [{"op": rec["op"], "sig": rec["sig"],
+                      "path": rec["path"], **d}
+                     for rec in ops for d in rec.get("adaptive", ())]
+        if decisions:
+            out["adaptive_decisions"] = decisions
         if wall_s is not None:
             out["wall_s"] = wall_s
         return out

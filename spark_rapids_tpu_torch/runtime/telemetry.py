@@ -372,7 +372,8 @@ def ensure_producers() -> None:
     for mod in ("runtime.cancel", "runtime.memory", "runtime.semaphore",
                 "runtime.attribution", "runtime.kernel_cache",
                 "runtime.resilience", "runtime.lockdep", "runtime.shapes",
-                "shuffle.manager", "shuffle.exchange", "kernels"):
+                "adaptive", "shuffle.manager", "shuffle.exchange",
+                "parallel.executor", "kernels", "cache", "fusion"):
         try:
             importlib.import_module(f"spark_rapids_tpu_torch.{mod}")
         except Exception as e:  # never fail a report over one producer

@@ -851,14 +851,18 @@ class DataFrame:
         from spark_rapids_tpu_torch import conf as C
         profile = self._last_profile
         if profile is None:
-            sess = self.session
-            saved = sess._conf
-            sess._conf = saved.with_values({C.STATS_ENABLED.key: True,
-                                            C.TRACE_ENABLED.key: True})
+            saved = {}
+            for key in (C.STATS_ENABLED.key, C.TRACE_ENABLED.key):
+                saved[key] = self.session.conf.get(key, None)
+                self.session.conf.set(key, True)
             try:
                 self.toArrow()
             finally:
-                sess._conf = saved
+                for key, old in saved.items():
+                    if old is None:
+                        self.session.conf.unset(key)
+                    else:
+                        self.session.conf.set(key, old)
             profile = self._last_profile
         if profile is None:
             # a concurrent query owns the collector (nested execution)
@@ -888,8 +892,26 @@ class DataFrame:
                     ann += f" executors={rec['executors']}"
             if rec.get("fused"):
                 ann += " fused"
+            if rec.get("region_ops"):
+                ann += f" region_ops={rec['region_ops']}"
+                if rec.get("region_compile_s") is not None:
+                    ann += f" compile={rec['region_compile_s']:.6f}s"
             if rec.get("kernel_backend"):
                 ann += f" kernel={rec['kernel_backend']}"
+            if rec.get("adaptive"):
+                labels = []
+                for d in rec["adaptive"]:
+                    kind = d.get("kind")
+                    if kind == "skew-split":
+                        labels.extend(
+                            f"skew-split({k})"
+                            for k in d.get("splits", ()) or ("?",))
+                    elif kind == "batch-retarget":
+                        labels.append(
+                            f"batch-retarget({d.get('target_rows')})")
+                    else:
+                        labels.append(str(kind))
+                ann += " adaptive=" + ",".join(labels)
             lines.append("  " * depth
                          + ("*" if node.is_tpu else "")
                          + node.node_string() + f"  [{ann}]")
@@ -918,7 +940,14 @@ class DataFrame:
         on by default), the flight recorder, the stats collector (with
         ``spark.rapids.tpu.stats.enabled``) and, with
         ``spark.rapids.profile.enabled``, a ``torch.profiler`` capture
-        into ``<profile.path>/query-<id>``."""
+        into ``<profile.path>/query-<id>``.
+
+        With ``spark.rapids.tpu.cache.enabled``, the result cache is
+        consulted first (``cache/``): a hit hands back the resident
+        Arrow table — no partition pump, no device permit, no launch —
+        while the query window still runs, so the event-log entry
+        carries ``cache.status="hit"``.  A query whose inputs cannot be
+        fingerprinted runs uncached."""
         from spark_rapids_tpu_torch import conf as C
         from spark_rapids_tpu_torch.runtime import attribution as attr_mod
         from spark_rapids_tpu_torch.runtime import cancel
@@ -928,6 +957,15 @@ class DataFrame:
         conf = self.session.rapids_conf()
         plan = self._execute_plan()
         self._last_plan = plan
+        cache_store = ckey = None
+        if conf.get(C.CACHE_ENABLED):
+            from spark_rapids_tpu_torch import cache as cache_mod
+            cache_store = cache_mod.get_cache(conf)
+            try:
+                ckey = cache_mod.result_key(self._plan, plan, conf)
+            except Exception:
+                # unkeyable inputs (a vanished scan file): run uncached
+                cache_store = None
         qid = trace.next_query_id()
         qwin = telemetry.begin_query(qid)
         rwin = resilience.begin_query(qid)
@@ -961,19 +999,60 @@ class DataFrame:
         root = (tracer.span("Query", "execute")
                 if tracer is not None else contextlib.nullcontext())
         error = cancelled = None
+        cache_info = flight = None
         try:
             with profile, root:
-                tables = self._pump_partitions(plan, conf,
-                                               self.session.device)
-                with trace.span("Result", "concatTime"):
-                    if not tables:
-                        out = pa.table(
-                            [pa.array([], type=T.to_arrow(f.dtype))
-                             for f in self.schema.fields],
-                            names=self.columns)
-                    else:
-                        out = pa.concat_tables(tables)
-                    out = self._reassemble_structs(out)
+                served = None
+                if cache_store is not None:
+                    with trace.span("ResultCache", "cacheProbe"):
+                        served = cache_store.lookup(ckey.key)
+                        if served is None:
+                            role, fl = cache_store.join_flight(ckey.key)
+                            if role == "leader":
+                                flight = fl
+                                fl.leader_qid = qid
+                            else:
+                                # another execution of this key is in
+                                # progress: wait for it, then re-probe;
+                                # compute here if it stored nothing
+                                while not fl.done.wait(0.05):
+                                    cancel.check()
+                                served = cache_store.lookup(ckey.key)
+                                if served is not None:
+                                    cache_info = {"coalesced": True}
+                if served is not None:
+                    out = served.value
+                    cache_info = {
+                        "status": "hit", "key": served.key,
+                        "signature": served.sig,
+                        "bytes": served.nbytes,
+                        "saved_s": round(served.runtime_s, 6),
+                        "age_s": round(
+                            time.monotonic() - served.created, 6),
+                        **(cache_info or {})}
+                else:
+                    t_exec = time.perf_counter()
+                    tables = self._pump_partitions(plan, conf,
+                                                   self.session.device)
+                    with trace.span("Result", "concatTime"):
+                        if not tables:
+                            out = pa.table(
+                                [pa.array([], type=T.to_arrow(f.dtype))
+                                 for f in self.schema.fields],
+                                names=self.columns)
+                        else:
+                            out = pa.concat_tables(tables)
+                        out = self._reassemble_structs(out)
+                    if cache_store is not None:
+                        runtime_s = time.perf_counter() - t_exec
+                        cache_store.note_miss()
+                        with trace.span("ResultCache", "cacheServe"):
+                            stored = cache_store.put(
+                                ckey, out, out.nbytes, runtime_s)
+                        cache_info = {
+                            "key": ckey.key, "signature": ckey.sig,
+                            "bytes": out.nbytes,
+                            "runtime_s": round(runtime_s, 6), **stored}
         except cancel.QueryCancelled as e:
             cancelled = e
             error = f"{type(e).__name__}: {e}"
@@ -989,6 +1068,10 @@ class DataFrame:
             error = f"{type(e).__name__}: {e}"
             raise
         finally:
+            if flight is not None:
+                # wake single-flight followers even on failure: they
+                # re-probe and compute for themselves
+                cache_store.finish_flight(ckey.key, flight)
             trace.end_query(tracer)
             stats_mod.end_query(collector)
             attr_mod.end_query(arec)
@@ -998,7 +1081,8 @@ class DataFrame:
                 self._record_query(qid, conf, error, res, cancelled, cwin,
                                    tracer=tracer, qwin=qwin,
                                    collector=collector, recorder=arec,
-                                   profile_dir=profile_dir)
+                                   profile_dir=profile_dir,
+                                   cache_info=cache_info)
         return out
 
     def _reassemble_structs(self, t: pa.Table) -> pa.Table:
@@ -1034,7 +1118,8 @@ class DataFrame:
 
     def _record_query(self, qid, conf, error, res, cancelled, ctoken,
                       tracer=None, qwin=None, collector=None,
-                      recorder=None, profile_dir=None) -> None:
+                      recorder=None, profile_dir=None,
+                      cache_info=None) -> None:
         """One event-log entry per execution, the JAX package's: plan
         tree, fallback report, every metric at its level, the span
         rollup, the attribution ledger, the telemetry deltas and health
@@ -1058,6 +1143,10 @@ class DataFrame:
         }
         if error:
             entry["error"] = error
+        if cache_info is not None:
+            # result-cache outcome: status hit|stored|uncached, with
+            # key/signature/bytes and saved_s (hit) or runtime_s (miss)
+            entry["cache"] = cache_info
         if cancelled is not None:
             cinfo = {"reason": cancelled.reason}
             if ctoken is not None:

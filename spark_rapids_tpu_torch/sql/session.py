@@ -29,6 +29,17 @@ plane's record of the latest query run with
 ``metrics_report()`` the process registry's snapshot with the recent
 health events.  Creation starts the telemetry sampler when
 ``spark.rapids.tpu.telemetry.enabled`` asks for it.
+
+The conf surface is the JAX package's: ``session.conf`` is a
+``RuntimeConf`` (``set``, ``get``, ``unset``, ``snapshot``) whose
+validated snapshot every query plans with (``rapids_conf()``), and
+``TpuSession.builder.config(key, value).getOrCreate()`` builds a
+session (with ``device=`` beside the conf).  The catalog
+(``registerTable``, ``table``) is the result cache's fingerprint-bump
+chokepoint for in-memory inputs; ``invalidate_cache`` and
+``cache_stats`` reach the process's result cache (``cache/``), which
+creation configures from the conf; ``stop`` does nothing, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +53,61 @@ import pyarrow as pa
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.conf import RapidsConf
 from spark_rapids_tpu_torch.runtime.device import resolve_device
+
+
+class RuntimeConf:
+    """Mutable session conf view (the ``spark.conf`` analog).  Values are
+    validated when a snapshot is taken: a query plans with
+    ``snapshot()``, which raises on an unknown ``spark.rapids.*`` key or
+    a value its entry rejects."""
+
+    def __init__(self, raw: Dict[str, Any]):
+        self._raw = dict(raw)
+        self._snap: Optional[RapidsConf] = None
+
+    def set(self, key: str, value) -> None:
+        self._raw[str(key)] = value
+        self._snap = None
+
+    def get(self, key: str, default=None):
+        return self._raw.get(key, default)
+
+    def unset(self, key: str) -> None:
+        self._raw.pop(key, None)
+        self._snap = None
+
+    def snapshot(self) -> RapidsConf:
+        snap = self._snap
+        if snap is None:
+            snap = self._snap = RapidsConf(self._raw)
+        return snap
+
+
+class TpuSessionBuilder:
+    def __init__(self):
+        self._conf: Dict[str, Any] = {}
+        self._device = "cuda"
+
+    def config(self, key=None, value=None, conf: Optional[Dict] = None,
+               device=None) -> "TpuSessionBuilder":
+        if conf:
+            self._conf.update(conf)
+        if key is not None:
+            self._conf[key] = value
+        if device is not None:
+            self._device = device
+        return self
+
+    def getOrCreate(self) -> "TpuSession":
+        return TpuSession(self._conf, device=self._device)
+
+
+class _BuilderDescriptor:
+    """Class-level ``TpuSession.builder`` (the SparkSession.builder
+    idiom): a fresh builder at every access."""
+
+    def __get__(self, obj, objtype=None) -> TpuSessionBuilder:
+        return TpuSessionBuilder()
 
 
 # Decomposed-table memo: a table with struct columns becomes a new
@@ -104,11 +170,14 @@ def _decompose_structs(table: pa.Table):
 
 
 class TpuSession:
+    builder = _BuilderDescriptor()
+
     QUERY_HISTORY_CAP = 256
 
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
                  device="cuda"):
-        self._conf = RapidsConf(conf)
+        self.conf = RuntimeConf(conf or {})
+        self._conf = self.conf.snapshot()  # validated at creation
         self.device = resolve_device(device)
         self._query_history: List[Dict[str, Any]] = []
         # the stats plane's record of the latest stats-enabled query
@@ -131,9 +200,87 @@ class TpuSession:
         # (spark.rapids.tpu.kernel.cacheDir; none on the CPU)
         from spark_rapids_tpu_torch.runtime import kernel_cache
         kernel_cache.configure_persistent_cache(self._conf, self.device)
+        # result-cache plane (spark.rapids.tpu.cache.*): host-resident
+        # plan-signature result cache served ahead of the pump
+        from spark_rapids_tpu_torch import cache as cache_mod
+        cache_mod.configure(self._conf)
+        # name -> (table, structs, fingerprint): the catalog behind
+        # registerTable()/table(), mutated only through registerTable
+        self._catalog: Dict[str, Any] = {}
 
     def rapids_conf(self) -> RapidsConf:
-        return self._conf
+        return self.conf.snapshot()
+
+    def stop(self) -> None:
+        """Nothing to release (the JAX package's ``stop`` is a no-op)."""
+
+    # -- catalog + result cache ---------------------------------------------
+    def registerTable(self, name: str, data) -> "DataFrame":
+        """Register (or re-register) a named table in the session
+        catalog.  This is the fingerprint-bump chokepoint for in-memory
+        inputs: re-registering a name re-mints the content digest and
+        drops every cached result that read the old version, so a
+        refreshed table never serves stale hits."""
+        from spark_rapids_tpu_torch import cache as cache_mod
+        from spark_rapids_tpu_torch.cache import fingerprints
+        if not isinstance(data, pa.Table):
+            raise NotImplementedError(
+                "spark_rapids_tpu_torch: registerTable takes a "
+                "pyarrow.Table")
+        table, structs = _decompose_structs(data)
+        rebind = name in self._catalog
+        fp = (fingerprints.bump_table_fingerprint(table) if rebind
+              else fingerprints.table_fingerprint(table))
+        self._catalog[name] = (table, structs, fp)
+        if rebind:
+            store = cache_mod.peek_cache()
+            if store is not None:
+                store.invalidate(source=name)
+        return self.table(name)
+
+    def table(self, name: str) -> "DataFrame":
+        """A DataFrame over a catalog table registered with
+        ``registerTable``: its relation carries the content
+        fingerprint, so results derived from it are cache-keyed."""
+        from spark_rapids_tpu_torch.plan.logical import InMemoryRelation
+        from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+        if name not in self._catalog:
+            raise KeyError(f"table {name!r} is not registered")
+        table, structs, fp = self._catalog[name]
+        st = T.StructType(tuple(
+            T.StructField(n, T.from_arrow(table.schema.field(n).type))
+            for n in table.column_names))
+        rel = InMemoryRelation(table, st, self._parallelism(),
+                               fingerprint=fp, source=name)
+        return DataFrame(self, rel, structs)
+
+    def invalidate_cache(self, name: Optional[str] = None, *,
+                         signature: Optional[str] = None,
+                         fingerprint: Optional[str] = None) -> int:
+        """Explicitly drop cached results: by catalog ``name``, plan
+        ``signature``, input ``fingerprint``, or — with no arguments —
+        everything.  Returns the number of entries dropped."""
+        from spark_rapids_tpu_torch import cache as cache_mod
+        store = cache_mod.peek_cache()
+        if store is None:
+            return 0
+        if name is None and signature is None and fingerprint is None:
+            return store.invalidate(everything=True)
+        return store.invalidate(source=name, signature=signature,
+                                fingerprint=fingerprint)
+
+    def cache_stats(self) -> Dict[str, Any]:
+        """Result-cache observability: counts, hit rate, resident
+        bytes, device seconds avoided, and a per-signature breakdown
+        (the numbers ``profile top --cache`` reports)."""
+        from spark_rapids_tpu_torch import cache as cache_mod
+        from spark_rapids_tpu_torch import conf as C
+        store = cache_mod.peek_cache()
+        # the store is a process singleton: THIS session's conf decides
+        # whether its queries take part
+        if store is None or not self.rapids_conf().get(C.CACHE_ENABLED):
+            return {"enabled": False}
+        return {"enabled": True, **store.stats()}
 
     # -- observability ------------------------------------------------------
     def _record_query(self, entry: Dict[str, Any]) -> None:
@@ -207,7 +354,7 @@ class TpuSession:
 
     def _parallelism(self) -> int:
         # spark.default.parallelism is a raw key, as in the JAX package
-        return int(self._conf.get_raw("spark.default.parallelism", 1))
+        return int(self.conf.get("spark.default.parallelism", 1))
 
     def range(self, start: int, end: Optional[int] = None, step: int = 1,
               numPartitions: Optional[int] = None) -> "DataFrame":

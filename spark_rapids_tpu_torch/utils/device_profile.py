@@ -10,7 +10,8 @@ device's busy time (the union of the intervals of every kernel and
 memory copy the card ran) and busy share, the host-to-device phase
 time from the plan's metrics, the host operators with the most self
 time and the kernel launches, the kernels and copies that took the
-most device time, and the device durations of the hand-written
+most device time, the ``cudaLaunch*`` and ``cudaGraphLaunch`` calls (a
+fused region's replays), and the device durations of the hand-written
 ``hash_pairs`` kernel's launches as the trace recorded them; then the
 kernel alone at three shapes, cold and warm (``profile_kernel``).  The
 trace adds host overhead, so its wall time is longer than an untraced
@@ -78,12 +79,16 @@ def profile_query(session, query: str, tables, top: int = 8) -> Dict:
             kernel_us.append(d)
     h2d = sum(m.get("transferTime", 0.0) for name, m in df.metrics()
               if name == "TpuScanExec")
-    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    averages = prof.key_averages()  # one pass over the trace's events
+    host = sorted(averages, key=lambda a: -a.self_cpu_time_total)
     out = {"query": query, "rows": tables["lineitem"].num_rows,
            "device": str(session.device), "traced_wall_s": wall,
            "h2d_s": h2d,
-           "kernel_launches": sum(a.count for a in prof.key_averages()
+           "kernel_launches": sum(a.count for a in averages
                                   if a.key.startswith("cudaLaunch")),
+           # a fused region's CUDA graph replays: one call each
+           "graph_launches": sum(a.count for a in averages
+                                 if a.key.startswith("cudaGraphLaunch")),
            "top_host": [{"name": a.key[:60],
                          "self_ms": a.self_cpu_time_total / 1e3,
                          "count": a.count} for a in host[:top]]}

@@ -40,9 +40,10 @@ totals, bounded ROWS and RANGE frames, quartiles, a window with no
 partition); each takes ``F`` and ``W`` (the ``Window`` class) as
 arguments.
 
-``TPCH_SF1_CONF`` is ``bench.TPCH_SF1_CONF`` less the keys of planes the
-port has not got (``UNPORTED_SF1_KEYS``, each with its ROADMAP item; the
-port refuses them), and ``oracle_check`` is bench's CPU-oracle loop: each
+``TPCH_SF1_CONF`` is ``bench.TPCH_SF1_CONF``, the whole of it: the
+adaptive plane, whole-stage fusion and the result cache included
+(``UNPORTED_SF1_KEYS``, the keys of planes the port had not got, is
+empty), and ``oracle_check`` is bench's CPU-oracle loop: each
 builder at a small scale under the accelerated session and under
 ``TpuSession({"spark.rapids.sql.enabled": False})``, compared with a
 copy of ``bench._rows_equal(tol=1e-6)``.
@@ -879,13 +880,8 @@ QUERIES = tuple(f"q{i}" for i in range(1, 23))
 # ---------------------------------------------------------------------------
 
 # the keys of bench.TPCH_SF1_CONF whose planes the port lacks, with the
-# ROADMAP item that brings each; the port rejects or refuses them
-UNPORTED_SF1_KEYS = {
-    "spark.rapids.tpu.adaptive.enabled": "A.9",
-    "spark.rapids.tpu.fusion.enabled": "A.9",
-    "spark.rapids.tpu.cache.enabled": "A.9",
-    "spark.rapids.tpu.cache.minRuntimeMs": "A.9",
-}
+# ROADMAP item that brings each: none since the engine planes (A.9)
+UNPORTED_SF1_KEYS: Dict[str, str] = {}
 
 # spark-sql-perf's TPCH.scala: the decimal(12,2) columns this port
 # generates as doubles
@@ -1225,10 +1221,20 @@ WINDOW_QUERIES = {"supplier ranks": supplier_ranks,
 
 TPCH_SF1_CONF = {"spark.rapids.sql.enabled": True,
                  "spark.rapids.tpu.batchRows": 1 << 16,
+                 # stats-driven replanning: the adaptive joins, skew
+                 # splits and batch retargeting
+                 "spark.rapids.tpu.adaptive.enabled": True,
+                 # whole-stage fusion of the scan-side filter/project
+                 # chains every TPC-H query carries
+                 "spark.rapids.tpu.fusion.enabled": True,
                  # consulted only under spark.rapids.shuffle.mode=ICI,
                  # in the JAX package as in the port
                  "spark.rapids.tpu.exchange.mode": "compiled",
-                 "spark.rapids.tpu.kernel.backend": "auto"}
+                 "spark.rapids.tpu.kernel.backend": "auto",
+                 # the result cache probes every query; minRuntimeMs is
+                 # above any SF1 query, so timed runs stay misses
+                 "spark.rapids.tpu.cache.enabled": True,
+                 "spark.rapids.tpu.cache.minRuntimeMs": 10_000_000}
 
 # q2/q7/q11's filters are so selective that sf 0.002 yields zero rows (a
 # vacuous check): those three check at sf 0.01 instead (bench.py)

@@ -9,7 +9,10 @@
 * ``tpch.oracle_check(device="cpu")`` (bench's CPU-oracle loop) is true
   for all 22.
 * ``tpch.TPCH_SF1_CONF`` is ``bench.TPCH_SF1_CONF`` less
-  ``tpch.UNPORTED_SF1_KEYS``, and the port refuses each unported key.
+  ``tpch.UNPORTED_SF1_KEYS``, which is empty: each of the four keys of
+  the engine planes (adaptive, fusion, the result cache) is accepted
+  and its plane acts on a small TPC-H query whose result equals the JAX
+  package's CPU session.
 """
 
 import datetime
@@ -270,23 +273,60 @@ def test_sf1_conf_is_bench_less_the_unported_keys():
     assert set(tpch.UNPORTED_SF1_KEYS.values()) <= {"A.4", "A.9"}
 
 
-@pytest.mark.parametrize("key", sorted(tpch.UNPORTED_SF1_KEYS))
-def test_unported_sf1_key_is_refused(tables_for, key):
-    """Each unported plane's key is rejected by the conf, or (the
-    adaptive plane) refused where it would act — never accepted
-    silently."""
-    conf = {key: bench.TPCH_SF1_CONF[key]}
+# the four keys the port refused before its engine planes, each with the
+# query its plane acts on and the conf that makes it act
+ENGINE_PLANE_KEYS = {
+    "spark.rapids.tpu.adaptive.enabled":
+        ("q13", {"spark.sql.autoBroadcastJoinThreshold": 0}),
+    "spark.rapids.tpu.fusion.enabled": ("q3", {}),
+    "spark.rapids.tpu.cache.enabled": ("q1", {}),
+    "spark.rapids.tpu.cache.minRuntimeMs":
+        ("q1", {"spark.rapids.tpu.cache.enabled": True}),
+}
+
+
+@pytest.mark.parametrize("key", sorted(ENGINE_PLANE_KEYS))
+def test_engine_plane_sf1_key_is_accepted(tables_for, key):
+    """Each engine plane's key of ``bench.TPCH_SF1_CONF`` is accepted,
+    ``TPCH_SF1_CONF`` carries it, and its plane acts on a small TPC-H
+    query (a decision recorded, a region built, a probe counted) whose
+    result equals the JAX package's CPU session."""
+    from spark_rapids_tpu_torch import cache as cache_mod
+    from spark_rapids_tpu_torch import fusion as FU
+    from spark_rapids_tpu_torch.runtime import telemetry as TM
+    assert tpch.TPCH_SF1_CONF[key] == bench.TPCH_SF1_CONF[key]
+    q, extra = ENGINE_PLANE_KEYS[key]
+    conf = dict(extra, **{key: bench.TPCH_SF1_CONF[key]})
+    session = TpuSession(conf, device="cpu")
+    assert session.rapids_conf().get_raw(key) == conf[key]
+    t = tables_for(tpch.ORACLE_DEFAULT_SF)
+    decision = 'tpuq_adaptive_decisions_total{kind="shuffled"}'
+    before = (FU.REGIONS_BUILT.value, cache_mod.MISSES.value,
+              TM.REGISTRY.snapshot().get(decision, 0))
+    cache_mod.reset()
     try:
-        session = TpuSession(conf, device="cpu")
-    except ValueError as e:
-        assert "unknown spark.rapids" in str(e)
-        return
-    assert key == "spark.rapids.tpu.adaptive.enabled"
-    with pytest.raises(NotImplementedError, match="adaptive join"):
-        tpch.q13(TpuSession(dict(conf, **{
-            "spark.sql.autoBroadcastJoinThreshold": 0}), device="cpu"),
-            tables_for(tpch.ORACLE_DEFAULT_SF)).toArrow()
-    assert session.rapids_conf().get_raw(key) is True
+        got = tpch.build(q, session, t).toArrow()
+        entry = session.query_history()[-1]
+    finally:
+        cache_mod.reset()
+    want = _jax_builder(q)(JaxSession({"spark.rapids.sql.enabled": False}),
+                           t).toArrow()
+    assert got.schema == want.schema
+    assert bench._rows_equal(got, want, tol=1e-6)
+    if key == "spark.rapids.tpu.adaptive.enabled":
+        assert TM.REGISTRY.snapshot().get(decision, 0) > before[2]
+        assert "TpuAdaptiveLocalJoin" in entry["plan"]
+    elif key == "spark.rapids.tpu.fusion.enabled":
+        assert FU.REGIONS_BUILT.value > before[0]
+        assert "FusedStage" in entry["plan"]
+    else:
+        assert cache_mod.MISSES.value == before[1] + 1
+        status = entry["cache"]["status"]
+        if key == "spark.rapids.tpu.cache.minRuntimeMs":
+            assert status == "uncached"
+            assert entry["cache"]["reason"] == "below_min_runtime"
+        else:
+            assert status == "stored"
 
 
 def test_sql_enabled_false_runs_datetime_and_strings_on_the_cpu():

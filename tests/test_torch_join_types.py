@@ -194,7 +194,8 @@ def test_string_literal_comparison_matches_jax():
 def _raises_cases():
     """(build, conf, what): ``what`` names the ``NotImplementedError`` of
     a branch the port does not have; None marks a branch the JAX package
-    runs on the CPU, which the port now falls back to as well."""
+    runs on the CPU, which the port now falls back to as well, or one
+    both packages run on the device (a bare limit, the adaptive join)."""
     def join(how, on="k"):
         def build(s, F, col):
             left, right = _sides()
@@ -229,7 +230,7 @@ def _raises_cases():
         pytest.param(mixed_width_full, {}, None, id="mixed_width_full"),
         pytest.param(join("inner"), dict(no_bc, **{
             "spark.rapids.tpu.adaptive.enabled": True}),
-            "adaptive join", id="adaptive"),
+            None, id="adaptive"),
         pytest.param(bare_limit, {}, None, id="bare_limit"),
         pytest.param(mismatched_keys, {}, None, id="mismatched_keys"),
     ]
@@ -241,12 +242,13 @@ LIMIT_FALLBACK = []
 
 @pytest.mark.parametrize("build, conf, what", _raises_cases())
 def test_unported_branch_raises(build, conf, what):
-    """A branch the port does not have raises naming itself (the adaptive
-    join); a join the JAX package keeps on the CPU (a residual condition
-    on a left join, mixed-width int keys on a full join, key types of
-    different families) falls back to the port's CPU join with the JAX
-    package's result and fallback report.  A bare limit runs on the
-    device with the JAX package's result and its empty report."""
+    """A branch the port does not have raises naming itself; a join the
+    JAX package keeps on the CPU (a residual condition on a left join,
+    mixed-width int keys on a full join, key types of different
+    families) falls back to the port's CPU join with the JAX package's
+    result and fallback report.  A bare limit and the adaptive join
+    (ported with the adaptive plane) run on the device with the JAX
+    package's result, plan and empty report."""
     session = TpuSession(dict(conf), device="cpu")
     if what is not None:
         with pytest.raises(NotImplementedError, match=what):
@@ -263,6 +265,12 @@ def test_unported_branch_raises(build, conf, what):
         assert want_report == LIMIT_FALLBACK
         tree = df._last_plan.tree_string()
         assert "*TpuGlobalLimit [3]" in tree and "*TpuLocalLimit [3]" in tree
+        assert tree == jdf._last_plan.tree_string()
+    elif conf.get("spark.rapids.tpu.adaptive.enabled"):
+        assert want_report == []
+        tree = df._last_plan.tree_string()
+        assert "*TpuAdaptiveLocalJoin [inner runtime=shuffled thresh=0]" \
+            in tree
         assert tree == jdf._last_plan.tree_string()
     else:
         assert want_report  # the JAX package falls back too

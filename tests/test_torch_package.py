@@ -367,13 +367,14 @@ def test_ici_shuffle_mode_raises_at_planning():
 
 
 def test_aqe_read_under_the_adaptive_plane_raises():
-    """The JAX package's AQE read re-targets its rows from the adaptive
-    plane, which is not ported: the rewrite refuses it, with AQE off it
-    plans the bare exchange."""
+    """The AQE read under the adaptive plane (which re-targets its rows,
+    ported since the rewrite stopped refusing it) plans and returns the
+    rows; with AQE off it plans the bare exchange."""
     on = {"spark.rapids.tpu.adaptive.enabled": True}
     df = TpuSession(on, device="cpu").createDataFrame(_table())
-    with pytest.raises(NotImplementedError, match="retargeting"):
-        df.repartition(2).toArrow()
+    plan_rows = df.repartition(2)
+    assert plan_rows.toArrow().num_rows == 3
+    assert "TpuAQEShuffleRead" in plan_rows._last_plan.tree_string()
     off = dict(on, **{"spark.sql.adaptive.enabled": False})
     assert TpuSession(off, device="cpu").createDataFrame(_table()) \
         .repartition(2).toArrow().num_rows == 3

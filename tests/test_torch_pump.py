@@ -597,8 +597,9 @@ def test_the_six_keys_equal_jax(name):
 def test_thirty_five_keys_and_unregistered_keys_still_raise():
     # 35 keys through the pump slice; the failure domains add 36, the
     # UDF and file-scan slice 4, the lakehouse slice 1 (dynamic
-    # partition pruning), the observability plane 23
-    assert len(C.REGISTRY) == 99
+    # partition pruning), the observability plane 23, the rest of the
+    # engine planes 14 (fusion 3, the result cache 5, adaptive 6)
+    assert len(C.REGISTRY) == 113
     with pytest.raises(ValueError, match="unknown"):
         C.RapidsConf({"spark.rapids.tpu.kernel.warmupOnStart": True})
 

@@ -544,7 +544,7 @@ def test_stats_confs_registered():
 
 
 def test_the_planes_keys_are_the_jax_packages():
-    """The plane's 23 keys (99 in all): the JAX package's defaults,
+    """The plane's 23 keys (113 in all): the JAX package's defaults,
     categories and checks, and a session accepts them.  Kept deviation:
     a default path the JAX package puts under ``/tmp`` lies under the
     process's temporary directory."""
@@ -555,7 +555,7 @@ def test_the_planes_keys_are_the_jax_packages():
         "spark.rapids.sql.trace.", "spark.rapids.sql.queryLog.",
         "spark.rapids.tpu.stats.", "spark.rapids.tpu.attribution.",
         "spark.rapids.tpu.telemetry."))]
-    assert len(plane) == 23 and len(C.REGISTRY) == 99
+    assert len(plane) == 23 and len(C.REGISTRY) == 113
     probes = (True, False, "x", -1, 0, 0.5, 1.0, 2, "FULL", "basic",
               "DEBUG", "")
     for key in plane:

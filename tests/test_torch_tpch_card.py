@@ -142,3 +142,96 @@ def test_scan_cache_and_dictionary_decode_on_the_card(cuda_device,
     enc = tpch.q1(session, chip_smoke.dictionary_lineitem(li)).toArrow()
     assert enc.equals(plain)
     B.clear_scan_cache()
+
+
+@pytest.mark.gpu
+def test_fused_region_replays_its_cuda_graph_bit_for_bit(cuda_device,
+                                                         small_tables):
+    """A fused region on the card captures one CUDA graph per input
+    shape and replays it for every later batch: q1 and q3 fused equal
+    their unfused runs on the card bit for bit (the plain chain of the
+    same functions), a second run only replays, no region falls open,
+    and a batch held from an earlier replay is not overwritten by a
+    later one."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch import fusion as FU
+    from spark_rapids_tpu_torch.exec import fused as FX
+    from spark_rapids_tpu_torch.sql.column import col
+    t, _ = small_tables
+    fused = TpuSession({"spark.rapids.tpu.fusion.enabled": True,
+                        "spark.rapids.tpu.batchRows": 4096},
+                       device=cuda_device)
+    plain = TpuSession({"spark.rapids.tpu.batchRows": 4096},
+                       device=cuda_device)
+    fallbacks = FU.FALLBACKS.value
+    FX.clear_graphs()  # this test's shapes capture here, whatever ran
+    for q in ("q1", "q3"):
+        want = tpch.build(q, plain, t).toArrow()
+        s0 = FX.program_stats()
+        first = tpch.build(q, fused, t)
+        assert first.toArrow().equals(want), q
+        assert "FusedStage" in first._last_plan.tree_string()
+        s1 = FX.program_stats()
+        assert s1["captures"] > s0["captures"], q
+        again = tpch.build(q, fused, t).toArrow()
+        s2 = FX.program_stats()
+        assert again.equals(want), q
+        assert s2["captures"] == s1["captures"], q
+        assert s2["replays"] > s1["replays"], q
+    assert FU.FALLBACKS.value == fallbacks
+    # outputs held across replays keep their bits
+    tab = pa.table({"k": list(range(20_000)),
+                    "v": [float(i) for i in range(20_000)]})
+    df = (fused.createDataFrame(tab).filter(col("k") % 3 != 0)
+          .select((col("v") * 2).alias("w"), col("k")))
+    region = next(n for n in [df._execute_plan().children[0]]
+                  if isinstance(n, FX.FusedStageExec))
+    batches = [b for p in range(region.num_partitions())
+               for b in region.execute(p)]
+    before = [b.columns[0].data.clone() for b in batches]
+    for p in range(region.num_partitions()):
+        for _ in region.execute(p):
+            pass
+    assert all(torch.equal(x, b.columns[0].data)
+               for x, b in zip(before, batches))
+    assert FX.graph_pool_bytes()["graphs"] > 0
+
+
+@pytest.mark.gpu
+def test_region_graph_owns_its_constants_past_the_memo_cap(cuda_device):
+    """A captured region reads its string literals at the addresses it
+    was captured with: filling the constants' memo past its cap (which
+    drops every entry) and refilling the freed memory leaves every later
+    replay equal to the unfused run."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.exec import fused as FX
+    from spark_rapids_tpu_torch.runtime import device as DV
+    from spark_rapids_tpu_torch.sql.column import col
+    n = 50_000
+    tab = pa.table({"k": list(range(n)),
+                    "s": [f"w{i % 97}" for i in range(n)]})
+    conf = {"spark.rapids.tpu.batchRows": 4096}
+    fused = TpuSession(dict(conf, **{"spark.rapids.tpu.fusion.enabled":
+                                     True}), device=cuda_device)
+    plain = TpuSession(conf, device=cuda_device)
+
+    def q(s):
+        return (s.createDataFrame(tab)
+                .filter((col("s") == "w13") | col("s").contains("w4"))
+                .select((col("k") * 3).alias("k3"), col("s")))
+
+    want = q(plain).toArrow()
+    FX.clear_graphs()
+    assert q(fused).toArrow().equals(want)  # the eager run and capture
+    s0 = FX.program_stats()
+    assert s0["captures"] > 0
+    for i in range(DV._CONSTANTS_CAP + 1):
+        DV.device_constant(("test.filler", i), cuda_device,
+                           lambda: torch.zeros(1, dtype=torch.uint8))
+    junk = [torch.full((64,), 255, dtype=torch.uint8, device=cuda_device)
+            for _ in range(4096)]
+    got = q(fused).toArrow()
+    assert FX.program_stats()["replays"] > s0["replays"]
+    assert FX.program_stats()["captures"] == s0["captures"]
+    assert got.equals(want)
+    del junk

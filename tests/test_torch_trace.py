@@ -231,10 +231,13 @@ def test_span_nesting_across_pool_threads(pkg):
     else:
         tr_mod = trace
     tr = tr_mod.Tracer(query_id=99)
+    # all four threads are alive at once (no thread id can be reused)
+    overlap = threading.Barrier(4)
 
     def work():
         with tr.span("Outer", "pump"):
             with tr.span("Inner", "opTime"):
+                overlap.wait(timeout=30)
                 time.sleep(0.02)
 
     threads = [threading.Thread(target=work) for _ in range(4)]
