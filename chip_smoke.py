@@ -363,14 +363,33 @@ result line is not printed):
    moved to one order key, joined to orders with broadcasts off: the
    hot partition splits, equal to pyarrow's join.  ``python3
    chip_smoke.py --planes`` runs this phase alone;
-27. the string expressions of the string queries (LIKE, NOT LIKE,
+27. ``[distributed]``: the ICI plane at SF1 (``distributed_phase``).
+   On 8 virtual ranks of the card under ``spark.rapids.shuffle.mode=ICI``
+   and ``spark.default.parallelism`` 8: q1, q3, q5 and q18 (their plans'
+   ICI lines the JAX package's, ``DIST_PLAN_LINES``), the 1.5M orders
+   by price (a range exchange under a ``partitioned`` sort) and the line
+   running totals (a window behind a hash exchange), each cold then
+   warm, equal to its reference (q1–q18 also to the main path's
+   one-rank run), with the ICI exchanges' ``partitionTime``,
+   ``collectiveTime`` and bytes; q18's inner aggregate behind a
+   repartition under ``exchange.mode=compiled`` and ``host``, the
+   exchanges' partitions equal row for row and their row counts the
+   script's numpy murmur3 pmod 8; a terminal ``collective`` fault in q1
+   degraded to the host transport, counted; then two executor
+   processes (``--dist-child``) x 2 virtual ranks on the card over the
+   rendezvous (gloo, staged through the host), reading the tables from
+   Arrow IPC files: q1 and q3 as unions of the slices, the cluster-wide
+   partition counts, one transient ``rendezvous`` fault and a
+   ``peer_loss``; over NCCL, one card each, only on a machine with two.
+   ``python3 chip_smoke.py --distributed`` runs this phase alone;
+28. the string expressions of the string queries (LIKE, NOT LIKE,
    ``contains``, ``startswith``, ``endswith``, ``substring``) alone on
    the card at the batches of their scans: the column's H2D, the
    expression's time by CUDA events, and its byte bound;
-28. the kernel at every shape the main path (queries, variants,
+29. the kernel at every shape the main path (queries, variants,
    fallback cases, partitions, exchanges, operators, strings, retry,
    pump, faults, breadth, decimal, nested, window, udf, io, lakehouse,
-   observe and planes) launched it with, bit for bit against its plain version, timed as
+   observe, planes and distributed) launched it with, bit for bit against its plain version, timed as
    in phase 3 and by a ring of distinct inputs larger than the L2 cache
    (``ms_ring``, from which ``pct_of_bound`` is read), traced alone by
    ``torch.profiler`` after an L2-evicting write (``traced_ms``) and
@@ -379,7 +398,7 @@ result line is not printed):
    shapes both sides in one launch (``pair_ms``, bit-identical to the
    plain version first, and traced) against two; and the wrappers'
    host time per call;
-29. the seconds of each phase, a JSON line of every kernel's numbers,
+30. the seconds of each phase, a JSON line of every kernel's numbers,
    the ``nvidia-smi`` line again,
    and last the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -422,6 +441,9 @@ LAKEHOUSE_ONLY = "--lakehouse" in sys.argv[1:]
 OBSERVE_ONLY = "--observe" in sys.argv[1:]
 # ``python3 chip_smoke.py --planes``: the [planes] phase alone
 PLANES_ONLY = "--planes" in sys.argv[1:]
+# ``python3 chip_smoke.py --distributed``: [distributed] alone (with the
+# one-rank runs of its four queries)
+DISTRIBUTED_ONLY = "--distributed" in sys.argv[1:]
 SF = 1.0
 # (L limbs, n rows): edge shapes, q1's aggregate (3, 2^20), and the
 # join's build and probe sides (1, 2^18) and q4's probe side (1, 2^16)
@@ -8195,6 +8217,630 @@ def planes_only(dev, tables, refs, CB, KN) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# [distributed]: the ICI plane on eight virtual ranks of the card, and two
+# executor processes over the rendezvous
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 8
+DIST_QUERIES = ("q1", "q3", "q5", "q18")
+DIST_CONF = {"spark.rapids.shuffle.mode": "ICI",
+             "spark.default.parallelism": DIST_RANKS}
+DIST_CHILD_RANKS = 2
+DIST_LEASE_MS = 2000
+DIST_CHILD_TIMEOUT_S = 240
+_ICI_KEEP = ("TpuHashAggregate", "TpuIci", "TpuSortMergeJoin", "TpuSort ",
+             "TpuSort partitioned", "TpuWindow", "TpuAdaptiveJoin",
+             "TpuTopN", "TpuBroadcast")
+# The JAX package's ICI plans of the four queries (its planner on eight
+# virtual CPU devices, the thresholds scaled to the data, before any
+# run; ``tests/test_torch_distributed.py`` holds the port's plans and
+# these lines to the JAX package's)
+DIST_PLAN_LINES = {
+    "q1": [
+        "TpuSort partitioned [input[0], input[1]]",
+        "TpuIciRangeExchange [range(input[0], input[1]) over 8dev]",
+        "TpuHashAggregate [final keys=[input[0], input[1]] aggs=[sum, "
+        "sum, sum, sum, avg, avg, avg, count_star]]",
+        "TpuIciShuffleExchange [hash(input[0], input[1]) over 8dev]",
+        "TpuHashAggregate [partial keys=[input[0], input[1]] aggs=[sum, "
+        "sum, sum, sum, avg, avg, avg, count_star]]"],
+    "q3": [
+        "TpuTopN [n=10]",
+        "TpuHashAggregate [final keys=[input[2], input[4], input[5]] "
+        "aggs=[sum]]",
+        "TpuIciShuffleExchange [hash(input[0], input[1], input[2]) over "
+        "8dev]",
+        "TpuHashAggregate [partial keys=[input[2], input[4], input[5]] "
+        "aggs=[sum]]",
+        "TpuAdaptiveJoin [inner runtime=undecided thresh=T]",
+        "TpuSortMergeJoin [inner broadcast=left]",
+        "TpuBroadcastExchange"],
+    "q5": [
+        "TpuSort partitioned [input[1]]",
+        "TpuIciRangeExchange [range(input[1]) over 8dev]",
+        "TpuHashAggregate [final keys=[input[4]] aggs=[sum]]",
+        "TpuIciShuffleExchange [hash(input[0]) over 8dev]",
+        "TpuHashAggregate [partial keys=[input[4]] aggs=[sum]]",
+        "TpuAdaptiveJoin [inner runtime=undecided thresh=T]",
+        "TpuAdaptiveJoin [inner runtime=undecided thresh=T]",
+        "TpuSortMergeJoin [inner broadcast=right]",
+        "TpuSortMergeJoin [inner broadcast=right]",
+        "TpuBroadcastExchange", "TpuBroadcastExchange"],
+    "q18": [
+        "TpuTopN [n=100]",
+        "TpuHashAggregate [final keys=[input[1], input[0], input[2], "
+        "input[4], input[5]] aggs=[sum]]",
+        "TpuIciShuffleExchange [hash(input[0], input[1], input[2], "
+        "input[3], input[4]) over 8dev]",
+        "TpuHashAggregate [partial keys=[input[1], input[0], input[2], "
+        "input[4], input[5]] aggs=[sum]]",
+        "TpuAdaptiveJoin [inner runtime=undecided thresh=T]",
+        "TpuSortMergeJoin [inner broadcast=left]",
+        "TpuBroadcastExchange",
+        "TpuAdaptiveJoin [left_semi runtime=undecided thresh=T]",
+        "TpuHashAggregate [final keys=[input[0]] aggs=[sum]]",
+        "TpuIciShuffleExchange [hash(input[0]) over 8dev]",
+        "TpuHashAggregate [partial keys=[input[0]] aggs=[sum]]"],
+}
+
+
+def ici_lines(tree: str) -> list:
+    """A plan's distributed shape: its aggregate, exchange, join, sort,
+    window and top-N lines (fusion marks and thresholds aside)."""
+    out = []
+    for line in tree.splitlines():
+        s = line.strip().lstrip("*")
+        if s.startswith(_ICI_KEEP):
+            out.append(re.sub(r"thresh=\d+", "thresh=T", s))
+    return out
+
+
+def ici_exchanges(node) -> list:
+    """Every ICI exchange that ran under ``node``, those an adaptive join
+    built at run time included."""
+    out = []
+    if type(node).__name__ in ("TpuIciShuffleExchangeExec",
+                               "TpuIciRangeExchangeExec"):
+        out.append(node)
+    inner = getattr(node, "_inner", None)
+    for c in list(node.children) + ([inner] if inner is not None else []):
+        out.extend(ici_exchanges(c))
+    return out
+
+
+def spark_murmur3_long(values):
+    """Spark's ``Murmur3_x86_32.hashLong`` of int64 values, seed 42
+    (numpy): the low word, then the high word."""
+    import numpy as np
+    v = np.asarray(values, np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        lo = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (v >> np.uint64(32)).astype(np.uint32)
+        h = _mix_h1(np.full(len(v), 42, np.uint32), _mix_k1(lo))
+        h = _mix_h1(h, _mix_k1(hi))
+        return _fmix32(h, 8)
+
+
+def pmod_partitions(hashes, nparts: int):
+    """Spark's ``pmod(hash, n)`` of the u32 hashes read as int32."""
+    import numpy as np
+    h = hashes.view(np.int32).astype(np.int64)
+    return ((h % nparts) + nparts) % nparts
+
+
+def dist_run(name, build, session, CB, KN):
+    """One distributed run: cold (scan cache cleared, counts to 0 just
+    before it, read just after) and one warm, equal; the ICI exchanges'
+    timers and bytes."""
+    from spark_rapids_tpu_torch.exec import distributed as DX
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    clear_scan_cache()
+    CB.reset_counts()
+    KN.COUNTERS.reset()
+    bytes0 = DX._TM_ICI_BYTES.value
+    df = build(session)
+    got, cold = timed(df)
+    counts = path_counts(df, CB, KN)
+    exchanged = DX._TM_ICI_BYTES.value - bytes0
+    exes = ici_exchanges(df._last_plan)
+    check(exes, f"[distributed] {name}: no ICI exchange ran")
+    wdf = build(session)
+    out, warm = timed(wdf)
+    # the same plan over the same cached batches: the same bits (one
+    # Arrow comparison; the row-wise one only to report a difference)
+    check(out.equals(got) or rows_equal(out, got),
+          f"[distributed] {name}: the warm run differs from the cold run")
+    fb = df.fallback_summary()
+    check(fb["fallback_ops"] == 0,
+          f"[distributed] {name}: operators on the CPU {fb}")
+    line = {
+        "rows": got.num_rows, "cold_wall_s": cold, "warm_wall_s": warm,
+        "ici_exchanges": len(exes),
+        "partitionTime_s": sum(e.metric("partitionTime").value
+                               for e in exes),
+        "collectiveTime_s": sum(e.metric("collectiveTime").value
+                                for e in exes),
+        "bytes_exchanged": exchanged,
+        "hash_pairs_launches": counts["hash_pairs_launches"],
+        "hash_pairs_shapes": counts["shapes"]}
+    return got, df, counts, line
+
+
+def dist_child(argv) -> int:
+    """``chip_smoke.py --dist-child <pid> <nprocs> <port> <rendezvous>
+    <tables dir> <device>``: one executor process of the two-process
+    runs: q1 and q3 over the rendezvous, their exchanges' cluster-wide
+    counts and local input rows, the transport, then one transient
+    ``rendezvous`` fault in q1 and a ``peer_loss`` (pid 1 dies).  Writes
+    its result tables as ``<tables dir>/out/<pid>-<run>.arrow`` and
+    prints one JSON line."""
+    import pyarrow as pa
+    import torch
+    pid, nprocs, port = int(argv[0]), int(argv[1]), int(argv[2])
+    rdv, tdir, device = argv[3], argv[4], argv[5]
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    from spark_rapids_tpu_torch.kernels import cuda_backend as CB
+    from spark_rapids_tpu_torch.parallel import mesh as MESH
+    from spark_rapids_tpu_torch.parallel import rendezvous as RD
+    from spark_rapids_tpu_torch.parallel.executor import get_executor
+    from spark_rapids_tpu_torch.runtime import resilience as R
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import tpch
+    MESH.set_virtual_ranks(DIST_CHILD_RANKS)
+    if device == "cpu":
+        torch.set_num_threads(2)  # two executors share the host's cores
+    tables = {}
+    for f in sorted(os.listdir(tdir)):
+        if f.endswith(".arrow"):
+            with pa.memory_map(os.path.join(tdir, f)) as src:
+                tables[f[:-len(".arrow")]] = \
+                    pa.ipc.open_file(src).read_all()
+    odir = os.path.join(tdir, "out")
+    os.makedirs(odir, exist_ok=True)
+
+    def save(name, table):
+        with pa.OSFile(os.path.join(odir, f"{pid}-{name}.arrow"),
+                       "wb") as f:
+            with pa.ipc.new_file(f, table.schema) as w:
+                w.write_table(table)
+
+    def conf(**extra):
+        c = dict(SESSION_CONF, **DIST_CONF, **{
+            "spark.rapids.executor.id": pid,
+            "spark.rapids.executor.count": nprocs,
+            "spark.rapids.executor.coordinator.address":
+                f"127.0.0.1:{port}",
+            "spark.rapids.shuffle.rendezvous.address": rdv,
+            "spark.rapids.tpu.rendezvous.heartbeatMs": 100,
+            "spark.rapids.tpu.rendezvous.leaseMs": DIST_LEASE_MS,
+            "spark.rapids.tpu.retry.backoffBaseMs": 0})
+        c.pop(BLACKBOX_KEY, None)
+        c.update(extra)
+        return c
+
+    out = {"pid": pid, "runs": {}}
+    # the stats plane records the exchanges' cluster-wide counts
+    s = TpuSession(conf(**{"spark.rapids.tpu.stats.enabled": True}),
+                   device=device)
+    ctx = get_executor()
+    out["transport"] = ctx.transport.describe()
+    out["device"] = str(s.device)
+    sync = (torch.cuda.synchronize if s.device.type == "cuda"
+            else (lambda: None))
+    for q in ("q1", "q3"):
+        CB.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        df = tpch.build(q, s, tables)
+        got = df.toArrow()
+        sync()
+        wall = time.perf_counter() - t0
+        exes = ici_exchanges(df._last_plan)
+        prof = s.last_query_profile() or {}
+        save(q, got)
+        out["runs"][q] = {
+            "rows": got.num_rows, "wall_s": wall,
+            "exchange_input_rows": sum(getattr(e, "input_rows", 0)
+                                       for e in exes),
+            "exchanges": [{k: e.get(k) for k in ("total", "executors",
+                                                  "max", "skew_factor")}
+                          for e in prof.get("exchanges", [])],
+            "hash_pairs_launches": CB.launches,
+            "shapes": {f"{l}x{n}": c for (l, n), c
+                       in sorted(CB.launch_shapes.items())}}
+    out["host_bytes"] = ctx.transport.host_bytes
+    out["wire_bytes"] = ctx.transport.wire_bytes
+    # one transient rendezvous fault on pid 0: both re-enter at epoch 1
+    base = RD.counters_snapshot()["epoch_retries"]
+    inj = ({"spark.rapids.tpu.test.inject.rendezvous.at": 1,
+            "spark.rapids.tpu.test.inject.rendezvous.transientCount": 1}
+           if pid == 0 else {})
+    fs = TpuSession(conf(**inj), device=device)
+    save("q1_faulted", tpch.build("q1", fs, tables).toArrow())
+    out["epoch_retries"] = RD.counters_snapshot()["epoch_retries"] - base
+    # peer_loss last (the group is broken after it): pid 1 dies
+    inj = ({"spark.rapids.tpu.test.inject.peer_loss.at": 1}
+           if pid == 1 else {})
+    ps = TpuSession(conf(**inj), device=device)
+    try:
+        tpch.build("q1", ps, tables).toArrow()
+        out["peer_loss"] = ["completed", None, None, time.time()]
+    except R.TerminalDeviceError as e:
+        # the wall clock of the failure: the victim's is its death
+        out["peer_loss"] = ["failed", e.domain, e.peer, time.time()]
+    out["rendezvous"] = RD.counters_snapshot()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def two_process_runs(tdir, device_arg, refs, first) -> dict:
+    """Spawn the two executor processes (``dist_child``) around a
+    rendezvous coordinator in this process; check their slices and
+    faults.  Returns the children's records."""
+    import socket
+
+    from spark_rapids_tpu_torch.parallel.rendezvous import (
+        RendezvousCoordinator)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    coord = RendezvousCoordinator(num_processes=2,
+                                  lease_s=DIST_LEASE_MS / 1000.0)
+    env = dict(os.environ)
+    env.pop("TPUQ_VIRTUAL_RANKS", None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-child",
+         str(pid), "2", str(port), coord.address, tdir, device_arg],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                so, se = p.communicate(timeout=DIST_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+            outs.append((p.returncode, so, se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        stages_left = dict(coord._stages)
+        coord.shutdown()
+    for pid, (rc, so, se) in enumerate(outs):
+        check(rc == 0 and so.strip(), f"[distributed] executor {pid} "
+              f"exited {rc}:\n{se[-4000:]}")
+    recs = [json.loads(so.strip().splitlines()[-1]) for _, so, _ in outs]
+    check(stages_left == {}, f"[distributed] stage leak {stages_left}")
+    import pyarrow as pa
+
+    def result(pid, name):
+        with pa.memory_map(os.path.join(tdir, "out",
+                                        f"{pid}-{name}.arrow")) as src:
+            return pa.ipc.open_file(src).read_all()
+
+    for q in ("q1", "q3"):
+        union = pa.concat_tables([result(pid, q) for pid in range(2)])
+        check(rows_equal(union, refs[q]) and rows_equal(union, first[q]),
+              f"[distributed] two-process {q}: the union of the slices "
+              "differs from the reference")
+        inputs = sum(rec["runs"][q]["exchange_input_rows"] for rec in recs)
+        for rec in recs:
+            for ex in rec["runs"][q]["exchanges"][:1]:
+                check(ex["executors"] == 2,
+                      f"[distributed] {q}: counts merged from "
+                      f"{ex['executors']} executors")
+            total = sum(ex["total"] for ex in rec["runs"][q]["exchanges"])
+            check(total == inputs,
+                  f"[distributed] {q}: pid {rec['pid']}'s cluster-wide "
+                  f"counts sum to {total}, the exchanges took {inputs}")
+    for pid in range(2):
+        check(rows_equal(result(pid, "q1_faulted"), result(pid, "q1")),
+              f"[distributed] pid {pid}: q1 under a transient rendezvous "
+              "fault differs")
+    check(recs[0]["epoch_retries"] >= 1,
+          "[distributed] the transient rendezvous fault did not retry")
+    victim, survivor = recs[1]["peer_loss"], recs[0]["peer_loss"]
+    check(victim[:2] == ["failed", "peer_loss"],
+          f"[distributed] the victim of peer_loss: {victim}")
+    # the survivor fails peer-tagged within about one lease of the death
+    # (the reaper looks every quarter lease)
+    detect_s = survivor[3] - victim[3]
+    check(survivor[:3] == ["failed", "peer_loss", 1]
+          and detect_s < 2 * DIST_LEASE_MS / 1000.0 + 0.5,
+          f"[distributed] the survivor of peer_loss: {survivor}, "
+          f"{detect_s:.3f} s after the victim's death")
+    for rec in recs:
+        rec["peer_loss_detect_s"] = detect_s
+    return recs
+
+
+def distributed_phase(dev, tables, refs, first, CB, KN, query_shapes
+                      ) -> dict:
+    """``[distributed]``: the ICI plane on the card at SF1.
+
+    Single process, eight virtual ranks on the one card (the JAX tests'
+    eight devices) under ``spark.rapids.shuffle.mode=ICI``,
+    ``spark.default.parallelism`` 8 and ``test.enabled``: q1, q3, q5
+    and q18 (partial/final aggregates, the adaptive joins deciding
+    between broadcast and two ICI exchanges, range exchanges under
+    ``partitioned`` sorts), the 1.5M orders ordered by price (a range
+    exchange), and the line running totals over lineitem partitioned by
+    ``l_orderkey`` (the window behind a hash exchange); each cold then
+    warm, equal to its reference (and q1-q18 to the main path's
+    one-rank run), its plan's ICI lines the JAX package's.  q18's inner
+    aggregate behind a repartition under ``exchange.mode=compiled`` and
+    ``host``: the exchanges' partitions equal row for row, their row
+    counts this script's numpy murmur3 pmod 8.  A terminal
+    ``collective`` fault in q1: degraded to the host transport, equal,
+    counted.  Then two executor processes x 2 virtual ranks on the card
+    over the rendezvous (``two_process_runs``), and over NCCL one card
+    each when the machine has two.  Returns the runs' counts."""
+    import tempfile
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch.exec.basic import clear_scan_cache
+    from spark_rapids_tpu_torch.runtime import resilience as RES
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.sql.column import col
+    from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.utils import tpch
+    t_phase = time.perf_counter()
+    conf = dict(SESSION_CONF, **DIST_CONF)
+    session = TpuSession(conf, device=dev)
+    counts, lines = {}, {}
+    for q in DIST_QUERIES:
+        plan = ici_lines(build_on(q, session, tables)._execute_plan()
+                         .tree_string())
+        check(plan == DIST_PLAN_LINES[q],
+              f"[distributed] {q}'s plan is not the JAX package's:\n"
+              + "\n".join(plan))
+        got, df, counts[q], lines[q] = dist_run(
+            q, lambda s, q=q: build_on(q, s, tables), session, CB, KN)
+        check_result(f"[distributed] {q}", got, refs[q])
+        check(rows_equal(got, first[q]),
+              f"[distributed] {q} differs from its one-rank run")
+        lines[q]["joins"] = join_strategies(df)
+        print(f"[distributed] {q} " + json.dumps(lines[q]), flush=True)
+    # the range exchange under a partitioned sort: all 1.5M orders
+    orders = tables["orders"]
+
+    def by_price(s):
+        return s.createDataFrame(orders).orderBy(
+            col("o_totalprice").desc(), col("o_orderkey"))
+
+    got, df, counts["orders by price"], line = dist_run(
+        "orders by price", by_price, session, CB, KN)
+    want = orders.sort_by([("o_totalprice", "descending"),
+                           ("o_orderkey", "ascending")])
+    check(got.num_rows == orders.num_rows and all(
+        got.column(c).combine_chunks().equals(
+            want.column(c).combine_chunks()) for c in want.column_names),
+        "[distributed] orders by price differs from pyarrow's sort")
+    check(ici_lines(df._last_plan.tree_string())[:2] == [
+        "TpuSort partitioned [input[4], input[0]]",
+        "TpuIciRangeExchange [range(input[4], input[0]) over 8dev]"],
+        "[distributed] orders by price: not a partitioned sort behind a "
+        "range exchange")
+    lines["orders by price"] = line
+    print("[distributed] orders by price " + json.dumps(line), flush=True)
+    # the window behind a hash exchange on its partition key
+    wt = tpch.window_tables(tables)
+    want = ref_line_running_totals(wt)
+    got, df, counts["line running totals"], line = dist_run(
+        "line running totals",
+        lambda s: tpch.WINDOW_QUERIES["line running totals"](s, wt),
+        session, CB, KN)
+    check("TpuWindow partitioned [partitionBy=[input[0]]"
+          in df._last_plan.tree_string(),
+          "[distributed] line running totals: no partitioned window")
+    got = got.sort_by([("l_orderkey", "ascending"),
+                       ("l_linenumber", "ascending")])
+    line["facts"] = check_line_running_totals(got, want)
+    lines["line running totals"] = line
+    print("[distributed] line running totals " + json.dumps(line),
+          flush=True)
+    del wt, want, got
+    # q18's inner aggregate behind a repartition: compiled vs host
+    li = tables["lineitem"].select(["l_orderkey", "l_quantity"])
+    keys = li.column("l_orderkey").to_numpy()
+    want_counts = np.bincount(pmod_partitions(spark_murmur3_long(keys),
+                                              DIST_RANKS),
+                              minlength=DIST_RANKS).tolist()
+    parts, aggs = {}, {}
+    for mode, node in (("compiled", "TpuIciShuffleExchangeExec"),
+                       ("host", "TpuHostShuffleExchangeExec")):
+        s = TpuSession(dict(conf, **{"spark.rapids.tpu.exchange.mode":
+                                     mode}), device=dev)
+        clear_scan_cache()
+        df = (s.createDataFrame(li).repartition(DIST_RANKS, "l_orderkey")
+              .groupBy("l_orderkey")
+              .agg(SF_.sum("l_quantity").alias("sum_qty")))
+        aggs[mode] = df.toArrow()
+        # the repartition's exchange: the one with no exchange below it
+        ex = [e for e in find_nodes(df._last_plan, node)
+              if not find_nodes(e.children[0], node)]
+        check(len(ex) == 1, f"[distributed] exchange.mode={mode}: "
+              f"{len(ex)} {node} over the scan")
+        parts[mode] = [exchange_partition(ex[0], p)
+                       for p in range(DIST_RANKS)]
+    got_counts = [t.num_rows for t in parts["compiled"]]
+    check(got_counts == want_counts,
+          f"[distributed] compiled partition rows {got_counts}, numpy "
+          f"murmur3 pmod 8 {want_counts}")
+    for p in range(DIST_RANKS):
+        check(parts["compiled"][p].equals(parts["host"][p]),
+              f"[distributed] partition {p}: compiled != host row for row")
+    ref18 = q18_inner_ref(li)
+    for mode in ("compiled", "host"):
+        check(keyed_equal(aggs[mode], ref18, "l_orderkey"),
+              f"[distributed] q18's inner aggregate ({mode}) differs")
+    print("[distributed] q18 inner aggregate " + json.dumps({
+        "partition_rows": got_counts, "equal_row_for_row": True,
+        "groups": aggs["compiled"].num_rows}), flush=True)
+    # a terminal collective fault: degraded to the host transport
+    base = RES.counters_snapshot()
+    fs = TpuSession(dict(conf, **{
+        "spark.rapids.tpu.test.inject.collective.at": 1,
+        "spark.rapids.tpu.test.inject.collective.transientCount": 0,
+        "spark.rapids.tpu.retry.backoffBaseMs": 0}), device=dev)
+    fdf = build_on("q1", fs, tables)
+    fgot = fdf.toArrow()
+    degraded = (fdf._last_query_entry or {}).get("resilience", {}) \
+        .get("degraded_ops", [])
+    check(any(d["domain"] == "collective" for d in degraded),
+          f"[distributed] the collective fault did not degrade: {degraded}")
+    check(RES.counters_snapshot()["host_degraded_ops"]
+          == base["host_degraded_ops"] + 1,
+          "[distributed] the collective degrade was not counted")
+    check(rows_equal(fgot, refs["q1"]),
+          "[distributed] q1 degraded to the host transport differs")
+    RES.INJECTOR.reset()
+    print("[distributed] collective fault " + json.dumps(
+        {"degraded_ops": degraded, "equal_reference": True}), flush=True)
+    # two executor processes x 2 virtual ranks on the card
+    tdir = tempfile.mkdtemp(prefix="tpuq-dist-")
+    try:
+        t0 = time.perf_counter()
+        for name, t in tables.items():
+            with pa.OSFile(os.path.join(tdir, name + ".arrow"), "wb") as f:
+                with pa.ipc.new_file(f, t.schema) as w:
+                    w.write_table(t)
+        ipc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recs = two_process_runs(
+            tdir, "cpu" if dev.type == "cpu" else f"cuda:{dev.index or 0}",
+            refs, first)
+        two_s = time.perf_counter() - t0
+        print("[distributed] two processes " + json.dumps({
+            "ipc_write_s": ipc_s, "seconds": two_s,
+            "transport": [r["transport"] for r in recs],
+            "devices": [r["device"] for r in recs],
+            "host_bytes": [r["host_bytes"] for r in recs],
+            "wire_bytes": [r["wire_bytes"] for r in recs],
+            "walls_s": {q: [r["runs"][q]["wall_s"] for r in recs]
+                        for q in ("q1", "q3")},
+            "exchange_input_rows": {
+                q: [r["runs"][q]["exchange_input_rows"] for r in recs]
+                for q in ("q1", "q3")},
+            "cluster_counts": {q: [r["runs"][q]["exchanges"] for r in recs]
+                               for q in ("q1", "q3")},
+            "hash_pairs_launches": {
+                q: [r["runs"][q]["hash_pairs_launches"] for r in recs]
+                for q in ("q1", "q3")},
+            "epoch_retries": [r["epoch_retries"] for r in recs],
+            "peer_loss": [r["peer_loss"][:3] for r in recs],
+            "peer_loss_detect_s": recs[0]["peer_loss_detect_s"],
+            "rendezvous": [r["rendezvous"] for r in recs]}), flush=True)
+        check(all(r["transport"].startswith("gloo") for r in recs),
+              "[distributed] two processes on one card must use gloo")
+        for q in ("q1", "q3"):
+            counts["two-process " + q] = {
+                "hash_pairs_launches": sum(
+                    r["runs"][q]["hash_pairs_launches"] for r in recs),
+                "shapes": _merge_shapes(r["runs"][q]["shapes"]
+                                        for r in recs)}
+        if torch.cuda.device_count() >= 2:
+            recs = two_process_runs(tdir, "cuda", refs, first)
+            check(all(r["transport"] == "nccl" for r in recs),
+                  "[distributed] one card per process must use NCCL")
+            print("[distributed] two processes over NCCL " + json.dumps({
+                "devices": [r["device"] for r in recs],
+                "wire_bytes": [r["wire_bytes"] for r in recs]}),
+                flush=True)
+        else:
+            print("[distributed] the NCCL path did not run: the machine "
+                  f"shows {torch.cuda.device_count()} card", flush=True)
+    finally:
+        import shutil
+        shutil.rmtree(tdir, ignore_errors=True)
+    print("[distributed] " + json.dumps({
+        "seconds": time.perf_counter() - t_phase,
+        "hash_pairs_launches": {k: c["hash_pairs_launches"]
+                                for k, c in counts.items()},
+        "new_hash_pairs_shapes": sorted(
+            {k for c in counts.values() for k in c["shapes"]}
+            - query_shapes)}), flush=True)
+    return counts
+
+
+def exchange_partition(exchange, p):
+    """Partition ``p`` of an executed exchange as one Arrow table."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.column import device_to_host
+    from spark_rapids_tpu_torch.columnar.dtypes import to_arrow
+    got = [device_to_host(b) for b in exchange.execute(p)]
+    if got:
+        return pa.concat_tables(got)
+    return pa.table({f.name: pa.array([], to_arrow(f.dtype))
+                     for f in exchange.schema.fields})
+
+
+def _merge_shapes(shape_dicts) -> dict:
+    out = {}
+    for d in shape_dicts:
+        for k, n in d.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def keyed_equal(a, b, key: str, tol=1e-9) -> bool:
+    """Two tables with one row per ``key`` value, equal after sorting by
+    it: integers exactly, floats within ``tol`` relative (vectorized;
+    ``rows_equal``'s Python rows take minutes at 1.5M rows)."""
+    import numpy as np
+    if a.num_rows != b.num_rows or a.column_names != b.column_names:
+        return False
+    a, b = a.sort_by(key), b.sort_by(key)
+    for name in a.column_names:
+        x = a.column(name).to_numpy(zero_copy_only=False)
+        y = b.column(name).to_numpy(zero_copy_only=False)
+        if x.dtype.kind == "f" or y.dtype.kind == "f":
+            x, y = x.astype(np.float64), y.astype(np.float64)
+            if not np.all(np.abs(x - y) <= tol * np.maximum(
+                    1.0, np.maximum(np.abs(x), np.abs(y)))):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def q18_inner_ref(li):
+    """q18's inner aggregate by pyarrow: sum of quantity per order."""
+    agg = li.group_by("l_orderkey").aggregate([("l_quantity", "sum")])
+    return agg.select(["l_orderkey", "l_quantity_sum"]).rename_columns(
+        ["l_orderkey", "sum_qty"])
+
+
+def distributed_only(dev, tables, refs, first, CB, KN) -> int:
+    """``--distributed``: [distributed] alone (the one-rank runs of its
+    four queries first), then the kernel bit for bit at every shape it
+    launched."""
+    t0 = time.perf_counter()
+    counts = distributed_phase(dev, tables, refs, first, CB, KN, set())
+    gen = __import__("torch").Generator(device=dev)
+    gen.manual_seed(20261019)
+    shapes = sorted({k for c in counts.values() for k in c["shapes"]},
+                    key=lambda k: tuple(map(int, k.split("x"))))
+    for key in shapes:
+        n_limbs, n = (int(x) for x in key.split("x"))
+        kernel_line(CB, None, random_limbs(n_limbs, n, gen, dev),
+                    timed=False)
+    print("[distributed only] " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "shapes_bit_identical": shapes,
+        "hash_pairs_launches": sum(c["hash_pairs_launches"]
+                                   for c in counts.values())}), flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import pyarrow as pa
@@ -8220,9 +8866,12 @@ def main() -> int:
     from spark_rapids_tpu_torch.kernels import cuda_backend as CB
     from spark_rapids_tpu_torch.kernels import hash_layout as HL
     from spark_rapids_tpu_torch.sql.session import TpuSession
+    from spark_rapids_tpu_torch.parallel import mesh as MESH
     from spark_rapids_tpu_torch.utils import device_profile as PR
     from spark_rapids_tpu_torch.utils import tpch
 
+    # the ICI plane's eight virtual ranks (only ICI sessions read them)
+    MESH.set_virtual_ranks(DIST_RANKS)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind = torch.cuda.get_device_name(0)
@@ -8311,6 +8960,10 @@ def main() -> int:
         return observe_only(dev, tables, refs, CB, KN)
     if PLANES_ONLY:
         return planes_only(dev, tables, refs, CB, KN)
+    if DISTRIBUTED_ONLY:
+        one = TpuSession(dict(SESSION_CONF), device=dev)
+        first = {q: build(q, one).toArrow() for q in DIST_QUERIES}
+        return distributed_only(dev, tables, refs, first, CB, KN)
 
     # test mode: any CPU fallback in the main path raises
     session = TpuSession(dict(SESSION_CONF), device=dev)
@@ -8532,6 +9185,20 @@ def main() -> int:
     print("[planes] hash_pairs shapes the 22 queries did not launch: "
           + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
     lap("planes")
+    # -- the distributed plane: ICI on eight virtual ranks, two executors ----
+    check(RES.counters_snapshot() == after_faults,
+          "failure-domain counters moved between [faults] and "
+          "[distributed]")
+    dist_counts = distributed_phase(dev, tables, refs, first, CB, KN,
+                                    query_shapes)
+    # [distributed] arms collective, rendezvous and peer_loss faults
+    after_faults = RES.counters_snapshot()
+    for c in dist_counts.values():
+        for key, n in c["shapes"].items():
+            main_shapes[key] = main_shapes.get(key, 0) + n
+    print("[distributed] hash_pairs shapes the 22 queries did not launch: "
+          + json.dumps(sorted(set(main_shapes) - query_shapes)), flush=True)
+    lap("distributed")
 
     # -- the string expressions alone, at the batches of their scans ---------
     string_rows = string_expr_times(tables, session)
@@ -8629,7 +9296,8 @@ def main() -> int:
                         + list(io_counts.values())
                         + list(lake_counts.values())
                         + list(obs_counts.values())
-                        + list(plane_counts.values())),
+                        + list(plane_counts.values())
+                        + list(dist_counts.values())),
         "launches_per_query": {q: counts[q]["hash_pairs_launches"]
                                for q in QUERIES},
         "launches_per_variant": {v: c["hash_pairs_launches"]
@@ -8668,6 +9336,8 @@ def main() -> int:
             k: c["hash_pairs_launches"] for k, c in obs_counts.items()},
         "launches_per_planes_run": {
             k: c["hash_pairs_launches"] for k, c in plane_counts.items()},
+        "launches_per_distributed_run": {
+            k: c["hash_pairs_launches"] for k, c in dist_counts.items()},
         "plain_calls_per_faults_run": {
             k: c.get("plain_calls", 0) for k, c in fault_counts.items()},
         "max_abs_err": 0.0,
@@ -8715,4 +9385,6 @@ def run() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-child"]:
+        sys.exit(dist_child(sys.argv[2:]))
     sys.exit(run())

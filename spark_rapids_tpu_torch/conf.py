@@ -572,14 +572,11 @@ INJECT_TRANSIENT_COUNT = (
 # fault turns terminal / the domain disarms).
 FAILURE_DOMAINS = ("execute", "transfer", "alloc", "spill_write",
                    "spill_read", "shuffle_ser", "shuffle_exchange",
-                   "compile")
+                   "collective", "rendezvous", "peer_loss", "compile")
 
-# The JAX package's other domains guard planes the port does not have
-# yet; their injection keys are refused, naming where each comes.
+# The JAX package's other domain guards a plane the port does not have
+# yet; its injection keys are refused, naming where it comes.
 REFUSED_FAILURE_DOMAINS = {
-    "collective": "ROADMAP A.10 (the collective exchange plane)",
-    "rendezvous": "ROADMAP A.10 (multi-executor rendezvous)",
-    "peer_loss": "ROADMAP A.10 (multi-executor rendezvous)",
     "tenancy": "ROADMAP A.11 (tenancy and the serving layer)",
 }
 
@@ -666,10 +663,12 @@ SHUFFLE_MODE = (
     conf("spark.rapids.shuffle.mode")
     .category("shuffle")
     .doc("Shuffle transport: MULTITHREADED (host-path serialization "
-         "through shuffle files, works everywhere), ICI (collective "
-         "all_to_all across the devices — not ported: planning raises "
-         "NotImplementedError), or CACHE_ONLY (the in-process device "
-         "exchange: sel-mask views of the map batches).")
+         "through shuffle files, works everywhere), ICI (the collective "
+         "all_to_all across the mesh's ranks: partial/final aggregates, "
+         "co-partitioned joins, range-partitioned sorts and "
+         "partitioned windows when the mesh has more than one rank), "
+         "or CACHE_ONLY (the in-process device exchange: sel-mask views "
+         "of the map batches).")
     .string()
     .check(lambda v: v.upper() in ("MULTITHREADED", "ICI", "CACHE_ONLY"),
            "one of MULTITHREADED, ICI, CACHE_ONLY")
@@ -679,14 +678,134 @@ SHUFFLE_MODE = (
 EXCHANGE_MODE = (
     conf("spark.rapids.tpu.exchange.mode")
     .category("shuffle")
-    .doc("ICI exchange transport: compiled, host or auto. Only consulted "
-         "when spark.rapids.shuffle.mode=ICI, which the port does not "
-         "have: the JAX package reads it nowhere else, so outside ICI "
-         "the value changes nothing there and nothing here.")
+    .doc("ICI exchange transport: compiled (the prepare/boundary "
+         "programs over the mesh: one boundary per stage seam), host (pin every exchange to the host-shuffle "
+         "transport, the collective domain's degrade target), or auto "
+         "(compiled when the mesh supports it). Only consulted when "
+         "spark.rapids.shuffle.mode=ICI.")
     .string()
     .check(lambda v: v.lower() in ("compiled", "host", "auto"),
            "one of compiled, host, auto")
     .create_with_default("auto")
+)
+
+EXCHANGE_DONATE = (
+    conf("spark.rapids.tpu.exchange.donate")
+    .category("shuffle")
+    .doc("Release the stage input of the compiled exchange as soon as "
+         "the boundary has gathered from it, so that input and output "
+         "are not held together on the device through the rest of the "
+         "stage. torch has no buffer donation: the exchange drops its "
+         "references to the laid-out input (the allocator reuses the "
+         "memory) instead of handing the buffers to the program. "
+         "Disable to keep the input alive through the collective (e.g. "
+         "when debugging a mid-collective fault).")
+    .boolean()
+    .create_with_default(True)
+)
+
+EXECUTOR_ID = (
+    conf("spark.rapids.executor.id")
+    .category("distributed")
+    .doc("This process's executor index in a multi-executor run "
+         "(0-based). With executor.count > 1 the session joins the "
+         "process group through torch.distributed and scans serve only "
+         "this executor's slice of source partitions.")
+    .integer()
+    .create_with_default(0)
+)
+
+EXECUTOR_COUNT = (
+    conf("spark.rapids.executor.count")
+    .category("distributed")
+    .doc("Number of executor processes in the slice. >1 activates "
+         "multi-executor mode: requires shuffle.mode=ICI, the process "
+         "group's coordinator address and the shuffle rendezvous "
+         "address.")
+    .integer()
+    .create_with_default(1)
+)
+
+COORDINATOR_ADDRESS = (
+    conf("spark.rapids.executor.coordinator.address")
+    .category("distributed")
+    .doc("host:port of the torch.distributed rendezvous store (process "
+         "0 binds it). Required when executor.count > 1.")
+    .string()
+    .create_with_default("")
+)
+
+RENDEZVOUS_ADDRESS = (
+    conf("spark.rapids.shuffle.rendezvous.address")
+    .category("distributed")
+    .doc("host:port of the shuffle RendezvousCoordinator (driver-side "
+         "barrier service). ICI exchanges use it for cross-process "
+         "shape agreement and collective entry; required when "
+         "executor.count > 1. [REF: RapidsShuffleInternalManagerBase "
+         "— the MapOutputTracker-coordination analog]")
+    .string()
+    .create_with_default("")
+)
+
+RENDEZVOUS_TIMEOUT = (
+    conf("spark.rapids.shuffle.rendezvous.timeoutSec")
+    .category("distributed")
+    .doc("Legacy alias for spark.rapids.tpu.rendezvous.timeoutMs "
+         "(seconds). When set explicitly it wins over the timeoutMs "
+         "key; prefer the millisecond key for new deployments.")
+    .double()
+    .create_with_default(120.0)
+)
+
+RENDEZVOUS_TIMEOUT_MS = (
+    conf("spark.rapids.tpu.rendezvous.timeoutMs")
+    .category("distributed")
+    .doc("Deadline in milliseconds for every rendezvous barrier "
+         "(allgather/enter). On expiry the coordinator fails ALL "
+         "waiters of the stage (fail-together: nobody enters a "
+         "collective that cannot complete); survivors then retry the "
+         "stage at the next epoch under the shared retry policy.")
+    .integer()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(60000)
+)
+
+RENDEZVOUS_HEARTBEAT_MS = (
+    conf("spark.rapids.tpu.rendezvous.heartbeatMs")
+    .category("distributed")
+    .doc("Executor liveness heartbeat period. Each executor process "
+         "registers with the rendezvous coordinator and renews its "
+         "lease at this period; see rendezvous.leaseMs for the "
+         "expiry. 0 disables the heartbeat (no liveness tracking).")
+    .integer()
+    .check(lambda v: v >= 0, "non-negative")
+    .create_with_default(1500)
+)
+
+RENDEZVOUS_LEASE_MS = (
+    conf("spark.rapids.tpu.rendezvous.leaseMs")
+    .category("distributed")
+    .doc("Heartbeat lease: an executor that has not heartbeated for "
+         "this long is declared dead, and the coordinator immediately "
+         "poisons every in-flight and future rendezvous stage with a "
+         "peer-tagged abort so survivors unwind in ~one lease instead "
+         "of independent full stage deadlines. Must comfortably "
+         "exceed heartbeatMs (default gives 10 beats per lease).")
+    .integer()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(15000)
+)
+
+RENDEZVOUS_SOCKET_TIMEOUT_MS = (
+    conf("spark.rapids.tpu.rendezvous.socketTimeoutMs")
+    .category("distributed")
+    .doc("Socket receive timeout for coordinator handler threads. A "
+         "half-open client connection that never sends its request is "
+         "dropped after this long instead of pinning a handler thread "
+         "forever.")
+    .integer()
+    .check(lambda v: v > 0, "positive")
+    .create_with_default(10000)
 )
 
 SHUFFLE_THREADS = (

@@ -1,4 +1,5 @@
-"""Hash-aggregate exec (complete mode) and the device group-by.
+"""Hash-aggregate exec (complete, partial and final modes) and the
+device group-by.
 
 [REF: sql-plugin/../GpuAggregateExec.scala :: GpuHashAggregateExec,
  AggHelper]
@@ -7,7 +8,10 @@ The counterpart of the JAX package's ``exec/aggregate.py``: sum, min,
 max, count, count(*), avg, first and the variance family, grouped or
 global (and a group-by with no aggregate, the dedup below a
 count(DISTINCT)), in complete mode (update per input batch of every
-input partition -> merge the partials -> final projection).  The
+input partition -> merge the partials -> final projection), or split
+around an ICI exchange into a per-partition partial (update + local
+merge into buffer batches) and final (merge the received buffers +
+final projection).  The
 holistic functions (percentile, approx_percentile, and min, max and
 first over strings, whose values cannot ride one buffer limb through
 the merge) take the JAX package's gathered single pass instead
@@ -721,35 +725,43 @@ def _pull_all(src) -> Iterator[DeviceBatch]:
 
 
 class TpuHashAggregateExec(TpuExec):
-    """Hash aggregate in complete mode: update per input batch -> merge
-    the partials -> final projection [REF: GpuHashAggregateExec].
+    """Hash aggregate in one of three modes, mirroring the reference's
+    partial/final split [REF: GpuHashAggregateExec]:
+
+    * ``complete`` — update per input batch -> merge the partials ->
+      final projection; the input is every partition of the child, in
+      order; one partition out (one batch per merge bucket);
+    * ``partial`` — per child partition: update + local merge, emitting
+      buffer-schema batches (feeds an ICI exchange keyed on k0..kn);
+    * ``final`` — per child partition: merge the received buffer
+      batches + final projection (downstream of a key-hash exchange, so
+      each partition owns disjoint keys).
 
     Upstream filter/project run inside the partial pass
-    (``fuse_upstream``).  The input is every partition of the child, in
-    order; one partition out (one batch per merge bucket).  ``device``
-    holds the empty batch that stands in for an input with no batch at
-    all (an AQE read of a host shuffle yields none for an empty range).
-    The passes are memory-bounded as the JAX package's: input batches
-    coalesce up to ``bucket_rows`` live rows
-    (``spark.rapids.tpu.agg.bucketRows``), each partial runs under
-    ``with_retry`` with a ``transient`` reservation of its input, a
-    first partial that keeps more than ``skip_ratio`` of its rows
+    (``fuse_upstream``).  ``device`` holds the empty batch that stands
+    in for an input with no batch at all (an AQE read of a host shuffle
+    yields none for an empty range).  The passes are memory-bounded as
+    the JAX package's: input batches coalesce up to ``bucket_rows``
+    live rows (``spark.rapids.tpu.agg.bucketRows``), each partial runs
+    under ``with_retry`` with a ``transient`` reservation of its input,
+    a first partial that keeps more than ``skip_ratio`` of its rows
     (``spark.rapids.sql.agg.skipAggPassReductionRatio``) makes the later
     batches skip their reduction, and an exploded merge re-partitions
-    its partials by key into spillable buckets.  The JAX package's
-    partial/final modes (around an ICI exchange) are a later slice.
+    its partials by key into spillable buckets.
     """
 
     def __init__(self, grouping: Sequence[Expression],
                  fns: Sequence[AggregateFunction],
                  schema: T.StructType, child: TpuExec,
                  backend: str = "auto", device=None,
-                 bucket_rows: int = 1 << 18, skip_ratio: float = 1.0):
+                 bucket_rows: int = 1 << 18, skip_ratio: float = 1.0,
+                 mode: str = "complete"):
         super().__init__(schema, child)
         self.grouping = list(grouping)
         self.fns = list(fns)
         self.device = device
-        self.mode = "complete"
+        assert mode in ("complete", "partial", "final")
+        self.mode = mode
         # spark.rapids.tpu.kernel.backend, resolved to a ladder start
         self.backend = KN.resolve("agg", backend)
         # spark.rapids.tpu.agg.bucketRows: partial-pass input coalescing
@@ -764,9 +776,14 @@ class TpuHashAggregateExec(TpuExec):
                 f"aggs=[{aggs}]]")
 
     def num_partitions(self) -> int:
-        return 1
+        if self.mode == "complete":
+            return 1
+        return self.children[0].num_partitions()
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        if self.mode != "complete":
+            yield from self._execute_staged(partition)
+            return
         if partition != 0:
             raise IndexError(f"partition {partition} of a complete "
                              "aggregate")
@@ -781,6 +798,54 @@ class TpuHashAggregateExec(TpuExec):
         for out in outs:
             self.metric("numOutputBatches").add(1)
             yield out
+
+    def _execute_staged(self, partition: int) -> Iterator[DeviceBatch]:
+        """partial/final modes: ONE child partition's stream (the
+        stage-local halves of the distributed aggregate)."""
+        with self.timer():
+            if self.mode == "partial":
+                mgr = get_manager()
+                src, pre, _ = fuse_upstream(self.children[0])
+                partials, skip = self._partial_stream(
+                    src.execute(partition), pre, mgr)
+                if partials is None:
+                    yield empty_batch(self._buffer_schema(), self.device)
+                    return
+                if len(partials) == 1 or skip:
+                    # skip mode: a local combine would do exactly the
+                    # reduction the ratio said is useless — ship raw
+                    # buffers to the exchange; the final pass reduces
+                    outs = partials
+                else:
+                    outs = self._merge_bounded(partials,
+                                               self._merge_buffers)
+            else:  # final
+                batches = [compact(b)
+                           for b in self.children[0].execute(partition)]
+                if not batches:
+                    return
+                with self.timer("mergeTime"):
+                    outs = self._merge_bounded(batches, self._merge_final)
+        for out in outs:
+            self.metric("numOutputBatches").add(1)
+            yield out
+
+    def _merge_buffers(self, merged: DeviceBatch) -> DeviceBatch:
+        """Merge buffer batches into one buffer batch (no final
+        project): the partial side's local combine."""
+        nk = len(self.grouping)
+        keys = list(merged.columns[:nk])
+        bufs = list(merged.columns[nk:])
+        kinds = merge_kinds(self.fns)
+        buffer_schema = self._buffer_schema()
+
+        def run(backend):
+            ok, ov, sel, okf = segment_groupby(
+                keys, merged.sel, list(zip(bufs, kinds)), backend=backend)
+            return DeviceBatch(buffer_schema, tuple(ok + ov), sel,
+                               compacted=True), okf
+
+        return self._dispatch(run)
 
     def _buffer_schema(self) -> T.StructType:
         fields = [T.StructField(f"k{i}", g.dtype)

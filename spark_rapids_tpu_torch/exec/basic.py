@@ -21,8 +21,10 @@ On the device:
   read of the kept count per batch.  Both stop pulling as soon as n rows
   are out (the JAX package's pull one batch more, and the global limit
   one batch of the next partition); the global limit pulls the child's
-  partitions one after another (its single-process branch: the
-  multi-executor quota is ROADMAP A.10).  Their subtrees are pumped
+  partitions one after another.  In a multi-executor run LIMIT takes
+  ANY n rows (Spark semantics): the processes allgather their capped
+  live-row counts through the rendezvous and each emits its quota of
+  the first-come budget in process order.  Their subtrees are pumped
   without prefetch (``exec/base.py::no_prefetch_below``), else a
   producer would run a batch past the one that completes the rows.
 * ``TpuUnionExec``: the partitions of its children one after another,
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import threading
 import weakref
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import pyarrow as pa
 import torch
@@ -160,13 +162,19 @@ class TpuScanExec(TpuExec):
 
     def __init__(self, table: pa.Table, schema: T.StructType,
                  device: torch.device, num_partitions: int = 1,
-                 batch_rows: int = 1 << 20, min_bucket: int = 1024):
+                 batch_rows: int = 1 << 20, min_bucket: int = 1024,
+                 executor: Tuple[int, int] = (0, 1)):
         super().__init__(schema)
         self.table = table
         self.device = device
         self._num_partitions = num_partitions
         self.batch_rows = batch_rows
         self.min_bucket = min_bucket
+        # (executor_id, executor_count): in multi-executor mode each
+        # process serves only source partitions p = id (mod count) — the
+        # analog of the Spark scheduler assigning scan tasks to
+        # executors; the union over processes is exactly the table
+        self.executor = tuple(executor)
 
     def num_partitions(self) -> int:
         return self._num_partitions
@@ -175,6 +183,9 @@ class TpuScanExec(TpuExec):
         return self.table.nbytes
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        eid, ecount = self.executor
+        if ecount > 1 and partition % ecount != eid:
+            return
         # the JAX package's key (num_partitions, batch_rows, min_bucket,
         # partition), plus the device: sessions of one process may run
         # on different devices.  Each partition is an entry of its own.
@@ -434,11 +445,21 @@ class TpuLocalLimitExec(TpuExec):
 class TpuGlobalLimitExec(TpuExec):
     """The first n live rows across the child's partitions, in partition
     order, as one partition.  [REF: limit.scala :: GpuGlobalLimitExec]
+
+    Multi-executor mode: LIMIT takes ANY n rows (Spark semantics), so no
+    row exchange is needed — processes allgather their live-row counts
+    and each emits its quota of the first-come budget in process order.
     """
+
+    _multiproc_gather_ok = True
 
     def __init__(self, n: int, child: TpuExec):
         super().__init__(child.schema, child)
         self.n = n
+        from spark_rapids_tpu_torch.parallel.executor import get_executor
+        self._ctx = get_executor()
+        self._stage = (self._ctx.next_stage_id()
+                       if self._ctx is not None else None)
 
     def node_string(self):
         return f"TpuGlobalLimit [{self.n}]"
@@ -449,9 +470,31 @@ class TpuGlobalLimitExec(TpuExec):
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
         child = self.children[0]
         no_prefetch_below(self)
-        # lazily: a partition's pump starts only if rows are still wanted
-        yield from _limit(self, self.n, (child.execute(p) for p in
-                                         range(child.num_partitions())))
+        if self._ctx is None:
+            # lazily: a partition's pump starts only if rows are still
+            # wanted
+            yield from _limit(self, self.n, (child.execute(p) for p in
+                                             range(child.num_partitions())))
+            return
+        from spark_rapids_tpu_torch.exec.distributed import owned_partitions
+        ctx = self._ctx
+        # drain only until n local rows are seen — reporting the CAPPED
+        # count keeps the quota math exact (counts past n can never
+        # change any process's quota) while keeping the early stop
+        batches: List[DeviceBatch] = []
+        local = 0
+        for p in owned_partitions(child):
+            if local >= self.n:
+                break
+            part = list(child.execute(p))
+            if part:
+                batches.extend(part)
+                local += sum(live_counts(part))
+        replies = ctx.client.allgather(
+            self._stage + ":limit", min(local, self.n), ctx.timeout)
+        before = sum(replies[:ctx.process_id])
+        yield from _limit(self, max(0, min(local, self.n - before)),
+                          [iter(batches)])
 
 
 def _limit(node: TpuExec, n: int, streams) -> Iterator[DeviceBatch]:

@@ -17,8 +17,11 @@ the plan rewrite converts ``CpuShuffleExchangeExec``
 * MULTITHREADED (the default) — ``shuffle/exchange.py::
   TpuHostShuffleExchangeExec``, through host shuffle files and the
   native tudo serializer;
-* ICI — the collective all_to_all, not ported (ROADMAP A.10): the plan
-  rewrite raises.
+* ICI — a keyed repartition into the mesh's partition count becomes
+  ``exec/distributed.py::TpuIciShuffleExchangeExec``, the collective
+  all_to_all over the ranks; under ``spark.rapids.tpu.exchange.mode=
+  host`` it runs the host-shuffle transport, and any other repartition
+  the in-process device exchange.
 
 Under ``spark.sql.adaptive.enabled`` (the default) the exchange is read
 through ``exec/aqe.py::TpuAQEShuffleReadExec``, which under the
@@ -324,10 +327,23 @@ def _tag_exchange(meta):
 
 def _convert_exchange(cpu, ch, conf, device):
     """The transport by ``spark.rapids.shuffle.mode``, under the AQE
-    read when ``spark.sql.adaptive.enabled``.  ICI never reaches here:
-    ``apply_overrides`` refuses it first."""
+    read when ``spark.sql.adaptive.enabled`` (the collective exchange
+    is read directly)."""
+    from spark_rapids_tpu_torch.exec.distributed import (
+        TpuIciShuffleExchangeExec, exchange_opts, ici_active)
+    from spark_rapids_tpu_torch.parallel.mesh import make_mesh
     from spark_rapids_tpu_torch.plan.overrides import _estimated_row_bytes
-    if conf.shuffle_mode == "MULTITHREADED":
+    if ici_active(conf, device) and cpu.keys:
+        mesh = make_mesh(device=device)
+        if cpu.nparts == mesh.size:
+            return TpuIciShuffleExchangeExec(ch[0], cpu.keys, mesh=mesh,
+                                             **exchange_opts(conf))
+    host_pinned = (conf.shuffle_mode == "ICI"
+                   and conf.exchange_mode == "host")
+    if conf.shuffle_mode == "MULTITHREADED" or host_pinned:
+        # exchange.mode=host under ICI: same plan shape, but the stage
+        # boundary runs the host-shuffle transport — the conf-selected
+        # fallback and the collective domain's degrade target
         from spark_rapids_tpu_torch.shuffle.exchange import (
             TpuHostShuffleExchangeExec)
         exchange = TpuHostShuffleExchangeExec(

@@ -38,10 +38,14 @@ Each device step reserves its working set with the memory arbiter
 entries to host; an in-core join whose reservation fails falls to the
 sub-partition join.  A broadcast join streams partition by partition
 of its other side and has that side's partitions; every other join
-gathers all partitions of both sides into one.  Not ported, and raising
-``NotImplementedError`` naming itself: the adaptive joins; the
-co-partitioned plan over ICI exchanges is not reached (the rewrite
-refuses ICI).
+gathers all partitions of both sides into one.  Under
+``spark.rapids.shuffle.mode=ICI`` on a mesh of more than one rank an
+equi-join co-partitions both sides through ICI exchanges on its keys
+and joins partition by partition (``partitioned``); with
+``spark.sql.adaptive.enabled`` and a broadcast threshold the choice is
+deferred to run time (``TpuAdaptiveJoinExec``: broadcast after
+measuring the build side, else the two exchanges).  A multi-executor
+run never broadcasts (a broadcast would capture one slice).
 """
 
 from __future__ import annotations
@@ -1104,6 +1108,112 @@ class _ReplayExec(TpuExec):
         yield from self._batches
 
 
+class TpuAdaptiveJoinExec(TpuExec):
+    """AQE broadcast-after-measure over ICI exchanges [REF:
+    GpuCustomShuffleReaderExec + Spark AQE's DynamicJoinSelection]: the
+    planner could not prove the build side small (filters forward
+    upper-bound estimates), so the join defers the strategy choice to
+    RUN TIME.  The build side materializes once at the stage boundary;
+    if its measured live bytes fit the broadcast threshold, the planned
+    {exchange both sides -> partitioned join} collapses to a broadcast
+    join (no all_to_all at all); otherwise the measured batches replay
+    into the planned exchange, so nothing executes twice."""
+
+    def __init__(self, join_type: str, left_keys, right_keys, condition,
+                 schema, left: TpuExec, right: TpuExec, threshold: int,
+                 canon_int64, using: bool, sub_partition_rows: int,
+                 out_batch_rows, backend: str, device,
+                 exchange_opts: Optional[dict] = None):
+        super().__init__(schema, left, right)
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.condition = condition
+        self.threshold = int(threshold)
+        self.canon_int64 = tuple(canon_int64)
+        self.using = using
+        self.sub_partition_rows = sub_partition_rows
+        self.out_batch_rows = out_batch_rows
+        self.backend = backend
+        self.device = device
+        # the runtime decision happens long after conversion: the
+        # conf-derived exchange kwargs ride on the node
+        self._exchange_opts = dict(exchange_opts or {})
+        from spark_rapids_tpu_torch.parallel.mesh import make_mesh
+        self.mesh = make_mesh(device=device)
+        self._lock = threading.Lock()
+        self._inner: Optional[TpuSortMergeJoinExec] = None
+        self._mode: Optional[str] = None
+
+    def node_string(self):
+        mode = self._mode or "undecided"
+        return (f"TpuAdaptiveJoin [{self.join_type} "
+                f"runtime={mode} thresh={self.threshold}]")
+
+    def num_partitions(self) -> int:
+        return self.mesh.size
+
+    def _decide(self):
+        with self._lock:
+            if self._inner is not None:
+                return
+            from spark_rapids_tpu_torch import adaptive as AD
+            from spark_rapids_tpu_torch.exec.distributed import (
+                TpuIciShuffleExchangeExec)
+            with self.timer("measureTime"):
+                r_list = _gather_list(self.children[1])
+                # LIVE bytes, not pow-2 bucket capacity: a filtered
+                # side keeps its input bucket but holds few live rows
+                counts = live_counts(r_list)
+            rbytes = sum(
+                n * max(1, b.nbytes() // max(b.capacity, 1))
+                for n, b in zip(counts, r_list))
+            replay = _ReplayExec(self.children[1].schema, r_list)
+            common = dict(using=self.using,
+                          sub_partition_rows=self.sub_partition_rows,
+                          out_batch_rows=self.out_batch_rows,
+                          backend=self.backend)
+            if rbytes <= self.threshold:
+                self.metric("adaptiveBroadcastJoins").add(1)
+                self._mode = "broadcast"
+                self._inner = TpuSortMergeJoinExec(
+                    self.join_type, self.left_keys, self.right_keys,
+                    self.condition, self.schema, self.children[0],
+                    TpuBroadcastExchangeExec(replay), broadcast="right",
+                    **common)
+            else:
+                self.metric("adaptiveShuffledJoins").add(1)
+                self._mode = "shuffled"
+                lex = TpuIciShuffleExchangeExec(
+                    self.children[0], self.left_keys, mesh=self.mesh,
+                    canon_int64=self.canon_int64, **self._exchange_opts)
+                rex = TpuIciShuffleExchangeExec(
+                    replay, self.right_keys, mesh=self.mesh,
+                    canon_int64=self.canon_int64, **self._exchange_opts)
+                self._inner = TpuSortMergeJoinExec(
+                    self.join_type, self.left_keys, self.right_keys,
+                    self.condition, self.schema, lex, rex,
+                    partitioned=True, **common)
+            # the subtree built here is invisible to the plan walk:
+            # decisions made inside it surface on this node
+            self._inner._decision_owner = self
+            AD.record_decision(self, self._mode, build_bytes=rbytes,
+                               threshold=self.threshold,
+                               source="measured")
+
+    def execute(self, partition: int) -> Iterator[DeviceBatch]:
+        self._decide()
+        d = self.num_partitions()
+        if self._mode == "shuffled":
+            yield from self._inner.execute(partition)
+            return
+        # broadcast: stream-side partitions strided over the adaptive
+        # node's fixed partition count
+        n_lp = self._inner.num_partitions()
+        for lp in range(partition, n_lp, d):
+            yield from self._inner.execute(lp)
+
+
 class TpuAdaptiveLocalJoinExec(TpuExec):
     """Single-process adaptive join — the adaptive plane's join strategy
     and skew-split decisions applied at a stage boundary (the JAX
@@ -1271,21 +1381,26 @@ def _tag_join(meta):
 
 
 def _convert_join(cpu, ch, conf, device):
-    """The JAX package's single-process ``_convert_join``: broadcast the
-    small side when its estimate fits ``autoBroadcastJoinThreshold``;
-    under the adaptive plane an equi-join it may stream defers the
-    strategy to run time (``TpuAdaptiveLocalJoinExec``); else a
-    sort-merge join that picks its strategy from live row counts at run
-    time.  The ICI-exchanged (co-partitioned) plan and its adaptive join
-    belong to the collective exchange plane, which is not ported
-    (ROADMAP A.10)."""
+    """The JAX package's ``_convert_join``: broadcast the small side when
+    its estimate fits ``autoBroadcastJoinThreshold`` (never in a
+    multi-executor run); under ICI co-partition both sides through ICI
+    exchanges (or defer to ``TpuAdaptiveJoinExec``); under the adaptive
+    plane an equi-join it may stream defers the strategy to run time
+    (``TpuAdaptiveLocalJoinExec``); else a sort-merge join that picks
+    its strategy from live row counts at run time."""
+    from spark_rapids_tpu_torch.exec.distributed import ici_active
+    from spark_rapids_tpu_torch.parallel.executor import get_executor
     jt = cpu.join_type
     common = dict(using=cpu.using,
                   sub_partition_rows=conf.get(C.JOIN_TARGET_ROWS),
                   out_batch_rows=conf.batch_rows,
                   backend=conf.kernel_backend)
+    # multi-executor: scans are executor-sliced, so a broadcast gather
+    # would capture only this process's slice — joins must co-partition
+    # through the ICI exchange instead
+    multiproc = get_executor() is not None
     thresh = conf.get(C.BROADCAST_THRESHOLD)
-    if thresh and thresh > 0:
+    if thresh and thresh > 0 and not multiproc:
         rsize = cpu.children[1].estimated_size_bytes()
         lsize = cpu.children[0].estimated_size_bytes()
         if (rsize is not None and rsize <= thresh
@@ -1300,7 +1415,39 @@ def _convert_join(cpu, ch, conf, device):
                 jt, cpu.left_keys, cpu.right_keys, cpu.condition,
                 cpu.schema, TpuBroadcastExchangeExec(ch[0]), ch[1],
                 broadcast="left", **common)
-    if (cpu.left_keys
+    if ici_active(conf, device) and jt != "cross" and cpu.left_keys:
+        # distributed: co-partition both sides through the ICI exchange
+        # on the key hash, then join partition by partition (the
+        # shuffled-hash-join plan shape [REF: GpuShuffledHashJoinExec])
+        from spark_rapids_tpu_torch.exec.distributed import (
+            TpuIciShuffleExchangeExec, exchange_opts)
+        # both exchanges must agree on pids: widen int-family keys to 64
+        # bits whenever the pair's widths differ
+        canon = tuple(
+            type(le.dtype) is not type(re.dtype)
+            and isinstance(le.dtype, _INT_FAMILY)
+            for le, re in zip(cpu.left_keys, cpu.right_keys))
+        opts = exchange_opts(conf)
+        if (conf.get(C.ADAPTIVE_ENABLED) and thresh and thresh > 0
+                and not multiproc
+                and jt in ("inner", "left", "left_semi", "left_anti")):
+            # the planner could not prove the build side small (else
+            # the static broadcast above fired) — defer to run time
+            return TpuAdaptiveJoinExec(
+                jt, cpu.left_keys, cpu.right_keys, cpu.condition,
+                cpu.schema, ch[0], ch[1], thresh, canon, cpu.using,
+                common["sub_partition_rows"], common["out_batch_rows"],
+                common["backend"], device, exchange_opts=opts)
+        lex = TpuIciShuffleExchangeExec(ch[0], cpu.left_keys,
+                                       canon_int64=canon, device=device,
+                                       **opts)
+        rex = TpuIciShuffleExchangeExec(ch[1], cpu.right_keys,
+                                       canon_int64=canon, device=device,
+                                       **opts)
+        return TpuSortMergeJoinExec(jt, cpu.left_keys, cpu.right_keys,
+                                    cpu.condition, cpu.schema, lex, rex,
+                                    partitioned=True, **common)
+    if (not multiproc and cpu.left_keys
             and jt in ("inner", "left", "left_semi", "left_anti")):
         # single-process adaptive plane: defer broadcast-vs-shuffled to
         # the observed build cardinality and heal recorded partition skew

@@ -35,7 +35,10 @@ same names, in one process:
   ``Limit(Sort)`` and ``Limit(Project(Sort))``, as Spark's
   TakeOrderedAndProject.
 
-The JAX package's multi-executor top-N merge is ROADMAP A.10.
+In a multi-executor run each process reduces its slice the same way,
+the <= n winner rows allgather host-side through the rendezvous (Arrow
+IPC, tiny by construction), and process 0 emits the global answer — the
+driver-side final reduce of Spark's TakeOrderedAndProject.
 """
 
 from __future__ import annotations
@@ -469,11 +472,20 @@ class CpuTopNExec(CpuExec):
 class TpuTopNExec(TpuExec):
     """The first ``n`` rows under ``orders``, in that order."""
 
+    # gathers child partitions, but a multi-executor run merges through
+    # an explicit winner-row allgather (exempt from the structural
+    # multi-executor gather guard)
+    _multiproc_gather_ok = True
+
     def __init__(self, orders: Sequence[SortOrder], n: int,
                  child: TpuExec):
         super().__init__(child.schema, child)
         self.orders = list(orders)
         self.n = int(n)
+        from spark_rapids_tpu_torch.parallel.executor import get_executor
+        self._ctx = get_executor()
+        self._stage = (self._ctx.next_stage_id()
+                       if self._ctx is not None else None)
 
     def node_string(self):
         return f"TpuTopN [n={self.n}]"
@@ -496,14 +508,61 @@ class TpuTopNExec(TpuExec):
             return compact(self._top(batches))
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
-        winners = [w for p in range(self.children[0].num_partitions())
+        child = self.children[0]
+        parts = range(child.num_partitions())
+        if self._ctx is not None:
+            from spark_rapids_tpu_torch.exec.distributed import (
+                owned_partitions)
+            parts = owned_partitions(child)
+        winners = [w for p in parts
                    for w in [self._local_topn(p)] if w is not None]
+        if self._ctx is not None:
+            winners = self._merge_across_executors(winners)
+            if winners is None:
+                return
         if not winners:
             return
         with self.timer():
             out = self._top(winners)
         self.metric("numOutputBatches").add(1)
         yield out
+
+    def _merge_across_executors(self, winners: List[DeviceBatch]
+                                ) -> Optional[List[DeviceBatch]]:
+        """Allgather <= n local winner rows; only process 0 returns
+        batches (the union over executors must not duplicate the global
+        answer)."""
+        import base64
+
+        import pyarrow as pa
+
+        from spark_rapids_tpu_torch.columnar.column import (
+            device_to_host, host_to_device)
+        ctx = self._ctx
+        payload = None
+        device = winners[0].device if winners else ctx.device
+        if winners:
+            # this process's top-n first: the payload is then <= n rows,
+            # not partitions x n
+            local = compact(self._top(winners))
+            sink = pa.BufferOutputStream()
+            table = device_to_host(local)
+            with pa.ipc.new_stream(sink, table.schema) as w:
+                w.write_table(table)
+            payload = base64.b64encode(sink.getvalue().to_pybytes()) \
+                .decode()
+        replies = ctx.client.allgather(self._stage + ":topn", payload,
+                                       ctx.timeout)
+        if ctx.process_id != 0:
+            return None
+        out = []
+        for r in replies:
+            if r is None:
+                continue
+            t = pa.ipc.open_stream(base64.b64decode(r)).read_all()
+            if t.num_rows:
+                out.append(host_to_device(t, device))
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,12 @@ exchange:
    host: the output is one batch per non-empty range, in order, and
    equals the in-core result row for row (the split is stable).
 
-The JAX package's ``partitioned`` sort behind its range exchange is
-ROADMAP A.10, and its tiled segmented sort (``kernels/segmented_sort.py``,
-an XLA trade for the TPU) B.11.  ``CpuSortExec`` is the JAX package's
+Under ``spark.rapids.shuffle.mode=ICI`` on a mesh of more than one rank
+the sort is ``partitioned``: it sorts each partition of a range exchange
+(``exec/distributed.py::TpuIciRangeExchangeExec``) on its own, and the
+partitions in order are the total order.  The JAX package's tiled
+segmented sort (``kernels/segmented_sort.py``, an XLA trade for the TPU)
+is B.11.  ``CpuSortExec`` is the JAX package's
 numpy oracle: one ``np.lexsort`` over ``ordering.np_order_keys`` limbs,
 stable.
 """
@@ -103,20 +106,29 @@ class TpuSortExec(TpuExec):
     the arbiter grants ``2 x`` the input's bytes, else out of core (see
     the module docstring)."""
 
-    def __init__(self, orders: Sequence[SortOrder], child: TpuExec):
+    def __init__(self, orders: Sequence[SortOrder], child: TpuExec,
+                 partitioned: bool = False):
         super().__init__(child.schema, child)
         self.orders = list(orders)
+        # downstream of a RANGE exchange: each partition sorts locally
+        # and ascending partition order IS the total order
+        self.partitioned = partitioned
 
     def node_string(self):
-        return f"TpuSort [{', '.join(str(o.expr) for o in self.orders)}]"
+        part = " partitioned" if self.partitioned else ""
+        return (f"TpuSort{part} "
+                f"[{', '.join(str(o.expr) for o in self.orders)}]")
 
     def num_partitions(self) -> int:
+        if self.partitioned:
+            return self.children[0].num_partitions()
         return 1
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
         child = self.children[0]
-        batches = [compact(b) for p in range(child.num_partitions())
-                   for b in child.execute(p)]
+        parts = ([partition] if self.partitioned
+                 else range(child.num_partitions()))
+        batches = [compact(b) for p in parts for b in child.execute(p)]
         if not batches:
             return
         mgr = get_manager()
@@ -242,4 +254,13 @@ def _tag_sort(meta):
 
 
 def _convert_sort(cpu, ch, conf, device):
+    from spark_rapids_tpu_torch.exec.distributed import (
+        TpuIciRangeExchangeExec, exchange_opts, ici_active)
+    if ici_active(conf, device):
+        # distributed total order: range exchange (sampled boundaries)
+        # + per-partition local sort; ascending partition index IS the
+        # global order [REF: GpuRangePartitioning.scala]
+        ex = TpuIciRangeExchangeExec(ch[0], cpu.orders, device=device,
+                                     **exchange_opts(conf))
+        return TpuSortExec(cpu.orders, ex, partitioned=True)
     return TpuSortExec(cpu.orders, ch[0])

@@ -40,9 +40,11 @@ the JAX exec does, plus the sparse tables of its bounded min and max
 of its reservation.  Its output is one compacted batch whose rows are
 in (partition keys, order keys) order, identical on the CPU oracle
 (``CpuWindowExec``: the same key encoding, ``np.lexsort``, then Python
-segment by segment), as in the JAX package.  The JAX exec's ICI branch
-(a hash exchange on the partition keys, ``partitioned=True``) is
-ROADMAP A.10.
+segment by segment), as in the JAX package.  Under
+``spark.rapids.shuffle.mode=ICI`` on a mesh of more than one rank the
+rewrite puts a hash exchange on the partition keys below the window
+(``exec/distributed.py``) and the window runs per exchange partition
+(``partitioned=True``): each owns disjoint window-partition keys.
 """
 
 from __future__ import annotations
@@ -556,25 +558,34 @@ class TpuWindowExec(TpuExec):
     def __init__(self, partition_by: Sequence[Expression],
                  order_by: Sequence[L.SortOrder],
                  fns: Sequence[L.WindowFunctionSpec],
-                 schema: T.StructType, child: TpuExec):
+                 schema: T.StructType, child: TpuExec,
+                 partitioned: bool = False):
         super().__init__(schema, child)
         self.partition_by = list(partition_by)
         self.order_by = list(order_by)
         self.fns = list(fns)
+        # downstream of a hash exchange on partition_by: each exchange
+        # partition owns disjoint window-partition keys, so the window
+        # runs per partition (the distributed plan shape)
+        self.partitioned = partitioned
 
     def node_string(self):
         parts = ", ".join(str(e) for e in self.partition_by)
         fns = ", ".join(f.kind for f in self.fns)
-        return f"TpuWindow [partitionBy=[{parts}] fns=[{fns}]]"
+        mode = " partitioned" if self.partitioned else ""
+        return f"TpuWindow{mode} [partitionBy=[{parts}] fns=[{fns}]]"
 
     def num_partitions(self) -> int:
+        if self.partitioned:
+            return self.children[0].num_partitions()
         return 1
 
     def execute(self, partition: int) -> Iterator[DeviceBatch]:
         from spark_rapids_tpu_torch.runtime.memory import get_manager
         child = self.children[0]
-        batches = [compact(b) for p in range(child.num_partitions())
-                   for b in child.execute(p)]
+        parts = ([partition] if self.partitioned
+                 else range(child.num_partitions()))
+        batches = [compact(b) for p in parts for b in child.execute(p)]
         if not batches:
             return
         with self.timer():
@@ -860,5 +871,18 @@ def _tag_window(meta):
 
 
 def _convert_window(cpu: CpuWindowExec, ch, conf, device):
+    from spark_rapids_tpu_torch.exec.distributed import (
+        TpuIciShuffleExchangeExec, exchange_opts, hashable_on_device,
+        ici_active)
+    if (ici_active(conf, device) and cpu.partition_by
+            and all(hashable_on_device(e.dtype)
+                    for e in cpu.partition_by)):
+        # distributed: hash-exchange on partition_by — each exchange
+        # partition owns disjoint window-partition keys [REF:
+        # GpuWindowExec under Spark's required ClusteredDistribution]
+        ex = TpuIciShuffleExchangeExec(ch[0], cpu.partition_by,
+                                       device=device, **exchange_opts(conf))
+        return TpuWindowExec(cpu.partition_by, cpu.order_by, cpu.fns,
+                             cpu.schema, ex, partitioned=True)
     return TpuWindowExec(cpu.partition_by, cpu.order_by, cpu.fns,
                          cpu.schema, ch[0])

@@ -26,15 +26,23 @@ takes it beside the conf.  As in the JAX package, ``apply_overrides``
 arms the fault injector and refreshes the retry policy from the conf
 (``runtime/resilience.py::configure_from_conf``), and runs the
 whole-stage fusion pass last (``fusion/regions.py::fuse_plan``).
-Planes the port lacks are left out of it: the multi-executor
-validation ``_validate_multiproc`` (A.10), the LORE dump taps
-``install_lore_taps`` (A.12) and the ICI exchange branches of the
-aggregate, sort, join and window conversions (A.10): under
-``spark.rapids.shuffle.mode=ICI`` the rewrite raises.  A
-repartition converts by ``spark.rapids.shuffle.mode``
-(``exec/exchange.py::_convert_exchange``); the coalesce pass asks a
-sort's child for its partition count, which on an AQE read runs the
-exchange's map stage at planning, as in the JAX package.
+Under ``spark.rapids.shuffle.mode=ICI`` on a mesh of more than one rank
+(``exec/distributed.py::ici_active``) the conversions plan the JAX
+package's distributed trees: a grouped aggregate splits into
+partial/final around a ``TpuIciShuffleExchangeExec`` on its keys, a
+repartition into the mesh's partition count becomes that exchange, a
+join co-partitions both sides through two of them (or defers to
+``TpuAdaptiveJoinExec``), a sort runs ``partitioned`` behind a
+``TpuIciRangeExchangeExec``, and a window ``partitioned`` behind a hash
+exchange on its partition keys.  In a multi-executor run
+(``spark.rapids.executor.count > 1``) in-memory scans serve this
+executor's slice of partitions, and ``_validate_multiproc`` refuses the
+operators that would compute on one slice only.  The LORE dump taps
+``install_lore_taps`` are A.12.  A repartition otherwise converts by
+``spark.rapids.shuffle.mode`` (``exec/exchange.py::_convert_exchange``);
+the coalesce pass asks a sort's child for its partition count, which on
+an AQE read runs the exchange's map stage at planning, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.conf import RapidsConf
 from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.aggregate import (
-    CpuAggregateExec, TpuHashAggregateExec)
+    CpuAggregateExec, TpuHashAggregateExec, is_holistic_fn)
 from spark_rapids_tpu_torch.exec.base import CpuExec, ExecNode, TpuExec
 from spark_rapids_tpu_torch.exec.exchange import (
     CpuShuffleExchangeExec, _convert_exchange, _tag_exchange)
@@ -234,9 +242,13 @@ EXEC_RULES: Dict[Type[CpuExec], ExecRule] = {}
 
 
 def _convert_scan(cpu: B.CpuScanExec, children, conf, device):
+    from spark_rapids_tpu_torch.parallel.executor import get_executor
+    ctx = get_executor()
+    executor = ((ctx.process_id, ctx.num_processes) if ctx is not None
+                else (0, 1))
     return B.TpuScanExec(cpu.table, cpu.schema, device,
                          cpu.num_partitions(), cpu.batch_rows,
-                         conf.min_bucket_rows)
+                         conf.min_bucket_rows, executor=executor)
 
 
 EXEC_RULES[B.CpuScanExec] = ExecRule(
@@ -298,12 +310,31 @@ def _tag_aggregate(meta: ExecMeta):
 
 
 def _convert_aggregate(cpu, ch, conf, device):
+    from spark_rapids_tpu_torch.exec.distributed import ici_active
+    tuning = dict(backend=conf.kernel_backend, device=device,
+                  bucket_rows=conf.get(C.AGG_BUCKET_ROWS),
+                  skip_ratio=conf.get(C.AGG_SKIP_RATIO))
     # holistic functions (the collects, the percentiles; min/max/first
-    # over strings) route themselves to the exec's gathered single pass
+    # over strings) route themselves to the exec's gathered single pass:
+    # they cannot ride buffer batches through a partial/final split
+    has_collect = any(is_holistic_fn(f) for f in cpu.fns)
+    if ici_active(conf, device) and cpu.grouping and not has_collect:
+        # distributed: {partial agg -> hash exchange on keys -> final
+        # agg}, one collective exchange per shuffle stage
+        from spark_rapids_tpu_torch.exec.distributed import (
+            TpuIciShuffleExchangeExec, exchange_opts)
+        from spark_rapids_tpu_torch.ops.expressions import BoundReference
+        partial = TpuHashAggregateExec(cpu.grouping, cpu.fns, None, ch[0],
+                                       mode="partial", **tuning)
+        partial.schema = partial._buffer_schema()
+        keys = [BoundReference(i, g.dtype)
+                for i, g in enumerate(cpu.grouping)]
+        exchange = TpuIciShuffleExchangeExec(partial, keys, device=device,
+                                             **exchange_opts(conf))
+        return TpuHashAggregateExec(cpu.grouping, cpu.fns, cpu.schema,
+                                    exchange, mode="final", **tuning)
     return TpuHashAggregateExec(cpu.grouping, cpu.fns, cpu.schema, ch[0],
-                                backend=conf.kernel_backend, device=device,
-                                bucket_rows=conf.get(C.AGG_BUCKET_ROWS),
-                                skip_ratio=conf.get(C.AGG_SKIP_RATIO))
+                                **tuning)
 
 
 # the JAX package registers the next fourteen lazily
@@ -469,14 +500,91 @@ def insert_coalesce(node: ExecNode, conf: RapidsConf) -> ExecNode:
         target = min(target, conf.batch_rows)
         return B.TpuCoalesceBatchesExec(node, target_rows=target)
     if isinstance(node, (TpuSortExec, W.TpuWindowExec)):
+        from spark_rapids_tpu_torch.exec.distributed import (
+            TpuIciShuffleExchangeExec)
         node._children = tuple(
             B.TpuCoalesceBatchesExec(c, require_single=True)
             if isinstance(c, TpuExec) and c.num_partitions() == 1
             and not isinstance(
-                c, (B.TpuCoalesceBatchesExec, TpuBroadcastExchangeExec))
+                c, (B.TpuCoalesceBatchesExec, TpuIciShuffleExchangeExec,
+                    TpuBroadcastExchangeExec))
             else c
             for c in node._children)
     return node
+
+
+# multi-executor mode supports the partition-preserving pipeline around
+# ICI exchanges; global-gather operators would silently compute on one
+# process's slice only, so they fail loudly instead.  The name list
+# covers operators wrong-by-semantics even when partition-preserving
+# (broadcast captures one slice; the non-collective shuffle exchanges
+# are in-process only); the structural checks below catch every gather
+# point and partition-structure change, including CPU-fallback nodes.
+# Sort/Window/TopN/GlobalLimit distribute: Sort rides a RANGE exchange +
+# per-partition local sorts, Window a hash exchange on partition_by,
+# TopN/GlobalLimit reduce locally then rendezvous-allgather their (tiny)
+# winner rows / counts.  The names are the JAX package's list, plus the
+# host exchange (``exchange.mode=host`` under a multi-executor run would
+# shuffle one slice only).
+_MULTIPROC_UNSUPPORTED = {
+    "TpuBroadcastExchangeExec", "TpuExpandExec",
+    "TpuGenerateExec", "TpuPythonUDFExec", "TpuSampleExec",
+    "CpuSortExec", "CpuGlobalLimitExec", "CpuTakeOrderedAndProjectExec",
+    "CpuWindowExec", "CpuSampleExec", "CpuPythonUDFExec",
+    "TpuShuffleExchangeExec", "TpuHostShuffleExchangeExec",
+    "CpuShuffleExchangeExec",
+}
+
+
+def _validate_multiproc(plan) -> None:
+    from spark_rapids_tpu_torch.exec.distributed import (
+        TpuIciShuffleExchangeExec)
+    from spark_rapids_tpu_torch.exec.join import (
+        CpuJoinExec, TpuSortMergeJoinExec)
+
+    def bad(name, why):
+        raise NotImplementedError(
+            f"{name} is not supported in multi-executor mode "
+            f"(executor.count > 1): {why}. Run on a single executor, or "
+            "restructure the query around hash exchanges (agg / "
+            "co-partitioned equi-join pipelines are supported).")
+
+    def has_exchange(node):
+        return isinstance(node, TpuIciShuffleExchangeExec) or any(
+            has_exchange(c) for c in node.children)
+
+    def walk(node):
+        name = type(node).__name__
+        if name in _MULTIPROC_UNSUPPORTED:
+            bad(name, "it computes on one executor's slice only")
+        if isinstance(node, TpuSortMergeJoinExec) and not node.partitioned:
+            bad(name, "only co-partitioned (ICI-exchanged) equi-joins "
+                "are distributed; this join would match one slice "
+                "against another")
+        if isinstance(node, CpuJoinExec):
+            bad(name, "CPU-fallback joins gather one slice per process")
+        gather_ok = getattr(node, "_multiproc_gather_ok", False)
+        for c in node.children:
+            # structural guards: a gather point collapses partitions
+            # this process only partly owns; a partition-structure
+            # change above an exchange breaks local-partition ownership.
+            # Nodes flagged _multiproc_gather_ok (TopN, GlobalLimit)
+            # gather via an explicit cross-process allgather instead.
+            if (not isinstance(node, TpuIciShuffleExchangeExec)
+                    and not gather_ok
+                    and c.num_partitions() > 1
+                    and node.num_partitions() == 1):
+                bad(name, "it gathers all partitions into one, but "
+                    "each executor holds only its slice")
+            if (has_exchange(c) and not isinstance(
+                    node, TpuIciShuffleExchangeExec)
+                    and not gather_ok
+                    and node.num_partitions() != c.num_partitions()):
+                bad(name, "it re-groups partitions above a collective "
+                    "exchange, breaking local-partition ownership")
+            walk(c)
+
+    walk(plan)
 
 
 def apply_overrides(cpu_plan: CpuExec, conf: RapidsConf,
@@ -486,12 +594,6 @@ def apply_overrides(cpu_plan: CpuExec, conf: RapidsConf,
     places nothing on the device."""
     if not conf.sql_enabled:
         return OverrideResult(cpu_plan, [])
-    if conf.shuffle_mode == "ICI":
-        # the JAX package plans its collective exchange, partial/final
-        # aggregates and co-partitioned joins there
-        from spark_rapids_tpu_torch.plan.analysis import _not_ported
-        raise _not_ported("spark.rapids.shuffle.mode=ICI (the collective "
-                          "all_to_all exchange plane)")
     # configure the budget arbiter from this query's conf before any
     # device materialization
     from spark_rapids_tpu_torch.runtime.memory import get_manager
@@ -512,6 +614,9 @@ def apply_overrides(cpu_plan: CpuExec, conf: RapidsConf,
     # exact plan would execute — see fusion/regions.py)
     from spark_rapids_tpu_torch.fusion import fuse_plan
     plan, _ = fuse_plan(plan, conf)
+    from spark_rapids_tpu_torch.parallel.executor import get_executor
+    if get_executor() is not None:
+        _validate_multiproc(plan)
     result = OverrideResult(plan, metas)
 
     explain = conf.explain

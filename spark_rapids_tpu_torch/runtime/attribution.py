@@ -32,11 +32,11 @@ survives a timeout or a cancel with evidence.
   profile, the black box, and in ``profile why``.
 
 The bucket names are the JAX package's, ``compile`` and
-``exchange_collective`` included, even where the port has nothing to
-put in them yet (its compiles are library builds; it has no ICI
-collective).  Kept deviation: one lock per directory is held over a
-dump's write and its eviction, so that concurrent dumps in one process
-can no longer evict each other's files.
+``exchange_collective`` included (the port's compiles are library
+builds; its ICI exchanges' ``collectiveTime`` spans land in
+``exchange_collective``).  Kept deviation: one lock per directory is
+held over a dump's write and its eviction, so that concurrent dumps in
+one process can no longer evict each other's files.
 """
 
 from __future__ import annotations

@@ -18,14 +18,24 @@ domain                  chokepoint                              degradable
 ``spill_read``          disk->host restore (np.load)            no
 ``shuffle_ser``         tudo serialization (shuffle.manager)    no
 ``shuffle_exchange``    reduce-side shuffle read                no
+``collective``          ICI all_to_all (exec.distributed)       yes: host
+                                                                shuffle
+``rendezvous``          coordinator barrier (parallel.          no: epoch
+                        rendezvous :: allgather)                retry
+``peer_loss``           simulated executor death                no: fails
+                                                                slice
 ``compile``             ``hash_pairs.cu`` build (cuda_backend)  yes: plain
 ======================  ======================================  ==========
 
-The JAX package's ``collective``, ``rendezvous``, ``peer_loss`` and
-``tenancy`` domains guard planes the port does not have: their conf
-keys raise (``conf.REFUSED_FAILURE_DOMAINS`` names the ROADMAP item of
-each).  ``execute`` counts ``hash_pairs`` dispatches, the port's one
-kernel; the JAX package counts every jitted kernel.
+The distributed domains retry as in the JAX package: ``rendezvous``
+faults re-enter the stage at epoch+1 through ``run_stage_epochs`` (same
+policy, same budget), and ``peer_loss`` is always terminal — every
+survivor raises the same peer-tagged ``TerminalDeviceError`` within
+about one heartbeat lease.  The JAX package's ``tenancy`` domain guards
+a plane the port does not have: its conf keys raise
+(``conf.REFUSED_FAILURE_DOMAINS`` names its ROADMAP item).  ``execute``
+counts ``hash_pairs`` dispatches, the port's one kernel; the JAX
+package counts every jitted kernel.
 
 Three pieces, all conf-driven:
 
@@ -127,6 +137,12 @@ class TerminalDeviceError(RuntimeError):
         """True when the underlying fault was transient (retries were
         exhausted on a fault that kept firing)."""
         return bool(getattr(self.cause, "transient", False))
+
+    @property
+    def peer(self):
+        """The dead executor's pid for ``peer_loss`` failures (from the
+        underlying ``RendezvousAborted``); None elsewhere."""
+        return getattr(self.cause, "peer", None)
 
 
 class _DomainState:
@@ -364,6 +380,11 @@ class RetryPolicy:
         # a corrupt .npz payload surfaces from np.load (or the CRC
         # check) as ValueError — still a spill-tier IO fault
         if domain == "spill_read" and isinstance(exc, ValueError):
+            return True
+        # only the abort/timeout family of rendezvous failures retries
+        # (epoch re-entry); protocol errors and dead peers never do
+        if (domain == "rendezvous"
+                and getattr(exc, "rendezvous_retryable", False)):
             return True
         return False
 

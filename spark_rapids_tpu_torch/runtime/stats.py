@@ -32,7 +32,7 @@ from __future__ import annotations
 import hashlib
 import json
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 # The stats-field catalog: every key a profile record's per-op entry (or
 # exchange summary) may carry — the JAX package's keys, so that records
@@ -100,6 +100,29 @@ def skew_factor(counts: Sequence[float]) -> float:
         return 1.0
     mean = total / len(counts)
     return max(counts) / mean
+
+
+def merge_partition_counts(per_executor: Iterable[Sequence[int]]
+                           ) -> List[int]:
+    """Element-wise sum of each executor's per-partition counts — the
+    merge of counts that rode a rendezvous allgather (every executor's
+    ICI exchange records the cluster-wide view, ``executors=`` the
+    number merged).  Ragged replies are an executor-desync bug; fail
+    loudly."""
+    merged: List[int] = []
+    for counts in per_executor:
+        counts = list(counts)
+        if not merged:
+            merged = [int(c) for c in counts]
+            continue
+        if len(counts) != len(merged):
+            raise ValueError(
+                f"per-executor partition counts disagree on width "
+                f"({len(counts)} vs {len(merged)}) — executors ran "
+                "different plans")
+        for i, c in enumerate(counts):
+            merged[i] += int(c)
+    return merged
 
 
 def plan_signature(op: str, path: str, schema) -> str:

@@ -373,7 +373,9 @@ def ensure_producers() -> None:
                 "runtime.attribution", "runtime.kernel_cache",
                 "runtime.resilience", "runtime.lockdep", "runtime.shapes",
                 "adaptive", "shuffle.manager", "shuffle.exchange",
-                "parallel.executor", "kernels", "cache", "fusion"):
+                "parallel.executor", "parallel.shuffle",
+                "parallel.rendezvous", "exec.distributed", "kernels",
+                "cache", "fusion"):
         try:
             importlib.import_module(f"spark_rapids_tpu_torch.{mod}")
         except Exception as e:  # never fail a report over one producer

@@ -1282,6 +1282,25 @@ class DataFrame:
             return [t for p in parts for t in pump(p)]
 
         waits: List[float] = []  # this query's waits only
+        from spark_rapids_tpu_torch.parallel.executor import get_executor
+        if get_executor() is not None:
+            # multi-executor: every process must enter each collective
+            # in the SAME order — materialize exchanges sequentially
+            # (children first = execution-dependency order) before the
+            # parallel pump, then pump only partitions whose rank is
+            # local to this process
+            from spark_rapids_tpu_torch.exec.distributed import (
+                TpuIciShuffleExchangeExec, owned_partitions)
+
+            def pre_materialize(node):
+                for c in node.children:
+                    pre_materialize(c)
+                if isinstance(node, TpuIciShuffleExchangeExec):
+                    node._materialize()
+
+            with scheduler.device_hold(conf, waited_out=waits):
+                pre_materialize(plan)
+            parts = owned_partitions(plan)
         stream = (torch.cuda.current_stream(device)
                   if device.type == "cuda" else None)
         tok = cancel.current()

@@ -179,6 +179,13 @@ class TpuSession:
         self.conf = RuntimeConf(conf or {})
         self._conf = self.conf.snapshot()  # validated at creation
         self.device = resolve_device(device)
+        # multi-executor mode (spark.rapids.executor.count > 1) joins the
+        # process group first [REF: RapidsExecutorPlugin.init]; the
+        # context may move this process to a card of its own
+        from spark_rapids_tpu_torch.parallel.executor import init_executor
+        ctx = init_executor(self._conf, device)
+        if ctx is not None:
+            self.device = ctx.device
         self._query_history: List[Dict[str, Any]] = []
         # the stats plane's record of the latest stats-enabled query
         self._last_profile: Optional[Dict[str, Any]] = None

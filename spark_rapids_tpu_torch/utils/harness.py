@@ -7,8 +7,10 @@ faults ridden out, terminal faults degraded to a recorded plain-path
 result or failed with a domain-tagged error, a bare
 ``InjectedDeviceError`` never — and fire a cancel while a query is
 provably inside an armed domain, then read what is left (spillables,
-semaphore holders, spill files).  Sessions run on the card unless the
-caller passes ``device="cpu"``.
+semaphore holders, spill files).  ``run_rendezvous_chaos`` holds the
+distributed domains (``rendezvous``, ``peer_loss``) to their invariant
+over N client threads and a real coordinator.  Sessions run on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -83,6 +85,89 @@ def random_chaos_schedule(seed: int, domains=None,
     picks = rnd.sample(pool, k=min(rnd.randint(1, 2), len(pool)))
     return {d: (rnd.randint(1, max_at), rnd.choice([0, 1, 1, 2, 3]))
             for d in picks}
+
+
+def run_rendezvous_chaos(inject: Schedule, nprocs: int = 3,
+                         heartbeat_s: float = 0.05, lease_s: float = 0.3,
+                         stage_timeout: float = 5.0) -> dict:
+    """Run an N-participant two-phase rendezvous stage (allgather +
+    entry barrier through ``run_stage_epochs``) with the ``rendezvous``
+    / ``peer_loss`` domains armed, one client thread per participant.
+
+    The invariant: a **transient** ``rendezvous`` fault -> every
+    participant retries at a bumped epoch and completes with results
+    identical to a clean run; a ``peer_loss`` fault -> the victim
+    simulates death (heartbeat silenced, lease expires) and EVERY
+    survivor raises the same peer-tagged ``TerminalDeviceError`` within
+    ~2x the lease; either way the coordinator's ``_stages`` table drains
+    to empty, and a bare ``InjectedDeviceError`` never escapes.
+
+    Returns ``{"records": [per-pid record], "live_stages": {...},
+    "expected": [the clean allgather result]}``; each record holds
+    ``pid, status (ok|failed|bare_injected), result, error, domain,
+    peer, died, elapsed``."""
+    from spark_rapids_tpu_torch.parallel import rendezvous as RD
+    from spark_rapids_tpu_torch.runtime import resilience as R
+
+    R.INJECTOR.reset()
+    R.INJECTOR.configure(inject)
+    policy = R.RetryPolicy(backoff_base_ms=0)
+    coord = RD.RendezvousCoordinator(nprocs, lease_s=lease_s)
+    payloads = {pid: {"pid": pid, "v": pid * 11} for pid in range(nprocs)}
+    records: list = [None] * nprocs
+    ready = threading.Barrier(nprocs)
+
+    def run(pid: int) -> None:
+        client = RD.RendezvousClient(coord.address, pid,
+                                     default_timeout=stage_timeout)
+        rec = {"pid": pid, "status": "ok", "result": None, "error": None,
+               "domain": None, "peer": None, "died": False,
+               "elapsed": 0.0}
+        try:
+            client.start_heartbeat(heartbeat_s)
+            ready.wait(timeout=30.0)
+            t0 = time.monotonic()
+
+            def attempt(epoch: int):
+                vals = client.allgather("chaos:gather", payloads[pid],
+                                        epoch=epoch)
+                client.barrier("chaos:enter", epoch=epoch)
+                return vals
+
+            try:
+                rec["result"] = RD.run_stage_epochs(
+                    client, "chaos", attempt, policy=policy)
+            finally:
+                rec["elapsed"] = time.monotonic() - t0
+        except R.TerminalDeviceError as e:
+            rec["status"] = "failed"
+            rec["error"] = e
+            rec["domain"] = e.domain
+            rec["peer"] = e.peer
+            rec["died"] = isinstance(e.cause, R.InjectedDeviceError)
+        except R.InjectedDeviceError as e:  # pragma: no cover - invariant
+            rec["status"] = "bare_injected"
+            rec["error"] = e
+        finally:
+            client.stop_heartbeat()
+            records[pid] = rec
+
+    threads = [threading.Thread(target=run, args=(pid,), daemon=True)
+               for pid in range(nprocs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60.0)
+    hung = [i for i, r in enumerate(records) if r is None]
+    live_stages = {k: st.waiters for k, st in coord._stages.items()}
+    coord.shutdown()
+    R.INJECTOR.reset()
+    assert not hung, f"rendezvous chaos participants hung: {hung}"
+    for rec in records:
+        assert rec["status"] != "bare_injected", (
+            f"bare InjectedDeviceError escaped: {rec['error']!r}")
+    return {"records": records, "live_stages": live_stages,
+            "expected": [payloads[i] for i in range(nprocs)]}
 
 
 def run_cancel_chaos(df_builder: Callable[[TpuSession], "object"],

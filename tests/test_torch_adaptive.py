@@ -11,9 +11,9 @@ off in the port (``device="cpu"``) and against the JAX package's CPU
 session, exactly, and the decisions the stats plane records equal the
 JAX package's on the same tables (one JAX run per scenario, shared
 through module-scoped fixtures).  ``test_aqe_dpp.py``'s adaptive joins
-run over the ICI exchange (``TpuAdaptiveJoinExec``, ROADMAP A.10); here
-their tables, filters and threshold drive the single-process
-``TpuAdaptiveLocalJoinExec`` that the port has.
+run over the ICI exchange (``TpuAdaptiveJoinExec``: held in
+``tests/test_torch_distributed.py``); here their tables, filters and
+threshold drive the single-process ``TpuAdaptiveLocalJoinExec``.
 """
 
 import json

@@ -1,7 +1,8 @@
 """The port's cooperative cancellation against the JAX package's.
 
 Mirrors ``tests/test_cancel.py`` without its rendezvous and collective
-cases (ROADMAP A.10): a cancel fired while a query is provably inside
+cases (those are in ``tests/test_torch_distributed.py`` and
+``tests/test_torch_rendezvous.py``): a cancel fired while a query is provably inside
 an armed failure domain (its injection counter moved, so the query
 spins in that domain's retry loop) must surface as ``QueryCancelled``
 and leave the engine clean — no spillable left registered, no

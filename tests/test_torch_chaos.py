@@ -21,7 +21,8 @@ same schedules (``utils/harness.py::run_chaos`` in both packages):
 The JAX package's rows are held to the port's within 1e-9 (the float
 sums add in another order); statuses, domain tags, retry counts and
 degraded domains exactly.  The ``collective`` case and the rendezvous
-cases have no counterpart (ROADMAP A.10).
+cases are in ``tests/test_torch_distributed.py`` and
+``tests/test_torch_rendezvous.py``.
 """
 
 import stat

@@ -297,9 +297,26 @@ def test_domain_keys_equal_jax_for_the_ported_domains():
             assert C.RapidsConf({pe.key: 3}).get(pe) == 3
 
 
-@pytest.mark.parametrize("domain", sorted(C.REFUSED_FAILURE_DOMAINS))
+# ids kept from the slices before the distributed plane: its three
+# domains are armable now, with the JAX package's keys
+_NOW_PORTED = ("collective", "peer_loss", "rendezvous")
+
+
+@pytest.mark.parametrize("domain", sorted(
+    set(C.REFUSED_FAILURE_DOMAINS) | set(_NOW_PORTED)))
 def test_refused_domains_name_their_roadmap_item(domain):
-    item = "A.11" if domain == "tenancy" else "A.10"
+    if domain in _NOW_PORTED:
+        from spark_rapids_tpu import conf as JC
+        assert domain in C.FAILURE_DOMAINS
+        for suffix, v in (("at", 1), ("transientCount", 2)):
+            key = f"spark.rapids.tpu.test.inject.{domain}.{suffix}"
+            assert C.RapidsConf({key: v}).get(C.REGISTRY[key]) == v
+            assert C.REGISTRY[key].default == \
+                JC.REGISTRY.entries[key].default
+        R.INJECTOR.configure({domain: (1, 0)})
+        R.INJECTOR.reset()
+        return
+    item = "A.11"
     for suffix, v in (("at", 1), ("transientCount", 2)):
         with pytest.raises(ValueError, match=item):
             C.RapidsConf({f"spark.rapids.tpu.test.inject.{domain}."

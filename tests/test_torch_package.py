@@ -219,7 +219,10 @@ def test_resolve_device_rejects_other_devices():
     ({"spark.sql.adaptive.enabled": "maybe"}, "cannot parse boolean"),
     ({"spark.sql.adaptive.advisoryPartitionSizeInBytes": "big"},
      "cannot parse byte"),
-    ({"spark.rapids.tpu.exchange.donate": True}, "unknown spark.rapids"),
+    # id kept from the slices before the distributed plane registered
+    # the key: now its value is checked
+    pytest.param({"spark.rapids.tpu.exchange.donate": "maybe"},
+                 "cannot parse boolean", id="conf19-unknown spark.rapids"),
     ({"spark.rapids.tpu.retry.maxAttempts": 0}, "invalid value"),
     ({"spark.rapids.sql.agg.skipAggPassReductionRatio": 0.0},
      "invalid value"),
@@ -351,19 +354,30 @@ def test_exchange_confs_read_as_the_jax_package_reads_them():
 
 
 def test_ici_shuffle_mode_raises_at_planning():
-    """ICI passes the conf check and is refused when a device plan is
-    built; a CPU session under it plans nothing on the device."""
-    df = TpuSession({"spark.rapids.shuffle.mode": "ICI"},
-                    device="cpu").createDataFrame(_table())
-    with pytest.raises(NotImplementedError,
-                       match="spark.rapids.shuffle.mode=ICI"):
-        df.repartition(2, "a").toArrow()
-    with pytest.raises(NotImplementedError, match="ICI"):
-        df.groupBy("s").agg(F.sum("a")).toArrow()
-    cpu = TpuSession({"spark.rapids.shuffle.mode": "ICI",
-                      "spark.rapids.sql.enabled": False}, device="cpu")
-    assert cpu.createDataFrame(_table()).repartition(2, "a").toArrow() \
-        .num_rows == 3
+    """ICI used to be refused at planning; the distributed plane plans
+    it now.  On a two-rank mesh a keyed repartition into two partitions
+    is the collective exchange and a grouped sum splits into partial
+    and final around one; the rows are the CPU session's.  A CPU
+    session under ICI plans nothing on the device."""
+    from spark_rapids_tpu_torch.parallel import mesh as MESH
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(MESH, "_virtual", 2)
+        mp.setattr(MESH, "_latched", True)
+        df = TpuSession({"spark.rapids.shuffle.mode": "ICI"},
+                        device="cpu").createDataFrame(_table())
+        cpu = TpuSession({"spark.rapids.shuffle.mode": "ICI",
+                          "spark.rapids.sql.enabled": False}, device="cpu")
+        rep = df.repartition(2, "a")
+        assert sorted(rep.toArrow().column("a").to_pylist()) == [1, 2, 3]
+        assert "TpuIciShuffleExchange" in rep._last_plan.tree_string()
+        agg = df.groupBy("s").agg(F.sum("a"))
+        tree = (agg.toArrow(), agg._last_plan.tree_string())[1]
+        assert "partial" in tree and "final" in tree
+        want = cpu.createDataFrame(_table()).groupBy("s").agg(F.sum("a"))
+        assert sorted(map(repr, agg.toArrow().to_pylist())) == sorted(
+            map(repr, want.toArrow().to_pylist()))
+        assert cpu.createDataFrame(_table()).repartition(2, "a") \
+            .toArrow().num_rows == 3
 
 
 def test_aqe_read_under_the_adaptive_plane_raises():

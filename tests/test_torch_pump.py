@@ -598,8 +598,10 @@ def test_thirty_five_keys_and_unregistered_keys_still_raise():
     # 35 keys through the pump slice; the failure domains add 36, the
     # UDF and file-scan slice 4, the lakehouse slice 1 (dynamic
     # partition pruning), the observability plane 23, the rest of the
-    # engine planes 14 (fusion 3, the result cache 5, adaptive 6)
-    assert len(C.REGISTRY) == 113
+    # engine planes 14 (fusion 3, the result cache 5, adaptive 6), the
+    # distributed plane 10 (executor.*, shuffle.rendezvous.*,
+    # tpu.rendezvous.*, tpu.exchange.donate)
+    assert len(C.REGISTRY) == 123
     with pytest.raises(ValueError, match="unknown"):
         C.RapidsConf({"spark.rapids.tpu.kernel.warmupOnStart": True})
 

@@ -1,7 +1,7 @@
 """The port's stats plane and profile CLI against the JAX package's.
 
 Mirrors ``tests/test_stats.py`` without its multi-process exchange case
-(ROADMAP A.10) and its docs drift gate (A.12): collection at the pump
+(in ``tests/test_torch_multiproc.py``) and its docs drift gate (A.12): collection at the pump
 boundary, per-partition exchange counts and their skew factor, the AQE
 read preferring recorded counts, ``df.explain("analyze")`` and
 ``session.last_query_profile()``, the profile store with stable
@@ -95,7 +95,7 @@ def _node_rows(prof):
 
 def test_skew_factor():
     """The skew factor (the JAX test's merge half is the multi-executor
-    exchange's, ROADMAP A.10)."""
+    exchange's, in ``tests/test_torch_multiproc.py``)."""
     for mod in (JS, stats):
         assert mod.skew_factor([]) == 1.0
         assert mod.skew_factor([0, 0, 0]) == 1.0
@@ -544,7 +544,8 @@ def test_stats_confs_registered():
 
 
 def test_the_planes_keys_are_the_jax_packages():
-    """The plane's 23 keys (113 in all): the JAX package's defaults,
+    """The plane's 23 keys (123 in all since the distributed plane's
+    ten): the JAX package's defaults,
     categories and checks, and a session accepts them.  Kept deviation:
     a default path the JAX package puts under ``/tmp`` lies under the
     process's temporary directory."""
@@ -555,7 +556,7 @@ def test_the_planes_keys_are_the_jax_packages():
         "spark.rapids.sql.trace.", "spark.rapids.sql.queryLog.",
         "spark.rapids.tpu.stats.", "spark.rapids.tpu.attribution.",
         "spark.rapids.tpu.telemetry."))]
-    assert len(plane) == 23 and len(C.REGISTRY) == 113
+    assert len(plane) == 23 and len(C.REGISTRY) == 123
     probes = (True, False, "x", -1, 0, 0.5, 1.0, 2, "FULL", "basic",
               "DEBUG", "")
     for key in plane:

@@ -45,18 +45,6 @@ CPU = torch.device("cpu")
 # JAX-package metrics whose producers belong to planes the port has not
 # ported yet, by the ROADMAP item that brings them
 NOT_PORTED = {
-    # A.10: the ICI exchange, the rendezvous
-    "tpuq_ici_collective_seconds_total": "A.10",
-    "tpuq_ici_exchange_bytes_total": "A.10",
-    "tpuq_ici_exchange_collective_seconds_total": "A.10",
-    "tpuq_ici_exchange_programs_built_total": "A.10",
-    "tpuq_ici_programs_built_total": "A.10",
-    "tpuq_rendezvous_aborts_total": "A.10",
-    "tpuq_rendezvous_epoch_retries_total": "A.10",
-    "tpuq_rendezvous_heartbeat_misses_total": "A.10",
-    "tpuq_rendezvous_live_stages": "A.10",
-    "tpuq_rendezvous_peers_dead_total": "A.10",
-    "tpuq_rendezvous_stages_total": "A.10",
     # A.11: the scheduler, admission, preemption, tenancy, SLOs
     "tpuq_admission_rejected_total": "A.11",
     "tpuq_admission_shed_total": "A.11",
